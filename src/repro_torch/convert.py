@@ -1,0 +1,50 @@
+"""Carry state from the JAX package into the port's tensors.
+
+torch cannot replay ``jax.random`` streams, so parity runs hand the
+reference's random draws (data, fold ids) and results (nuisance fold
+states, theta, cov) to the port.  Everything here takes numpy arrays —
+``np.asarray`` of a JAX array — never a JAX object, so the port imports
+nothing of JAX.
+"""
+from __future__ import annotations
+
+from typing import Dict, Mapping, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.device import DeviceLike, resolve_device
+
+Tensor = torch.Tensor
+
+
+def _f32(a, dev) -> Tensor:
+    return torch.as_tensor(np.asarray(a, dtype=np.float32), device=dev)
+
+
+def data(X, y, t, *, device: DeviceLike = None
+         ) -> Tuple[Tensor, Tensor, Tensor]:
+    """(X (n, p), y (n,), t (n,)) as fp32 tensors."""
+    dev = resolve_device(device)
+    return _f32(X, dev), _f32(y, dev), _f32(t, dev)
+
+
+def folds(f, *, device: DeviceLike = None) -> Tensor:
+    """Fold ids (``DMLResult.crossfit.folds``) as an int64 tensor."""
+    dev = resolve_device(device)
+    return torch.as_tensor(np.asarray(f).astype(np.int64), device=dev)
+
+
+def fold_states(states: Mapping[str, np.ndarray], *,
+                device: DeviceLike = None) -> Dict[str, Tensor]:
+    """Nuisance fold states ``{"beta": (k, q), "lam": (k,)}`` stacked per
+    fold, as fp32 tensors."""
+    dev = resolve_device(device)
+    return {key: _f32(states[key], dev) for key in ("beta", "lam")}
+
+
+def theta_cov(theta, cov, *, device: DeviceLike = None
+              ) -> Tuple[Tensor, Tensor]:
+    """(theta (p_phi,), cov (p_phi, p_phi)) as fp32 tensors."""
+    dev = resolve_device(device)
+    return _f32(theta, dev), _f32(cov, dev)

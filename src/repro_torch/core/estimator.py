@@ -1,0 +1,149 @@
+"""The estimator base layer: the fit -> inference plumbing of effect
+results.
+
+``EffectResult`` resolves the inference method from the config, caches
+InferenceResults per (method, replicates, executor), and falls back to
+the analytic interval when inference is off.  Estimators plug in only
+``_replicate_inference``.  ``SandwichEffectResult`` adds theta + HC0
+covariance (DML).  This slice serves the delete-fold jackknife; the
+bootstrap and multiplier routes arrive with the inference slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional, Tuple
+
+import torch
+
+from repro_torch.config import CausalConfig
+from repro_torch.core.final_stage import cate_basis
+from repro_torch.inference.intervals import z_crit
+
+Tensor = torch.Tensor
+
+
+def inf_cache_field() -> Any:
+    """The per-result InferenceResult cache field (out of repr/eq)."""
+    return dataclasses.field(default_factory=dict, repr=False, compare=False)
+
+
+class EffectResult:
+    """Mixin owning the shared fit -> inference plumbing.  Subclass
+    dataclasses provide ``cfg``, ``fit_ctx`` and ``_inf_cache``."""
+
+    estimator_name = "effect"
+
+    def _config(self) -> CausalConfig:
+        return self.cfg or CausalConfig()
+
+    def _replicate_inference(self, method: str, n_boot: int, executor: Any,
+                             alpha: float):
+        raise NotImplementedError
+
+    def _analytic_ate_interval(self, alpha: float) -> Tuple[float, float]:
+        raise ValueError(f"{type(self).__name__} has no analytic ATE interval")
+
+    def _analytic_cate_interval(self, phi: Tensor, alpha: float
+                                ) -> Tuple[Tensor, Tensor]:
+        raise ValueError(f"{type(self).__name__} has no analytic CATE band")
+
+    def _summary_extra(self) -> Tuple[str, ...]:
+        return ()
+
+    def inference(self, *, method: Optional[str] = None,
+                  n_bootstrap: Optional[int] = None,
+                  executor: Optional[str] = None,
+                  alpha: Optional[float] = None):
+        """Replicate-based inference, computed lazily and cached (alpha
+        is not part of the key: a new level re-reads the same draws)."""
+        if self.fit_ctx is None:
+            raise ValueError("result carries no fit context; re-fit through "
+                             "the estimator facade to enable inference")
+        cfg = self._config()
+        method = method or cfg.inference
+        if method in ("none", ""):
+            raise ValueError("cfg.inference='none'; pass method= to force")
+        n_boot = n_bootstrap or cfg.n_bootstrap
+        exe = executor or cfg.inference_executor
+        a = cfg.alpha if alpha is None else alpha
+        cache_key = (method, n_boot, exe)
+        if cache_key not in self._inf_cache:
+            self._inf_cache[cache_key] = self._replicate_inference(
+                method, n_boot, exe, a)
+        return self._inf_cache[cache_key]
+
+    def ate_interval(self, alpha: Optional[float] = None,
+                     kind: str = "percentile") -> Tuple[float, float]:
+        """(lo, hi) CI for the ATE functional; analytic when
+        cfg.inference == 'none'."""
+        cfg = self._config()
+        a = cfg.alpha if alpha is None else alpha
+        if self.fit_ctx is None or cfg.inference in ("none", ""):
+            return self._analytic_ate_interval(a)
+        return self.inference(alpha=a).ate_interval(a, kind)
+
+    def cate_interval(self, X: Tensor, alpha: Optional[float] = None
+                      ) -> Tuple[Tensor, Tensor]:
+        """Pointwise (lo, hi) bands for theta(x) = <phi(x), theta>."""
+        cfg = self._config()
+        a = cfg.alpha if alpha is None else alpha
+        phi = cate_basis(X, cfg.cate_features)
+        if self.fit_ctx is None or cfg.inference in ("none", ""):
+            return self._analytic_cate_interval(phi, a)
+        return self.inference(alpha=a).cate_interval(phi, a)
+
+
+class SandwichEffectResult(EffectResult):
+    """theta + HC0 sandwich covariance (subclasses provide ``theta``
+    (p_phi,) and ``cov`` (p_phi, p_phi))."""
+
+    @property
+    def ate(self) -> float:
+        """theta[0]: the ATE under the constant basis."""
+        return float(self.theta[0])
+
+    @property
+    def stderr(self) -> Tensor:
+        """Sandwich standard errors."""
+        return torch.sqrt(torch.diagonal(self.cov))
+
+    def cate(self, X: Tensor) -> Tensor:
+        """theta(x) = <phi(x), theta> per row of X."""
+        return cate_basis(X, self._config().cate_features) @ self.theta
+
+    def ate_of(self, X: Tensor) -> float:
+        """Mean CATE over the rows of X."""
+        return float(self.cate(X).mean())
+
+    def conf_int(self, alpha: float = 0.05) -> Tuple[Tensor, Tensor]:
+        """Analytic per-coefficient CI from the sandwich."""
+        z = z_crit(alpha)
+        return self.theta - z * self.stderr, self.theta + z * self.stderr
+
+    def _analytic_ate_interval(self, alpha: float) -> Tuple[float, float]:
+        lo, hi = self.conf_int(alpha)
+        return float(lo[0]), float(hi[0])
+
+    def _analytic_cate_interval(self, phi: Tensor, alpha: float
+                                ) -> Tuple[Tensor, Tensor]:
+        z = z_crit(alpha)
+        se = torch.sqrt(torch.clamp(((phi @ self.cov) * phi).sum(1), min=0.0))
+        c = phi @ self.theta
+        return c - z * se, c + z * se
+
+    def summary(self) -> str:
+        """A printable coefficient table plus diagnostics."""
+        lo, hi = self.conf_int()
+        lines = [f"{self.estimator_name} result", "-" * 46,
+                 f"{'coef':>4} {'point':>10} {'stderr':>10} {'ci_lo':>9} "
+                 f"{'ci_hi':>9}"]
+        for i in range(self.theta.shape[0]):
+            lines.append(f"θ[{i}] {float(self.theta[i]):>10.4f} "
+                         f"{float(self.stderr[i]):>10.4f} "
+                         f"{float(lo[i]):>9.4f} {float(hi[i]):>9.4f}")
+        extra = self._summary_extra()
+        if extra:
+            lines.append("-" * 46)
+            lines.extend(extra)
+        return "\n".join(lines)
+

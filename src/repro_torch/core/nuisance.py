@@ -1,0 +1,211 @@
+"""Nuisance models for Double-ML (m_y = E[Y|X], m_t = E[T|X]).
+
+Each model is a triple of plain functions (init / fit / predict) with a
+sample-weight argument.  The weight may carry a leading batch axis: with
+``w`` of shape (k, n) — fold-complement masks — one ``fit`` call trains
+all k fold models at once, the state gaining a leading k, and every
+Gram of the fit is one fold-batched kernel launch.  This is how the
+"parallel" cross-fit engine writes out the fold axis the JAX package
+vmaps.
+
+Closed-form ridge and Newton logistic are the main path; ``mlp`` and
+``backbone`` nuisances arrive with later slices.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, Optional
+
+import torch
+
+from repro_torch.config import CausalConfig
+from repro_torch.core import moments
+
+Tensor = torch.Tensor
+_F32 = torch.float32
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Nuisance:
+    """Plain-function model bundle.
+
+    init(gen, p, device)    -> state   (gen: torch.Generator or None)
+    fit(state, X, y, w)     -> state   (w: (n,) or fold-batched (k, n))
+    predict(state, X)       -> (n,) or (k, n)
+
+    ``hyper`` exposes the scalar hyper-parameters baked into the
+    closures."""
+
+    name: str
+    task: str  # "reg" | "clf"
+    init: Callable[..., Dict[str, Tensor]]
+    fit: Callable[[Dict[str, Tensor], Tensor, Tensor, Tensor], Dict[str, Tensor]]
+    predict: Callable[[Dict[str, Tensor], Tensor], Tensor]
+    hyper: Optional[Dict[str, Any]] = None
+
+
+def _aug(X: Tensor) -> Tensor:
+    """Append the intercept column."""
+    return torch.cat([X, torch.ones((X.shape[0], 1), dtype=X.dtype,
+                                    device=X.device)], dim=1)
+
+
+def _linear(state: Dict[str, Tensor], X: Tensor) -> Tensor:
+    """``[X | 1] @ beta``: (n,) for beta (q,), (k, n) for beta (k, q)."""
+    beta = state["beta"]
+    Xa = _aug(X.to(_F32))
+    return Xa @ beta if beta.dim() == 1 else (Xa @ beta.T).T
+
+
+def _eye(q: int, like: Tensor) -> Tensor:
+    return torch.eye(q, dtype=_F32, device=like.device)
+
+
+def _init_linear(lam: float):
+    def init(gen: Optional[torch.Generator], p: int, device=None):
+        return {"beta": torch.zeros((p + 1,), dtype=_F32, device=device),
+                "lam": torch.tensor(lam, dtype=_F32, device=device)}
+    return init
+
+
+# ---------------------------------------------------------------------------
+# Ridge regression (closed form — one Gram + solve)
+# ---------------------------------------------------------------------------
+
+def make_ridge(lam: float = 1e-3, row_block: int = 0,
+               strategy: Optional[str] = None) -> Nuisance:
+    """Weighted ridge: one augmented Gram ``[X | 1 | y]`` and a solve."""
+
+    def fit(state, X, y, w):
+        q = X.shape[1] + 1
+        Gaug, n_eff = moments.weighted_gram(X, w, intercept=True, append=y,
+                                            row_block=row_block,
+                                            strategy=strategy)
+        n_eff = torch.clamp(n_eff, min=1.0)
+        lam_ = state["lam"]
+        A = Gaug[..., :q, :q] / n_eff[..., None, None] \
+            + lam_[..., None, None] * _eye(q, Gaug)
+        rhs = Gaug[..., :q, q] / n_eff[..., None]
+        beta = torch.linalg.solve(A, rhs[..., None])[..., 0]
+        return {**state, "beta": beta}
+
+    return Nuisance("ridge", "reg", _init_linear(lam), fit, _linear,
+                    hyper={"lam": lam, "row_block": row_block,
+                           "strategy": strategy})
+
+
+# ---------------------------------------------------------------------------
+# Logistic regression via Newton/IRLS (fixed iteration count)
+# ---------------------------------------------------------------------------
+
+def make_logistic(lam: float = 1e-3, iters: int = 16, row_block: int = 0,
+                  strategy: Optional[str] = None) -> Nuisance:
+    """Weighted ridge-penalized logistic regression, ``iters`` Newton
+    steps from zero; each step is ONE Gram-and-vector pass over X."""
+
+    def fit(state, X, y, w):
+        Xf = X.to(_F32)
+        ws = w.to(_F32)
+        yt = y.to(_F32)
+        q = X.shape[1] + 1
+        n_eff = torch.clamp(ws.sum(-1), min=1.0)
+        lam_ = state["lam"]
+        lam_eye = lam_[..., None, None] * _eye(q, Xf)
+        beta = state["beta"]
+        for _ in range(iters):
+            mu = torch.sigmoid(_linear({"beta": beta}, Xf))
+            s = torch.clamp(mu * (1 - mu), min=1e-6) * ws
+            # Hessian + gradient in ONE weighted-moments pass over X
+            H, g_raw, _ = moments.weighted_gram_and_vec(
+                Xf, s, ws * (mu - yt), intercept=True,
+                row_block=row_block, strategy=strategy)
+            g = g_raw / n_eff[..., None] + lam_[..., None] * beta
+            A = H / n_eff[..., None, None] + lam_eye
+            beta = beta - torch.linalg.solve(A, g[..., None])[..., 0]
+        return {**state, "beta": beta}
+
+    def predict(state, X):
+        return torch.sigmoid(_linear(state, X))
+
+    return Nuisance("logistic", "clf", _init_linear(lam), fit, predict,
+                    hyper={"lam": lam, "iters": iters,
+                           "row_block": row_block, "strategy": strategy})
+
+
+def make_nuisance(kind: str, task: str, cfg: CausalConfig) -> Nuisance:
+    """Nuisance factory from a CausalConfig."""
+    rb, st = cfg.row_block, cfg.row_block_strategy
+    if kind == "ridge":
+        return make_ridge(cfg.ridge_lambda, row_block=rb, strategy=st)
+    if kind == "logistic":
+        return make_logistic(cfg.ridge_lambda, cfg.newton_iters,
+                             row_block=rb, strategy=st)
+    if kind == "mlp":
+        raise NotImplementedError(
+            "the mlp nuisance lands with the estimators slice (ROADMAP A.6)")
+    if kind == "backbone":
+        raise NotImplementedError(
+            "the backbone nuisance lands with the LM slice (ROADMAP A.13)")
+    raise ValueError(f"unknown nuisance kind {kind!r}")
+
+
+# ---------------------------------------------------------------------------
+# Fold-batched fast paths: the leave-one-out Gram identity
+#
+#       Xᵀ diag(w_k) X  =  G_total - G_heldout_k
+#
+# turns the k complement-weighted Grams of cross-fitting into ONE
+# fold-segmented pass over X.  Ridge stays exact; logistic takes the
+# Böhning-Lindsay fixed majorizer H0 = XᵀX/4 + λI, factored once.
+# ---------------------------------------------------------------------------
+
+def _fold_grams(Xa: Tensor, folds: Tensor, k: int, row_block: int = 0,
+                strategy: Optional[str] = None):
+    """(G_heldout (k, q, q), G_total (q, q)) from one segmented pass."""
+    Gh, _ = moments.fold_gram(Xa, folds, k, row_block=row_block,
+                              strategy=strategy)
+    return Gh, Gh.sum(0)
+
+
+def ridge_fit_folds(lam: float, X: Tensor, y: Tensor, folds: Tensor, k: int,
+                    row_block: int = 0, strategy: Optional[str] = None):
+    """Exact per-fold ridge via the LOO identity; one pass over X."""
+    n, p = X.shape[0], X.shape[1] + 1
+    Gh_aug, counts = moments.fold_gram(X, folds, k, intercept=True, append=y,
+                                       row_block=row_block,
+                                       strategy=strategy)
+    G_aug = Gh_aug.sum(0)
+    Gh, G = Gh_aug[:, :p, :p], G_aug[:p, :p]
+    bh, b_tot = Gh_aug[:, :p, p], G_aug[:p, p]
+    n_eff = torch.clamp(n - counts, min=1.0)[:, None, None]
+    A = (G[None] - Gh) / n_eff + lam * _eye(p, G)[None]
+    rhs = (b_tot[None] - bh) / n_eff[..., 0]
+    beta = torch.linalg.solve(A, rhs[..., None])[..., 0]        # (k, p)
+    return {"beta": beta, "lam": torch.full((k,), lam, dtype=_F32,
+                                            device=X.device)}
+
+
+def logistic_fit_folds(lam: float, iters: int, X: Tensor, t: Tensor,
+                       folds: Tensor, k: int, row_block: int = 0,
+                       strategy: Optional[str] = None):
+    """Per-fold logistic by fixed-Hessian majorization: H0_k factored
+    once, then ``iters`` MM steps of two mat-vecs each."""
+    Xa = _aug(X.to(_F32))
+    n, p = Xa.shape
+    Gh, G = _fold_grams(Xa, folds, k, row_block=row_block, strategy=strategy)
+    ids = torch.arange(k, device=folds.device, dtype=folds.dtype)
+    onehot = (folds[:, None] == ids[None, :]).to(_F32)          # (n, k)
+    w = 1.0 - onehot                                            # train weights
+    n_eff = torch.clamp(n - onehot.sum(0), min=1.0)
+    H0 = (G[None] - Gh) / (4.0 * n_eff[:, None, None]) \
+        + lam * _eye(p, G)[None]
+    LU, piv = torch.linalg.lu_factor(H0)
+    tt = t.to(_F32)
+    beta = torch.zeros((k, p), dtype=_F32, device=X.device)
+    for _ in range(iters):
+        mu = torch.sigmoid(Xa @ beta.T)                         # (n, k)
+        r = w * (mu - tt[:, None])
+        g = (r.T @ Xa) / n_eff[:, None] + lam * beta            # (k, p)
+        beta = beta - torch.linalg.lu_solve(LU, piv, g[..., None])[..., 0]
+    return {"beta": beta, "lam": torch.full((k,), lam, dtype=_F32,
+                                            device=X.device)}

@@ -1,0 +1,283 @@
+"""The port's segmented-Gram family (repro_torch.kernels.seg_gram) held
+against the JAX package's.
+
+  * every builder against ``repro.kernels.seg_gram.ref``;
+  * the plain ``seg_reduce`` against the Pallas kernel run in interpret
+    mode, for the four main-path builders, one and three segments, with
+    and without row weights, at a row count that does not divide the
+    block;
+  * ``residual_gram`` against the JAX entry point (interpret);
+  * the argument layout the ops layer hands the CUDA kernel, through an
+    emulation of the kernel's documented contract;
+  * inside torch, bitwise: a padded tail is a no-op, w=0 equals zeroed
+    rows, an empty segment is exactly 0, power-of-two weights scale
+    exactly, and a batch of one equals the same row of a batch of k.
+
+Tolerance port vs reference: rtol 1e-5 plus atol 1e-5·max|G| — fp32
+Grams reassociate differently in the two frameworks (about 1e-5
+relative on cross-moments, ROADMAP §C).
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels.residual_gram import ops as jrg_ops  # noqa: E402
+from repro.kernels.seg_gram import kernel as jsg_kernel  # noqa: E402
+from repro.kernels.seg_gram import ref as jref  # noqa: E402
+from repro_torch.kernels.residual_gram import ops as rg_ops  # noqa: E402
+from repro_torch.kernels.seg_gram import ops, ref  # noqa: E402
+
+_N, _P, _S, _RB = 1100, 3, 3, 512          # 1100 does not divide 512
+
+
+def _close(got, want, msg=""):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    atol = 1e-5 * max(float(np.abs(want).max()), 1e-30)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=atol, err_msg=msg)
+
+
+@pytest.fixture(scope="module")
+def arrs():
+    rng = np.random.default_rng(7)
+    f32 = np.float32
+    return dict(
+        y=rng.standard_normal((_N, 1)).astype(f32),
+        t=(rng.random((_N, 1)) < 0.5).astype(f32),
+        my=(0.1 * rng.standard_normal((_N, 1))).astype(f32),
+        mt=rng.uniform(0.1, 0.9, (_N, 1)).astype(f32),
+        rz=rng.standard_normal((_N, 1)).astype(f32),
+        phi=rng.standard_normal((_N, _P)).astype(f32),
+        D=rng.standard_normal((_N, 6)).astype(f32),
+        w=rng.exponential(size=(_N, 1)).astype(f32),
+        W=rng.exponential(size=(4, _N)).astype(f32),
+        seg=rng.integers(0, _S, _N).astype(np.int32),
+        theta=np.arange(1.0, _P + 1, dtype=f32)[None],
+    )
+
+
+def _builder_cases(a):
+    """(torch builder, jax builder, numpy inputs) for every builder."""
+    return {
+        "pair": (ref.build_pair, jref.build_pair, [a["phi"], a["D"]]),
+        "design": (ref.build_design, jref.build_design, [a["D"]]),
+        "residual": (ref.build_residual, jref.build_residual,
+                     [a["y"], a["t"], a["my"], a["mt"], a["phi"]]),
+        "residual_direct": (ref.build_residual_direct,
+                            jref.build_residual_direct,
+                            [a["y"], a["t"], a["phi"]]),
+        "iv": (ref.build_iv, jref.build_iv,
+               [a["y"], a["t"], a["rz"], a["phi"]]),
+        "fold_weighted": (ref.build_fold_weighted, jref.build_fold_weighted,
+                          [a["W"].T.copy(), a["D"]]),
+        "gram_and_vec": (ref.build_gram_and_vec, jref.build_gram_and_vec,
+                         [a["D"], a["w"], a["y"]]),
+        "residual_meat": (ref.build_residual_meat, jref.build_residual_meat,
+                          [a["y"], a["t"], a["my"], a["mt"], a["phi"],
+                           a["theta"], a["w"]]),
+        "iv_meat": (ref.build_iv_meat, jref.build_iv_meat,
+                    [a["y"], a["t"], a["rz"], a["phi"], a["theta"],
+                     a["w"]]),
+    }
+
+
+_BUILDERS = ["pair", "design", "residual", "residual_direct", "iv",
+             "fold_weighted", "gram_and_vec", "residual_meat", "iv_meat"]
+_MAIN = ["design", "gram_and_vec", "residual", "residual_meat"]
+
+
+@pytest.mark.parametrize("name", _BUILDERS)
+def test_builder_matches_reference(arrs, name):
+    """Elementwise builders: the same fp32 operations in both packages
+    (the meat's 3-term row sum may round once differently: rtol 1e-6)."""
+    tb, jb, inputs = _builder_cases(arrs)[name]
+    L, R = tb(*[torch.from_numpy(x) for x in inputs])
+    jL, jR = jb(*[jnp.asarray(x) for x in inputs])
+    np.testing.assert_allclose(L.numpy(), np.asarray(jL), rtol=1e-6,
+                               atol=1e-6)
+    np.testing.assert_allclose(R.numpy(), np.asarray(jR), rtol=1e-6,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("S", [1, _S])
+@pytest.mark.parametrize("name", _MAIN)
+def test_plain_matches_pallas_interpret(arrs, name, S, weighted):
+    tb, jb, inputs = _builder_cases(arrs)[name]
+    if name == "residual_meat":
+        inputs = inputs[:-1]
+    w = arrs["w"] if weighted else None
+    seg = arrs["seg"] if S > 1 else None
+    want = jsg_kernel.seg_gram_pallas(
+        jb, [jnp.asarray(x) for x in inputs],
+        seg=None if seg is None else jnp.asarray(seg)[:, None],
+        w=None if w is None else jnp.asarray(w), n_segments=S,
+        block_n=_RB, interpret=True)
+    got = ops.seg_reduce(
+        tb, [torch.from_numpy(x) for x in inputs],
+        seg=None if seg is None else torch.from_numpy(seg).long(),
+        w=None if w is None else torch.from_numpy(w[:, 0]),
+        n_segments=S)
+    assert tuple(got.shape) == tuple(want.shape)
+    _close(got.numpy(), np.asarray(want), f"{name} S={S} w={weighted}")
+
+
+def test_residual_gram_matches_reference(arrs):
+    a = arrs
+    cols = [a[k][:, 0] for k in ("y", "t", "my", "mt")]
+    G, b = rg_ops.residual_gram(*[torch.from_numpy(c) for c in cols],
+                                torch.from_numpy(a["phi"]))
+    jG, jb = jrg_ops.residual_gram(*[jnp.asarray(c) for c in cols],
+                                   jnp.asarray(a["phi"]),
+                                   backend="interpret")
+    _close(G.numpy(), np.asarray(jG), "G")
+    _close(b.numpy(), np.asarray(jb), "b")
+
+
+def _emulate_kernel(builder, X, *, scalars=(), theta=None, w=None,
+                    seg=None, n_segments=1):
+    """csrc/seg_gram.cu's contract in plain torch: L = [cL·X | eL] with
+    the row weight and segment mask, R = [cR·X | eR]; (B, S·qL, qR)."""
+    batched = [x.shape[0] for x in list(scalars) + [w]
+               if x is not None and x.dim() == 2]
+    B = max(batched or [1])
+    outs = []
+    for b in range(B):
+        sc = [x[b] if x.dim() == 2 else x for x in scalars]
+        if builder == "design":
+            L = R = X
+        elif builder == "gram_and_vec":
+            L, R = torch.cat([sc[0][:, None] * X, sc[1][:, None]], 1), X
+        elif builder == "residual":
+            rt = sc[1] - sc[3]
+            L = R = torch.cat([rt[:, None] * X, (sc[0] - sc[2])[:, None]], 1)
+        else:
+            rt = sc[1] - sc[3]
+            e = (sc[0] - sc[2]) - ((rt[:, None] * X) * theta).sum(1)
+            e = sc[4] * e if len(sc) == 5 else e
+            L = R = (e * rt)[:, None] * X
+        wb = torch.ones(X.shape[0]) if w is None else (w[b] if w.dim() == 2
+                                                       else w)
+        outs.append(torch.cat([
+            (L * (wb * (seg == s if seg is not None else 1))[:, None]).T @ R
+            for s in range(n_segments)]))
+    return torch.stack(outs)
+
+
+@pytest.mark.parametrize("name", _MAIN)
+def test_kernel_argument_layout(arrs, name, monkeypatch):
+    """The columns, batch strides and output reshapes the ops layer
+    hands the CUDA wrapper reproduce the plain result (the kernel's
+    contract emulated on the CPU)."""
+    from repro_torch.kernels.seg_gram import kernel as kern
+
+    a = {k: torch.from_numpy(v) for k, v in arrs.items()}
+    W = a["W"]
+    col = {"design": [a["D"]],
+           "gram_and_vec": [a["D"], W[..., None], (0.5 * W)[..., None]],
+           "residual": [a["y"], a["t"], a["my"], a["mt"], a["phi"]],
+           "residual_meat": [a["y"], a["t"], a["my"], a["mt"], a["phi"],
+                             a["theta"], a["w"]]}[name]
+    builder = getattr(ref, f"build_{name}")
+    kw = {"design": dict(w=W), "gram_and_vec": {},
+          "residual": dict(seg=a["seg"].long(), n_segments=_S),
+          "residual_meat": {}}[name]
+    want = ops.seg_reduce(builder, col, **kw)
+
+    kname, X, scalars, theta = ops._kernel_args(builder, col)
+    monkeypatch.setattr(kern, "seg_gram_cuda", _emulate_kernel)
+    G = kern.seg_gram_cuda(kname, X, scalars=scalars, theta=theta,
+                           w=kw.get("w"), seg=kw.get("seg"),
+                           n_segments=kw.get("n_segments", 1))
+    S = kw.get("n_segments", 1)
+    if S > 1:
+        G = G.reshape(G.shape[0], S, G.shape[1] // S, G.shape[2])
+    got = G if (name in ("design", "gram_and_vec")) else G[0]
+    _close(got.numpy(), want.numpy(), name)
+
+
+@pytest.mark.parametrize("name", ["residual_direct", "iv", "fold_weighted",
+                                  "iv_meat", "pair"])
+def test_later_builders_have_no_cuda_kernel_yet(arrs, name):
+    tb, _, inputs = _builder_cases(arrs)[name]
+    with pytest.raises(NotImplementedError, match="slice"):
+        ops._kernel_args(tb, [torch.from_numpy(x) for x in inputs])
+
+
+def test_only_cuda_or_cpu(arrs):
+    D = torch.empty((8, 3), device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        ops.design_gram(D)
+
+
+# ---------------------------------------------------------------------------
+# Bitwise invariants inside torch (plain version).
+# ---------------------------------------------------------------------------
+
+def test_padded_tail_exact_noop(arrs):
+    """Rows of zeros with seg = -1 and w = 0 change nothing, bitwise, on
+    the blocked path (each block keeps its shape).  The whole-array
+    plain product retiles with n, so there it holds to tolerance only,
+    as for the reference's one-hot oracle."""
+    from repro_torch.core import moments
+
+    a = {k: torch.from_numpy(v) for k, v in arrs.items()}
+    pad = 56                                  # 1156 still spans 3 blocks
+    D, seg, w = a["D"], a["seg"].long(), a["w"][:, 0]
+    Dp = torch.cat([D, torch.zeros((pad, D.shape[1]))])
+    segp = torch.cat([seg, torch.full((pad,), -1)])
+    wp = torch.cat([w, torch.zeros(pad)])
+    kw = dict(row_block=_RB, strategy="chunked")
+    g = moments.weighted_gram(D, w, intercept=False, **kw)
+    gp = moments.weighted_gram(Dp, wp, intercept=False, **kw)
+    assert torch.equal(g[0], gp[0]) and torch.equal(g[1], gp[1])
+    g = moments.fold_gram(D, seg, _S, **kw)
+    gp = moments.fold_gram(Dp, segp, _S, **kw)
+    assert torch.equal(g[0], gp[0]) and torch.equal(g[1], gp[1])
+    g = ops.seg_reduce(ref.build_design, [D], seg=seg, w=w, n_segments=_S)
+    gp = ops.seg_reduce(ref.build_design, [Dp], seg=segp, w=wp,
+                        n_segments=_S)
+    _close(gp.numpy(), g.numpy(), "whole-array plain")
+
+
+def test_zero_weight_equals_zero_data(arrs):
+    a = {k: torch.from_numpy(v)[:, 0] if v.ndim == 2 and v.shape[1] == 1
+         else torch.from_numpy(v) for k, v in arrs.items()}
+    mask = (torch.arange(_N) % 3 != 0).float()
+    g_w = ops.residual_gram(a["y"], a["t"], a["my"], a["mt"], a["phi"],
+                            w=mask)
+    g_z = ops.residual_gram(a["y"] * mask, a["t"] * mask, a["my"] * mask,
+                            a["mt"] * mask, a["phi"] * mask[:, None])
+    assert torch.equal(g_w[0], g_z[0]) and torch.equal(g_w[1], g_z[1])
+
+
+def test_empty_segment_exact_zero(arrs):
+    D = torch.from_numpy(arrs["D"])
+    seg = torch.from_numpy(arrs["seg"]).long()
+    seg = torch.where(seg == 2, torch.ones_like(seg), seg)
+    G, counts = ops.fold_design_gram(D, seg, _S)
+    assert bool((G[2] == 0).all())
+    assert float(counts[2]) == 0.0
+
+
+def test_power_of_two_weights_exact(arrs):
+    D = torch.from_numpy(arrs["D"])
+    seg = torch.from_numpy(arrs["seg"]).long()
+    g1 = ops.seg_reduce(ref.build_design, [D], seg=seg, n_segments=_S)
+    g2 = ops.seg_reduce(ref.build_design, [D], seg=seg, n_segments=_S,
+                        w=torch.full((_N,), 2.0))
+    assert torch.equal(2.0 * g1, g2)
+
+
+def test_batch_of_one_equals_row_of_batch(arrs):
+    """The fold batch: row b of a (k, n)-weighted call equals the
+    unbatched call with weights w[b]."""
+    D = torch.from_numpy(arrs["D"])
+    W = torch.from_numpy(arrs["W"])
+    Gk = ops.design_gram(D, w=W)
+    Gv, uv = ops.gram_and_vec(D, W, 0.5 * W)
+    for b in range(W.shape[0]):
+        assert torch.equal(Gk[b], ops.design_gram(D, w=W[b]))
+        G1, u1 = ops.gram_and_vec(D, W[b], 0.5 * W[b])
+        assert torch.equal(Gv[b], G1) and torch.equal(uv[b], u1)
