@@ -6,7 +6,8 @@
 Phases (each failure makes the script exit non-zero):
 
   1. the card (name and power limit, as nvidia-smi reports them), the
-     torch/CUDA versions, and the build of every kernel from source;
+     torch/CUDA versions, and the build of every kernel from source (one
+     thread per source, each running its nvcc, all started together);
   2. every kernel against its plain PyTorch version at the main path's
      shapes: error of each against an fp64 computation, kernel and plain
      times (CUDA events, L2 flushed between runs), one library call
@@ -20,7 +21,24 @@ Phases (each failure makes the script exit non-zero):
      and row_block=0 paths, each with the launch counters set to 0 just
      before and read just after, the fallback counters held at 0, and
      theta = [1, 0.5] recovered within 5 se (the larger of the jackknife
-     and the HC0 sandwich se).
+     and the HC0 sandwich se);
+  6. flash attention against its plain version at the backbone's shape
+     (q (256, 256, 32, 64) in the model's (B, S, H, D) layout, k/v with
+     8 KV heads, bf16, causal) and at two small shapes (fp32; softcap):
+     error against fp64, kernel / plain / SDPA times and the bound
+     (bytes over 3.35 TB/s, or the two products' FLOP under the causal
+     half over the 989 TFLOP/s bf16 tensor-core peak, the larger);
+  7. the LM-backbone main path — granite-3-2b at full width and depth,
+     port init from the seed, 8,192 event sequences of 256 events,
+     ``backbone_features(batch_size=256)`` -> standardize -> ``DML.fit``
+     + jackknife on the "parallel" engine (row_block 4096, "pallas") —
+     with the launch counters set to 0 just before and read just after
+     (flash 40 x 8192/256; seg_gram design 1, gram_and_vec 16,
+     residual 1, residual_meat 1; fallbacks 0), finite theta/cov, and
+     the first 512 users' features through the kernel against the same
+     run through the plain attention;
+  8. the seg_gram kernel's design and gram_and_vec forms on the
+     backbone path's own features (q = 2049, k = 5).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits 2 and prints
@@ -33,6 +51,7 @@ import dataclasses
 import json
 import subprocess
 import sys
+import threading
 import time
 import traceback
 from pathlib import Path
@@ -41,10 +60,26 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12        # H100 SXM data sheet, fp32 outside tensor cores
+BF16_TC_FLOP_PER_S = 989e12    # H100 SXM data sheet, dense bf16 tensor cores
 KERNEL_TOL = 1e-4              # |kernel - plain| / max|plain|
+# flash attention: max|kernel - plain| / max|plain|.  fp32: sums in
+# another order.  bf16: both round the same fp32 value to bf16, so they
+# part by one bf16 step (2^-8 relative) where a sum straddles a rounding
+# boundary.
+FA_TOL = {torch.float32: 1e-5, torch.bfloat16: 8e-3}
+# backbone features, kernel vs plain attention: max|diff| / max|feature|.
+# Each of the 40 layers rounds its attention output to bf16, and a sum
+# that straddles a rounding boundary flips one bf16 step (2^-8 of that
+# element); the pooled features are themselves rounded to bf16, so one
+# step of the largest feature is 3.9e-3.  2e-2 allows ~5 such steps.
+FEAT_TOL = 2e-2
 SEG_SRC = "src/repro_torch/kernels/seg_gram/csrc/seg_gram.cu"
 SEG_TPU = "src/repro/kernels/seg_gram/kernel.py:57"
 RG_TPU = "src/repro/kernels/residual_gram/kernel.py:29"
+FA_SRC = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
+FA_TPU = "src/repro/kernels/flash_attention/kernel.py:76"
+BACKBONE_ARCH = "granite-3-2b"
+BACKBONE_USERS, BACKBONE_SEQ, BACKBONE_BATCH, GATE_USERS = 8192, 256, 256, 512
 
 
 def log(msg: str) -> None:
@@ -230,10 +265,13 @@ def kernel_cases(X, y, t, folds, k):
     ]
 
 
-def phase_kernels(X, y, t, folds, k, timer):
-    """Kernel vs plain vs fp64 at the main path's shapes; timings."""
+def phase_kernels(X, y, t, folds, k, timer, forms=None, suffix=""):
+    """Kernel vs plain vs fp64 at the main path's shapes; timings.
+    ``forms`` picks cases by name; ``suffix`` tags their record keys."""
     records = {}
     for c in kernel_cases(X, y, t, folds, k):
+        if forms is not None and c.name not in forms:
+            continue
         G64 = c.exact()
         Gk = c.kernel()
         Gp = c.plain()
@@ -260,9 +298,9 @@ def phase_kernels(X, y, t, folds, k, timer):
         if not ok:
             raise AssertionError(f"kernel {c.name} disagrees with its plain "
                                  f"version: {kp:.3e} > {KERNEL_TOL:g}")
-        records[c.name] = {
-            "name": f"seg_gram[{c.name}]" if c.name != "residual_gram"
-            else "residual_gram",
+        records[c.name + suffix] = {
+            "name": (f"seg_gram[{c.name}]" if c.name != "residual_gram"
+                     else "residual_gram") + suffix,
             "route": "cuda", "source": SEG_SRC, "replaces": c.replaces,
             "launches": None, "max_abs_err": max_abs, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
@@ -414,6 +452,191 @@ def phase_main(data, cfg, expected):
     return counts, secs
 
 
+def _fa_plain(q, k, v, causal=True, softcap=0.0, scale=None):
+    """The plain version in the model's (B, S, heads, D) layout."""
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    return fa_ref.attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                v.transpose(1, 2), causal=causal,
+                                softcap=softcap, scale=scale).transpose(1, 2)
+
+
+def phase_flash(seed: int, timer) -> dict:
+    """Flash attention vs plain vs fp64 at the backbone's shape, and at
+    two small shapes (fp32, softcap); timings at the backbone's shape."""
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+
+    g = torch.Generator(device="cuda").manual_seed(seed + 11)
+    dev = "cuda"
+
+    def qkv(B, S, H, KV, D, dtype):
+        return tuple(torch.randn((B, S, h, D), generator=g, device=dev)
+                     .to(dtype) for h in (H, KV, KV))
+
+    def check(q, k, v, causal, cap, what):
+        got = fa_kernel.flash_attention_cuda(q, k, v, causal=causal,
+                                             softcap=cap)
+        plain = _fa_plain(q, k, v, causal=causal, softcap=cap)
+        torch.cuda.synchronize()
+        err_k = err_p = 0.0
+        for i in range(0, q.shape[0], 32):      # fp64 in slices of 32
+            sl = slice(i, i + 32)
+            exact = _fa_plain(*(x[sl].double() for x in (q, k, v)),
+                              causal=causal, softcap=cap)
+            err_k = max(err_k, rel(got[sl], exact))
+            err_p = max(err_p, rel(plain[sl], exact))
+            del exact
+        kp = rel(got, plain)
+        max_abs = float((got.double() - plain.double()).abs().max())
+        tol = FA_TOL[q.dtype]
+        ok = kp <= tol and bool(torch.isfinite(got).all())
+        log(f"kernel flash_attention [{what}] q={tuple(q.shape)} "
+            f"kv={tuple(k.shape)} err/max|o| kernel={err_k:.3e} "
+            f"plain={err_p:.3e} kernel-vs-plain={kp:.3e} (tol {tol:g}) "
+            f"{'OK' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"flash kernel disagrees with its plain "
+                                 f"version [{what}]: {kp:.3e} > {tol:g}")
+        return {"what": what, "q": list(q.shape), "kv": list(k.shape),
+                "dtype": str(q.dtype).replace("torch.", ""),
+                "causal": causal, "softcap": cap, "max_abs_err": max_abs,
+                "err_kernel_vs_fp64": err_k, "err_plain_vs_fp64": err_p}
+
+    B, S, H, KV, D = BACKBONE_BATCH, BACKBONE_SEQ, 32, 8, 64
+    extra = [check(*qkv(2, 320, 8, 2, 64, torch.float32), True, 0.0,
+                   "fp32, causal, 5 key blocks"),
+             check(*qkv(2, 192, 8, 8, 64, torch.bfloat16), True, 30.0,
+                   "bf16, causal, softcap 30")]
+    q, k, v = qkv(B, S, H, KV, D, torch.bfloat16)
+    path = check(q, k, v, True, 0.0, "backbone: bf16, causal, GQA 32/8")
+    ms = timer.ms(lambda: fa_kernel.flash_attention_cuda(q, k, v), 10)
+    plain_ms = timer.ms(lambda: _fa_plain(q, k, v), 3)
+    qh = q.transpose(1, 2).contiguous()
+    kh = k.repeat_interleave(H // KV, dim=2).transpose(1, 2).contiguous()
+    vh = v.repeat_interleave(H // KV, dim=2).transpose(1, 2).contiguous()
+    lib_ms = timer.ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qh, kh, vh, is_causal=True), 10)
+    del qh, kh, vh
+    nbytes = 2.0 * (q.numel() + k.numel() + v.numel() + q.numel())
+    flops = 4.0 * B * H * S * S * D / 2          # QK and PV, causal half
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_TC_FLOP_PER_S * 1e3
+    log(f"kernel flash_attention [backbone] ms={ms:.4f} "
+        f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} (SDPA) "
+        f"bound_ms={max(t_bytes, t_ops):.4f} "
+        f"({'bytes' if t_bytes >= t_ops else 'operations'}: "
+        f"{nbytes / 1e9:.3f} GB at 3.35 TB/s, {flops / 1e9:.1f} GFLOP at "
+        f"989 TFLOP/s bf16)")
+    return {"flash_attention": {
+        "name": "flash_attention", "route": "cuda", "source": FA_SRC,
+        "replaces": FA_TPU, "launches": None,
+        "max_abs_err": path["max_abs_err"], "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": lib_ms, "err_kernel_vs_fp64": path["err_kernel_vs_fp64"],
+        "err_plain_vs_fp64": path["err_plain_vs_fp64"],
+        "shape": path["q"], "other_checks": extra}}
+
+
+class _PlainAttention:
+    """Route the model's flash attention to the plain version (the
+    features gate's reference run); restores the kernel on exit."""
+
+    def __enter__(self):
+        from repro_torch.kernels.flash_attention import ops as fa_ops
+        self.ops, self.saved = fa_ops, fa_ops.flash_attention
+        fa_ops.flash_attention = _fa_plain
+
+    def __exit__(self, *exc):
+        self.ops.flash_attention = self.saved
+
+
+def _standardize(f: torch.Tensor) -> torch.Tensor:
+    return (f - f.mean(0)) / (f.std(0, correction=0) + 1e-6)
+
+
+def phase_backbone(seed: int):
+    """The LM-backbone main path at granite-3-2b's full width and depth;
+    returns (launch counts, standardized features, y, t)."""
+    from repro_torch.config import CausalConfig, ParallelConfig
+    from repro_torch.configs import get_config
+    from repro_torch.core import moments
+    from repro_torch.core.dml import DML
+    from repro_torch.core.nuisance import backbone_features
+    from repro_torch.data.event_dgp import make_event_data
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.seg_gram import kernel as sg_kernel
+    from repro_torch.models.model import Model
+
+    cfg = get_config(BACKBONE_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Model(cfg, ParallelConfig(use_flash_attention=True), seed=seed)
+    data = make_event_data(BACKBONE_USERS, BACKBONE_SEQ, cfg.vocab_size, seed=seed)
+    torch.cuda.synchronize()
+    log(f"backbone {cfg.name}: {cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads x "
+        f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.padded_vocab}; "
+        f"{sum(p.numel() for p in model.parameters()) / 1e9:.3f} B params "
+        f"(fp32), init + data {time.perf_counter() - t0:.2f} s")
+    t, y = data.t, data.y
+    naive = float((y * t).sum() / t.sum() - (y * (1 - t)).sum()
+                  / (1 - t).sum())
+    ccfg = CausalConfig(n_folds=5, nuisance_y="ridge", nuisance_t="logistic",
+                        engine="parallel", inference="jackknife",
+                        row_block=4096, row_block_strategy="pallas")
+    est = DML(ccfg)
+    torch.cuda.synchronize()
+    fa_kernel.LAUNCHES.clear()
+    sg_kernel.LAUNCHES.clear()
+    moments.FALLBACKS.clear()
+    t0 = time.perf_counter()
+    feats = backbone_features(model, data.tokens, batch_size=BACKBONE_BATCH)
+    torch.cuda.synchronize()
+    t_feat = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    X = _standardize(feats)
+    res = est.fit(y, t, X, gen=torch.Generator().manual_seed(0))
+    inf = res.inference()
+    torch.cuda.synchronize()
+    t_fit = time.perf_counter() - t0
+    counts = {**dict(fa_kernel.LAUNCHES), **dict(sg_kernel.LAUNCHES)}
+    fallbacks = {f: c for f, c in moments.FALLBACKS.items() if c}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    # gate 1: the first users' features through the plain attention
+    with _PlainAttention():
+        plain = backbone_features(model, data.tokens[:GATE_USERS],
+                                  batch_size=BACKBONE_BATCH)
+    torch.cuda.synchronize()
+    feat_err = rel(feats[:GATE_USERS], plain)
+    theta = float(res.theta[0])
+    se_jk, se_hc0 = float(inf.se[0]), float(res.stderr[0])
+    log(f"backbone path: features {t_feat:.3f} s, fit+jackknife "
+        f"{t_fit:.3f} s, peak device memory {peak:.2f} GiB; "
+        f"theta={theta:.5f} jackknife se={se_jk:.5f} HC0 se={se_hc0:.5f} "
+        f"naive diff-in-means={naive:.5f} (true 2.0) "
+        f"|theta-2|/max(se)={abs(theta - 2.0) / max(se_jk, se_hc0):.3f} "
+        f"features kernel-vs-plain (first {GATE_USERS} users) "
+        f"{feat_err:.3e} (tol {FEAT_TOL:g}) launches={counts} "
+        f"fallbacks={fallbacks}")
+    expected = {"flash_attention": cfg.num_layers
+                * -(-BACKBONE_USERS // BACKBONE_BATCH),
+                "design": 1, "gram_and_vec": ccfg.newton_iters,
+                "residual": 1, "residual_meat": 1}
+    if not (torch.isfinite(res.theta).all() and torch.isfinite(res.cov).all()
+            and bool(torch.isfinite(feats).all())):
+        raise AssertionError("non-finite features, theta or cov")
+    if not feat_err <= FEAT_TOL:
+        raise AssertionError(f"features through the kernel and the plain "
+                             f"attention differ: {feat_err:.3e}")
+    if counts != expected:
+        raise AssertionError(f"launches {counts}, expected {expected}")
+    if fallbacks:
+        raise AssertionError(f"fallback counters rose: {fallbacks}")
+    del model, plain, feats
+    return counts, X, y, t
+
+
 def main(argv=None) -> int:
     """Run every phase; 0 only if all passed."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -431,6 +654,7 @@ def main(argv=None) -> int:
         from repro_torch.config import CausalConfig
         from repro_torch.core.crossfit import fold_ids
         from repro_torch.data.causal_dgp import paper_demo_data
+        from repro_torch.kernels.flash_attention import kernel as fa_kern
         from repro_torch.kernels.seg_gram import kernel as kern
     except ImportError as e:
         print(f"chip_smoke: the repro_torch package is missing ({e})",
@@ -445,9 +669,18 @@ def main(argv=None) -> int:
         f"device {torch.cuda.get_device_name(0)} "
         f"count {torch.cuda.device_count()}")
     t0 = time.perf_counter()
-    kern.library()
-    log(f"built seg_gram.cu in {time.perf_counter() - t0:.1f} s")
+    builds = [threading.Thread(target=lib) for lib in (kern.library,
+                                                        fa_kern.library)]
+    for b in builds:
+        b.start()
+    for b in builds:
+        b.join()
+    kern.library()            # raises here if a build failed
+    fa_kern.library()
+    log(f"built seg_gram.cu and flash_attention.cu (in parallel) in "
+        f"{time.perf_counter() - t0:.1f} s")
     log(kern.build_log().strip())
+    log(fa_kern.build_log().strip())
 
     k, p, row_block = 5, 500, 65536
     data = paper_demo_data(n=args.n, p=p, seed=args.seed)
@@ -467,8 +700,9 @@ def main(argv=None) -> int:
 
     folds = fold_ids(torch.Generator().manual_seed(args.seed), args.n, k,
                      device="cuda")
+    timer = Timer()
     records = run("kernels", phase_kernels, data.X, data.y, data.t, folds,
-                  k, Timer()) or {}
+                  k, timer) or {}
     torch.cuda.empty_cache()
     run("invariants", phase_invariants, args.seed)
     run("small-agreement", phase_small_agreement, args.seed)
@@ -497,11 +731,31 @@ def main(argv=None) -> int:
             peak = torch.cuda.max_memory_allocated() / 2 ** 30
             log(f"peak device memory {peak:.2f} GiB")
 
+    del data
+    torch.cuda.empty_cache()
+    records.update(run("kernels:flash", phase_flash, args.seed, timer) or {})
+    torch.cuda.empty_cache()
+    out = run("backbone", phase_backbone, args.seed)
+    torch.cuda.empty_cache()
+    if out is not None:
+        counts, X, y, t = out
+        launches["flash_attention"] = counts.get("flash_attention", 0)
+        for key in ("design", "gram_and_vec"):
+            launches[key + "@q2049"] = counts.get(key, 0)
+        bfolds = fold_ids(torch.Generator().manual_seed(args.seed),
+                          X.shape[0], k, device="cuda")
+        records.update(run("kernels:backbone-heads", phase_kernels, X, y, t,
+                           bfolds, k, timer, ("design", "gram_and_vec"),
+                           "@q2049") or {})
+        del X, y, t, out
+        torch.cuda.empty_cache()
+
     for key, rec in records.items():
         rec["launches"] = launches.get(key, 0)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     line = {"kernels": list(records.values()), "n": args.n, "p": p,
-            "k": k, "row_block": row_block}
+            "k": k, "row_block": row_block, "users": BACKBONE_USERS,
+            "backbone": BACKBONE_ARCH}
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(

@@ -10,7 +10,7 @@ this package at first use; its plain PyTorch version serves tensors
 that lie on the CPU.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
-(see ``repro_torch.device``).  The package imports neither ``jax`` nor
-``repro``: state from the JAX package crosses over as numpy arrays
+(see ``repro_torch.device``).  The package imports nothing of the JAX
+framework or of ``repro``: state from the JAX package crosses over as numpy arrays
 (``repro_torch.convert``).
 """

@@ -1,0 +1,46 @@
+"""Architecture registry: ``get_config("<arch-id>")`` -> ModelConfig.
+
+The port carries the configurations whose model path it runs; an arch
+id ending in ``-smoke`` gives the reduced CPU variant
+(``config.smoke_variant``).  The other architectures of the JAX
+package's registry raise ``NotImplementedError`` naming the ROADMAP
+slice that brings their model code.
+"""
+from __future__ import annotations
+
+import importlib
+from typing import Dict
+
+from repro_torch.config import ModelConfig, smoke_variant
+
+_MODULES: Dict[str, str] = {
+    "granite-3-2b": "granite_3_2b",
+}
+
+# arch id -> the ROADMAP item that ports its model family
+_LATER: Dict[str, str] = {
+    "yi-34b": "ROADMAP A.13 (dense GQA at 34B: a config file only)",
+    "phi4-mini-3.8b": "ROADMAP A.13 (partial RoPE)",
+    "chatglm3-6b": "ROADMAP A.13 (interleaved partial RoPE)",
+    "pixtral-12b": "ROADMAP A.13 (vlm front end)",
+    "zamba2-1.2b": "ROADMAP A.13 / B.5 (hybrid, ssd_pallas)",
+    "arctic-480b": "ROADMAP A.13 (MoE)",
+    "deepseek-v3-671b": "ROADMAP A.13 (MLA and MoE)",
+    "whisper-tiny": "ROADMAP A.13 (encoder-decoder)",
+    "rwkv6-3b": "ROADMAP A.13 / B.4 (rwkv6, gla_pallas)",
+}
+
+
+def get_config(arch: str) -> ModelConfig:
+    """The port's config for ``arch`` (``-smoke`` suffix: the reduced
+    variant)."""
+    name = arch[:-len("-smoke")] if arch.endswith("-smoke") else arch
+    if name in _LATER:
+        raise NotImplementedError(
+            f"{name} is not ported yet: {_LATER[name]}")
+    if name not in _MODULES:
+        raise KeyError(f"unknown arch {arch!r}; known: "
+                       f"{sorted(set(_MODULES) | set(_LATER))}")
+    mod = importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
+    cfg: ModelConfig = mod.CONFIG
+    return smoke_variant(cfg) if arch.endswith("-smoke") else cfg

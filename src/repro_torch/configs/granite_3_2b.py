@@ -1,0 +1,18 @@
+"""granite-3-2b — dense GQA [hf:ibm-granite/granite-3.0-2b-base]."""
+from repro_torch.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="granite-3-2b",
+    family="dense",
+    num_layers=40,
+    d_model=2048,
+    num_heads=32,
+    num_kv_heads=8,
+    head_dim=64,
+    d_ff=8192,
+    vocab_size=49155,
+    attention="gqa",
+    mlp="swiglu",
+    rope_theta=10_000.0,
+    tie_embeddings=True,
+)

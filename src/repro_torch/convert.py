@@ -1,25 +1,27 @@
 """Carry state from the JAX package into the port's tensors.
 
-torch cannot replay ``jax.random`` streams, so parity runs hand the
-reference's random draws (data, fold ids) and results (nuisance fold
-states, theta, cov) to the port.  Everything here takes numpy arrays —
+torch cannot replay the JAX package's random streams, so parity runs hand the
+reference's random draws (data, fold ids, model weights) and results
+(nuisance fold states, theta, cov) to the port.  Everything here takes numpy arrays —
 ``np.asarray`` of a JAX array — never a JAX object, so the port imports
 nothing of JAX.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping, Tuple
+from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models.model import Model
+from repro_torch.models.params import map_schema
 
 Tensor = torch.Tensor
 
 
 def _f32(a, dev) -> Tensor:
-    return torch.as_tensor(np.asarray(a, dtype=np.float32), device=dev)
+    return torch.as_tensor(np.array(a, dtype=np.float32), device=dev)
 
 
 def data(X, y, t, *, device: DeviceLike = None
@@ -48,3 +50,37 @@ def theta_cov(theta, cov, *, device: DeviceLike = None
     """(theta (p_phi,), cov (p_phi, p_phi)) as fp32 tensors."""
     dev = resolve_device(device)
     return _f32(theta, dev), _f32(cov, dev)
+
+
+def model_params(cfg, tree: Mapping[str, Any], *,
+                 device: DeviceLike = None) -> Dict[str, Tensor]:
+    """The reference's ``Model.init`` pytree (nested dicts of arrays,
+    stacked ``(L, ...)`` per layer) -> the port's ``Model`` state_dict
+    (dotted schema paths, fp32 tensors).  Every path and shape is checked
+    against the port's schema for ``cfg``."""
+    dev = resolve_device(device)
+    want: Dict[str, tuple] = {}
+
+    def note(path, d):
+        want[path] = tuple(d.shape)
+
+    map_schema(note, Model.schema_of(cfg))
+    got: Dict[str, Tensor] = {}
+
+    def walk(node, path):
+        if isinstance(node, Mapping):
+            for k, v in node.items():
+                walk(v, f"{path}.{k}" if path else k)
+        else:
+            got[path] = _f32(node, dev)
+
+    walk(tree, "")
+    if set(got) != set(want):
+        raise ValueError(f"model_params: paths differ from the schema: "
+                         f"missing {sorted(set(want) - set(got))}, "
+                         f"extra {sorted(set(got) - set(want))}")
+    for path, x in got.items():
+        if tuple(x.shape) != want[path]:
+            raise ValueError(f"model_params: {path} has shape "
+                             f"{tuple(x.shape)}, the schema {want[path]}")
+    return got

@@ -8,8 +8,10 @@ Gram of the fit is one fold-batched kernel launch.  This is how the
 "parallel" cross-fit engine writes out the fold axis the JAX package
 vmaps.
 
-Closed-form ridge and Newton logistic are the main path; ``mlp`` and
-``backbone`` nuisances arrive with later slices.
+Closed-form ridge and Newton logistic are the main path.  The
+``backbone`` kind puts the same heads over features pooled by a frozen
+LM backbone (``backbone_features``: the Dream11 scenario, paper §4);
+the ``mlp`` nuisance arrives with a later slice.
 """
 from __future__ import annotations
 
@@ -144,9 +146,28 @@ def make_nuisance(kind: str, task: str, cfg: CausalConfig) -> Nuisance:
         raise NotImplementedError(
             "the mlp nuisance lands with the estimators slice (ROADMAP A.6)")
     if kind == "backbone":
-        raise NotImplementedError(
-            "the backbone nuisance lands with the LM slice (ROADMAP A.13)")
+        # heads over precomputed backbone features; the same linear math
+        if task == "clf":
+            return make_logistic(cfg.ridge_lambda, cfg.newton_iters,
+                                 row_block=rb, strategy=st)
+        return make_ridge(cfg.ridge_lambda, row_block=rb, strategy=st)
     raise ValueError(f"unknown nuisance kind {kind!r}")
+
+
+# ---------------------------------------------------------------------------
+# LM-backbone features (the Dream11 scenario: event-sequence confounders)
+# ---------------------------------------------------------------------------
+
+def backbone_features(model, tokens: Tensor, batch_size: int = 0) -> Tensor:
+    """Pooled (n, d_model) fp32 features of ``model``
+    (``repro_torch.models.model.Model``) over (n, S) user event
+    sequences, ``batch_size`` sequences per forward (0: all at once).
+    The backbone is frozen; nuisance heads (ridge / logistic) are
+    cross-fit on top."""
+    if not batch_size or tokens.shape[0] <= batch_size:
+        return model.features(tokens)
+    return torch.cat([model.features(tokens[i:i + batch_size])
+                      for i in range(0, tokens.shape[0], batch_size)], dim=0)
 
 
 # ---------------------------------------------------------------------------

@@ -3,7 +3,7 @@
 
 Partially-linear DGPs with known ground truth, so estimator runs can
 assert ATE/CATE recovery.  torch cannot replay the JAX package's
-``jax.random`` streams: the port's draws agree with the reference in
+random streams: the port's draws agree with the reference in
 distribution, not value (parity tests hand the reference's data over
 through ``repro_torch.convert``).  Draws are made on the generator's
 device — a CUDA generator makes the data on the card, in bulk.

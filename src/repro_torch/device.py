@@ -8,7 +8,10 @@ On the card, float32 matrix products and convolutions must run in full
 fp32: the JAX reference computes at highest precision, and TF32 keeps
 about three decimal digits — enough to move a DML estimate by more
 than the port-vs-reference tolerances.  ``resolve_device`` turns TF32
-off for both cuBLAS and cuDNN whenever it hands out a CUDA device.
+off for both cuBLAS and cuDNN whenever it hands out a CUDA device, and
+with it cuBLAS's reduced-precision reductions of bf16 products: the
+reference accumulates its bf16 einsums in fp32, and a split-K reduction
+in bf16 would not.
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ DeviceLike = Optional[Union[str, torch.device]]
 def _fp32_highest() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:

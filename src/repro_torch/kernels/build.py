@@ -27,6 +27,7 @@ _PKG = Path(__file__).resolve().parents[1]
 BUILD_DIR = _PKG.parents[1] / "build" / "repro_torch"
 
 _LOCK = threading.Lock()
+_SOURCE_LOCKS: Dict[str, threading.Lock] = {}
 _LOADED: Dict[str, Tuple[ctypes.CDLL, str]] = {}
 
 
@@ -50,10 +51,12 @@ def find_nvcc() -> str:
 def load_library(source: Path) -> Tuple[ctypes.CDLL, str]:
     """(library, compiler log) for ``source``, building it if its hashed
     library is not in ``BUILD_DIR`` yet.  Thread-safe; one build per
-    process and source."""
+    process and source, and two sources build at once from two threads."""
     source = Path(source)
     key = str(source)
     with _LOCK:
+        lock = _SOURCE_LOCKS.setdefault(key, threading.Lock())
+    with lock:
         if key in _LOADED:
             return _LOADED[key]
         digest = hashlib.sha256(

@@ -1,0 +1,111 @@
+"""ctypes binding of the Hopper flash-attention kernel
+(csrc/flash_attention.cu).
+
+``flash_attention_cuda`` takes q (B, Sq, H, D) and k, v (B, Sk, KV, D)
+in the model's layout, bf16 or fp32 (all three alike), contiguous, on
+one CUDA device; checks all of that, launches the kernel on the current
+stream and returns o (B, Sq, H, D) in q's dtype.  Any Sq, Sk: the kernel
+masks ragged tails.  D must be 16, 32, 64 or 128.  It raises on anything
+it does not take and whenever the launch returns a CUDA error; it never
+falls back to the plain version.  ``LAUNCHES["flash_attention"]`` counts
+launches, one per call.
+
+Replaces ``src/repro/kernels/flash_attention/kernel.py:
+flash_attention_pallas``; the design and its bound on the H100 are in the
+source note of ``csrc/flash_attention.cu``.
+"""
+from __future__ import annotations
+
+import collections
+import ctypes
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import build
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
+HEAD_DIMS = (16, 32, 64, 128)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+LAUNCHES: collections.Counter = collections.Counter()
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+
+def library() -> ctypes.CDLL:
+    """The built kernel library (built from SOURCE on first call)."""
+    lib, _ = build.load_library(SOURCE)
+    if not getattr(lib, "_typed", False):
+        lib.flash_attention_run.argtypes = [
+            _I, _P, _P, _P, _P,          # dtype, q, k, v, o
+            _I, _I, _I, _I, _I, _I,      # B, Sq, Sk, H, KV, D
+            _F, _F, _I, _P,              # scale, softcap, causal, stream
+        ]
+        lib.flash_attention_run.restype = _I
+        lib.flash_attention_error_string.argtypes = [_I]
+        lib.flash_attention_error_string.restype = ctypes.c_char_p
+        lib._typed = True
+    return lib
+
+
+def build_log() -> str:
+    """What nvcc printed for the kernel (``-Xptxas -v``), or that the
+    library came from the cache."""
+    return build.load_library(SOURCE)[1]
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True, softcap: float = 0.0,
+                         scale: Optional[float] = None) -> torch.Tensor:
+    """Launch the kernel on (B, S, heads, D) tensors; see the module
+    docstring."""
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_cuda needs CUDA tensors, q is on "
+                         f"{q.device}")
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if x.device != q.device:
+            raise ValueError(f"flash_attention: {name} is on {x.device}, "
+                             f"q on {q.device}")
+        if x.dtype not in _DTYPES or x.dtype != q.dtype:
+            raise TypeError(f"flash_attention: {name} is {x.dtype}; q, k, v "
+                            f"must all be float32 or all bfloat16")
+        if x.dim() != 4:
+            raise ValueError(f"flash_attention: {name} must be (B, S, heads, "
+                             f"D), got {tuple(x.shape)}")
+        if not x.is_contiguous():
+            raise ValueError(f"flash_attention: {name} must be contiguous")
+        if x.data_ptr() % 16:
+            raise ValueError(f"flash_attention: {name} must be 16-byte "
+                             f"aligned")
+    B, Sq, H, D = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    if tuple(k.shape) != (B, Sk, KV, D) or tuple(v.shape) != tuple(k.shape):
+        raise ValueError(f"flash_attention: k {tuple(k.shape)} and v "
+                         f"{tuple(v.shape)} must both be (B, Sk, KV, D) with "
+                         f"B={B}, D={D}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dim {D} not in {HEAD_DIMS}")
+    if KV < 1 or H % KV:
+        raise ValueError(f"flash_attention: {H} heads do not group over "
+                         f"{KV} kv heads")
+    if min(B, Sq, Sk) < 1 or max(B, H) > 65535:
+        raise ValueError(f"flash_attention: unsupported sizes B={B} Sq={Sq} "
+                         f"Sk={Sk} H={H}")
+    sc = float(scale) if scale is not None else 1.0 / (D ** 0.5)
+    out = torch.empty_like(q)
+    lib = library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.flash_attention_run(
+            _DTYPES[q.dtype], _P(q.data_ptr()), _P(k.data_ptr()),
+            _P(v.data_ptr()), _P(out.data_ptr()), B, Sq, Sk, H, KV, D,
+            sc, float(softcap), int(bool(causal)), _P(stream))
+    if err != 0:
+        msg = lib.flash_attention_error_string(err).decode()
+        raise RuntimeError(f"flash_attention launch failed: {msg} ({err})")
+    LAUNCHES["flash_attention"] += 1
+    return out

@@ -1,0 +1,38 @@
+"""Plain PyTorch version of flash attention: the counterpart of the
+reference's ``kernels/flash_attention/ref.py:attention_ref``.
+
+Everything in fp32 (fp64 for fp64 inputs): scores, softmax, the P.V
+product; the result cast to q's dtype — the function the kernel computes, with the whole score
+matrix in memory.  CPU tensors take it; the tests and ``chip_smoke.py``
+hold the kernel against it.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+Tensor = torch.Tensor
+_F32 = torch.float32
+
+
+def attention_ref(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
+                  softcap: float = 0.0,
+                  scale: Optional[float] = None) -> Tensor:
+    """q: (B,H,Sq,D); k,v: (B,KV,Sk,D); H % KV == 0. Returns (B,H,Sq,D)."""
+    B, H, Sq, D = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    G = H // KV
+    wt = torch.float64 if q.dtype == torch.float64 else _F32
+    sc = scale if scale is not None else 1.0 / (D ** 0.5)
+    qg = q.reshape(B, KV, G, Sq, D).to(wt)
+    s = torch.einsum("bkgqd,bksd->bkgqs", qg, k.to(wt)) * sc
+    if softcap:
+        s = torch.tanh(s / softcap) * softcap
+    if causal:
+        mask = (torch.arange(Sq, device=q.device)[:, None]
+                >= torch.arange(Sk, device=q.device)[None, :])
+        s = torch.where(mask, s, torch.full_like(s, -1e30))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqs,bksd->bkgqd", p, v.to(wt))
+    return o.reshape(B, H, Sq, D).to(q.dtype)

@@ -1,0 +1,135 @@
+"""Shared layers: norms, embeddings, RoPE, MLPs.
+
+Each layer is a pair of (schema fn, apply fn), as in the reference's
+``models/layers.py``; apply fns take the parameters as a dict (or a
+``ParamTree``) and compute in the dtypes the reference computes in:
+norms in fp32, products in ``cfg.compute_dtype`` with the weights cast
+per call.  Large products are ``torch.matmul``/``einsum``, as they sit
+outside any Pallas kernel in the reference.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.config import ModelConfig
+from repro_torch.models.params import ParamDef
+
+Tensor = torch.Tensor
+_F32 = torch.float32
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+def rmsnorm_schema(d: int):
+    """RMSNorm scale."""
+    return {"scale": ParamDef((d,), init="ones")}
+
+
+def rmsnorm(params, x: Tensor, eps: float = 1e-5) -> Tensor:
+    """RMSNorm in fp32, result in x's dtype."""
+    dtype = x.dtype
+    x = x.to(_F32)
+    var = x.square().mean(dim=-1, keepdim=True)
+    x = x * torch.rsqrt(var + eps)
+    return (x * params["scale"].to(_F32)).to(dtype)
+
+
+def make_norm(cfg: ModelConfig):
+    """(schema fn, apply fn) of the family's norm."""
+    if cfg.family == "audio":
+        raise NotImplementedError(
+            "the layernorm family lands with whisper's slice (ROADMAP A.13)")
+    return rmsnorm_schema, lambda p, x: rmsnorm(p, x, cfg.norm_eps)
+
+
+# ---------------------------------------------------------------------------
+# Embeddings
+# ---------------------------------------------------------------------------
+
+def embedding_schema(cfg: ModelConfig):
+    """Token table (padded vocab), untied unembed, learned positions."""
+    sch = {"embedding": ParamDef((cfg.padded_vocab, cfg.d_model),
+                                 init="embed")}
+    if not cfg.tie_embeddings:
+        sch["unembed"] = ParamDef((cfg.d_model, cfg.padded_vocab),
+                                  init="scaled")
+    if cfg.learned_pos_emb:
+        sch["pos"] = ParamDef((cfg.max_position_embeddings, cfg.d_model),
+                              init="embed")
+    return sch
+
+
+def embed_tokens(params, cfg: ModelConfig, tokens: Tensor) -> Tensor:
+    """(B, S) token ids -> (B, S, d) in the compute dtype."""
+    if cfg.learned_pos_emb:
+        raise NotImplementedError(
+            "learned position embeddings land with whisper's slice "
+            "(ROADMAP A.13, encoder-decoder)")
+    return params["embedding"][tokens.long()].to(cfg.compute_dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE (full / partial fraction / interleaved GLM-style)
+# ---------------------------------------------------------------------------
+
+def rope_frequencies(cfg: ModelConfig, positions: Tensor):
+    """(sin, cos), each positions.shape + (rot_dim/2,), fp32."""
+    rot = int(cfg.head_dim * cfg.rope_fraction)
+    rot -= rot % 2
+    exps = torch.arange(0, rot, 2, dtype=_F32, device=positions.device) / rot
+    inv = 1.0 / (cfg.rope_theta ** exps)
+    ang = positions[..., None].to(_F32) * inv
+    return torch.sin(ang), torch.cos(ang)
+
+
+def apply_rope(x: Tensor, sin: Tensor, cos: Tensor,
+               interleaved: bool = False) -> Tensor:
+    """x: (..., heads, head_dim); sin/cos: (..., rot/2).  The rotation
+    runs in fp32 (sin/cos are fp32) and is cast back to x's dtype."""
+    rot = 2 * sin.shape[-1]
+    x_rot, x_pass = x[..., :rot], x[..., rot:]
+    sin = sin[..., None, :]  # add head axis
+    cos = cos[..., None, :]
+    if interleaved:  # GLM / GPT-J pairing: (x0,x1),(x2,x3),...
+        x1, x2 = x_rot[..., 0::2], x_rot[..., 1::2]
+        r1 = x1 * cos - x2 * sin
+        r2 = x2 * cos + x1 * sin
+        out = torch.stack([r1, r2], dim=-1).reshape(x_rot.shape)
+    else:  # NeoX pairing: first half / second half
+        half = rot // 2
+        x1, x2 = x_rot[..., :half], x_rot[..., half:]
+        r1 = x1 * cos - x2 * sin
+        r2 = x2 * cos + x1 * sin
+        out = torch.cat([r1, r2], dim=-1)
+    out = out.to(x.dtype)
+    return torch.cat([out, x_pass], dim=-1) if rot < x.shape[-1] else out
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+# ---------------------------------------------------------------------------
+
+def mlp_schema(cfg: ModelConfig):
+    """SwiGLU (gate, up, down) or GELU (in, out) weights."""
+    d, ff = cfg.d_model, cfg.d_ff
+    if cfg.mlp == "swiglu":
+        return {"wi_gate": ParamDef((d, ff), init="scaled"),
+                "wi_up": ParamDef((d, ff), init="scaled"),
+                "wo": ParamDef((ff, d), init="scaled")}
+    return {"wi": ParamDef((d, ff), init="scaled"),
+            "wo": ParamDef((ff, d), init="scaled")}
+
+
+def mlp_apply(params, cfg: ModelConfig, x: Tensor) -> Tensor:
+    """The MLP in the compute dtype."""
+    ct = cfg.compute_dtype
+    if cfg.mlp == "swiglu":
+        g = torch.matmul(x, params["wi_gate"].to(ct))
+        u = torch.matmul(x, params["wi_up"].to(ct))
+        h = F.silu(g) * u
+    else:
+        h = F.gelu(torch.matmul(x, params["wi"].to(ct)), approximate="tanh")
+    return torch.matmul(h, params["wo"].to(ct))

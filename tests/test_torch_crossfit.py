@@ -123,6 +123,7 @@ def test_later_engines_and_nuisances_raise(data):
         tcf.crossfit_one(nu, torch.Generator(), torch.zeros(10, 2),
                          torch.zeros(10), torch.zeros(10, dtype=torch.long),
                          2, engine="shard_map")
-    for kind in ("mlp", "backbone"):
-        with pytest.raises(NotImplementedError, match="slice"):
-            tnu.make_nuisance(kind, "reg", CausalConfig())
+    with pytest.raises(NotImplementedError, match="slice"):
+        tnu.make_nuisance("mlp", "reg", CausalConfig())
+    # the backbone kind landed with the LM-backbone slice: linear heads
+    assert tnu.make_nuisance("backbone", "reg", CausalConfig()).name == "ridge"

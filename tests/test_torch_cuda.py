@@ -4,10 +4,22 @@ runs where only the port is installed:
 
     PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_cuda.py
 
-The CUDA kernel against its plain version for the four main-path
+The seg_gram kernel against its plain version for the four main-path
 builders (one segment, k-fold batch, three segments), and the DML fit on
 the card against the same fit on the CPU.  Tolerance: 1e-5·max|G| on
 Grams (fp32 row sums in another order), 1e-4 relative on theta.
+
+The flash-attention kernel against its plain version (causal and not,
+GQA and MQA, bf16 and fp32, softcap, ragged Sq/Sk, several key blocks),
+a small bf16 ``Model.features`` through the kernel against the same
+run through the plain attention, and the refusal of dense attention on
+the card (``Model(cfg)`` without ``use_flash_attention=True``).
+Tolerance: fp32 outputs 1e-5 (fp32 sums in another order); bf16 outputs 8e-3 relative to max|o| — both
+round the same fp32 value to bf16, so they differ by at most one bf16
+step (2^-8 relative) where the fp32 sums straddle a rounding boundary;
+features 2e-2 relative to max|feature| (such one-step flips at each
+layer's attention output, carried through the layers; see chip_smoke.py
+for the full-depth gate).
 """
 import numpy as np
 import pytest
@@ -82,3 +94,113 @@ def test_fit_on_card_matches_cpu(card):
            for dev in ("cpu", card)]
     np.testing.assert_allclose(out[1].theta.cpu().numpy(),
                                out[0].theta.numpy(), rtol=1e-4)
+
+
+_FA_CASES = [
+    # B, Sq, Sk, H, KV, D, causal, dtype, softcap
+    (2, 128, 128, 4, 2, 64, True, "bfloat16", 0.0),
+    (2, 128, 128, 4, 4, 64, False, "float32", 0.0),
+    (1, 200, 200, 8, 2, 32, True, "bfloat16", 0.0),
+    (1, 96, 160, 4, 1, 16, False, "float32", 0.0),
+    (1, 256, 256, 4, 2, 128, True, "float32", 30.0),
+    (3, 64, 64, 2, 2, 64, True, "bfloat16", 50.0),
+    (2, 320, 320, 32, 8, 64, True, "bfloat16", 0.0),
+]
+
+
+def _qkv(dev, B, Sq, Sk, H, KV, D, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    dt = getattr(torch, dtype)
+    mk = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(s).astype(np.float32)).to(dev).to(dt)
+    return mk(B, Sq, H, D), mk(B, Sk, KV, D), mk(B, Sk, KV, D)
+
+
+def _fa_plain(q, k, v, causal=True, softcap=0.0, scale=None):
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    return fa_ref.attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                v.transpose(1, 2), causal=causal,
+                                softcap=softcap,
+                                scale=scale).transpose(1, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", _FA_CASES)
+def test_flash_kernel_matches_plain(card, case):
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    B, Sq, Sk, H, KV, D, causal, dtype, cap = case
+    q, k, v = _qkv(card, B, Sq, Sk, H, KV, D, dtype)
+    n0 = fa_kernel.LAUNCHES["flash_attention"]
+    got = fa_ops.flash_attention(q, k, v, causal=causal, softcap=cap)
+    torch.cuda.synchronize()
+    assert fa_kernel.LAUNCHES["flash_attention"] == n0 + 1
+    want = _fa_plain(q, k, v, causal=causal, softcap=cap)
+    assert got.dtype == q.dtype and got.shape == q.shape
+    got, want = got.float().cpu().numpy(), want.float().cpu().numpy()
+    tol = 8e-3 if dtype == "bfloat16" else 1e-5
+    np.testing.assert_allclose(got, want, rtol=tol,
+                               atol=tol * np.abs(want).max())
+
+
+@pytest.mark.cuda
+def test_flash_kernel_refuses_what_it_does_not_take(card):
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+
+    q, k, v = _qkv(card, 1, 64, 64, 4, 2, 64, "bfloat16")
+    with pytest.raises(TypeError):
+        fa_kernel.flash_attention_cuda(q, k.float(), v)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa_kernel.flash_attention_cuda(q.transpose(1, 2), k, v)
+    q48, k48, v48 = _qkv(card, 1, 64, 64, 4, 2, 48, "float32")
+    with pytest.raises(ValueError, match="head dim"):
+        fa_kernel.flash_attention_cuda(q48, k48, v48)
+    q3, k3, v3 = _qkv(card, 1, 64, 64, 3, 2, 64, "float32")
+    with pytest.raises(ValueError, match="group"):
+        fa_kernel.flash_attention_cuda(q3, k3, v3)
+
+
+@pytest.mark.cuda
+def test_model_on_card_needs_flash(card):
+    from repro_torch.config import ParallelConfig
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention
+    from repro_torch.models.model import Model
+
+    cfg = get_config("granite-3-2b-smoke")
+    with pytest.raises(NotImplementedError, match="use_flash_attention"):
+        Model(cfg, device=card)
+    q, k, v = _qkv(card, 1, 64, 64, 4, 2, 16, "float32")
+    with pytest.raises(NotImplementedError, match="use_flash_attention"):
+        attention._maybe_flash(cfg, ParallelConfig(), q, k, v, causal=True)
+
+
+@pytest.mark.cuda
+def test_features_kernel_matches_plain(card, monkeypatch):
+    import dataclasses
+
+    from repro_torch.config import ParallelConfig
+    from repro_torch.configs import get_config
+    from repro_torch.data.event_dgp import make_event_data
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models.model import Model
+
+    cfg = dataclasses.replace(get_config("granite-3-2b-smoke"),
+                              d_model=128, num_heads=4, num_kv_heads=2,
+                              head_dim=32, num_layers=3,
+                              compute_dtype=torch.bfloat16)
+    model = Model(cfg, ParallelConfig(use_flash_attention=True),
+                  device=card, seed=3)
+    d = make_event_data(24, 160, cfg.vocab_size, seed=1, device=card)
+    n0 = fa_kernel.LAUNCHES["flash_attention"]
+    got = model.features(d.tokens)
+    assert fa_kernel.LAUNCHES["flash_attention"] == n0 + cfg.num_layers
+    monkeypatch.setattr(fa_ops, "flash_attention", _fa_plain)
+    want = model.features(d.tokens)
+    assert fa_kernel.LAUNCHES["flash_attention"] == n0 + cfg.num_layers
+    got, want = got.cpu().numpy(), want.cpu().numpy()
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=2e-2 * np.abs(want).max())

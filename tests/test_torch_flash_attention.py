@@ -1,0 +1,94 @@
+"""The port's flash attention (repro_torch.kernels.flash_attention) held
+against the JAX package's.
+
+  * the plain version against the Pallas kernel run in interpret mode
+    (``flash_attention_pallas(..., interpret=True)``) and against the
+    reference's ``attention_ref``: causal and not, GQA (H != KV) and
+    MQA, softcap, fp32 and bf16 inputs;
+  * ``ops.flash_attention`` in the model's (B, S, heads, D) layout
+    against the reference's ``ops.flash_attention`` (the layout round
+    trip), and a device that is neither CPU nor CUDA is refused.
+
+The same inputs, made with numpy, go to both packages.  Tolerance: fp32
+outputs rtol 1e-5 with atol 1e-5·max|o| (fp32 sums in another order);
+bf16 outputs 8e-3·max|o| — both packages round an fp32 result to bf16,
+and a sum that straddles a rounding boundary lands one bf16 step
+(2^-8 relative) apart.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels.flash_attention import kernel as jfa_kernel  # noqa: E402
+from repro.kernels.flash_attention import ops as jfa_ops  # noqa: E402
+from repro.kernels.flash_attention import ref as jfa_ref  # noqa: E402
+from repro_torch.kernels.flash_attention import ops, ref  # noqa: E402
+
+# B, Sq, Sk, H, KV, D, causal, softcap, block
+_CASES = [
+    (1, 64, 64, 4, 2, 16, True, 0.0, 32),    # GQA, causal, 2 key blocks
+    (2, 32, 64, 2, 2, 32, False, 0.0, 32),   # MHA, rectangular, not causal
+    (1, 64, 64, 4, 1, 16, True, 30.0, 32),   # MQA, softcap
+]
+
+
+def _inputs(B, Sq, Sk, H, KV, D, seed=0):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((B, H, Sq, D)).astype(np.float32),
+            rng.standard_normal((B, KV, Sk, D)).astype(np.float32),
+            rng.standard_normal((B, KV, Sk, D)).astype(np.float32))
+
+
+def _close(got, want, bf16: bool):
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    tol = 8e-3 if bf16 else 1e-5
+    np.testing.assert_allclose(got, want, rtol=0 if bf16 else tol,
+                               atol=tol * float(np.abs(want).max()))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", _CASES)
+def test_plain_matches_reference(case, dtype):
+    B, Sq, Sk, H, KV, D, causal, cap, blk = case
+    arrs = _inputs(B, Sq, Sk, H, KV, D)
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    jq, jk, jv = (jnp.asarray(a).astype(jd) for a in arrs)
+    tq, tk, tv = (torch.from_numpy(a).to(td) for a in arrs)
+    got = ref.attention_ref(tq, tk, tv, causal=causal, softcap=cap)
+    assert got.dtype == td and tuple(got.shape) == (B, H, Sq, D)
+    got = got.float().numpy()
+    want_pallas = jfa_kernel.flash_attention_pallas(
+        jq, jk, jv, causal=causal, softcap=cap, block_q=blk, block_k=blk,
+        interpret=True)
+    want_ref = jfa_ref.attention_ref(jq, jk, jv, causal=causal, softcap=cap)
+    _close(got, np.asarray(want_pallas.astype(jnp.float32)),
+           dtype == "bfloat16")
+    _close(got, np.asarray(want_ref.astype(jnp.float32)),
+           dtype == "bfloat16")
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_ops_layout_round_trip(causal):
+    B, S, H, KV, D = 2, 48, 4, 2, 16
+    rng = np.random.default_rng(1)
+    q = rng.standard_normal((B, S, H, D)).astype(np.float32)
+    k = rng.standard_normal((B, S, KV, D)).astype(np.float32)
+    v = rng.standard_normal((B, S, KV, D)).astype(np.float32)
+    got = ops.flash_attention(*map(torch.from_numpy, (q, k, v)),
+                              causal=causal)
+    assert tuple(got.shape) == (B, S, H, D)
+    want = jfa_ops.flash_attention(*map(jnp.asarray, (q, k, v)),
+                                   causal=causal, backend="ref")
+    _close(got.numpy(), np.asarray(want), False)
+    # the layout is only a transpose of the (B, heads, S, D) function
+    direct = ref.attention_ref(*(torch.from_numpy(a).transpose(1, 2)
+                                 for a in (q, k, v)), causal=causal)
+    assert torch.equal(got, direct.transpose(1, 2))
+
+
+def test_ops_refuses_other_devices():
+    q = torch.empty((1, 8, 2, 16), device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        ops.flash_attention(q, q[:, :, :1], q[:, :, :1])

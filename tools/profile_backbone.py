@@ -1,0 +1,91 @@
+#!/usr/bin/env python3
+"""Where the backbone's feature time goes on the card: one profiled
+forward of ``Model.features`` at chip_smoke.py's backbone shape.
+
+    python3 tools/profile_backbone.py [--batch 256] [--seq 256]
+
+Builds granite-3-2b at full width and depth on the CUDA card (port init
+from ``--seed``), runs one warm-up batch, then one batch under
+``torch.profiler`` (CPU and CUDA activities), and prints the device
+time by kernel class — the flash-attention kernel, GEMMs (cuBLAS /
+CUTLASS), everything else (casts, norms, RoPE, SwiGLU, gathers) — with
+the host-clock time of the same batch and the device's busy share of
+it.  The last line is one JSON object with those numbers.  Exits 2
+without CUDA.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+
+def _klass(name: str) -> str:
+    n = name.lower()
+    if "fa_fwd_kernel" in n:
+        return "flash_attention"
+    if any(s in n for s in ("gemm", "xmma", "cutlass", "nvjet", "sm90_")):
+        return "gemm"
+    return "other"
+
+
+def main(argv=None) -> int:
+    """Profile one batch; 0 on success."""
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--batch", type=int, default=256)
+    ap.add_argument("--seq", type=int, default=256)
+    ap.add_argument("--seed", type=int, default=123)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("profile_backbone: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
+    from repro_torch.config import ParallelConfig
+    from repro_torch.configs import get_config
+    from repro_torch.data.event_dgp import make_event_data
+    from repro_torch.models.model import Model
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+    print(card, flush=True)
+    cfg = get_config("granite-3-2b")
+    model = Model(cfg, ParallelConfig(use_flash_attention=True),
+                  seed=args.seed)
+    tokens = make_event_data(args.batch, args.seq, cfg.vocab_size,
+                             seed=args.seed).tokens
+    model.features(tokens)                      # warm-up: build, cuBLAS
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        model.features(tokens)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by = {"flash_attention": 0.0, "gemm": 0.0, "other": 0.0}
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0.0))
+        if dev_us and ev.device_type == torch.autograd.DeviceType.CUDA:
+            by[_klass(ev.key)] += dev_us / 1e3
+    busy = sum(by.values())
+    for k, v in by.items():
+        print(f"{k:16s} {v:10.3f} ms device "
+              f"({100 * v / busy if busy else 0:.1f} % of device time)")
+    print(f"one batch ({args.batch} x {args.seq} tokens): host clock "
+          f"{wall_ms:.3f} ms, device busy {busy:.3f} ms "
+          f"({100 * busy / wall_ms:.1f} %; not measured if 0)")
+    print(json.dumps({"card": card, "batch": args.batch, "seq": args.seq,
+                      "wall_ms": wall_ms, "device_ms": by,
+                      "device_busy_share": busy / wall_ms}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
