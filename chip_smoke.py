@@ -38,9 +38,26 @@ Phases (each failure makes the script exit non-zero):
      the first 512 users' features through the kernel against the same
      run through the plain attention;
   8. the seg_gram kernel's design and gram_and_vec forms on the
-     backbone path's own features (q = 2049, k = 5).
+     backbone path's own features (q = 2049, k = 5);
+  9. the scan kernels against their plain chunked versions and an fp64
+     naive oracle (first 32 batch rows): GLA in bonus and post modes at
+     rwkv6-3b's batch (256 x 40 heads x 256 x 64, bf16 r/k/v as
+     strided (B, T, H, D) views, fp32 w and u, all random), an fp32 case
+     and T = 200 (the chunk halved to 8); SSD at zamba2-1.2b's batch
+     (256 users x 64 heads x 256 x 64, fp32, strided v and a) and
+     T = 200; kernel / plain times and the bound (bytes over 3.35 TB/s,
+     or the causal-triangle FLOP over 67 TFLOP/s fp32, the larger);
+ 10. the same backbone path as 7 for rwkv6-3b (32 layers, d 2560, GLA
+     1,024 launches) and zamba2-1.2b (38 mamba layers + the shared
+     attention block 7 times: SSD 1,216, flash 224), each model freed
+     before the next, the features gate through the plain scans (gated
+     end to end for granite and rwkv6: see FEAT_GATED), and on all three
+     a per-block gate — every block applied to the kernel run's own
+     hidden states through the kernels and through the plain versions;
+     and seg_gram's heads forms at rwkv6's q = 2561.
 
-The line before the last is the kernels' JSON record; the last line is
+The backbone phases are named ``backbone:<arch>``.  The line before the
+last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits 2 and prints
 no result.
 """
@@ -73,12 +90,33 @@ FA_TOL = {torch.float32: 1e-5, torch.bfloat16: 8e-3}
 # element); the pooled features are themselves rounded to bf16, so one
 # step of the largest feature is 3.9e-3.  2e-2 allows ~5 such steps.
 FEAT_TOL = 2e-2
+# The same gate per block: each block of the path applied to the kernel
+# run's own hidden states through the kernels and through the plain
+# versions.  Both round the block's output and then the residual sum to
+# bf16, so they may part by one bf16 step at each rounding, and one step
+# at the top of a binade is 2^-7 of the largest element: 2 x 2^-7.
+BLOCK_TOL = 1.6e-2
+# Backbones whose end-to-end features gate (FEAT_TOL) is a test of the
+# kernels.  zamba2-1.2b's is not: tools/feature_drift.py shows its
+# untrained stack amplifying a ~1e-6 per-block difference in fp32
+# compute to ~8e-2 of the hidden state over its 45 blocks, so any two
+# correct implementations that sum in another order part at its output.
+# Its end-to-end error is printed; the per-block gate holds it.
+FEAT_GATED = ("granite-3-2b", "rwkv6-3b")
+# scan kernels: max|kernel - plain| / max|plain| over o and the state.
+# fp32: the same factorised sums in another order.  bf16 o: both round
+# the same fp32 value to bf16, one step (2^-8) apart where it straddles
+# a rounding boundary (the state stays fp32 in both).
+SCAN_TOL = {torch.float32: 1e-5, torch.bfloat16: 8e-3}
 SEG_SRC = "src/repro_torch/kernels/seg_gram/csrc/seg_gram.cu"
 SEG_TPU = "src/repro/kernels/seg_gram/kernel.py:57"
 RG_TPU = "src/repro/kernels/residual_gram/kernel.py:29"
 FA_SRC = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 FA_TPU = "src/repro/kernels/flash_attention/kernel.py:76"
-BACKBONE_ARCH = "granite-3-2b"
+SCAN_SRC = "src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu"
+GLA_TPU = "src/repro/kernels/ssm_scan/kernel.py:88"
+SSD_TPU = "src/repro/kernels/ssm_scan/kernel.py:169"
+BACKBONE_ARCHS = ("granite-3-2b", "rwkv6-3b", "zamba2-1.2b")
 BACKBONE_USERS, BACKBONE_SEQ, BACKBONE_BATCH, GATE_USERS = 8192, 256, 256, 512
 
 
@@ -537,25 +575,218 @@ def phase_flash(seed: int, timer) -> dict:
         "shape": path["q"], "other_checks": extra}}
 
 
-class _PlainAttention:
-    """Route the model's flash attention to the plain version (the
-    features gate's reference run); restores the kernel on exit."""
+def _scan_record(name, tpu, path, ms, plain_ms, nbytes, flops):
+    """A kernel record of the scan phase (launches filled in later)."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    log(f"kernel {name} [{path['what']}] ms={ms:.4f} plain_ms={plain_ms:.4f} "
+        f"library_ms=null (no single PyTorch call) "
+        f"bound_ms={max(t_bytes, t_ops):.4f} "
+        f"({'bytes' if t_bytes >= t_ops else 'operations'}: "
+        f"{nbytes / 1e9:.3f} GB at 3.35 TB/s, {flops / 1e9:.1f} GFLOP at "
+        f"67 TFLOP/s fp32)")
+    return {"name": name, "route": "cuda", "source": SCAN_SRC, "replaces": tpu,
+            "launches": None, "max_abs_err": path["max_abs_err"], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None,
+            "err_kernel_vs_fp64": path["err_kernel_vs_fp64"],
+            "err_plain_vs_fp64": path["err_plain_vs_fp64"],
+            "shape": path["shape"]}
+
+
+def _scan_check(kernel_fn, plain_fn, exact_fn, args, tol, what, batch=32):
+    """Kernel vs plain (both outputs) and both vs the fp64 naive oracle
+    on the first ``batch`` rows; raises beyond ``tol``."""
+    got = kernel_fn(*args)
+    plain = plain_fn(*args)
+    torch.cuda.synchronize()
+    kp = max(rel(g, p) for g, p in zip(got, plain))
+    max_abs = max(float((g.double() - p.double()).abs().max())
+                  for g, p in zip(got, plain))
+    sl = [a[:batch] if a is not None and a.dim() > 2 else a for a in args]
+    exact = exact_fn(*sl)
+    err_k = max(rel(g[:batch], e) for g, e in zip(got, exact))
+    err_p = max(rel(p[:batch], e) for p, e in zip(plain, exact))
+    del exact
+    finite = all(bool(torch.isfinite(g).all()) for g in got)
+    ok = kp <= tol and finite
+    log(f"kernel {what}: o {tuple(got[0].shape)} {str(got[0].dtype)[6:]} "
+        f"err/max kernel-vs-fp64={err_k:.3e} plain-vs-fp64={err_p:.3e} "
+        f"kernel-vs-plain={kp:.3e} (tol {tol:g}) {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"scan kernel disagrees with its plain version "
+                             f"[{what}]: {kp:.3e} > {tol:g}")
+    return {"what": what, "shape": list(got[0].shape), "max_abs_err": max_abs,
+            "err_kernel_vs_fp64": err_k, "err_plain_vs_fp64": err_p}
+
+
+def phase_scans(seed: int, timer) -> dict:
+    """The GLA (bonus and post) and SSD kernels against their plain
+    chunked versions and an fp64 naive oracle, at rwkv6's and zamba2's
+    main-path shapes in the layouts the models pass (strided (B, T, H, D)
+    views), plus an fp32 case and a ragged T that halves the chunk; u, w,
+    a and the inputs random (the untrained init's u = 0 would hide the
+    bonus term).  Timings at the main-path shapes."""
+    from repro_torch.kernels.ssm_scan import kernel as sk
+    from repro_torch.kernels.ssm_scan import ops as sops
+    from repro_torch.kernels.ssm_scan import ref as sref
+
+    g = torch.Generator(device="cuda").manual_seed(seed + 13)
+    dev, bf16, f32 = "cuda", torch.bfloat16, torch.float32
+    wmin = float(torch.exp(torch.tensor(-sref.MAX_LOG_DECAY)))
+
+    def gla_in(B, H, T, D, dtype):
+        def bthd(lo=None):
+            x = (torch.rand((B, T, H, D), generator=g, device=dev) * (1 - lo)
+                 + lo if lo is not None
+                 else torch.randn((B, T, H, D), generator=g, device=dev))
+            return x.transpose(1, 2)
+        q, k, v = (bthd().to(dtype) for _ in range(3))
+        return (q, k, v, bthd(lo=wmin),
+                torch.randn((H, D), generator=g, device=dev))
+
+    def naive64(*a):
+        return sref.gla_naive(*(None if x is None else x.double() for x in a))
+
+    out, checks = {}, []            # checks: the smaller GLA cases
+    B, H, T, D, C = BACKBONE_BATCH, 40, BACKBONE_SEQ, 64, 16   # rwkv6-3b
+    for mode in ("bonus", "post"):
+        q, k, v, w, u = gla_in(B, H, T, D, bf16)
+        uu = u if mode == "bonus" else None
+        args = (q, k, v, w, uu)
+        path = _scan_check(lambda *a: sops.gla(*a, chunk=C),
+                           lambda *a: sref.gla_chunked_ref(*a, chunk=C),
+                           naive64, args, SCAN_TOL[bf16],
+                           f"gla {mode}, rwkv6 (B,T,H,D) views, bf16 r/k/v")
+        path["what"] = f"{mode}, rwkv6 batch"
+        ms = timer.ms(lambda: sk.gla_cuda(*args, chunk=C), 10)
+        plain_ms = timer.ms(lambda: sref.gla_chunked_ref(*args, chunk=C), 3)
+        n = B * H * T
+        nbytes = (3 * 2 * n * D + 4 * n * D + 2 * n * D      # r,k,v,w; o
+                  + 4 * B * H * D * D                        # state
+                  + (4 * H * D if uu is not None else 0))    # u
+        tri = C * (C + 1) // 2                               # causal pairs
+        flops = (B * H * (T // C)
+                 * (2 * tri * D * 2 + 2 * C * D * D * 2))    # QK,PV; qS,kv
+        out[f"gla[{mode}]"] = _scan_record(f"gla[{mode}]", GLA_TPU, path, ms,
+                                           plain_ms, nbytes, flops)
+        out[f"gla[{mode}]"]["other_checks"] = checks
+        del q, k, v, w, u, args
+        torch.cuda.empty_cache()
+    # fp32, and a ragged T = 200 (chunk 16 -> 8)
+    for (Bx, Hx, Tx, dt, what) in ((4, 8, 256, f32, "gla bonus, fp32"),
+                                   (4, 8, 200, bf16, "gla bonus, T=200")):
+        args = gla_in(Bx, Hx, Tx, D, dt)
+        fit = C
+        while Tx % fit:
+            fit //= 2
+        checks.append(_scan_check(
+            lambda *a: sops.gla(*a, chunk=C),
+            lambda *a, f=fit: sref.gla_chunked_ref(*a, chunk=f), naive64,
+            args, SCAN_TOL[dt], what))
+
+    def ssd_in(B, H, T, N, P):
+        q, k = (torch.randn((B, T, N), generator=g, device=dev)
+                for _ in range(2))
+        v = torch.randn((B, T, H, P), generator=g, device=dev).transpose(1, 2)
+        a = (torch.rand((B, T, H), generator=g, device=dev) * (1 - 1e-3)
+             + 1e-3).transpose(1, 2)
+        return q, k, v, a
+
+    def ssd64(*a):
+        return sref.ssd_naive(*(x.double() for x in a))
+
+    B, H, T, N, C = BACKBONE_BATCH, 64, BACKBONE_SEQ, 64, 32     # zamba2
+    args = ssd_in(B, H, T, N, N)
+    path = _scan_check(lambda *a: sops.ssd(*a, chunk=C),
+                       lambda *a: sref.ssd_chunked_ref(*a, chunk=C), ssd64,
+                       args, SCAN_TOL[f32],
+                       "ssd, zamba2 (B,T,H,P) views, fp32")
+    path["what"] = "zamba2 batch"
+    ms = timer.ms(lambda: sk.ssd_cuda(*args, chunk=C), 10)
+    plain_ms = timer.ms(lambda: sref.ssd_chunked_ref(*args, chunk=C), 3)
+    n = B * H * T
+    nbytes = (2 * 4 * B * T * N + 4 * n * N + 4 * n          # q,k; v; a
+              + 4 * n * N + 4 * B * H * N * N)               # o; state
+    tri = C * (C + 1) // 2
+    flops = (B * (T // C) * 2 * tri * N                      # shared q k^T
+             + B * H * (T // C) * (2 * tri * N + 2 * 2 * C * N * N))
+    out["ssd"] = _scan_record("ssd", SSD_TPU, path, ms, plain_ms, nbytes,
+                              flops)
+    del args
+    torch.cuda.empty_cache()
+    args = ssd_in(4, 8, 200, N, N)                           # chunk 32 -> 8
+    out["ssd"]["other_checks"] = [_scan_check(
+        lambda *a: sops.ssd(*a, chunk=C),
+        lambda *a: sref.ssd_chunked_ref(*a, chunk=8), ssd64, args,
+        SCAN_TOL[f32], "ssd, T=200")]
+    return out
+
+
+class _PlainKernels:
+    """Route the model's flash attention and scans to their plain
+    versions (the features gate's reference run); restores the kernels
+    on exit."""
 
     def __enter__(self):
         from repro_torch.kernels.flash_attention import ops as fa_ops
-        self.ops, self.saved = fa_ops, fa_ops.flash_attention
+        from repro_torch.kernels.ssm_scan import ops as sops
+        from repro_torch.kernels.ssm_scan import ref as sref
+        self.saved = [(fa_ops, "flash_attention", fa_ops.flash_attention),
+                      (sops, "gla", sops.gla), (sops, "ssd", sops.ssd)]
         fa_ops.flash_attention = _fa_plain
+        sops.gla = lambda *a, chunk: sref.gla_chunked_ref(*a, chunk=chunk)
+        sops.ssd = lambda *a, chunk: sref.ssd_chunked_ref(*a, chunk=chunk)
 
     def __exit__(self, *exc):
-        self.ops.flash_attention = self.saved
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
 
 
 def _standardize(f: torch.Tensor) -> torch.Tensor:
     return (f - f.mean(0)) / (f.std(0, correction=0) + 1e-6)
 
 
-def phase_backbone(seed: int):
-    """The LM-backbone main path at granite-3-2b's full width and depth;
+@torch.no_grad()
+def _block_errors(model, tokens) -> dict:
+    """max|kernel - plain| / max|plain| of every block's output, each
+    block applied to the kernel run's own hidden states, over the users
+    in batches of BACKBONE_BATCH."""
+    from repro_torch.models.layers import embed_tokens
+
+    errs = {}
+    for i in range(0, tokens.shape[0], BACKBONE_BATCH):
+        h = embed_tokens(model.embed, model.cfg, tokens[i:i + BACKBONE_BATCH])
+        for j, (name, block, p) in enumerate(model.decoder.layers(model.stack)):
+            with _PlainKernels():
+                want = block(p, h)
+            h = block(p, h)
+            key = f"{j}:{name}"
+            errs[key] = max(errs.get(key, 0.0), rel(h, want))
+    return errs
+
+
+def _backbone_launches(cfg, newton_iters: int) -> dict:
+    """Launches one backbone path must count: the model's kernels per
+    batch (flash per dense layer or per shared-block use, GLA per rwkv6
+    layer, SSD per mamba layer) and the DML heads' seg_gram forms."""
+    batches = -(-BACKBONE_USERS // BACKBONE_BATCH)
+    if cfg.family == "ssm":
+        per_batch = {"gla": cfg.num_layers}
+    elif cfg.family == "hybrid":         # one shared block after each group
+        per_batch = {"ssd": cfg.num_layers,
+                     "flash_attention": -(-cfg.num_layers
+                                          // cfg.shared_attn_every)}
+    else:
+        per_batch = {"flash_attention": cfg.num_layers}
+    return {**{k: n * batches for k, n in per_batch.items()},
+            "design": 1, "gram_and_vec": newton_iters, "residual": 1,
+            "residual_meat": 1}
+
+
+def phase_backbone(seed: int, arch: str):
+    """One LM-backbone main path at ``arch``'s full width and depth;
     returns (launch counts, standardized features, y, t)."""
     from repro_torch.config import CausalConfig, ParallelConfig
     from repro_torch.configs import get_config
@@ -565,17 +796,19 @@ def phase_backbone(seed: int):
     from repro_torch.data.event_dgp import make_event_data
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.seg_gram import kernel as sg_kernel
+    from repro_torch.kernels.ssm_scan import kernel as scan_kernel
     from repro_torch.models.model import Model
 
-    cfg = get_config(BACKBONE_ARCH)
+    cfg = get_config(arch)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = Model(cfg, ParallelConfig(use_flash_attention=True), seed=seed)
     data = make_event_data(BACKBONE_USERS, BACKBONE_SEQ, cfg.vocab_size, seed=seed)
     torch.cuda.synchronize()
-    log(f"backbone {cfg.name}: {cfg.num_layers} layers, d_model "
-        f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads x "
-        f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.padded_vocab}; "
+    log(f"backbone {cfg.name} ({cfg.family}): {cfg.num_layers} layers, "
+        f"d_model {cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads "
+        f"x {cfg.head_dim}, d_ff {cfg.d_ff}, ssm_state {cfg.ssm_state}, "
+        f"chunk {cfg.ssm_chunk}, vocab {cfg.padded_vocab}; "
         f"{sum(p.numel() for p in model.parameters()) / 1e9:.3f} B params "
         f"(fp32), init + data {time.perf_counter() - t0:.2f} s")
     t, y = data.t, data.y
@@ -586,9 +819,9 @@ def phase_backbone(seed: int):
                         row_block=4096, row_block_strategy="pallas")
     est = DML(ccfg)
     torch.cuda.synchronize()
-    fa_kernel.LAUNCHES.clear()
-    sg_kernel.LAUNCHES.clear()
-    moments.FALLBACKS.clear()
+    for counter in (fa_kernel.LAUNCHES, sg_kernel.LAUNCHES,
+                    scan_kernel.LAUNCHES, moments.FALLBACKS):
+        counter.clear()
     t0 = time.perf_counter()
     feats = backbone_features(model, data.tokens, batch_size=BACKBONE_BATCH)
     torch.cuda.synchronize()
@@ -599,36 +832,43 @@ def phase_backbone(seed: int):
     inf = res.inference()
     torch.cuda.synchronize()
     t_fit = time.perf_counter() - t0
-    counts = {**dict(fa_kernel.LAUNCHES), **dict(sg_kernel.LAUNCHES)}
+    counts = {**dict(fa_kernel.LAUNCHES), **dict(scan_kernel.LAUNCHES),
+              **dict(sg_kernel.LAUNCHES)}
     fallbacks = {f: c for f, c in moments.FALLBACKS.items() if c}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
 
-    # gate 1: the first users' features through the plain attention
-    with _PlainAttention():
+    # gate 1: the first users' features through the plain versions
+    with _PlainKernels():
         plain = backbone_features(model, data.tokens[:GATE_USERS],
                                   batch_size=BACKBONE_BATCH)
     torch.cuda.synchronize()
     feat_err = rel(feats[:GATE_USERS], plain)
+    # gate 2: every block on the kernel run's own hidden states
+    block_err = _block_errors(model, data.tokens[:GATE_USERS])
     theta = float(res.theta[0])
     se_jk, se_hc0 = float(inf.se[0]), float(res.stderr[0])
-    log(f"backbone path: features {t_feat:.3f} s, fit+jackknife "
+    log(f"backbone path {cfg.name}: features {t_feat:.3f} s, fit+jackknife "
         f"{t_fit:.3f} s, peak device memory {peak:.2f} GiB; "
         f"theta={theta:.5f} jackknife se={se_jk:.5f} HC0 se={se_hc0:.5f} "
         f"naive diff-in-means={naive:.5f} (true 2.0) "
         f"|theta-2|/max(se)={abs(theta - 2.0) / max(se_jk, se_hc0):.3f} "
         f"features kernel-vs-plain (first {GATE_USERS} users) "
-        f"{feat_err:.3e} (tol {FEAT_TOL:g}) launches={counts} "
-        f"fallbacks={fallbacks}")
-    expected = {"flash_attention": cfg.num_layers
-                * -(-BACKBONE_USERS // BACKBONE_BATCH),
-                "design": 1, "gram_and_vec": ccfg.newton_iters,
-                "residual": 1, "residual_meat": 1}
+        f"{feat_err:.3e} ("
+        f"{'tol %g' % FEAT_TOL if arch in FEAT_GATED else 'not gated'}), "
+        f"worst block {max(block_err, key=block_err.get)} "
+        f"{max(block_err.values()):.3e} (tol {BLOCK_TOL:g}) "
+        f"launches={counts} fallbacks={fallbacks}")
+    expected = _backbone_launches(cfg, ccfg.newton_iters)
     if not (torch.isfinite(res.theta).all() and torch.isfinite(res.cov).all()
             and bool(torch.isfinite(feats).all())):
         raise AssertionError("non-finite features, theta or cov")
-    if not feat_err <= FEAT_TOL:
-        raise AssertionError(f"features through the kernel and the plain "
-                             f"attention differ: {feat_err:.3e}")
+    if arch in FEAT_GATED and not feat_err <= FEAT_TOL:
+        raise AssertionError(f"features through the kernels and the plain "
+                             f"versions differ: {feat_err:.3e}")
+    bad = {k: v for k, v in block_err.items() if not v <= BLOCK_TOL}
+    if bad:
+        raise AssertionError(f"blocks through the kernels and the plain "
+                             f"versions differ: {bad}")
     if counts != expected:
         raise AssertionError(f"launches {counts}, expected {expected}")
     if fallbacks:
@@ -656,6 +896,7 @@ def main(argv=None) -> int:
         from repro_torch.data.causal_dgp import paper_demo_data
         from repro_torch.kernels.flash_attention import kernel as fa_kern
         from repro_torch.kernels.seg_gram import kernel as kern
+        from repro_torch.kernels.ssm_scan import kernel as scan_kern
     except ImportError as e:
         print(f"chip_smoke: the repro_torch package is missing ({e})",
               file=sys.stderr)
@@ -669,18 +910,18 @@ def main(argv=None) -> int:
         f"device {torch.cuda.get_device_name(0)} "
         f"count {torch.cuda.device_count()}")
     t0 = time.perf_counter()
-    builds = [threading.Thread(target=lib) for lib in (kern.library,
-                                                        fa_kern.library)]
+    mods = (kern, fa_kern, scan_kern)
+    builds = [threading.Thread(target=m.library) for m in mods]
     for b in builds:
         b.start()
     for b in builds:
         b.join()
-    kern.library()            # raises here if a build failed
-    fa_kern.library()
-    log(f"built seg_gram.cu and flash_attention.cu (in parallel) in "
-        f"{time.perf_counter() - t0:.1f} s")
-    log(kern.build_log().strip())
-    log(fa_kern.build_log().strip())
+    for m in mods:
+        m.library()           # raises here if a build failed
+    log(f"built seg_gram.cu, flash_attention.cu and ssm_scan.cu (in "
+        f"parallel) in {time.perf_counter() - t0:.1f} s")
+    for m in mods:
+        log(m.build_log().strip())
 
     k, p, row_block = 5, 500, 65536
     data = paper_demo_data(n=args.n, p=p, seed=args.seed)
@@ -735,27 +976,41 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     records.update(run("kernels:flash", phase_flash, args.seed, timer) or {})
     torch.cuda.empty_cache()
-    out = run("backbone", phase_backbone, args.seed)
+    records.update(run("kernels:scan", phase_scans, args.seed, timer) or {})
     torch.cuda.empty_cache()
-    if out is not None:
+    flash_by_path = {}
+    for arch in BACKBONE_ARCHS:
+        out = run(f"backbone:{arch}", phase_backbone, args.seed, arch)
+        torch.cuda.empty_cache()
+        if out is None:
+            continue
         counts, X, y, t = out
-        launches["flash_attention"] = counts.get("flash_attention", 0)
-        for key in ("design", "gram_and_vec"):
-            launches[key + "@q2049"] = counts.get(key, 0)
-        bfolds = fold_ids(torch.Generator().manual_seed(args.seed),
-                          X.shape[0], k, device="cuda")
-        records.update(run("kernels:backbone-heads", phase_kernels, X, y, t,
-                           bfolds, k, timer, ("design", "gram_and_vec"),
-                           "@q2049") or {})
+        flash_by_path[arch] = counts.get("flash_attention", 0)
+        if arch == "granite-3-2b":
+            launches["flash_attention"] = flash_by_path[arch]
+        launches["gla[bonus]"] = launches.get("gla[bonus]", 0) + counts.get(
+            "gla", 0)
+        launches["ssd"] = launches.get("ssd", 0) + counts.get("ssd", 0)
+        q = f"@q{X.shape[1] + 1}"
+        if arch != "zamba2-1.2b":        # q = 2049 again: granite's heads
+            for key in ("design", "gram_and_vec"):
+                launches[key + q] = counts.get(key, 0)
+            bfolds = fold_ids(torch.Generator().manual_seed(args.seed),
+                              X.shape[0], k, device="cuda")
+            records.update(run(f"kernels:backbone-heads{q}", phase_kernels,
+                               X, y, t, bfolds, k, timer,
+                               ("design", "gram_and_vec"), q) or {})
         del X, y, t, out
         torch.cuda.empty_cache()
 
     for key, rec in records.items():
         rec["launches"] = launches.get(key, 0)
+    if "flash_attention" in records:
+        records["flash_attention"]["launches_by_path"] = flash_by_path
     log(f"total {time.perf_counter() - t_start:.1f} s")
     line = {"kernels": list(records.values()), "n": args.n, "p": p,
             "k": k, "row_block": row_block, "users": BACKBONE_USERS,
-            "backbone": BACKBONE_ARCH}
+            "backbones": list(BACKBONE_ARCHS)}
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(

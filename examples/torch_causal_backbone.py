@@ -6,14 +6,18 @@ cross-fit DML with a delete-fold jackknife interval.
 A user's sequence encodes a latent engagement score that confounds both
 the treatment (a promo) and the outcome (deposits); the true effect is
 2.0.  The backbone is untrained (weights from the port's init on a
-seeded generator), as in ``examples/causal_backbone.py``.
+seeded generator), as in ``examples/causal_backbone.py``, whose default
+backbone, rwkv6-3b, is this one's too.
 
     PYTHONPATH=src python examples/torch_causal_backbone.py \\
-        [--arch granite-3-2b] [--users 8192] [--seq 64] [--device cpu]
+        [--arch rwkv6-3b | zamba2-1.2b | granite-3-2b] [--users 8192] \\
+        [--seq 64] [--device cpu]
 
-Runs on the CUDA card by default, through the hand-written flash
-attention and segment-Gram kernels; ``--device cpu`` runs the plain
-versions (use ``--arch granite-3-2b-smoke`` there).
+Runs on the CUDA card by default, through the hand-written kernels
+(GLA scan for rwkv6, SSD scan and flash attention for zamba2, flash
+attention for granite, segment-Gram for the DML heads); ``--device cpu``
+runs the plain versions (use a ``-smoke`` arch there, e.g.
+``--arch rwkv6-3b-smoke``).
 """
 import argparse
 import time
@@ -29,9 +33,9 @@ from repro_torch.device import resolve_device
 from repro_torch.models.model import Model
 
 ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-ap.add_argument("--arch", default="granite-3-2b",
+ap.add_argument("--arch", default="rwkv6-3b",
                 help="backbone config (suffix -smoke: the reduced variant)")
-# more users than backbone features (d_model 2048), or the ridge heads
+# more users than backbone features (d_model up to 2560), or the ridge heads
 # over-fit the confounders
 ap.add_argument("--users", type=int, default=8192)
 ap.add_argument("--seq", type=int, default=64)

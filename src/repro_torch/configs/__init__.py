@@ -15,6 +15,8 @@ from repro_torch.config import ModelConfig, smoke_variant
 
 _MODULES: Dict[str, str] = {
     "granite-3-2b": "granite_3_2b",
+    "rwkv6-3b": "rwkv6_3b",
+    "zamba2-1.2b": "zamba2_1_2b",
 }
 
 # arch id -> the ROADMAP item that ports its model family
@@ -23,11 +25,9 @@ _LATER: Dict[str, str] = {
     "phi4-mini-3.8b": "ROADMAP A.13 (partial RoPE)",
     "chatglm3-6b": "ROADMAP A.13 (interleaved partial RoPE)",
     "pixtral-12b": "ROADMAP A.13 (vlm front end)",
-    "zamba2-1.2b": "ROADMAP A.13 / B.5 (hybrid, ssd_pallas)",
     "arctic-480b": "ROADMAP A.13 (MoE)",
     "deepseek-v3-671b": "ROADMAP A.13 (MLA and MoE)",
     "whisper-tiny": "ROADMAP A.13 (encoder-decoder)",
-    "rwkv6-3b": "ROADMAP A.13 / B.4 (rwkv6, gla_pallas)",
 }
 
 

@@ -1,0 +1,51 @@
+"""Dispatch for the chunked scans.
+
+``gla`` and ``ssd`` take the reference's layouts (``ssm_scan/ops.py``)
+and its chunk rule: ``chunk`` is halved until it divides T.  A CUDA
+tensor goes to the Hopper kernel (kernel.py), a CPU tensor to the plain
+chunked version (ref.py).  Nothing else is taken, and nothing falls back.
+The single-token steps (``ref.gla_step``, ``ref.ssd_step``) have no
+kernel: one rank-1 update and a readout.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.kernels.ssm_scan import kernel as _kernel
+from repro_torch.kernels.ssm_scan import ref as _ref
+
+Tensor = torch.Tensor
+
+
+def _fit_chunk(chunk: int, T: int) -> int:
+    while chunk > 1 and T % chunk:
+        chunk //= 2
+    return chunk
+
+
+def _device(x: Tensor, what: str) -> str:
+    if x.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"{what} runs on cuda or cpu, not {x.device}")
+    return x.device.type
+
+
+def gla(q: Tensor, k: Tensor, v: Tensor, w: Tensor,
+        u: Optional[Tensor] = None, *, chunk: int = 64
+        ) -> Tuple[Tensor, Tensor]:
+    """Gated-linear-attention scan; see ssm_scan.ref for semantics.
+    q,k,w (B,H,T,Dk); v (B,H,T,Dv); u (H,Dk) or None."""
+    chunk = _fit_chunk(chunk, q.shape[2])
+    if _device(q, "gla") == "cuda":
+        return _kernel.gla_cuda(q, k, v, w, u, chunk=chunk)
+    return _ref.gla_chunked_ref(q, k, v, w, u, chunk=chunk)
+
+
+def ssd(q: Tensor, k: Tensor, v: Tensor, a: Tensor, *, chunk: int = 32
+        ) -> Tuple[Tensor, Tensor]:
+    """Mamba2 SSD scan. q,k (B,T,N); v (B,H,T,P); a (B,H,T)."""
+    chunk = _fit_chunk(chunk, q.shape[1])
+    if _device(q, "ssd") == "cuda":
+        return _kernel.ssd_cuda(q, k, v, a, chunk=chunk)
+    return _ref.ssd_chunked_ref(q, k, v, a, chunk=chunk)

@@ -6,14 +6,18 @@ representation that the Dream11 scenario uses as confounders (paper §4).
 Parameters are registered under the reference's schema names
 (``embed.embedding``, ``stack.layers.attn.wq``, ``ln_f.scale``), so
 ``state_dict()`` keys are the reference's pytree paths and
-``convert.model_params`` loads the reference's weights unchanged.
+``convert.model_params`` loads the reference's weights unchanged.  The
+dense (granite), ssm (rwkv6) and hybrid (zamba2) families are built;
+an untied ``embed.unembed`` is held but ``features`` does not read it.
 
 ``Model(cfg, parallel, device=None, seed=0)`` initialises on a
 ``torch.Generator`` seeded ``seed`` on ``device`` (the card unless
 ``device="cpu"``), with the reference's init rule
-(``models/params.py``).  Off the CPU it needs
-``ParallelConfig(use_flash_attention=True)``.  ``forward_train``, ``prefill``, ``decode_step``
-and the vlm / encoder-decoder branches come with later slices.
+(``models/params.py``).  Off the CPU a family with attention (dense,
+hybrid) needs ``ParallelConfig(use_flash_attention=True)``; rwkv6 has
+none and needs no flag.  ``forward_train``, ``prefill``,
+``decode_step`` and the moe / vlm / encoder-decoder branches come with
+later slices.
 """
 from __future__ import annotations
 
@@ -32,7 +36,7 @@ Tensor = torch.Tensor
 
 
 class Model(nn.Module):
-    """A frozen LM backbone of the dense family."""
+    """A frozen LM backbone of the dense, ssm or hybrid family."""
 
     def __init__(self, cfg: ModelConfig,
                  parallel: Optional[ParallelConfig] = None, *,
@@ -47,7 +51,8 @@ class Model(nn.Module):
         self.decoder = DecoderStack(cfg, self.parallel)
         _, self.norm = make_norm(cfg)
         dev = resolve_device(device)
-        if dev.type != "cpu" and not self.parallel.use_flash_attention:
+        if (dev.type != "cpu" and cfg.family != "ssm"
+                and not self.parallel.use_flash_attention):
             raise NotImplementedError(
                 f"on {dev} attention runs through the flash kernel only: "
                 f"pass ParallelConfig(use_flash_attention=True)")

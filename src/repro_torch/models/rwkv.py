@@ -1,0 +1,141 @@
+"""RWKV-6 "Finch" block (rwkv6-3b): attention-free time-mix with
+data-dependent per-channel decay, and a squared-ReLU channel-mix.
+
+The counterpart of the reference's ``models/rwkv.py`` for the forward
+path (``time_mix_train``, ``channel_mix_train``).  The time-mix
+recurrence runs on the chunked GLA scan in "bonus" mode:
+o_t = r_t (S_{t-1} + diag(u) k_t v_t^T),  S_t = diag(w_t) S_{t-1} +
+k_t v_t^T, with w_t = exp(-exp(w0 + tanh(x W_a) W_b)) per channel.  The
+scan takes (B, H, T, D) views of the (B, T, H, D) projections: the
+Hopper kernel reads them through their strides and writes o in v's
+layout, so no transpose is copied on the card.  Prefill and decode come
+with the serving slice.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.config import ModelConfig
+from repro_torch.kernels.ssm_scan import ops as scan_ops
+from repro_torch.kernels.ssm_scan.ref import MAX_LOG_DECAY
+from repro_torch.models.params import ParamDef
+
+Tensor = torch.Tensor
+_F32 = torch.float32
+
+RWKV_HEADDIM = 64
+DECAY_LORA = 64
+
+
+def _heads(cfg: ModelConfig):
+    h = max(1, cfg.d_model // RWKV_HEADDIM)
+    return h, cfg.d_model // h
+
+
+def time_mix_schema(cfg: ModelConfig):
+    """Token-shift mixes, r/k/v/g/o projections, the decay LoRA, the
+    bonus u and the per-head group norm."""
+    d = cfg.d_model
+    lora = min(DECAY_LORA, d)
+    return {
+        "mu_r": ParamDef((d,), init="zeros"),
+        "mu_k": ParamDef((d,), init="zeros"),
+        "mu_v": ParamDef((d,), init="zeros"),
+        "mu_g": ParamDef((d,), init="zeros"),
+        "mu_w": ParamDef((d,), init="zeros"),
+        "wr": ParamDef((d, d), init="scaled"),
+        "wk": ParamDef((d, d), init="scaled"),
+        "wv": ParamDef((d, d), init="scaled"),
+        "wg": ParamDef((d, d), init="scaled"),
+        "wo": ParamDef((d, d), init="scaled"),
+        "w0": ParamDef((d,), init="ones", scale=1.0),
+        "w_a": ParamDef((d, lora), init="scaled"),
+        "w_b": ParamDef((lora, d), init="scaled", scale=0.1),
+        "u": ParamDef((d,), init="zeros"),
+        "ln_scale": ParamDef((d,), init="ones"),
+        "ln_bias": ParamDef((d,), init="zeros"),
+    }
+
+
+def channel_mix_schema(cfg: ModelConfig):
+    """Token-shift mixes and the squared-ReLU key/value/receptance."""
+    d, ff = cfg.d_model, cfg.d_ff
+    return {
+        "mu_k": ParamDef((d,), init="zeros"),
+        "mu_r": ParamDef((d,), init="zeros"),
+        "wk": ParamDef((d, ff), init="scaled"),
+        "wv": ParamDef((ff, d), init="scaled"),
+        "wr": ParamDef((d, d), init="scaled"),
+    }
+
+
+def _shift(x: Tensor) -> Tensor:
+    """Token shift: x_{t-1}, zeros at t=0."""
+    return F.pad(x, (0, 0, 1, 0))[:, :-1]
+
+
+def _lerp(x: Tensor, xs: Tensor, mu: Tensor) -> Tensor:
+    return x + (xs - x) * mu.to(x.dtype)
+
+
+def _decay(params, xw: Tensor) -> Tensor:
+    """Data-dependent per-channel decay in (0,1), fp32.  The rate
+    exp(-(w0 + lora)) is clamped to MAX_LOG_DECAY per step, which bounds
+    the chunked scan's exp(-cumsum) factor (ssm_scan.ref contract)."""
+    lo = torch.tanh(xw.to(_F32) @ params["w_a"].to(_F32)) @ params["w_b"].to(_F32)
+    rate = torch.clamp(torch.exp(-(params["w0"].to(_F32) + lo)),
+                       max=MAX_LOG_DECAY)
+    return torch.exp(-rate)
+
+
+def _group_norm(cfg: ModelConfig, params, o: Tensor) -> Tensor:
+    """Per-head layer norm of o (B, T, h, hd) in fp32 -> (B, T, d)."""
+    B, T, h, hd = o.shape
+    o = o.to(_F32)
+    mu = o.mean(-1, keepdim=True)
+    var = (o - mu).square().mean(-1, keepdim=True)
+    o = ((o - mu) * torch.rsqrt(var + cfg.norm_eps)).reshape(B, T, h * hd)
+    return o * params["ln_scale"].to(_F32) + params["ln_bias"].to(_F32)
+
+
+def _tm_qkvwg(params, cfg: ModelConfig, x: Tensor, xs: Tensor):
+    """r, k, v (compute dtype) and w (fp32) as (B, H, T, hd) views of
+    (B, T, H, hd) tensors; u (H, hd) fp32; the gate g (B, T, d)."""
+    ct = cfg.compute_dtype
+    h, hd = _heads(cfg)
+    B, T, _ = x.shape
+
+    def proj(name, mu):
+        return _lerp(x, xs, params[mu]) @ params[name].to(ct)
+
+    def heads(t):
+        return t.reshape(B, T, h, hd).transpose(1, 2)
+
+    r, k, v = (heads(proj(n, m)) for n, m in
+               (("wr", "mu_r"), ("wk", "mu_k"), ("wv", "mu_v")))
+    g = proj("wg", "mu_g")
+    w = heads(_decay(params, _lerp(x, xs, params["mu_w"])))
+    u = params["u"].to(_F32).reshape(h, hd)
+    return r, k, v, w, u, g
+
+
+def time_mix_train(params, cfg: ModelConfig, x: Tensor,
+                   chunk: int = 64) -> Tensor:
+    """(B, T, d) -> (B, T, d) in the compute dtype."""
+    ct = cfg.compute_dtype
+    r, k, v, w, u, g = _tm_qkvwg(params, cfg, x, _shift(x))
+    o, _ = scan_ops.gla(r, k, v, w, u, chunk=chunk)
+    o = _group_norm(cfg, params, o.transpose(1, 2))
+    o = (o * F.silu(g.to(_F32))).to(ct)
+    return o @ params["wo"].to(ct)
+
+
+def channel_mix_train(params, cfg: ModelConfig, x: Tensor) -> Tensor:
+    """(B, T, d) -> (B, T, d) in the compute dtype."""
+    ct = cfg.compute_dtype
+    xs = _shift(x)
+    k = _lerp(x, xs, params["mu_k"]) @ params["wk"].to(ct)
+    kv = torch.relu(k).square() @ params["wv"].to(ct)
+    r = torch.sigmoid(_lerp(x, xs, params["mu_r"]) @ params["wr"].to(ct))
+    return r * kv

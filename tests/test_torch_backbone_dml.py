@@ -1,9 +1,11 @@
 """The slice as a whole: LM-backbone features -> standardize -> DML fit
-+ delete-fold jackknife, the port against the JAX package.
++ delete-fold jackknife, the port against the JAX package, for the
+dense (granite-3-2b-smoke), rwkv6 (rwkv6-3b-smoke) and hybrid
+(zamba2-1.2b-smoke) backbones.
 
   * ``backbone_features`` (batched) -> standardize -> ``DML.fit`` against
     ``repro.core.nuisance.backbone_features`` -> ``repro.core.dml.DML``
-    at granite-3-2b-smoke with ``use_flash_attention=True`` on both
+    at each smoke backbone with ``use_flash_attention=True`` on both
     sides: the same weights (``convert.model_params``), the same tokens,
     y and t (made with numpy) and the reference's fold ids; features,
     theta, the HC0 cov and the jackknife se are compared;
@@ -68,11 +70,23 @@ def scenario():
 
 
 def test_backbone_dml_matches_reference(scenario, monkeypatch):
+    _backbone_dml_matches_reference(_ARCH, scenario, monkeypatch)
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-3b-smoke", "zamba2-1.2b-smoke"])
+def test_recurrent_backbone_dml_matches_reference(arch, scenario,
+                                                  monkeypatch):
+    """The same slice through the rwkv6 (GLA scan) and zamba2 (SSD scan
+    and the shared attention block) smoke backbones."""
+    _backbone_dml_matches_reference(arch, scenario, monkeypatch)
+
+
+def _backbone_dml_matches_reference(arch, scenario, monkeypatch):
     tokens, y, t = scenario
     kw = dict(n_folds=5, nuisance_y="backbone", nuisance_t="backbone",
               engine="parallel", inference="jackknife")
     port_kw = dict(kw, row_block=128, row_block_strategy="pallas")
-    jmodel = build_model(jget_config(_ARCH),
+    jmodel = build_model(jget_config(arch),
                          JParallelConfig(use_flash_attention=True))
     params = jmodel.init(jax.random.PRNGKey(0))
     jf = jbackbone(jmodel, params, jnp.asarray(tokens), batch_size=200)
@@ -80,7 +94,7 @@ def test_backbone_dml_matches_reference(scenario, monkeypatch):
     jres = JDML(JCausalConfig(**kw)).fit(jnp.asarray(y), jnp.asarray(t), jf,
                                          key=jax.random.PRNGKey(0))
 
-    cfg = get_config(_ARCH)
+    cfg = get_config(arch)
     model = Model(cfg, ParallelConfig(use_flash_attention=True), device="cpu")
     model.load_state_dict(convert.model_params(
         cfg, jax.tree_util.tree_map(np.asarray, params), device="cpu"))

@@ -20,6 +20,13 @@ step (2^-8 relative) where the fp32 sums straddle a rounding boundary;
 features 2e-2 relative to max|feature| (such one-step flips at each
 layer's attention output, carried through the layers; see chip_smoke.py
 for the full-depth gate).
+
+The scan kernels (GLA in post and bonus modes, SSD) against their plain
+chunked versions: bf16 and fp32, strided (B, T, H, D) views as the
+models pass them, ragged T (the chunk halved), the strong-decay clamp,
+the refusals; and small rwkv6 / zamba2 features through the kernels
+against the same model through the plain versions, with the launches
+counted (one scan per layer).  Tolerances as above.
 """
 import numpy as np
 import pytest
@@ -200,6 +207,156 @@ def test_features_kernel_matches_plain(card, monkeypatch):
     monkeypatch.setattr(fa_ops, "flash_attention", _fa_plain)
     want = model.features(d.tokens)
     assert fa_kernel.LAUNCHES["flash_attention"] == n0 + cfg.num_layers
+    got, want = got.cpu().numpy(), want.cpu().numpy()
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=2e-2 * np.abs(want).max())
+
+
+# ---------------------------------------------------------------------------
+# The scan kernels (csrc/ssm_scan.cu).  Tolerance: fp32 1e-5·max (fp32
+# sums in another order); bf16 o 8e-3·max (one bf16 step), states fp32.
+# ---------------------------------------------------------------------------
+
+_GLA_CASES = [
+    # B, H, T, Dk, Dv, chunk, dtype, bonus, strided (B,T,H,D) views
+    (2, 4, 256, 64, 64, 16, "bfloat16", True, True),
+    (2, 4, 256, 64, 64, 16, "bfloat16", False, True),
+    (1, 3, 96, 64, 64, 16, "float32", True, False),
+    (2, 2, 48, 32, 16, 32, "float32", False, False),   # ops halves to 16
+]
+
+
+def _gla_case(dev, B, H, T, Dk, Dv, dtype, strided, seed=0):
+    rng = np.random.default_rng(seed)
+    dt = getattr(torch, dtype)
+
+    def mk(D, lo=None):
+        shape = (B, T, H, D) if strided else (B, H, T, D)
+        x = (rng.uniform(lo, 1.0, shape) if lo is not None
+             else rng.standard_normal(shape)).astype(np.float32)
+        x = torch.from_numpy(x).to(dev)
+        return x.transpose(1, 2) if strided else x
+
+    q, k, v = (mk(D).to(dt) for D in (Dk, Dk, Dv))
+    w = mk(Dk, lo=float(np.exp(-3.49)))
+    u = torch.from_numpy(rng.standard_normal((H, Dk)).astype(np.float32)).to(dev)
+    return q, k, v, w, u
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", _GLA_CASES)
+def test_gla_kernel_matches_plain(card, case):
+    from repro_torch.kernels.ssm_scan import kernel as sk
+    from repro_torch.kernels.ssm_scan import ops as sops
+    from repro_torch.kernels.ssm_scan import ref as sref
+
+    B, H, T, Dk, Dv, chunk, dtype, bonus, strided = case
+    q, k, v, w, u = _gla_case(card, B, H, T, Dk, Dv, dtype, strided)
+    uu = u if bonus else None
+    n0 = sk.LAUNCHES["gla"]
+    o, s = sops.gla(q, k, v, w, uu, chunk=chunk)
+    torch.cuda.synchronize()
+    assert sk.LAUNCHES["gla"] == n0 + 1
+    assert o.dtype == v.dtype and o.shape == v.shape and o.stride() == v.stride()
+    fit = chunk
+    while T % fit:
+        fit //= 2
+    po, ps = sref.gla_chunked_ref(q, k, v, w, uu, chunk=fit)
+    tol = 8e-3 if dtype == "bfloat16" else 1e-5
+    for got, want, t in ((o, po, tol), (s, ps, 1e-5)):
+        got, want = got.double().cpu().numpy(), want.double().cpu().numpy()
+        np.testing.assert_allclose(got, want, rtol=t,
+                                   atol=t * np.abs(want).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,T,N,P,chunk,strided", [
+    (2, 8, 256, 64, 64, 32, True), (1, 3, 96, 8, 64, 32, False),
+    (2, 2, 48, 16, 32, 32, True)])
+def test_ssd_kernel_matches_plain(card, B, H, T, N, P, chunk, strided):
+    from repro_torch.kernels.ssm_scan import kernel as sk
+    from repro_torch.kernels.ssm_scan import ops as sops
+    from repro_torch.kernels.ssm_scan import ref as sref
+
+    rng = np.random.default_rng(1)
+    f = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(s).astype(np.float32)).to(card)
+    q, k = f(B, T, N), f(B, T, N)
+    if strided:
+        v = f(B, T, H, P).transpose(1, 2)
+        a = torch.from_numpy(rng.uniform(1e-3, 1, (B, T, H)).astype(
+            np.float32)).to(card).transpose(1, 2)
+    else:
+        v = f(B, H, T, P)
+        a = torch.from_numpy(rng.uniform(1e-3, 1, (B, H, T)).astype(
+            np.float32)).to(card)
+    n0 = sk.LAUNCHES["ssd"]
+    o, s = sops.ssd(q, k, v, a, chunk=chunk)
+    torch.cuda.synchronize()
+    assert sk.LAUNCHES["ssd"] == n0 + 1
+    fit = chunk
+    while T % fit:
+        fit //= 2
+    po, ps = sref.ssd_chunked_ref(q, k, v, a, chunk=fit)
+    for got, want in ((o, po), (s, ps)):
+        _close(got, want)
+
+
+@pytest.mark.cuda
+def test_scan_kernels_refuse_what_they_do_not_take(card):
+    from repro_torch.kernels.ssm_scan import kernel as sk
+
+    q, k, v, w, u = _gla_case(card, 1, 2, 64, 64, 64, "bfloat16", False)
+    with pytest.raises(TypeError):
+        sk.gla_cuda(q, k.float(), v, w, u, chunk=16)
+    with pytest.raises(TypeError):
+        sk.gla_cuda(q, k, v, w.bfloat16(), u, chunk=16)
+    with pytest.raises(ValueError, match="multiple"):
+        sk.gla_cuda(q, k, v, w, u, chunk=48)
+    with pytest.raises(ValueError, match="contiguous last"):
+        sk.gla_cuda(q, k.transpose(2, 3), v, w, u, chunk=16)
+    with pytest.raises(ValueError, match="shared memory"):
+        big = torch.zeros((1, 1, 64, 256), device=card)
+        sk.gla_cuda(big, big, big, big, None, chunk=64)
+    qs = torch.zeros((1, 64, 8), device=card)
+    with pytest.raises(TypeError):
+        sk.ssd_cuda(qs, qs, torch.zeros((1, 2, 64, 8), device=card).bfloat16(),
+                    torch.ones((1, 2, 64), device=card), chunk=32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["rwkv6-3b-smoke", "zamba2-1.2b-smoke"])
+def test_recurrent_features_kernel_matches_plain(card, arch, monkeypatch):
+    import dataclasses
+
+    from repro_torch.config import ParallelConfig
+    from repro_torch.configs import get_config
+    from repro_torch.data.event_dgp import make_event_data
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.ssm_scan import kernel as sk
+    from repro_torch.kernels.ssm_scan import ops as sops
+    from repro_torch.kernels.ssm_scan import ref as sref
+    from repro_torch.models.model import Model
+
+    cfg = dataclasses.replace(get_config(arch), d_model=128, num_layers=3,
+                              compute_dtype=torch.bfloat16)
+    # rwkv6 has no attention, so it needs no flash flag on the card
+    par = (ParallelConfig() if cfg.family == "ssm"
+           else ParallelConfig(use_flash_attention=True))
+    model = Model(cfg, par, device=card, seed=3)
+    d = make_event_data(24, 96, cfg.vocab_size, seed=1, device=card)
+    key = "gla" if cfg.family == "ssm" else "ssd"
+    n0 = sk.LAUNCHES[key]
+    got = model.features(d.tokens)
+    assert sk.LAUNCHES[key] == n0 + cfg.num_layers
+    monkeypatch.setattr(sops, "gla", lambda *a, chunk, **kw: sref.gla_chunked_ref(
+        *a, chunk=chunk, **kw))
+    monkeypatch.setattr(sops, "ssd", lambda *a, chunk: sref.ssd_chunked_ref(
+        *a, chunk=chunk))
+    monkeypatch.setattr(fa_ops, "flash_attention", _fa_plain)
+    want = model.features(d.tokens)
+    assert sk.LAUNCHES[key] == n0 + cfg.num_layers
     got, want = got.cpu().numpy(), want.cpu().numpy()
     assert np.isfinite(got).all()
     np.testing.assert_allclose(got, want, rtol=0,

@@ -91,7 +91,7 @@ def test_parallel_config_matches_reference(over):
 def test_registry_refusals():
     assert get_config("granite-3-2b").num_layers == 40
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("rwkv6-3b-smoke")
+        get_config("arctic-480b-smoke")
     with pytest.raises(KeyError):
         get_config("no-such-arch")
 

@@ -2,13 +2,16 @@
 """Where the backbone's feature time goes on the card: one profiled
 forward of ``Model.features`` at chip_smoke.py's backbone shape.
 
-    python3 tools/profile_backbone.py [--batch 256] [--seq 256]
+    python3 tools/profile_backbone.py [--arch granite-3-2b] [--batch 256]
+                                      [--seq 256]
 
-Builds granite-3-2b at full width and depth on the CUDA card (port init
-from ``--seed``), runs one warm-up batch, then one batch under
-``torch.profiler`` (CPU and CUDA activities), and prints the device
-time by kernel class — the flash-attention kernel, GEMMs (cuBLAS /
-CUTLASS), everything else (casts, norms, RoPE, SwiGLU, gathers) — with
+Builds the backbone (granite-3-2b, rwkv6-3b or zamba2-1.2b) at full
+width and depth on the CUDA card (port init from ``--seed``), runs one
+warm-up batch, then one batch under ``torch.profiler`` (CPU and CUDA
+activities), and prints the device time by kernel class — the
+flash-attention kernel, the scan kernels (GLA, SSD), GEMMs (cuBLAS /
+CUTLASS), everything else (casts, norms, RoPE, gates, token shift,
+conv, gathers) — with
 the host-clock time of the same batch and the device's busy share of
 it.  The last line is one JSON object with those numbers.  Exits 2
 without CUDA.
@@ -29,6 +32,8 @@ def _klass(name: str) -> str:
     n = name.lower()
     if "fa_fwd_kernel" in n:
         return "flash_attention"
+    if "gla_kernel" in n or "ssd_kernel" in n:
+        return "scan"
     if any(s in n for s in ("gemm", "xmma", "cutlass", "nvjet", "sm90_")):
         return "gemm"
     return "other"
@@ -37,6 +42,7 @@ def _klass(name: str) -> str:
 def main(argv=None) -> int:
     """Profile one batch; 0 on success."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="granite-3-2b")
     ap.add_argument("--batch", type=int, default=256)
     ap.add_argument("--seq", type=int, default=256)
     ap.add_argument("--seed", type=int, default=123)
@@ -54,7 +60,7 @@ def main(argv=None) -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
     print(card, flush=True)
-    cfg = get_config("granite-3-2b")
+    cfg = get_config(args.arch)
     model = Model(cfg, ParallelConfig(use_flash_attention=True),
                   seed=args.seed)
     tokens = make_event_data(args.batch, args.seq, cfg.vocab_size,
@@ -68,7 +74,7 @@ def main(argv=None) -> int:
         model.features(tokens)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    by = {"flash_attention": 0.0, "gemm": 0.0, "other": 0.0}
+    by = {"flash_attention": 0.0, "scan": 0.0, "gemm": 0.0, "other": 0.0}
     for ev in prof.key_averages():
         dev_us = getattr(ev, "self_device_time_total",
                          getattr(ev, "self_cuda_time_total", 0.0))
@@ -81,7 +87,8 @@ def main(argv=None) -> int:
     print(f"one batch ({args.batch} x {args.seq} tokens): host clock "
           f"{wall_ms:.3f} ms, device busy {busy:.3f} ms "
           f"({100 * busy / wall_ms:.1f} %; not measured if 0)")
-    print(json.dumps({"card": card, "batch": args.batch, "seq": args.seq,
+    print(json.dumps({"card": card, "arch": cfg.name, "batch": args.batch,
+                      "seq": args.seq,
                       "wall_ms": wall_ms, "device_ms": by,
                       "device_busy_share": busy / wall_ms}))
     return 0
