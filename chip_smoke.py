@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one H100.
 
-    python3 chip_smoke.py [--n 1000000] [--out results.json]
+    python3 chip_smoke.py [--n 1000000] [--bootstrap-replicates 100]
+                          [--out results.json]
 
 Phases (each failure makes the script exit non-zero):
 
@@ -55,6 +56,30 @@ Phases (each failure makes the script exit non-zero):
      a per-block gate — every block applied to the kernel run's own
      hidden states through the kernels and through the plain versions;
      and seg_gram's heads forms at rwkv6's q = 2561.
+
+ 11. ``kernels:inference-forms``: the bootstrap chunk's seg_gram forms at
+     ``paper_demo_data(n=100_000, p=500)`` and R = 25 replicates of pairs
+     draws — fold_weighted (R·k = 125, q = 502), residual_direct and the
+     batched residual_meat — against their plain versions and fp64, with
+     kernel / plain / library times and the bound;
+ 12. ``main:bootstrap``: ``DML.fit`` + ``ate_interval()`` +
+     ``cate_interval(X[:5])`` with the default inference (pairs
+     bootstrap, executor "vmap") at that scale, B = 100 (EconML's
+     default; ``--bootstrap-replicates 200`` runs the config default) in
+     chunks of 25, launches counted around it (per chunk: fold_weighted
+     1 + 2·16, residual_direct 1, residual_meat 1; the point fit's 19),
+     no fallback, theta within 5 se of [1, 0.5], bootstrap se within
+     0.6–1.6 of the HC0 se, and the batched solves' share of the phase;
+ 13. ``main:bootstrap-agreement``: at n = 20,000 × 50, four replicates
+     on given folds and weights on the card against the CPU (1e-4),
+     serial against batched executors on the card (bitwise), and eight
+     multiplier replicates card against CPU (1e-4);
+ 14. ``iv:orthoiv``: ``make_iv_data(n, 500)`` and OrthoIV with the
+     jackknife (launches design 1, gram_and_vec 32, iv 1, iv_meat 1,
+     iv_segmented 1), the LATE within 5 se of the truth; then
+     ``kernels:iv-forms`` on its residuals (iv, iv_segmented S = 5,
+     iv_meat); and ``iv:bootstrap`` at n = 100,000 with B = 16 (the fit's
+     launches plus fold_weighted 65, iv 1 and iv_meat 1 per chunk).
 
 The backbone phases are named ``backbone:<arch>``.  The line before the
 last is the kernels' JSON record; the last line is
@@ -118,6 +143,12 @@ GLA_TPU = "src/repro/kernels/ssm_scan/kernel.py:88"
 SSD_TPU = "src/repro/kernels/ssm_scan/kernel.py:169"
 BACKBONE_ARCHS = ("granite-3-2b", "rwkv6-3b", "zamba2-1.2b")
 BACKBONE_USERS, BACKBONE_SEQ, BACKBONE_BATCH, GATE_USERS = 8192, 256, 256, 512
+# the bootstrap phases: Figure 6's middle scale, EconML's default B,
+# runtime_chunk replicates per batched call; OrthoIV's bootstrap B
+BOOT_N, BOOT_B, BOOT_CHUNK, IV_BOOT_B = 100_000, 100, 25, 16
+# serial and batched replicates are gated bitwise equal on the card
+# (tests/test_torch_cuda.py::test_serial_equals_batched_on_card shows it)
+SERIAL_BITWISE = True
 
 
 def log(msg: str) -> None:
@@ -306,10 +337,16 @@ def kernel_cases(X, y, t, folds, k):
 def phase_kernels(X, y, t, folds, k, timer, forms=None, suffix=""):
     """Kernel vs plain vs fp64 at the main path's shapes; timings.
     ``forms`` picks cases by name; ``suffix`` tags their record keys."""
+    cases = [c for c in kernel_cases(X, y, t, folds, k)
+             if forms is None or c.name in forms]
+    return run_cases(cases, timer, suffix)
+
+
+def run_cases(cases, timer, suffix=""):
+    """Each case's kernel against its plain version and fp64; kernel,
+    plain and library times; one record per case."""
     records = {}
-    for c in kernel_cases(X, y, t, folds, k):
-        if forms is not None and c.name not in forms:
-            continue
+    for c in cases:
         G64 = c.exact()
         Gk = c.kernel()
         Gp = c.plain()
@@ -488,6 +525,350 @@ def phase_main(data, cfg, expected):
     if fallbacks:
         raise AssertionError(f"fallback counters rose: {fallbacks}")
     return counts, secs
+
+
+def inference_cases(X, y, t, seed, R, k):
+    """The bootstrap chunk's kernel calls at its shapes: R replicates of
+    pairs draws times k folds over ``paper_demo_data``'s (n, 500)."""
+    from repro_torch.core.crossfit import fold_weights
+    from repro_torch.core.final_stage import cate_basis
+    from repro_torch.core.moments import design
+    from repro_torch.inference.bootstrap import replicate_draws
+    from repro_torch.kernels.seg_gram import ops as sops
+    from repro_torch.kernels.seg_gram import ref
+
+    def sym(q):
+        return q * (q + 1) / 2
+
+    n = X.shape[0]
+    folds, w = replicate_draws(seed, torch.arange(R), n, k, "pairs",
+                               device=X.device)
+    Wk = (fold_weights(folds, k) * w[:, None, :]).reshape(R * k, n)
+    D = design(X, intercept=True, append=y)                  # (n, 502)
+    q = D.shape[1]
+    phi = cate_basis(X, 2)
+    g = torch.Generator(device="cuda").manual_seed(seed + 17)
+    ry = (y[None] - 0.1 * torch.randn((R, n), generator=g, device="cuda"))
+    rt = (t[None] - torch.sigmoid(X[:, 0])[None]
+          + 0.01 * torch.randn((R, n), generator=g, device="cuda"))
+    zero = torch.zeros_like(ry)
+    theta = torch.tensor([1.0, 0.5], device="cuda") \
+        + 0.01 * torch.randn((R, 2), generator=g, device="cuda")
+    ph = phi.shape[1]
+
+    def fw_plain(dtype):
+        Dd = D.to(dtype)
+        return torch.stack([ref.seg_gram_plain(
+            ref.build_fold_weighted, [Wk[b:b + 1].T.to(dtype), Dd])
+            for b in range(R * k)])
+
+    def per_rep(builder, cols, th=None, ww=None, dtype=torch.float32):
+        out = []
+        for b in range(R):
+            arrs = [c[b][:, None].to(dtype) for c in cols] + [phi.to(dtype)]
+            if th is not None:
+                arrs.append(th[b][None].to(dtype))
+            if ww is not None and th is not None:
+                arrs.append(ww[b][:, None].to(dtype))
+            out.append(ref.seg_gram_plain(
+                builder, arrs,
+                w=None if ww is None or th is not None
+                else ww[b][:, None].to(dtype)))
+        return torch.stack(out)
+
+    def rd(dtype=torch.float32):
+        return per_rep(ref.build_residual_direct, [ry, rt], ww=w,
+                       dtype=dtype)
+
+    def meat(dtype=torch.float32):
+        return per_rep(ref.build_residual_meat, [ry, rt, zero, zero],
+                       th=theta, ww=w, dtype=dtype)
+
+    def M_direct():
+        M = torch.cat([rt[:, :, None] * phi[None], ry[:, :, None]], dim=2)
+        return (M * w[:, :, None]).transpose(1, 2), M
+
+    def M_meat():
+        z = rt[:, :, None] * phi[None]
+        e = w * (ry - (z * theta[:, None, :]).sum(-1))
+        m = e[:, :, None] * z
+        return m.transpose(1, 2), m
+
+    col_bytes = 3 * R * n * 4 + phi.numel() * 4
+    return [
+        Case("fold_weighted", f"bootstrap nuisance Grams, R*k={R * k}",
+             lambda: sops.fold_weighted_design_gram(D, Wk),
+             lambda: fw_plain(torch.float32),
+             lambda: fw_plain(torch.float64),
+             lambda: ((D[None] * Wk[:, :, None]).transpose(1, 2), D),
+             lambda ab: torch.matmul(*ab),
+             D.numel() * 4 + Wk.numel() * 4 + R * k * q * q * 4,
+             2.0 * R * k * n * sym(q), 3),
+        Case("residual_direct", f"bootstrap weighted final stage, R={R}",
+             lambda: sops.residual_weighted_gram(ry, rt, phi, w)[0],
+             rd, lambda: rd(torch.float64), M_direct,
+             lambda ab: torch.matmul(*ab),
+             col_bytes + R * (ph + 1) ** 2 * 4,
+             2.0 * R * n * sym(ph + 1), 20),
+        Case(f"residual_meat@R{R}", f"bootstrap weighted HC0 meat, R={R}",
+             lambda: sops.residual_meat(ry, rt, zero, zero, phi, theta,
+                                        w=w),
+             meat, lambda: meat(torch.float64), M_meat,
+             lambda ab: torch.matmul(*ab),
+             col_bytes + R * ph * 4 + R * ph * ph * 4,
+             2.0 * R * n * sym(ph) + 8.0 * R * n, 20),
+    ]
+
+
+def iv_cases(ry, rt, rz, phi, folds, theta, k):
+    """The OrthoIV fit's and jackknife's kernel calls on its residuals."""
+    from repro_torch.kernels.seg_gram import ops as sops
+    from repro_torch.kernels.seg_gram import ref
+
+    def sym(q):
+        return q * (q + 1) / 2
+
+    n, ph = phi.shape
+    q = 2 * ph + 1
+    ones = torch.ones_like(ry)
+    cols = [c[:, None] for c in (ry, rt, rz)]
+
+    def plain(builder, extra=(), seg=None, S=1, dtype=torch.float32):
+        return ref.seg_gram_plain(
+            builder, [c.to(dtype) for c in cols] + [phi.to(dtype)]
+            + [e.to(dtype) for e in extra], seg=seg, n_segments=S)
+
+    def M_iv():
+        M = torch.cat([rz[:, None] * phi, rt[:, None] * phi, ry[:, None]], 1)
+        return M.T, M
+
+    def M_seg():
+        M = torch.cat([rz[:, None] * phi, rt[:, None] * phi, ry[:, None]], 1)
+        oh = (folds[:, None] == torch.arange(k, device=folds.device)[None])
+        return (M[:, None, :] * oh[:, :, None]).reshape(n, k * q).T, M
+
+    def M_meat():
+        e = ry - ((rt[:, None] * phi) * theta[None]).sum(1)
+        m = (e * rz)[:, None] * phi
+        return m.T, m
+
+    col_bytes = 3 * n * 4 + phi.numel() * 4
+    th = theta[None]
+    return [
+        Case("iv", "OrthoIV final stage iv_gram", lambda: sops.iv_gram(
+                 ry, rt, rz, phi, ones)[0],
+             lambda: plain(ref.build_iv),
+             lambda: plain(ref.build_iv, dtype=torch.float64), M_iv,
+             lambda ab: torch.matmul(*ab), col_bytes + n * 4 + q * q * 4,
+             2.0 * n * sym(q), 20),
+        Case("iv_segmented", f"OrthoIV jackknife fold_iv_gram, S={k}",
+             lambda: sops.fold_iv_gram(ry, rt, rz, phi, folds, k)[0],
+             lambda: plain(ref.build_iv, seg=folds, S=k),
+             lambda: plain(ref.build_iv, seg=folds, S=k,
+                           dtype=torch.float64), M_seg,
+             lambda ab: torch.matmul(*ab),
+             col_bytes + n * 4 + k * q * q * 4, 2.0 * n * sym(q), 20),
+        Case("iv_meat", "OrthoIV HC0 meat", lambda: sops.iv_meat(
+                 ry, rt, rz, phi, theta),
+             lambda: plain(ref.build_iv_meat, (th,)),
+             lambda: plain(ref.build_iv_meat, (th,), dtype=torch.float64),
+             M_meat, lambda ab: torch.matmul(*ab),
+             col_bytes + ph * 4 + ph * ph * 4,
+             2.0 * n * sym(ph) + 8.0 * n, 20),
+    ]
+
+
+def _solve_ms(timer, M, q, reps=2) -> float:
+    """ms of one batched (M, q, q) Gauss-Jordan solve, as the bootstrap's
+    weighted fits run it."""
+    from repro_torch.inference.numerics import det_solve
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    A = torch.randn((M, q, q), generator=g, device="cuda") / q ** 0.5
+    A = A @ A.transpose(1, 2) + torch.eye(q, device="cuda")
+    b = torch.randn((M, q), generator=g, device="cuda")
+    ms = timer.ms(lambda: det_solve(A, b), reps)
+    del A, b
+    torch.cuda.empty_cache()
+    return ms
+
+
+def _counters():
+    from repro_torch.core import moments
+    from repro_torch.kernels.seg_gram import kernel as kern
+    return kern.LAUNCHES, moments.FALLBACKS
+
+
+def _read_counters():
+    launches, fallbacks = _counters()
+    return dict(launches), {f: c for f, c in fallbacks.items() if c}
+
+
+def _reset_counters():
+    for c in _counters():
+        c.clear()
+
+
+def phase_bootstrap(data, cfg, timer, forms_ms):
+    """DML.fit + the default inference (pairs bootstrap, "vmap", chunks of
+    runtime_chunk) on the card: ate_interval and cate_interval, launches
+    counted around them."""
+    from repro_torch.core.dml import DML
+
+    B, R, k = cfg.n_bootstrap, cfg.runtime_chunk, cfg.n_folds
+    chunks = -(-B // R)
+    iters = cfg.newton_iters
+    est = DML(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counters()
+    t0 = time.perf_counter()
+    res = est.fit(data.y, data.t, data.X, gen=torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    t_fit = time.perf_counter() - t0
+    lo, hi = res.ate_interval()
+    band = res.cate_interval(data.X[:5])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts, fallbacks = _read_counters()
+    inf = res.inference()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    theta = res.theta.double().cpu()
+    se_b, se_hc0 = inf.se.double().cpu(), res.stderr.double().cpu()
+    z = (theta - torch.tensor([1.0, 0.5], dtype=torch.float64)).abs() \
+        / torch.maximum(se_b, se_hc0)
+    ratio = se_b / se_hc0
+    # the 502/501-wide Gauss-Jordan solves: 1 ridge + 16 Newton per chunk
+    solve_ms = _solve_ms(timer, min(R, B) * k, data.X.shape[1] + 1)
+    solve_share = chunks * (1 + iters) * solve_ms / 1e3 / (secs - t_fit)
+    kernel_s = forms_ms.get("fold_weighted", 0.0) * counts.get(
+        "fold_weighted", 0) / 1e3
+    expected = {"design": 1, "gram_and_vec": iters, "residual": 1,
+                "residual_meat": 1 + chunks, "fold_weighted":
+                chunks * (1 + 2 * iters), "residual_direct": chunks}
+    log(f"bootstrap path: B={B} (EconML's BootstrapInference default is "
+        f"100, the config's 200), chunks of {R}, executor "
+        f"{inf.executor}, n={data.n} p={data.p}: fit {t_fit:.3f} s, "
+        f"bootstrap + intervals {secs - t_fit:.3f} s ({(secs - t_fit) / B:.4f}"
+        f" s per replicate), peak device memory {peak:.2f} GiB; "
+        f"theta={theta.tolist()} bootstrap se={se_b.tolist()} HC0 se="
+        f"{se_hc0.tolist()} se ratio={ratio.tolist()} |theta-[1,0.5]|/max(se)"
+        f"={z.tolist()} ATE CI=[{lo:.5f}, {hi:.5f}] CATE bands lo="
+        f"{band[0].cpu().tolist()} hi={band[1].cpu().tolist()}; one "
+        f"({min(R, B) * k}, {data.X.shape[1] + 1}) solve {solve_ms:.2f} ms, "
+        f"solves ~{100 * solve_share:.1f} % of the bootstrap; fold_weighted "
+        f"kernel ~{kernel_s:.2f} s; launches={counts} fallbacks={fallbacks}")
+    if not (torch.isfinite(inf.replicates).all() and lo < hi
+            and bool(torch.isfinite(band[0]).all())):
+        raise AssertionError("non-finite replicates or an empty interval")
+    if not bool((z <= 5.0).all()):
+        raise AssertionError(f"theta not within 5 se of [1, 0.5]: {z}")
+    if not bool(((ratio >= 0.6) & (ratio <= 1.6)).all()):
+        raise AssertionError(f"bootstrap se / HC0 se outside [0.6, 1.6]: "
+                             f"{ratio}")
+    if counts != expected:
+        raise AssertionError(f"launches {counts}, expected {expected}")
+    if fallbacks:
+        raise AssertionError(f"fallback counters rose: {fallbacks}")
+    return counts, secs
+
+
+def phase_bootstrap_agreement(seed: int) -> None:
+    """Replicates on the card against the CPU on given folds and weights;
+    serial against batched on the card; the multiplier scheme."""
+    from repro_torch.config import CausalConfig
+    from repro_torch.core.dml import DML
+    from repro_torch.core.final_stage import cate_basis
+    from repro_torch.core.nuisance import make_nuisance
+    from repro_torch.data.causal_dgp import paper_demo_data
+    from repro_torch.inference.bootstrap import (dml_theta_once,
+                                                 replicate_draws)
+
+    d = paper_demo_data(n=20_000, p=50, seed=seed, device="cpu")
+    cfg = CausalConfig(n_folds=5, cate_features=2, row_block=4096,
+                       row_block_strategy="pallas", n_bootstrap=4,
+                       runtime_chunk=4)
+    folds, w = replicate_draws(seed, torch.arange(4), d.n, 5, "pairs")
+    out = {}
+    for dev in ("cpu", "cuda"):
+        ny = make_nuisance("ridge", "reg", cfg)
+        nt = make_nuisance("logistic", "clf", cfg)
+        X, y, t = (a.to(dev) for a in (d.X, d.y, d.t))
+        r = dml_theta_once(ny, nt, 5, X, y, t, cate_basis(X, 2),
+                           folds.to(dev), w.to(dev), row_block=4096,
+                           strategy="pallas")
+        out[dev] = torch.cat([r["theta"], r["se"]], dim=1).cpu()
+    e = rel(out["cuda"], out["cpu"])
+    log(f"bootstrap agreement: 4 replicates on given folds and weights, "
+        f"theta and se card vs CPU max rel diff {e:.3e} (tol 1e-4)")
+    if not e <= 1e-4:
+        raise AssertionError(f"card and CPU replicates disagree: {e:.3e}")
+
+    res = DML(cfg).fit(d.y, d.t, d.X)
+    batched = res.inference(executor="vmap")
+    serial = res.inference(executor="serial")
+    diff = float((serial.replicates - batched.replicates).abs().max())
+    log(f"bootstrap serial vs batched on the card (4 replicates): max |diff| "
+        f"{diff:.3e}, bitwise equal {torch.equal(serial.replicates, batched.replicates)}"
+        f" (gated: {SERIAL_BITWISE})")
+    if SERIAL_BITWISE and not torch.equal(serial.replicates,
+                                          batched.replicates):
+        raise AssertionError(f"serial and batched replicates differ: {diff}")
+
+    mcfg = dataclasses.replace(cfg, inference="multiplier", n_bootstrap=8)
+    mult = {dev: DML(mcfg, device=dev).fit(d.y, d.t, d.X).inference()
+            for dev in ("cpu", "cuda")}
+    card = mult["cuda"]
+    e = rel(card.replicates.cpu(), mult["cpu"].replicates)
+    log(f"multiplier bootstrap, 8 replicates: card vs CPU max rel diff "
+        f"{e:.3e} (tol 1e-4), se={card.se.cpu().tolist()}")
+    if not e <= 1e-4:
+        raise AssertionError(f"multiplier replicates disagree: {e:.3e}")
+
+
+def phase_orthoiv(data, cfg, expected):
+    """OrthoIV.fit + its inference on the card, launches counted around
+    them; the LATE within 5 se of the data's truth.  Returns the launch
+    counts and the fit's residuals for the kernel checks."""
+    from repro_torch.core.iv import OrthoIV
+
+    est = OrthoIV(cfg)
+    torch.cuda.synchronize()
+    _reset_counters()
+    t0 = time.perf_counter()
+    res = est.fit(data.y, data.t, data.z, data.X,
+                  gen=torch.Generator().manual_seed(0))
+    inf = res.inference()
+    lo, hi = res.late_interval()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts, fallbacks = _read_counters()
+    se = max(float(inf.se[0]), float(res.stderr[0]))
+    z = abs(res.late - data.true_late) / se
+    t, y = data.t, data.y
+    naive = float((y * t).sum() / t.sum() - (y * (1 - t)).sum()
+                  / (1 - t).sum())
+    log(f"OrthoIV [{cfg.inference}, B={cfg.n_bootstrap if cfg.inference != 'jackknife' else '-'}]"
+        f" n={data.n} p={data.p}: fit+inference {secs:.3f} s, "
+        f"LATE={res.late:.5f} (true {data.true_late}) {cfg.inference} se="
+        f"{float(inf.se[0]):.5f} HC0 se={float(res.stderr[0]):.5f} "
+        f"|LATE-true|/max(se)={z:.3f} CI=[{lo:.5f}, {hi:.5f}] naive "
+        f"diff-in-means={naive:.5f} first-stage F="
+        f"{res.diagnostics.first_stage_f:.1f} launches={counts} "
+        f"fallbacks={fallbacks}")
+    if not (torch.isfinite(res.theta).all() and torch.isfinite(res.cov).all()
+            and torch.isfinite(inf.replicates).all()):
+        raise AssertionError("non-finite theta, cov or replicates")
+    if not z <= 5.0:
+        raise AssertionError(f"LATE not within 5 se of the truth: {z:.3f}")
+    if counts != expected:
+        raise AssertionError(f"launches {counts}, expected {expected}")
+    if fallbacks:
+        raise AssertionError(f"fallback counters rose: {fallbacks}")
+    cf = res.crossfit
+    resid = (data.y - cf.oof_y, data.t - cf.oof_t, data.z - cf.oof_z,
+             res.fit_ctx.phi, cf.folds, res.theta)
+    return counts, secs, resid
 
 
 def _fa_plain(q, k, v, causal=True, softcap=0.0, scale=None):
@@ -883,6 +1264,8 @@ def main(argv=None) -> int:
     ap.add_argument("--n", type=int, default=1_000_000,
                     help="rows; the cell's scale is the default")
     ap.add_argument("--seed", type=int, default=123)
+    ap.add_argument("--bootstrap-replicates", type=int, default=BOOT_B,
+                    help="B of main:bootstrap (the config default is 200)")
     ap.add_argument("--out", default="", help="also write the record here")
     args = ap.parse_args(argv)
 
@@ -893,7 +1276,7 @@ def main(argv=None) -> int:
     try:
         from repro_torch.config import CausalConfig
         from repro_torch.core.crossfit import fold_ids
-        from repro_torch.data.causal_dgp import paper_demo_data
+        from repro_torch.data.causal_dgp import make_iv_data, paper_demo_data
         from repro_torch.kernels.flash_attention import kernel as fa_kern
         from repro_torch.kernels.seg_gram import kernel as kern
         from repro_torch.kernels.ssm_scan import kernel as scan_kern
@@ -974,6 +1357,67 @@ def main(argv=None) -> int:
 
     del data
     torch.cuda.empty_cache()
+    by_path = {}        # record key -> {path: launches}
+
+    def count(key, path, c):
+        if c:
+            by_path.setdefault(key, {})[path] = c
+
+    bdata = paper_demo_data(n=BOOT_N, p=p, seed=args.seed)
+    forms = run("kernels:inference-forms", lambda: run_cases(
+        inference_cases(bdata.X, bdata.y, bdata.t, args.seed, BOOT_CHUNK, k),
+        timer)) or {}
+    records.update(forms)
+    torch.cuda.empty_cache()
+    bcfg = dataclasses.replace(base, inference="bootstrap",
+                               n_bootstrap=args.bootstrap_replicates,
+                               inference_executor="vmap",
+                               runtime_chunk=BOOT_CHUNK)
+    out = run("main:bootstrap", phase_bootstrap, bdata, bcfg, timer,
+              {key: r["ms"] for key, r in forms.items()})
+    if out is not None:
+        c = out[0]
+        count("fold_weighted", "main:bootstrap", c.get("fold_weighted", 0))
+        count("residual_direct", "main:bootstrap", c.get("residual_direct", 0))
+        # the point fit's meat is the unbatched form; the rest are chunks
+        count(f"residual_meat@R{BOOT_CHUNK}", "main:bootstrap",
+              c.get("residual_meat", 0) - 1)
+    del bdata
+    torch.cuda.empty_cache()
+    run("main:bootstrap-agreement", phase_bootstrap_agreement, args.seed)
+    torch.cuda.empty_cache()
+
+    ivdata = make_iv_data(n=args.n, p=p, seed=args.seed)
+    icfg = dataclasses.replace(base, inference="jackknife")
+    out = run("iv:orthoiv", phase_orthoiv, ivdata, icfg,
+              {"design": 1, "gram_and_vec": 2 * iters, "iv": 1, "iv_meat": 1,
+               "iv_segmented": 1})
+    del ivdata
+    torch.cuda.empty_cache()
+    if out is not None:
+        for key in ("iv", "iv_meat", "iv_segmented"):
+            count(key, "iv:orthoiv", out[0].get(key, 0))
+        ry, rt, rz, phi, ifolds, itheta = out[2]
+        records.update(run("kernels:iv-forms", lambda: run_cases(
+            iv_cases(ry, rt, rz, phi, ifolds, itheta, k), timer)) or {})
+        del ry, rt, rz, phi, ifolds, itheta, out
+        torch.cuda.empty_cache()
+    ivb = make_iv_data(n=BOOT_N, p=p, seed=args.seed)
+    ibcfg = dataclasses.replace(base, inference="bootstrap",
+                                n_bootstrap=IV_BOOT_B,
+                                runtime_chunk=BOOT_CHUNK)
+    ichunks = -(-IV_BOOT_B // BOOT_CHUNK)
+    out = run("iv:bootstrap", phase_orthoiv, ivb, ibcfg,
+              {"design": 1, "gram_and_vec": 2 * iters, "iv": 1 + ichunks,
+               "iv_meat": 1 + ichunks,
+               "fold_weighted": ichunks * (1 + 4 * iters)})
+    del ivb
+    torch.cuda.empty_cache()
+    if out is not None:
+        for key in ("iv", "iv_meat", "fold_weighted"):
+            count(key, "iv:bootstrap", out[0].get(key, 0))
+        del out
+
     records.update(run("kernels:flash", phase_flash, args.seed, timer) or {})
     torch.cuda.empty_cache()
     records.update(run("kernels:scan", phase_scans, args.seed, timer) or {})
@@ -1005,12 +1449,17 @@ def main(argv=None) -> int:
 
     for key, rec in records.items():
         rec["launches"] = launches.get(key, 0)
+        if key in by_path:
+            rec["launches"] = sum(by_path[key].values())
+            rec["launches_by_path"] = by_path[key]
     if "flash_attention" in records:
         records["flash_attention"]["launches_by_path"] = flash_by_path
     log(f"total {time.perf_counter() - t_start:.1f} s")
     line = {"kernels": list(records.values()), "n": args.n, "p": p,
             "k": k, "row_block": row_block, "users": BACKBONE_USERS,
-            "backbones": list(BACKBONE_ARCHS)}
+            "backbones": list(BACKBONE_ARCHS), "bootstrap_n": BOOT_N,
+            "bootstrap_replicates": args.bootstrap_replicates,
+            "bootstrap_chunk": BOOT_CHUNK}
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(

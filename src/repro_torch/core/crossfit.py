@@ -36,14 +36,17 @@ def fold_ids(gen: torch.Generator, n: int, k: int, device=None) -> Tensor:
 
 
 def fold_weights(folds: Tensor, k: int) -> Tensor:
-    """(k, n) training weights: 1.0 iff the row is OUTSIDE fold j."""
+    """(…, k, n) training weights for (…, n) folds: 1.0 iff the row is
+    OUTSIDE fold j."""
     ids = torch.arange(k, device=folds.device, dtype=folds.dtype)
-    return (folds[None, :] != ids[:, None]).to(torch.float32)
+    return (folds[..., None, :] != ids[:, None]).to(torch.float32)
 
 
 def _oof_select(preds_kn: Tensor, folds: Tensor) -> Tensor:
-    """Row i keeps the prediction of model folds[i] — its held-out model."""
-    return torch.gather(preds_kn, 0, folds[None, :].long())[0]
+    """Row i keeps the prediction of model folds[i] — its held-out model.
+    (…, k, n) predictions and (…, n) folds -> (…, n)."""
+    idx = folds.long().unsqueeze(-2)
+    return torch.gather(preds_kn, -2, idx).squeeze(-2)
 
 
 def _stack_states(states) -> Dict[str, Tensor]:

@@ -2,10 +2,12 @@
 paper scales, on the card.
 
     est = DML(CausalConfig(n_folds=5, nuisance_y="ridge",
-                           nuisance_t="logistic", cate_features=2,
-                           inference="jackknife"))      # device: cuda
+                           nuisance_t="logistic", cate_features=2))
     res = est.fit(y, t, X, gen=torch.Generator().manual_seed(0))
-    res.theta, res.stderr, res.ate_interval(), res.cate_interval(X)
+    res.theta, res.stderr
+    res.ate_interval()         # B = cfg.n_bootstrap pairs-bootstrap refits
+    res.cate_interval(X)       # (cfg.inference: bootstrap | multiplier |
+                               #  jackknife | none)
 
 ``DML(cfg, device="cpu")`` runs the plain versions on the CPU.
 """
@@ -19,23 +21,29 @@ import torch
 from repro_torch.config import CausalConfig
 from repro_torch.core.crossfit import CrossfitResult, crossfit
 from repro_torch.core.estimands import Diagnostics, compute_diagnostics
-from repro_torch.core.estimator import SandwichEffectResult, inf_cache_field
+from repro_torch.core.estimator import (SandwichEffectResult, inf_cache_field,
+                                        resolve_scheme)
 from repro_torch.core.final_stage import (FinalStageResult, cate_basis,
                                           fit_final_stage)
 from repro_torch.core.nuisance import Nuisance, make_nuisance
 from repro_torch.device import DeviceLike, as_f32, resolve_device
+from repro_torch.inference.bootstrap import derive_seed, dml_bootstrap
+from repro_torch.inference.jackknife import delete_fold_jackknife
 
 Tensor = torch.Tensor
 
 
 @dataclasses.dataclass(frozen=True)
 class FitContext:
-    """What replicate inference needs to re-run parts of the fit."""
+    """What replicate inference needs to re-run the fit; bootstrap
+    replicates derive their draws from ``seed`` (the initial seed of the
+    fit's generator)."""
 
     y: Tensor
     t: Tensor
     XW: Tensor        # nuisance covariates (X ++ W)
     phi: Tensor       # (n, p_phi) CATE basis
+    seed: int
     nuis_y: Nuisance
     nuis_t: Nuisance
 
@@ -57,17 +65,23 @@ class DMLResult(SandwichEffectResult):
     estimator_name = "DML"
 
     def _replicate_inference(self, method, n_boot, exe, alpha):
-        """The delete-fold jackknife off the existing fold states."""
-        from repro_torch.inference.jackknife import delete_fold_jackknife
-        if method != "jackknife":
-            raise NotImplementedError(
-                f"inference={method!r} lands with the bootstrap-inference "
-                "slice (ROADMAP A.5); this slice serves 'jackknife'")
-        ctx, cf = self.fit_ctx, self.crossfit
-        return delete_fold_jackknife(
-            ctx.y, ctx.t, cf.oof_y, cf.oof_t, cf.folds, ctx.phi,
-            self.cfg.n_folds, alpha=alpha, point=self.theta,
-            point_se=self.stderr, row_block=self.cfg.row_block)
+        """The delete-fold jackknife off the existing fold states, or B
+        weighted refits (pairs / multiplier bootstrap) through an
+        executor."""
+        ctx, cfg = self.fit_ctx, self.cfg
+        if method == "jackknife":
+            cf = self.crossfit
+            return delete_fold_jackknife(
+                ctx.y, ctx.t, cf.oof_y, cf.oof_t, cf.folds, ctx.phi,
+                cfg.n_folds, alpha=alpha, point=self.theta,
+                point_se=self.stderr, row_block=cfg.row_block)
+        return dml_bootstrap(
+            ctx.nuis_y, ctx.nuis_t, n_folds=cfg.n_folds, XW=ctx.XW, y=ctx.y,
+            t=ctx.t, phi=ctx.phi, seed=derive_seed(ctx.seed, 0x0b00),
+            n_replicates=n_boot, scheme=resolve_scheme(method), executor=exe,
+            alpha=alpha, point=self.theta, point_se=self.stderr,
+            row_block=cfg.row_block, strategy=cfg.row_block_strategy,
+            **self._runtime_kwargs())
 
     def _summary_extra(self):
         d = self.diagnostics
@@ -96,7 +110,8 @@ class DML:
         """y, t: (n,); X: (n, p) effect-relevant covariates; W: optional
         extra controls (nuisance fitting only).  Inputs are moved to the
         estimator's device as fp32; ``gen`` draws the folds (default:
-        a CPU generator seeded 0)."""
+        a CPU generator seeded 0), and its initial seed is the one the
+        bootstrap replicates derive from."""
         dev = self.device
         gen = gen if gen is not None else torch.Generator().manual_seed(0)
         y, t, X = as_f32(y, dev), as_f32(t, dev), as_f32(X, dev)
@@ -108,8 +123,8 @@ class DML:
                              row_block=self.cfg.row_block,
                              strategy=self.cfg.row_block_strategy)
         diag = compute_diagnostics(y, t, cf.oof_y, cf.oof_t, phi @ fs.theta)
-        ctx = FitContext(y=y, t=t, XW=XW, phi=phi, nuis_y=self.nuis_y,
-                         nuis_t=self.nuis_t)
+        ctx = FitContext(y=y, t=t, XW=XW, phi=phi, seed=gen.initial_seed(),
+                         nuis_y=self.nuis_y, nuis_t=self.nuis_t)
         return DMLResult(theta=fs.theta, cov=fs.cov, cfg=self.cfg,
                          crossfit=cf, final=fs, diagnostics=diag,
                          fit_ctx=ctx)

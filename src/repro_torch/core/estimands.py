@@ -1,4 +1,5 @@
-"""Orthogonality and overlap diagnostics of a DML fit."""
+"""Orthogonality, overlap and instrument diagnostics of DML and OrthoIV
+fits."""
 from __future__ import annotations
 
 import dataclasses
@@ -50,4 +51,53 @@ def compute_diagnostics(y, t, my, mt, theta_at_x,
         max_propensity=float(mt.max()),
         nuisance_r2_y=float(1.0 - _var(ry) / var_y),
         nuisance_auc_proxy=float((torch.abs(mt - 0.5) * 2).mean()),
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class IVDiagnostics:
+    """Instrument-side health checks for the orthogonal-IV family."""
+
+    first_stage_f: float     # heteroskedasticity-robust first-stage F
+    instrument_corr: float   # corr(rz, rt): the identifying covariance
+    resid_z_mean: float      # E[rz] ≈ 0 if m_z unbiased
+    ortho_moment: float      # |E[(ry - θᵀφ·rt)·rz]| ≈ 0 (the IV moment)
+    min_instrument_propensity: float   # overlap of E[Z|X]
+    max_instrument_propensity: float
+    weak_instrument: bool    # F below the Stock-Yogo rule of thumb 10
+
+    def rows(self) -> Dict[str, float]:
+        """The diagnostics as a plain dict."""
+        return dataclasses.asdict(self)
+
+
+def first_stage_f(rt: torch.Tensor, rz: torch.Tensor) -> float:
+    """Robust first-stage F: the squared t-statistic of pi in
+    ``rt = pi·rz + u`` with HC0 variance (F < 10 ⇒ weak)."""
+    rtf, rzf = rt.to(_F32), rz.to(_F32)
+    szz = torch.clamp((rzf * rzf).sum(), min=1e-12)
+    pi = (rzf * rtf).sum() / szz
+    u = rtf - pi * rzf
+    var_pi = (rzf * rzf * u * u).sum() / (szz * szz)
+    return float(pi * pi / torch.clamp(var_pi, min=1e-30))
+
+
+def compute_iv_diagnostics(t, z, mt, mz, e=None, *,
+                           f_threshold: float = 10.0) -> IVDiagnostics:
+    """``e`` is the final-stage residual ``ry - θᵀφ·rt`` (omit for the
+    pre-fit view)."""
+    rt = (t - mt).to(_F32)
+    rz = (z - mz).to(_F32)
+    f_stat = first_stage_f(rt, rz)
+    corr = torch.corrcoef(torch.stack([rz, rt]))[0, 1]
+    ortho = (float(torch.abs((e.to(_F32) * rz).mean())) if e is not None
+             else float("nan"))
+    return IVDiagnostics(
+        first_stage_f=f_stat,
+        instrument_corr=float(corr),
+        resid_z_mean=float(rz.mean()),
+        ortho_moment=ortho,
+        min_instrument_propensity=float(mz.min()),
+        max_instrument_propensity=float(mz.max()),
+        weak_instrument=bool(f_stat < f_threshold),
     )

@@ -5,21 +5,29 @@ results.
 InferenceResults per (method, replicates, executor), and falls back to
 the analytic interval when inference is off.  Estimators plug in only
 ``_replicate_inference``.  ``SandwichEffectResult`` adds theta + HC0
-covariance (DML).  This slice serves the delete-fold jackknife; the
-bootstrap and multiplier routes arrive with the inference slice.
+covariance (DML, OrthoIV).  Replicate inference: the delete-fold
+jackknife, and the pairs ("bootstrap") and multiplier bootstraps through
+an executor (``repro_torch.inference``).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.config import CausalConfig
 from repro_torch.core.final_stage import cate_basis
+from repro_torch.device import as_f32
 from repro_torch.inference.intervals import z_crit
 
 Tensor = torch.Tensor
+
+
+def resolve_scheme(method: str) -> str:
+    """Inference-method name -> bootstrap weight scheme ("bootstrap" is
+    the user-facing name of the pairs scheme)."""
+    return "pairs" if method == "bootstrap" else method
 
 
 def inf_cache_field() -> Any:
@@ -35,6 +43,14 @@ class EffectResult:
 
     def _config(self) -> CausalConfig:
         return self.cfg or CausalConfig()
+
+    def _runtime_kwargs(self) -> Dict[str, Any]:
+        """The replicate-scheduling knobs every bootstrap dispatch takes:
+        ``runtime_chunk`` replicates per batched call, and the memory
+        budget (which raises until the runtime slice, ROADMAP A.9)."""
+        cfg = self._config()
+        return dict(memory_budget=cfg.runtime_memory_budget,
+                    chunk=cfg.runtime_chunk)
 
     def _replicate_inference(self, method: str, n_boot: int, executor: Any,
                              alpha: float):
@@ -82,12 +98,16 @@ class EffectResult:
             return self._analytic_ate_interval(a)
         return self.inference(alpha=a).ate_interval(a, kind)
 
+    # the IV family's name for the same functional
+    late_interval = ate_interval
+
     def cate_interval(self, X: Tensor, alpha: Optional[float] = None
                       ) -> Tuple[Tensor, Tensor]:
-        """Pointwise (lo, hi) bands for theta(x) = <phi(x), theta>."""
+        """Pointwise (lo, hi) bands for theta(x) = <phi(x), theta>, on
+        theta's device (subclasses provide ``theta``)."""
         cfg = self._config()
         a = cfg.alpha if alpha is None else alpha
-        phi = cate_basis(X, cfg.cate_features)
+        phi = cate_basis(as_f32(X, self.theta.device), cfg.cate_features)
         if self.fit_ctx is None or cfg.inference in ("none", ""):
             return self._analytic_cate_interval(phi, a)
         return self.inference(alpha=a).cate_interval(phi, a)
@@ -103,13 +123,21 @@ class SandwichEffectResult(EffectResult):
         return float(self.theta[0])
 
     @property
+    def late(self) -> float:
+        """theta[0] read as the IV family's LATE."""
+        return self.ate
+
+    @property
     def stderr(self) -> Tensor:
         """Sandwich standard errors."""
         return torch.sqrt(torch.diagonal(self.cov))
 
     def cate(self, X: Tensor) -> Tensor:
-        """theta(x) = <phi(x), theta> per row of X."""
-        return cate_basis(X, self._config().cate_features) @ self.theta
+        """theta(x) = <phi(x), theta> per row of X (moved to theta's
+        device)."""
+        phi = cate_basis(as_f32(X, self.theta.device),
+                         self._config().cate_features)
+        return phi @ self.theta
 
     def ate_of(self, X: Tensor) -> float:
         """Mean CATE over the rows of X."""

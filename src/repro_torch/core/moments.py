@@ -27,7 +27,12 @@ in the same order from the same zero.  Cross-moments ride as appended
 design columns (augmented Grams) on the blocked path.
 
 Batching: a weight argument may be (B, n) — the "parallel" cross-fit
-engine's fold axis written out — and the form then returns a leading B.
+engine's fold axis written out, or the bootstrap's replicates times
+folds — and the form then returns a leading B.  The weighted final-stage
+forms take their residuals, weights and theta with a leading replicate
+axis too: one kernel launch for the batch under "pallas", a loop of the
+unbatched form otherwise (each replicate's arithmetic is then exactly
+that of the replicate alone).
 """
 from __future__ import annotations
 
@@ -136,6 +141,13 @@ def blocked_reduce(block_fn: Callable[..., Any], arrays: Sequence[Tensor],
     return acc
 
 
+def _stack_each(outs):
+    """Per-replicate results (tensors or tuples of tensors) -> stacked."""
+    if isinstance(outs[0], tuple):
+        return tuple(torch.stack(x) for x in zip(*outs))
+    return torch.stack(outs)
+
+
 def _rows(w: Tensor) -> Tensor:
     """Weights with rows leading: (n,) stays, (B, n) -> (n, B) view."""
     w = w.to(_F32)
@@ -237,6 +249,35 @@ def fold_gram(X: Tensor, folds: Tensor, k: int, *, intercept: bool = False,
                           form="fold_gram")
 
 
+def fold_weighted_gram(X: Tensor, Wk: Tensor, *, intercept: bool = False,
+                       append: Optional[Tensor] = None, row_block: int = 0,
+                       strategy: Optional[str] = None
+                       ) -> Tuple[Tensor, Tensor]:
+    """``G[k] = Σ_n Wk[k,n] d_n d_nᵀ`` (k, q, q) plus per-fold
+    ``n_eff = Σ_n Wk[k,n]`` — the weighted fits' fold (and replicate)
+    batched Gram.  ``n_eff`` is a whole-array plain sum in every mode,
+    so it does not depend on the strategy."""
+    Wk = Wk.to(_F32)
+    n_eff = Wk.sum(-1)
+    r = resolve_row_block(X.shape[0], row_block)
+    if r == 0:
+        D = design(X, intercept=intercept, append=append)
+        return _wgram(D, Wk.T), n_eff
+    if strategy == "pallas":
+        D = design(X, intercept=intercept, append=append)
+        return sg_ops.fold_weighted_design_gram(D, Wk), n_eff
+
+    def block(Xb, Wb, *rest):
+        D = design(Xb, intercept=intercept,
+                   append=rest[0] if rest else None)
+        return _wgram(D, Wb)
+
+    arrays = (X, Wk.T) + (() if append is None else (append,))
+    G = blocked_reduce(block, arrays, row_block=r, strategy=strategy,
+                       form="fold_weighted_gram")
+    return G, n_eff
+
+
 # ---------------------------------------------------------------------------
 # Residual moments (the DML final stage): Z = (t - mt) ⊙ phi,
 # G = ZᵀZ, b = Zᵀ(y - my), meat = Σ e²·z zᵀ.
@@ -268,6 +309,30 @@ def residual_moments(y: Tensor, t: Tensor, my: Tensor, mt: Tensor,
                           strategy=strategy, form="residual_moments")
 
 
+def residual_weighted_gram(ry: Tensor, rt: Tensor, phi: Tensor, w: Tensor,
+                           *, row_block: int = 0,
+                           strategy: Optional[str] = None
+                           ) -> Tuple[Tensor, Tensor]:
+    """Weighted augmented residual Gram ``Σ_n w_n m_n m_nᵀ`` with
+    ``m = [rt·phi | ry]`` plus ``n_eff = Σ w`` — the weighted final
+    stage's moment.  ry, rt, w (n,) or (R, n); phi (n, p) shared."""
+    if _use_pallas(phi.shape[0], row_block, strategy):
+        return sg_ops.residual_weighted_gram(ry, rt, phi, w)
+    if ry.dim() == 2:
+        return _stack_each([residual_weighted_gram(
+            ry[b], rt[b], phi, w[b], row_block=row_block, strategy=strategy)
+            for b in range(ry.shape[0])])
+
+    def block(ryb, rtb, phib, wb):
+        Z = rtb.to(_F32)[:, None] * phib.to(_F32)
+        M = torch.cat([Z, ryb.to(_F32)[:, None]], dim=1)
+        ws = wb.to(_F32)
+        return (M * ws[:, None]).T @ M, ws.sum()
+
+    return blocked_reduce(block, (ry, rt, phi, w), row_block=row_block,
+                          strategy=strategy, form="residual_weighted_gram")
+
+
 def _meat_gram(score: Tensor, e: Tensor, p: int) -> Tensor:
     """``Σ_n e_n² s_n s_nᵀ``: ``mᵀm`` with ``m = e·s`` at p >= 2, the
     three-operand form at p = 1 (the reference's width dispatch)."""
@@ -282,10 +347,16 @@ def residual_meat(y: Tensor, t: Tensor, my: Tensor, mt: Tensor,
                   row_block: int = 0, strategy: Optional[str] = None
                   ) -> Tensor:
     """HC0 meat ``Σ_n (w_n e_n)² z_n z_nᵀ`` with ``e = ry - <z, theta>``,
-    streamed per block."""
+    streamed per block.  Batched: y, t, my, mt, w (R, n) and theta
+    (R, p) -> (R, p, p)."""
     p = phi.shape[1]
     if _use_pallas(phi.shape[0], row_block, strategy):
         return sg_ops.residual_meat(y, t, my, mt, phi, theta, w=w)
+    if y.dim() == 2:
+        return torch.stack([residual_meat(
+            y[b], t[b], my[b], mt[b], phi, theta[b],
+            w=None if w is None else w[b], row_block=row_block,
+            strategy=strategy) for b in range(y.shape[0])])
 
     def block(yb, tb, myb, mtb, phib, *rest):
         ry = (yb - myb).to(_F32)
@@ -299,3 +370,101 @@ def residual_meat(y: Tensor, t: Tensor, my: Tensor, mt: Tensor,
     arrays = (y, t, my, mt, phi) + (() if w is None else (w,))
     return blocked_reduce(block, arrays, row_block=row_block,
                           strategy=strategy, form="residual_meat")
+
+
+# ---------------------------------------------------------------------------
+# Instrumented moments (the orthogonal-IV family, core/iv.py):
+# M = [rz ⊙ phi | rt ⊙ phi | ry], G = Σ w · m mᵀ.  Every 2SLS-shaped
+# statistic is a slice of this one augmented Gram:
+#   J    = G[:p, p:2p]   Σ w·rz·rt·φφᵀ
+#   b    = G[:p, 2p]     Σ w·rz·ry·φ
+#   Szz  = G[:p, :p]     Σ w·rz²·φφᵀ
+#   Stt  = G[p:2p, p:2p] Σ w·rt²·φφᵀ
+# ---------------------------------------------------------------------------
+
+def _iv_rows(ryb: Tensor, rtb: Tensor, rzb: Tensor, phib: Tensor) -> Tensor:
+    ph = phib.to(_F32)
+    return torch.cat([rzb.to(_F32)[:, None] * ph, rtb.to(_F32)[:, None] * ph,
+                      ryb.to(_F32)[:, None]], dim=1)
+
+
+def iv_gram(ry: Tensor, rt: Tensor, rz: Tensor, phi: Tensor, w: Tensor, *,
+            row_block: int = 0, strategy: Optional[str] = None
+            ) -> Tuple[Tensor, Tensor]:
+    """Weighted instrumented augmented Gram ``Σ_n w_n m_n m_nᵀ`` with
+    ``m = [rz·phi | rt·phi | ry]`` ((2p+1, 2p+1)) plus ``n_eff = Σ w``.
+    ry, rt, rz, w (n,) or (R, n); phi (n, p) shared."""
+    if _use_pallas(phi.shape[0], row_block, strategy):
+        return sg_ops.iv_gram(ry, rt, rz, phi, w)
+    if ry.dim() == 2:
+        return _stack_each([iv_gram(
+            ry[b], rt[b], rz[b], phi, w[b], row_block=row_block,
+            strategy=strategy) for b in range(ry.shape[0])])
+
+    def block(ryb, rtb, rzb, phib, wb):
+        M = _iv_rows(ryb, rtb, rzb, phib)
+        ws = wb.to(_F32)
+        return (M * ws[:, None]).T @ M, ws.sum()
+
+    return blocked_reduce(block, (ry, rt, rz, phi, w), row_block=row_block,
+                          strategy=strategy, form="iv_gram")
+
+
+def iv_slices(Gaug: Tensor, p: int) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """(J, b, Szz, Stt) read off an ``iv_gram`` result (any leading
+    batch)."""
+    return (Gaug[..., :p, p:2 * p], Gaug[..., :p, 2 * p],
+            Gaug[..., :p, :p], Gaug[..., p:2 * p, p:2 * p])
+
+
+def iv_meat(ry: Tensor, rt: Tensor, rz: Tensor, phi: Tensor, theta: Tensor,
+            *, w: Optional[Tensor] = None, row_block: int = 0,
+            strategy: Optional[str] = None) -> Tensor:
+    """HC0 meat of the instrumented moment: ``Σ_n (w_n e_n)² zc_n zc_nᵀ``
+    with score ``zc = rz·phi`` and residual ``e = ry - <rt·phi, theta>``.
+    Batched as ``residual_meat``."""
+    p = phi.shape[1]
+    if _use_pallas(phi.shape[0], row_block, strategy):
+        return sg_ops.iv_meat(ry, rt, rz, phi, theta, w=w)
+    if ry.dim() == 2:
+        return torch.stack([iv_meat(
+            ry[b], rt[b], rz[b], phi, theta[b],
+            w=None if w is None else w[b], row_block=row_block,
+            strategy=strategy) for b in range(ry.shape[0])])
+
+    def block(ryb, rtb, rzb, phib, *rest):
+        ph = phib.to(_F32)
+        z = rtb.to(_F32)[:, None] * ph
+        e = ryb.to(_F32) - (z * theta[None, :]).sum(dim=1)
+        if rest:
+            e = rest[0].to(_F32) * e
+        m = e[:, None] * (rzb.to(_F32)[:, None] * ph)
+        if p >= 2:
+            return m.T @ m
+        # p = 1: the plain sum of squares (the reference's form there)
+        return torch.square(m[:, 0]).sum().reshape(1, 1)
+
+    arrays = (ry, rt, rz, phi) + (() if w is None else (w,))
+    return blocked_reduce(block, arrays, row_block=row_block,
+                          strategy=strategy, form="iv_meat")
+
+
+def fold_iv_gram(ry: Tensor, rt: Tensor, rz: Tensor, phi: Tensor,
+                 folds: Tensor, k: int, *, row_block: int = 0,
+                 strategy: Optional[str] = None) -> Tuple[Tensor, Tensor]:
+    """Fold-segmented instrumented Gram ``Gh[j] = Σ_{n in fold j}
+    m_n m_nᵀ`` ((k, 2p+1, 2p+1)) plus per-fold row counts — the IV
+    jackknife's one pass.  Padded fold ids are -1 and match no fold."""
+    if _use_pallas(phi.shape[0], row_block, strategy):
+        return sg_ops.fold_iv_gram(ry, rt, rz, phi, folds, k)
+
+    def block(ryb, rtb, rzb, phib, fb):
+        M = _iv_rows(ryb, rtb, rzb, phib)
+        ids = torch.arange(k, device=fb.device, dtype=fb.dtype)
+        oh = (fb[:, None] == ids[None, :]).to(_F32)
+        G = torch.stack([(M * oh[:, j:j + 1]).T @ M for j in range(k)])
+        return G, oh.sum(0)
+
+    return blocked_reduce(block, (ry, rt, rz, phi, folds),
+                          row_block=row_block, strategy=strategy,
+                          pad_values=(0, 0, 0, 0, -1), form="fold_iv_gram")

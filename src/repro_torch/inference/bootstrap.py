@@ -1,0 +1,273 @@
+"""Bootstrap re-estimation as batched programs.
+
+EconML's ``BootstrapInference(n_bootstrap_samples=B)`` re-runs the
+whole estimator B times — the step the paper hands to Ray.  Here each
+replicate is a *weighted* refit (pairs bootstrap: multinomial row
+counts; multiplier / Bayesian: Exp(1) row weights): the replicate
+weights multiply the fold-complement masks, and a (R, k, n) weight
+tensor turns R re-estimations into one batched fit whose every Gram is
+one launch of the segment-Gram kernel on the card.
+
+Replay: replicate b draws its weights and then its folds from its own
+generator, seeded from ``(seed, b)`` alone (``replicate_generators``),
+so a B=100 run is a prefix of a B=200 run and any replicate can be
+replayed alone.  The generators are CPU generators, so the draws do not
+depend on the device the fit runs on.  torch cannot replay
+``jax.random``: ``dml_theta_once`` / ``iv_theta_once`` take folds and
+weights explicitly, which is how the tests feed both packages the same
+draws.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional
+
+import torch
+
+from repro_torch.core.crossfit import _oof_select, fold_ids, fold_weights
+from repro_torch.core.nuisance import Nuisance
+from repro_torch.inference.executor import make_executor
+from repro_torch.inference.intervals import InferenceResult
+from repro_torch.inference.numerics import (logistic_fit_folds_w,
+                                            predict_folds_linear,
+                                            predict_folds_logistic,
+                                            ridge_fit_folds_w,
+                                            weighted_iv_theta,
+                                            weighted_theta)
+
+Tensor = torch.Tensor
+_F32 = torch.float32
+_MASK64 = (1 << 64) - 1
+
+
+def derive_seed(seed: int, i: int) -> int:
+    """A 63-bit seed derived from ``(seed, i)`` alone (splitmix64)."""
+    z = (int(seed) * 0x9E3779B97F4A7C15 + (int(i) + 1) * 0xBF58476D1CE4E5B9
+         ) & _MASK64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return (z ^ (z >> 31)) >> 1
+
+
+def replicate_generator(seed: int, b: int) -> torch.Generator:
+    """Replicate b's CPU generator, seeded from ``(seed, b)`` alone."""
+    return torch.Generator().manual_seed(derive_seed(seed, b))
+
+
+def replicate_generators(seed: int, n_replicates: int
+                         ) -> List[torch.Generator]:
+    """The generators of replicates 0 .. B-1: replicate b's does not
+    depend on B, so a B=100 run is a prefix of a B=200 run."""
+    return [replicate_generator(seed, b) for b in range(n_replicates)]
+
+
+def bootstrap_weights(gen: torch.Generator, n: int, scheme: str) -> Tensor:
+    """(n,) fp32 per-row resampling weights with mean ≈ 1, on ``gen``'s
+    device.
+
+    pairs       multinomial counts (resampling with replacement);
+    multiplier  i.i.d. Exp(1) multipliers (the Bayesian bootstrap up to
+    bayesian    normalization).
+    """
+    if scheme == "pairs":
+        idx = torch.randint(0, n, (n,), generator=gen, device=gen.device)
+        # integer counts: exact in fp32 below 2^24, and on a CUDA
+        # generator's device bincount's atomics add integers, so the
+        # counts do not depend on the order the atomics land in
+        return torch.bincount(idx, minlength=n).to(_F32)
+    if scheme in ("multiplier", "bayesian"):
+        return torch.empty(n, dtype=_F32, device=gen.device).exponential_(
+            1.0, generator=gen)
+    raise ValueError(f"unknown bootstrap scheme {scheme!r}")
+
+
+def replicate_draws(seed: int, ids: Tensor, n: int, n_folds: int,
+                    scheme: str, device=None):
+    """(folds (R, n), w (R, n)) of the replicates ``ids``: each draws its
+    weights, then its fold assignment, from its own generator."""
+    folds, ws = [], []
+    for b in ids.tolist():
+        g = replicate_generator(seed, b)
+        ws.append(bootstrap_weights(g, n, scheme))
+        folds.append(fold_ids(g, n, n_folds))
+    return (torch.stack(folds).to(device), torch.stack(ws).to(device))
+
+
+def _hyper(nuis: Nuisance, name: str, default):
+    return (nuis.hyper or {}).get(name, default)
+
+
+def fit_predict_folds(nuis: Nuisance, X: Tensor, target: Tensor,
+                      Wk: Tensor) -> Tensor:
+    """(…, k, n) fold-model predictions under the weights ``Wk``
+    (…, k, n), through the fold-and-replicate batched ridge / logistic
+    fits.  Their Grams take the row_block and strategy the nuisance was
+    built with (its ``hyper``): on the card under "pallas" each is one
+    launch of the kernel for the whole batch."""
+    rb = int(_hyper(nuis, "row_block", 0))
+    st = _hyper(nuis, "strategy", None)
+    lam = _hyper(nuis, "lam", 1e-3)
+    if nuis.name == "ridge":
+        return predict_folds_linear(
+            ridge_fit_folds_w(lam, X, target, Wk, row_block=rb, strategy=st),
+            X)
+    if nuis.name == "logistic":
+        iters = int(_hyper(nuis, "iters", 16))
+        return predict_folds_logistic(
+            logistic_fit_folds_w(lam, iters, X, target, Wk, row_block=rb,
+                                 strategy=st), X)
+    raise NotImplementedError(
+        f"weighted refits of the {nuis.name!r} nuisance land with the "
+        "estimators slice (ROADMAP A.6); ridge and logistic are ported")
+
+
+def _batch(folds: Tensor, w: Tensor):
+    """(folds, w) with a leading replicate axis, and whether to drop it."""
+    single = folds.dim() == 1
+    return (folds[None], w[None], single) if single else (folds, w, single)
+
+
+def _unbatch(out: Dict[str, Tensor], single: bool) -> Dict[str, Tensor]:
+    return {key: v[0] for key, v in out.items()} if single else out
+
+
+def dml_residuals_once(nuis_y: Nuisance, nuis_t: Nuisance, n_folds: int,
+                       XW: Tensor, y: Tensor, t: Tensor, folds: Tensor,
+                       w: Tensor) -> Dict[str, Tensor]:
+    """The nuisance prefix of weighted DML re-estimations: both
+    nuisances cross-fit under ``fold_weights(folds) * w`` for each
+    replicate of the (R, n) folds and weights; returns the orthogonal
+    residuals {ry, rt}, each (R, n)."""
+    Wk = fold_weights(folds, n_folds) * w[:, None, :].to(_F32)
+    oof_y = _oof_select(fit_predict_folds(nuis_y, XW, y, Wk), folds)
+    oof_t = _oof_select(fit_predict_folds(nuis_t, XW, t, Wk), folds)
+    return {"ry": y.to(_F32)[None] - oof_y, "rt": t.to(_F32)[None] - oof_t}
+
+
+def dml_theta_once(nuis_y: Nuisance, nuis_t: Nuisance, n_folds: int,
+                   XW: Tensor, y: Tensor, t: Tensor, phi: Tensor,
+                   folds: Tensor, w: Tensor, *, with_se: bool = True,
+                   row_block: int = 0, strategy: Optional[str] = None
+                   ) -> Dict[str, Tensor]:
+    """Full weighted DML re-estimations on given folds and weights,
+    (n,) or (R, n): nuisances cross-fit under ``fold_weights * w``, then
+    the weighted orthogonal final stage at ``row_block`` / ``strategy``.
+    Returns {theta[, se]}, each (p_phi,) or (R, p_phi)."""
+    folds, w, single = _batch(folds, w)
+    r = dml_residuals_once(nuis_y, nuis_t, n_folds, XW, y, t, folds, w)
+    theta, se = weighted_theta(r["ry"], r["rt"], phi, w, with_se=with_se,
+                               row_block=row_block, strategy=strategy)
+    out = {"theta": theta} if se is None else {"theta": theta, "se": se}
+    return _unbatch(out, single)
+
+
+def make_dml_replicate_fn(nuis_y: Nuisance, nuis_t: Nuisance, n_folds: int,
+                          *, seed: int, scheme: str = "pairs",
+                          with_se: bool = True, row_block: int = 0,
+                          strategy: Optional[str] = None):
+    """The bootstrap replicate function for an executor:
+    (ids, XW, y, t, phi) -> {theta[, se]} with a leading len(ids)."""
+
+    def replicate(ids, XW, y, t, phi):
+        folds, w = replicate_draws(seed, ids, XW.shape[0], n_folds, scheme,
+                                   device=XW.device)
+        return dml_theta_once(nuis_y, nuis_t, n_folds, XW, y, t, phi, folds,
+                              w, with_se=with_se, row_block=row_block,
+                              strategy=strategy)
+
+    return replicate
+
+
+def _run(replicate, executor, chunk: int, memory_budget: int,
+         n_replicates: int, *args):
+    if memory_budget > 0:
+        raise NotImplementedError(
+            "memory-probed replicate chunking lands with the runtime slice "
+            "(ROADMAP A.9); set runtime_chunk instead")
+    exe = make_executor(executor, microbatch=chunk or None)
+    ids = torch.arange(n_replicates)
+    return exe.map(replicate, ids, *args), exe.name
+
+
+def _result(out, scheme, exe_name, point, point_se, alpha) -> InferenceResult:
+    thetas = out["theta"]
+    return InferenceResult(
+        method=scheme, executor=exe_name,
+        point=thetas.mean(dim=0) if point is None else point,
+        replicates=thetas, se=torch.std(thetas, dim=0, correction=1),
+        alpha=alpha, point_se=point_se, replicate_se=out.get("se"))
+
+
+def dml_bootstrap(nuis_y: Nuisance, nuis_t: Nuisance, *, n_folds: int,
+                  XW: Tensor, y: Tensor, t: Tensor, phi: Tensor, seed: int,
+                  n_replicates: int = 200, scheme: str = "pairs",
+                  executor="vmap", alpha: float = 0.05,
+                  with_se: bool = True, point: Optional[Tensor] = None,
+                  point_se: Optional[Tensor] = None, row_block: int = 0,
+                  strategy: Optional[str] = None, memory_budget: int = 0,
+                  chunk: int = 0) -> InferenceResult:
+    """B weighted DML refits through an executor; ``chunk`` replicates
+    per batched call (0: all).  Replicate-ordered."""
+    replicate = make_dml_replicate_fn(nuis_y, nuis_t, n_folds, seed=seed,
+                                      scheme=scheme, with_se=with_se,
+                                      row_block=row_block, strategy=strategy)
+    out, name = _run(replicate, executor, chunk, memory_budget, n_replicates,
+                     XW, y, t, phi)
+    return _result(out, scheme, name, point, point_se, alpha)
+
+
+def iv_residuals_once(nuis_y: Nuisance, nuis_t: Nuisance, nuis_z: Nuisance,
+                      n_folds: int, XW: Tensor, y: Tensor, t: Tensor,
+                      z: Tensor, folds: Tensor, w: Tensor
+                      ) -> Dict[str, Tensor]:
+    """The nuisance prefix of weighted OrthoIV re-estimations: the three
+    nuisances cross-fit under ``fold_weights(folds) * w``; returns
+    {ry, rt, rz}, each (R, n)."""
+    Wk = fold_weights(folds, n_folds) * w[:, None, :].to(_F32)
+    r = {}
+    for key, nuis, target in (("ry", nuis_y, y), ("rt", nuis_t, t),
+                              ("rz", nuis_z, z)):
+        oof = _oof_select(fit_predict_folds(nuis, XW, target, Wk), folds)
+        r[key] = target.to(_F32)[None] - oof
+    return r
+
+
+def iv_theta_once(nuis_y: Nuisance, nuis_t: Nuisance, nuis_z: Nuisance,
+                  n_folds: int, XW: Tensor, y: Tensor, t: Tensor, z: Tensor,
+                  phi: Tensor, folds: Tensor, w: Tensor, *,
+                  with_se: bool = True, row_block: int = 0,
+                  strategy: Optional[str] = None) -> Dict[str, Tensor]:
+    """Full weighted OrthoIV re-estimations on given folds and weights,
+    (n,) or (R, n): three weighted nuisance cross-fits, then the weighted
+    instrumented final stage.  Returns {theta[, se]}."""
+    folds, w, single = _batch(folds, w)
+    r = iv_residuals_once(nuis_y, nuis_t, nuis_z, n_folds, XW, y, t, z,
+                          folds, w)
+    theta, se = weighted_iv_theta(r["ry"], r["rt"], r["rz"], phi, w,
+                                  with_se=with_se, row_block=row_block,
+                                  strategy=strategy)
+    out = {"theta": theta} if se is None else {"theta": theta, "se": se}
+    return _unbatch(out, single)
+
+
+def iv_bootstrap(nuis_y: Nuisance, nuis_t: Nuisance, nuis_z: Nuisance, *,
+                 n_folds: int, XW: Tensor, y: Tensor, t: Tensor, z: Tensor,
+                 phi: Tensor, seed: int, n_replicates: int = 200,
+                 scheme: str = "pairs", executor="vmap",
+                 alpha: float = 0.05, with_se: bool = True,
+                 point: Optional[Tensor] = None,
+                 point_se: Optional[Tensor] = None, row_block: int = 0,
+                 strategy: Optional[str] = None, memory_budget: int = 0,
+                 chunk: int = 0) -> InferenceResult:
+    """B weighted OrthoIV refits through an executor, scheduled as
+    ``dml_bootstrap``."""
+
+    def replicate(ids, XW_, y_, t_, z_, phi_):
+        folds, w = replicate_draws(seed, ids, XW_.shape[0], n_folds, scheme,
+                                   device=XW_.device)
+        return iv_theta_once(nuis_y, nuis_t, nuis_z, n_folds, XW_, y_, t_,
+                             z_, phi_, folds, w, with_se=with_se,
+                             row_block=row_block, strategy=strategy)
+
+    out, name = _run(replicate, executor, chunk, memory_budget, n_replicates,
+                     XW, y, t, z, phi)
+    return _result(out, scheme, name, point, point_se, alpha)

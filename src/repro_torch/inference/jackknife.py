@@ -7,6 +7,8 @@ estimate is the LOO identity ``G_(-j) = G_total - G_fold_j`` plus a
 (p_phi, p_phi) solve: the k solves run as one batched ``det_solve``.
 
     se² = (k-1)/k · Σ_j (θ_(-j) - θ̄)²
+
+``delete_fold_jackknife_iv`` does the same for the instrumented moment.
 """
 from __future__ import annotations
 
@@ -64,3 +66,29 @@ def _jackknife_result(thetas: Tensor, n_folds: int, point, point_se,
     return InferenceResult(method="jackknife", executor="batched",
                            point=center, replicates=thetas, se=se,
                            alpha=alpha, point_se=point_se)
+
+
+def delete_fold_jackknife_iv(y: Tensor, t: Tensor, z: Tensor, oof_y: Tensor,
+                             oof_t: Tensor, oof_z: Tensor, folds: Tensor,
+                             phi: Tensor, n_folds: int, *,
+                             alpha: float = 0.05, point=None, point_se=None,
+                             ridge: float = 1e-8, row_block: int = 0,
+                             strategy=None) -> InferenceResult:
+    """Delete-fold jackknife of the instrumented moment: one
+    fold-segmented instrumented Gram (``moments.fold_iv_gram``: the
+    kernel's iv builder with k segments on the card under "pallas"),
+    then each delete-fold 2SLS estimate is ``G_(-j) = G_total - G_j``
+    plus one solve, the k solves batched."""
+    n, p = phi.shape
+    k = int(n_folds)
+    ry = y.to(_F32) - oof_y
+    rt = t.to(_F32) - oof_t
+    rz = z.to(_F32) - oof_z
+    Gh, counts = moments.fold_iv_gram(ry, rt, rz, phi, folds, k,
+                                      row_block=row_block, strategy=strategy)
+    Gd = Gh.sum(0)[None] - Gh
+    J, b, _, _ = moments.iv_slices(Gd, p)
+    n_eff = torch.clamp(n - counts, min=1.0)
+    eye = torch.eye(p, dtype=_F32, device=phi.device)
+    thetas = det_solve(J + ridge * n_eff[:, None, None] * eye, b)
+    return _jackknife_result(thetas, k, point, point_se, alpha)

@@ -8,17 +8,27 @@
 // not carry over its sequential VMEM-resident grid.
 //
 // Builders.  A template parameter picks how a row's factors (L, R) are
-// formed from the raw columns, for the four builders of the DML main
-// path (kernels/seg_gram/ref.py names them):
+// formed from the raw columns (kernels/seg_gram/ref.py names them):
 //
-//   DESIGN          L = R = X                       (X the design [X|1|y])
-//   GRAM_AND_VEC    L = [wg * X | v],  R = X        (logistic Newton step)
-//   RESIDUAL        L = R = [rt * phi | ry]         (final-stage G, b)
-//   RESIDUAL_MEAT   L = R = e * rt * phi,  e = (w2 *)(ry - <rt*phi, theta>)
+//   DESIGN           L = R = X                      (X the design [X|1|y])
+//   GRAM_AND_VEC     L = [wg * X | v],  R = X       (logistic Newton step)
+//   RESIDUAL         L = R = [rt * phi | ry]        (final-stage G, b;
+//                                                    rt = t - mt, ry = y - my)
+//   RESIDUAL_DIRECT  L = R = [rt * phi | ry]        (residuals given)
+//   RESIDUAL_MEAT    L = R = e * rt * phi,  e = (w2 *)(ry - <rt*phi, theta>)
+//   IV               L = R = [rz * phi | rt * phi | ry]
+//   IV_MEAT          L = R = e * rz * phi,  e = (w2 *)(ry - <rt*phi, theta>)
 //
-// Every builder is "scale times X, plus an optional appended column", so
-// the per-row scalars (rt, ry, e, wg, v) are formed once per row when a
-// chunk of rows is staged, and the per-element work is one multiply.
+// build_fold_weighted (G[k] = sum_n Wk[k,n] d_n d_n^T, which the TPU
+// kernel gets by widening L to the (n, k*q) kron product) is DESIGN with
+// Wk as a batched row weight: no kron operand exists here.
+//
+// Every builder is "one or two scaled copies of X, plus an optional
+// appended column", so the per-row scalars (rt, ry, rz, e, wg, v) are
+// formed once per row when a chunk of rows is staged, and the
+// per-element work is one multiply.  IV is the one builder with two
+// copies: column i < dX of its row is rz * phi_i, column dX + i is
+// rt * phi_i, column 2 dX is ry.
 //
 // Grid.  blockIdx = (row split p, output tile, batch b).  Each block owns
 // one TILE x TILE tile of the (S*qL, qR) output of batch b and the rows
@@ -35,9 +45,11 @@
 // sums the splits in the fixed order 0..P-1.  No atomics: a run repeats
 // bitwise.
 //
-// Fold batch.  The leading batch dimension carries the k folds of the
-// "parallel" cross-fit engine in one launch: w (and gram_and_vec's wg, v)
-// come in at a batch stride, X is shared.
+// Batch.  The leading batch dimension carries the k folds of the
+// "parallel" cross-fit engine -- and, for the bootstrap, R replicates
+// times k folds -- in one launch: w, the per-row scalars and the meats'
+// theta come in at batch strides (0: shared), X is shared.  Each batch
+// element's arithmetic is the same whatever the batch size.
 //
 // Bound on the H100 (3.35 TB/s HBM, ~67 TFLOP/s fp32 FMA).  At q ~ 500
 // the Gram is 2*n*qL*qR FLOP for n*q*4 bytes read -- about 250 FLOP/byte,
@@ -47,13 +59,19 @@
 // 0.5 loads per FMA on the 64x64 tile) and reaches neither bound; the
 // S > 1 path still multiplies the zeros of the one-hot expansion (S times
 // the useful work), as the TPU kernel did.  Both are left to a later PR.
+// The bootstrap's fold-weighted launches (batch R*k up to 125 at q = 502)
+// have the design form's bound times R; its residual_direct, iv and
+// meat forms (q <= 5) are bandwidth-bound like the final-stage forms.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-enum Builder { DESIGN = 0, GRAM_AND_VEC = 1, RESIDUAL = 2, RESIDUAL_MEAT = 3 };
+enum Builder {
+  DESIGN = 0, GRAM_AND_VEC = 1, RESIDUAL = 2, RESIDUAL_MEAT = 3,
+  RESIDUAL_DIRECT = 4, IV = 5, IV_MEAT = 6
+};
 
 struct Args {
   long long n;
@@ -64,8 +82,9 @@ struct Args {
   const float* a2;
   const float* a3;
   const float* a4;         // the meat's optional builder weight (or null)
-  long long a_bstride;     // batch stride of a0, a1 (gram_and_vec)
-  const float* theta;      // (dX,) for the meat
+  long long a_bstride;     // batch stride of a0..a4 (0: shared)
+  const float* theta;      // (B, dX) for the meats, at theta_bstride
+  long long theta_bstride;
   const float* w;          // (B, n) row weights at w_bstride, or null
   long long w_bstride;
   const int* seg;          // (n,) segment ids, or null for one segment
@@ -76,30 +95,61 @@ struct Args {
   float* partial;          // (P, B, S*qL, qR)
 };
 
-// Per-row scalars: L_n[i] = cL * X[n, i] (i < dX), L_n[dX] = eL; R alike.
+// Per-row scalars: L_n[i] = c1L * X[n, i] (i < dX), L_n[dX + i] =
+// c2L * X[n, i] (IV only), and the appended column L_n[last] = eL; R
+// alike.
+struct RowScalars {
+  float c1L, c2L, eL, c1R, c2R, eR;
+};
+
+__device__ __forceinline__ float meat_e(const Args& a, int b, long long row,
+                                        float ry, float rt, const float* w2) {
+  const float* xr = a.X + row * a.dX;
+  const float* th = a.theta + (long long)b * a.theta_bstride;
+  float dot = 0.f;
+  for (int j = 0; j < a.dX; ++j) dot += (rt * xr[j]) * th[j];
+  float e = ry - dot;
+  if (w2 != nullptr) e = w2[(long long)b * a.a_bstride + row] * e;
+  return e;
+}
+
 template <int BUILDER>
-__device__ __forceinline__ void row_scalars(const Args& a, int b, long long row,
-                                            float& cL, float& eL, float& cR,
-                                            float& eR) {
-  if (BUILDER == DESIGN) {
-    cL = 1.f; eL = 0.f; cR = 1.f; eR = 0.f;
-  } else if (BUILDER == GRAM_AND_VEC) {
-    const long long o = (long long)b * a.a_bstride + row;
-    cL = a.a0[o]; eL = a.a1[o]; cR = 1.f; eR = 0.f;
-  } else if (BUILDER == RESIDUAL) {
-    const float ry = a.a0[row] - a.a2[row];
-    const float rt = a.a1[row] - a.a3[row];
-    cL = rt; eL = ry; cR = rt; eR = ry;
-  } else {  // RESIDUAL_MEAT
-    const float ry = a.a0[row] - a.a2[row];
-    const float rt = a.a1[row] - a.a3[row];
-    const float* xr = a.X + row * a.dX;
-    float dot = 0.f;
-    for (int j = 0; j < a.dX; ++j) dot += (rt * xr[j]) * a.theta[j];
-    float e = ry - dot;
-    if (a.a4 != nullptr) e = a.a4[row] * e;
-    cL = e * rt; eL = 0.f; cR = e * rt; eR = 0.f;
+__device__ __forceinline__ RowScalars row_scalars(const Args& a, int b,
+                                                  long long row) {
+  const long long o = (long long)b * a.a_bstride + row;
+  RowScalars s = {1.f, 0.f, 0.f, 1.f, 0.f, 0.f};
+  if constexpr (BUILDER == GRAM_AND_VEC) {
+    s.c1L = a.a0[o]; s.eL = a.a1[o];
+  } else if constexpr (BUILDER == RESIDUAL) {
+    const float ry = a.a0[o] - a.a2[o];
+    const float rt = a.a1[o] - a.a3[o];
+    s.c1L = rt; s.eL = ry; s.c1R = rt; s.eR = ry;
+  } else if constexpr (BUILDER == RESIDUAL_DIRECT) {
+    s.c1L = a.a1[o]; s.eL = a.a0[o]; s.c1R = s.c1L; s.eR = s.eL;
+  } else if constexpr (BUILDER == RESIDUAL_MEAT) {
+    const float ry = a.a0[o] - a.a2[o];
+    const float rt = a.a1[o] - a.a3[o];
+    const float e = meat_e(a, b, row, ry, rt, a.a4);
+    s.c1L = e * rt; s.c1R = e * rt;
+  } else if constexpr (BUILDER == IV) {
+    s.c1L = a.a2[o]; s.c2L = a.a1[o]; s.eL = a.a0[o];
+    s.c1R = s.c1L; s.c2R = s.c2L; s.eR = s.eL;
+  } else if constexpr (BUILDER == IV_MEAT) {
+    const float e = meat_e(a, b, row, a.a0[o], a.a1[o], a.a3);
+    s.c1L = e * a.a2[o]; s.c1R = s.c1L;
   }
+  return s;
+}
+
+// Column i of a staged row: c1 * x_i, then (IV) c2 * x_{i - dX}, then e.
+template <int BUILDER>
+__device__ __forceinline__ float colval(int i, const float* xr, int dX,
+                                        float c1, float c2, float e) {
+  if (i < dX) return c1 * xr[i];
+  if constexpr (BUILDER == IV) {
+    if (i < 2 * dX) return c2 * xr[i - dX];
+  }
+  return e;
 }
 
 template <int BUILDER, int TILE, int TM, int CH>
@@ -109,7 +159,8 @@ seg_gram_kernel(Args a) {
   constexpr int NT = TPR * TPR;
   __shared__ __align__(16) float Ls[CH][TILE];
   __shared__ __align__(16) float Rs[CH][TILE];
-  __shared__ float sCL[CH], sEL[CH], sCR[CH], sER[CH], sW[CH];
+  __shared__ float sCL[CH], sCL2[CH], sEL[CH], sCR[CH], sCR2[CH], sER[CH];
+  __shared__ float sW[CH];
   __shared__ int sSeg[CH];
   __shared__ int colS[TILE], colI[TILE];
 
@@ -143,14 +194,17 @@ seg_gram_kernel(Args a) {
   for (long long c0 = r0; c0 < r1; c0 += CH) {
     for (int r = tid; r < CH; r += NT) {
       const long long row = c0 + r;
-      float cL = 0.f, eL = 0.f, cR = 0.f, eR = 0.f, w = 0.f;
+      RowScalars sc = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+      float w = 0.f;
       int sg = -1;
       if (row < r1) {
-        row_scalars<BUILDER>(a, b, row, cL, eL, cR, eR);
+        sc = row_scalars<BUILDER>(a, b, row);
         w = wb != nullptr ? wb[row] : 1.f;
         sg = a.seg != nullptr ? a.seg[row] : 0;
       }
-      sCL[r] = cL; sEL[r] = eL; sCR[r] = cR; sER[r] = eR; sW[r] = w;
+      sCL[r] = sc.c1L; sCL2[r] = sc.c2L; sEL[r] = sc.eL;
+      sCR[r] = sc.c1R; sCR2[r] = sc.c2R; sER[r] = sc.eR;
+      sW[r] = w;
       sSeg[r] = sg;
     }
     __syncthreads();
@@ -160,12 +214,12 @@ seg_gram_kernel(Args a) {
       float lv = 0.f, rv = 0.f;
       if (row < r1) {
         const float* xr = a.X + row * a.dX;
-        if (sSeg[r] == colS[c]) {
-          const int i = colI[c];
-          lv = (i < a.dX ? sCL[r] * xr[i] : sEL[r]) * sW[r];
-        }
+        if (sSeg[r] == colS[c])
+          lv = colval<BUILDER>(colI[c], xr, a.dX, sCL[r], sCL2[r], sEL[r]) *
+               sW[r];
         const int J = J0 + c;
-        if (J < a.qR) rv = J < a.dX ? sCR[r] * xr[J] : sER[r];
+        if (J < a.qR)
+          rv = colval<BUILDER>(J, xr, a.dX, sCR[r], sCR2[r], sER[r]);
       }
       Ls[r][c] = lv;
       Rs[r][c] = rv;
@@ -254,13 +308,14 @@ long long seg_gram_split_rows(int SqL, int qR) {
 int seg_gram_run(int builder, long long n, int dX, const float* X,
                  const float* a0, const float* a1, const float* a2,
                  const float* a3, const float* a4, long long a_bstride,
-                 const float* theta, const float* w, long long w_bstride,
+                 const float* theta, long long theta_bstride,
+                 const float* w, long long w_bstride,
                  const int* seg, int S, int B, int qL, int qR,
                  float* partial, int P, float* out, void* stream) {
   Args a;
   a.n = n; a.dX = dX; a.X = X;
   a.a0 = a0; a.a1 = a1; a.a2 = a2; a.a3 = a3; a.a4 = a4;
-  a.a_bstride = a_bstride; a.theta = theta;
+  a.a_bstride = a_bstride; a.theta = theta; a.theta_bstride = theta_bstride;
   a.w = w; a.w_bstride = w_bstride; a.seg = seg; a.S = S;
   a.qL = qL; a.qR = qR; a.B = B; a.partial = partial;
   const int SqL = S * qL;
@@ -275,6 +330,10 @@ int seg_gram_run(int builder, long long n, int dX, const float* X,
     case GRAM_AND_VEC: err = launch<GRAM_AND_VEC>(a, small, P, st); break;
     case RESIDUAL: err = launch<RESIDUAL>(a, small, P, st); break;
     case RESIDUAL_MEAT: err = launch<RESIDUAL_MEAT>(a, small, P, st); break;
+    case RESIDUAL_DIRECT:
+      err = launch<RESIDUAL_DIRECT>(a, small, P, st); break;
+    case IV: err = launch<IV>(a, small, P, st); break;
+    case IV_MEAT: err = launch<IV_MEAT>(a, small, P, st); break;
     default: return (int)cudaErrorInvalidValue;
   }
   if (err != cudaSuccess) return (int)err;

@@ -1,13 +1,14 @@
 """ctypes binding of the Hopper segmented-Gram kernel (csrc/seg_gram.cu).
 
-``seg_gram_cuda`` takes the raw columns of one of the four main-path
+``seg_gram_cuda`` takes the raw columns of one of the kernel's seven
 builders, checks device, dtype, shape and contiguity, launches the
 kernel on the current stream and returns ``(B, S*qL, qR)`` fp32.  It
 raises on anything it does not take and whenever the launch returns a
 CUDA error; it never falls back to the plain version.  ``LAUNCHES``
-counts launches per form (``design``, ``design_segmented``,
-``gram_and_vec``, ``residual``, ``residual_meat``, and ``residual_gram``
-for the final stage's own entry point), one per launch.
+counts launches per form (the builder's name, ``<name>_segmented`` for
+S > 1, or the ``count_as`` key of an entry point of its own:
+``residual_gram`` for the final stage at row_block=0, ``fold_weighted``
+for the bootstrap's fold-and-replicate-weighted Grams), one per launch.
 
 Replaces ``src/repro/kernels/seg_gram/kernel.py:seg_gram_pallas``; the
 design and its bound on the H100 are in the source note of
@@ -26,10 +27,14 @@ from repro_torch.kernels import build
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "seg_gram.cu"
 BUILDERS = {"design": 0, "gram_and_vec": 1, "residual": 2,
-            "residual_meat": 3}
-# (scalar columns taken, qL - dX, qR - dX) per builder
-_LAYOUT = {"design": ((0,), 0, 0), "gram_and_vec": ((2,), 1, 0),
-           "residual": ((4,), 1, 1), "residual_meat": ((4, 5), 0, 0)}
+            "residual_meat": 3, "residual_direct": 4, "iv": 5, "iv_meat": 6}
+# (scalar columns taken, copies of X, appended L columns, appended R
+# columns) per builder: qL = copies * dX + appended
+_LAYOUT = {"design": ((0,), 1, 0, 0), "gram_and_vec": ((2,), 1, 1, 0),
+           "residual": ((4,), 1, 1, 1), "residual_meat": ((4, 5), 1, 0, 0),
+           "residual_direct": ((2,), 1, 1, 1), "iv": ((3,), 2, 1, 1),
+           "iv_meat": ((3, 4), 1, 0, 0)}
+_MEATS = ("residual_meat", "iv_meat")
 
 LAUNCHES: collections.Counter = collections.Counter()
 
@@ -47,7 +52,7 @@ def library() -> ctypes.CDLL:
         lib.seg_gram_run.argtypes = [
             _I, _LL, _I, _P,             # builder, n, dX, X
             _P, _P, _P, _P, _P, _LL,     # a0..a4, a_bstride
-            _P, _P, _LL,                 # theta, w, w_bstride
+            _P, _LL, _P, _LL,            # theta, its stride, w, w_bstride
             _P, _I, _I, _I, _I,          # seg, S, B, qL, qR
             _P, _I, _P, _P,              # partial, P, out, stream
         ]
@@ -89,13 +94,15 @@ def seg_gram_cuda(builder: str, X: torch.Tensor, *,
                   n_segments: int = 1,
                   count_as: Optional[str] = None) -> torch.Tensor:
     """Launch the kernel.  ``X`` (n, dX) is the row matrix (the design D
-    or phi); ``scalars`` the builder's per-row columns — gram_and_vec:
-    (wg, v), each (n,) or (B, n); residual: (y, t, my, mt), each (n,);
-    residual_meat: (y, t, my, mt[, w]).  ``theta`` (dX,) for the meat;
-    ``w`` (n,) or (B, n) row weights; ``seg`` (n,) int32 ids when
-    ``n_segments`` > 1.  ``count_as`` names the ``LAUNCHES`` key of a
-    caller that is an entry point of its own (default: the form).
-    Returns (B, n_segments*qL, qR) fp32."""
+    or phi); ``scalars`` the builder's per-row columns, all (n,) or all
+    (B, n) — gram_and_vec: (wg, v); residual: (y, t, my, mt);
+    residual_direct: (ry, rt); residual_meat: (y, t, my, mt[, w]); iv:
+    (ry, rt, rz); iv_meat: (ry, rt, rz[, w]).  ``theta`` (dX,) or
+    (B, dX) for the meats; ``w`` (n,) or (B, n) row weights; ``seg``
+    (n,) int32 ids when ``n_segments`` > 1.  ``count_as`` names the
+    ``LAUNCHES`` key of a caller that is an entry point of its own
+    (default: the form).  Returns (B, n_segments*qL, qR) fp32; raises
+    naming the shape if the split-partial buffer does not fit."""
     if builder not in BUILDERS:
         raise NotImplementedError(f"seg_gram has no CUDA builder {builder!r}")
     if X.device.type != "cuda":
@@ -105,7 +112,7 @@ def seg_gram_cuda(builder: str, X: torch.Tensor, *,
     dev, f32 = X.device, torch.float32
     n, dX = X.shape
     _check("X", X, dev, f32, [(n, dX)])
-    counts, dl, dr = _LAYOUT[builder]
+    counts, copies, dl, dr = _LAYOUT[builder]
     if len(scalars) not in counts:
         raise ValueError(f"seg_gram[{builder}] takes {counts} scalar columns, "
                          f"got {len(scalars)}")
@@ -113,23 +120,21 @@ def seg_gram_cuda(builder: str, X: torch.Tensor, *,
     if S < 1:
         raise ValueError(f"n_segments must be >= 1, got {S}")
     B = 1
-    for x in list(scalars) + ([w] if w is not None else []):
+    for x in list(scalars) + [x for x in (w, theta) if x is not None]:
         if x.dim() == 2:
             B = max(B, x.shape[0])
-    a_b = 0
-    if builder == "gram_and_vec":
-        for i, x in enumerate(scalars):
-            _check(f"scalars[{i}]", x, dev, f32, [(n,), (B, n)])
-        if scalars[0].shape != scalars[1].shape:
-            raise ValueError("seg_gram[gram_and_vec]: wg and v differ in shape")
-        a_b = n if scalars[0].dim() == 2 else 0
-    else:
-        for i, x in enumerate(scalars):
-            _check(f"scalars[{i}]", x, dev, f32, [(n,)])
-    if builder == "residual_meat":
+    for i, x in enumerate(scalars):
+        _check(f"scalars[{i}]", x, dev, f32, [(n,), (B, n)])
+        if x.shape != scalars[0].shape:
+            raise ValueError(f"seg_gram[{builder}]: the scalar columns "
+                             "differ in shape")
+    a_b = n if scalars and scalars[0].dim() == 2 else 0
+    th_b = 0
+    if builder in _MEATS:
         if theta is None:
-            raise ValueError("seg_gram[residual_meat] needs theta")
-        _check("theta", theta, dev, f32, [(dX,)])
+            raise ValueError(f"seg_gram[{builder}] needs theta")
+        _check("theta", theta, dev, f32, [(dX,), (B, dX)])
+        th_b = dX if theta.dim() == 2 else 0
     elif theta is not None:
         raise ValueError(f"seg_gram[{builder}] takes no theta")
     w_b = 0
@@ -142,12 +147,19 @@ def seg_gram_cuda(builder: str, X: torch.Tensor, *,
         _check("seg", seg, dev, torch.int32, [(n,)])
     elif seg is not None:
         raise ValueError("seg is only taken with n_segments > 1")
-    qL, qR = dX + dl, dX + dr
+    qL, qR = copies * dX + dl, copies * dX + dr
 
     lib = library()
     rs = lib.seg_gram_split_rows(S * qL, qR)
     P = max(1, -(-n // rs))
-    partial = torch.empty((P, B, S * qL, qR), dtype=f32, device=dev)
+    shape = (P, B, S * qL, qR)
+    try:
+        partial = torch.empty(shape, dtype=f32, device=dev)
+    except torch.cuda.OutOfMemoryError as e:
+        raise RuntimeError(
+            f"seg_gram[{builder}]: the split-partial buffer {shape} "
+            f"({4 * P * B * S * qL * qR / 2 ** 30:.2f} GiB) does not fit on "
+            f"{dev}; take fewer replicates per chunk (runtime_chunk)") from e
     out = torch.empty((B, S * qL, qR), dtype=f32, device=dev)
     a = list(scalars) + [None] * (5 - len(scalars))
     with torch.cuda.device(dev):
@@ -155,7 +167,7 @@ def seg_gram_cuda(builder: str, X: torch.Tensor, *,
         err = lib.seg_gram_run(
             BUILDERS[builder], n, dX, _ptr(X),
             *[_ptr(x) for x in a], a_b,
-            _ptr(theta), _ptr(w), w_b,
+            _ptr(theta), th_b, _ptr(w), w_b,
             _ptr(seg), S, B, qL, qR,
             _ptr(partial), P, _ptr(out), _P(stream))
     if err != 0:

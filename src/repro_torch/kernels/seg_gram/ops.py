@@ -8,10 +8,15 @@ and nothing falls back: a builder without a CUDA kernel raises on a CUDA
 tensor.
 
 Batching.  The "parallel" cross-fit engine writes the fold axis out as
-a leading batch dimension: ``w`` may be (B, n), and a row-shaped input
-may be (B, n, d) (gram_and_vec's per-fold ``wg`` and ``v``).  The result
-then carries a leading B.  The kernel takes the batch in one launch;
-the plain version loops over it.
+a leading batch dimension, and the bootstrap the replicate axis (or
+replicates times folds): ``w`` may be (B, n), a row-shaped input
+(B, n, d) and a broadcast row such as theta (B, 1, d).  The result then
+carries a leading B.  The kernel takes the batch in one launch; the
+plain version loops over it.  ``build_fold_weighted`` carries its batch
+in the dense weights ``Wt`` (n, k) instead and returns the reference's
+(k·q, q) layout: on the card it is the design kernel with ``Wt.T`` as a
+batched row weight, on the CPU each fold's block of the kron builder in
+turn — neither forms the (n, k·q) operand.
 
 The moments engine routes here only on its blocked path (row_block > 0);
 the kernel's own row partition is fixed by its tile configuration
@@ -31,11 +36,7 @@ Tensor = torch.Tensor
 _F32 = torch.float32
 
 _LATER = {
-    "build_residual_direct": "the bootstrap-inference slice",
-    "build_fold_weighted": "the bootstrap-inference slice",
-    "build_iv": "the IV slice",
-    "build_iv_meat": "the IV slice",
-    "build_pair": "the sweep/store slice",
+    "build_pair": "the sweep/store slice (ROADMAP A.11)",
 }
 
 
@@ -49,21 +50,48 @@ def _vec(x: Tensor) -> Tensor:
     return x[..., 0].contiguous()
 
 
-def _kernel_args(builder, arrays):
-    """(kernel builder name, X, scalar columns, theta) for a CUDA launch."""
+def _theta(theta: Tensor) -> Tensor:
+    """(1, d) -> (d,); (B, 1, d) -> (B, d), contiguous."""
+    return theta.reshape(theta.shape[:-2] + theta.shape[-1:]).contiguous()
+
+
+def _row(theta: Tensor) -> Tensor:
+    """(p,) -> (1, p); (B, p) -> (B, 1, p): a broadcast builder row."""
+    return theta.to(_F32).unsqueeze(-2)
+
+
+# builders whose inputs are per-row columns, then phi
+_COLUMNS = {_ref.build_residual: "residual",
+            _ref.build_residual_direct: "residual_direct",
+            _ref.build_iv: "iv"}
+# the meats: (name, columns before phi); then phi, theta[, builder w]
+_MEATS = {_ref.build_residual_meat: ("residual_meat", 4),
+          _ref.build_iv_meat: ("iv_meat", 3)}
+
+
+def _kernel_args(builder, arrays, w=None):
+    """(kernel builder name, X, scalar columns, theta, row weights,
+    LAUNCHES key or None) for a CUDA launch."""
     if builder is _ref.build_design:
         (D,) = arrays
-        return "design", D, (), None
+        return "design", D, (), None, w, None
+    if builder is _ref.build_fold_weighted:
+        Wt, D = arrays
+        if w is not None:
+            raise ValueError("build_fold_weighted carries its weights in Wt")
+        return "design", D, (), None, Wt.T.contiguous(), "fold_weighted"
     if builder is _ref.build_gram_and_vec:
         D, wg, v = arrays
-        return "gram_and_vec", D, (_vec(wg), _vec(v)), None
-    if builder is _ref.build_residual:
+        return "gram_and_vec", D, (_vec(wg), _vec(v)), None, w, None
+    if builder in _COLUMNS:
         *cols, phi = arrays
-        return "residual", phi, tuple(_vec(c) for c in cols), None
-    if builder is _ref.build_residual_meat:
-        y, t, my, mt, phi, theta, *w = arrays
-        cols = tuple(_vec(c) for c in [y, t, my, mt, *w])
-        return "residual_meat", phi, cols, theta.reshape(-1).contiguous()
+        return (_COLUMNS[builder], phi, tuple(_vec(c) for c in cols), None,
+                w, None)
+    if builder in _MEATS:
+        name, nc = _MEATS[builder]
+        cols = [*arrays[:nc], *arrays[nc + 2:]]     # [, builder w] last
+        return (name, arrays[nc], tuple(_vec(c) for c in cols),
+                _theta(arrays[nc + 1]), w, None)
     name = getattr(builder, "__name__", repr(builder))
     later = _LATER.get(name, "a later slice")
     raise NotImplementedError(
@@ -79,25 +107,36 @@ def seg_reduce(builder, arrays: Sequence[Tensor], *,
     arrays = [a.to(_F32) for a in arrays]
     dev = arrays[0].device
     w = None if w is None else w.to(_F32)
+    if builder is _ref.build_fold_weighted and (w is not None
+                                                or n_segments != 1):
+        raise ValueError("build_fold_weighted takes no row weights or "
+                         "segments: its weights are Wt")
     batched = any(a.dim() == 3 for a in arrays) or (
         w is not None and w.dim() == 2)
     S = int(n_segments)
     if dev.type == "cuda":
-        name, X, scalars, theta = _kernel_args(builder, arrays)
+        name, X, scalars, theta, wk, count = _kernel_args(builder, arrays,
+                                                          w)
         if X.dim() != 2:
             raise ValueError("seg_gram: the row matrix must be shared, "
                              f"got shape {tuple(X.shape)}")
         G = _kernel.seg_gram_cuda(
             name, X.contiguous(), scalars=scalars, theta=theta,
-            w=None if w is None else w.contiguous(),
+            w=None if wk is None else wk.contiguous(),
             seg=None if S == 1 else seg.to(torch.int32).contiguous(),
-            n_segments=S)
+            n_segments=S, count_as=count)
+        if builder is _ref.build_fold_weighted:
+            return G.reshape(-1, G.shape[2])
         qL, qR = G.shape[1] // S, G.shape[2]
         if S > 1:
             G = G.reshape(G.shape[0], S, qL, qR)
         return G if batched else G[0]
     if dev.type != "cpu":
         raise ValueError(f"seg_gram runs on cuda or cpu, not {dev}")
+    if builder is _ref.build_fold_weighted:
+        Wt, D = arrays
+        return torch.cat([_ref.seg_gram_plain(builder, [Wt[:, j:j + 1], D])
+                          for j in range(Wt.shape[1])])
 
     def one(b):
         arrs = [a[b] if a.dim() == 3 else a for a in arrays]
@@ -156,9 +195,55 @@ def residual_gram(y: Tensor, t: Tensor, my: Tensor, mt: Tensor,
 def residual_meat(y: Tensor, t: Tensor, my: Tensor, mt: Tensor,
                   phi: Tensor, theta: Tensor, *,
                   w: Optional[Tensor] = None) -> Tensor:
-    """(p, p) HC0 meat at theta; w scales e before squaring."""
-    arrays = [_col(y), _col(t), _col(my), _col(mt), phi,
-              theta.reshape(1, -1)]
+    """(p, p) HC0 meat at theta; w scales e before squaring.  Batched:
+    y, t, my, mt, w (B, n) and theta (B, p) -> (B, p, p)."""
+    arrays = [_col(y), _col(t), _col(my), _col(mt), phi, _row(theta)]
     if w is not None:
         arrays.append(_col(w))
     return seg_reduce(_ref.build_residual_meat, arrays)
+
+
+def fold_weighted_design_gram(D: Tensor, Wk: Tensor) -> Tensor:
+    """(k, q, q) dense-weight Gram ``G[k] = Σ_n Wk[k, n] d_n d_nᵀ`` for
+    Wk (k, n) — k any batch of folds (times replicates).  One launch of
+    the design kernel with Wk as a batched row weight, counted as
+    ``fold_weighted``; n_eff stays outside (moments.fold_weighted_gram)."""
+    k, q = Wk.shape[0], D.shape[1]
+    G = seg_reduce(_ref.build_fold_weighted, [Wk.T, D])
+    return G.reshape(k, q, q)
+
+
+def residual_weighted_gram(ry: Tensor, rt: Tensor, phi: Tensor,
+                           w: Tensor) -> Tuple[Tensor, Tensor]:
+    """(weighted augmented residual Gram over M = [rt·phi | ry], n_eff):
+    ((p+1, p+1), ()) or, for ry, rt, w (B, n), ((B, p+1, p+1), (B,))."""
+    Gaug = seg_reduce(_ref.build_residual_direct,
+                      [_col(ry), _col(rt), phi], w=w)
+    return Gaug, w.to(_F32).sum(-1)
+
+
+def iv_gram(ry: Tensor, rt: Tensor, rz: Tensor, phi: Tensor,
+            w: Tensor) -> Tuple[Tensor, Tensor]:
+    """((2p+1, 2p+1) instrumented augmented Gram over
+    M = [rz·phi | rt·phi | ry], n_eff); batched as residual_weighted_gram."""
+    Gaug = seg_reduce(_ref.build_iv, [_col(ry), _col(rt), _col(rz), phi],
+                      w=w)
+    return Gaug, w.to(_F32).sum(-1)
+
+
+def fold_iv_gram(ry: Tensor, rt: Tensor, rz: Tensor, phi: Tensor,
+                 folds: Tensor, k: int) -> Tuple[Tensor, Tensor]:
+    """((k, 2p+1, 2p+1) fold-segmented instrumented Gram, counts)."""
+    G = seg_reduce(_ref.build_iv, [_col(ry), _col(rt), _col(rz), phi],
+                   seg=folds, n_segments=k)
+    return G, segment_counts(folds, k)
+
+
+def iv_meat(ry: Tensor, rt: Tensor, rz: Tensor, phi: Tensor,
+            theta: Tensor, *, w: Optional[Tensor] = None) -> Tensor:
+    """(p, p) HC0 meat of the instrumented moment at theta (batched as
+    residual_meat)."""
+    arrays = [_col(ry), _col(rt), _col(rz), phi, _row(theta)]
+    if w is not None:
+        arrays.append(_col(w))
+    return seg_reduce(_ref.build_iv_meat, arrays)

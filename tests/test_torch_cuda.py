@@ -5,9 +5,17 @@ runs where only the port is installed:
     PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_cuda.py
 
 The seg_gram kernel against its plain version for the four main-path
-builders (one segment, k-fold batch, three segments), and the DML fit on
-the card against the same fit on the CPU.  Tolerance: 1e-5·max|G| on
-Grams (fp32 row sums in another order), 1e-4 relative on theta.
+builders (one segment, k-fold batch, three segments) and the four
+inference forms (fold_weighted, residual_direct, iv and iv_meat, with
+per-replicate columns, weights and theta, and iv with three segments),
+its refusal of a split-partial buffer that does not fit, and the DML
+fit on the card against the same fit on the CPU.  Replicate inference
+on the card: the default config's pairs bootstrap and the multiplier
+bootstrap against the same replicates on the CPU (the draws come from
+CPU generators, so both see the same folds and weights), serial and
+batched executors bitwise equal, and OrthoIV's jackknife and bootstrap
+against the CPU.  Tolerance: 1e-5·max|G| on Grams (fp32 row sums in
+another order), 1e-4 relative on theta and replicates.
 
 The flash-attention kernel against its plain version (causal and not,
 GQA and MQA, bf16 and fp32, softcap, ragged Sq/Sk, several key blocks),
@@ -361,3 +369,131 @@ def test_recurrent_features_kernel_matches_plain(card, arch, monkeypatch):
     assert np.isfinite(got).all()
     np.testing.assert_allclose(got, want, rtol=0,
                                atol=2e-2 * np.abs(want).max())
+
+
+def _inference_case(a, name):
+    """(builder, inputs, seg_reduce keywords) of one inference form with
+    per-replicate columns (R, n, 1), weights (R, n) and theta (R, 1, p)."""
+    W = a["W"]
+    rep = lambda x: torch.stack([x * (1 + 0.25 * b)          # noqa: E731
+                                 for b in range(W.shape[0])])
+    if name == "fold_weighted":
+        return ref.build_fold_weighted, [W.T.contiguous(), a["D"]], {}
+    if name == "residual_direct":
+        return (ref.build_residual_direct, [rep(a["y"]), rep(a["t"]),
+                                            a["phi"]], dict(w=W))
+    if name == "residual_meat":
+        th = torch.stack([a["theta"] * (1 + 0.5 * b)
+                          for b in range(W.shape[0])])
+        zero = torch.zeros_like(rep(a["y"]))
+        return (ref.build_residual_meat, [rep(a["y"]), rep(a["t"]), zero,
+                                          zero, a["phi"], th, rep(a["w"])],
+                {})
+    if name == "iv":
+        return (ref.build_iv, [rep(a["y"]), rep(a["t"]), rep(a["my"]),
+                               a["phi"]], dict(w=W))
+    if name == "iv_segmented":
+        return (ref.build_iv, [a["y"], a["t"], a["my"], a["phi"]],
+                dict(seg=a["seg"], n_segments=_S))
+    th = torch.stack([a["theta"] * (1 + 0.5 * b) for b in range(W.shape[0])])
+    return (ref.build_iv_meat, [rep(a["y"]), rep(a["t"]), rep(a["my"]),
+                                a["phi"], th, rep(a["w"])], {})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["fold_weighted", "residual_direct",
+                                  "residual_meat", "iv", "iv_segmented",
+                                  "iv_meat"])
+def test_inference_form_matches_plain(card, name):
+    from repro_torch.kernels.seg_gram import kernel as kern
+
+    a = _inputs(card)
+    builder, col, kw = _inference_case(a, name)
+    kern.LAUNCHES.clear()
+    got = ops.seg_reduce(builder, col, **kw)
+    assert dict(kern.LAUNCHES) == {name: 1}
+    want = ops.seg_reduce(builder, [c.cpu() for c in col],
+                          **{k: v.cpu() if torch.is_tensor(v) else v
+                             for k, v in kw.items()})
+    assert got.shape == want.shape
+    _close(got, want)
+
+
+@pytest.mark.cuda
+def test_partial_buffer_that_does_not_fit_raises(card):
+    from repro_torch.kernels.seg_gram import kernel as kern
+
+    X = torch.randn((10, 2000), device=card)
+    w = torch.ones((10_000, 10), device=card)          # 160 GB of partials
+    with pytest.raises(RuntimeError, match=r"\(1, 10000, 2000, 2000\)"):
+        kern.seg_gram_cuda("design", X, w=w)
+
+
+def _boot_data(n=3000, p=6):
+    from repro_torch.data.causal_dgp import make_iv_data
+
+    return make_iv_data(n, p, seed=4, device="cpu")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["bootstrap", "multiplier"])
+def test_bootstrap_on_card_matches_cpu(card, method):
+    from repro_torch.config import CausalConfig
+    from repro_torch.core.dml import DML
+    from repro_torch.kernels.seg_gram import kernel as kern
+
+    d = _boot_data()
+    cfg = CausalConfig(cate_features=2, inference=method, n_bootstrap=6,
+                       runtime_chunk=4, row_block=1024,
+                       row_block_strategy="pallas")
+    out = {}
+    for dev in ("cpu", card):
+        res = DML(cfg, device=dev).fit(d.y, d.t, d.X)
+        kern.LAUNCHES.clear()
+        inf = res.inference()
+        out[str(dev)] = (inf, res.ate_interval(), res.cate_interval(d.X[:4]))
+    launches = dict(kern.LAUNCHES)
+    cpu, gpu = out["cpu"], out[str(card)]
+    np.testing.assert_allclose(gpu[0].replicates.cpu().numpy(),
+                               cpu[0].replicates.numpy(), rtol=1e-4,
+                               atol=1e-5)
+    np.testing.assert_allclose(gpu[1], cpu[1], rtol=1e-4)
+    # two chunks of 4 and 2 replicates: ridge 1 + logistic 2 x 16
+    # fold-weighted Grams, the weighted final stage and its meat, each
+    assert launches == {"fold_weighted": 2 * 33, "residual_direct": 2,
+                        "residual_meat": 2}
+
+
+@pytest.mark.cuda
+def test_serial_equals_batched_on_card(card):
+    from repro_torch.config import CausalConfig
+    from repro_torch.core.dml import DML
+
+    d = _boot_data()
+    cfg = CausalConfig(cate_features=2, n_bootstrap=4, runtime_chunk=3,
+                       row_block=1024, row_block_strategy="pallas")
+    res = DML(cfg, device=card).fit(d.y, d.t, d.X)
+    batched = res.inference(executor="vmap")
+    serial = res.inference(executor="serial")
+    assert torch.equal(serial.replicates, batched.replicates)
+    assert torch.equal(serial.replicate_se, batched.replicate_se)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["jackknife", "bootstrap"])
+def test_orthoiv_on_card_matches_cpu(card, method):
+    from repro_torch.config import CausalConfig
+    from repro_torch.core.iv import OrthoIV
+
+    d = _boot_data()
+    cfg = CausalConfig(inference=method, n_bootstrap=4, row_block=1024,
+                       row_block_strategy="pallas")
+    out = []
+    for dev in ("cpu", card):
+        res = OrthoIV(cfg, device=dev).fit(d.y, d.t, d.z, d.X)
+        out.append((res.theta.cpu(), res.inference().replicates.cpu(),
+                    res.late_interval()))
+    for got, want in zip(out[1][:2], out[0][:2]):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-4,
+                                   atol=1e-5)
+    np.testing.assert_allclose(out[1][2], out[0][2], rtol=1e-4)

@@ -165,10 +165,19 @@ def test_device_none_without_cuda_raises(monkeypatch):
 
 
 def test_bootstrap_inference_waits_for_its_slice(data):
+    """The default inference (the pairs bootstrap) is served; what is
+    still to come raises naming its ROADMAP item: the shard_map executor
+    (A.10) and memory-probed replicate chunking (A.9)."""
     X, y, t = convert.data(*data, device="cpu")
-    res = DML(CausalConfig(inference="bootstrap"), device="cpu").fit(
+    res = DML(CausalConfig(n_bootstrap=4), device="cpu").fit(
         y[:500], t[:500], X[:500])
-    with pytest.raises(NotImplementedError, match="slice"):
+    lo, hi = res.ate_interval()
+    assert lo < hi and res.inference().method == "pairs"
+    with pytest.raises(NotImplementedError, match="A.10"):
+        res.inference(executor="shard_map")
+    res = DML(CausalConfig(n_bootstrap=4, runtime_memory_budget=1 << 30),
+              device="cpu").fit(y[:500], t[:500], X[:500])
+    with pytest.raises(NotImplementedError, match="A.9"):
         res.ate_interval()
 
 

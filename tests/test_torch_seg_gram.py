@@ -6,9 +6,14 @@ against the JAX package's.
     mode, for the four main-path builders, one and three segments, with
     and without row weights, at a row count that does not divide the
     block;
+  * the plain versions of the four inference builders (fold_weighted,
+    residual_direct, iv, iv_meat) — one segment and three, with row
+    weights, and with a leading batch of per-replicate columns, weights
+    and theta — against ``seg_gram_ref``, row by row of the batch;
   * ``residual_gram`` against the JAX entry point (interpret);
   * the argument layout the ops layer hands the CUDA kernel, through an
-    emulation of the kernel's documented contract;
+    emulation of the kernel's documented contract, for the eight
+    builders with a CUDA form (``build_pair`` is the one left);
   * inside torch, bitwise: a padded tail is a no-op, w=0 equals zeroed
     rows, an empty segment is exactly 0, power-of-two weights scale
     exactly, and a batch of one equals the same row of a batch of k.
@@ -85,6 +90,7 @@ def _builder_cases(a):
 _BUILDERS = ["pair", "design", "residual", "residual_direct", "iv",
              "fold_weighted", "gram_and_vec", "residual_meat", "iv_meat"]
 _MAIN = ["design", "gram_and_vec", "residual", "residual_meat"]
+_INFERENCE = ["fold_weighted", "residual_direct", "iv", "iv_meat"]
 
 
 @pytest.mark.parametrize("name", _BUILDERS)
@@ -123,6 +129,62 @@ def test_plain_matches_pallas_interpret(arrs, name, S, weighted):
     _close(got.numpy(), np.asarray(want), f"{name} S={S} w={weighted}")
 
 
+def _batched_inputs(a, name, R=3):
+    """(torch inputs with a leading replicate axis, per-replicate numpy
+    inputs) for an inference builder: columns (R, n, 1), theta
+    (R, 1, p); fold_weighted's batch is its Wt columns instead."""
+    if name == "fold_weighted":
+        return None, None
+    _, _, inputs = _builder_cases(a)[name]
+    if name == "iv_meat":
+        inputs = inputs[:-1]
+    scale = [np.float32(1 + 0.25 * b) for b in range(R)]
+    per = [[x * sc if x.shape[1] == 1 or x is a["theta"] else x
+            for x in inputs] for sc in scale]
+    batched = [torch.from_numpy(np.stack([p[i] for p in per]))
+               if (x.shape[1] == 1 or x is a["theta"])
+               else torch.from_numpy(x) for i, x in enumerate(inputs)]
+    return batched, per
+
+
+@pytest.mark.parametrize("case", ["plain", "weighted", "segmented",
+                                  "batched"])
+@pytest.mark.parametrize("name", _INFERENCE)
+def test_inference_builders_plain_match_reference(arrs, name, case):
+    """``seg_reduce`` (the plain version the CPU takes and the card's
+    kernel is held against) against ``seg_gram_ref``."""
+    tb, jb, inputs = _builder_cases(arrs)[name]
+    if name == "iv_meat":
+        inputs = inputs[:-1]
+    if name == "fold_weighted" and case in ("weighted", "segmented"):
+        with pytest.raises(ValueError, match="Wt"):
+            ops.seg_reduce(tb, [torch.from_numpy(x) for x in inputs],
+                           w=torch.ones(_N))
+        return
+    W = arrs["W"]
+    if case == "batched" and name != "fold_weighted":
+        batched, per = _batched_inputs(arrs, name)
+        got = ops.seg_reduce(tb, batched, w=torch.from_numpy(W[:3]))
+        for b in range(3):
+            want = jref.seg_gram_ref(jb, [jnp.asarray(x) for x in per[b]],
+                                     w=jnp.asarray(W[b])[:, None])
+            _close(got[b].numpy(), np.asarray(want), f"{name} row {b}")
+        return
+    w = arrs["w"] if case == "weighted" else None
+    S = _S if case == "segmented" else 1
+    seg = arrs["seg"] if S > 1 else None
+    want = jref.seg_gram_ref(
+        jb, [jnp.asarray(x) for x in inputs],
+        seg=None if seg is None else jnp.asarray(seg)[:, None],
+        w=None if w is None else jnp.asarray(w), n_segments=S)
+    got = ops.seg_reduce(
+        tb, [torch.from_numpy(x) for x in inputs],
+        seg=None if seg is None else torch.from_numpy(seg).long(),
+        w=None if w is None else torch.from_numpy(w[:, 0]), n_segments=S)
+    assert tuple(got.shape) == tuple(want.shape)
+    _close(got.numpy(), np.asarray(want), f"{name} {case}")
+
+
 def test_residual_gram_matches_reference(arrs):
     a = arrs
     cols = [a[k][:, 0] for k in ("y", "t", "my", "mt")]
@@ -136,26 +198,41 @@ def test_residual_gram_matches_reference(arrs):
 
 
 def _emulate_kernel(builder, X, *, scalars=(), theta=None, w=None,
-                    seg=None, n_segments=1):
-    """csrc/seg_gram.cu's contract in plain torch: L = [cL·X | eL] with
-    the row weight and segment mask, R = [cR·X | eR]; (B, S·qL, qR)."""
-    batched = [x.shape[0] for x in list(scalars) + [w]
+                    seg=None, n_segments=1, count_as=None):
+    """csrc/seg_gram.cu's contract in plain torch: L = [c1L·X | c2L·X? |
+    eL?] with the row weight and segment mask, R alike; every scalar,
+    w and theta (n,)/(dX,) or batched; (B, S·qL, qR)."""
+    batched = [x.shape[0] for x in list(scalars) + [w, theta]
                if x is not None and x.dim() == 2]
     B = max(batched or [1])
     outs = []
     for b in range(B):
         sc = [x[b] if x.dim() == 2 else x for x in scalars]
+        th = None if theta is None else (theta[b] if theta.dim() == 2
+                                         else theta)
+
+        def meat_e(ry, rt, w2):
+            e = ry - ((rt[:, None] * X) * th).sum(1)
+            return w2 * e if w2 is not None else e
+
         if builder == "design":
             L = R = X
         elif builder == "gram_and_vec":
             L, R = torch.cat([sc[0][:, None] * X, sc[1][:, None]], 1), X
-        elif builder == "residual":
-            rt = sc[1] - sc[3]
-            L = R = torch.cat([rt[:, None] * X, (sc[0] - sc[2])[:, None]], 1)
+        elif builder in ("residual", "residual_direct"):
+            ry, rt = ((sc[0] - sc[2], sc[1] - sc[3]) if builder == "residual"
+                      else (sc[0], sc[1]))
+            L = R = torch.cat([rt[:, None] * X, ry[:, None]], 1)
+        elif builder == "iv":
+            ry, rt, rz = sc
+            L = R = torch.cat([rz[:, None] * X, rt[:, None] * X,
+                               ry[:, None]], 1)
+        elif builder == "iv_meat":
+            e = meat_e(sc[0], sc[1], sc[3] if len(sc) == 4 else None)
+            L = R = (e * sc[2])[:, None] * X
         else:
             rt = sc[1] - sc[3]
-            e = (sc[0] - sc[2]) - ((rt[:, None] * X) * theta).sum(1)
-            e = sc[4] * e if len(sc) == 5 else e
+            e = meat_e(sc[0] - sc[2], rt, sc[4] if len(sc) == 5 else None)
             L = R = (e * rt)[:, None] * X
         wb = torch.ones(X.shape[0]) if w is None else (w[b] if w.dim() == 2
                                                        else w)
@@ -165,7 +242,34 @@ def _emulate_kernel(builder, X, *, scalars=(), theta=None, w=None,
     return torch.stack(outs)
 
 
-@pytest.mark.parametrize("name", _MAIN)
+def _layout_case(a, name):
+    """(ops inputs, seg_reduce keywords) exercising batch strides."""
+    W = a["W"]
+    Rb = W.shape[0]
+
+    def rep(x):               # (n, 1) column -> (R, n, 1), per-replicate
+        return torch.stack([x * (1 + 0.25 * b) for b in range(Rb)])
+
+    col = {"design": [a["D"]],
+           "fold_weighted": [W.T.contiguous(), a["D"]],
+           "gram_and_vec": [a["D"], W[..., None], (0.5 * W)[..., None]],
+           "residual": [a["y"], a["t"], a["my"], a["mt"], a["phi"]],
+           "residual_meat": [a["y"], a["t"], a["my"], a["mt"], a["phi"],
+                             a["theta"], a["w"]],
+           "residual_direct": [rep(a["y"]), rep(a["t"]), a["phi"]],
+           "iv": [a["y"], a["t"], a["rz"], a["phi"]],
+           "iv_meat": [rep(a["y"]), rep(a["t"]), rep(a["rz"]), a["phi"],
+                       torch.stack([a["theta"] * (1 + 0.5 * b)
+                                    for b in range(Rb)]), rep(a["w"])]}[name]
+    kw = {"design": dict(w=W), "residual": dict(seg=a["seg"].long(),
+                                                n_segments=_S),
+          "residual_direct": dict(w=W), "iv": dict(seg=a["seg"].long(),
+                                                   n_segments=_S),
+          "iv_meat": dict(w=W)}.get(name, {})
+    return col, kw
+
+
+@pytest.mark.parametrize("name", _MAIN + _INFERENCE)
 def test_kernel_argument_layout(arrs, name, monkeypatch):
     """The columns, batch strides and output reshapes the ops layer
     hands the CUDA wrapper reproduce the plain result (the kernel's
@@ -173,36 +277,47 @@ def test_kernel_argument_layout(arrs, name, monkeypatch):
     from repro_torch.kernels.seg_gram import kernel as kern
 
     a = {k: torch.from_numpy(v) for k, v in arrs.items()}
-    W = a["W"]
-    col = {"design": [a["D"]],
-           "gram_and_vec": [a["D"], W[..., None], (0.5 * W)[..., None]],
-           "residual": [a["y"], a["t"], a["my"], a["mt"], a["phi"]],
-           "residual_meat": [a["y"], a["t"], a["my"], a["mt"], a["phi"],
-                             a["theta"], a["w"]]}[name]
+    col, kw = _layout_case(a, name)
     builder = getattr(ref, f"build_{name}")
-    kw = {"design": dict(w=W), "gram_and_vec": {},
-          "residual": dict(seg=a["seg"].long(), n_segments=_S),
-          "residual_meat": {}}[name]
     want = ops.seg_reduce(builder, col, **kw)
 
-    kname, X, scalars, theta = ops._kernel_args(builder, col)
+    kname, X, scalars, theta, w, count = ops._kernel_args(builder, col,
+                                                          kw.get("w"))
+    assert count == ("fold_weighted" if name == "fold_weighted" else None)
     monkeypatch.setattr(kern, "seg_gram_cuda", _emulate_kernel)
-    G = kern.seg_gram_cuda(kname, X, scalars=scalars, theta=theta,
-                           w=kw.get("w"), seg=kw.get("seg"),
+    G = kern.seg_gram_cuda(kname, X, scalars=scalars, theta=theta, w=w,
+                           seg=kw.get("seg"),
                            n_segments=kw.get("n_segments", 1))
     S = kw.get("n_segments", 1)
-    if S > 1:
-        G = G.reshape(G.shape[0], S, G.shape[1] // S, G.shape[2])
-    got = G if (name in ("design", "gram_and_vec")) else G[0]
+    if name == "fold_weighted":
+        got = G.reshape(-1, G.shape[2])
+    else:
+        if S > 1:
+            G = G.reshape(G.shape[0], S, G.shape[1] // S, G.shape[2])
+        batched = any(c.dim() == 3 for c in col) or "w" in kw and \
+            kw["w"].dim() == 2
+        got = G if batched else G[0]
+    assert got.shape == want.shape
     _close(got.numpy(), want.numpy(), name)
 
 
 @pytest.mark.parametrize("name", ["residual_direct", "iv", "fold_weighted",
                                   "iv_meat", "pair"])
 def test_later_builders_have_no_cuda_kernel_yet(arrs, name):
+    """build_pair is the one builder left for a later slice (ROADMAP
+    A.11); the inference builders map to kernel forms."""
     tb, _, inputs = _builder_cases(arrs)[name]
-    with pytest.raises(NotImplementedError, match="slice"):
-        ops._kernel_args(tb, [torch.from_numpy(x) for x in inputs])
+    arrays = [torch.from_numpy(x) for x in inputs]
+    if name == "pair":
+        with pytest.raises(NotImplementedError, match="slice"):
+            ops._kernel_args(tb, arrays)
+        assert list(ops._LATER) == ["build_pair"]
+        return
+    if name == "iv_meat":
+        arrays = arrays[:-1]
+    kname = ops._kernel_args(tb, arrays)[0]
+    assert kname == ("design" if name == "fold_weighted" else name)
+    assert kname in ops._kernel.BUILDERS
 
 
 def test_only_cuda_or_cpu(arrs):
