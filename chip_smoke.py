@@ -81,6 +81,31 @@ Phases (each failure makes the script exit non-zero):
      iv_meat); and ``iv:bootstrap`` at n = 100,000 with B = 16 (the fit's
      launches plus fold_weighted 65, iv 1 and iv_meat 1 per chunk).
 
+ 15. ``kernels:pair-forms``: the segment walk (``segment_outer``'s pair
+     form, and every S > 1 form) at the sweep's and the store's shapes —
+     MM terms t1 (2^20 × 5 by 2^20 × 501, S = 64) and t2 (1 × 501,
+     S = 320), fold_gram's design (q = 502, S = 320), the final stage
+     (2 × 2, S = 64), the store's ng (2^18 × 503) and vg (2^18 × 1006),
+     seeded, S = 320 — against plain and fp64, with kernel / plain /
+     library (one ``torch.bmm`` over the rows sorted by segment and
+     zero-padded) times and the bound; ``invariants:pair`` (bitwise:
+     repeat, appended seg = -1 and zero rows, an empty segment, two
+     seeded ingests against one pass);
+ 16. ``sweep:segmented``: ``sweep(SweepSpec(64, (("dml", SWEEP),)),
+     mode="segmented")`` at ``paper_demo_data(2^20, 500)`` with uniform
+     segment ids (the reference sweep cell's E, n and p; "pallas",
+     row_block 65536), launches counted (design_segmented 2, pair
+     2·32 + 2), every segment's ATE within 5 se of 1, the seconds, peak
+     memory and the MM solves' share; a small sweep card vs CPU (1e-4);
+ 17. ``store:ingest``: five daily ingests of 2^18 rows of
+     ``make_causal_data(5·2^18, 500, continuous t)`` into a 64-segment
+     store (k = 5, cate_features 2: ng (320, 503, 503), vg (320, 1006,
+     1006)), snapshots at days 3 and 5 in a temporary directory under
+     ``build/``, the refresh, launches (pair 10), every ATE within 5 se
+     of the truth, a one-shot ingest bitwise the incremental one, the
+     day-3 snapshot bitwise a store of days 1-3; a small store card vs
+     CPU (1e-4) and aligned "chunked" partitions bitwise on the card.
+
 The backbone phases are named ``backbone:<arch>``.  The line before the
 last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits 2 and prints
@@ -283,9 +308,8 @@ def kernel_cases(X, y, t, folds, k):
              Dr.numel() * 4 + W.numel() * 4 + k * qr * qr * 4,
              2.0 * k * n * sym(qr), 3),
         Case("design_segmented", "fold_gram S=5 (parallel_loo)",
-             lambda: kern.seg_gram_cuda("design", Dr, seg=seg,
-                                        n_segments=k)[0]
-             .reshape(k, qr, qr),
+             lambda: kern.seg_walk_cuda("design", Dr, seg=seg,
+                                        n_segments=k),
              lambda: seg_plain(f32),
              lambda: seg_plain(torch.float64),
              lambda: ((Dr[:, None, :] * (folds[:, None] == torch.arange(
@@ -411,8 +435,8 @@ def phase_invariants(seed: int) -> None:
     segp = torch.cat([seg, torch.full((pad,), -1, dtype=torch.int32,
                                       device=dev)])
     wp = torch.cat([w, torch.zeros((k, pad), device=dev)], dim=1)
-    same(kern.seg_gram_cuda("design", D, seg=seg, n_segments=k),
-         kern.seg_gram_cuda("design", Dp, seg=segp, n_segments=k),
+    same(kern.seg_walk_cuda("design", D, seg=seg, n_segments=k),
+         kern.seg_walk_cuda("design", Dp, seg=segp, n_segments=k),
          "padded tail (design, S=5)")
     same(kern.seg_gram_cuda("design", D, w=w),
          kern.seg_gram_cuda("design", Dp, w=wp.contiguous()),
@@ -430,14 +454,13 @@ def phase_invariants(seed: int) -> None:
          "w=0 == zeroed rows (design)")
     # an empty segment is exactly zero
     seg_e = torch.where(seg == 2, torch.ones_like(seg), seg)
-    G = kern.seg_gram_cuda("design", D, seg=seg_e, n_segments=k)[0]
-    q = D.shape[1]
-    if not bool((G[2 * q:3 * q] == 0).all()):
+    G = kern.seg_walk_cuda("design", D, seg=seg_e, n_segments=k)
+    if not bool((G[2] == 0).all()):
         raise AssertionError("invariant broken: empty segment")
     log("invariant ok: empty segment is exactly 0")
     # power-of-two weights scale exactly
-    same(2.0 * kern.seg_gram_cuda("design", D, seg=seg, n_segments=k),
-         kern.seg_gram_cuda("design", D, seg=seg, n_segments=k,
+    same(2.0 * kern.seg_walk_cuda("design", D, seg=seg, n_segments=k),
+         kern.seg_walk_cuda("design", D, seg=seg, n_segments=k,
                             w=torch.full((n,), 2.0, device=dev)),
          "power-of-two weights")
     same(2.0 * kern.seg_gram_cuda("residual_meat", phi,
@@ -696,11 +719,11 @@ def _solve_ms(timer, M, q, reps=2) -> float:
 def _counters():
     from repro_torch.core import moments
     from repro_torch.kernels.seg_gram import kernel as kern
-    return kern.LAUNCHES, moments.FALLBACKS
+    return kern.LAUNCHES, moments.FALLBACKS, kern.SHAPES
 
 
 def _read_counters():
-    launches, fallbacks = _counters()
+    launches, fallbacks, _ = _counters()
     return dict(launches), {f: c for f, c in fallbacks.items() if c}
 
 
@@ -869,6 +892,397 @@ def phase_orthoiv(data, cfg, expected):
     resid = (data.y - cf.oof_y, data.t - cf.oof_t, data.z - cf.oof_z,
              res.fit_ctx.phi, cf.folds, res.theta)
     return counts, secs, resid
+
+
+# -- slice 5: the segment walk, the sweep and the store ----------------------
+
+SWEEP_N, SWEEP_P, SWEEP_E = 2 ** 20, 500, 64       # src/repro/launch/sweep_cell.py
+STORE_DAY, STORE_DAYS = 2 ** 18, 5
+# (record key, form) of the pair forms: the LAUNCHES/SHAPES key, S and
+# the output width the main paths give each
+# (record key) -> (LAUNCHES key, S, qL values) of the launches on the
+# main paths that the record's shape stands for; fold_gram's design runs
+# at q = 502 ([X|1|y], the ridge y) and 501 ([X|1], the logistic H0)
+PAIR_FORMS = {
+    "pair:t1": ("pair", SWEEP_E, (5,)),
+    "pair:t2": ("pair", SWEEP_E * 5, (1,)),
+    "design_segmented@S320": ("design_segmented", SWEEP_E * 5,
+                              (SWEEP_P + 2, SWEEP_P + 1)),
+    "pair:final": ("pair", SWEEP_E, (2,)),
+    "pair:ng": ("pair", SWEEP_E * 5, (SWEEP_P + 3,)),
+    "pair:vg": ("pair", SWEEP_E * 5, (2 * (SWEEP_P + 3),)),
+}
+
+
+def _padded_segments(M, seg, S):
+    """(S, longest segment, q): each segment's rows in arrival order,
+    zero-padded — the library call's operand."""
+    ok = (seg >= 0) & (seg < S)
+    idx = torch.nonzero(ok).squeeze(1)
+    s = seg[idx].long()
+    order = torch.argsort(s, stable=True)
+    idx, s = idx[order], s[order]
+    counts = torch.bincount(s, minlength=S)
+    starts = torch.cumsum(counts, 0) - counts
+    rank = torch.arange(s.shape[0], device=s.device) - starts[s]
+    out = torch.zeros((S, int(counts.max()), M.shape[1]), dtype=M.dtype,
+                      device=M.device)
+    out[s, rank] = M[idx]
+    return out
+
+
+def pair_cases(seed: int):
+    """The segment walk at the sweep's and the store's shapes: (a) MM term
+    t1, (b) t2, (c) fold_gram's design at S = E·k, (d) the per-segment
+    final stage, (e) the store's ng and (f) vg, both seeded."""
+    from repro_torch.core.moments import design
+    from repro_torch.kernels.seg_gram import kernel as kern
+    from repro_torch.kernels.seg_gram import ref
+
+    g = torch.Generator(device="cuda").manual_seed(seed + 11)
+    dev, E, k = "cuda", SWEEP_E, 5
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    def ids(n, S):
+        return torch.randint(0, S, (n,), generator=g, device=dev)
+
+    n, p = SWEEP_N, SWEEP_P
+    X = rnd(n, p)
+    Xa = design(X, intercept=True)                        # (n, 501)
+    D = design(X, intercept=True, append=rnd(n))          # (n, 502)
+    del X
+    sids, comb = ids(n, E), ids(n, E * k)
+    r, rr, m = rnd(n, k), rnd(n, 1), rnd(n, 2)
+    nd = STORE_DAY
+    dn = torch.cat([rnd(nd, p), torch.ones((nd, 1), device=dev),
+                    rnd(nd, 2)], dim=1)                  # (nd, 503)
+    phi = torch.cat([torch.ones((nd, 1), device=dev), dn[:, :1]], dim=1)
+    v = (phi[:, :, None] * dn[:, None, :]).reshape(nd, -1)  # (nd, 1006)
+    cs = ids(nd, E * k)
+    ng0 = rnd(E * k, 503, 503)
+    vg0 = rnd(E * k, 1006, 1006)
+
+    def sym(q):
+        return q * (q + 1) / 2
+
+    def case(name, form, U, V, seg, S, init=None, builder="pair", reps=3):
+        same = V is None
+        Vv = U if same else V
+
+        def kernel():
+            if builder == "design":
+                return kern.seg_walk_cuda("design", U, seg=seg, n_segments=S)
+            return kern.seg_walk_cuda("pair", U, Y=Vv, seg=seg, n_segments=S,
+                                      init=init)
+
+        def plain(dtype=torch.float32):
+            G = ref.seg_gram_plain(ref.build_pair, [U.to(dtype), Vv.to(dtype)],
+                                   seg=seg, n_segments=S)
+            return G if init is None else init.to(dtype) + G
+
+        def lib_prep():
+            Lp = _padded_segments(U, seg, S)
+            Rp = Lp if same else _padded_segments(Vv, seg, S)
+            return Lp.transpose(1, 2), Rp
+
+        def lib(ab):
+            if init is None:
+                return torch.bmm(*ab)
+            return torch.baddbmm(init, *ab)
+
+        qU, qV = U.shape[1], Vv.shape[1]
+        nbytes = (U.numel() + (0 if same else Vv.numel())) * 4 \
+            + seg.numel() * seg.element_size() + S * qU * qV * 4 \
+            * (2 if init is not None else 1)
+        flops = 2.0 * U.shape[0] * (sym(qU) if same else qU * qV)
+        return Case(name, form, kernel, plain,
+                    lambda: plain(torch.float64), lib_prep, lib, nbytes,
+                    flops, reps)
+
+    return [
+        case("pair:t1", f"sweep MM term t1, S={E}", r, Xa, sids, E),
+        case("pair:t2", f"sweep MM term t2, S={E * k}", rr, Xa, comb, E * k),
+        case("design_segmented@S320", f"sweep fold_gram, S={E * k}", D, None,
+             comb, E * k, builder="design"),
+        case("pair:final", f"sweep final stage, S={E}", m, None, sids, E,
+             reps=10),
+        case("pair:ng", f"store ng, S={E * k}, init", dn, None, cs, E * k,
+             init=ng0),
+        case("pair:vg", f"store vg, S={E * k}, init", v, None, cs, E * k,
+             init=vg0, reps=2),
+    ]
+
+
+def phase_pair_invariants(seed: int) -> None:
+    """Bitwise on the card at the store's width: a second run, seg = -1
+    rows and zero rows appended, an empty segment, two seeded ingests
+    against one pass; the seeded walk against the split one."""
+    from repro_torch.kernels.seg_gram import ops as sops
+
+    g = torch.Generator(device="cuda").manual_seed(seed + 13)
+    dev, n, q, S = "cuda", 200_000, 503, 320
+    U = torch.randn((n, q), generator=g, device=dev)
+    seg = torch.randint(0, S, (n,), generator=g, device=dev)
+    seg = torch.where(seg == 7, torch.full_like(seg, 8), seg)   # 7 empty
+
+    def same(a, b, what):
+        if not torch.equal(a, b):
+            raise AssertionError(f"invariant broken: {what}")
+        log(f"invariant ok: {what}")
+
+    G = sops.segment_outer(U, U, seg, S)
+    same(G, sops.segment_outer(U, U, seg, S), "pair: a second run repeats")
+    if not bool((G[7] == 0).all()):
+        raise AssertionError("invariant broken: empty segment")
+    log("invariant ok: pair: an empty segment is exactly 0")
+    pad = 30_000
+    Up = torch.cat([U, torch.randn((pad, q), generator=g, device=dev)])
+    segp = torch.cat([seg, torch.full((pad,), -1, device=dev)])
+    same(G, sops.segment_outer(Up, Up, segp, S), "pair: seg = -1 rows")
+    Uz = torch.cat([U, torch.zeros((pad, q), device=dev)])
+    segz = torch.cat([seg, torch.randint(0, S, (pad,), generator=g,
+                                         device=dev)])
+    same(G, sops.segment_outer(Uz, Uz, segz, S), "pair: appended zero rows")
+    zero = torch.zeros((S, q, q), device=dev)
+    one = sops.segment_outer(U, U, seg, S, init=zero)
+    h = 77_777
+    first = sops.segment_outer(U[:h], U[:h], seg[:h], S, init=zero)
+    same(one, sops.segment_outer(U[h:], U[h:], seg[h:], S, init=first),
+         "pair: two seeded ingests == one pass")
+    e = rel(one, G)
+    log(f"pair: seeded walk vs split walk rel diff {e:.3e} (tol "
+        f"{KERNEL_TOL:g})")
+    if not e <= KERNEL_TOL:
+        raise AssertionError(f"seeded and split walks disagree: {e:.3e}")
+
+
+def phase_sweep(seed: int, timer):
+    """sweep(mode="segmented") at the reference sweep cell's scale,
+    launches counted around it; every segment's ATE within 5 se of 1;
+    a small sweep on the card against the CPU."""
+    from repro_torch.configs.sweep_synthetic import SWEEP
+    from repro_torch.data.causal_dgp import paper_demo_data
+    from repro_torch.sweep import SweepSpec, sweep
+
+    data = paper_demo_data(n=SWEEP_N, p=SWEEP_P, seed=seed)
+    g = torch.Generator(device="cuda").manual_seed(seed + 5)
+    sids = torch.randint(0, SWEEP_E, (SWEEP_N,), generator=g, device="cuda")
+    cfg = dataclasses.replace(SWEEP, row_block=65536,
+                              row_block_strategy="pallas")
+    spec = SweepSpec(SWEEP_E, (("dml", cfg),))
+    iters = 2 * cfg.newton_iters
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counters()
+    t0 = time.perf_counter()
+    panel = sweep(spec, X=data.X, y=data.y, t=data.t, segment_ids=sids,
+                  seed=seed, mode="segmented")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts, fallbacks = _read_counters()
+    shapes = dict(_counters()[2])
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    col = panel.columns[0]
+    if col.failed:
+        raise AssertionError(f"the sweep column failed: {col.error}")
+    del data
+    torch.cuda.empty_cache()
+    solve_ms = _solve_ms(timer, SWEEP_E * 5, SWEEP_P + 1)
+    share = iters * solve_ms / 1e3 / secs
+    ate, se = col.ates.double().cpu(), col.ses[:, 0].double().cpu()
+    z = (ate - 1.0).abs() / se
+    expected = {"design_segmented": 2, "pair": 2 * iters + 2}
+    log(f"sweep path: n={SWEEP_N} p={SWEEP_P} E={SWEEP_E} k=5, {iters} MM "
+        f"steps: {secs:.3f} s, peak device memory {peak:.2f} GiB; one "
+        f"({SWEEP_E * 5}, {SWEEP_P + 1}) solve {solve_ms:.2f} ms, the MM "
+        f"steps' solves ~{100 * share:.1f} % of the sweep; ATE range "
+        f"[{float(ate.min()):.5f}, {float(ate.max()):.5f}] se range "
+        f"[{float(se.min()):.5f}, {float(se.max()):.5f}] max |ate-1|/se "
+        f"{float(z.max()):.3f}; rows/segment {int(panel.counts.min())}-"
+        f"{int(panel.counts.max())}; launches={counts} fallbacks={fallbacks}"
+        f" by shape={ {f'{a}@S{b}:{c}x{d}': v for (a, b, c, d), v in shapes.items()} }")
+    if not bool(torch.isfinite(col.thetas).all()):
+        raise AssertionError("non-finite sweep thetas")
+    if not bool((z <= 5.0).all()):
+        raise AssertionError(f"a segment's ATE is not within 5 se of 1: "
+                             f"{z.max():.3f}")
+    if counts != expected:
+        raise AssertionError(f"launches {counts}, expected {expected}")
+    if fallbacks:
+        raise AssertionError(f"fallback counters rose: {fallbacks}")
+
+    small = paper_demo_data(n=20_000, p=20, seed=seed, device="cpu")
+    ssid = torch.randint(0, 8, (20_000,), generator=torch.Generator()
+                         .manual_seed(seed + 6))
+    scfg = dataclasses.replace(cfg, row_block=4096)
+    out = [sweep(SweepSpec(8, (("dml", scfg),)), X=small.X, y=small.y,
+                 t=small.t, segment_ids=ssid, seed=seed, mode="segmented",
+                 device=dev).columns[0] for dev in ("cpu", "cuda")]
+    e = max(rel(out[1].thetas.cpu(), out[0].thetas),
+            rel(out[1].ses.cpu(), out[0].ses))
+    log(f"sweep agreement (n=20000, p=20, E=8): card vs CPU max rel diff "
+        f"{e:.3e} (tol 1e-4)")
+    if not e <= 1e-4:
+        raise AssertionError(f"card and CPU sweeps disagree: {e:.3e}")
+    return shapes, secs
+
+
+def _store_cfg(**kw):
+    from repro_torch.config import CausalConfig
+
+    base = dict(n_folds=5, inference="none", nuisance_t="ridge",
+                discrete_treatment=False, cate_features=2, row_block=65536,
+                row_block_strategy="pallas")
+    base.update(kw)
+    return CausalConfig(**base)
+
+
+def _state_equal(a, b) -> bool:
+    fa, fb = a.state_dict(), b.state_dict()
+    return all(torch.equal(fa["seg_counts"], fb["seg_counts"]) and all(
+        torch.equal(fa[c][key], fb[c][key]) for key in ("ng", "vg", "counts"))
+        for c in fa if c != "seg_counts")
+
+
+def _panel_equal(a, b) -> bool:
+    return all(torch.equal(x.thetas, y.thetas) and torch.equal(x.ses, y.ses)
+               for x, y in zip(a.columns, b.columns))
+
+
+def phase_store(seed: int):
+    """A daily refresh of 64 cohorts: five ingests of 2^18 rows with
+    snapshots at days 3 and 5, the refresh, a one-shot ingest against the
+    incremental one, rollback to day 3; a small store card vs CPU, and
+    aligned partitions on "chunked" on the card."""
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.data.causal_dgp import make_causal_data
+    from repro_torch.store import MomentStore
+    from repro_torch.sweep import SweepSpec
+
+    n = STORE_DAY * STORE_DAYS
+    d = make_causal_data(n=n, p=SWEEP_P, seed=seed, discrete_treatment=False)
+    g = torch.Generator(device="cuda").manual_seed(seed + 9)
+    sids = torch.randint(0, SWEEP_E, (n,), generator=g, device="cuda")
+    spec = SweepSpec(SWEEP_E, (("dml", _store_cfg()),))
+
+    def rows(lo, hi):
+        return dict(X=d.X[lo:hi], y=d.y[lo:hi], t=d.t[lo:hi],
+                    segment_ids=sids[lo:hi])
+
+    build_dir = Path(__file__).resolve().parent / "build"
+    build_dir.mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="store_ckpt_", dir=build_dir)
+    try:
+        mgr = CheckpointManager(tmp, keep_latest=4)
+        store = MomentStore(spec, SWEEP_P, seed=seed)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counters()
+        day_s = []
+        for day in range(STORE_DAYS):
+            t0 = time.perf_counter()
+            store.ingest(**rows(day * STORE_DAY, (day + 1) * STORE_DAY))
+            torch.cuda.synchronize()
+            day_s.append(time.perf_counter() - t0)
+            if day + 1 in (3, 5):
+                store.save(mgr)
+        t0 = time.perf_counter()
+        panel = store.refresh()
+        torch.cuda.synchronize()
+        refresh_s = time.perf_counter() - t0
+        counts, fallbacks = _read_counters()
+        shapes = dict(_counters()[2])
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        col = panel.columns[0]
+        ate, se = col.ates.double().cpu(), col.ses[:, 0].double().cpu()
+        z = (ate - d.true_ate).abs() / se
+        log(f"store path: {STORE_DAYS} daily ingests of {STORE_DAY} rows, "
+            f"p={SWEEP_P}, E={SWEEP_E}, k=5, cate_features=2 (ng "
+            f"{tuple(store.state_dict()['col0']['ng'].shape)}, vg "
+            f"{tuple(store.state_dict()['col0']['vg'].shape)}): ingest s per "
+            f"day {[round(x, 4) for x in day_s]}, refresh {refresh_s:.3f} s, "
+            f"peak device memory {peak:.2f} GiB; ATE range "
+            f"[{float(ate.min()):.5f}, {float(ate.max()):.5f}] max "
+            f"|ate-true|/se {float(z.max()):.3f}; launches={counts} "
+            f"fallbacks={fallbacks}")
+        if counts != {"pair": 2 * STORE_DAYS}:
+            raise AssertionError(f"launches {counts}, expected "
+                                 f"{ {'pair': 2 * STORE_DAYS} }")
+        if fallbacks:
+            raise AssertionError(f"fallback counters rose: {fallbacks}")
+        if not (bool(torch.isfinite(col.thetas).all())
+                and bool((z <= 5.0).all())):
+            raise AssertionError(f"a segment's ATE is not within 5 se of "
+                                 f"the truth: {z.max():.3f}")
+
+        once = MomentStore(spec, SWEEP_P, seed=seed)
+        t0 = time.perf_counter()
+        once.ingest(**rows(0, n))
+        torch.cuda.synchronize()
+        once_s = time.perf_counter() - t0
+        bitwise = _state_equal(once, store) and _panel_equal(
+            once.refresh(), panel)
+        log(f"store one-shot ingest of {n} rows {once_s:.3f} s; "
+            f"incremental == one-shot bitwise (accumulators and panel): "
+            f"{bitwise}")
+        if not bitwise:
+            raise AssertionError("incremental and one-shot ingests differ")
+        del once
+        three = MomentStore(spec, SWEEP_P, seed=seed)
+        three.ingest(**rows(0, 3 * STORE_DAY))
+        back = MomentStore(spec, SWEEP_P, seed=seed).restore(mgr, step=3)
+        ok = _state_equal(back, three) and _panel_equal(back.refresh(),
+                                                        three.refresh())
+        log(f"store snapshots {sorted(s for s, _ in mgr._steps())}; "
+            f"restore of day 3 == a store of days 1-3 bitwise: {ok}")
+        if not ok:
+            raise AssertionError("the day-3 snapshot does not restore")
+        del three, back, store
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del d
+    torch.cuda.empty_cache()
+
+    # small store: card vs CPU; chunked aligned partitions on the card
+    from repro_torch.data.causal_dgp import make_causal_data as mcd
+
+    sd = mcd(n=5 * 4096, p=10, seed=seed, discrete_treatment=False,
+             device="cpu")
+    ss = torch.randint(0, 8, (5 * 4096,), generator=torch.Generator()
+                       .manual_seed(seed + 10))
+
+    def small(dev, strategy, cuts):
+        cfg = _store_cfg(n_folds=3, row_block=1024,
+                         row_block_strategy=strategy)
+        st = MomentStore(SweepSpec(8, (("dml", cfg),)), 10, seed=seed,
+                         device=dev)
+        b = [0, *cuts, 5 * 4096]
+        for lo, hi in zip(b[:-1], b[1:]):
+            st.ingest(X=sd.X[lo:hi], y=sd.y[lo:hi], t=sd.t[lo:hi],
+                      segment_ids=ss[lo:hi])
+        return st
+
+    days = tuple(4096 * i for i in range(1, 5))
+    pc, pg = (small(dev, "pallas", days).refresh() for dev in ("cpu", "cuda"))
+    e = max(rel(pg.columns[0].thetas.cpu(), pc.columns[0].thetas),
+            rel(pg.columns[0].ses.cpu(), pc.columns[0].ses))
+    ch_inc, ch_one = small("cuda", "chunked", days), small("cuda", "chunked",
+                                                           ())
+    aligned = _state_equal(ch_inc, ch_one) and _panel_equal(
+        ch_inc.refresh(), ch_one.refresh())
+    log(f"small store (5 x 4096 rows, p=10, E=8, k=3): card vs CPU max rel "
+        f"diff {e:.3e} (tol 1e-4); chunked, aligned daily partitions == "
+        f"one-shot bitwise on the card: {aligned}")
+    if not e <= 1e-4:
+        raise AssertionError(f"card and CPU stores disagree: {e:.3e}")
+    if not aligned:
+        raise AssertionError("aligned chunked partitions are not bitwise")
+    return shapes, sum(day_s)
 
 
 def _fa_plain(q, k, v, causal=True, softcap=0.0, scale=None):
@@ -1418,6 +1832,24 @@ def main(argv=None) -> int:
             count(key, "iv:bootstrap", out[0].get(key, 0))
         del out
 
+    records.update(run("kernels:pair-forms", lambda: run_cases(
+        pair_cases(args.seed), timer)) or {})
+    torch.cuda.empty_cache()
+    run("invariants:pair", phase_pair_invariants, args.seed)
+    torch.cuda.empty_cache()
+    pair_shapes = {}
+    for name, fn in (("sweep:segmented", lambda: phase_sweep(args.seed,
+                                                            timer)),
+                     ("store:ingest", lambda: phase_store(args.seed))):
+        out = run(name, fn)
+        torch.cuda.empty_cache()
+        if out is not None:
+            pair_shapes[name] = out[0]
+    for key, (form, S, qls) in PAIR_FORMS.items():
+        for path, shapes in pair_shapes.items():
+            count(key, path, sum(c for (f, s, ql, _), c in shapes.items()
+                                 if f == form and s == S and ql in qls))
+
     records.update(run("kernels:flash", phase_flash, args.seed, timer) or {})
     torch.cuda.empty_cache()
     records.update(run("kernels:scan", phase_scans, args.seed, timer) or {})
@@ -1459,7 +1891,9 @@ def main(argv=None) -> int:
             "k": k, "row_block": row_block, "users": BACKBONE_USERS,
             "backbones": list(BACKBONE_ARCHS), "bootstrap_n": BOOT_N,
             "bootstrap_replicates": args.bootstrap_replicates,
-            "bootstrap_chunk": BOOT_CHUNK}
+            "bootstrap_chunk": BOOT_CHUNK, "sweep_n": SWEEP_N,
+            "sweep_segments": SWEEP_E, "store_day_rows": STORE_DAY,
+            "store_days": STORE_DAYS}
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(

@@ -1,0 +1,28 @@
+"""The many-cohorts sweep case study: E per-segment effect estimates per
+run (``repro_torch.sweep``) on the synthetic DGP — the settings of
+``src/repro/configs/sweep_synthetic.py`` and, for the scale, of the
+reference's sweep cell (``src/repro/launch/sweep_cell.py``: 2^20 rows ×
+500 covariates, 64 segments).
+"""
+from repro_torch.config import CausalConfig
+
+# Per-cell estimator settings: DML with 5-fold cross-fitting, ridge y,
+# logistic t (2·16 MM steps on the segmented path), constant CATE basis
+# -> one ATE per segment.  segment_key names the cohort column in the
+# caller's frame (provenance carried into EffectPanel summaries).
+SWEEP = CausalConfig(
+    n_folds=5,
+    nuisance_y="ridge",
+    nuisance_t="logistic",
+    final_stage="linear",
+    cate_features=1,
+    discrete_treatment=True,
+    engine="parallel",
+    inference="none",
+    segment_key="segment",
+    sweep_chunk=16,
+)
+
+N_SEGMENTS = 64
+N_ROWS = 1_048_576
+N_COVARIATES = 500

@@ -84,3 +84,12 @@ def model_params(cfg, tree: Mapping[str, Any], *,
             raise ValueError(f"model_params: {path} has shape "
                              f"{tuple(x.shape)}, the schema {want[path]}")
     return got
+
+
+def store_state(np_state: Mapping[str, np.ndarray], *,
+                device: DeviceLike = None) -> Dict[str, Tensor]:
+    """One store column's accumulators — the reference's
+    ``{"ng", "vg", "counts"}`` (``store.stats.init_state`` layout) — as
+    fp32 tensors, for ``store.solve.refresh_column``."""
+    dev = resolve_device(device)
+    return {key: _f32(np_state[key], dev) for key in ("ng", "vg", "counts")}

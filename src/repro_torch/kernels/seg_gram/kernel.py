@@ -1,14 +1,25 @@
 """ctypes binding of the Hopper segmented-Gram kernel (csrc/seg_gram.cu).
 
-``seg_gram_cuda`` takes the raw columns of one of the kernel's seven
-builders, checks device, dtype, shape and contiguity, launches the
-kernel on the current stream and returns ``(B, S*qL, qR)`` fp32.  It
-raises on anything it does not take and whenever the launch returns a
-CUDA error; it never falls back to the plain version.  ``LAUNCHES``
-counts launches per form (the builder's name, ``<name>_segmented`` for
-S > 1, or the ``count_as`` key of an entry point of its own:
-``residual_gram`` for the final stage at row_block=0, ``fold_weighted``
-for the bootstrap's fold-and-replicate-weighted Grams), one per launch.
+Two entry points, both checking device, dtype, shape and contiguity,
+launching on the current stream, and raising on anything they do not
+take and whenever the launch returns a CUDA error — never falling back
+to the plain version:
+
+  ``seg_gram_cuda``  one segment: the raw columns of one of the seven
+                     builders over fixed row splits, with a leading
+                     batch; returns ``(B, qL, qR)`` fp32.
+  ``seg_walk_cuda``  several segments (and ``pair``, the segmented outer
+                     product of two row matrices): each block walks one
+                     segment's own rows through a permutation
+                     (``walk_plan``); returns ``(S, qL, qR)`` fp32, with
+                     the leading batch when there is one.
+
+``LAUNCHES`` counts launches per form (the builder's name,
+``<name>_segmented`` for a walk of another builder, ``pair``, or the
+``count_as`` key of an entry point of its own: ``residual_gram`` for
+the final stage at row_block=0, ``fold_weighted`` for the bootstrap's
+fold-and-replicate-weighted Grams), one per launch; ``SHAPES`` counts
+the same launches by ``(form, S, qL, qR)``.
 
 Replaces ``src/repro/kernels/seg_gram/kernel.py:seg_gram_pallas``; the
 design and its bound on the H100 are in the source note of
@@ -19,7 +30,7 @@ from __future__ import annotations
 import collections
 import ctypes
 from pathlib import Path
-from typing import Optional, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 
@@ -27,16 +38,18 @@ from repro_torch.kernels import build
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "seg_gram.cu"
 BUILDERS = {"design": 0, "gram_and_vec": 1, "residual": 2,
-            "residual_meat": 3, "residual_direct": 4, "iv": 5, "iv_meat": 6}
+            "residual_meat": 3, "residual_direct": 4, "iv": 5, "iv_meat": 6,
+            "pair": 7}
 # (scalar columns taken, copies of X, appended L columns, appended R
 # columns) per builder: qL = copies * dX + appended
 _LAYOUT = {"design": ((0,), 1, 0, 0), "gram_and_vec": ((2,), 1, 1, 0),
            "residual": ((4,), 1, 1, 1), "residual_meat": ((4, 5), 1, 0, 0),
            "residual_direct": ((2,), 1, 1, 1), "iv": ((3,), 2, 1, 1),
-           "iv_meat": ((3, 4), 1, 0, 0)}
+           "iv_meat": ((3, 4), 1, 0, 0), "pair": ((0,), 1, 0, 0)}
 _MEATS = ("residual_meat", "iv_meat")
 
 LAUNCHES: collections.Counter = collections.Counter()
+SHAPES: collections.Counter = collections.Counter()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -53,10 +66,19 @@ def library() -> ctypes.CDLL:
             _I, _LL, _I, _P,             # builder, n, dX, X
             _P, _P, _P, _P, _P, _LL,     # a0..a4, a_bstride
             _P, _LL, _P, _LL,            # theta, its stride, w, w_bstride
-            _P, _I, _I, _I, _I,          # seg, S, B, qL, qR
+            _I, _I, _I,                  # B, qL, qR
             _P, _I, _P, _P,              # partial, P, out, stream
         ]
         lib.seg_gram_run.restype = _I
+        lib.seg_gram_walk.argtypes = [
+            _I, _LL, _I, _P, _I, _P,     # builder, n, dX, X, dY, Y
+            _P, _P, _P, _P, _P, _LL,     # a0..a4, a_bstride
+            _P, _LL, _P, _LL,            # theta, its stride, w, w_bstride
+            _P, _P, _P, _P, _P,          # perm, unit seg/lo/hi, first
+            _I, _I, _I, _I, _I,          # W, S, B, qL, qR
+            _P, _P, _P, _P,              # init, partial, out, stream
+        ]
+        lib.seg_gram_walk.restype = _I
         lib.seg_gram_error_string.argtypes = [_I]
         lib.seg_gram_error_string.restype = ctypes.c_char_p
         lib._typed = True
@@ -86,39 +108,43 @@ def _ptr(x: Optional[torch.Tensor]):
     return None if x is None else _P(x.data_ptr())
 
 
-def seg_gram_cuda(builder: str, X: torch.Tensor, *,
-                  scalars: Sequence[torch.Tensor] = (),
-                  theta: Optional[torch.Tensor] = None,
-                  w: Optional[torch.Tensor] = None,
-                  seg: Optional[torch.Tensor] = None,
-                  n_segments: int = 1,
-                  count_as: Optional[str] = None) -> torch.Tensor:
-    """Launch the kernel.  ``X`` (n, dX) is the row matrix (the design D
-    or phi); ``scalars`` the builder's per-row columns, all (n,) or all
-    (B, n) — gram_and_vec: (wg, v); residual: (y, t, my, mt);
-    residual_direct: (ry, rt); residual_meat: (y, t, my, mt[, w]); iv:
-    (ry, rt, rz); iv_meat: (ry, rt, rz[, w]).  ``theta`` (dX,) or
-    (B, dX) for the meats; ``w`` (n,) or (B, n) row weights; ``seg``
-    (n,) int32 ids when ``n_segments`` > 1.  ``count_as`` names the
-    ``LAUNCHES`` key of a caller that is an entry point of its own
-    (default: the form).  Returns (B, n_segments*qL, qR) fp32; raises
-    naming the shape if the split-partial buffer does not fit."""
-    if builder not in BUILDERS:
-        raise NotImplementedError(f"seg_gram has no CUDA builder {builder!r}")
-    if X.device.type != "cuda":
-        raise ValueError(f"seg_gram_cuda needs CUDA tensors, X is on {X.device}")
-    if X.dim() != 2:
-        raise ValueError(f"seg_gram: X must be (n, d), got {tuple(X.shape)}")
-    dev, f32 = X.device, torch.float32
-    n, dX = X.shape
-    _check("X", X, dev, f32, [(n, dX)])
+def _raise_on(lib, err: int, builder: str) -> None:
+    if err != 0:
+        msg = lib.seg_gram_error_string(err).decode()
+        raise RuntimeError(f"seg_gram[{builder}] launch failed: {msg} ({err})")
+
+
+def _widths(builder: str, X: torch.Tensor, scalars, Y) -> tuple:
     counts, copies, dl, dr = _LAYOUT[builder]
     if len(scalars) not in counts:
         raise ValueError(f"seg_gram[{builder}] takes {counts} scalar columns, "
                          f"got {len(scalars)}")
-    S = int(n_segments)
-    if S < 1:
-        raise ValueError(f"n_segments must be >= 1, got {S}")
+    dX = X.shape[1]
+    if builder == "pair":
+        if Y is None:
+            raise ValueError("seg_gram[pair] needs Y")
+        return dX, Y.shape[1]
+    if Y is not None:
+        raise ValueError(f"seg_gram[{builder}] takes no Y")
+    return copies * dX + dl, copies * dX + dr
+
+
+def _check_theta(builder, theta, dev, dX, B) -> int:
+    """Checks theta; returns its batch stride."""
+    if builder in _MEATS:
+        if theta is None:
+            raise ValueError(f"seg_gram[{builder}] needs theta")
+        _check("theta", theta, dev, torch.float32, [(dX,), (B, dX)])
+        return dX if theta.dim() == 2 else 0
+    if theta is not None:
+        raise ValueError(f"seg_gram[{builder}] takes no theta")
+    return 0
+
+
+def _batch_args(builder, n, dX, scalars, theta, w, dev):
+    """(B, scalar stride, theta stride, w stride) of the per-row columns,
+    all (n,) or (B, n), theta (dX,) or (B, dX)."""
+    f32 = torch.float32
     B = 1
     for x in list(scalars) + [x for x in (w, theta) if x is not None]:
         if x.dim() == 2:
@@ -129,38 +155,53 @@ def seg_gram_cuda(builder: str, X: torch.Tensor, *,
             raise ValueError(f"seg_gram[{builder}]: the scalar columns "
                              "differ in shape")
     a_b = n if scalars and scalars[0].dim() == 2 else 0
-    th_b = 0
-    if builder in _MEATS:
-        if theta is None:
-            raise ValueError(f"seg_gram[{builder}] needs theta")
-        _check("theta", theta, dev, f32, [(dX,), (B, dX)])
-        th_b = dX if theta.dim() == 2 else 0
-    elif theta is not None:
-        raise ValueError(f"seg_gram[{builder}] takes no theta")
+    th_b = _check_theta(builder, theta, dev, dX, B)
     w_b = 0
     if w is not None:
         _check("w", w, dev, f32, [(n,), (B, n)])
         w_b = n if w.dim() == 2 else 0
-    if S > 1:
-        if seg is None:
-            raise ValueError("n_segments > 1 needs seg")
-        _check("seg", seg, dev, torch.int32, [(n,)])
-    elif seg is not None:
-        raise ValueError("seg is only taken with n_segments > 1")
-    qL, qR = copies * dX + dl, copies * dX + dr
+    return B, a_b, th_b, w_b
+
+
+def seg_gram_cuda(builder: str, X: torch.Tensor, *,
+                  scalars: Sequence[torch.Tensor] = (),
+                  theta: Optional[torch.Tensor] = None,
+                  w: Optional[torch.Tensor] = None,
+                  count_as: Optional[str] = None) -> torch.Tensor:
+    """One segment.  ``X`` (n, dX) is the row matrix (the design D or
+    phi); ``scalars`` the builder's per-row columns, all (n,) or all
+    (B, n) — gram_and_vec: (wg, v); residual: (y, t, my, mt);
+    residual_direct: (ry, rt); residual_meat: (y, t, my, mt[, w]); iv:
+    (ry, rt, rz); iv_meat: (ry, rt, rz[, w]).  ``theta`` (dX,) or
+    (B, dX) for the meats; ``w`` (n,) or (B, n) row weights.
+    ``count_as`` names the ``LAUNCHES`` key of a caller that is an entry
+    point of its own (default: the form).  Returns (B, qL, qR) fp32;
+    raises naming the shape if the split-partial buffer does not fit."""
+    if builder not in BUILDERS or builder == "pair":
+        raise NotImplementedError(f"seg_gram has no one-segment CUDA "
+                                  f"builder {builder!r}")
+    if X.device.type != "cuda":
+        raise ValueError(f"seg_gram_cuda needs CUDA tensors, X is on {X.device}")
+    if X.dim() != 2:
+        raise ValueError(f"seg_gram: X must be (n, d), got {tuple(X.shape)}")
+    dev, f32 = X.device, torch.float32
+    n, dX = X.shape
+    _check("X", X, dev, f32, [(n, dX)])
+    qL, qR = _widths(builder, X, scalars, None)
+    B, a_b, th_b, w_b = _batch_args(builder, n, dX, scalars, theta, w, dev)
 
     lib = library()
-    rs = lib.seg_gram_split_rows(S * qL, qR)
+    rs = lib.seg_gram_split_rows(qL, qR)
     P = max(1, -(-n // rs))
-    shape = (P, B, S * qL, qR)
+    shape = (P, B, qL, qR)
     try:
         partial = torch.empty(shape, dtype=f32, device=dev)
     except torch.cuda.OutOfMemoryError as e:
         raise RuntimeError(
             f"seg_gram[{builder}]: the split-partial buffer {shape} "
-            f"({4 * P * B * S * qL * qR / 2 ** 30:.2f} GiB) does not fit on "
+            f"({4 * P * B * qL * qR / 2 ** 30:.2f} GiB) does not fit on "
             f"{dev}; take fewer replicates per chunk (runtime_chunk)") from e
-    out = torch.empty((B, S * qL, qR), dtype=f32, device=dev)
+    out = torch.empty((B, qL, qR), dtype=f32, device=dev)
     a = list(scalars) + [None] * (5 - len(scalars))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -168,10 +209,124 @@ def seg_gram_cuda(builder: str, X: torch.Tensor, *,
             BUILDERS[builder], n, dX, _ptr(X),
             *[_ptr(x) for x in a], a_b,
             _ptr(theta), th_b, _ptr(w), w_b,
-            _ptr(seg), S, B, qL, qR,
-            _ptr(partial), P, _ptr(out), _P(stream))
-    if err != 0:
-        msg = lib.seg_gram_error_string(err).decode()
-        raise RuntimeError(f"seg_gram[{builder}] launch failed: {msg} ({err})")
-    LAUNCHES[count_as or builder + ("_segmented" if S > 1 else "")] += 1
+            B, qL, qR, _ptr(partial), P, _ptr(out), _P(stream))
+    _raise_on(lib, err, builder)
+    key = count_as or builder
+    LAUNCHES[key] += 1
+    SHAPES[(key, 1, qL, qR)] += 1
     return out
+
+
+class WalkPlan(NamedTuple):
+    """The unit table of a segment walk.  ``perm`` lists the row ids
+    sorted by segment (stable; ids outside [0, S) at the end, never
+    read); unit u covers ``perm[lo[u]:hi[u]]`` of segment ``useg[u]``
+    (``S`` for the unused tail of the table); segment s owns units
+    ``first[s] .. first[s+1]-1``, at least one."""
+
+    perm: torch.Tensor      # (n,) int64
+    useg: torch.Tensor      # (W,) int32
+    lo: torch.Tensor        # (W,) int64
+    hi: torch.Tensor        # (W,) int64
+    first: torch.Tensor     # (S+1,) int32
+
+
+def walk_plan(seg: torch.Tensor, n_segments: int,
+              rows_per_unit: Optional[int]) -> WalkPlan:
+    """Sort the rows by segment and cut each segment into units of at
+    most ``rows_per_unit`` rows (``None``: one unit per segment).  Exact
+    integer work on the rows' device, with no synchronisation: the table
+    has ``ceil(n / rows_per_unit) + S`` entries (``S`` unsplit), enough
+    for any segment sizes, and the kernel skips the unused tail."""
+    S, n, dev = int(n_segments), seg.shape[0], seg.device
+    seg = seg.long()
+    key = torch.where((seg >= 0) & (seg < S), seg, torch.full_like(seg, S))
+    skey, perm = torch.sort(key, stable=True)
+    bounds = torch.searchsorted(skey, torch.arange(S + 1, device=dev))
+    lens = bounds[1:] - bounds[:-1]
+    if rows_per_unit is None:
+        nsplit, W, rs = torch.ones_like(lens), S, None
+    else:
+        rs = int(rows_per_unit)
+        nsplit = torch.clamp((lens + rs - 1) // rs, min=1)
+        W = -(-n // rs) + S
+    first = torch.cat([torch.zeros(1, dtype=torch.long, device=dev),
+                       torch.cumsum(nsplit, 0)])
+    u = torch.arange(W, device=dev)
+    useg = torch.searchsorted(first[1:], u, right=True)
+    s = useg.clamp(max=S - 1)
+    if rs is None:
+        lo, hi = bounds[s], bounds[s + 1]
+    else:
+        lo = bounds[s] + (u - first[s]) * rs
+        hi = torch.minimum(lo + rs, bounds[s + 1])
+    return WalkPlan(perm.contiguous(), useg.to(torch.int32).contiguous(),
+                    lo.contiguous(), hi.contiguous(),
+                    first.to(torch.int32).contiguous())
+
+
+def seg_walk_cuda(builder: str, X: torch.Tensor, *,
+                  Y: Optional[torch.Tensor] = None,
+                  scalars: Sequence[torch.Tensor] = (),
+                  theta: Optional[torch.Tensor] = None,
+                  w: Optional[torch.Tensor] = None,
+                  seg: torch.Tensor, n_segments: int,
+                  init: Optional[torch.Tensor] = None,
+                  count_as: Optional[str] = None) -> torch.Tensor:
+    """``G[s] = Σ_{seg_n = s} w_n L_n ⊗ R_n`` by the segment walk:
+    (S, qL, qR) fp32, with a leading B when a scalar column, ``w`` or
+    ``theta`` is batched.  ``builder`` and its columns as
+    ``seg_gram_cuda``, or ``"pair"`` with ``X`` = U (n, qU) and ``Y`` = V
+    (n, qV).  ``seg`` (n,) integer ids; ids outside [0, S) count
+    nowhere.  ``init`` (S, qL, qR) — or (B, S, qL, qR) — seeds the
+    accumulators of an unsplit walk (one unit per segment; it is read,
+    never written); without it, segments longer than the tile
+    configuration's rows per unit are split and their units summed in
+    order by a second pass."""
+    if builder not in BUILDERS:
+        raise NotImplementedError(f"seg_gram has no CUDA builder {builder!r}")
+    if X.device.type != "cuda":
+        raise ValueError(f"seg_walk_cuda needs CUDA tensors, X is on {X.device}")
+    if X.dim() != 2:
+        raise ValueError(f"seg_gram: X must be (n, d), got {tuple(X.shape)}")
+    dev, f32 = X.device, torch.float32
+    n, dX = X.shape
+    _check("X", X, dev, f32, [(n, dX)])
+    if Y is not None:
+        _check("Y", Y, dev, f32, [(n, Y.shape[-1])])
+    qL, qR = _widths(builder, X, scalars, Y)
+    B, a_b, th_b, w_b = _batch_args(builder, n, dX, scalars, theta, w, dev)
+    batched = any(x is not None and x.dim() == 2
+                  for x in list(scalars) + [w, theta])
+    S = int(n_segments)
+    if S < 1:
+        raise ValueError(f"n_segments must be >= 1, got {S}")
+    if seg.device != dev or seg.dim() != 1 or seg.shape[0] != n:
+        raise ValueError(f"seg_gram: seg must be ({n},) on {dev}, got "
+                         f"{tuple(seg.shape)} on {seg.device}")
+    if init is not None:
+        _check("init", init, dev, f32,
+               [(B, S, qL, qR)] if batched else [(S, qL, qR)])
+
+    lib = library()
+    rs = None if init is not None else lib.seg_gram_split_rows(qL, qR)
+    plan = walk_plan(seg, S, rs)
+    W = plan.useg.shape[0]
+    out = torch.empty((B, S, qL, qR), dtype=f32, device=dev)
+    partial = None if init is not None else torch.empty(
+        (W, B, qL, qR), dtype=f32, device=dev)
+    a = list(scalars) + [None] * (5 - len(scalars))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.seg_gram_walk(
+            BUILDERS[builder], n, dX, _ptr(X),
+            0 if Y is None else Y.shape[1], _ptr(Y),
+            *[_ptr(x) for x in a], a_b, _ptr(theta), th_b, _ptr(w), w_b,
+            *[_ptr(x) for x in plan],
+            W, S, B, qL, qR, _ptr(init), _ptr(partial), _ptr(out),
+            _P(stream))
+    _raise_on(lib, err, builder)
+    key = count_as or (builder if builder == "pair" else builder + "_segmented")
+    LAUNCHES[key] += 1
+    SHAPES[(key, S, qL, qR)] += 1
+    return out if batched else out[0]

@@ -18,6 +18,16 @@ in the dense weights ``Wt`` (n, k) instead and returns the reference's
 batched row weight, on the CPU each fold's block of the kron builder in
 turn — neither forms the (n, k·q) operand.
 
+Segments.  With S > 1 (and always for ``build_pair``, the segmented
+outer product of two row matrices) the card runs the segment walk: each
+block reads one segment's own rows through a permutation, so no launch
+multiplies the zeros of a one-hot expansion; the batch rides along as
+in the one-segment form.  ``init`` (S, qL, qR) seeds the result: the
+CPU adds it to the
+plain Gram (the reference kernel's delta-add), the card starts an
+unsplit walk from it — bitwise the one-shot pass over the concatenated
+rows of two ingests.
+
 The moments engine routes here only on its blocked path (row_block > 0);
 the kernel's own row partition is fixed by its tile configuration
 (csrc/seg_gram.cu), so no block size is passed.  Counts and n_eff are
@@ -35,14 +45,15 @@ from repro_torch.kernels.seg_gram import ref as _ref
 Tensor = torch.Tensor
 _F32 = torch.float32
 
-_LATER = {
-    "build_pair": "the sweep/store slice (ROADMAP A.11)",
-}
-
-
 def _col(x: Tensor) -> Tensor:
     """(n,) -> (n, 1); (B, n) -> (B, n, 1); fp32."""
     return x.to(_F32)[..., None]
+
+
+def _as_rows(x: Tensor) -> Tensor:
+    """(n,) -> (n, 1); (n, q) stays; fp32."""
+    x = x.to(_F32)
+    return x[:, None] if x.dim() == 1 else x
 
 
 def _vec(x: Tensor) -> Tensor:
@@ -92,18 +103,19 @@ def _kernel_args(builder, arrays, w=None):
         cols = [*arrays[:nc], *arrays[nc + 2:]]     # [, builder w] last
         return (name, arrays[nc], tuple(_vec(c) for c in cols),
                 _theta(arrays[nc + 1]), w, None)
+    if builder is _ref.build_pair:
+        return "pair", arrays[0], (), None, w, None
     name = getattr(builder, "__name__", repr(builder))
-    later = _LATER.get(name, "a later slice")
-    raise NotImplementedError(
-        f"{name} has no CUDA kernel yet; it lands with {later}")
+    raise NotImplementedError(f"{name} has no CUDA kernel")
 
 
 def seg_reduce(builder, arrays: Sequence[Tensor], *,
                seg: Optional[Tensor] = None, w: Optional[Tensor] = None,
-               n_segments: int = 1) -> Tensor:
+               n_segments: int = 1, init: Optional[Tensor] = None
+               ) -> Tensor:
     """``G[s] = Σ_{seg_n = s} w_n L_n ⊗ R_n``: (qL, qR) for one segment,
     else (S, qL, qR), with a leading B when ``w`` or an input is
-    batched."""
+    batched; ``init`` seeds it."""
     arrays = [a.to(_F32) for a in arrays]
     dev = arrays[0].device
     w = None if w is None else w.to(_F32)
@@ -114,22 +126,28 @@ def seg_reduce(builder, arrays: Sequence[Tensor], *,
     batched = any(a.dim() == 3 for a in arrays) or (
         w is not None and w.dim() == 2)
     S = int(n_segments)
+    walk = S > 1 or builder is _ref.build_pair or init is not None
+    if walk and seg is None:
+        raise ValueError("seg_gram: a segmented call needs seg")
     if dev.type == "cuda":
         name, X, scalars, theta, wk, count = _kernel_args(builder, arrays,
                                                           w)
         if X.dim() != 2:
             raise ValueError("seg_gram: the row matrix must be shared, "
                              f"got shape {tuple(X.shape)}")
+        if walk:
+            Y = arrays[1].contiguous() if name == "pair" else None
+            return _kernel.seg_walk_cuda(
+                name, X.contiguous(), Y=Y, scalars=scalars,
+                theta=None if theta is None else theta.contiguous(),
+                w=None if wk is None else wk.contiguous(), seg=seg,
+                n_segments=S,
+                init=None if init is None else init.to(_F32).contiguous())
         G = _kernel.seg_gram_cuda(
             name, X.contiguous(), scalars=scalars, theta=theta,
-            w=None if wk is None else wk.contiguous(),
-            seg=None if S == 1 else seg.to(torch.int32).contiguous(),
-            n_segments=S, count_as=count)
+            w=None if wk is None else wk.contiguous(), count_as=count)
         if builder is _ref.build_fold_weighted:
             return G.reshape(-1, G.shape[2])
-        qL, qR = G.shape[1] // S, G.shape[2]
-        if S > 1:
-            G = G.reshape(G.shape[0], S, qL, qR)
         return G if batched else G[0]
     if dev.type != "cpu":
         raise ValueError(f"seg_gram runs on cuda or cpu, not {dev}")
@@ -143,21 +161,26 @@ def seg_reduce(builder, arrays: Sequence[Tensor], *,
         wb = None
         if w is not None:
             wb = (w[b] if w.dim() == 2 else w)[:, None]
-        return _ref.seg_gram_plain(builder, arrs, seg=seg, w=wb,
-                                   n_segments=S)
+        return _ref.seg_gram_plain(builder, arrs, seg=seg if walk else None,
+                                   w=wb, n_segments=S)
 
     if not batched:
-        return one(None)
-    B = max([a.shape[0] for a in arrays if a.dim() == 3]
-            + ([w.shape[0]] if w is not None and w.dim() == 2 else []))
-    return torch.stack([one(b) for b in range(B)])
+        G = one(None)
+    else:
+        B = max([a.shape[0] for a in arrays if a.dim() == 3]
+                + ([w.shape[0]] if w is not None and w.dim() == 2 else []))
+        G = torch.stack([one(b) for b in range(B)])
+    return G if init is None else init.to(_F32) + G
 
 
 def segment_counts(seg: Tensor, n_segments: int) -> Tensor:
-    """Per-segment row counts as a plain compare-and-sum — deterministic
-    on the card, and ids outside [0, S) count nowhere."""
-    ids = torch.arange(n_segments, device=seg.device, dtype=seg.dtype)
-    return (seg[:, None] == ids[None, :]).to(_F32).sum(0)
+    """Per-segment row counts (fp32): exact integer counts, so they do
+    not depend on the order they are taken in; ids outside [0, S) count
+    nowhere."""
+    seg = seg.long()
+    ok = (seg >= 0) & (seg < n_segments)
+    ids = torch.where(ok, seg, torch.full_like(seg, n_segments))
+    return torch.bincount(ids, minlength=n_segments + 1)[:n_segments].to(_F32)
 
 
 def design_gram(D: Tensor, *, w: Optional[Tensor] = None) -> Tensor:
@@ -247,3 +270,14 @@ def iv_meat(ry: Tensor, rt: Tensor, rz: Tensor, phi: Tensor,
     if w is not None:
         arrays.append(_col(w))
     return seg_reduce(_ref.build_iv_meat, arrays)
+
+
+def segment_outer(U: Tensor, V: Tensor, seg: Tensor, n_segments: int, *,
+                  w: Optional[Tensor] = None,
+                  init: Optional[Tensor] = None) -> Tensor:
+    """(S, qU, qV) segmented outer-product sums ``Σ_{seg_n = s} w_n U_n
+    ⊗ V_n`` — the sweep's MM gradient terms and per-segment final stage,
+    the store's accumulators.  U, V (n, q) or (n,); ``init`` (S, qU, qV)
+    seeds the sum (see ``seg_reduce``)."""
+    return seg_reduce(_ref.build_pair, [_as_rows(U), _as_rows(V)], seg=seg, w=w,
+                      n_segments=n_segments, init=init)

@@ -12,9 +12,9 @@ what makes zero-padding a row tail an exact no-op.
 ``seg_gram_plain`` is the plain version of the CUDA kernel
 (kernel.py): the wrapper takes it for tensors on the CPU, and the card
 check compares the kernel against it.  With one segment it is
-``(L·w)ᵀR``; with S > 1 a loop of masked products ``(L·w·[seg=s])ᵀR``
-— never the one-hot einsum, whose (n, S, qL) temporary is gigabytes
-at a million rows.
+``(L·w)ᵀR``; with segments, a loop over them of the product of each
+segment's gathered rows — never the one-hot einsum, whose (n, S, qL)
+temporary is gigabytes at a million rows.
 """
 from __future__ import annotations
 
@@ -102,12 +102,15 @@ def seg_gram_plain(builder, arrays, *, seg: Optional[Tensor] = None,
     """The plain segmented Gram over unbatched 2-D inputs.  ``w``:
     (n, 1) row weights; ``seg``: (n,) integer ids (ids outside
     [0, n_segments), e.g. -1 padding, contribute nothing).  Returns
-    (qL, qR) for one segment, else (n_segments, qL, qR)."""
+    (qL, qR) without ``seg``, else (n_segments, qL, qR): each segment's
+    own rows gathered and multiplied, as the kernel's segment walk
+    reads them."""
     L, R = builder(*arrays)
     Lw = L if w is None else L * w
-    if n_segments == 1:
+    if seg is None:
         return Lw.T @ R
-    return torch.stack([
-        (Lw * (seg == s).to(Lw.dtype)[:, None]).T @ R
-        for s in range(n_segments)
-    ])
+    out = []
+    for s in range(n_segments):
+        idx = torch.nonzero(seg == s).squeeze(1)
+        out.append(Lw.index_select(0, idx).T @ R.index_select(0, idx))
+    return torch.stack(out)

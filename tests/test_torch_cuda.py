@@ -17,6 +17,15 @@ batched executors bitwise equal, and OrthoIV's jackknife and bootstrap
 against the CPU.  Tolerance: 1e-5·max|G| on Grams (fp32 row sums in
 another order), 1e-4 relative on theta and replicates.
 
+The segment walk (every S > 1 form, and ``segment_outer``'s pair
+form) against its plain version at the sweep's and the store's shapes
+(thin 5 x q and 1 x q terms, the 2 x 2 final stage, seeded
+accumulators, a segment longer than a unit), its bitwise invariants
+(repeat, appended seg = -1 and zero rows, an empty segment, power-of-two
+weights, two seeded ingests against one pass), the unit table's bound;
+the segmented sweep and the effect store on the card against the CPU
+(1e-4), and the store's incremental ingest bitwise against one pass.
+
 The flash-attention kernel against its plain version (causal and not,
 GQA and MQA, bf16 and fp32, softcap, ragged Sq/Sk, several key blocks),
 a small bf16 ``Model.features`` through the kernel against the same
@@ -497,3 +506,181 @@ def test_orthoiv_on_card_matches_cpu(card, method):
         np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-4,
                                    atol=1e-5)
     np.testing.assert_allclose(out[1][2], out[0][2], rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# The segment walk: build_pair (segment_outer) and every S > 1 form.
+# ---------------------------------------------------------------------------
+
+# (qU, qV or None for U = V, S, n, weighted, seeded): the sweep's MM
+# terms (5 x q, 1 x q), its final stage (2 x 2), the store's
+# accumulators (seeded), and one segment longer than a unit's rows
+_PAIR_CASES = [
+    (5, 301, 7, 3001, False, False),
+    (1, 300, 20, 3001, True, False),
+    (2, None, 4, 3001, False, False),
+    (40, None, 6, 3001, False, True),
+    (70, None, 3, 40_000, True, False),
+    (3, 250, 2, 9000, False, True),
+]
+
+
+def _pair_inputs(dev, qU, qV, S, n, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    U = torch.randn((n, qU), generator=g)
+    V = U if qV is None else torch.randn((n, qV), generator=g)
+    seg = torch.randint(-1, S, (n,), generator=g)
+    w = torch.rand(n, generator=g)
+    init = torch.randn((S, qU, qU if qV is None else qV), generator=g)
+    return [x.to(dev) for x in (U, V, seg, w, init)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", _PAIR_CASES)
+def test_pair_kernel_matches_plain(card, case):
+    from repro_torch.kernels.seg_gram import kernel as kern
+
+    qU, qV, S, n, weighted, seeded = case
+    U, V, seg, w, init = _pair_inputs(card, qU, qV, S, n)
+    kw = dict(w=w if weighted else None, init=init if seeded else None)
+    kern.LAUNCHES.clear()
+    got = ops.segment_outer(U, V, seg, S, **kw)
+    assert dict(kern.LAUNCHES) == {"pair": 1}
+    want = ops.segment_outer(U.cpu(), V.cpu(), seg.cpu(), S,
+                             **{k: None if v is None else v.cpu()
+                                for k, v in kw.items()})
+    assert got.shape == want.shape == (S, qU, qU if qV is None else qV)
+    _close(got, want)
+
+
+@pytest.mark.cuda
+def test_segment_walk_invariants(card):
+    """Bitwise on the card: a second run, appended rows with seg = -1
+    and appended zero rows, an empty segment, power-of-two weights, and
+    two seeded ingests against one pass over both."""
+    U, V, seg, w, _ = _pair_inputs(card, 6, 37, 5, 50_000, seed=3)
+    seg = torch.where(seg == 2, torch.ones_like(seg), seg)   # 2 is empty
+    G = ops.segment_outer(U, V, seg, 5, w=w)
+    assert torch.equal(G, ops.segment_outer(U, V, seg, 5, w=w))
+    assert bool((G[2] == 0).all())
+    pad = 20_000
+    Up = torch.cat([U, torch.randn((pad, 6), device=card)])
+    Vp = torch.cat([V, torch.randn((pad, 37), device=card)])
+    segp = torch.cat([seg, torch.full((pad,), -1, device=card)])
+    wp = torch.cat([w, torch.rand(pad, device=card)])
+    assert torch.equal(G, ops.segment_outer(Up, Vp, segp, 5, w=wp))
+    Uz = torch.cat([U, torch.zeros((pad, 6), device=card)])
+    Vz = torch.cat([V, torch.zeros((pad, 37), device=card)])
+    segz = torch.cat([seg, torch.randint(0, 5, (pad,), device=card)])
+    wz = torch.cat([w, torch.ones(pad, device=card)])
+    assert torch.equal(G, ops.segment_outer(Uz, Vz, segz, 5, w=wz))
+    assert torch.equal(2.0 * G, ops.segment_outer(U, V, seg, 5, w=2.0 * w))
+    zero = torch.zeros((5, 6, 37), device=card)
+    half = 23_456
+    one = ops.segment_outer(U, V, seg, 5, w=w, init=zero)
+    first = ops.segment_outer(U[:half], V[:half], seg[:half], 5,
+                              w=w[:half], init=zero)
+    both = ops.segment_outer(U[half:], V[half:], seg[half:], 5,
+                             w=w[half:], init=first)
+    assert torch.equal(one, both)
+    assert bool((zero == 0).all())            # init is only read
+    _close(one, G)
+
+
+@pytest.mark.cuda
+def test_walk_plan_bounds_the_partials(card):
+    """A segment far longer than a unit's rows is split; the unit table
+    has ceil(n / rs) + S entries whatever the segment sizes."""
+    from repro_torch.kernels.seg_gram import kernel as kern
+
+    n, S = 100_000, 3
+    seg = torch.zeros(n, dtype=torch.long, device=card)
+    seg[-5:] = 2                                # 1 is empty
+    rs = int(kern.library().seg_gram_split_rows(502, 502))
+    plan = kern.walk_plan(seg, S, rs)
+    assert plan.useg.shape[0] == -(-n // rs) + S
+    first = plan.first.tolist()
+    assert first[1] - first[0] == -(-(n - 5) // rs)
+    assert first[2] - first[1] == 1 and first[3] - first[2] == 1
+    D = torch.randn((n, 70), device=card)
+    G = ops.seg_reduce(ref.build_design, [D], seg=seg, n_segments=S)
+    want = ops.seg_reduce(ref.build_design, [D.cpu()], seg=seg.cpu(),
+                          n_segments=S)
+    _close(G, want)
+    assert bool((G[1] == 0).all())
+
+
+def _sweep_data(n=3000, p=6, E=4, seed=0):
+    from repro_torch.data.causal_dgp import paper_demo_data
+
+    d = paper_demo_data(n=n, p=p, seed=seed, device="cpu")
+    sids = torch.randint(0, E, (n,), generator=torch.Generator()
+                         .manual_seed(seed + 1))
+    return d, sids
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strategy", ["chunked", "pallas"])
+def test_sweep_on_card_matches_cpu(card, strategy):
+    from repro_torch.config import CausalConfig
+    from repro_torch.sweep import SweepSpec, sweep
+
+    d, sids = _sweep_data()
+    cfg = CausalConfig(n_folds=3, inference="none", row_block=512,
+                       row_block_strategy=strategy, newton_iters=4)
+    spec = SweepSpec(4, (("dml", cfg), ("drlearner", cfg)))
+    out = [sweep(spec, X=d.X, y=d.y, t=d.t, segment_ids=sids,
+                 mode="segmented", device=dev) for dev in ("cpu", card)]
+    got, want = out[1].columns[0], out[0].columns[0]
+    assert got.events == ("segmented",) and out[1].columns[1].failed
+    np.testing.assert_allclose(got.thetas.cpu().numpy(),
+                               want.thetas.numpy(), rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(got.ses.cpu().numpy(), want.ses.numpy(),
+                               rtol=1e-4, atol=1e-6)
+
+
+def _store_data(n=4096, p=8, seed=0):
+    from repro_torch.data.causal_dgp import make_causal_data
+
+    d = make_causal_data(n=n, p=p, seed=seed, device="cpu",
+                         discrete_treatment=False)
+    sids = torch.randint(0, 6, (n,), generator=torch.Generator()
+                         .manual_seed(seed + 1))
+    return d, sids
+
+
+def _store(card, strategy, cuts, d, sids):
+    from repro_torch.config import CausalConfig
+    from repro_torch.store import MomentStore
+    from repro_torch.sweep import SweepSpec
+
+    cfg = CausalConfig(n_folds=3, inference="none", row_block=512,
+                       row_block_strategy=strategy, nuisance_t="ridge",
+                       discrete_treatment=False, cate_features=2)
+    s = MomentStore(SweepSpec(6, (("dml", cfg),)), n_features=d.p,
+                    device=card)
+    bounds = [0, *cuts, d.n]
+    for lo, hi in zip(bounds[:-1], bounds[1:]):
+        s.ingest(X=d.X[lo:hi], y=d.y[lo:hi], t=d.t[lo:hi],
+                 segment_ids=sids[lo:hi])
+    return s
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strategy", ["chunked", "pallas"])
+def test_store_on_card(card, strategy):
+    """Card against CPU (1e-4); incremental against one-shot, bitwise:
+    aligned cuts on "chunked", any cuts on the card's seeded walk."""
+    d, sids = _store_data()
+    cuts = (1024, 3072) if strategy == "chunked" else (1000, 2777)
+    one = _store(card, strategy, (), d, sids)
+    inc = _store(card, strategy, cuts, d, sids)
+    cpu = _store("cpu", strategy, cuts, d, sids)
+    a, b = one.state_dict()["col0"], inc.state_dict()["col0"]
+    for key in ("ng", "vg", "counts"):
+        assert torch.equal(a[key], b[key]), key
+    pa, pc = inc.refresh(), cpu.refresh()
+    assert torch.equal(one.refresh().columns[0].thetas, pa.columns[0].thetas)
+    np.testing.assert_allclose(pa.columns[0].thetas.cpu().numpy(),
+                               pc.columns[0].thetas.numpy(), rtol=1e-4,
+                               atol=1e-5)

@@ -12,8 +12,9 @@ against the JAX package's.
     and theta — against ``seg_gram_ref``, row by row of the batch;
   * ``residual_gram`` against the JAX entry point (interpret);
   * the argument layout the ops layer hands the CUDA kernel, through an
-    emulation of the kernel's documented contract, for the eight
-    builders with a CUDA form (``build_pair`` is the one left);
+    emulation of the kernel's documented contract (the one-segment
+    splits, and the segment walk over ``kernel.walk_plan``'s unit table
+    for S > 1), for every builder;
   * inside torch, bitwise: a padded tail is a no-op, w=0 equals zeroed
     rows, an empty segment is exactly 0, power-of-two weights scale
     exactly, and a batch of one equals the same row of a batch of k.
@@ -242,6 +243,51 @@ def _emulate_kernel(builder, X, *, scalars=(), theta=None, w=None,
     return torch.stack(outs)
 
 
+def _emulate_walk(builder, X, *, Y=None, scalars=(), theta=None, w=None,
+                  seg, n_segments, init=None, rows_per_unit=64):
+    """csrc/seg_gram.cu's segment walk in plain torch, over the unit
+    table of ``kernel.walk_plan``: each unit's rows read through the
+    permutation, each segment's units summed in order (or, with init,
+    one unit per segment seeded from init); (S, qL, qR)."""
+    from repro_torch.kernels.seg_gram import kernel as kern
+
+    if builder == "pair":
+        L, R = X, Y
+    else:
+        L = R = _rows_of(builder, X, scalars)
+    if w is not None:
+        L = L * w[:, None]
+    plan = kern.walk_plan(seg, n_segments, None if init is not None
+                          else rows_per_unit)
+    W = plan.useg.shape[0]
+    parts = torch.zeros((W, L.shape[1], R.shape[1]))
+    for u in range(W):
+        if int(plan.useg[u]) >= n_segments:
+            continue
+        rows = plan.perm[int(plan.lo[u]):int(plan.hi[u])]
+        parts[u] = L[rows].T @ R[rows]
+        if init is not None:
+            parts[u] += init[int(plan.useg[u])]
+    first = plan.first.tolist()
+    return torch.stack([parts[first[s]:first[s + 1]].sum(0)
+                        for s in range(n_segments)])
+
+
+def _rows_of(builder, X, scalars):
+    """The L = R rows of a symmetric builder, as the kernel forms them."""
+    sc = list(scalars)
+    if builder == "design":
+        return X
+    if builder in ("residual", "residual_direct"):
+        ry, rt = ((sc[0] - sc[2], sc[1] - sc[3]) if builder == "residual"
+                  else (sc[0], sc[1]))
+        return torch.cat([rt[:, None] * X, ry[:, None]], 1)
+    if builder == "iv":
+        ry, rt, rz = sc
+        return torch.cat([rz[:, None] * X, rt[:, None] * X, ry[:, None]], 1)
+    raise AssertionError(f"no segmented layout case for {builder}")
+
+
 def _layout_case(a, name):
     """(ops inputs, seg_reduce keywords) exercising batch strides."""
     W = a["W"]
@@ -284,19 +330,21 @@ def test_kernel_argument_layout(arrs, name, monkeypatch):
     kname, X, scalars, theta, w, count = ops._kernel_args(builder, col,
                                                           kw.get("w"))
     assert count == ("fold_weighted" if name == "fold_weighted" else None)
-    monkeypatch.setattr(kern, "seg_gram_cuda", _emulate_kernel)
-    G = kern.seg_gram_cuda(kname, X, scalars=scalars, theta=theta, w=w,
-                           seg=kw.get("seg"),
-                           n_segments=kw.get("n_segments", 1))
     S = kw.get("n_segments", 1)
-    if name == "fold_weighted":
-        got = G.reshape(-1, G.shape[2])
+    if S > 1:
+        # segmented calls take the segment walk (unbatched)
+        monkeypatch.setattr(kern, "seg_walk_cuda", _emulate_walk)
+        got = kern.seg_walk_cuda(kname, X, scalars=scalars, theta=theta,
+                                 w=w, seg=kw["seg"], n_segments=S)
     else:
-        if S > 1:
-            G = G.reshape(G.shape[0], S, G.shape[1] // S, G.shape[2])
-        batched = any(c.dim() == 3 for c in col) or "w" in kw and \
-            kw["w"].dim() == 2
-        got = G if batched else G[0]
+        monkeypatch.setattr(kern, "seg_gram_cuda", _emulate_kernel)
+        G = kern.seg_gram_cuda(kname, X, scalars=scalars, theta=theta, w=w)
+        if name == "fold_weighted":
+            got = G.reshape(-1, G.shape[2])
+        else:
+            batched = any(c.dim() == 3 for c in col) or "w" in kw and \
+                kw["w"].dim() == 2
+            got = G if batched else G[0]
     assert got.shape == want.shape
     _close(got.numpy(), want.numpy(), name)
 
@@ -304,15 +352,11 @@ def test_kernel_argument_layout(arrs, name, monkeypatch):
 @pytest.mark.parametrize("name", ["residual_direct", "iv", "fold_weighted",
                                   "iv_meat", "pair"])
 def test_later_builders_have_no_cuda_kernel_yet(arrs, name):
-    """build_pair is the one builder left for a later slice (ROADMAP
-    A.11); the inference builders map to kernel forms."""
+    """Every builder now maps to a kernel form: the inference builders
+    (and fold_weighted, on the design form) since slice 4, build_pair —
+    the last one — on the segment walk."""
     tb, _, inputs = _builder_cases(arrs)[name]
     arrays = [torch.from_numpy(x) for x in inputs]
-    if name == "pair":
-        with pytest.raises(NotImplementedError, match="slice"):
-            ops._kernel_args(tb, arrays)
-        assert list(ops._LATER) == ["build_pair"]
-        return
     if name == "iv_meat":
         arrays = arrays[:-1]
     kname = ops._kernel_args(tb, arrays)[0]
@@ -396,3 +440,103 @@ def test_batch_of_one_equals_row_of_batch(arrs):
         assert torch.equal(Gk[b], ops.design_gram(D, w=W[b]))
         G1, u1 = ops.gram_and_vec(D, W[b], 0.5 * W[b])
         assert torch.equal(Gv[b], G1) and torch.equal(uv[b], u1)
+
+
+# ---------------------------------------------------------------------------
+# segment_outer (build_pair) and the segment walk's unit table.
+# ---------------------------------------------------------------------------
+
+def _outer_case(a, case):
+    """(U, V, seg, w, init) numpy inputs of one segment_outer case."""
+    U, V = a["phi"], np.concatenate([a["D"], a["y"]], axis=1)
+    seg, w, init = a["seg"], None, None
+    rng = np.random.default_rng(11)
+    if case == "weighted":
+        w = a["w"][:, 0]
+    elif case == "init":
+        init = rng.standard_normal((_S, U.shape[1], V.shape[1])).astype(
+            np.float32)
+    elif case == "padded":
+        seg = np.where(np.arange(_N) % 7 == 0, -1, seg).astype(np.int32)
+    elif case == "empty":
+        seg = np.where(seg == 2, 1, seg).astype(np.int32)
+    elif case == "vector":
+        U = a["y"][:, 0]
+    return U, V, seg, w, init
+
+
+_OUTER = ["plain", "weighted", "init", "padded", "empty", "vector"]
+
+
+@pytest.mark.parametrize("backend", ["ref", "interpret"])
+@pytest.mark.parametrize("case", _OUTER)
+def test_segment_outer_matches_reference(arrs, case, backend):
+    """The port's plain segment_outer against the reference's one-hot
+    oracle and its Pallas kernel in interpret mode: row weights, a
+    seeded accumulator (the reference adds init to its result), seg = -1
+    padding, an empty segment, a vector U."""
+    from repro.kernels.seg_gram import ops as jsg_ops
+
+    U, V, seg, w, init = _outer_case(arrs, case)
+    want = jsg_ops.segment_outer(
+        jnp.asarray(U), jnp.asarray(V), jnp.asarray(seg), _S,
+        w=None if w is None else jnp.asarray(w), row_block=_RB,
+        backend=backend, init=None if init is None else jnp.asarray(init))
+    got = ops.segment_outer(
+        torch.from_numpy(U), torch.from_numpy(V), torch.from_numpy(seg), _S,
+        w=None if w is None else torch.from_numpy(w),
+        init=None if init is None else torch.from_numpy(init))
+    assert tuple(got.shape) == tuple(want.shape)
+    _close(got.numpy(), np.asarray(want), f"{case} vs {backend}")
+    if case == "empty":
+        assert bool((got[2] == 0).all())
+
+
+def test_segment_outer_bitwise_contracts(arrs):
+    """Inside torch, bitwise: rows with seg = -1 change nothing; init is
+    added to the walk's result and not written; an empty segment is 0."""
+    a = {k: torch.from_numpy(v) for k, v in arrs.items()}
+    U, V, seg = a["phi"], a["D"], a["seg"].long()
+    G = ops.segment_outer(U, V, seg, _S)
+    pad = 40
+    Up = torch.cat([U, torch.randn((pad, U.shape[1]))])
+    Vp = torch.cat([V, torch.randn((pad, V.shape[1]))])
+    segp = torch.cat([seg, torch.full((pad,), -1)])
+    assert torch.equal(G, ops.segment_outer(Up, Vp, segp, _S))
+    init = torch.randn(G.shape)
+    keep = init.clone()
+    assert torch.equal(ops.segment_outer(U, V, seg, _S, init=init), init + G)
+    assert torch.equal(init, keep)
+    seg_e = torch.where(seg == 2, torch.zeros_like(seg), seg)
+    assert bool((ops.segment_outer(U, V, seg_e, _S)[2] == 0).all())
+
+
+@pytest.mark.parametrize("rows", [None, 1, 64, 5000])
+def test_walk_plan_covers_every_row_once(arrs, rows):
+    """The unit table: every row of [0, S) in exactly one unit of its
+    segment, in arrival order; units of at most ``rows`` rows; every
+    segment at least one unit (an empty one too); ceil(n / rows) + S
+    entries with an unused tail; and the kernel's contract emulated over
+    it equals the plain segmented Gram."""
+    from repro_torch.kernels.seg_gram import kernel as kern
+
+    seg = torch.from_numpy(arrs["seg"]).long()
+    seg = torch.where(seg == 1, torch.full_like(seg, -1), seg)   # 1 empty
+    plan = kern.walk_plan(seg, _S, rows)
+    W = plan.useg.shape[0]
+    assert W == (_S if rows is None else -(-_N // rows) + _S)
+    first = plan.first.tolist()
+    assert first[0] == 0 and all(b > a for a, b in zip(first, first[1:]))
+    for s in range(_S):
+        units = range(first[s], first[s + 1])
+        got = torch.cat([plan.perm[int(plan.lo[u]):int(plan.hi[u])]
+                         for u in units])
+        assert torch.equal(got, torch.nonzero(seg == s).squeeze(1))
+        assert all(int(plan.useg[u]) == s for u in units)
+        if rows is not None:
+            assert all(int(plan.hi[u] - plan.lo[u]) <= rows for u in units)
+    assert bool((plan.useg[first[-1]:] == _S).all())
+    U, V = (torch.from_numpy(arrs[k]) for k in ("phi", "D"))
+    got = _emulate_walk("pair", U, Y=V, seg=seg, n_segments=_S,
+                        rows_per_unit=rows or 64)
+    _close(got.numpy(), ops.segment_outer(U, V, seg, _S).numpy(), "walk")
