@@ -47,14 +47,59 @@
 // permutation in place -- no copy of the row matrices is made.
 //
 // Grid.  blockIdx = (unit u, output tile, batch b).  Each block owns one
-// TI x TJ tile of the (qL, qR) output of its segment and batch element,
-// walks its unit's rows in chunks of CH staged in shared memory -- L-side
-// values with w applied, R-side values -- and accumulates with fp32 FMA
-// on the CUDA cores, MI x MJ outputs per thread.  No tensor cores: TF32
-// would change the numerics.  The ragged tail is masked in the load.
-// rs is fixed by the tile configuration and never by n, so appending zero
-// rows (or rows with seg = -1) leaves every unit's addition sequence --
-// and the result -- bitwise unchanged.
+// output tile of its segment and batch element, walks its unit's rows in
+// chunks staged in shared memory -- L-side values with w applied, R-side
+// values -- and accumulates with fp32 FMA on the CUDA cores.  The ragged
+// tail is masked in the load.  rs is fixed by the tile configuration and
+// never by n, so appending zero rows (or rows with seg = -1) leaves every
+// unit's addition sequence -- and the result -- bitwise unchanged.
+//
+// Three tile configurations (config_of).  SMALL (both widths <= 16: the
+// final stage's 3x3) and THIN (qL <= 8: the sweep's 5 x 501 and 1 x 501
+// gradient terms) run seg_gram_kernel, one or two outputs per thread.
+// BIG (every wider output: the 502-wide nuisance Grams, fold_weighted,
+// the 2049/2561-wide backbone Grams, the store's 503- and 1006-wide
+// accumulators) runs seg_gram_big:
+//
+//   * One triangle.  A symmetric Gram -- every builder but PAIR, and PAIR
+//     when U and V are one tensor (the wrapper's flag) -- launches only
+//     the 128 x 128 output tiles with tile-row <= tile-col; gram_and_vec
+//     ([wg X | v] (x) X: symmetric but for its appended v row) adds the
+//     lower tiles of the tile-row that holds row dX.  kernel.py:
+//     tile_schedule lists the launched tiles; tile_of below mirrors it.
+//     The block writes its upper elements, and their mirror (j, i)
+//     through a transpose in shared memory, so every element of the
+//     partial (or, seeded, of the output) is written once from one
+//     accumulator: the result is bitwise symmetric, and the second pass
+//     stays a plain ordered sum.  A diagonal tile also skips its quadrant
+//     below the diagonal, and in gram_and_vec's lower tiles the warps
+//     that hold no part of row dX skip the FMAs: at q = 502 the design
+//     runs 9 tiles' FMAs of the full square's 16.
+//   * 8 x 8 outputs per thread (two 4-wide groups 64 apart on each side,
+//     so a warp's float4 reads of a staged row are conflict-free
+//     broadcasts): 4 float4 shared loads per 64 FMA, 0.25 loads per FMA.
+//   * Double-buffered chunks of 16 rows with one barrier per chunk: each
+//     thread owns one staged column (128 L + 128 R per block) and
+//     prefetches the next chunk's 16 raw values into registers before the
+//     current chunk's FMAs, then scales and stores them.  The per-row
+//     scalars (and the row ids of a walk) are formed two chunks ahead by
+//     the lanes of warp 0 alone, so only warp 0 waits on their loads.
+//     Rows of X are dX * 4 bytes apart (8196 at q = 2049), so staging is
+//     4-byte loads of one column per row -- a gather through perm in the
+//     walk -- never 16-byte copies of a row.
+//
+// Arithmetic order.  Every output element adds its unit's rows one at a
+// time, in row order, with one fp32 FMA each, whatever the tile, the
+// batch or the chunking; the units then add in a fixed order.  The
+// port's bitwise contracts rest on that: chunked == whole, appended zero
+// and seg = -1 rows are no-ops, w = 0 == zeroed rows, serial == batched
+// (each batch element's arithmetic is independent of B), the store's
+// one-shot == incremental for any partition and its rollback, and
+// run-to-run repeatability.  That is why the Grams stay off the tensor
+// cores: TF32 drops fp32's accuracy, and even an fp32-accurate 3xTF32
+// split sums a k-group of rows inside the mma in the hardware's order,
+// which breaks one-shot == incremental wherever a day's rows do not end
+// on a k boundary.
 //
 // Reduction.  Unit u writes its partial to partial[u]; a second kernel
 // sums each segment's units in their fixed order.  No atomics: a run
@@ -63,26 +108,30 @@
 // walk is not split: one unit per segment, whose accumulators start from
 // init[s] and are written straight to the output, so an ingest of rows A
 // then rows B runs exactly the addition sequence of one pass over A + B
-// -- incremental ingest is bitwise the one-shot pass.  init is only read.
+// -- incremental ingest is bitwise the one-shot pass.  init is only read;
+// a symmetric PAIR with init takes the triangle only when init itself is
+// symmetric (the wrapper checks), since the mirror copies init[i, j] + sum
+// into (j, i).
 //
 // Batch.  The leading batch dimension carries the k folds of the
 // "parallel" cross-fit engine -- and, for the bootstrap, R replicates
 // times k folds -- in one launch: w, the per-row scalars and the meats'
 // theta come in at batch strides (0: shared), X (and PAIR's Y) is shared.
-// Each batch element's arithmetic is the same whatever the batch size.
+// Blocks of one unit and tile run side by side for every batch element,
+// so the rows they stage come from L2 after the first read.
 //
-// Bound on the H100 (3.35 TB/s HBM, ~67 TFLOP/s fp32 FMA).  At q ~ 500
-// the Gram is 2*n*qL*qR FLOP for n*q*4 bytes read -- about 250 FLOP/byte,
-// compute-bound: ~7.5 ms per fold at n = 1e6.  The final-stage forms
-// (q <= 3), the sweep's gradient terms (qL <= 5) and its per-segment
-// final stage read their operands once and are bandwidth-bound.  This
-// first design reads operands from shared memory for every FMA (vector
-// loads, 0.5 loads per FMA on the 64x64 tile), computes both triangles
-// of a symmetric Gram, and reaches neither bound; both are left to a
-// later PR.
+// Bound on the H100 (3.35 TB/s HBM, 67 TFLOP/s fp32 FMA).  At q ~ 500
+// the symmetric Gram is 2*n*q(q+1)/2 FLOP for n*q*4 bytes read -- ~125
+// FLOP/byte, compute-bound: 18.8 ms for the k = 5 design at n = 1e6; the
+// large tile issues its FMAs at ~45 % of that peak (PERF.md).  The
+// final-stage forms (q <= 3), the sweep's gradient terms (qL <= 5) and
+// its per-segment final stage read their operands once and are
+// bandwidth-bound; they keep the first design's SMALL and THIN tiles.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -116,6 +165,7 @@ struct Args {
   int qL, qR;              // L width, R width
   long long rs;            // rows per unit of the fixed splits
   int B;
+  int sym;                 // BIG: compute one triangle and mirror it
   const float* init;       // (B, S, qL, qR) seeds of an unsplit walk, or null
   float* partial;          // (W, B, qL, qR)
   float* out;              // (B, S, qL, qR), written directly when seeded
@@ -343,6 +393,248 @@ seg_gram_kernel(Args a) {
   }
 }
 
+// The BIG template's shape: a 128 x 128 output tile, 16 x 16 threads of
+// 8 x 8 outputs, chunks of 16 rows.  A thread's outputs are the rows
+// (m / 4) * 64 + 4 ty + m % 4 and the columns (k / 4) * 64 + 4 tx + k % 4
+// of the tile.
+constexpr int BIG_T = 128, BIG_M = 8, BIG_CH = 16;
+constexpr int BIG_NT = (BIG_T / BIG_M) * (BIG_T / BIG_M);
+constexpr int BIG_H = BIG_T / 2;
+constexpr int BIG_LDT = BIG_H + 1;      // the mirror's transpose buffer
+constexpr int BIG_STAGE = 2 * 2 * BIG_CH * BIG_T;   // floats: 2 bufs x (L, R)
+constexpr int BIG_SMEM = BIG_STAGE > BIG_T * BIG_LDT ? BIG_STAGE
+                                                     : BIG_T * BIG_LDT;
+static_assert(BIG_NT == 2 * BIG_T, "one thread per staged column");
+static_assert(BIG_CH <= 32, "warp 0 forms a chunk's scalars");
+
+// Launched output tiles of a (qL, qR) output (kernel.py: tile_schedule).
+// Full: row-major over the grid.  Symmetric: the upper triangle
+// (tile-row <= tile-col) row by row, then -- when qL > qR, gram_and_vec's
+// appended row dX = qR -- the tiles left of the diagonal in its tile-row.
+__host__ __device__ inline int tiles_big(int qL, int qR, bool sym) {
+  const int TR = (qR + BIG_T - 1) / BIG_T;
+  if (!sym) return ((qL + BIG_T - 1) / BIG_T) * TR;
+  return TR * (TR + 1) / 2 + (qL > qR ? qR / BIG_T : 0);
+}
+
+__host__ __device__ inline void tile_of(int y, int qR, bool sym, int& ti,
+                                       int& tj) {
+  const int TR = (qR + BIG_T - 1) / BIG_T;
+  if (!sym) {
+    ti = y / TR;
+    tj = y % TR;
+    return;
+  }
+  const int U = TR * (TR + 1) / 2;
+  if (y >= U) {
+    ti = qR / BIG_T;
+    tj = y - U;
+    return;
+  }
+  ti = 0;
+  while (y >= TR - ti) {
+    y -= TR - ti;
+    ++ti;
+  }
+  tj = ti + y;
+}
+
+template <int BUILDER>
+__global__ void __launch_bounds__(BIG_NT, 2) seg_gram_big(Args a) {
+  __shared__ __align__(16) float sm[BIG_SMEM];
+  // per chunk row: c1L c2L eL c1R c2R eR, w; and the row id (-1: none)
+  __shared__ float sSc[2][7][BIG_CH];
+  __shared__ long long sRow[2][BIG_CH];
+
+  const long long u = blockIdx.x;
+  int s = 0;
+  long long lo, hi;
+  if (a.unit_seg != nullptr) {
+    s = a.unit_seg[u];
+    if (s >= a.S) return;            // past the last unit: the whole block
+    lo = a.unit_lo[u];
+    hi = a.unit_hi[u];
+  } else {
+    lo = u * a.rs;
+    hi = a.n < lo + a.rs ? a.n : lo + a.rs;
+  }
+  const bool sym = a.sym != 0;
+  const int nsym = a.qR;             // rows >= qR (gram_and_vec's v) are not mirrored
+  int ti, tj;
+  tile_of(blockIdx.y, a.qR, sym, ti, tj);
+  const int I0 = ti * BIG_T, J0 = tj * BIG_T;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  // a warp is 4 x 8 threads: its staged-row reads touch 64 + 128 bytes
+  const int ty = (warp >> 1) * 4 + (lane >> 3);
+  const int tx = (warp & 1) * 8 + (lane & 7);
+  const long long slab = (long long)a.qL * a.qR;
+  const long long ob = ((long long)b * a.S + s) * slab;
+
+  float acc[BIG_M][BIG_M];
+#pragma unroll
+  for (int m = 0; m < BIG_M; ++m)
+#pragma unroll
+    for (int k = 0; k < BIG_M; ++k) {
+      const int I = I0 + (m >> 2) * BIG_H + ty * 4 + (m & 3);
+      const int J = J0 + (k >> 2) * BIG_H + tx * 4 + (k & 3);
+      acc[m][k] = (a.init != nullptr && I < a.qL && J < a.qR)
+                      ? a.init[ob + (long long)I * a.qR + J] : 0.f;
+    }
+
+  // This thread's staged column: L (tid < 128) or R, its source and the
+  // per-row scalar that scales it (0 c1, 1 c2, 2 e alone, 3 zero).
+  const bool rside = tid >= BIG_T;
+  const int cc = tid & (BIG_T - 1);
+  const int col = (rside ? J0 : I0) + cc;
+  const int qS = rside ? a.qR : a.qL;
+  const float* src = a.X;
+  int ld = a.dX, xcol = 0, sel = 3;
+  if constexpr (BUILDER == PAIR) {
+    if (rside) { src = a.Y; ld = a.dY; }
+    if (col < qS) { xcol = col; sel = 0; }
+  } else {
+    if (col < a.dX) {
+      xcol = col; sel = 0;
+    } else if (BUILDER == IV && col < 2 * a.dX) {
+      xcol = col - a.dX; sel = 1;
+    } else if (col < qS) {
+      sel = 2;
+    }
+  }
+  const int sidx = (rside ? 3 : 0) + (sel < 3 ? sel : 0);
+  const float* wb = a.w != nullptr ? a.w + (long long)b * a.w_bstride : nullptr;
+  const long long nch = hi > lo ? (hi - lo + BIG_CH - 1) / BIG_CH : 0;
+
+  // Per-row scalars, two chunks ahead: lane r of warp 0 forms those of
+  // row r.  Only warp 0 waits on their loads; the other warps go on to
+  // the chunk's FMAs (a thread in every warp would stall every warp).
+  auto scalars = [&](long long ci, int buf) {
+    if (tid < BIG_CH) {
+      const int r = tid;
+      const long long pos = lo + ci * BIG_CH + r;
+      RowScalars sc = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+      float w = 0.f;
+      long long row = -1;
+      if (ci < nch && pos < hi) {
+        row = a.perm != nullptr ? a.perm[pos] : pos;
+        sc = row_scalars<BUILDER>(a, b, row);
+        w = wb != nullptr ? wb[row] : 1.f;
+      }
+      sSc[buf][0][r] = sc.c1L; sSc[buf][1][r] = sc.c2L; sSc[buf][2][r] = sc.eL;
+      sSc[buf][3][r] = sc.c1R; sSc[buf][4][r] = sc.c2R; sSc[buf][5][r] = sc.eR;
+      sSc[buf][6][r] = w;
+      sRow[buf][r] = row;
+    }
+  };
+  float raw[BIG_CH];
+  auto load_raw = [&](int buf) {
+#pragma unroll
+    for (int r = 0; r < BIG_CH; ++r) {
+      const long long row = sRow[buf][r];
+      raw[r] = (sel < 2 && row >= 0) ? __ldg(src + row * ld + xcol)
+                                     : (sel == 2 ? 1.f : 0.f);
+    }
+  };
+  auto store = [&](int buf) {
+    float* dst = sm + buf * 2 * BIG_CH * BIG_T + (rside ? BIG_CH * BIG_T : 0) + cc;
+#pragma unroll
+    for (int r = 0; r < BIG_CH; ++r) {
+      float v = 0.f;
+      if (sel < 3) {
+        v = raw[r] * sSc[buf][sidx][r];
+        if (!rside) v *= sSc[buf][6][r];
+      }
+      dst[r * BIG_T] = v;
+    }
+  };
+  // A diagonal tile of a symmetric Gram skips the quadrant below the
+  // diagonal (rows 64..127 by columns 0..63 of the tile): nothing there
+  // is written -- unless the tile holds gram_and_vec's v row.
+  auto compute = [&](int buf, auto skip) {
+    const float* Lb = sm + buf * 2 * BIG_CH * BIG_T;
+    const float* Rb = Lb + BIG_CH * BIG_T;
+#pragma unroll
+    for (int r = 0; r < BIG_CH; ++r) {
+      const float4 l0 = *reinterpret_cast<const float4*>(Lb + r * BIG_T + ty * 4);
+      const float4 l1 = *reinterpret_cast<const float4*>(Lb + r * BIG_T + BIG_H + ty * 4);
+      const float4 r0 = *reinterpret_cast<const float4*>(Rb + r * BIG_T + tx * 4);
+      const float4 r1 = *reinterpret_cast<const float4*>(Rb + r * BIG_T + BIG_H + tx * 4);
+      const float lv[BIG_M] = {l0.x, l0.y, l0.z, l0.w, l1.x, l1.y, l1.z, l1.w};
+      const float rv[BIG_M] = {r0.x, r0.y, r0.z, r0.w, r1.x, r1.y, r1.z, r1.w};
+#pragma unroll
+      for (int m = 0; m < BIG_M; ++m)
+#pragma unroll
+        for (int k = 0; k < BIG_M; ++k)
+          if (!(decltype(skip)::value && m >= 4 && k < 4))
+            acc[m][k] = fmaf(lv[m], rv[k], acc[m][k]);
+    }
+  };
+  const bool diag = sym && ti == tj && (a.qL <= nsym || I0 + BIG_T <= nsym);
+  // Left of the diagonal in gram_and_vec's v tile row only row qR is
+  // written: the warps that hold no part of it skip the FMAs.  A warp's
+  // rows are wr .. wr + 15 and wr + 64 .. wr + 79.
+  const int wr = I0 + (warp >> 1) * 16;
+  const bool idle = sym && ti > tj &&
+                    !(nsym >= wr && nsym < wr + 16) &&
+                    !(nsym >= wr + BIG_H && nsym < wr + BIG_H + 16);
+
+  if (nch > 0) {
+    scalars(0, 0);
+    scalars(1, 1);
+    __syncthreads();
+    load_raw(0);
+    store(0);
+    __syncthreads();
+    for (long long ci = 0; ci < nch; ++ci) {
+      const int cb = (int)(ci & 1), nb = cb ^ 1;
+      const bool more = ci + 1 < nch;
+      if (more) load_raw(nb);                    // in flight over the FMAs
+      if (ci + 2 < nch) scalars(ci + 2, cb);
+      if (diag) compute(cb, std::true_type{});
+      else if (!idle) compute(cb, std::false_type{});
+      if (more) store(nb);
+      __syncthreads();
+    }
+  }
+
+  float* dst = a.init != nullptr ? a.out + ob
+                                 : a.partial + (u * a.B + b) * slab;
+  // the upper elements (and gram_and_vec's v row) from their accumulators
+#pragma unroll
+  for (int m = 0; m < BIG_M; ++m) {
+    const int I = I0 + (m >> 2) * BIG_H + ty * 4 + (m & 3);
+    if (I >= a.qL) continue;
+#pragma unroll
+    for (int k = 0; k < BIG_M; ++k) {
+      const int J = J0 + (k >> 2) * BIG_H + tx * 4 + (k & 3);
+      if (J < a.qR && (!sym || I >= nsym || I <= J))
+        dst[(long long)I * a.qR + J] = acc[m][k];
+    }
+  }
+  // their mirror (J, I), I < J, through a transpose in shared memory, one
+  // half of the tile's rows at a time
+  if (sym && ti <= tj) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      __syncthreads();                           // sm is free
+#pragma unroll
+      for (int m = 0; m < 4; ++m)
+#pragma unroll
+        for (int k = 0; k < BIG_M; ++k)
+          sm[((k >> 2) * BIG_H + tx * 4 + (k & 3)) * BIG_LDT + ty * 4 + m] =
+              acc[h * 4 + m][k];
+      __syncthreads();
+      for (int e = tid; e < BIG_T * BIG_H; e += BIG_NT) {
+        const int c = e / BIG_H, r = e % BIG_H;
+        const int I = I0 + h * BIG_H + r, J = J0 + c;
+        if (I < J && J < a.qR && I < nsym)
+          dst[(long long)J * a.qR + I] = sm[c * BIG_LDT + r];
+      }
+    }
+  }
+}
+
 // out[i] = sum_{p = 0..P-1} partial[p, i], in that fixed order.
 __global__ void reduce_splits(const float* __restrict__ partial,
                               float* __restrict__ out, long long m, int P) {
@@ -373,12 +665,9 @@ __global__ void reduce_units(const float* __restrict__ partial,
 // Tile configurations.  Small outputs (the final stage's 3x3): one
 // output per thread, long row chunks.  Thin outputs (qL <= 8: the
 // sweep's gradient terms, 5 x 501 and 1 x 501): all qL rows and two
-// columns per thread on an 8 x 256 tile.  Large outputs (the 502-wide
-// nuisance Grams, the store's 503- and 1006-wide accumulators): 4x4 per
-// thread on a 64x64 tile.
+// columns per thread on an 8 x 256 tile.  Large outputs: seg_gram_big.
 constexpr int SMALL_T = 16, SMALL_CH = 64;
 constexpr int THIN_TI = 8, THIN_TJ = 256, THIN_MJ = 2, THIN_CH = 32;
-constexpr int BIG_T = 64, BIG_M = 4, BIG_CH = 16;
 constexpr long long SMALL_RS = 1024, THIN_RS = 2048, BIG_RS = 16384;
 
 enum Config { SMALL = 0, THIN = 1, BIG = 2 };
@@ -409,9 +698,8 @@ cudaError_t launch(const Args& a, Config c, long long units,
     seg_gram_kernel<BUILDER, THIN_TI, THIN_TJ, THIN_TI, THIN_MJ, THIN_CH>
         <<<grid_of<THIN_TI, THIN_TJ>(units, a), THIN_TJ / THIN_MJ, 0, st>>>(a);
   } else {
-    seg_gram_kernel<BUILDER, BIG_T, BIG_T, BIG_M, BIG_M, BIG_CH>
-        <<<grid_of<BIG_T, BIG_T>(units, a), (BIG_T / BIG_M) * (BIG_T / BIG_M),
-           0, st>>>(a);
+    const dim3 grid((unsigned)units, tiles_big(a.qL, a.qR, a.sym != 0), a.B);
+    seg_gram_big<BUILDER><<<grid, BIG_NT, 0, st>>>(a);
   }
   return cudaGetLastError();
 }
@@ -466,6 +754,7 @@ int seg_gram_run(int builder, long long n, int dX, const float* X,
   Args a = base_args(n, dX, X, a0, a1, a2, a3, a4, theta, w, qL, qR);
   a.a_bstride = a_bstride; a.theta_bstride = theta_bstride;
   a.w_bstride = w_bstride; a.B = B; a.partial = partial;
+  a.sym = 1;                 // every one-segment builder is symmetric
   const Config c = config_of(qL, qR);
   a.rs = rows_of(c);
   if (P != (int)((n + a.rs - 1) / a.rs > 0 ? (n + a.rs - 1) / a.rs : 1))
@@ -484,10 +773,12 @@ int seg_gram_run(int builder, long long n, int dX, const float* X,
 // A segment walk over the unit table of kernel.py's walk_plan: W units,
 // segment s owning units first[s] .. first[s+1]-1, and a leading batch
 // of B (the scalars, w and theta at their batch strides).  Y / dY are
-// PAIR's V.  With init (B, S, qL, qR) the plan must be unsplit (W = S,
-// unit s = segment s): the blocks start from init and write to out;
-// else they write partial (W, B, qL, qR) and reduce_units sums each
-// segment's units in order into out (B, S, qL, qR).
+// PAIR's V; pair_sym says that V is U (the same rows, qL = qR), so that
+// PAIR's Gram is symmetric -- and, with init, that init is.  With init
+// (B, S, qL, qR) the plan must be unsplit (W = S, unit s = segment s):
+// the blocks start from init and write to out; else they write partial
+// (W, B, qL, qR) and reduce_units sums each segment's units in order
+// into out (B, S, qL, qR).
 int seg_gram_walk(int builder, long long n, int dX, const float* X,
                   int dY, const float* Y,
                   const float* a0, const float* a1, const float* a2,
@@ -497,9 +788,11 @@ int seg_gram_walk(int builder, long long n, int dX, const float* X,
                   const long long* perm, const int* unit_seg,
                   const long long* unit_lo, const long long* unit_hi,
                   const int* first, int W, int S, int B, int qL, int qR,
-                  const float* init, float* partial, float* out,
-                  void* stream) {
+                  int pair_sym, const float* init, float* partial,
+                  float* out, void* stream) {
   if ((builder == PAIR) != (Y != nullptr)) return (int)cudaErrorInvalidValue;
+  if (pair_sym && (builder != PAIR || qL != qR))
+    return (int)cudaErrorInvalidValue;
   if (init != nullptr && W != S) return (int)cudaErrorInvalidValue;
   if (W < 1 || S < 1 || B < 1) return (int)cudaErrorInvalidValue;
   Args a = base_args(n, dX, X, a0, a1, a2, a3, a4, theta, w, qL, qR);
@@ -509,6 +802,7 @@ int seg_gram_walk(int builder, long long n, int dX, const float* X,
   a.perm = perm; a.unit_seg = unit_seg; a.unit_lo = unit_lo;
   a.unit_hi = unit_hi; a.S = S; a.init = init; a.partial = partial;
   a.out = out;
+  a.sym = builder != PAIR || pair_sym;
   const Config c = config_of(qL, qR);
   a.rs = rows_of(c);
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
@@ -522,6 +816,17 @@ int seg_gram_walk(int builder, long long n, int dX, const float* X,
     err = cudaGetLastError();
   }
   return (int)err;
+}
+
+// The large tile's launched output tiles for a (qL, qR) output, as
+// tiles_big / tile_of give them (kernel.py's tile_schedule lists the same):
+// the count, and (ti[y], tj[y]) for y < min(count, cap).
+int seg_gram_tile_schedule(int qL, int qR, int sym, int* ti, int* tj,
+                           int cap) {
+  const int count = tiles_big(qL, qR, sym != 0);
+  for (int y = 0; y < count && y < cap; ++y)
+    tile_of(y, qR, sym != 0, ti[y], tj[y]);
+  return count;
 }
 
 const char* seg_gram_error_string(int err) {

@@ -29,8 +29,9 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import weakref
 from pathlib import Path
-from typing import NamedTuple, Optional, Sequence
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -47,6 +48,8 @@ _LAYOUT = {"design": ((0,), 1, 0, 0), "gram_and_vec": ((2,), 1, 1, 0),
            "residual_direct": ((2,), 1, 1, 1), "iv": ((3,), 2, 1, 1),
            "iv_meat": ((3, 4), 1, 0, 0), "pair": ((0,), 1, 0, 0)}
 _MEATS = ("residual_meat", "iv_meat")
+# the large-tile template's output tile (csrc/seg_gram.cu: BIG_T)
+BIG_TILE = 128
 
 LAUNCHES: collections.Counter = collections.Counter()
 SHAPES: collections.Counter = collections.Counter()
@@ -75,10 +78,12 @@ def library() -> ctypes.CDLL:
             _P, _P, _P, _P, _P, _LL,     # a0..a4, a_bstride
             _P, _LL, _P, _LL,            # theta, its stride, w, w_bstride
             _P, _P, _P, _P, _P,          # perm, unit seg/lo/hi, first
-            _I, _I, _I, _I, _I,          # W, S, B, qL, qR
+            _I, _I, _I, _I, _I, _I,      # W, S, B, qL, qR, pair_sym
             _P, _P, _P, _P,              # init, partial, out, stream
         ]
         lib.seg_gram_walk.restype = _I
+        lib.seg_gram_tile_schedule.argtypes = [_I, _I, _I, _P, _P, _I]
+        lib.seg_gram_tile_schedule.restype = _I
         lib.seg_gram_error_string.argtypes = [_I]
         lib.seg_gram_error_string.restype = ctypes.c_char_p
         lib._typed = True
@@ -217,6 +222,59 @@ def seg_gram_cuda(builder: str, X: torch.Tensor, *,
     return out
 
 
+def tile_schedule(qL: int, qR: int, symmetric: bool,
+                  tile: int = BIG_TILE) -> List[Tuple[int, int]]:
+    """The (tile row, tile col) output tiles that the large-tile template
+    launches for a (qL, qR) output, in launch order; ``tiles_big`` and
+    ``tile_of`` in csrc/seg_gram.cu mirror it (the library's
+    ``seg_gram_tile_schedule`` lists theirs, which a card test holds
+    equal to this).  Full: every tile, row by
+    row.  Symmetric (every builder but pair, and pair of one tensor with
+    itself): the upper triangle, tile row <= tile col, row by row — the
+    kernel mirrors it — and, when qL > qR (gram_and_vec's appended row
+    qR), the tiles left of the diagonal in that row's tile row, so that
+    the row is computed in full."""
+    TR = -(-qR // tile)
+    if not symmetric:
+        return [(i, j) for i in range(-(-qL // tile)) for j in range(TR)]
+    out = [(i, j) for i in range(TR) for j in range(i, TR)]
+    if qL > qR:
+        out += [(qR // tile, j) for j in range(qR // tile)]
+    return out
+
+
+# Tensors that a symmetric pair walk returned (one triangle and its
+# mirror: bitwise symmetric), by id: (weak reference, version counter).
+# Seeded with one of them, unchanged since (an in-place write bumps the
+# counter), a launch skips init's symmetry check — so the store's
+# accumulators are read for it on their first ingest and after a
+# restore, not on every day's.
+_SYMMETRIC: dict = {}
+
+
+def _known_symmetric(t: torch.Tensor) -> bool:
+    ent = _SYMMETRIC.get(id(t))
+    return ent is not None and ent[0]() is t and ent[1] == t._version
+
+
+def _mark_symmetric(t: torch.Tensor) -> None:
+    key = id(t)
+    _SYMMETRIC[key] = (weakref.ref(t, lambda _: _SYMMETRIC.pop(key, None)),
+                       t._version)
+
+
+def _same_rows(X: torch.Tensor, Y: Optional[torch.Tensor],
+               init: Optional[torch.Tensor]) -> bool:
+    """pair's V is its U (one tensor: same storage, shape and strides),
+    so its Gram is symmetric — and, seeded, init is symmetric too: the
+    kernel then computes one triangle and mirrors it."""
+    if Y is None or Y.data_ptr() != X.data_ptr() or Y.shape != X.shape \
+            or Y.stride() != X.stride():
+        return False
+    return init is None or _known_symmetric(init) or torch.equal(
+        init, init.transpose(-1, -2))
+
+
 class WalkPlan(NamedTuple):
     """The unit table of a segment walk.  ``perm`` lists the row ids
     sorted by segment (stable; ids outside [0, S) at the end, never
@@ -282,7 +340,11 @@ def seg_walk_cuda(builder: str, X: torch.Tensor, *,
     accumulators of an unsplit walk (one unit per segment; it is read,
     never written); without it, segments longer than the tile
     configuration's rows per unit are split and their units summed in
-    order by a second pass."""
+    order by a second pass.  ``Y`` the very tensor ``X`` (and ``init``
+    symmetric) makes pair's Gram symmetric: the large tile then computes
+    one triangle and mirrors it, as it does for every other builder.
+    init's symmetry is read from it (a full pass), unless init is a
+    symmetric walk's own result, unchanged since."""
     if builder not in BUILDERS:
         raise NotImplementedError(f"seg_gram has no CUDA builder {builder!r}")
     if X.device.type != "cuda":
@@ -308,6 +370,7 @@ def seg_walk_cuda(builder: str, X: torch.Tensor, *,
         _check("init", init, dev, f32,
                [(B, S, qL, qR)] if batched else [(S, qL, qR)])
 
+    same = builder == "pair" and _same_rows(X, Y, init)
     lib = library()
     rs = None if init is not None else lib.seg_gram_split_rows(qL, qR)
     plan = walk_plan(seg, S, rs)
@@ -323,10 +386,13 @@ def seg_walk_cuda(builder: str, X: torch.Tensor, *,
             0 if Y is None else Y.shape[1], _ptr(Y),
             *[_ptr(x) for x in a], a_b, _ptr(theta), th_b, _ptr(w), w_b,
             *[_ptr(x) for x in plan],
-            W, S, B, qL, qR, _ptr(init), _ptr(partial), _ptr(out),
-            _P(stream))
+            W, S, B, qL, qR, int(same), _ptr(init), _ptr(partial),
+            _ptr(out), _P(stream))
     _raise_on(lib, err, builder)
     key = count_as or (builder if builder == "pair" else builder + "_segmented")
     LAUNCHES[key] += 1
     SHAPES[(key, S, qL, qR)] += 1
-    return out if batched else out[0]
+    out = out if batched else out[0]
+    if same:
+        _mark_symmetric(out)
+    return out

@@ -26,8 +26,20 @@ weights, two seeded ingests against one pass), the unit table's bound;
 the segmented sweep and the effect store on the card against the CPU
 (1e-4), and the store's incremental ingest bitwise against one pass.
 
+The large-tile template (every output wider than 8): each symmetric
+builder's Gram, the symmetric pair (one tensor with itself, split and
+seeded) and gram_and_vec's X block bitwise equal to their transposes
+(one triangle computed and mirrored), gram_and_vec's v row and every
+form against plain at widths that are not a multiple of the tile,
+pair with an asymmetric seed or two distinct tensors on the full square,
+a symmetric walk's result written in place read for symmetry again, and
+the tiles the library launches equal to ``kernel.tile_schedule``.
+
 The flash-attention kernel against its plain version (causal and not,
 GQA and MQA, bf16 and fp32, softcap, ragged Sq/Sk, several key blocks),
+the bf16 tensor-core template at every head dim, G = 1, 4, 8, ragged
+Sq and Sk and several key blocks per tile, against plain and fp64 and
+bitwise plain's on nearly all of its output (which p as one bf16 fails),
 a small bf16 ``Model.features`` through the kernel against the same
 run through the plain attention, and the refusal of dense attention on
 the card (``Model(cfg)`` without ``use_flash_attention=True``).
@@ -166,6 +178,56 @@ def test_flash_kernel_matches_plain(card, case):
     tol = 8e-3 if dtype == "bfloat16" else 1e-5
     np.testing.assert_allclose(got, want, rtol=tol,
                                atol=tol * np.abs(want).max())
+
+
+# B, Sq, Sk, H, KV, D, causal, softcap: every head dim, G = H / KV of 1,
+# 4 and 8, ragged Sq and Sk, several key blocks per query tile
+_FA_TC_CASES = [
+    (1, 200, 200, 8, 8, 16, True, 0.0),
+    (2, 320, 320, 8, 2, 32, False, 0.0),
+    (1, 200, 320, 8, 1, 64, False, 30.0),
+    (2, 320, 320, 16, 4, 128, True, 50.0),
+    (1, 96, 200, 8, 1, 128, True, 0.0),
+    (2, 320, 200, 4, 1, 16, False, 0.0),
+    (1, 256, 256, 32, 8, 64, True, 0.0),
+]
+
+
+# least share of a bf16 output that equals the plain version's bitwise
+# (chip_smoke.py's FA_BF16_SAME)
+FA_BF16_SAME = 0.99
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", _FA_TC_CASES)
+def test_flash_bf16_tensor_cores_match_plain(card, case):
+    """bf16 q.k^T on the tensor cores, p as bf16 hi + lo: within one bf16
+    step of the plain fp32 function (8e-3·max|o|), and within bf16's
+    half step of the fp64 one, as the plain version is: 2^-8 of an
+    element's magnitude, so at most 2^-8·max|o| (plus ~1e-6 of fp32),
+    and no more than 10 % above plain's own error; bitwise equal to
+    plain on at least FA_BF16_SAME of the elements."""
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+
+    B, Sq, Sk, H, KV, D, causal, cap = case
+    q, k, v = _qkv(card, B, Sq, Sk, H, KV, D, "bfloat16", seed=5)
+    got = fa_kernel.flash_attention_cuda(q, k, v, causal=causal,
+                                         softcap=cap)
+    want = _fa_plain(q, k, v, causal=causal, softcap=cap)
+    exact = _fa_plain(q.double(), k.double(), v.double(), causal=causal,
+                      softcap=cap)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    top = float(exact.abs().max())
+    assert float((got.double() - want.double()).abs().max()) <= 8e-3 * top
+    err_k = float((got.double() - exact).abs().max())
+    err_p = float((want.double() - exact).abs().max())
+    assert err_k <= 3.91e-3 * top and err_k <= 1.1 * err_p
+    # p carried as hi + lo is p to ~2^-17: the kernel's bf16 output is the
+    # plain one on all but a few elements (fp32 sums in another order);
+    # with p rounded to one bf16 (~2^-9) a large share of them moves
+    same = float((got == want).double().mean())
+    assert same >= FA_BF16_SAME, f"{same:.4f} of o bitwise plain's"
 
 
 @pytest.mark.cuda
@@ -684,3 +746,150 @@ def test_store_on_card(card, strategy):
     np.testing.assert_allclose(pa.columns[0].thetas.cpu().numpy(),
                                pc.columns[0].thetas.numpy(), rtol=1e-4,
                                atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# The large-tile template: one triangle of a symmetric Gram, mirrored.
+# ---------------------------------------------------------------------------
+
+def _big_inputs(q, n=20_000, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    r = {k: torch.randn((n, 1), generator=g) for k in ("y", "t", "my", "mt",
+                                                       "rz", "w")}
+    r["w"] = r["w"].abs()
+    r["X"] = torch.randn((n, q), generator=g)
+    r["W"] = torch.rand((3, n), generator=g)
+    r["theta"] = torch.randn((1, q), generator=g)
+    r["seg"] = torch.randint(-1, 4, (n,), generator=g)
+    return r
+
+
+def _big_cases(a, q):
+    """(name, builder, arrays, keywords) of every symmetric builder at
+    output width q (iv: 2·dX + 1 = q or q - 1)."""
+    X, dX = a["X"], (q - 1) // 2
+    cols = [a["y"], a["t"], a["my"], a["mt"]]
+    return [
+        ("design k=3", ref.build_design, [X], dict(w=a["W"])),
+        ("design S=4", ref.build_design, [X], dict(seg=a["seg"],
+                                                   n_segments=4)),
+        ("fold_weighted", ref.build_fold_weighted, [a["W"].T.contiguous(), X],
+         {}),
+        ("residual", ref.build_residual, cols + [X[:, :q - 1]], {}),
+        ("residual_direct", ref.build_residual_direct,
+         [a["y"], a["t"], X[:, :q - 1]], dict(w=a["W"])),
+        ("residual_meat", ref.build_residual_meat,
+         cols + [X, a["theta"], a["w"]], {}),
+        ("iv", ref.build_iv, [a["y"], a["t"], a["rz"], X[:, :dX]],
+         dict(w=a["W"])),
+        ("iv S=4", ref.build_iv, [a["y"], a["t"], a["rz"], X[:, :dX]],
+         dict(seg=a["seg"], n_segments=4)),
+        ("iv_meat", ref.build_iv_meat,
+         [a["y"], a["t"], a["rz"], X, a["theta"]], {}),
+    ]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q", [130, 502])
+def test_big_tile_symmetric_grams_are_bitwise_symmetric(card, q):
+    """Every symmetric builder at a width that is not a multiple of the
+    128-wide tile: bitwise equal to its transpose, and within 1e-4 of
+    plain (chip_smoke.py's KERNEL_TOL: at q = 502 the meats' residual e
+    is a 502-term fp32 dot, which the kernel sums row by row and the
+    plain version by torch's reduction -- 2e-5 of the largest element
+    apart); gram_and_vec's X block bitwise symmetric and its v row (and
+    all of it) against plain (1e-5)."""
+    a = _big_inputs(q)
+    dev = {k: v.to(card) for k, v in a.items()}
+    for name, builder, arrays, kw in _big_cases(dev, q):
+        got = ops.seg_reduce(builder, [x.contiguous() for x in arrays], **kw)
+        want = ops.seg_reduce(builder, [x.cpu().contiguous() for x in arrays],
+                              **{k: v.cpu() if torch.is_tensor(v) else v
+                                 for k, v in kw.items()})
+        assert got.shape == want.shape, name
+        np.testing.assert_allclose(
+            got.double().cpu().numpy(), want.double().numpy(), rtol=1e-4,
+            atol=1e-4 * float(want.abs().max()), err_msg=name)
+        got = got.reshape(-1, got.shape[-1], got.shape[-1])   # fold_weighted
+        assert torch.equal(got, got.transpose(-1, -2)), name
+    X, W = dev["X"], dev["W"]
+    G, b = ops.gram_and_vec(X, W, 0.5 - W)
+    assert torch.equal(G, G.transpose(-1, -2))
+    Gc, bc = ops.gram_and_vec(X.cpu(), W.cpu(), 0.5 - W.cpu())
+    _close(G, Gc)
+    _close(b, bc)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q", [130, 503])
+def test_big_tile_symmetric_pair(card, q):
+    """pair of one tensor with itself takes the triangle: bitwise
+    symmetric, split and seeded with a symmetric init, two seeded
+    ingests bitwise one pass; with an asymmetric init, or V a copy of U
+    (another tensor), the full square — each against plain."""
+    g = torch.Generator().manual_seed(q)
+    n, S = 30_000, 5
+    U = torch.randn((n, q), generator=g)
+    seg = torch.randint(-1, S, (n,), generator=g)
+    w = torch.rand(n, generator=g)
+    init = torch.randn((S, q, q), generator=g)
+    Ud, segd, wd, initd = (x.to(card) for x in (U, seg, w, init))
+    sym = initd + initd.transpose(1, 2)
+    for kw in (dict(), dict(w=wd), dict(init=sym)):
+        got = ops.segment_outer(Ud, Ud, segd, S, **kw)
+        assert torch.equal(got, got.transpose(1, 2))
+        want = ops.segment_outer(U, U, seg, S, **{
+            k: v.cpu() for k, v in kw.items()})
+        _close(got, want)
+    half = 12_345
+    first = ops.segment_outer(Ud[:half], Ud[:half], segd[:half], S, init=sym)
+    both = ops.segment_outer(Ud[half:], Ud[half:], segd[half:], S,
+                             init=first)
+    assert torch.equal(both, ops.segment_outer(Ud, Ud, segd, S, init=sym))
+    for V, kw in ((Ud, dict(init=initd)), (Ud.clone(), dict(w=wd))):
+        got = ops.segment_outer(Ud, V, segd, S, **kw)
+        want = ops.segment_outer(U, U, seg, S, **{
+            k: v.cpu() for k, v in kw.items()})
+        _close(got, want)
+
+
+@pytest.mark.cuda
+def test_big_tile_seeded_pair_rechecks_a_written_init(card):
+    """A symmetric walk's own result seeds the next walk without a
+    symmetry check; written in place since (and asymmetric now), it is
+    read for symmetry again and takes the full square — against plain."""
+    from repro_torch.kernels.seg_gram import kernel as kern
+
+    g = torch.Generator().manual_seed(7)
+    n, S, q = 20_000, 4, 130
+    U = torch.randn((n, q), generator=g)
+    seg = torch.randint(0, S, (n,), generator=g)
+    Ud, segd = U.to(card), seg.to(card)
+    first = ops.segment_outer(Ud, Ud, segd, S)
+    assert kern._known_symmetric(first)
+    first[:, 0, 1] += 1.0
+    assert not kern._known_symmetric(first)
+    got = ops.segment_outer(Ud, Ud, segd, S, init=first)
+    assert not torch.equal(got, got.transpose(1, 2))
+    _close(got, first.cpu() + ops.segment_outer(U, U, seg, S))
+
+
+@pytest.mark.cuda
+def test_big_tile_schedule_is_kernel_py_s(card):
+    """The tiles that csrc/seg_gram.cu's tiles_big / tile_of launch (read
+    through the library's seg_gram_tile_schedule) are kernel.py's
+    tile_schedule, whose coverage tests/test_torch_seg_gram.py proves."""
+    import ctypes
+
+    from repro_torch.kernels.seg_gram import kernel as kern
+
+    lib = kern.library()
+    for qL, qR, sym in ((130, 130, True), (131, 130, True), (128, 128, True),
+                        (502, 502, True), (503, 502, True),
+                        (1006, 1006, True), (2050, 2049, True),
+                        (257, 256, True), (37, 37, False), (5, 37, False),
+                        (502, 502, False), (2561, 2561, False)):
+        cap = lib.seg_gram_tile_schedule(qL, qR, int(sym), None, None, 0)
+        ti, tj = (ctypes.c_int * cap)(), (ctypes.c_int * cap)()
+        lib.seg_gram_tile_schedule(qL, qR, int(sym), ti, tj, cap)
+        assert list(zip(ti, tj)) == kern.tile_schedule(qL, qR, sym), (qL, qR)

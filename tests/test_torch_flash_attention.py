@@ -7,7 +7,11 @@ against the JAX package's.
     MQA, softcap, fp32 and bf16 inputs;
   * ``ops.flash_attention`` in the model's (B, S, heads, D) layout
     against the reference's ``ops.flash_attention`` (the layout round
-    trip), and a device that is neither CPU nor CUDA is refused.
+    trip), and a device that is neither CPU nor CUDA is refused;
+  * the card's bf16 rounding, emulated here in plain torch (q·kᵀ of
+    bf16 values summed in fp32, the online softmax in fp32 over key
+    blocks, p split into bf16 hi + lo for the P·V product), against the
+    Pallas kernel in interpret mode.
 
 The same inputs, made with numpy, go to both packages.  Tolerance: fp32
 outputs rtol 1e-5 with atol 1e-5·max|o| (fp32 sums in another order);
@@ -92,3 +96,70 @@ def test_ops_refuses_other_devices():
     q = torch.empty((1, 8, 2, 16), device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
         ops.flash_attention(q, q[:, :, :1], q[:, :, :1])
+
+
+LOG2E = 1.4426950408889634
+
+
+def _tensor_core_rounding(q, k, v, *, causal, softcap, block):
+    """csrc/flash_attention.cu's bf16 template in plain torch, (B, H, S,
+    D) bf16 in, fp32 out (the kernel rounds it to bf16): per key block,
+    s = q·kᵀ with bf16 products (exact in fp32) summed in fp32; scale,
+    softcap and the masks in fp32, the scores in log2 units (p =
+    2^(s·log2 e - m), as FA-2 computes exp); the running max, normaliser
+    and accumulator in fp32; p split into p_hi = bf16(p) and
+    p_lo = bf16(p - p_hi), acc += p_hi·v + p_lo·v in fp32;
+    o = acc / max(l, 1e-30)."""
+    B, H, Sq, D = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    qf = q.float().reshape(B, KV, H // KV, Sq, D)
+    kf, vf = k.float()[:, :, None], v.float()[:, :, None]
+    m = torch.full((B, KV, H // KV, Sq, 1), -1e30)
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(qf)
+    qi = torch.arange(Sq)[:, None]
+    for k0 in range(0, Sk, block):
+        kb, vb = kf[..., k0:k0 + block, :], vf[..., k0:k0 + block, :]
+        s = qf @ kb.transpose(-1, -2)
+        if softcap:
+            s = torch.tanh(s * (1.0 / D ** 0.5) / softcap) * softcap * LOG2E
+        else:
+            s = s * ((1.0 / D ** 0.5) * LOG2E)
+        if causal:
+            kj = torch.arange(k0, k0 + kb.shape[-2])[None, :]
+            s = torch.where(qi >= kj, s, torch.full_like(s, -1e30))
+        mn = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp2(m - mn)
+        p = torch.exp2(s - mn)
+        p_hi = p.to(torch.bfloat16).float()
+        p_lo = (p - p_hi).to(torch.bfloat16).float()
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + p_hi @ vb + p_lo @ vb
+        m = mn
+    o = acc / torch.clamp(l, min=1e-30)
+    return o.reshape(B, H, Sq, D)
+
+
+@pytest.mark.parametrize("case", _CASES)
+def test_tensor_core_rounding_matches_pallas(case):
+    """The kernel's bf16 arithmetic (bf16 q·kᵀ summed in fp32, p as bf16
+    hi + lo) stays within the bf16 tolerance of the Pallas kernel's fp32
+    math, and the split carries p far below bf16's own rounding."""
+    B, Sq, Sk, H, KV, D, causal, cap, blk = case
+    arrs = _inputs(B, Sq, Sk, H, KV, D, seed=3)
+    tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16) for a in arrs)
+    o32 = _tensor_core_rounding(tq, tk, tv, causal=causal, softcap=cap,
+                                block=blk)
+    got = o32.to(torch.bfloat16)
+    assert tuple(got.shape) == (B, H, Sq, D)
+    jq, jk, jv = (jnp.asarray(a).astype(jnp.bfloat16) for a in arrs)
+    want = jfa_kernel.flash_attention_pallas(
+        jq, jk, jv, causal=causal, softcap=cap, block_q=blk, block_k=blk,
+        interpret=True)
+    _close(got.float().numpy(), np.asarray(want.astype(jnp.float32)), True)
+    # before that rounding, the hi + lo split of p leaves o within ~2^-16
+    # of the fp32 function of the same bf16 inputs: far below bf16's step
+    plain = ref.attention_ref(tq.float(), tk.float(), tv.float(),
+                              causal=causal, softcap=cap)
+    np.testing.assert_allclose(o32.numpy(), plain.numpy(), rtol=0,
+                               atol=1e-4 * float(plain.abs().max()))

@@ -17,7 +17,12 @@ against the JAX package's.
     for S > 1), for every builder;
   * inside torch, bitwise: a padded tail is a no-op, w=0 equals zeroed
     rows, an empty segment is exactly 0, power-of-two weights scale
-    exactly, and a batch of one equals the same row of a batch of k.
+    exactly, and a batch of one equals the same row of a batch of k;
+  * the large-tile template's tile schedule (``kernel.tile_schedule``,
+    which csrc/seg_gram.cu mirrors) with the kernel's write rules: one
+    triangle of a symmetric Gram and its mirror write every element
+    exactly once, from the accumulator of its upper twin, and
+    gram_and_vec's appended row in full.
 
 Tolerance port vs reference: rtol 1e-5 plus atol 1e-5·max|G| — fp32
 Grams reassociate differently in the two frameworks (about 1e-5
@@ -540,3 +545,65 @@ def test_walk_plan_covers_every_row_once(arrs, rows):
     got = _emulate_walk("pair", U, Y=V, seg=seg, n_segments=_S,
                         rows_per_unit=rows or 64)
     _close(got.numpy(), ops.segment_outer(U, V, seg, _S).numpy(), "walk")
+
+
+def _tile_writes(qL, qR, sym, tile):
+    """csrc/seg_gram.cu's epilogue over ``kernel.tile_schedule``: how many
+    times each output element is written, and the (row, col) of the
+    accumulator each last came from.  A launched tile writes its element
+    (I, J) when the output is not symmetric, or I >= qR (gram_and_vec's
+    v row), or I <= J; a tile on or above the diagonal also writes, for
+    I < J < qR, the mirror (J, I) from the same accumulator."""
+    from repro_torch.kernels.seg_gram import kernel as kern
+
+    count = np.zeros((qL, qR), np.int64)
+    src = np.full((qL, qR, 2), -1, np.int64)
+    for ti, tj in kern.tile_schedule(qL, qR, sym, tile):
+        I = np.arange(ti * tile, min((ti + 1) * tile, qL))[:, None]
+        J = np.arange(tj * tile, min((tj + 1) * tile, qR))[None, :]
+        I, J = np.broadcast_arrays(I, J)
+        direct = ~np.asarray(sym) | (I >= qR) | (I <= J)
+        np.add.at(count, (I[direct], J[direct]), 1)
+        src[I[direct], J[direct]] = np.stack([I[direct], J[direct]], -1)
+        if sym and ti <= tj:
+            mir = (I < J) & (J < qR)
+            np.add.at(count, (J[mir], I[mir]), 1)
+            src[J[mir], I[mir]] = np.stack([I[mir], J[mir]], -1)
+    return count, src
+
+
+@pytest.mark.parametrize("tile", [8, 128])
+@pytest.mark.parametrize("qL,qR,sym", [
+    (37, 37, True), (40, 40, True), (38, 37, True), (41, 40, True),
+    (37, 37, False), (5, 37, False), (502, 502, True), (503, 502, True),
+    (1006, 1006, True), (2050, 2049, True), (130, 130, True),
+    (131, 130, True), (256, 256, True), (257, 256, True)])
+def test_tile_schedule_covers_the_output(qL, qR, sym, tile):
+    """Every element of the (qL, qR) output is written exactly once; in a
+    symmetric one, (i, j) and (j, i) come from one accumulator (the upper
+    one, i <= j), so the result is bitwise symmetric; the tiles are
+    distinct and in range, one triangle plus gram_and_vec's v tile row
+    (all of it) — about half the full grid."""
+    from repro_torch.kernels.seg_gram import kernel as kern
+
+    tiles = kern.tile_schedule(qL, qR, sym, tile)
+    TL, TR = -(-qL // tile), -(-qR // tile)
+    assert len(set(tiles)) == len(tiles)
+    assert all(0 <= i < TL and 0 <= j < TR for i, j in tiles)
+    count, src = _tile_writes(qL, qR, sym, tile)
+    assert (count == 1).all()
+    i, j = np.meshgrid(np.arange(qL), np.arange(qR), indexing="ij")
+    if not sym:
+        assert len(tiles) == TL * TR
+        assert (src[..., 0] == i).all() and (src[..., 1] == j).all()
+        return
+    assert len(tiles) == TR * (TR + 1) // 2 + (qR // tile if qL > qR else 0)
+    lo = np.minimum(i, j)
+    hi = np.maximum(i, j)
+    body = i < qR
+    assert (src[..., 0][body] == lo[body]).all()
+    assert (src[..., 1][body] == hi[body]).all()
+    if qL > qR:                          # gram_and_vec: row qR in full
+        assert (src[qR:, :, 0] == qR).all()
+        assert (src[qR:, :, 1] == np.arange(qR)).all()
+        assert {(qR // tile, c) for c in range(TR)} <= set(tiles)
