@@ -11,7 +11,9 @@ Phases (each failure makes the script exit non-zero):
      thread per source, each running its nvcc, all started together);
   2. every kernel against its plain PyTorch version at the main path's
      shapes: error of each against an fp64 computation, kernel and plain
-     times (CUDA events, L2 flushed between runs), one library call
+     times (CUDA events, L2 flushed between runs; a seg_gram kernel's
+     launches replayed from a CUDA graph, so that the wrapper's Python
+     does not count as the card's time), one library call
      (``torch.matmul``) timed as a yardstick, and the least time the
      card could take (bytes over 3.35 TB/s, operations over 67 TFLOP/s
      fp32; a symmetric Gram counts its q(q+1)/2 distinct entries);
@@ -96,12 +98,16 @@ Phases (each failure makes the script exit non-zero):
      library (one ``torch.bmm`` over the rows sorted by segment and
      zero-padded) times and the bound; ``invariants:pair`` (bitwise:
      repeat, appended seg = -1 and zero rows, an empty segment, two
-     seeded ingests against one pass);
+     seeded ingests against one pass) on each pair kernel: the large
+     tile at the store's width, the thin kernel at the MM terms' 1 and
+     5 x 501, the small kernel at the final stage's 2 x 2;
  16. ``sweep:segmented``: ``sweep(SweepSpec(64, (("dml", SWEEP),)),
      mode="segmented")`` at ``paper_demo_data(2^20, 500)`` with uniform
      segment ids (the reference sweep cell's E, n and p; "pallas",
      row_block 65536), launches counted (design_segmented 2, pair
-     2·32 + 2), every segment's ATE within 5 se of 1, the seconds, peak
+     2·32 + 2) and walk plans made (4: each of the two id tensors once
+     per kernel that walks it), every segment's ATE within 5 se of 1,
+     the seconds, peak
      memory and the MM solves' share; a small sweep card vs CPU (1e-4);
  17. ``store:ingest``: five daily ingests of 2^18 rows of
      ``make_causal_data(5·2^18, 500, continuous t)`` into a 64-segment
@@ -111,6 +117,11 @@ Phases (each failure makes the script exit non-zero):
      of the truth, a one-shot ingest bitwise the incremental one, the
      day-3 snapshot bitwise a store of days 1-3; a small store card vs
      CPU (1e-4) and aligned "chunked" partitions bitwise on the card.
+
+Every seg_gram record also names the kernel that ran (``design``:
+small, thin or big) and times its second pass alone (``reduce_ms``)
+and, for a segment walk, its plan alone (``plan_ms``; ``ms`` has the
+plan cached, as the sweep's repeated walks do).
 
 The backbone phases are named ``backbone:<arch>``.  The line before the
 last is the kernels' JSON record; the last line is
@@ -225,6 +236,24 @@ class Timer:
             total += s.elapsed_time(e)
         return total / reps
 
+    def graph_ms(self, fn, reps: int) -> float:
+        """Mean ms of ``fn``'s launches replayed from a CUDA graph (captured
+        once, after a warm-up on a side stream): the device's time for
+        them, without the host's time in the Python around them, which
+        exceeds the L2 flush's ~0.1 ms for the small forms."""
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            fn()
+        try:
+            return self.ms(graph.replay, reps)
+        finally:
+            del graph
+
 
 def rel(a: torch.Tensor, b: torch.Tensor) -> float:
     """max|a - b| / max|b|, in fp64."""
@@ -247,6 +276,8 @@ class Case:
     flops: float
     reps: int
     replaces: str = SEG_TPU
+    q: tuple = None      # seg_gram's (qL, qR): the record names its kernel
+    walk: tuple = None   # (seg, S, seeded) of a segment walk: its plan
 
 
 def kernel_cases(X, y, t, folds, k):
@@ -318,7 +349,7 @@ def kernel_cases(X, y, t, folds, k):
              lambda: ((Dr[None] * W[:, :, None]).transpose(1, 2), Dr),
              lambda ab: torch.matmul(*ab),
              Dr.numel() * 4 + W.numel() * 4 + k * qr * qr * 4,
-             2.0 * k * n * sym(qr), 3),
+             2.0 * k * n * sym(qr), 3, q=(qr, qr)),
         Case("design_segmented", "fold_gram S=5 (parallel_loo)",
              lambda: kern.seg_walk_cuda("design", Dr, seg=seg,
                                         n_segments=k),
@@ -329,7 +360,7 @@ def kernel_cases(X, y, t, folds, k):
                  .reshape(n, k * qr).T, Dr),
              lambda ab: torch.matmul(*ab),
              Dr.numel() * 4 + n * 4 + k * qr * qr * 4,
-             2.0 * n * sym(qr), 3),
+             2.0 * n * sym(qr), 3, q=(qr, qr), walk=(seg, k, False)),
         Case("gram_and_vec", "logistic Newton step, k=5 folds batched",
              lambda: kern.seg_gram_cuda("gram_and_vec", Dl,
                                         scalars=(wg, v)),
@@ -338,7 +369,7 @@ def kernel_cases(X, y, t, folds, k):
                                 dim=2).transpose(1, 2), Dl),
              lambda ab: torch.matmul(*ab),
              Dl.numel() * 4 + 2 * wg.numel() * 4 + k * (ql + 1) * ql * 4,
-             2.0 * k * n * (sym(ql) + ql), 3),
+             2.0 * k * n * (sym(ql) + ql), 3, q=(ql + 1, ql)),
         Case("residual", "final-stage residual_moments (G, b)",
              lambda: kern.seg_gram_cuda("residual", phi,
                                         scalars=(y, t, my, mt))[0],
@@ -346,7 +377,8 @@ def kernel_cases(X, y, t, folds, k):
              lambda: (torch.cat([(t - mt)[:, None] * phi,
                                  (y - my)[:, None]], dim=1),),
              lambda a: a[0].T @ a[0],
-             col_bytes + 9 * 4, 2.0 * n * sym(ph + 1), 20),
+             col_bytes + 9 * 4, 2.0 * n * sym(ph + 1), 20,
+             q=(ph + 1, ph + 1)),
         Case("residual_meat", "final-stage HC0 meat",
              lambda: kern.seg_gram_cuda("residual_meat", phi,
                                         scalars=(y, t, my, mt),
@@ -354,7 +386,8 @@ def kernel_cases(X, y, t, folds, k):
              lambda: meat_plain(f32), lambda: meat_plain(torch.float64),
              lambda: (ref.build_residual_meat(*cols, phi, theta[None])[0],),
              lambda a: a[0].T @ a[0],
-             col_bytes + 2 * 4 + 4 * 4, 2.0 * n * sym(ph) + 8.0 * n, 20),
+             col_bytes + 2 * 4 + 4 * 4, 2.0 * n * sym(ph) + 8.0 * n, 20,
+             q=(ph, ph)),
         Case("residual_gram", "final stage at row_block=0",
              lambda: torch.cat([g.reshape(-1) for g in
                                 rg_kernel.residual_gram_cuda(y, t, my, mt,
@@ -366,7 +399,7 @@ def kernel_cases(X, y, t, folds, k):
              lambda: ((t - mt)[:, None] * phi,),
              lambda a: a[0].T @ a[0],
              col_bytes + 6 * 4, 2.0 * n * (sym(ph) + ph), 20,
-             replaces=RG_TPU),
+             replaces=RG_TPU, q=(ph + 1, ph + 1)),
     ]
 
 
@@ -390,11 +423,17 @@ def run_cases(cases, timer, suffix=""):
         err_k, err_p, kp = rel(Gk, G64), rel(Gp, G64), rel(Gk, Gp)
         max_abs = float((Gk.double() - Gp.double()).abs().max())
         del G64
-        ms = timer.ms(c.kernel, c.reps)
+        # seg_gram: the kernel's launches replayed from a CUDA graph (the
+        # device's time), its eager time, Python included, beside; the
+        # library call is one op, whose host time the L2 flush hides (and
+        # a captured cuBLAS call would keep a workspace per capture stream)
+        ms = (timer.graph_ms if c.q is not None else timer.ms)(c.kernel,
+                                                                c.reps)
         plain_ms = timer.ms(c.plain, c.reps)
         ops = c.lib_prep()
         lib_ms = timer.ms(lambda: c.lib(ops), c.reps)
         del ops
+        split = _seg_split(c, timer) if c.q is not None else {}
         torch.cuda.empty_cache()
         t_bytes = c.bytes / HBM_BYTES_PER_S * 1e3
         t_ops = c.flops / FP32_FLOP_PER_S * 1e3
@@ -406,7 +445,9 @@ def run_cases(cases, timer, suffix=""):
             f"library_ms={lib_ms:.4f} "
             f"bound_ms={max(t_bytes, t_ops):.4f} "
             f"({'bytes' if t_bytes >= t_ops else 'operations'}) "
-            f"{'OK' if ok else 'FAIL'}")
+            + "".join(f"{k}={v:.4f} " if isinstance(v, float) else f"{k}={v} "
+                      for k, v in split.items())
+            + ("OK" if ok else "FAIL"))
         if not ok:
             raise AssertionError(f"kernel {c.name} disagrees with its plain "
                                  f"version: {kp:.3e} > {KERNEL_TOL:g}")
@@ -418,8 +459,29 @@ def run_cases(cases, timer, suffix=""):
             "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": lib_ms,
-            "err_kernel_vs_fp64": err_k, "err_plain_vs_fp64": err_p}
+            "err_kernel_vs_fp64": err_k, "err_plain_vs_fp64": err_p,
+            **split}
     return records
+
+
+def _seg_split(c, timer) -> dict:
+    """The seg_gram kernel that ran a case (``design``: small, thin or
+    big), its second pass alone (``reduce_ms``; 0 launches when seeded)
+    replayed from a CUDA graph, and, for a walk, the plan alone
+    (``plan_ms``, eager; ``ms`` has it cached); and the call's eager
+    time with the host's Python in it (``eager_ms``, how ``ms`` was
+    timed before the graphs)."""
+    from repro_torch.kernels.seg_gram import kernel as kern
+
+    with kern.stage("reduce"):
+        reduce_ms = timer.graph_ms(c.kernel, c.reps)
+    plan_ms = None
+    if c.walk is not None:
+        seg, S, seeded = c.walk
+        rs = None if seeded else kern.library().seg_gram_split_rows(*c.q)
+        plan_ms = timer.ms(lambda: kern.walk_plan(seg, S, rs), c.reps)
+    return {"design": kern.design_of(*c.q), "plan_ms": plan_ms,
+            "reduce_ms": reduce_ms, "eager_ms": timer.ms(c.kernel, c.reps)}
 
 
 def phase_invariants(seed: int) -> None:
@@ -652,20 +714,20 @@ def inference_cases(X, y, t, seed, R, k):
              lambda: ((D[None] * Wk[:, :, None]).transpose(1, 2), D),
              lambda ab: torch.matmul(*ab),
              D.numel() * 4 + Wk.numel() * 4 + R * k * q * q * 4,
-             2.0 * R * k * n * sym(q), 3),
+             2.0 * R * k * n * sym(q), 3, q=(q, q)),
         Case("residual_direct", f"bootstrap weighted final stage, R={R}",
              lambda: sops.residual_weighted_gram(ry, rt, phi, w)[0],
              rd, lambda: rd(torch.float64), M_direct,
              lambda ab: torch.matmul(*ab),
              col_bytes + R * (ph + 1) ** 2 * 4,
-             2.0 * R * n * sym(ph + 1), 20),
+             2.0 * R * n * sym(ph + 1), 20, q=(ph + 1, ph + 1)),
         Case(f"residual_meat@R{R}", f"bootstrap weighted HC0 meat, R={R}",
              lambda: sops.residual_meat(ry, rt, zero, zero, phi, theta,
                                         w=w),
              meat, lambda: meat(torch.float64), M_meat,
              lambda ab: torch.matmul(*ab),
              col_bytes + R * ph * 4 + R * ph * ph * 4,
-             2.0 * R * n * sym(ph) + 8.0 * R * n, 20),
+             2.0 * R * n * sym(ph) + 8.0 * R * n, 20, q=(ph, ph)),
     ]
 
 
@@ -709,21 +771,23 @@ def iv_cases(ry, rt, rz, phi, folds, theta, k):
              lambda: plain(ref.build_iv),
              lambda: plain(ref.build_iv, dtype=torch.float64), M_iv,
              lambda ab: torch.matmul(*ab), col_bytes + n * 4 + q * q * 4,
-             2.0 * n * sym(q), 20),
+             2.0 * n * sym(q), 20, q=(q, q)),
         Case("iv_segmented", f"OrthoIV jackknife fold_iv_gram, S={k}",
-             lambda: sops.fold_iv_gram(ry, rt, rz, phi, folds, k)[0],
+             lambda: sops.seg_reduce(ref.build_iv, cols + [phi], seg=folds,
+                                     n_segments=k),
              lambda: plain(ref.build_iv, seg=folds, S=k),
              lambda: plain(ref.build_iv, seg=folds, S=k,
                            dtype=torch.float64), M_seg,
              lambda ab: torch.matmul(*ab),
-             col_bytes + n * 4 + k * q * q * 4, 2.0 * n * sym(q), 20),
+             col_bytes + n * 4 + k * q * q * 4, 2.0 * n * sym(q), 20,
+             q=(q, q), walk=(folds, k, False)),
         Case("iv_meat", "OrthoIV HC0 meat", lambda: sops.iv_meat(
                  ry, rt, rz, phi, theta),
              lambda: plain(ref.build_iv_meat, (th,)),
              lambda: plain(ref.build_iv_meat, (th,), dtype=torch.float64),
              M_meat, lambda ab: torch.matmul(*ab),
              col_bytes + ph * 4 + ph * ph * 4,
-             2.0 * n * sym(ph) + 8.0 * n, 20),
+             2.0 * n * sym(ph) + 8.0 * n, 20, q=(ph, ph)),
     ]
 
 
@@ -745,11 +809,11 @@ def _solve_ms(timer, M, q, reps=2) -> float:
 def _counters():
     from repro_torch.core import moments
     from repro_torch.kernels.seg_gram import kernel as kern
-    return kern.LAUNCHES, moments.FALLBACKS, kern.SHAPES
+    return kern.LAUNCHES, moments.FALLBACKS, kern.SHAPES, kern.PLANS
 
 
 def _read_counters():
-    launches, fallbacks, _ = _counters()
+    launches, fallbacks, _, _ = _counters()
     return dict(launches), {f: c for f, c in fallbacks.items() if c}
 
 
@@ -1035,11 +1099,12 @@ def pair_cases(seed: int, timer):
         flops = 2.0 * U.shape[0] * (sym(qU) if same else qU * qV)
         return Case(name, form, kernel, plain,
                     lambda: plain(torch.float64), lib_prep, lib, nbytes,
-                    flops, reps)
+                    flops, reps, q=(qU, qV), walk=(seg, S, init is not None))
 
     return [
-        case("pair:t1", f"sweep MM term t1, S={E}", r, Xa, sids, E),
-        case("pair:t2", f"sweep MM term t2, S={E * k}", rr, Xa, comb, E * k),
+        case("pair:t1", f"sweep MM term t1, S={E}", r, Xa, sids, E, reps=10),
+        case("pair:t2", f"sweep MM term t2, S={E * k}", rr, Xa, comb, E * k,
+             reps=10),
         case("design_segmented@S320", f"sweep fold_gram, S={E * k}", D, None,
              comb, E * k, builder="design"),
         case("pair:final", f"sweep final stage, S={E}", m, None, sids, E,
@@ -1052,48 +1117,71 @@ def pair_cases(seed: int, timer):
 
 
 def phase_pair_invariants(seed: int) -> None:
-    """Bitwise on the card at the store's width: a second run, seg = -1
-    rows and zero rows appended, an empty segment, two seeded ingests
-    against one pass; the seeded walk against the split one."""
+    """Bitwise on the card, for each pair kernel: the store's width (the
+    large tile), the sweep's thin MM terms (1 and 5 x 501) and its small
+    final stage (2 x 2) — a second run, seg = -1 rows and zero rows
+    appended, an empty segment, two seeded ingests against one pass; a
+    symmetric pair bitwise symmetric; the seeded walk against the split
+    one."""
+    from repro_torch.kernels.seg_gram import kernel as kern
     from repro_torch.kernels.seg_gram import ops as sops
 
     g = torch.Generator(device="cuda").manual_seed(seed + 13)
-    dev, n, q, S = "cuda", 200_000, 503, 320
-    U = torch.randn((n, q), generator=g, device=dev)
-    seg = torch.randint(0, S, (n,), generator=g, device=dev)
-    seg = torch.where(seg == 7, torch.full_like(seg, 8), seg)   # 7 empty
+    dev, n, pad, h = "cuda", 200_000, 30_000, 77_777
 
     def same(a, b, what):
         if not torch.equal(a, b):
             raise AssertionError(f"invariant broken: {what}")
         log(f"invariant ok: {what}")
 
-    G = sops.segment_outer(U, U, seg, S)
-    same(G, sops.segment_outer(U, U, seg, S), "pair: a second run repeats")
-    same(G, G.transpose(-1, -2), "pair: U with itself is bitwise symmetric")
-    if not bool((G[7] == 0).all()):
-        raise AssertionError("invariant broken: empty segment")
-    log("invariant ok: pair: an empty segment is exactly 0")
-    pad = 30_000
-    Up = torch.cat([U, torch.randn((pad, q), generator=g, device=dev)])
-    segp = torch.cat([seg, torch.full((pad,), -1, device=dev)])
-    same(G, sops.segment_outer(Up, Up, segp, S), "pair: seg = -1 rows")
-    Uz = torch.cat([U, torch.zeros((pad, q), device=dev)])
-    segz = torch.cat([seg, torch.randint(0, S, (pad,), generator=g,
-                                         device=dev)])
-    same(G, sops.segment_outer(Uz, Uz, segz, S), "pair: appended zero rows")
-    zero = torch.zeros((S, q, q), device=dev)
-    one = sops.segment_outer(U, U, seg, S, init=zero)
-    h = 77_777
-    first = sops.segment_outer(U[:h], U[:h], seg[:h], S, init=zero)
-    same(one, sops.segment_outer(U[h:], U[h:], seg[h:], S, init=first),
-         "pair: two seeded ingests == one pass")
-    same(one, one.transpose(-1, -2), "pair: seeded, bitwise symmetric")
-    e = rel(one, G)
-    log(f"pair: seeded walk vs split walk rel diff {e:.3e} (tol "
-        f"{KERNEL_TOL:g})")
-    if not e <= KERNEL_TOL:
-        raise AssertionError(f"seeded and split walks disagree: {e:.3e}")
+    for qU, qV, S in ((SWEEP_P + 3, None, SWEEP_E * 5), (1, SWEEP_P + 1,
+                                                         SWEEP_E * 5),
+                      (5, SWEEP_P + 1, SWEEP_E), (2, None, SWEEP_E)):
+        U = torch.randn((n, qU), generator=g, device=dev)
+        V = U if qV is None else torch.randn((n, qV), generator=g,
+                                             device=dev)
+        qv = V.shape[1]
+        tag = f"pair {qU} x {qv} ({kern.design_of(qU, qv)}), S={S}"
+        seg = torch.randint(0, S, (n,), generator=g, device=dev)
+        seg = torch.where(seg == 7, torch.full_like(seg, 8), seg)  # 7 empty
+
+        G = sops.segment_outer(U, V, seg, S)
+        same(G, sops.segment_outer(U, V, seg, S), f"{tag}: a second run "
+             "repeats")
+        if qV is None:
+            same(G, G.transpose(-1, -2), f"{tag}: U with itself is bitwise "
+                 "symmetric")
+        if not bool((G[7] == 0).all()):
+            raise AssertionError(f"invariant broken: {tag}: empty segment")
+        log(f"invariant ok: {tag}: an empty segment is exactly 0")
+        Up = torch.cat([U, torch.randn((pad, qU), generator=g, device=dev)])
+        Vp = Up if qV is None else torch.cat(
+            [V, torch.randn((pad, qv), generator=g, device=dev)])
+        segp = torch.cat([seg, torch.full((pad,), -1, device=dev)])
+        same(G, sops.segment_outer(Up, Vp, segp, S), f"{tag}: seg = -1 rows")
+        Uz = torch.cat([U, torch.zeros((pad, qU), device=dev)])
+        Vz = Uz if qV is None else torch.cat(
+            [V, torch.zeros((pad, qv), device=dev)])
+        segz = torch.cat([seg, torch.randint(0, S, (pad,), generator=g,
+                                             device=dev)])
+        same(G, sops.segment_outer(Uz, Vz, segz, S), f"{tag}: appended zero "
+             "rows")
+        zero = torch.zeros((S, qU, qv), device=dev)
+        one = sops.segment_outer(U, V, seg, S, init=zero)
+        Vh, Vt = (U[:h], U[h:]) if qV is None else (V[:h], V[h:])
+        first = sops.segment_outer(U[:h], Vh, seg[:h], S, init=zero)
+        same(one, sops.segment_outer(U[h:], Vt, seg[h:], S, init=first),
+             f"{tag}: two seeded ingests == one pass")
+        if qV is None:
+            same(one, one.transpose(-1, -2), f"{tag}: seeded, bitwise "
+                 "symmetric")
+        e = rel(one, G)
+        log(f"{tag}: seeded walk vs split walk rel diff {e:.3e} (tol "
+            f"{KERNEL_TOL:g})")
+        if not e <= KERNEL_TOL:
+            raise AssertionError(f"seeded and split walks disagree: {e:.3e}")
+        del U, V, Up, Vp, Uz, Vz, G, one, first
+        torch.cuda.empty_cache()
 
 
 def phase_sweep(seed: int, timer):
@@ -1102,6 +1190,7 @@ def phase_sweep(seed: int, timer):
     a small sweep on the card against the CPU."""
     from repro_torch.configs.sweep_synthetic import SWEEP
     from repro_torch.data.causal_dgp import paper_demo_data
+    from repro_torch.kernels.seg_gram import kernel as kern
     from repro_torch.sweep import SweepSpec, sweep
 
     data = paper_demo_data(n=SWEEP_N, p=SWEEP_P, seed=seed)
@@ -1114,13 +1203,14 @@ def phase_sweep(seed: int, timer):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_counters()
+    kern.clear_plan_cache()
     t0 = time.perf_counter()
     panel = sweep(spec, X=data.X, y=data.y, t=data.t, segment_ids=sids,
                   seed=seed, mode="segmented")
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     counts, fallbacks = _read_counters()
-    shapes = dict(_counters()[2])
+    shapes, plans = dict(_counters()[2]), dict(_counters()[3])
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     col = panel.columns[0]
     if col.failed:
@@ -1132,6 +1222,14 @@ def phase_sweep(seed: int, timer):
     ate, se = col.ates.double().cpu(), col.ses[:, 0].double().cpu()
     z = (ate - 1.0).abs() / se
     expected = {"design_segmented": 2, "pair": 2 * iters + 2}
+    # one walk plan per (id tensor, rows per unit): sids for the MM term
+    # t1 (thin) and the final stage (small), comb for t2 (thin) and
+    # fold_gram's two designs (the large tile)
+    rows = kern.library().seg_gram_split_rows
+    want_plans = {(SWEEP_E, rows(5, SWEEP_P + 1)): 1,
+                  (SWEEP_E, rows(2, 2)): 1,
+                  (SWEEP_E * 5, rows(1, SWEEP_P + 1)): 1,
+                  (SWEEP_E * 5, rows(SWEEP_P + 2, SWEEP_P + 2)): 1}
     log(f"sweep path: n={SWEEP_N} p={SWEEP_P} E={SWEEP_E} k=5, {iters} MM "
         f"steps: {secs:.3f} s, peak device memory {peak:.2f} GiB; one "
         f"({SWEEP_E * 5}, {SWEEP_P + 1}) solve {solve_ms:.2f} ms, the MM "
@@ -1140,7 +1238,9 @@ def phase_sweep(seed: int, timer):
         f"[{float(se.min()):.5f}, {float(se.max()):.5f}] max |ate-1|/se "
         f"{float(z.max()):.3f}; rows/segment {int(panel.counts.min())}-"
         f"{int(panel.counts.max())}; launches={counts} fallbacks={fallbacks}"
-        f" by shape={ {f'{a}@S{b}:{c}x{d}': v for (a, b, c, d), v in shapes.items()} }")
+        f" by shape={ {f'{a}@S{b}:{c}x{d}': v for (a, b, c, d), v in shapes.items()} }"
+        f"; walk plans made (S, rows per unit)={plans} for "
+        f"{sum(counts.values())} launches")
     if not bool(torch.isfinite(col.thetas).all()):
         raise AssertionError("non-finite sweep thetas")
     if not bool((z <= 5.0).all()):
@@ -1148,6 +1248,8 @@ def phase_sweep(seed: int, timer):
                              f"{z.max():.3f}")
     if counts != expected:
         raise AssertionError(f"launches {counts}, expected {expected}")
+    if plans != want_plans:
+        raise AssertionError(f"walk plans {plans}, expected {want_plans}")
     if fallbacks:
         raise AssertionError(f"fallback counters rose: {fallbacks}")
 

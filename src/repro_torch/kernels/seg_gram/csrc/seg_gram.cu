@@ -46,20 +46,24 @@
 // last) in that order, and a block reads its rows through the
 // permutation in place -- no copy of the row matrices is made.
 //
-// Grid.  blockIdx = (unit u, output tile, batch b).  Each block owns one
-// output tile of its segment and batch element, walks its unit's rows in
-// chunks staged in shared memory -- L-side values with w applied, R-side
-// values -- and accumulates with fp32 FMA on the CUDA cores.  The ragged
-// tail is masked in the load.  rs is fixed by the tile configuration and
-// never by n, so appending zero rows (or rows with seg = -1) leaves every
-// unit's addition sequence -- and the result -- bitwise unchanged.
+// Units.  rs is fixed by the configuration and never by n, so appending
+// zero rows (or rows with seg = -1) leaves every unit's addition
+// sequence -- and the result -- bitwise unchanged.
 //
-// Three tile configurations (config_of).  SMALL (both widths <= 16: the
-// final stage's 3x3) and THIN (qL <= 8: the sweep's 5 x 501 and 1 x 501
-// gradient terms) run seg_gram_kernel, one or two outputs per thread.
-// BIG (every wider output: the 502-wide nuisance Grams, fold_weighted,
-// the 2049/2561-wide backbone Grams, the store's 503- and 1006-wide
-// accumulators) runs seg_gram_big:
+// Three kernels, one a configuration (config_of).  Every one accumulates
+// with fp32 FMA on the CUDA cores.
+//
+//   * seg_gram_small (SMALL: both widths <= 16 -- the final stages' 2 x 2
+//     to 5 x 5, every builder): a warp per (unit, batch element), its
+//     lanes owning the output elements; lane r forms row r of each batch
+//     of 32 into the warp's own staging rows.
+//   * seg_gram_thin (THIN: pair with qL <= 8 -- the sweep's 5 x 501 and
+//     1 x 501 MM gradient terms): a warp per (unit, 128 columns of V),
+//     4 columns and qL x 4 accumulators a lane, V read coalesced 8 rows
+//     ahead of the FMAs in registers, U and w by shuffle.
+//   * seg_gram_big (BIG: every wider output -- the 502-wide nuisance
+//     Grams, fold_weighted, the 2049/2561-wide backbone Grams, the
+//     store's 503- and 1006-wide accumulators):
 //
 //   * One triangle.  A symmetric Gram -- every builder but PAIR, and PAIR
 //     when U and V are one tensor (the wrapper's flag) -- launches only
@@ -89,21 +93,27 @@
 //     walk -- never 16-byte copies of a row.
 //
 // Arithmetic order.  Every output element adds its unit's rows one at a
-// time, in row order, with one fp32 FMA each, whatever the tile, the
-// batch or the chunking; the units then add in a fixed order.  The
-// port's bitwise contracts rest on that: chunked == whole, appended zero
-// and seg = -1 rows are no-ops, w = 0 == zeroed rows, serial == batched
-// (each batch element's arithmetic is independent of B), the store's
-// one-shot == incremental for any partition and its rollback, and
-// run-to-run repeatability.  That is why the Grams stay off the tensor
+// time, in row order, with one fp32 FMA each, whatever the kernel, the
+// batch or the chunking, L formed as colval * w (pair: U * w) and R
+// unscaled; the units then add in a fixed order.  The thin and small
+// kernels replaced one shared first design (the template
+// seg_gram_kernel) and keep its sequence bit for bit: the same units,
+// factors and order, and its masked zero FMAs replayed
+// (FIRST_SMALL_CH).  The port's bitwise contracts rest on that:
+// chunked == whole, appended zero and seg = -1 rows are no-ops, w = 0
+// == zeroed rows, serial == batched (each batch element's arithmetic is
+// independent of B), the store's one-shot == incremental for any
+// partition and its rollback, and run-to-run repeatability.  That is why the Grams stay off the tensor
 // cores: TF32 drops fp32's accuracy, and even an fp32-accurate 3xTF32
 // split sums a k-group of rows inside the mma in the hardware's order,
 // which breaks one-shot == incremental wherever a day's rows do not end
 // on a k boundary.
 //
 // Reduction.  Unit u writes its partial to partial[u]; a second kernel
-// sums each segment's units in their fixed order.  No atomics: a run
-// repeats bitwise.  The partial buffer holds at most ceil(n/rs) + S
+// sums each segment's units in their fixed order -- a thread an element
+// for the large tile and the thin kernel, a warp an element for the
+// small kernel's few elements of up to ~1000 partials.  No atomics: a
+// run repeats bitwise.  The partial buffer holds at most ceil(n/rs) + S
 // units of (qL, qR).  With init (the store's standing accumulators) the
 // walk is not split: one unit per segment, whose accumulators start from
 // init[s] and are written straight to the output, so an ingest of rows A
@@ -124,9 +134,12 @@
 // the symmetric Gram is 2*n*q(q+1)/2 FLOP for n*q*4 bytes read -- ~125
 // FLOP/byte, compute-bound: 18.8 ms for the k = 5 design at n = 1e6; the
 // large tile issues its FMAs at ~45 % of that peak (PERF.md).  The
-// final-stage forms (q <= 3), the sweep's gradient terms (qL <= 5) and
-// its per-segment final stage read their operands once and are
-// bandwidth-bound; they keep the first design's SMALL and THIN tiles.
+// sweep's gradient terms (qL <= 5) read V (2^20 x 501, 2.1 GB) once and
+// are bandwidth-bound, 0.63 ms: the thin kernel keeps several MB of V in
+// flight.  The final-stage forms (q <= 5) read a few bytes a row; a
+// unit's rows are one warp's serial walk, so they are latency-bound: the
+// small kernel loads row ids two batches ahead and prefetches the next
+// batch's columns.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -164,6 +177,7 @@ struct Args {
   int S;
   int qL, qR;              // L width, R width
   long long rs;            // rows per unit of the fixed splits
+  long long units;         // units launched (P splits, or W table entries)
   int B;
   int sym;                 // BIG: compute one triangle and mirror it
   const float* init;       // (B, S, qL, qR) seeds of an unsplit walk, or null
@@ -228,169 +242,251 @@ __device__ __forceinline__ float colval(int i, const float* xr, int dX,
   return e;
 }
 
-// M consecutive floats of shared memory into registers, as float4 /
-// float2 loads where the width allows (the tile layouts keep them
-// aligned).
-template <int M>
-__device__ __forceinline__ void load_vec(float (&v)[M], const float* p) {
-  if constexpr (M % 4 == 0) {
-#pragma unroll
-    for (int q = 0; q < M / 4; ++q) {
-      const float4 t = reinterpret_cast<const float4*>(p)[q];
-      v[4 * q] = t.x; v[4 * q + 1] = t.y; v[4 * q + 2] = t.z;
-      v[4 * q + 3] = t.w;
-    }
-  } else if constexpr (M == 2) {
-    const float2 t = *reinterpret_cast<const float2*>(p);
-    v[0] = t.x; v[1] = t.y;
-  } else {
-#pragma unroll
-    for (int m = 0; m < M; ++m) v[m] = p[m];
-  }
-}
+constexpr unsigned FULL = 0xffffffffu;
 
-template <int BUILDER, int TI, int TJ, int MI, int MJ, int CH>
-__global__ void __launch_bounds__((TI / MI) * (TJ / MJ))
-seg_gram_kernel(Args a) {
-  constexpr int TX = TJ / MJ;        // threads along J
-  constexpr int NT = (TI / MI) * TX;
-  __shared__ __align__(16) float Ls[CH][TI];
-  __shared__ __align__(16) float Rs[CH][TJ];
-  __shared__ float sCL[CH], sCL2[CH], sEL[CH], sCR[CH], sCR2[CH], sER[CH];
-  __shared__ float sW[CH];
-  __shared__ long long sRow[CH];
-
-  const long long u = blockIdx.x;
-  int s = 0;
-  long long lo, hi;
+// The rows [lo, hi) of unit u and its segment s; false past the unit table.
+__device__ __forceinline__ bool unit_range(const Args& a, long long u, int& s,
+                                           long long& lo, long long& hi) {
+  if (u >= a.units) return false;
+  s = 0;
   if (a.unit_seg != nullptr) {
     s = a.unit_seg[u];
-    if (s >= a.S) return;            // past the last unit: the whole block
+    if (s >= a.S) return false;
     lo = a.unit_lo[u];
     hi = a.unit_hi[u];
   } else {
     lo = u * a.rs;
     hi = a.n < lo + a.rs ? a.n : lo + a.rs;
   }
-  const int tilesJ = (a.qR + TJ - 1) / TJ;
-  const int I0 = (blockIdx.y / tilesJ) * TI;
-  const int J0 = (blockIdx.y % tilesJ) * TJ;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int ty = tid / TX, tx = tid % TX;
-  const long long slab = (long long)a.qL * a.qR;
-  // this (batch element, segment)'s slab of init / out: (B, S, qL, qR)
-  const long long ob = ((long long)b * a.S + s) * slab;
+  return true;
+}
 
-  float acc[MI][MJ];
+// Row id of position p0 + lane of a unit's walk, or -1 past its end.
+__device__ __forceinline__ long long lane_row(const Args& a, long long p0,
+                                              long long hi, int lane) {
+  const long long pos = p0 + lane;
+  if (pos >= hi) return -1;
+  return a.perm != nullptr ? a.perm[pos] : pos;
+}
+
+// The thin kernel: pair, qL = QL <= 8, qR > 16 (the sweep's MM gradient
+// terms 5 x 501 and 1 x 501).  A warp owns one unit and one stripe of
+// 128 columns of V; lane l holds the columns J0 + l + 32 k, k < 4, and
+// QL x 4 accumulators.  The warp walks the unit's rows in batches of 32
+// from lo: lane r loads row r's id (two batches ahead), then its V offset
+// and U * w (one batch ahead); row r's values reach every lane by
+// shuffle.  V is read 4 bytes a lane, 128 bytes a warp instruction (rows
+// of V are dY * 4 bytes apart, so 16-byte loads would not be aligned),
+// THIN_AHEAD rows ahead of the FMAs in a register ring.  No shared
+// memory, no barrier.  A batch is the first design's chunk, so the rows
+// past the unit's end in its last batch are zero FMAs here as there.
+constexpr int THIN_MAX = 8;        // qL at most
+constexpr int THIN_CH = 32;        // rows a batch, one a lane
+constexpr int THIN_STRIPE = 128;   // columns of V a warp
+constexpr int THIN_WARPS = 4;      // stripes a block at most
+constexpr int THIN_AHEAD = 8;      // rows of V in flight ahead of the FMAs
+
+// Blocks an SM, so that the sweep's units run in one wave: six up to
+// qL = 2 ((b): ~640 units; 85 registers a thread), four up to qL = 6
+// ((a): ~512 units; 128 registers), three at qL 7 and 8.
+template <int QL>
+__global__ void __launch_bounds__(THIN_WARPS * 32,
+                                  QL <= 2 ? 6 : (QL <= 6 ? 4 : 3))
+seg_gram_thin(Args a) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  int s;
+  long long lo, hi;
+  if (!unit_range(a, blockIdx.x, s, lo, hi)) return;
+  const int J0 = (blockIdx.y * (blockDim.x >> 5) + warp) * THIN_STRIPE;
+  if (J0 >= a.qR) return;
+  const int b = blockIdx.z;
+  const long long slab = (long long)QL * a.qR;
+  const long long ob = ((long long)b * a.S + s) * slab;
+  bool ok[4];
 #pragma unroll
-  for (int m = 0; m < MI; ++m)
+  for (int k = 0; k < 4; ++k) ok[k] = J0 + lane + 32 * k < a.qR;
+
+  float acc[QL][4];
 #pragma unroll
-    for (int k = 0; k < MJ; ++k) {
-      const int I = I0 + ty * MI + m, J = J0 + tx * MJ + k;
-      acc[m][k] = (a.init != nullptr && I < a.qL && J < a.qR)
-                      ? a.init[ob + (long long)I * a.qR + J] : 0.f;
-    }
+  for (int i = 0; i < QL; ++i)
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      acc[i][k] = (a.init != nullptr && ok[k])
+                      ? a.init[ob + (long long)i * a.qR + J0 + lane + 32 * k]
+                      : 0.f;
 
   const float* wb = a.w != nullptr ? a.w + (long long)b * a.w_bstride : nullptr;
-  for (long long c0 = lo; c0 < hi; c0 += CH) {
-    for (int r = tid; r < CH; r += NT) {
-      const long long pos = c0 + r;
-      RowScalars sc = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-      float w = 0.f;
-      long long row = -1;
-      if (pos < hi) {
-        row = a.perm != nullptr ? a.perm[pos] : pos;
-        sc = row_scalars<BUILDER>(a, b, row);
-        w = wb != nullptr ? wb[row] : 1.f;
-      }
-      sCL[r] = sc.c1L; sCL2[r] = sc.c2L; sEL[r] = sc.eL;
-      sCR[r] = sc.c1R; sCR2[r] = sc.c2R; sER[r] = sc.eR;
-      sW[r] = w;
-      sRow[r] = row;
-    }
-    __syncthreads();
-    if constexpr (TI == TJ) {
-      // square tiles: one pass stages a row's L and R values together
-      for (int e = tid; e < CH * TI; e += NT) {
-        const int r = e / TI, c = e % TI;
-        const long long row = sRow[r];
-        float lv = 0.f, rv = 0.f;
-        if (row >= 0) {
-          const int I = I0 + c, J = J0 + c;
-          if constexpr (BUILDER == PAIR) {
-            if (I < a.qL) lv = a.X[row * a.dX + I] * sW[r];
-            if (J < a.qR) rv = a.Y[row * a.dY + J];
-          } else {
-            const float* xr = a.X + row * a.dX;
-            if (I < a.qL)
-              lv = colval<BUILDER>(I, xr, a.dX, sCL[r], sCL2[r], sEL[r]) *
-                   sW[r];
-            if (J < a.qR)
-              rv = colval<BUILDER>(J, xr, a.dX, sCR[r], sCR2[r], sER[r]);
-          }
-        }
-        Ls[r][c] = lv;
-        Rs[r][c] = rv;
-      }
-    } else {
-      for (int e = tid; e < CH * TI; e += NT) {
-        const int r = e / TI, c = e % TI;
-        const long long row = sRow[r];
-        const int I = I0 + c;
-        float v = 0.f;
-        if (row >= 0 && I < a.qL) {
-          if constexpr (BUILDER == PAIR)
-            v = a.X[row * a.dX + I];
-          else
-            v = colval<BUILDER>(I, a.X + row * a.dX, a.dX, sCL[r], sCL2[r],
-                                sEL[r]);
-          v *= sW[r];
-        }
-        Ls[r][c] = v;
-      }
-      for (int e = tid; e < CH * TJ; e += NT) {
-        const int r = e / TJ, c = e % TJ;
-        const long long row = sRow[r];
-        const int J = J0 + c;
-        float v = 0.f;
-        if (row >= 0 && J < a.qR) {
-          if constexpr (BUILDER == PAIR)
-            v = a.Y[row * a.dY + J];
-          else
-            v = colval<BUILDER>(J, a.X + row * a.dX, a.dX, sCR[r], sCR2[r],
-                                sER[r]);
-        }
-        Rs[r][c] = v;
-      }
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int r = 0; r < CH; ++r) {
-      float lv[MI], rv[MJ];
-      load_vec<MI>(lv, &Ls[r][ty * MI]);
-      load_vec<MJ>(rv, &Rs[r][tx * MJ]);
+  const float* Vc = a.Y + J0 + lane;
+  const long long nb = (hi - lo + THIN_CH - 1) / THIN_CH;
+  auto row_id = [&](long long bi) {
+    return bi < nb ? lane_row(a, lo + bi * THIN_CH, hi, lane) : -1ll;
+  };
+  // a lane's row: its offset in V (-1: none) and U * w (0: none)
+  auto row_vals = [&](long long row, long long& off, float (&lw)[QL]) {
+    off = -1;
 #pragma unroll
-      for (int m = 0; m < MI; ++m)
+    for (int i = 0; i < QL; ++i) lw[i] = 0.f;
+    if (row >= 0) {
+      const float w = wb != nullptr ? wb[row] : 1.f;
+      off = row * a.dY;
 #pragma unroll
-        for (int k = 0; k < MJ; ++k) acc[m][k] = fmaf(lv[m], rv[k], acc[m][k]);
+      for (int i = 0; i < QL; ++i) lw[i] = a.X[row * a.dX + i] * w;
     }
-    __syncthreads();
+  };
+  auto load_v = [&](long long off, float (&v)[4]) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      v[k] = (off >= 0 && ok[k]) ? __ldg(Vc + off + 32 * k) : 0.f;
+  };
+
+  if (nb > 0) {
+    long long off, offn;
+    float lw[QL], lwn[QL], v[THIN_AHEAD][4];
+    row_vals(row_id(0), off, lw);
+    long long idn = row_id(1);
+#pragma unroll
+    for (int j = 0; j < THIN_AHEAD; ++j)
+      load_v(__shfl_sync(FULL, off, j), v[j]);
+    for (long long bi = 0; bi < nb; ++bi) {
+      const long long idnn = row_id(bi + 2);     // in flight over the batch
+      row_vals(idn, offn, lwn);                   // idn came a batch ago
+#pragma unroll
+      for (int r = 0; r < THIN_CH; ++r) {
+        const int slot = r % THIN_AHEAD;
+#pragma unroll
+        for (int i = 0; i < QL; ++i) {
+          const float l = __shfl_sync(FULL, lw[i], r);
+#pragma unroll
+          for (int k = 0; k < 4; ++k) acc[i][k] = fmaf(l, v[slot][k], acc[i][k]);
+        }
+        // the freed slot takes the row THIN_AHEAD further on
+        const int rn = r + THIN_AHEAD;
+        const long long o = rn < THIN_CH ? __shfl_sync(FULL, off, rn)
+                                         : __shfl_sync(FULL, offn, rn - THIN_CH);
+        load_v(o, v[slot]);
+      }
+      off = offn;
+#pragma unroll
+      for (int i = 0; i < QL; ++i) lw[i] = lwn[i];
+      idn = idnn;
+    }
   }
 
-  float* dst = a.init != nullptr
-                   ? a.out + ob
-                   : a.partial + (u * a.B + b) * slab;
+  float* dst = a.init != nullptr ? a.out + ob
+                                 : a.partial + (blockIdx.x * (long long)a.B + b) * slab;
 #pragma unroll
-  for (int m = 0; m < MI; ++m) {
-    const int I = I0 + ty * MI + m;
-    if (I >= a.qL) continue;
+  for (int i = 0; i < QL; ++i)
 #pragma unroll
-    for (int k = 0; k < MJ; ++k) {
-      const int J = J0 + tx * MJ + k;
-      if (J < a.qR) dst[(long long)I * a.qR + J] = acc[m][k];
+    for (int k = 0; k < 4; ++k)
+      if (ok[k]) dst[(long long)i * a.qR + J0 + lane + 32 * k] = acc[i][k];
+}
+
+// The small kernel: both widths <= 16 (the final stages' 2 x 2 to 5 x 5,
+// every builder).  A warp owns one (unit, batch element); lane l owns the
+// output elements e = l + 32 m, m < M (M = 1, 2, 4 or 8: the least that
+// covers qL qR; a lane past the last element computes on element 0 and
+// writes nothing, so the FMAs need no predicate).  The warp walks the
+// unit's rows in batches of 32 from lo: lane r forms row r's scalars
+// (row_scalars, meat_e) and its L (w applied) and R values into the
+// warp's own staging rows in shared memory, which every lane then reads
+// for its elements; two staging buffers, one __syncwarp a batch; row ids
+// two batches ahead.  A shuffle would not do here: a lane needs L_r[I]
+// for its own I, and a shuffle reads one register name in every source
+// lane.
+constexpr int SMALL_MAX = 16;      // both widths at most
+constexpr int SMALL_CH = 32;       // rows a batch, one a lane
+constexpr int SMALL_WARPS = 4;     // units a block
+constexpr int SMALL_LD = SMALL_MAX + 1;
+// The first design's small tile staged chunks of 64 rows from lo and
+// ran masked zero FMAs to the end of the last one; fmaf(0, 0, acc) ==
+// acc + 0 (it only turns -0 into +0), so one +0 replays them.
+constexpr long long FIRST_SMALL_CH = 64;
+
+template <int BUILDER, int M>
+__global__ void __launch_bounds__(SMALL_WARPS * 32) seg_gram_small(Args a) {
+  __shared__ float sL[SMALL_WARPS][2][SMALL_CH][SMALL_LD];
+  __shared__ float sR[SMALL_WARPS][2][SMALL_CH][SMALL_LD];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long u = (long long)blockIdx.x * SMALL_WARPS + warp;
+  int s;
+  long long lo, hi;
+  if (!unit_range(a, u, s, lo, hi)) return;
+  const int b = blockIdx.z;
+  const int nel = a.qL * a.qR;
+  const long long ob = ((long long)b * a.S + s) * nel;
+  int I[M], J[M];
+  float acc[M];
+#pragma unroll
+  for (int m = 0; m < M; ++m) {
+    const int e = lane + 32 * m;
+    I[m] = e < nel ? e / a.qR : 0;
+    J[m] = e < nel ? e % a.qR : 0;
+    acc[m] = (a.init != nullptr && e < nel) ? a.init[ob + e] : 0.f;
+  }
+
+  const float* wb = a.w != nullptr ? a.w + (long long)b * a.w_bstride : nullptr;
+  const long long nb = (hi - lo + SMALL_CH - 1) / SMALL_CH;
+  auto row_id = [&](long long bi) {
+    return bi < nb ? lane_row(a, lo + bi * SMALL_CH, hi, lane) : -1ll;
+  };
+  // lane r's row into staging buffer buf: L = colval * w (PAIR: U * w),
+  // R = colval (PAIR: V), as the first design staged them; a row past
+  // the unit's end is never read
+  auto stage = [&](long long row, int buf) {
+    if (row < 0) return;
+    float* Ls = &sL[warp][buf][lane][0];
+    float* Rs = &sR[warp][buf][lane][0];
+    const RowScalars sc = row_scalars<BUILDER>(a, b, row);
+    const float w = wb != nullptr ? wb[row] : 1.f;
+    const float* xr = a.X + row * a.dX;
+    for (int i = 0; i < a.qL; ++i) {
+      if constexpr (BUILDER == PAIR)
+        Ls[i] = xr[i] * w;
+      else
+        Ls[i] = colval<BUILDER>(i, xr, a.dX, sc.c1L, sc.c2L, sc.eL) * w;
+    }
+    for (int j = 0; j < a.qR; ++j) {
+      if constexpr (BUILDER == PAIR)
+        Rs[j] = a.Y[row * a.dY + j];
+      else
+        Rs[j] = colval<BUILDER>(j, xr, a.dX, sc.c1R, sc.c2R, sc.eR);
+    }
+  };
+  auto fma_row = [&](int buf, int r) {
+    const float* Lr = &sL[warp][buf][r][0];
+    const float* Rr = &sR[warp][buf][r][0];
+#pragma unroll
+    for (int m = 0; m < M; ++m) acc[m] = fmaf(Lr[I[m]], Rr[J[m]], acc[m]);
+  };
+
+  if (nb > 0) {
+    stage(row_id(0), 0);
+    long long idn = row_id(1);
+    __syncwarp();
+    for (long long bi = 0; bi < nb; ++bi) {
+      const int cb = (int)(bi & 1);
+      const long long idnn = row_id(bi + 2);     // in flight over the batch
+      const long long left = hi - lo - bi * SMALL_CH;
+      if (left >= SMALL_CH) {
+#pragma unroll
+        for (int r = 0; r < SMALL_CH; ++r) fma_row(cb, r);
+      } else {
+        for (int r = 0; r < (int)left; ++r) fma_row(cb, r);
+      }
+      stage(idn, cb ^ 1);     // read last in batch bi - 1, before its sync
+      __syncwarp();
+      idn = idnn;
     }
   }
+  if ((hi - lo) % FIRST_SMALL_CH != 0) {
+#pragma unroll
+    for (int m = 0; m < M; ++m) acc[m] += 0.f;
+  }
+
+  float* dst = a.init != nullptr ? a.out + ob : a.partial + (u * a.B + b) * nel;
+#pragma unroll
+  for (int m = 0; m < M; ++m)
+    if (lane + 32 * m < nel) dst[lane + 32 * m] = acc[m];
 }
 
 // The BIG template's shape: a 128 x 128 output tile, 16 x 16 threads of
@@ -635,7 +731,8 @@ __global__ void __launch_bounds__(BIG_NT, 2) seg_gram_big(Args a) {
   }
 }
 
-// out[i] = sum_{p = 0..P-1} partial[p, i], in that fixed order.
+// out[i] = sum_{p = 0..P-1} partial[p, i], in that fixed order: a
+// thread an element (the large tile's many elements, few splits).
 __global__ void reduce_splits(const float* __restrict__ partial,
                               float* __restrict__ out, long long m, int P) {
   const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
@@ -646,7 +743,7 @@ __global__ void reduce_splits(const float* __restrict__ partial,
 }
 
 // out[b, s, i] = sum of partial[u, b, i] over segment s's units
-// u = first[s] .. first[s+1]-1, in that fixed order.
+// u = first[s] .. first[s+1]-1, in that fixed order: a thread an element.
 __global__ void reduce_units(const float* __restrict__ partial,
                              const int* __restrict__ first,
                              float* __restrict__ out, int B, int S,
@@ -662,19 +759,80 @@ __global__ void reduce_units(const float* __restrict__ partial,
   out[i] = acc;
 }
 
-// Tile configurations.  Small outputs (the final stage's 3x3): one
-// output per thread, long row chunks.  Thin outputs (qL <= 8: the
-// sweep's gradient terms, 5 x 501 and 1 x 501): all qL rows and two
-// columns per thread on an 8 x 256 tile.  Large outputs: seg_gram_big.
-constexpr int SMALL_T = 16, SMALL_CH = 64;
-constexpr int THIN_TI = 8, THIN_TJ = 256, THIN_MJ = 2, THIN_CH = 32;
+// The same sums a warp an element (the small kernel's few elements, up
+// to ~1000 partials each): the lanes load 128 partials a step, the next
+// 128 in flight, and every lane adds them one by one in order from
+// shuffles -- the one-thread loop's exact sequence, not a chain of
+// dependent L2 loads.  sum_{j < count} p[j * stride], j = 0, 1, ...
+constexpr int RED_WARPS = 8;
+
+__device__ __forceinline__ float ordered_sum(const float* __restrict__ p,
+                                             long long stride, int count,
+                                             int lane) {
+  float s = 0.f;
+  float v[4], nv[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int j = 32 * q + lane;
+    v[q] = j < count ? p[j * stride] : 0.f;
+  }
+  for (int j0 = 0; j0 < count; j0 += 128) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int j = j0 + 128 + 32 * q + lane;
+      nv[q] = j < count ? p[j * stride] : 0.f;
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int t = 0; t < 32; ++t) {
+        const float x = __shfl_sync(FULL, v[q], t);
+        if (j0 + 32 * q + t < count) s += x;
+      }
+#pragma unroll
+    for (int q = 0; q < 4; ++q) v[q] = nv[q];
+  }
+  return s;
+}
+
+__global__ void __launch_bounds__(RED_WARPS * 32)
+reduce_splits_warp(const float* __restrict__ partial, float* __restrict__ out,
+                   long long m, int P) {
+  const long long i = (long long)blockIdx.x * RED_WARPS + (threadIdx.x >> 5);
+  if (i >= m) return;
+  const int lane = threadIdx.x & 31;
+  const float s = ordered_sum(partial + i, m, P, lane);
+  if (lane == 0) out[i] = s;
+}
+
+__global__ void __launch_bounds__(RED_WARPS * 32)
+reduce_units_warp(const float* __restrict__ partial,
+                  const int* __restrict__ first, float* __restrict__ out,
+                  int B, int S, long long m) {
+  const long long i = (long long)blockIdx.x * RED_WARPS + (threadIdx.x >> 5);
+  if (i >= (long long)B * S * m) return;
+  const int lane = threadIdx.x & 31;
+  const long long e = i % m;
+  const int s = (int)((i / m) % S);
+  const long long b = i / ((long long)S * m);
+  const float acc = ordered_sum(partial + ((long long)first[s] * B + b) * m + e,
+                                (long long)B * m, first[s + 1] - first[s],
+                                lane);
+  if (lane == 0) out[i] = acc;
+}
+
+// Configurations (config_of, unchanged from the first design): SMALL --
+// both widths <= 16 -- runs seg_gram_small; THIN -- pair with qL <= 8 --
+// seg_gram_thin; every wider output seg_gram_big.  Rows per unit stay
+// the first design's, so every form keeps its unit partition and with
+// it its addition order.
 constexpr long long SMALL_RS = 1024, THIN_RS = 2048, BIG_RS = 16384;
 
 enum Config { SMALL = 0, THIN = 1, BIG = 2 };
 
 Config config_of(int qL, int qR) {
-  if (qL <= SMALL_T && qR <= SMALL_T) return SMALL;
-  if (qL <= THIN_TI) return THIN;
+  if (qL <= SMALL_MAX && qR <= SMALL_MAX) return SMALL;
+  if (qL <= THIN_MAX) return THIN;
   return BIG;
 }
 
@@ -682,21 +840,46 @@ long long rows_of(Config c) {
   return c == SMALL ? SMALL_RS : (c == THIN ? THIN_RS : BIG_RS);
 }
 
-template <int TI, int TJ>
-dim3 grid_of(long long units, const Args& a) {
-  return dim3((unsigned)units,
-              ((a.qL + TI - 1) / TI) * ((a.qR + TJ - 1) / TJ), a.B);
+// pair's thin kernel at its qL: a block of up to THIN_WARPS stripes of
+// one unit.
+cudaError_t launch_thin(const Args& a, long long units, cudaStream_t st) {
+  const int stripes = (a.qR + THIN_STRIPE - 1) / THIN_STRIPE;
+  const int warps = stripes < THIN_WARPS ? stripes : THIN_WARPS;
+  const dim3 grid((unsigned)units, (stripes + warps - 1) / warps, a.B);
+  const int threads = 32 * warps;
+  switch (a.qL) {
+    case 1: seg_gram_thin<1><<<grid, threads, 0, st>>>(a); break;
+    case 2: seg_gram_thin<2><<<grid, threads, 0, st>>>(a); break;
+    case 3: seg_gram_thin<3><<<grid, threads, 0, st>>>(a); break;
+    case 4: seg_gram_thin<4><<<grid, threads, 0, st>>>(a); break;
+    case 5: seg_gram_thin<5><<<grid, threads, 0, st>>>(a); break;
+    case 6: seg_gram_thin<6><<<grid, threads, 0, st>>>(a); break;
+    case 7: seg_gram_thin<7><<<grid, threads, 0, st>>>(a); break;
+    case 8: seg_gram_thin<8><<<grid, threads, 0, st>>>(a); break;
+    default: return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
 }
 
 template <int BUILDER>
 cudaError_t launch(const Args& a, Config c, long long units,
                    cudaStream_t st) {
   if (c == SMALL) {
-    seg_gram_kernel<BUILDER, SMALL_T, SMALL_T, 1, 1, SMALL_CH>
-        <<<grid_of<SMALL_T, SMALL_T>(units, a), SMALL_T * SMALL_T, 0, st>>>(a);
+    const dim3 grid((unsigned)((units + SMALL_WARPS - 1) / SMALL_WARPS), 1,
+                    a.B);
+    const int slots = (a.qL * a.qR + 31) / 32;
+    if (slots <= 1)
+      seg_gram_small<BUILDER, 1><<<grid, SMALL_WARPS * 32, 0, st>>>(a);
+    else if (slots <= 2)
+      seg_gram_small<BUILDER, 2><<<grid, SMALL_WARPS * 32, 0, st>>>(a);
+    else if (slots <= 4)
+      seg_gram_small<BUILDER, 4><<<grid, SMALL_WARPS * 32, 0, st>>>(a);
+    else
+      seg_gram_small<BUILDER, 8><<<grid, SMALL_WARPS * 32, 0, st>>>(a);
   } else if (c == THIN) {
-    seg_gram_kernel<BUILDER, THIN_TI, THIN_TJ, THIN_TI, THIN_MJ, THIN_CH>
-        <<<grid_of<THIN_TI, THIN_TJ>(units, a), THIN_TJ / THIN_MJ, 0, st>>>(a);
+    // every other builder has qL >= qR, so a thin output is pair's
+    if constexpr (BUILDER != PAIR) return cudaErrorInvalidValue;
+    else return launch_thin(a, units, st);
   } else {
     const dim3 grid((unsigned)units, tiles_big(a.qL, a.qR, a.sym != 0), a.B);
     seg_gram_big<BUILDER><<<grid, BIG_NT, 0, st>>>(a);
@@ -742,14 +925,20 @@ long long seg_gram_split_rows(int qL, int qR) {
   return rows_of(config_of(qL, qR));
 }
 
-// One segment, fixed row splits, a leading batch of B.
+// The kernel a (qL, qR) output runs on: 0 small, 1 thin, 2 the large tile.
+int seg_gram_config(int qL, int qR) { return (int)config_of(qL, qR); }
+
+// One segment, fixed row splits, a leading batch of B.  parts: 1 runs
+// the tile kernel, 2 the second pass, 3 both (every caller; kernel.py's
+// stage() picks one to time it alone), here and in seg_gram_walk.
 int seg_gram_run(int builder, long long n, int dX, const float* X,
                  const float* a0, const float* a1, const float* a2,
                  const float* a3, const float* a4, long long a_bstride,
                  const float* theta, long long theta_bstride,
                  const float* w, long long w_bstride,
                  int B, int qL, int qR,
-                 float* partial, int P, float* out, void* stream) {
+                 float* partial, int P, float* out, void* stream,
+                 int parts) {
   if (builder == PAIR) return (int)cudaErrorInvalidValue;
   Args a = base_args(n, dX, X, a0, a1, a2, a3, a4, theta, w, qL, qR);
   a.a_bstride = a_bstride; a.theta_bstride = theta_bstride;
@@ -759,12 +948,18 @@ int seg_gram_run(int builder, long long n, int dX, const float* X,
   a.rs = rows_of(c);
   if (P != (int)((n + a.rs - 1) / a.rs > 0 ? (n + a.rs - 1) / a.rs : 1))
     return (int)cudaErrorInvalidValue;
+  a.units = P;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  cudaError_t err = dispatch(builder, a, c, P, st);
+  cudaError_t err = (parts & 1) ? dispatch(builder, a, c, P, st) : cudaSuccess;
   if (err != cudaSuccess) return (int)err;
   const long long m = (long long)B * qL * qR;
-  if (m > 0) {
-    reduce_splits<<<(unsigned)((m + 255) / 256), 256, 0, st>>>(partial, out, m, P);
+  if (m > 0 && (parts & 2)) {
+    if (c == SMALL)
+      reduce_splits_warp<<<(unsigned)((m + RED_WARPS - 1) / RED_WARPS),
+                           RED_WARPS * 32, 0, st>>>(partial, out, m, P);
+    else
+      reduce_splits<<<(unsigned)((m + 255) / 256), 256, 0, st>>>(partial, out,
+                                                                 m, P);
     err = cudaGetLastError();
   }
   return (int)err;
@@ -789,7 +984,7 @@ int seg_gram_walk(int builder, long long n, int dX, const float* X,
                   const long long* unit_lo, const long long* unit_hi,
                   const int* first, int W, int S, int B, int qL, int qR,
                   int pair_sym, const float* init, float* partial,
-                  float* out, void* stream) {
+                  float* out, void* stream, int parts) {
   if ((builder == PAIR) != (Y != nullptr)) return (int)cudaErrorInvalidValue;
   if (pair_sym && (builder != PAIR || qL != qR))
     return (int)cudaErrorInvalidValue;
@@ -806,13 +1001,19 @@ int seg_gram_walk(int builder, long long n, int dX, const float* X,
   const Config c = config_of(qL, qR);
   a.rs = rows_of(c);
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  cudaError_t err = dispatch(builder, a, c, W, st);
+  a.units = W;
+  cudaError_t err = (parts & 1) ? dispatch(builder, a, c, W, st) : cudaSuccess;
   if (err != cudaSuccess || init != nullptr) return (int)err;
   const long long m = (long long)qL * qR;
-  if (m > 0) {
+  if (m > 0 && (parts & 2)) {
     const long long total = (long long)B * S * m;
-    reduce_units<<<(unsigned)((total + 255) / 256), 256, 0, st>>>(
-        partial, first, out, B, S, m);
+    if (c == SMALL)
+      reduce_units_warp<<<(unsigned)((total + RED_WARPS - 1) / RED_WARPS),
+                          RED_WARPS * 32, 0, st>>>(partial, first, out, B, S,
+                                                   m);
+    else
+      reduce_units<<<(unsigned)((total + 255) / 256), 256, 0, st>>>(
+          partial, first, out, B, S, m);
     err = cudaGetLastError();
   }
   return (int)err;

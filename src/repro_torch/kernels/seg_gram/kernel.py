@@ -19,7 +19,12 @@ to the plain version:
 ``count_as`` key of an entry point of its own: ``residual_gram`` for
 the final stage at row_block=0, ``fold_weighted`` for the bootstrap's
 fold-and-replicate-weighted Grams), one per launch; ``SHAPES`` counts
-the same launches by ``(form, S, qL, qR)``.
+the same launches by ``(form, S, qL, qR)``; ``PLANS`` counts the walk
+plans made (``cached_walk_plan`` misses) by ``(S, rows per unit)``.
+
+``design_of`` names the kernel a (qL, qR) output runs on (``"small"``,
+``"thin"`` or ``"big"``); ``stage`` restricts the launches inside it to
+the tile kernel or to the second pass, for timing them apart.
 
 Replaces ``src/repro/kernels/seg_gram/kernel.py:seg_gram_pallas``; the
 design and its bound on the H100 are in the source note of
@@ -28,6 +33,7 @@ design and its bound on the H100 are in the source note of
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import weakref
 from pathlib import Path
@@ -53,6 +59,12 @@ BIG_TILE = 128
 
 LAUNCHES: collections.Counter = collections.Counter()
 SHAPES: collections.Counter = collections.Counter()
+PLANS: collections.Counter = collections.Counter()
+# the parts of a launch that the C entry points run: 1 the tile kernel,
+# 2 the second pass (``stage`` sets it for timing; every caller runs both)
+_PARTS = {"all": 3, "main": 1, "reduce": 2}
+_parts = _PARTS["all"]
+_DESIGNS = ("small", "thin", "big")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -65,12 +77,14 @@ def library() -> ctypes.CDLL:
     if not getattr(lib, "_typed", False):
         lib.seg_gram_split_rows.argtypes = [_I, _I]
         lib.seg_gram_split_rows.restype = _LL
+        lib.seg_gram_config.argtypes = [_I, _I]
+        lib.seg_gram_config.restype = _I
         lib.seg_gram_run.argtypes = [
             _I, _LL, _I, _P,             # builder, n, dX, X
             _P, _P, _P, _P, _P, _LL,     # a0..a4, a_bstride
             _P, _LL, _P, _LL,            # theta, its stride, w, w_bstride
             _I, _I, _I,                  # B, qL, qR
-            _P, _I, _P, _P,              # partial, P, out, stream
+            _P, _I, _P, _P, _I,          # partial, P, out, stream, parts
         ]
         lib.seg_gram_run.restype = _I
         lib.seg_gram_walk.argtypes = [
@@ -79,7 +93,7 @@ def library() -> ctypes.CDLL:
             _P, _LL, _P, _LL,            # theta, its stride, w, w_bstride
             _P, _P, _P, _P, _P,          # perm, unit seg/lo/hi, first
             _I, _I, _I, _I, _I, _I,      # W, S, B, qL, qR, pair_sym
-            _P, _P, _P, _P,              # init, partial, out, stream
+            _P, _P, _P, _P, _I,          # init, partial, out, stream, parts
         ]
         lib.seg_gram_walk.restype = _I
         lib.seg_gram_tile_schedule.argtypes = [_I, _I, _I, _P, _P, _I]
@@ -88,6 +102,27 @@ def library() -> ctypes.CDLL:
         lib.seg_gram_error_string.restype = ctypes.c_char_p
         lib._typed = True
     return lib
+
+
+def design_of(qL: int, qR: int) -> str:
+    """The kernel that a (qL, qR) output runs on: ``"small"`` (both
+    widths <= 16), ``"thin"`` (pair, qL <= 8) or ``"big"`` (the large
+    tile) — csrc/seg_gram.cu's ``config_of``."""
+    return _DESIGNS[library().seg_gram_config(qL, qR)]
+
+
+@contextlib.contextmanager
+def stage(name: str):
+    """Inside, every seg_gram launch runs only its tile kernel
+    (``"main"``) or only its second pass (``"reduce"``, over a partial
+    buffer it allocates), so that the two can be timed apart; its
+    output is then not the Gram.  Not thread-safe: for timing only."""
+    global _parts
+    old, _parts = _parts, _PARTS[name]
+    try:
+        yield
+    finally:
+        _parts = old
 
 
 def build_log() -> str:
@@ -214,7 +249,7 @@ def seg_gram_cuda(builder: str, X: torch.Tensor, *,
             BUILDERS[builder], n, dX, _ptr(X),
             *[_ptr(x) for x in a], a_b,
             _ptr(theta), th_b, _ptr(w), w_b,
-            B, qL, qR, _ptr(partial), P, _ptr(out), _P(stream))
+            B, qL, qR, _ptr(partial), P, _ptr(out), _P(stream), _parts)
     _raise_on(lib, err, builder)
     key = count_as or builder
     LAUNCHES[key] += 1
@@ -323,6 +358,42 @@ def walk_plan(seg: torch.Tensor, n_segments: int,
                     first.to(torch.int32).contiguous())
 
 
+# Walk plans by (id(seg), S, rows per unit): (weak reference to seg, its
+# version counter, plan), least recently used first.  The sweep walks
+# the same two id tensors in every MM step; an in-place write to seg
+# bumps its counter and makes a new plan; a dropped seg drops its plans.
+_PLAN_CACHE: "collections.OrderedDict" = collections.OrderedDict()
+PLAN_CACHE_SIZE = 8
+
+
+def cached_walk_plan(seg: torch.Tensor, n_segments: int,
+                     rows_per_unit: Optional[int]) -> WalkPlan:
+    """``walk_plan(seg, n_segments, rows_per_unit)``, made once per id
+    tensor (and version, S, rows per unit) and kept for the last
+    ``PLAN_CACHE_SIZE`` of them; on any device."""
+    S = int(n_segments)
+    rs = None if rows_per_unit is None else int(rows_per_unit)
+    key = (id(seg), S, rs)
+    ent = _PLAN_CACHE.get(key)
+    if ent is not None and ent[0]() is seg and ent[1] == seg._version:
+        _PLAN_CACHE.move_to_end(key)
+        return ent[2]
+    plan = walk_plan(seg, S, rs)
+    PLANS[(S, rs)] += 1
+    _PLAN_CACHE[key] = (weakref.ref(seg, lambda _: _PLAN_CACHE.pop(key, None)),
+                        seg._version, plan)
+    _PLAN_CACHE.move_to_end(key)
+    while len(_PLAN_CACHE) > PLAN_CACHE_SIZE:
+        _PLAN_CACHE.popitem(last=False)
+    return plan
+
+
+def clear_plan_cache() -> None:
+    """Forget every cached walk plan (the next walk of each id tensor
+    plans again)."""
+    _PLAN_CACHE.clear()
+
+
 def seg_walk_cuda(builder: str, X: torch.Tensor, *,
                   Y: Optional[torch.Tensor] = None,
                   scalars: Sequence[torch.Tensor] = (),
@@ -373,7 +444,7 @@ def seg_walk_cuda(builder: str, X: torch.Tensor, *,
     same = builder == "pair" and _same_rows(X, Y, init)
     lib = library()
     rs = None if init is not None else lib.seg_gram_split_rows(qL, qR)
-    plan = walk_plan(seg, S, rs)
+    plan = cached_walk_plan(seg, S, rs)
     W = plan.useg.shape[0]
     out = torch.empty((B, S, qL, qR), dtype=f32, device=dev)
     partial = None if init is not None else torch.empty(
@@ -387,7 +458,7 @@ def seg_walk_cuda(builder: str, X: torch.Tensor, *,
             *[_ptr(x) for x in a], a_b, _ptr(theta), th_b, _ptr(w), w_b,
             *[_ptr(x) for x in plan],
             W, S, B, qL, qR, int(same), _ptr(init), _ptr(partial),
-            _ptr(out), _P(stream))
+            _ptr(out), _P(stream), _parts)
     _raise_on(lib, err, builder)
     key = count_as or (builder if builder == "pair" else builder + "_segmented")
     LAUNCHES[key] += 1

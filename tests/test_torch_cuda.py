@@ -26,6 +26,15 @@ weights, two seeded ingests against one pass), the unit table's bound;
 the segmented sweep and the effect store on the card against the CPU
 (1e-4), and the store's incremental ingest bitwise against one pass.
 
+The thin kernel (pair, qL 1–8 by qR 17, 128, 129 and 501) and the small
+kernel's pair form (both widths <= 16, U with itself too) over segments
+of rs - 1, rs and rs + 1 rows and n not a multiple of rs: unweighted,
+weighted and seeded against the CPU (1e-4), then bitwise a second run,
+appended seg = -1 and zero rows, an empty segment and two seeded ingests
+against one pass; residual_direct and residual_meat at B = 25 bitwise
+the 25 single launches; and a walk plans once per ids tensor (the small
+sweep: once per tensor and rows per unit, not once per walk).
+
 The large-tile template (every output wider than 8): each symmetric
 builder's Gram, the symmetric pair (one tensor with itself, split and
 seeded) and gram_and_vec's X block bitwise equal to their transposes
@@ -893,3 +902,164 @@ def test_big_tile_schedule_is_kernel_py_s(card):
         ti, tj = (ctypes.c_int * cap)(), (ctypes.c_int * cap)()
         lib.seg_gram_tile_schedule(qL, qR, int(sym), ti, tj, cap)
         assert list(zip(ti, tj)) == kern.tile_schedule(qL, qR, sym), (qL, qR)
+
+
+# ---------------------------------------------------------------------------
+# The thin and small kernels: every launch of the THIN and SMALL
+# configurations, against the CPU and bitwise against themselves.
+# ---------------------------------------------------------------------------
+
+def _walk_ids(rs, extra, S, seed):
+    """Segment ids of 3·rs + extra rows: segments 0, 1 and 2 hold rs - 1,
+    rs and rs + 1 rows, the extra rows go to segments 3 .. S-2 or to -1,
+    segment S - 1 is empty; in shuffled order."""
+    g = torch.Generator().manual_seed(seed)
+    rest = torch.randint(3, S - 1, (extra,), generator=g)
+    rest[torch.rand(extra, generator=g) < 0.05] = -1
+    ids = torch.cat([torch.full((rs - 1,), 0), torch.full((rs,), 1),
+                     torch.full((rs + 1,), 2), rest])
+    return ids[torch.randperm(ids.shape[0], generator=g)]
+
+
+def _walk_kernel_checks(card, qL, qR, sym=False, seed=0):
+    """pair at (qL, qR) over segments of rs - 1, rs and rs + 1 rows, n not
+    a multiple of rs: unweighted, weighted, seeded and both against the
+    CPU (1e-4); then bitwise a second run, appended seg = -1 rows and
+    zero rows, the empty segment, and two seeded ingests against one
+    pass."""
+    from repro_torch.kernels.seg_gram import kernel as kern
+
+    rs = int(kern.library().seg_gram_split_rows(qL, qR))
+    S = 7
+    seg = _walk_ids(rs, 3001, S, seed)
+    n = seg.shape[0]
+    g = torch.Generator().manual_seed(seed + 1)
+    U = torch.randn((n, qL), generator=g)
+    V = U if sym else torch.randn((n, qR), generator=g)
+    w = torch.rand(n, generator=g)
+    init = torch.randn((S, qL, qR), generator=g)
+    if sym:
+        init = init + init.transpose(1, 2)
+    Ud, segd, wd, initd = (x.to(card) for x in (U, seg, w, init))
+    Vd = Ud if sym else V.to(card)
+    for kw in (dict(), dict(w=wd), dict(init=initd), dict(w=wd, init=initd)):
+        got = ops.segment_outer(Ud, Vd, segd, S, **kw)
+        want = ops.segment_outer(U, V, seg, S, **{
+            k: v.cpu() for k, v in kw.items()})
+        assert got.shape == want.shape == (S, qL, qR)
+        np.testing.assert_allclose(
+            got.double().cpu().numpy(), want.double().numpy(), rtol=1e-4,
+            atol=1e-4 * float(want.abs().max()), err_msg=str(kw.keys()))
+    G = ops.segment_outer(Ud, Vd, segd, S, w=wd)
+    assert torch.equal(G, ops.segment_outer(Ud, Vd, segd, S, w=wd))
+    assert bool((G[S - 1] == 0).all())
+    pad = 3000
+
+    def padded(fill):
+        Up = torch.cat([Ud, fill((pad, qL))])
+        Vp = Up if sym else torch.cat([Vd, fill((pad, qR))])
+        return Up, Vp
+
+    Up, Vp = padded(lambda s: torch.randn(s, device=card))
+    segp = torch.cat([segd, torch.full((pad,), -1, device=card)])
+    wp = torch.cat([wd, torch.rand(pad, device=card)])
+    assert torch.equal(G, ops.segment_outer(Up, Vp, segp, S, w=wp))
+    Uz, Vz = padded(lambda s: torch.zeros(s, device=card))
+    segz = torch.cat([segd, torch.randint(0, S - 1, (pad,), device=card)])
+    wz = torch.cat([wd, torch.ones(pad, device=card)])
+    assert torch.equal(G, ops.segment_outer(Uz, Vz, segz, S, w=wz))
+    zero = torch.zeros((S, qL, qR), device=card)
+    one = ops.segment_outer(Ud, Vd, segd, S, w=wd, init=zero)
+    h = n // 3 + 17
+    first = ops.segment_outer(Ud[:h], Vd[:h], segd[:h], S, w=wd[:h],
+                              init=zero)
+    assert torch.equal(one, ops.segment_outer(Ud[h:], Vd[h:], segd[h:], S,
+                                              w=wd[h:], init=first))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qR", [17, 128, 129, 501])
+@pytest.mark.parametrize("qL", range(1, 9))
+def test_thin_kernel(card, qL, qR):
+    """The thin kernel (pair, qL <= 8): every qL against V narrower than
+    a warp's stripe, one stripe, one past it and the sweep's 501."""
+    from repro_torch.kernels.seg_gram import kernel as kern
+
+    assert kern.design_of(qL, qR) == "thin"
+    _walk_kernel_checks(card, qL, qR, seed=qL * 1000 + qR)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qL,qR,sym", [
+    (1, 1, False), (2, 2, True), (3, 3, False), (5, 5, True), (7, 13, False),
+    (16, 16, False), (16, 16, True)])
+def test_small_pair_kernel(card, qL, qR, sym):
+    """The small kernel's pair form (both widths <= 16), U with itself
+    too, up to 8 output elements a lane."""
+    from repro_torch.kernels.seg_gram import kernel as kern
+
+    assert kern.design_of(qL, qR) == "small"
+    _walk_kernel_checks(card, qL, qR, sym=sym, seed=qL * 100 + qR)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["residual_direct", "residual_meat"])
+def test_small_kernel_serial_equals_batched(card, form):
+    """The bootstrap's per-replicate final stage at B = 25: one batched
+    launch bitwise the 25 single ones, and against the CPU (1e-4)."""
+    n, R = 5000, 25
+    g = torch.Generator().manual_seed(5)
+    ry, rt = torch.randn((R, n), generator=g), torch.randn((R, n), generator=g)
+    phi = torch.cat([torch.ones((n, 1)), torch.randn((n, 1), generator=g)], 1)
+    w = torch.rand((R, n), generator=g)
+    theta = torch.randn((R, 2), generator=g)
+    zero = torch.zeros_like(ry)
+
+    def run(b, dev):
+        sel = (lambda x: x.to(dev)) if b is None else (lambda x: x[b].to(dev))
+        if form == "residual_direct":
+            return ops.residual_weighted_gram(sel(ry), sel(rt), phi.to(dev),
+                                              sel(w))[0]
+        return ops.residual_meat(sel(ry), sel(rt), sel(zero), sel(zero),
+                                 phi.to(dev), sel(theta), w=sel(w))
+
+    batched = run(None, card)
+    assert torch.equal(batched, torch.stack([run(b, card) for b in range(R)]))
+    _close(batched, run(None, "cpu"))
+
+
+@pytest.mark.cuda
+def test_walk_plans_once_per_id_tensor(card):
+    """A walk plans once per (id tensor, S, rows per unit): repeated walks
+    of one ids tensor plan once, another tensor or an in-place write plans
+    again; the segmented sweep plans each of its two id tensors once per
+    rows per unit, not once per walk (2·iters + 4 of them)."""
+    from repro_torch.config import CausalConfig
+    from repro_torch.kernels.seg_gram import kernel as kern
+    from repro_torch.sweep import SweepSpec, sweep
+
+    U, V, seg, _, _ = _pair_inputs(card, 5, 301, 7, 3001)
+    kern.clear_plan_cache()
+    kern.PLANS.clear()
+    first = ops.segment_outer(U, V, seg, 7)
+    for _ in range(3):
+        assert torch.equal(first, ops.segment_outer(U, V, seg, 7))
+    assert sum(kern.PLANS.values()) == 1
+    ops.segment_outer(U, V, seg.clone(), 7)
+    seg[0] = seg[0]
+    ops.segment_outer(U, V, seg, 7)
+    assert sum(kern.PLANS.values()) == 3
+    d, sids = _sweep_data()
+    cfg = CausalConfig(n_folds=3, inference="none", row_block=512,
+                       row_block_strategy="pallas", newton_iters=4)
+    kern.PLANS.clear()
+    kern.LAUNCHES.clear()
+    sweep(SweepSpec(4, (("dml", cfg),)), X=d.X, y=d.y, t=d.t,
+          segment_ids=sids, mode="segmented", device=card)
+    assert dict(kern.LAUNCHES) == {"design_segmented": 2, "pair": 2 * 8 + 2}
+    rows = kern.library().seg_gram_split_rows
+    q, E, k = d.p + 1, 4, 3
+    # sids: t1 (k x q) and the final stage; comb: t2 and fold_gram's two
+    want = {(E, rows(k, q)), (E, rows(2, 2)), (E * k, rows(1, q)),
+            (E * k, rows(q + 1, q + 1)), (E * k, rows(q, q))}
+    assert dict(kern.PLANS) == {key: 1 for key in want}

@@ -18,6 +18,10 @@ against the JAX package's.
   * inside torch, bitwise: a padded tail is a no-op, w=0 equals zeroed
     rows, an empty segment is exactly 0, power-of-two weights scale
     exactly, and a batch of one equals the same row of a batch of k;
+  * the segment walk's plan cache (``kernel.cached_walk_plan``): a hit
+    is the same plan, an in-place write to the ids or another S or rows
+    per unit plans again, dropped ids drop their plans, the cache is
+    bounded, and a cached plan is ``walk_plan``'s;
   * the large-tile template's tile schedule (``kernel.tile_schedule``,
     which csrc/seg_gram.cu mirrors) with the kernel's write rules: one
     triangle of a symmetric Gram and its mirror write every element
@@ -545,6 +549,112 @@ def test_walk_plan_covers_every_row_once(arrs, rows):
     got = _emulate_walk("pair", U, Y=V, seg=seg, n_segments=_S,
                         rows_per_unit=rows or 64)
     _close(got.numpy(), ops.segment_outer(U, V, seg, _S).numpy(), "walk")
+
+
+def _same_plan(a, b):
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _plan_seg(arrs):
+    return torch.from_numpy(arrs["seg"]).long().clone()
+
+
+def test_walk_plan_cache_hit_returns_the_same_plan(arrs):
+    """A second walk of the same ids tensor (same S, rows per unit)
+    reuses the plan: no sort, no new count in PLANS."""
+    from repro_torch.kernels.seg_gram import kernel as kern
+
+    kern.clear_plan_cache()
+    seg = _plan_seg(arrs)
+    before = kern.PLANS[(_S, 64)]
+    plan = kern.cached_walk_plan(seg, _S, 64)
+    assert kern.cached_walk_plan(seg, _S, 64) is plan
+    assert kern.PLANS[(_S, 64)] == before + 1
+
+
+def test_walk_plan_cache_replans_after_an_in_place_write(arrs):
+    """An in-place write to the ids bumps their version: the next walk
+    plans again, and its plan is the new ids' plan."""
+    from repro_torch.kernels.seg_gram import kernel as kern
+
+    seg = _plan_seg(arrs)
+    plan = kern.cached_walk_plan(seg, _S, 64)
+    seg[0] = (seg[0] + 1) % _S
+    again = kern.cached_walk_plan(seg, _S, 64)
+    assert again is not plan
+    assert _same_plan(again, kern.walk_plan(seg, _S, 64))
+    assert not _same_plan(again, plan)
+
+
+@pytest.mark.parametrize("S,rows", [(_S + 1, 64), (_S, 128), (_S, None)])
+def test_walk_plan_cache_keys_on_segments_and_rows(arrs, S, rows):
+    """Another S or another rows per unit (None: unsplit, the seeded
+    walk) is another plan."""
+    from repro_torch.kernels.seg_gram import kernel as kern
+
+    seg = _plan_seg(arrs)
+    plan = kern.cached_walk_plan(seg, _S, 64)
+    other = kern.cached_walk_plan(seg, S, rows)
+    assert other is not plan
+    assert _same_plan(other, kern.walk_plan(seg, S, rows))
+    assert kern.cached_walk_plan(seg, _S, 64) is plan
+
+
+def test_walk_plan_cache_drops_a_dropped_seg(arrs):
+    """The cache holds ids tensors by weak reference: dropping the ids
+    drops their plans."""
+    import gc
+
+    from repro_torch.kernels.seg_gram import kernel as kern
+
+    kern.clear_plan_cache()
+    seg = _plan_seg(arrs)
+    kern.cached_walk_plan(seg, _S, 64)
+    kern.cached_walk_plan(seg, _S, None)
+    assert len(kern._PLAN_CACHE) == 2
+    del seg
+    gc.collect()
+    assert len(kern._PLAN_CACHE) == 0
+
+
+def test_walk_plan_cache_is_bounded(arrs):
+    """At most PLAN_CACHE_SIZE plans are kept; the least recently used
+    goes first."""
+    from repro_torch.kernels.seg_gram import kernel as kern
+
+    kern.clear_plan_cache()
+    segs = [_plan_seg(arrs) for _ in range(kern.PLAN_CACHE_SIZE + 2)]
+    plans = [kern.cached_walk_plan(s, _S, 64) for s in segs]
+    assert len(kern._PLAN_CACHE) == kern.PLAN_CACHE_SIZE
+    assert kern.cached_walk_plan(segs[-1], _S, 64) is plans[-1]
+    assert kern.cached_walk_plan(segs[0], _S, 64) is not plans[0]
+
+
+@pytest.mark.parametrize("rows", [None, 1, 64, 5000])
+def test_cached_walk_plan_equals_uncached(arrs, rows):
+    """A cached plan, on its first use and on a hit, is the plan
+    ``walk_plan`` makes."""
+    from repro_torch.kernels.seg_gram import kernel as kern
+
+    seg = _plan_seg(arrs)
+    want = kern.walk_plan(seg, _S, rows)
+    assert _same_plan(kern.cached_walk_plan(seg, _S, rows), want)
+    assert _same_plan(kern.cached_walk_plan(seg, _S, rows), want)
+
+
+def test_stage_restores_the_launch_parts():
+    """``kernel.stage`` picks the part a launch runs for timing and puts
+    back both parts on leaving, also on an error."""
+    from repro_torch.kernels.seg_gram import kernel as kern
+
+    assert kern._parts == 3
+    with kern.stage("main"):
+        assert kern._parts == 1
+    with pytest.raises(RuntimeError):
+        with kern.stage("reduce"):
+            assert kern._parts == 2
+            raise RuntimeError("in a timed call")
+    assert kern._parts == 3
 
 
 def _tile_writes(qL, qR, sym, tile):
