@@ -53,11 +53,14 @@ Phases (each failure makes the script exit non-zero):
      strided (B, T, H, D) views, fp32 w and u, all random), an fp32 case
      and T = 200 (the chunk halved to 8); SSD at zamba2-1.2b's batch
      (256 users x 64 heads x 256 x 64, fp32, strided v and a) and
-     T = 200; kernel / plain times and the bound (bytes over 3.35 TB/s,
-     or the causal-triangle FLOP over 67 TFLOP/s fp32, the larger);
+     T = 200; the main-path shapes must run the tiled form, and it must
+     equal the generic form byte for byte there; kernel / generic /
+     plain times and the bound (bytes over 3.35 TB/s, or the
+     causal-triangle FLOP over 67 TFLOP/s fp32, the larger);
  10. the same backbone path as 7 for rwkv6-3b (32 layers, d 2560, GLA
      1,024 launches) and zamba2-1.2b (38 mamba layers + the shared
-     attention block 7 times: SSD 1,216, flash 224), each model freed
+     attention block 7 times: SSD 1,216, flash 224), every scan launch
+     on the tiled form (``LAUNCHES`` by form), each model freed
      before the next, the features gate through the plain scans (gated
      end to end for granite and rwkv6: see FEAT_GATED), and on all three
      a per-block gate — every block applied to the kernel run's own
@@ -131,6 +134,7 @@ no result.
 from __future__ import annotations
 
 import argparse
+import collections
 import dataclasses
 import json
 import subprocess
@@ -1535,11 +1539,13 @@ def phase_flash(seed: int, timer) -> dict:
     return records
 
 
-def _scan_record(name, tpu, path, ms, plain_ms, nbytes, flops):
-    """A kernel record of the scan phase (launches filled in later)."""
+def _scan_record(name, tpu, path, ms, plain_ms, generic_ms, nbytes, flops):
+    """A kernel record of the scan phase (launches filled in later);
+    ``generic_ms`` the generic form's time on the same inputs."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOP_PER_S * 1e3
-    log(f"kernel {name} [{path['what']}] ms={ms:.4f} plain_ms={plain_ms:.4f} "
+    log(f"kernel {name} [{path['what']}, form {path['form']}] ms={ms:.4f} "
+        f"generic_ms={generic_ms:.4f} plain_ms={plain_ms:.4f} "
         f"library_ms=null (no single PyTorch call) "
         f"bound_ms={max(t_bytes, t_ops):.4f} "
         f"({'bytes' if t_bytes >= t_ops else 'operations'}: "
@@ -1549,7 +1555,8 @@ def _scan_record(name, tpu, path, ms, plain_ms, nbytes, flops):
             "launches": None, "max_abs_err": path["max_abs_err"], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None,
+            "library_ms": None, "form": path["form"],
+            "generic_ms": generic_ms,
             "err_kernel_vs_fp64": path["err_kernel_vs_fp64"],
             "err_plain_vs_fp64": path["err_plain_vs_fp64"],
             "shape": path["shape"]}
@@ -1557,8 +1564,14 @@ def _scan_record(name, tpu, path, ms, plain_ms, nbytes, flops):
 
 def _scan_check(kernel_fn, plain_fn, exact_fn, args, tol, what, batch=32):
     """Kernel vs plain (both outputs) and both vs the fp64 naive oracle
-    on the first ``batch`` rows; raises beyond ``tol``."""
+    on the first ``batch`` rows; raises beyond ``tol``.  ``form`` in the
+    result: the form the kernel call launched (``LAUNCHES`` by form)."""
+    from repro_torch.kernels.ssm_scan import kernel as sk
+
+    before = collections.Counter(sk.LAUNCHES)
     got = kernel_fn(*args)
+    ran = [k.split(":")[1] for k, n in sk.LAUNCHES.items()
+           if ":" in k and n > before[k]]
     plain = plain_fn(*args)
     torch.cuda.synchronize()
     kp = max(rel(g, p) for g, p in zip(got, plain))
@@ -1571,14 +1584,28 @@ def _scan_check(kernel_fn, plain_fn, exact_fn, args, tol, what, batch=32):
     del exact
     finite = all(bool(torch.isfinite(g).all()) for g in got)
     ok = kp <= tol and finite
-    log(f"kernel {what}: o {tuple(got[0].shape)} {str(got[0].dtype)[6:]} "
+    log(f"kernel {what}: form {'+'.join(ran)}, o {tuple(got[0].shape)} "
+        f"{str(got[0].dtype)[6:]} "
         f"err/max kernel-vs-fp64={err_k:.3e} plain-vs-fp64={err_p:.3e} "
         f"kernel-vs-plain={kp:.3e} (tol {tol:g}) {'OK' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"scan kernel disagrees with its plain version "
                              f"[{what}]: {kp:.3e} > {tol:g}")
     return {"what": what, "shape": list(got[0].shape), "max_abs_err": max_abs,
-            "err_kernel_vs_fp64": err_k, "err_plain_vs_fp64": err_p}
+            "err_kernel_vs_fp64": err_k, "err_plain_vs_fp64": err_p,
+            "form": "+".join(ran)}
+
+
+def _scan_forms(path, tiled_fn, generic_fn, what):
+    """The main-path call must have run the tiled form, and the tiled and
+    generic forms must agree byte for byte on its inputs."""
+    if path["form"] != "tiled":
+        raise AssertionError(f"{what}: the main-path shape ran the "
+                             f"{path['form'] or 'no'} form, not tiled")
+    same = all(torch.equal(a, b) for a, b in zip(tiled_fn(), generic_fn()))
+    log(f"kernel {what}: tiled == generic bitwise {same}")
+    if not same:
+        raise AssertionError(f"{what}: the tiled and generic forms differ")
 
 
 def phase_scans(seed: int, timer) -> dict:
@@ -1620,7 +1647,12 @@ def phase_scans(seed: int, timer) -> dict:
                            naive64, args, SCAN_TOL[bf16],
                            f"gla {mode}, rwkv6 (B,T,H,D) views, bf16 r/k/v")
         path["what"] = f"{mode}, rwkv6 batch"
+        _scan_forms(path, lambda: sk.gla_cuda(*args, chunk=C),
+                    lambda: sk.gla_cuda(*args, chunk=C, form="generic"),
+                    f"gla {mode}, rwkv6 batch")
         ms = timer.ms(lambda: sk.gla_cuda(*args, chunk=C), 10)
+        generic_ms = timer.ms(
+            lambda: sk.gla_cuda(*args, chunk=C, form="generic"), 10)
         plain_ms = timer.ms(lambda: sref.gla_chunked_ref(*args, chunk=C), 3)
         n = B * H * T
         nbytes = (3 * 2 * n * D + 4 * n * D + 2 * n * D      # r,k,v,w; o
@@ -1630,7 +1662,7 @@ def phase_scans(seed: int, timer) -> dict:
         flops = (B * H * (T // C)
                  * (2 * tri * D * 2 + 2 * C * D * D * 2))    # QK,PV; qS,kv
         out[f"gla[{mode}]"] = _scan_record(f"gla[{mode}]", GLA_TPU, path, ms,
-                                           plain_ms, nbytes, flops)
+                                           plain_ms, generic_ms, nbytes, flops)
         out[f"gla[{mode}]"]["other_checks"] = checks
         del q, k, v, w, u, args
         torch.cuda.empty_cache()
@@ -1664,7 +1696,12 @@ def phase_scans(seed: int, timer) -> dict:
                        args, SCAN_TOL[f32],
                        "ssd, zamba2 (B,T,H,P) views, fp32")
     path["what"] = "zamba2 batch"
+    _scan_forms(path, lambda: sk.ssd_cuda(*args, chunk=C),
+                lambda: sk.ssd_cuda(*args, chunk=C, form="generic"),
+                "ssd, zamba2 batch")
     ms = timer.ms(lambda: sk.ssd_cuda(*args, chunk=C), 10)
+    generic_ms = timer.ms(lambda: sk.ssd_cuda(*args, chunk=C, form="generic"),
+                          10)
     plain_ms = timer.ms(lambda: sref.ssd_chunked_ref(*args, chunk=C), 3)
     n = B * H * T
     nbytes = (2 * 4 * B * T * N + 4 * n * N + 4 * n          # q,k; v; a
@@ -1672,8 +1709,8 @@ def phase_scans(seed: int, timer) -> dict:
     tri = C * (C + 1) // 2
     flops = (B * (T // C) * 2 * tri * N                      # shared q k^T
              + B * H * (T // C) * (2 * tri * N + 2 * 2 * C * N * N))
-    out["ssd"] = _scan_record("ssd", SSD_TPU, path, ms, plain_ms, nbytes,
-                              flops)
+    out["ssd"] = _scan_record("ssd", SSD_TPU, path, ms, plain_ms, generic_ms,
+                              nbytes, flops)
     del args
     torch.cuda.empty_cache()
     args = ssd_in(4, 8, 200, N, N)                           # chunk 32 -> 8
@@ -1730,12 +1767,13 @@ def _block_errors(model, tokens) -> dict:
 def _backbone_launches(cfg, newton_iters: int) -> dict:
     """Launches one backbone path must count: the model's kernels per
     batch (flash per dense layer or per shared-block use, GLA per rwkv6
-    layer, SSD per mamba layer) and the DML heads' seg_gram forms."""
+    layer, SSD per mamba layer, each scan on its tiled form) and the DML
+    heads' seg_gram forms."""
     batches = -(-BACKBONE_USERS // BACKBONE_BATCH)
-    if cfg.family == "ssm":
-        per_batch = {"gla": cfg.num_layers}
+    if cfg.family == "ssm":              # every scan on the tiled form
+        per_batch = {"gla": cfg.num_layers, "gla:tiled": cfg.num_layers}
     elif cfg.family == "hybrid":         # one shared block after each group
-        per_batch = {"ssd": cfg.num_layers,
+        per_batch = {"ssd": cfg.num_layers, "ssd:tiled": cfg.num_layers,
                      "flash_attention": -(-cfg.num_layers
                                           // cfg.shared_attn_every)}
     else:
@@ -2020,6 +2058,7 @@ def main(argv=None) -> int:
     records.update(run("kernels:scan", phase_scans, args.seed, timer) or {})
     torch.cuda.empty_cache()
     flash_by_path = {}
+    scan_forms = {}     # scan record key -> {form: launches}
     for arch in BACKBONE_ARCHS:
         out = run(f"backbone:{arch}", phase_backbone, args.seed, arch)
         torch.cuda.empty_cache()
@@ -2032,6 +2071,9 @@ def main(argv=None) -> int:
         launches["gla[bonus]"] = launches.get("gla[bonus]", 0) + counts.get(
             "gla", 0)
         launches["ssd"] = launches.get("ssd", 0) + counts.get("ssd", 0)
+        for key, scan in (("gla[bonus]", "gla:"), ("ssd", "ssd:")):
+            scan_forms.setdefault(key, collections.Counter()).update(
+                {f: n for f, n in counts.items() if f.startswith(scan)})
         q = f"@q{X.shape[1] + 1}"
         if arch != "zamba2-1.2b":        # q = 2049 again: granite's heads
             for key in ("design", "gram_and_vec"):
@@ -2051,6 +2093,9 @@ def main(argv=None) -> int:
             rec["launches_by_path"] = by_path[key]
     if "flash_attention" in records:
         records["flash_attention"]["launches_by_path"] = flash_by_path
+    for key, forms in scan_forms.items():
+        if key in records:
+            records[key]["launches_by_form"] = dict(forms)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     line = {"kernels": list(records.values()), "n": args.n, "p": p,
             "k": k, "row_block": row_block, "users": BACKBONE_USERS,

@@ -64,7 +64,12 @@ chunked versions: bf16 and fp32, strided (B, T, H, D) views as the
 models pass them, ragged T (the chunk halved), the strong-decay clamp,
 the refusals; and small rwkv6 / zamba2 features through the kernels
 against the same model through the plain versions, with the launches
-counted (one scan per layer).  Tolerances as above.
+counted (one scan per layer).  Tolerances as above.  The scans' two
+forms (kernel.py): the tiled form at head size 64 and chunks 1–32
+byte for byte the generic form, both within those tolerances of plain
+and of the fp64 oracle; the generic form at Dk != Dv, N = 8 and D = 128;
+which form each shape takes; batch and head slices and a second run
+bitwise; the plans' shared memory equal to the library's.
 """
 import numpy as np
 import pytest
@@ -312,6 +317,15 @@ _GLA_CASES = [
     (2, 4, 256, 64, 64, 16, "bfloat16", False, True),
     (1, 3, 96, 64, 64, 16, "float32", True, False),
     (2, 2, 48, 32, 16, 32, "float32", False, False),   # ops halves to 16
+    # the tiled forms at the main-path head size, chunks 16 and 32
+    (2, 4, 256, 64, 64, 32, "bfloat16", True, True),
+    (2, 4, 256, 64, 64, 32, "bfloat16", False, True),
+    (2, 3, 128, 64, 64, 16, "float32", True, True),
+    (2, 3, 128, 64, 64, 16, "float32", False, True),
+    (2, 3, 128, 64, 64, 32, "float32", True, False),
+    (2, 3, 128, 64, 64, 32, "float32", False, False),
+    (2, 4, 200, 64, 64, 16, "bfloat16", True, True),   # ragged: 16 -> 8
+    (1, 2, 64, 128, 128, 16, "float32", True, True),   # generic, D = 128
 ]
 
 
@@ -361,7 +375,7 @@ def test_gla_kernel_matches_plain(card, case):
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,H,T,N,P,chunk,strided", [
     (2, 8, 256, 64, 64, 32, True), (1, 3, 96, 8, 64, 32, False),
-    (2, 2, 48, 16, 32, 32, True)])
+    (2, 2, 48, 16, 32, 32, True), (1, 2, 64, 128, 128, 32, True)])
 def test_ssd_kernel_matches_plain(card, B, H, T, N, P, chunk, strided):
     from repro_torch.kernels.ssm_scan import kernel as sk
     from repro_torch.kernels.ssm_scan import ops as sops
@@ -407,10 +421,202 @@ def test_scan_kernels_refuse_what_they_do_not_take(card):
     with pytest.raises(ValueError, match="shared memory"):
         big = torch.zeros((1, 1, 64, 256), device=card)
         sk.gla_cuda(big, big, big, big, None, chunk=64)
+    # the tiled form takes head size 64 only, and aligned rows
+    q32, k32, v32, w32, u32 = _gla_case(card, 1, 2, 64, 32, 32, "bfloat16",
+                                        False)
+    with pytest.raises(ValueError, match="does not take"):
+        sk.gla_cuda(q32, k32, v32, w32, u32, chunk=16, form="tiled")
+    with pytest.raises(ValueError, match="forms are"):
+        sk.gla_cuda(q, k, v, w, u, chunk=16, form="fast")
+    qo, ko, vo, wo, uo = _gla_case(card, 1, 2, 64, 65, 65, "float32", False)
+    with pytest.raises(ValueError, match="does not take"):
+        sk.gla_cuda(qo[..., 1:], ko[..., 1:], vo[..., 1:], wo[..., 1:],
+                    uo[:, 1:], chunk=16, form="tiled")
+    q64, k64, v64, a64 = _ssd_case(card, 1, 2, 64, 64, 64)
+    with pytest.raises(ValueError, match="does not take"):
+        sk.ssd_cuda(q64, k64, v64, a64, chunk=64, form="tiled")
     qs = torch.zeros((1, 64, 8), device=card)
     with pytest.raises(TypeError):
         sk.ssd_cuda(qs, qs, torch.zeros((1, 2, 64, 8), device=card).bfloat16(),
                     torch.ones((1, 2, 64), device=card), chunk=32)
+
+
+def _ssd_case(dev, B, H, T, N, P, strided=True, seed=1):
+    rng = np.random.default_rng(seed)
+    f = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(s).astype(np.float32)).to(dev)
+    q, k = f(B, T, N), f(B, T, N)
+    if strided:
+        v = f(B, T, H, P).transpose(1, 2)
+        a = torch.from_numpy(rng.uniform(1e-3, 1, (B, T, H)).astype(
+            np.float32)).to(dev).transpose(1, 2)
+    else:
+        v = f(B, H, T, P)
+        a = torch.from_numpy(rng.uniform(1e-3, 1, (B, H, T)).astype(
+            np.float32)).to(dev)
+    return q, k, v, a
+
+
+def _rel(got, want):
+    got, want = got.double().cpu(), want.double().cpu()
+    return float((got - want).abs().max() / want.abs().max())
+
+
+# The two forms of each scan (kernel.py): the tiled form at head size 64
+# and chunks 1..32, the generic form elsewhere.  Tiled and generic agree
+# byte for byte (the source note says why); both within the tolerances
+# above of plain and of the fp64 naive oracle.
+_TILED_GLA = [
+    # B, H, T, chunk asked, dtype, bonus
+    (2, 4, 256, 16, "bfloat16", True), (2, 4, 256, 16, "bfloat16", False),
+    (2, 4, 256, 32, "bfloat16", True), (2, 4, 256, 32, "float32", False),
+    (2, 3, 200, 16, "float32", True),                 # 16 -> 8
+    (2, 3, 40, 8, "bfloat16", True), (2, 3, 12, 4, "float32", False),
+    (2, 3, 6, 2, "bfloat16", False), (2, 3, 5, 1, "float32", True),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", _TILED_GLA)
+def test_gla_tiled_form(card, case):
+    from repro_torch.kernels.ssm_scan import kernel as sk
+    from repro_torch.kernels.ssm_scan import ops as sops
+    from repro_torch.kernels.ssm_scan import ref as sref
+
+    B, H, T, chunk, dtype, bonus = case
+    q, k, v, w, u = _gla_case(card, B, H, T, 64, 64, dtype, True)
+    uu = u if bonus else None
+    fit = sops._fit_chunk(chunk, T)
+    n0 = sk.LAUNCHES["gla:tiled"]
+    got = sops.gla(q, k, v, w, uu, chunk=chunk)
+    assert sk.LAUNCHES["gla:tiled"] == n0 + 1
+    gen = sk.gla_cuda(q, k, v, w, uu, chunk=fit, form="generic")
+    torch.cuda.synchronize()
+    for x, y in zip(got, gen):
+        assert torch.equal(x, y)
+    tol = 8e-3 if dtype == "bfloat16" else 1e-5
+    plain = sref.gla_chunked_ref(q, k, v, w, uu, chunk=fit)
+    exact = sref.gla_naive(*(None if x is None else x.double()
+                             for x in (q, k, v, w, uu)))
+    for x, p, e, t in zip(got, plain, exact, (tol, 1e-5)):
+        assert _rel(x, p) <= t and _rel(x, e) <= t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,T,chunk", [
+    (2, 8, 256, 32), (2, 3, 256, 32), (2, 4, 200, 32), (2, 2, 48, 16),
+    (1, 2, 40, 8), (2, 3, 12, 4), (1, 2, 6, 2), (2, 1, 5, 1)])
+def test_ssd_tiled_form(card, B, H, T, chunk):
+    from repro_torch.kernels.ssm_scan import kernel as sk
+    from repro_torch.kernels.ssm_scan import ops as sops
+    from repro_torch.kernels.ssm_scan import ref as sref
+
+    q, k, v, a = _ssd_case(card, B, H, T, 64, 64)
+    fit = sops._fit_chunk(chunk, T)
+    n0 = sk.LAUNCHES["ssd:tiled"]
+    got = sops.ssd(q, k, v, a, chunk=chunk)
+    assert sk.LAUNCHES["ssd:tiled"] == n0 + 1
+    assert sk.ssd_plan(B, H, T, 64, 64, fit).group == (2 if H % 2 == 0 else 1)
+    gen = sk.ssd_cuda(q, k, v, a, chunk=fit, form="generic")
+    torch.cuda.synchronize()
+    for x, y in zip(got, gen):
+        assert torch.equal(x, y)
+    plain = sref.ssd_chunked_ref(q, k, v, a, chunk=fit)
+    exact = sref.ssd_naive(*(x.double() for x in (q, k, v, a)))
+    for x, p, e in zip(got, plain, exact):
+        assert _rel(x, p) <= 1e-5 and _rel(x, e) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_scan_route_by_shape(card):
+    """Which form each shape takes, as LAUNCHES counts it: the tiled form
+    at head size 64 with 16-byte aligned rows, the generic form at
+    Dk != Dv, N = 8, D = 128, a chunk of 64 and rows off the 16-byte grid."""
+    from repro_torch.kernels.ssm_scan import kernel as sk
+    from repro_torch.kernels.ssm_scan import ops as sops
+
+    def route(fn):
+        before = dict(sk.LAUNCHES)
+        fn()
+        torch.cuda.synchronize()
+        return sorted(k for k, n in sk.LAUNCHES.items()
+                      if ":" in k and n > before.get(k, 0))
+
+    q, k, v, w, u = _gla_case(card, 1, 2, 64, 64, 64, "bfloat16", True)
+    assert route(lambda: sops.gla(q, k, v, w, u, chunk=16)) == ["gla:tiled"]
+    assert route(lambda: sk.gla_cuda(q, k, v, w, u, chunk=64)) == [
+        "gla:generic"]
+    for Dk, Dv in ((64, 32), (128, 128), (8, 8)):
+        q, k, v, w, u = _gla_case(card, 1, 2, 64, Dk, Dv, "float32", True)
+        assert route(lambda: sops.gla(q, k, v, w, u, chunk=16)) == [
+            "gla:generic"]
+    # a view whose rows start 4 bytes off the 16-byte grid
+    q, k, v, w, u = _gla_case(card, 1, 2, 64, 65, 64, "float32", False)
+    q1, k1, w1 = (x[..., 1:] for x in (q, k, w))
+    assert route(lambda: sops.gla(q1, k1, v, w1, u[:, 1:], chunk=16)) == [
+        "gla:generic"]
+    qs, ks, vs, a = _ssd_case(card, 1, 2, 64, 64, 64)
+    assert route(lambda: sops.ssd(qs, ks, vs, a, chunk=32)) == ["ssd:tiled"]
+    for N, P in ((8, 64), (128, 128)):
+        qs, ks, vs, a = _ssd_case(card, 1, 2, 64, N, P)
+        assert route(lambda: sops.ssd(qs, ks, vs, a, chunk=32)) == [
+            "ssd:generic"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scan", ["gla-bonus", "gla-post", "ssd"])
+def test_tiled_scan_is_batch_invariant_and_deterministic(card, scan):
+    """The tiled form on a slice of the batch and the heads equals the same
+    slice of the run on the whole (torch.equal on o and the state), and
+    a second run gives the same bytes."""
+    from repro_torch.kernels.ssm_scan import ops as sops
+
+    hs = slice(2, 6)
+    if scan == "ssd":       # heads 1..4: other pairs than the whole's
+        hs = slice(1, 5)
+        q, k, v, a = _ssd_case(card, 4, 6, 128, 64, 64)
+        whole = sops.ssd(q, k, v, a, chunk=32)
+        again = sops.ssd(q, k, v, a, chunk=32)
+        part = sops.ssd(q[1:3], k[1:3], v[1:3, hs], a[1:3, hs], chunk=32)
+    else:
+        q, k, v, w, u = _gla_case(card, 4, 6, 128, 64, 64, "bfloat16", True)
+        uu = u if scan == "gla-bonus" else None
+
+        def run(b, h):
+            return sops.gla(q[b, h], k[b, h], v[b, h], w[b, h],
+                            None if uu is None else uu[h], chunk=16)
+        whole = run(slice(None), slice(None))
+        again = run(slice(None), slice(None))
+        part = run(slice(1, 3), hs)
+    torch.cuda.synchronize()
+    for x, y, z in zip(whole, again, part):
+        assert torch.equal(x, y)
+        assert torch.equal(x[1:3, hs], z)
+
+
+@pytest.mark.cuda
+def test_scan_plan_shared_memory_is_the_library_s(card):
+    """kernel.py's plans (which the CPU tests check) count the shared
+    memory the library asks for, and SMEM_MAX is the library's."""
+    from repro_torch.kernels.ssm_scan import kernel as sk
+
+    lib = sk.library()
+    assert lib.ssm_smem_max() == sk.SMEM_MAX
+    for C in sk.TILED_CHUNKS:
+        for item, dt in ((4, 0), (2, 1)):
+            for bonus in (0, 1):
+                for form in ("tiled", "generic"):
+                    p = sk.gla_plan(1, 2, 64, 64, 64, C, item, bool(bonus),
+                                    form=form)
+                    assert lib.ssm_gla_smem_bytes(sk.FORMS[form], dt, bonus,
+                                                  C, 64, 64) == p.smem
+        for H in (2, 3):
+            p = sk.ssd_plan(1, H, 64, 64, 64, C)
+            assert lib.ssm_ssd_smem_bytes(1, p.group, C, 64, 64) == p.smem
+    assert lib.ssm_gla_smem_bytes(1, 1, 1, 16, 32, 32) == -1
+    assert lib.ssm_ssd_smem_bytes(1, 2, 64, 64, 64) == -1
+    assert lib.ssm_ssd_smem_bytes(0, 1, 32, 8, 64) == sk.ssd_plan(
+        1, 2, 64, 8, 64, 32).smem
 
 
 @pytest.mark.cuda

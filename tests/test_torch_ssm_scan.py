@@ -15,6 +15,12 @@ halving of ``ops`` on a ragged T, bf16 inputs, the initial state, the
 single-token steps, and the wrappers' refusals off the card.  Inputs are
 drawn by numpy from a seed.
 
+The wrappers' launch plan (``kernel.gla_plan`` / ``kernel.ssd_plan``,
+plain Python, so it runs here): the form, grid, block, head group and
+shared memory chosen for rwkv6-3b's and zamba2-1.2b's scans, their smoke
+configs and the chunks a ragged T halves to, every plan within a block's
+232,448 bytes, and a clear ``ValueError`` for a shape no form takes.
+
 Tolerance: 1e-5 relative with atol 1e-5·max|x| on fp32 outputs and
 states (fp32 sums in another order); the float64 naive oracle is held
 to the same bound.  bf16 inputs: o is rounded to bf16 by both, 8e-3·max
@@ -223,3 +229,96 @@ def test_wrappers_refuse_off_the_card():
     meta = torch.empty((1, 1, 16, 8), device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
         ops.gla(meta, meta, meta, meta)
+
+
+def _scan_shape(arch):
+    """(family, heads, head dim, state width, chunk, itemsize) of the
+    scan that ``arch``'s recurrent layers run."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import rwkv, ssm
+
+    cfg = get_config(arch)
+    item = torch.empty((), dtype=cfg.compute_dtype).element_size()
+    if cfg.family == "ssm":
+        h, hd = rwkv._heads(cfg)
+        return "gla", h, hd, hd, cfg.ssm_chunk, item
+    _, h, hd = ssm._dims(cfg)
+    return "ssd", h, hd, cfg.ssm_state, max(cfg.ssm_chunk, 32), 4
+
+
+# arch, T, (form, chunk, grid, threads, group, shared-memory bytes) at
+# B = 256; T = 200 halves the chunk to 8
+_PLANS = [
+    ("rwkv6-3b", 256, ("tiled", 16, 256 * 40, 128, 1, 52480)),
+    ("rwkv6-3b", 200, ("tiled", 8, 256 * 40, 128, 1, 34304)),
+    ("rwkv6-3b-smoke", 256, ("tiled", 16, 256, 128, 1, 58624)),
+    ("zamba2-1.2b", 256, ("tiled", 32, 256 * 32, 256, 2, 108608)),
+    ("zamba2-1.2b", 200, ("tiled", 8, 256 * 32, 256, 2, 50240)),
+    ("zamba2-1.2b-smoke", 256, ("generic", 32, 256 * 2, 256, 1, 17024)),
+]
+
+
+@pytest.mark.parametrize("arch,T,want", _PLANS)
+def test_launch_plan_of_each_backbone(arch, T, want):
+    scan, H, hd, n, chunk, item = _scan_shape(arch)
+    chunk = ops._fit_chunk(chunk, T)
+    if scan == "gla":
+        plan = kernel.gla_plan(256, H, T, hd, hd, chunk, item, True)
+        assert plan == kernel.gla_plan(256, H, T, hd, hd, chunk, item, True,
+                                       aligned=True, form=None)
+    else:
+        plan = kernel.ssd_plan(256, H, T, n, hd, chunk)
+    assert (plan.form, plan.chunk, plan.grid, plan.threads, plan.group,
+            plan.smem) == want
+    assert plan.key == f"{scan}:{plan.form}"
+    assert plan.smem <= kernel.SMEM_MAX == 232448
+
+
+@pytest.mark.parametrize("chunk", [1, 2, 4, 8, 16, 32])
+@pytest.mark.parametrize("itemsize,bonus", [(2, True), (2, False),
+                                            (4, True), (4, False)])
+def test_every_tiled_chunk_fits(chunk, itemsize, bonus):
+    """Every chunk the tiled forms take, in every dtype and mode, and the
+    SSD at G = 1 and 2, fits a block; the generic form takes the same
+    shape when asked or when the rows are not 16-byte aligned."""
+    g = kernel.gla_plan(2, 3, 64, 64, 64, chunk, itemsize, bonus)
+    assert (g.form, g.threads, g.grid) == ("tiled", 128, 6)
+    assert g.smem <= kernel.SMEM_MAX
+    gen = kernel.gla_plan(2, 3, 64, 64, 64, chunk, itemsize, bonus,
+                          form="generic")
+    assert (gen.form, gen.threads) == ("generic", 256)
+    assert kernel.gla_plan(2, 3, 64, 64, 64, chunk, itemsize, bonus,
+                           aligned=False) == gen
+    for H, G in ((3, 1), (4, 2)):
+        s = kernel.ssd_plan(2, H, 64, 64, 64, chunk)
+        assert (s.form, s.group, s.threads, s.grid) == ("tiled", G, 128 * G,
+                                                         2 * H // G)
+        assert s.smem <= kernel.SMEM_MAX
+
+
+def test_generic_form_takes_the_other_shapes():
+    for Dk, Dv, chunk in ((64, 32, 16), (128, 128, 16), (8, 8, 8),
+                          (64, 64, 64), (64, 64, 48)):
+        p = kernel.gla_plan(1, 2, 192, Dk, Dv, chunk, 4, False)
+        assert p.form == "generic" and p.smem <= kernel.SMEM_MAX
+    for N, P in ((8, 64), (16, 32), (64, 128)):
+        p = kernel.ssd_plan(1, 2, 64, N, P, 32)
+        assert (p.form, p.group) == ("generic", 1)
+
+
+def test_plans_refuse_what_no_form_takes():
+    with pytest.raises(ValueError, match="shared memory"):
+        kernel.gla_plan(1, 1, 64, 256, 256, 64, 4, False)
+    with pytest.raises(ValueError, match="shared memory"):
+        kernel.ssd_plan(1, 1, 128, 256, 256, 128)
+    with pytest.raises(ValueError, match="does not take"):
+        kernel.gla_plan(1, 1, 64, 32, 32, 16, 2, True, form="tiled")
+    with pytest.raises(ValueError, match="does not take"):
+        kernel.ssd_plan(1, 2, 64, 64, 64, 64, form="tiled")
+    with pytest.raises(ValueError, match="does not take"):
+        kernel.gla_plan(1, 1, 64, 64, 64, 16, 2, True, aligned=False,
+                        form="tiled")
+    with pytest.raises(ValueError, match="multiple"):
+        kernel.gla_plan(1, 1, 48, 64, 64, 32, 2, True)
+    with pytest.raises(ValueError, match="forms are"):
+        kernel.ssd_plan(1, 2, 64, 64, 64, 32, form="fast")

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""The seg_gram and flash-attention kernels of two checkouts on one
-card, in turns, with a SHA-256 of every output.
+"""The seg_gram, flash-attention and scan kernels of two checkouts on
+one card, in turns, with a SHA-256 of every output.
 
     python3 tools/ab_seg_gram.py PARENT_TREE [CHANGE_TREE] [--pairs 1]
-                                 [--forms all|thin-small|big]
+                                 [--forms all|thin-small|big|scans]
 
 Each tree is the root of a checkout (``git archive`` of a commit,
 unpacked into a directory ``.gitignore`` lists; CHANGE_TREE defaults to
@@ -35,7 +35,16 @@ runs after a warm-up; 10 for the small forms and flash):
     seeded walks (e) ng (503 wide) and (f) vg (1006 wide) of a day of
     2^18 rows into 320 cells, seeded with the tree's own Grams of a first
     day, and flash attention at the backbone's shape (q (256, 256, 32,
-    64), k/v 8 heads, bf16, causal).
+    64), k/v 8 heads, bf16, causal);
+  * ``scans``: the GLA scan in bonus and post mode at rwkv6-3b's
+    main-path shape (B 256 × H 40 × T 256 × 64, bf16 r/k/v as strided
+    (B, T, H, D) views, chunk 16) and the SSD scan at zamba2-1.2b's (B 256
+    × H 64 × T 256, N = P = 64, fp32 views, chunk 32), then the small
+    cases chip_smoke's scan phase checks: GLA bonus in fp32 (B 4 × H 8 ×
+    T 256, chunk 16) and at T = 200 (bf16, the chunk halved to 8), the
+    SSD at T = 200 (chunk 8); each through the tree's ``gla_cuda`` /
+    ``ssd_cuda`` (the form its shape takes there), with the SHA-256 of o
+    and of the final state apart (``<form>:o``, ``<form>:state``).
 
 It prints one JSON line per run (``ms``, ``sha256`` per form; for the
 thin and small forms ``ms_graph``, and ``ms_warm`` and ``split`` where
@@ -244,6 +253,59 @@ def time_store(timer):
     return ms, digest
 
 
+def scan_forms():
+    """(name, fn) of the scans at the main-path shapes and at chip_smoke's
+    small cases, on inputs made here from one seed."""
+    import torch
+
+    from repro_torch.kernels.ssm_scan import kernel as sk
+
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    wmin = float(torch.exp(torch.tensor(-3.49)))
+
+    def gla_in(B, H, T, dtype):
+        def bthd(lo=None):
+            x = torch.rand((B, T, H, 64), generator=g, device="cuda")
+            x = x * (1 - lo) + lo if lo is not None else x * 2 - 1
+            return x.transpose(1, 2)
+        q, k, v = (bthd().to(dtype) for _ in range(3))
+        return q, k, v, bthd(lo=wmin), torch.randn((H, 64), generator=g,
+                                                   device="cuda")
+
+    def ssd_in(B, H, T):
+        q, k = (torch.randn((B, T, 64), generator=g, device="cuda")
+                for _ in range(2))
+        v = torch.randn((B, T, H, 64), generator=g,
+                        device="cuda").transpose(1, 2)
+        a = (torch.rand((B, T, H), generator=g, device="cuda") * 0.999
+             + 1e-3).transpose(1, 2)
+        return q, k, v, a
+
+    bf = torch.bfloat16
+    main = gla_in(256, 40, 256, bf)
+    fp32 = gla_in(4, 8, 256, torch.float32)
+    t200 = gla_in(4, 8, 200, bf)
+    ssd_main, ssd_200 = ssd_in(256, 64, 256), ssd_in(4, 8, 200)
+    return [
+        ("gla[bonus]", lambda: sk.gla_cuda(*main, chunk=16)),
+        ("gla[post]", lambda: sk.gla_cuda(*main[:4], None, chunk=16)),
+        ("ssd", lambda: sk.ssd_cuda(*ssd_main, chunk=32)),
+        ("gla[bonus]@fp32", lambda: sk.gla_cuda(*fp32, chunk=16)),
+        ("gla[bonus]@T200", lambda: sk.gla_cuda(*t200, chunk=8)),
+        ("ssd@T200", lambda: sk.ssd_cuda(*ssd_200, chunk=8)),
+    ]
+
+
+def time_scans(timer) -> dict:
+    """ms (10 runs) and the SHA-256 of o and of the state of each scan."""
+    ms, digest = {}, {}
+    for name, fn in scan_forms():
+        o, state = fn()
+        digest[name + ":o"], digest[name + ":state"] = sha(o), sha(state)
+        ms[name] = timer.ms(fn, 10)
+    return {"ms": ms, "sha256": digest}
+
+
 def time_tree(root: str, forms: str) -> dict:
     """ms and sha256 per form of ``root``'s kernels (run inside the child
     process)."""
@@ -258,6 +320,10 @@ def time_tree(root: str, forms: str) -> dict:
         big = time_big(timer)
         out["ms"].update(big["ms"])
         out["sha256"].update(big["sha256"])
+    if forms in ("all", "scans"):
+        scans = time_scans(timer)
+        out["ms"].update(scans["ms"])
+        out["sha256"].update(scans["sha256"])
     return out
 
 
@@ -269,7 +335,7 @@ def main(argv=None) -> int:
     ap.add_argument("change", nargs="?",
                     default=str(Path(__file__).resolve().parents[1]))
     ap.add_argument("--pairs", type=int, default=1)
-    ap.add_argument("--forms", choices=("all", "thin-small", "big"),
+    ap.add_argument("--forms", choices=("all", "thin-small", "big", "scans"),
                     default="all")
     ap.add_argument("--time", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
