@@ -121,6 +121,35 @@ Phases (each failure makes the script exit non-zero):
      day-3 snapshot bitwise a store of days 1-3; a small store card vs
      CPU (1e-4) and aligned "chunked" partitions bitwise on the card.
 
+ 18. ``dr:fit``: ``DRLearner`` on the tables' data and configuration
+     (k = 5, basis [1, x0], "pallas"), launches counted (fold_weighted
+     2 + 2·16 for the two arms and the propensity, design 1 for the
+     pseudo-outcome regression), the ATE within 5 se of the truth, a
+     small fit (n = 4096, p = 16) card vs CPU (1e-4); then
+     ``kernels:dr-forms`` (fold_weighted at k = 5 and the q = 3 design
+     against plain, fp64 and ``torch.matmul``);
+ 19. ``dr:bootstrap``: the same at n = 100,000 with its pairs bootstrap,
+     B = 32 (cut from 200 for time) in chunks of 25: seconds per
+     replicate, fold_weighted's share, the bootstrap se of the ATE within
+     0.6–1.6 of the analytic se, launches, serial ≡ batched bitwise on 2
+     replicates;
+ 20. ``driv:fit`` on ``iv:orthoiv``'s data: launches, the LATE within 5
+     se of the truth and of OrthoIV's, the jackknife refused, a small fit
+     card vs CPU (1e-4); ``kernels:driv-forms`` (iv and iv_meat at
+     phi = 1 on the same residuals); ``driv:bootstrap`` at n = 100,000,
+     B = 16 (launches, serial ≡ batched);
+ 21. ``serve:effects``: the store's 64-cohort panels — day 5 from the
+     refresh (equal to its snapshot's), day 3 through
+     ``panel_from_checkpoint`` — serving 2^20 requests through
+     ``EffectServer`` waves of (8, 64): requests per second and the
+     server's own wave and request p50 / p99, every wave bitwise
+     ``score_single`` on a sample of 1,024 requests, padded slots
+     flagged, a hot-swap to day 5 and a rollback bitwise day 3's scores;
+ 22. ``trace``: the sweep and the store's ingests again with a
+     ``Tracer``, bitwise the untraced runs, the span names and rollup
+     printed and a Chrome trace written to
+     ``build/chip_smoke_trace.json``.
+
 Every seg_gram record also names the kernel that ran (``design``:
 small, thin or big) and times its second pass alone (``reduce_ms``)
 and, for a segment walk, its plan alone (``plan_ms``; ``ms`` has the
@@ -137,13 +166,16 @@ import argparse
 import collections
 import dataclasses
 import json
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import traceback
 from pathlib import Path
 
+import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
@@ -198,6 +230,9 @@ BACKBONE_USERS, BACKBONE_SEQ, BACKBONE_BATCH, GATE_USERS = 8192, 256, 256, 512
 # the bootstrap phases: Figure 6's middle scale, EconML's default B,
 # runtime_chunk replicates per batched call; OrthoIV's bootstrap B
 BOOT_N, BOOT_B, BOOT_CHUNK, IV_BOOT_B = 100_000, 100, 25, 16
+# the doubly-robust bootstraps' B: the config's 200 cut for time (DR: a
+# third of the DML bootstrap's B = 100 replicates' work; DRIV: OrthoIV's)
+DR_BOOT_B, DRIV_BOOT_B = 32, 16
 # serial and batched replicates are gated bitwise equal on the card
 # (tests/test_torch_cuda.py::test_serial_equals_batched_on_card shows it)
 SERIAL_BITWISE = True
@@ -1188,21 +1223,31 @@ def phase_pair_invariants(seed: int) -> None:
         torch.cuda.empty_cache()
 
 
-def phase_sweep(seed: int, timer):
-    """sweep(mode="segmented") at the reference sweep cell's scale,
-    launches counted around it; every segment's ATE within 5 se of 1;
-    a small sweep on the card against the CPU."""
+def _sweep_inputs(seed: int):
+    """The sweep phases' data, segment ids and spec (seeded draws on the
+    card, so a rerun sees the same rows)."""
     from repro_torch.configs.sweep_synthetic import SWEEP
     from repro_torch.data.causal_dgp import paper_demo_data
-    from repro_torch.kernels.seg_gram import kernel as kern
-    from repro_torch.sweep import SweepSpec, sweep
+    from repro_torch.sweep import SweepSpec
 
     data = paper_demo_data(n=SWEEP_N, p=SWEEP_P, seed=seed)
     g = torch.Generator(device="cuda").manual_seed(seed + 5)
     sids = torch.randint(0, SWEEP_E, (SWEEP_N,), generator=g, device="cuda")
     cfg = dataclasses.replace(SWEEP, row_block=65536,
                               row_block_strategy="pallas")
-    spec = SweepSpec(SWEEP_E, (("dml", cfg),))
+    return data, sids, SweepSpec(SWEEP_E, (("dml", cfg),))
+
+
+def phase_sweep(seed: int, timer):
+    """sweep(mode="segmented") at the reference sweep cell's scale,
+    launches counted around it; every segment's ATE within 5 se of 1;
+    a small sweep on the card against the CPU."""
+    from repro_torch.data.causal_dgp import paper_demo_data
+    from repro_torch.kernels.seg_gram import kernel as kern
+    from repro_torch.sweep import SweepSpec, sweep
+
+    data, sids, spec = _sweep_inputs(seed)
+    cfg = spec.columns[0][1]
     iters = 2 * cfg.newton_iters
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1270,7 +1315,7 @@ def phase_sweep(seed: int, timer):
         f"{e:.3e} (tol 1e-4)")
     if not e <= 1e-4:
         raise AssertionError(f"card and CPU sweeps disagree: {e:.3e}")
-    return shapes, secs
+    return shapes, secs, col
 
 
 def _store_cfg(**kw):
@@ -1295,101 +1340,109 @@ def _panel_equal(a, b) -> bool:
                for x, y in zip(a.columns, b.columns))
 
 
-def phase_store(seed: int):
-    """A daily refresh of 64 cohorts: five ingests of 2^18 rows with
-    snapshots at days 3 and 5, the refresh, a one-shot ingest against the
-    incremental one, rollback to day 3; a small store card vs CPU, and
-    aligned partitions on "chunked" on the card."""
-    import shutil
-    import tempfile
-
-    from repro_torch.checkpoint.manager import CheckpointManager
-    from repro_torch.data.causal_dgp import make_causal_data
-    from repro_torch.store import MomentStore
+def _store_spec():
     from repro_torch.sweep import SweepSpec
+
+    return SweepSpec(SWEEP_E, (("dml", _store_cfg()),))
+
+
+def _store_days(seed: int):
+    """The store phases' five days of rows: ``rows(lo, hi)`` and the
+    data (make_causal_data on the card, seeded, so a rerun draws the
+    same rows)."""
+    from repro_torch.data.causal_dgp import make_causal_data
 
     n = STORE_DAY * STORE_DAYS
     d = make_causal_data(n=n, p=SWEEP_P, seed=seed, discrete_treatment=False)
     g = torch.Generator(device="cuda").manual_seed(seed + 9)
     sids = torch.randint(0, SWEEP_E, (n,), generator=g, device="cuda")
-    spec = SweepSpec(SWEEP_E, (("dml", _store_cfg()),))
 
     def rows(lo, hi):
         return dict(X=d.X[lo:hi], y=d.y[lo:hi], t=d.t[lo:hi],
                     segment_ids=sids[lo:hi])
 
-    build_dir = Path(__file__).resolve().parent / "build"
-    build_dir.mkdir(exist_ok=True)
-    tmp = tempfile.mkdtemp(prefix="store_ckpt_", dir=build_dir)
-    try:
-        mgr = CheckpointManager(tmp, keep_latest=4)
-        store = MomentStore(spec, SWEEP_P, seed=seed)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        _reset_counters()
-        day_s = []
-        for day in range(STORE_DAYS):
-            t0 = time.perf_counter()
-            store.ingest(**rows(day * STORE_DAY, (day + 1) * STORE_DAY))
-            torch.cuda.synchronize()
-            day_s.append(time.perf_counter() - t0)
-            if day + 1 in (3, 5):
-                store.save(mgr)
-        t0 = time.perf_counter()
-        panel = store.refresh()
-        torch.cuda.synchronize()
-        refresh_s = time.perf_counter() - t0
-        counts, fallbacks = _read_counters()
-        shapes = dict(_counters()[2])
-        peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        col = panel.columns[0]
-        ate, se = col.ates.double().cpu(), col.ses[:, 0].double().cpu()
-        z = (ate - d.true_ate).abs() / se
-        log(f"store path: {STORE_DAYS} daily ingests of {STORE_DAY} rows, "
-            f"p={SWEEP_P}, E={SWEEP_E}, k=5, cate_features=2 (ng "
-            f"{tuple(store.state_dict()['col0']['ng'].shape)}, vg "
-            f"{tuple(store.state_dict()['col0']['vg'].shape)}): ingest s per "
-            f"day {[round(x, 4) for x in day_s]}, refresh {refresh_s:.3f} s, "
-            f"peak device memory {peak:.2f} GiB; ATE range "
-            f"[{float(ate.min()):.5f}, {float(ate.max()):.5f}] max "
-            f"|ate-true|/se {float(z.max()):.3f}; launches={counts} "
-            f"fallbacks={fallbacks}")
-        if counts != {"pair": 2 * STORE_DAYS}:
-            raise AssertionError(f"launches {counts}, expected "
-                                 f"{ {'pair': 2 * STORE_DAYS} }")
-        if fallbacks:
-            raise AssertionError(f"fallback counters rose: {fallbacks}")
-        if not (bool(torch.isfinite(col.thetas).all())
-                and bool((z <= 5.0).all())):
-            raise AssertionError(f"a segment's ATE is not within 5 se of "
-                                 f"the truth: {z.max():.3f}")
+    return d, rows
 
-        once = MomentStore(spec, SWEEP_P, seed=seed)
+
+def phase_store(seed: int, ckpt_dir: str):
+    """A daily refresh of 64 cohorts: five ingests of 2^18 rows with
+    snapshots at days 3 and 5 (in ``ckpt_dir``), the refresh, a one-shot
+    ingest against the incremental one, rollback to day 3; a small store
+    card vs CPU, and aligned partitions on "chunked" on the card.
+    Returns the launches by shape, the ingest seconds and the day-5
+    panel."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.store import MomentStore
+    from repro_torch.sweep import SweepSpec
+
+    n = STORE_DAY * STORE_DAYS
+    d, rows = _store_days(seed)
+    spec = _store_spec()
+    mgr = CheckpointManager(ckpt_dir, keep_latest=4)
+    store = MomentStore(spec, SWEEP_P, seed=seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counters()
+    day_s = []
+    for day in range(STORE_DAYS):
         t0 = time.perf_counter()
-        once.ingest(**rows(0, n))
+        store.ingest(**rows(day * STORE_DAY, (day + 1) * STORE_DAY))
         torch.cuda.synchronize()
-        once_s = time.perf_counter() - t0
-        bitwise = _state_equal(once, store) and _panel_equal(
-            once.refresh(), panel)
-        log(f"store one-shot ingest of {n} rows {once_s:.3f} s; "
-            f"incremental == one-shot bitwise (accumulators and panel): "
-            f"{bitwise}")
-        if not bitwise:
-            raise AssertionError("incremental and one-shot ingests differ")
-        del once
-        three = MomentStore(spec, SWEEP_P, seed=seed)
-        three.ingest(**rows(0, 3 * STORE_DAY))
-        back = MomentStore(spec, SWEEP_P, seed=seed).restore(mgr, step=3)
-        ok = _state_equal(back, three) and _panel_equal(back.refresh(),
-                                                        three.refresh())
-        log(f"store snapshots {sorted(s for s, _ in mgr._steps())}; "
-            f"restore of day 3 == a store of days 1-3 bitwise: {ok}")
-        if not ok:
-            raise AssertionError("the day-3 snapshot does not restore")
-        del three, back, store
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-    del d
+        day_s.append(time.perf_counter() - t0)
+        if day + 1 in (3, 5):
+            store.save(mgr)
+    t0 = time.perf_counter()
+    panel = store.refresh()
+    torch.cuda.synchronize()
+    refresh_s = time.perf_counter() - t0
+    counts, fallbacks = _read_counters()
+    shapes = dict(_counters()[2])
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    col = panel.columns[0]
+    ate, se = col.ates.double().cpu(), col.ses[:, 0].double().cpu()
+    z = (ate - d.true_ate).abs() / se
+    log(f"store path: {STORE_DAYS} daily ingests of {STORE_DAY} rows, "
+        f"p={SWEEP_P}, E={SWEEP_E}, k=5, cate_features=2 (ng "
+        f"{tuple(store.state_dict()['col0']['ng'].shape)}, vg "
+        f"{tuple(store.state_dict()['col0']['vg'].shape)}): ingest s per "
+        f"day {[round(x, 4) for x in day_s]}, refresh {refresh_s:.3f} s, "
+        f"peak device memory {peak:.2f} GiB; ATE range "
+        f"[{float(ate.min()):.5f}, {float(ate.max()):.5f}] max "
+        f"|ate-true|/se {float(z.max()):.3f}; launches={counts} "
+        f"fallbacks={fallbacks}")
+    if counts != {"pair": 2 * STORE_DAYS}:
+        raise AssertionError(f"launches {counts}, expected "
+                             f"{ {'pair': 2 * STORE_DAYS} }")
+    if fallbacks:
+        raise AssertionError(f"fallback counters rose: {fallbacks}")
+    if not (bool(torch.isfinite(col.thetas).all())
+            and bool((z <= 5.0).all())):
+        raise AssertionError(f"a segment's ATE is not within 5 se of "
+                             f"the truth: {z.max():.3f}")
+
+    once = MomentStore(spec, SWEEP_P, seed=seed)
+    t0 = time.perf_counter()
+    once.ingest(**rows(0, n))
+    torch.cuda.synchronize()
+    once_s = time.perf_counter() - t0
+    bitwise = _state_equal(once, store) and _panel_equal(
+        once.refresh(), panel)
+    log(f"store one-shot ingest of {n} rows {once_s:.3f} s; "
+        f"incremental == one-shot bitwise (accumulators and panel): "
+        f"{bitwise}")
+    if not bitwise:
+        raise AssertionError("incremental and one-shot ingests differ")
+    del once
+    three = MomentStore(spec, SWEEP_P, seed=seed)
+    three.ingest(**rows(0, 3 * STORE_DAY))
+    back = MomentStore(spec, SWEEP_P, seed=seed).restore(mgr, step=3)
+    ok = _state_equal(back, three) and _panel_equal(back.refresh(),
+                                                    three.refresh())
+    log(f"store snapshots {sorted(s for s, _ in mgr._steps())}; "
+        f"restore of day 3 == a store of days 1-3 bitwise: {ok}")
+    if not ok:
+        raise AssertionError("the day-3 snapshot does not restore")
+    del three, back, store, d, rows
     torch.cuda.empty_cache()
 
     # small store: card vs CPU; chunked aligned partitions on the card
@@ -1426,7 +1479,459 @@ def phase_store(seed: int):
         raise AssertionError(f"card and CPU stores disagree: {e:.3e}")
     if not aligned:
         raise AssertionError("aligned chunked partitions are not bitwise")
-    return shapes, sum(day_s)
+    return shapes, sum(day_s), panel
+
+
+# -- slice 9: the doubly-robust estimators, serving and tracing --------------
+
+def _fit_counts(iters: int, driv: bool) -> dict:
+    """The seg_gram launches of one DRLearner / DRIV fit on the card
+    ("parallel" engine, "pallas"): DR's arms and propensity are
+    fold_weighted (k folds in one launch), its pseudo-outcome regression
+    one design launch; DRIV's y / t / z and compliance nuisances go
+    through the engine's design and gram_and_vec forms, its preliminary
+    OrthoIV is iv + iv_meat at phi = 1."""
+    if driv:
+        return {"design": 3, "gram_and_vec": 2 * iters, "iv": 1,
+                "iv_meat": 1}
+    return {"fold_weighted": 2 + 2 * iters, "design": 1}
+
+
+def _merge(*dicts) -> dict:
+    out = collections.Counter()
+    for d in dicts:
+        out.update(d)
+    return dict(out)
+
+
+def dr_cases(X, y, t, folds, phi, psi, k):
+    """DRLearner's new kernel calls at the fit's shapes: the arm-masked
+    fold_weighted Gram (k folds, q = p + 2) and the pseudo-outcome
+    regression's design Gram over [phi | psi] (q = 3)."""
+    from repro_torch.core.crossfit import fold_weights
+    from repro_torch.core.moments import design
+    from repro_torch.kernels.seg_gram import ops as sops
+    from repro_torch.kernels.seg_gram import ref
+
+    def sym(q):
+        return q * (q + 1) / 2
+
+    n = X.shape[0]
+    Wk = (fold_weights(folds, k) * t[None]).contiguous()     # arm T = 1
+    D = design(X, intercept=True, append=y)                  # (n, p + 2)
+    q = D.shape[1]
+    Dp = design(phi, append=psi)                             # (n, 3)
+    qp = Dp.shape[1]
+    ones = torch.ones(n, device=X.device)
+
+    def fw_plain(dtype):
+        Dd = D.to(dtype)
+        return torch.stack([ref.seg_gram_plain(
+            ref.build_fold_weighted, [Wk[b:b + 1].T.to(dtype), Dd])
+            for b in range(k)])
+
+    def pd_plain(dtype):
+        return ref.seg_gram_plain(ref.build_design, [Dp.to(dtype)],
+                                  w=ones[:, None].to(dtype))
+
+    return [
+        Case("fold_weighted@k5", f"DR arm / propensity Grams, k={k}",
+             lambda: sops.fold_weighted_design_gram(D, Wk),
+             lambda: fw_plain(torch.float32),
+             lambda: fw_plain(torch.float64),
+             lambda: ((D[None] * Wk[:, :, None]).transpose(1, 2), D),
+             lambda ab: torch.matmul(*ab),
+             D.numel() * 4 + Wk.numel() * 4 + k * q * q * 4,
+             2.0 * k * n * sym(q), 3, q=(q, q)),
+        Case("design@q3", "pseudo-outcome regression [phi | psi]",
+             lambda: sops.design_gram(Dp, w=ones),
+             lambda: pd_plain(torch.float32),
+             lambda: pd_plain(torch.float64),
+             lambda: ((Dp * ones[:, None]).T, Dp),
+             lambda ab: torch.matmul(*ab),
+             Dp.numel() * 4 + n * 4 + qp * qp * 4, 2.0 * n * sym(qp), 20,
+             q=(qp, qp)),
+    ]
+
+
+def phase_dr_fit(data, cfg, seed: int):
+    """DRLearner.fit on the card at the tables' configuration, launches
+    counted around it; the ATE within 5 se of the truth; a small fit on
+    the card against the CPU.  Returns the launches and the fit's state
+    for the kernel checks."""
+    from repro_torch.core.drlearner import DRLearner
+    from repro_torch.data.causal_dgp import paper_demo_data
+
+    est = DRLearner(cfg)
+    torch.cuda.synchronize()
+    _reset_counters()
+    t0 = time.perf_counter()
+    res = est.fit(data.y, data.t, data.X,
+                  gen=torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts, fallbacks = _read_counters()
+    expected = _fit_counts(cfg.newton_iters, False)
+    z = abs(res.ate - data.true_ate) / res.stderr
+    log(f"DRLearner n={data.n} p={data.p} k={cfg.n_folds}: fit {secs:.3f} s, "
+        f"ATE={res.ate:.5f} (true {data.true_ate:.5f}) se={res.stderr:.5f} "
+        f"|ATE-true|/se={z:.3f} theta={res.theta.cpu().tolist()} "
+        f"launches={counts} fallbacks={fallbacks}")
+    if not (bool(torch.isfinite(res.theta).all())
+            and bool(torch.isfinite(res.pseudo).all())):
+        raise AssertionError("non-finite theta or pseudo-outcomes")
+    if not z <= 5.0:
+        raise AssertionError(f"ATE not within 5 se of the truth: {z:.3f}")
+    if counts != expected:
+        raise AssertionError(f"launches {counts}, expected {expected}")
+    if fallbacks:
+        raise AssertionError(f"fallback counters rose: {fallbacks}")
+
+    small = paper_demo_data(n=4096, p=16, seed=seed, device="cpu")
+    scfg = dataclasses.replace(cfg, row_block=1024)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        r = DRLearner(scfg, device=dev).fit(
+            small.y, small.t, small.X, gen=torch.Generator().manual_seed(1))
+        out[dev] = torch.cat([r.theta.cpu(), torch.tensor([r.ate, r.stderr]),
+                              r.pseudo.cpu()])
+    e = rel(out["cuda"], out["cpu"])
+    log(f"DRLearner small fit (n=4096, p=16) card vs CPU max rel diff "
+        f"{e:.3e} (tol 1e-4)")
+    if not e <= 1e-4:
+        raise AssertionError(f"card and CPU DR fits disagree: {e:.3e}")
+    return counts, secs, (res.fit_ctx.phi, res.pseudo)
+
+
+def phase_dr_bootstrap(data, cfg, forms_ms):
+    """DRLearner.fit + its pairs bootstrap ("vmap", chunks of
+    runtime_chunk) on the card, launches counted around them; the
+    bootstrap se of the ATE within 0.6-1.6 of the analytic se; serial
+    and batched replicates bitwise equal."""
+    from repro_torch.core.drlearner import DRLearner
+    from repro_torch.inference.bootstrap import derive_seed, dr_bootstrap
+
+    B, R, k, it = cfg.n_bootstrap, cfg.runtime_chunk, cfg.n_folds, \
+        cfg.newton_iters
+    chunks = -(-B // R)
+    est = DRLearner(cfg)
+    torch.cuda.synchronize()
+    _reset_counters()
+    t0 = time.perf_counter()
+    res = est.fit(data.y, data.t, data.X, gen=torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    t_fit = time.perf_counter() - t0
+    inf = res.inference()
+    lo, hi = res.ate_interval()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts, fallbacks = _read_counters()
+    boot_s = secs - t_fit
+    se_b = float(torch.std(inf.ate_replicates, correction=1))
+    ratio = se_b / res.stderr
+    fw = counts.get("fold_weighted", 0) - (2 + 2 * it)
+    # the record times a chunk of R replicates: a chunk of r launches
+    # r/R of its work (the last chunk's is short)
+    share = (forms_ms.get("fold_weighted", 0.0) * (2 + 2 * it) * B / R
+             / 1e3 / boot_s)
+    expected = _merge(_fit_counts(it, False), {
+        "fold_weighted": chunks * (2 + 2 * it),
+        "residual_direct": chunks, "residual_meat": chunks})
+    log(f"DR bootstrap: B={B} (cut from the config's 200 for time), chunks "
+        f"of {R}, n={data.n} p={data.p}: fit {t_fit:.3f} s, bootstrap + "
+        f"interval {boot_s:.3f} s ({boot_s / B:.4f} s per replicate); "
+        f"ATE={res.ate:.5f} bootstrap se={se_b:.5f} analytic se="
+        f"{res.stderr:.5f} ratio={ratio:.3f} CI=[{lo:.5f}, {hi:.5f}]; "
+        f"fold_weighted ~{100 * share:.1f} % of the bootstrap ({fw} "
+        f"launches, the R={R} record's ms scaled by each chunk's "
+        f"replicates); launches={counts} fallbacks={fallbacks}")
+    if not (bool(torch.isfinite(inf.replicates).all()) and lo < hi):
+        raise AssertionError("non-finite replicates or an empty interval")
+    if not 0.6 <= ratio <= 1.6:
+        raise AssertionError(f"bootstrap se / analytic se {ratio:.3f}")
+    if counts != expected:
+        raise AssertionError(f"launches {counts}, expected {expected}")
+    if fallbacks:
+        raise AssertionError(f"fallback counters rose: {fallbacks}")
+    ctx = res.fit_ctx
+    kw = dict(n_folds=k, X=ctx.X, y=ctx.y, t=ctx.t, phi=ctx.phi,
+              seed=derive_seed(ctx.seed, 0x0b00), n_replicates=2,
+              clip=ctx.clip, row_block=cfg.row_block,
+              strategy=cfg.row_block_strategy)
+    serial = dr_bootstrap(ctx.outcome, ctx.propensity, executor="serial",
+                          **kw)
+    batched = dr_bootstrap(ctx.outcome, ctx.propensity, executor="vmap",
+                           **kw)
+    same = (torch.equal(serial.replicates, batched.replicates)
+            and torch.equal(serial.ate_replicates, batched.ate_replicates))
+    log(f"DR bootstrap serial vs batched on the card (2 replicates): "
+        f"bitwise equal {same}; equal to the run's first two: "
+        f"{torch.equal(batched.replicates, inf.replicates[:2])}")
+    if not same:
+        raise AssertionError("serial and batched DR replicates differ")
+    return counts, secs, chunks
+
+
+def phase_driv_fit(data, cfg, ortho_late: float, seed: int):
+    """DRIV.fit on the card, launches counted around it; its LATE within
+    5 se of the DGP's and of OrthoIV's on the same data; a small fit on
+    the card against the CPU; the jackknife refused.  Returns the
+    launches and the residuals for the kernel checks."""
+    from repro_torch.core.iv import DRIV
+    from repro_torch.data.causal_dgp import make_iv_data
+
+    est = DRIV(cfg)
+    torch.cuda.synchronize()
+    _reset_counters()
+    t0 = time.perf_counter()
+    res = est.fit(data.y, data.t, data.z, data.X,
+                  gen=torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts, fallbacks = _read_counters()
+    expected = _fit_counts(cfg.newton_iters, True)
+    z_true = abs(res.late - data.true_late) / res.stderr
+    z_ortho = abs(res.late - ortho_late) / res.stderr
+    log(f"DRIV n={data.n} p={data.p}: fit {secs:.3f} s, LATE={res.late:.5f} "
+        f"(true {data.true_late}, OrthoIV {ortho_late:.5f}) se="
+        f"{res.stderr:.5f} theta_pre={res.theta_pre:.5f} theta="
+        f"{res.theta.cpu().tolist()} |LATE-true|/se={z_true:.3f} "
+        f"|LATE-OrthoIV|/se={z_ortho:.3f} first-stage F="
+        f"{res.diagnostics.first_stage_f:.1f} launches={counts} "
+        f"fallbacks={fallbacks}")
+    if not (bool(torch.isfinite(res.theta).all())
+            and bool(torch.isfinite(res.pseudo).all())):
+        raise AssertionError("non-finite theta or pseudo-outcomes")
+    if not (z_true <= 5.0 and z_ortho <= 5.0):
+        raise AssertionError(f"LATE off: {z_true:.3f} / {z_ortho:.3f} se")
+    if counts != expected:
+        raise AssertionError(f"launches {counts}, expected {expected}")
+    if fallbacks:
+        raise AssertionError(f"fallback counters rose: {fallbacks}")
+    try:
+        res.inference(method="jackknife")
+    except ValueError as err:
+        log(f"DRIV jackknife refused: {err}")
+    else:
+        raise AssertionError("DRIV ran a jackknife")
+
+    small = make_iv_data(4096, 16, seed=seed, device="cpu")
+    scfg = dataclasses.replace(cfg, row_block=1024)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        r = DRIV(scfg, device=dev).fit(small.y, small.t, small.z, small.X,
+                                       gen=torch.Generator().manual_seed(1))
+        out[dev] = torch.cat([r.theta.cpu(), torch.tensor(
+            [r.late, r.stderr, r.theta_pre]), r.pseudo.cpu()])
+    e = rel(out["cuda"], out["cpu"])
+    log(f"DRIV small fit (n=4096, p=16) card vs CPU max rel diff {e:.3e} "
+        f"(tol 1e-4)")
+    if not e <= 1e-4:
+        raise AssertionError(f"card and CPU DRIV fits disagree: {e:.3e}")
+    return counts, secs, res
+
+
+def phase_driv_bootstrap(data, cfg):
+    """DRIV.fit + its pairs bootstrap on the card, launches counted
+    around them; finite draws; serial and batched replicates bitwise
+    equal."""
+    from repro_torch.core.iv import DRIV
+    from repro_torch.inference.bootstrap import derive_seed, driv_bootstrap
+
+    B, R, it = cfg.n_bootstrap, cfg.runtime_chunk, cfg.newton_iters
+    chunks = -(-B // R)
+    est = DRIV(cfg)
+    torch.cuda.synchronize()
+    _reset_counters()
+    t0 = time.perf_counter()
+    res = est.fit(data.y, data.t, data.z, data.X,
+                  gen=torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    t_fit = time.perf_counter() - t0
+    inf = res.inference()
+    lo, hi = res.late_interval()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts, fallbacks = _read_counters()
+    boot_s = secs - t_fit
+    se_b = float(torch.std(inf.ate_replicates, correction=1))
+    expected = _merge(_fit_counts(it, True), {
+        "fold_weighted": chunks * (1 + 4 * it) + B, "iv": chunks,
+        "residual_direct": chunks, "residual_meat": chunks})
+    log(f"DRIV bootstrap: B={B}, chunks of {R}, n={data.n} p={data.p}: fit "
+        f"{t_fit:.3f} s, bootstrap + interval {boot_s:.3f} s "
+        f"({boot_s / B:.4f} s per replicate); LATE={res.late:.5f} bootstrap "
+        f"se={se_b:.5f} analytic se={res.stderr:.5f} ratio="
+        f"{se_b / res.stderr:.3f} CI=[{lo:.5f}, {hi:.5f}]; "
+        f"launches={counts} fallbacks={fallbacks}")
+    if not (bool(torch.isfinite(inf.replicates).all())
+            and bool(torch.isfinite(inf.ate_replicates).all()) and lo < hi):
+        raise AssertionError("non-finite replicates or an empty interval")
+    if counts != expected:
+        raise AssertionError(f"launches {counts}, expected {expected}")
+    if fallbacks:
+        raise AssertionError(f"fallback counters rose: {fallbacks}")
+    ctx = res.fit_ctx
+    kw = dict(n_folds=cfg.n_folds, XW=ctx.XW, y=ctx.y, t=ctx.t, z=ctx.z,
+              phi=ctx.phi, seed=derive_seed(ctx.seed, 0x1b00),
+              n_replicates=2, cov_clip=cfg.iv_cov_clip,
+              row_block=cfg.row_block, strategy=cfg.row_block_strategy)
+    nuis = (ctx.nuis_y, ctx.nuis_t, ctx.nuis_z, ctx.compliance)
+    serial = driv_bootstrap(*nuis, executor="serial", **kw)
+    batched = driv_bootstrap(*nuis, executor="vmap", **kw)
+    same = (torch.equal(serial.replicates, batched.replicates)
+            and torch.equal(serial.ate_replicates, batched.ate_replicates))
+    log(f"DRIV bootstrap serial vs batched on the card (2 replicates): "
+        f"bitwise equal {same}")
+    if not same:
+        raise AssertionError("serial and batched DRIV replicates differ")
+    return counts, secs, chunks
+
+
+SERVE_REQUESTS, SERVE_WAVES, SERVE_SAMPLE = 2 ** 20, (8, 64), 1024
+
+
+def phase_serve(seed: int, ckpt_dir: str, day5_panel):
+    """The store's 64-cohort panels served: a ServingPanel from the day-5
+    refresh and one from the day-3 snapshot (panel_from_checkpoint);
+    2^20 requests through EffectServer waves of the reference's ladder;
+    every wave bitwise ``score_single`` on a sample of 1,024 requests,
+    padded slots flagged; a hot-swap to day 5 and a rollback, bitwise
+    day 3's scores again.  Returns requests per second and the server's
+    wave / request latency percentiles."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.serve_effects import (EffectServer, ServingPanel,
+                                           panel_from_checkpoint,
+                                           score_batch, score_single)
+
+    mgr = CheckpointManager(ckpt_dir, keep_latest=4)
+    spec = _store_spec()
+    t0 = time.perf_counter()
+    p3 = panel_from_checkpoint(mgr, spec, SWEEP_P, seed=seed, step=3)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    p5 = ServingPanel.from_effect_panel(day5_panel, n_features=SWEEP_P,
+                                        version=5)
+    p5c = panel_from_checkpoint(mgr, spec, SWEEP_P, seed=seed, step=5)
+    if not (torch.equal(p5c.thetas, p5.thetas)
+            and torch.equal(p5c.ses, p5.ses)):
+        raise AssertionError("the day-5 snapshot's panel is not the "
+                             "refreshed day-5 panel")
+    g = torch.Generator(device="cuda").manual_seed(seed + 21)
+    X = torch.randn((SERVE_REQUESTS, SWEEP_P), generator=g,
+                    device="cuda").cpu().numpy()
+    sids = torch.randint(0, SWEEP_E, (SERVE_REQUESTS,), generator=g,
+                         device="cuda").cpu().numpy()
+    sample = np.sort(np.random.default_rng(seed).choice(
+        SERVE_REQUESTS, SERVE_SAMPLE, replace=False))
+    srv = EffectServer(p3, wave_sizes=SERVE_WAVES, max_queue=1024)
+    burst = 1 << 16
+    got = {}
+    t0 = time.perf_counter()
+    for lo in range(0, SERVE_REQUESTS, burst):
+        resp = srv.score(X[lo:lo + burst], sids[lo:lo + burst])
+        for i in sample[(sample >= lo) & (sample < lo + burst)]:
+            got[int(i)] = resp[i - lo]
+    secs = time.perf_counter() - t0
+    snap = srv.snapshot()
+    z = srv._z
+
+    def fields(r):
+        return (r.cate, r.lo, r.hi, r.se, r.ok)
+
+    def single(panel, i):
+        o = score_single(panel, X[i], int(sids[i]), z)
+        return (float(o["cate"]), float(o["lo"]), float(o["hi"]),
+                float(o["se"]), bool(o["ok"]))
+
+    bad = [i for i in sample if fields(got[int(i)]) != single(p3, i)]
+    # a ragged wave: 37 requests padded to 64 with garbage rows
+    Xw = np.full((SERVE_WAVES[-1], SWEEP_P), 1e30, np.float32)
+    sw = np.full((SERVE_WAVES[-1],), -1, np.int64)
+    Xw[:37], sw[:37] = X[sample[:37]], sids[sample[:37]]
+    out = score_batch(p3, Xw, sw, z)
+    real = [(float(out["cate"][j]), float(out["se"][j]), bool(out["ok"][j]))
+            for j in range(37)]
+    padded_ok = (not bool(out["ok"][37:].any())
+                 and bool((out["cate"][37:] == 0).all())
+                 and all(real[j] == tuple(single(p3, sample[j])[i]
+                                          for i in (0, 3, 4))
+                         for j in range(37)))
+    # hot-swap to day 5 between waves, then roll back
+    Xs, ss = X[sample], sids[sample]
+    r3 = [fields(r) for r in srv.score(Xs, ss)]
+    srv.swap(p5)
+    r5 = srv.score(Xs, ss)
+    srv.rollback()
+    r3b = srv.score(Xs, ss)
+    back = (all(fields(a) == b for a, b in zip(r3b, r3))
+            and {r.version for r in r3b} == {3})
+    moved = sum(fields(a) != b for a, b in zip(r5, r3))
+    day5_ok = all(fields(r5[j]) == single(p5, sample[j]) for j in range(64))
+    wave = snap["histograms"]["serve.wave_seconds"]
+    req = snap["histograms"]["serve.request_seconds"]
+    occ = snap["histograms"]["serve.batch_occupancy"]
+    rps = SERVE_REQUESTS / secs
+    log(f"serving: 64-cohort panels (day 3 from its snapshot in "
+        f"{load_s:.3f} s, day 5 from the refresh == its snapshot), "
+        f"{SERVE_REQUESTS} requests, waves {SERVE_WAVES}: {secs:.3f} s, "
+        f"{rps:.0f} requests/s, {snap['counters']['serve.waves']} waves; "
+        f"wave s p50={wave['p50']:.6f} p99={wave['p99']:.6f} mean="
+        f"{wave['mean']:.6f}; request s p50={req['p50']:.6f} p99="
+        f"{req['p99']:.6f}; occupancy mean {occ['mean']:.3f}; sample of "
+        f"{SERVE_SAMPLE}: waves == score_single bitwise {not bad}; padded "
+        f"slots flagged {padded_ok}; swap to day 5 moved {moved}/"
+        f"{SERVE_SAMPLE} scores, day-5 scores == score_single {day5_ok}; "
+        f"rollback bitwise day 3 again {back}")
+    if bad:
+        raise AssertionError(f"{len(bad)} sampled requests differ from "
+                             f"score_single, e.g. {bad[:3]}")
+    if not (padded_ok and back and day5_ok and moved > 0):
+        raise AssertionError("padded slots, hot-swap or rollback failed")
+    return {"requests_per_s": rps, "wave_p50_s": wave["p50"],
+            "wave_p99_s": wave["p99"], "request_p50_s": req["p50"],
+            "request_p99_s": req["p99"], "seconds": secs}
+
+
+def phase_trace(seed: int, sweep_col, store_panel):
+    """The sweep and the store ingest again with a Tracer: outputs
+    bitwise the untraced runs', the span names and rollup printed, a
+    Chrome trace written under build/."""
+    from repro_torch.obs import Tracer
+    from repro_torch.store import MomentStore
+    from repro_torch.sweep import sweep
+
+    tracer = Tracer()
+    data, sids, spec = _sweep_inputs(seed)
+    panel = sweep(spec, X=data.X, y=data.y, t=data.t, segment_ids=sids,
+                  seed=seed, mode="segmented", tracer=tracer)
+    col = panel.columns[0]
+    sweep_same = (not col.failed and torch.equal(col.thetas, sweep_col.thetas)
+                  and torch.equal(col.ses, sweep_col.ses))
+    del data, sids, panel
+    torch.cuda.empty_cache()
+    d, rows = _store_days(seed)
+    store = MomentStore(_store_spec(), SWEEP_P, seed=seed, tracer=tracer)
+    for day in range(STORE_DAYS):
+        store.ingest(**rows(day * STORE_DAY, (day + 1) * STORE_DAY))
+    store_same = _panel_equal(store.refresh(), store_panel)
+    del d, rows, store
+    torch.cuda.empty_cache()
+    out = Path(__file__).resolve().parent / "build" / "chip_smoke_trace.json"
+    out.parent.mkdir(exist_ok=True)
+    tracer.write_chrome_trace(str(out))
+    roll = {k: {"count": v["count"], "total_s": round(v["total_s"], 6)}
+            for k, v in tracer.rollup().items()}
+    log(f"trace: spans {tracer.span_names()}; rollup {roll}; counters "
+        f"{tracer.metrics.snapshot()['counters']}; Chrome trace {out} "
+        f"({out.stat().st_size} bytes); traced == untraced bitwise: sweep "
+        f"{sweep_same}, store {store_same}")
+    log(tracer.render())
+    if not (sweep_same and store_same):
+        raise AssertionError("a traced run differs from the untraced one")
+    if tracer.span_names().count("store.ingest") != STORE_DAYS:
+        raise AssertionError("missing store.ingest spans")
+
 
 
 def _fa_plain(q, k, v, causal=True, softcap=0.0, scale=None):
@@ -1963,6 +2468,12 @@ def main(argv=None) -> int:
          {"residual_gram": 1}),
     ]
     launches = {}
+    by_path = {}        # record key -> {path: launches}
+
+    def count(key, path, c):
+        if c:
+            by_path.setdefault(key, {})[path] = c
+
     for name, cfg, expected in paths:
         out = run(name, phase_main, data, cfg, expected)
         torch.cuda.empty_cache()
@@ -1972,13 +2483,20 @@ def main(argv=None) -> int:
             peak = torch.cuda.max_memory_allocated() / 2 ** 30
             log(f"peak device memory {peak:.2f} GiB")
 
+    dr_fit_fw = 2 + 2 * iters        # one DR fit's fold_weighted launches
+    dcfg = dataclasses.replace(base, inference="none")
+    out = run("dr:fit", phase_dr_fit, data, dcfg, args.seed)
+    torch.cuda.empty_cache()
+    if out is not None:
+        count("fold_weighted@k5", "dr:fit", out[0].get("fold_weighted", 0))
+        count("design@q3", "dr:fit", out[0].get("design", 0))
+        phi_d, psi_d = out[2]
+        records.update(run("kernels:dr-forms", lambda: run_cases(dr_cases(
+            data.X, data.y, data.t, folds, phi_d, psi_d, k), timer)) or {})
+        del phi_d, psi_d, out
+        torch.cuda.empty_cache()
     del data
     torch.cuda.empty_cache()
-    by_path = {}        # record key -> {path: launches}
-
-    def count(key, path, c):
-        if c:
-            by_path.setdefault(key, {})[path] = c
 
     bdata = paper_demo_data(n=BOOT_N, p=p, seed=args.seed)
     forms = run("kernels:inference-forms", lambda: run_cases(
@@ -1999,6 +2517,18 @@ def main(argv=None) -> int:
         # the point fit's meat is the unbatched form; the rest are chunks
         count(f"residual_meat@R{BOOT_CHUNK}", "main:bootstrap",
               c.get("residual_meat", 0) - 1)
+    out = run("dr:bootstrap", phase_dr_bootstrap, bdata,
+              dataclasses.replace(bcfg, n_bootstrap=DR_BOOT_B),
+              {key: r["ms"] for key, r in forms.items()})
+    if out is not None:
+        c, _, chunks = out
+        count("fold_weighted@k5", "dr:bootstrap", dr_fit_fw)
+        count("design@q3", "dr:bootstrap", c.get("design", 0))
+        count("fold_weighted", "dr:bootstrap",
+              c.get("fold_weighted", 0) - dr_fit_fw)
+        count("residual_direct", "dr:bootstrap", c.get("residual_direct", 0))
+        count(f"residual_meat@R{BOOT_CHUNK}", "dr:bootstrap",
+              c.get("residual_meat", 0))
     del bdata
     torch.cuda.empty_cache()
     run("main:bootstrap-agreement", phase_bootstrap_agreement, args.seed)
@@ -2009,16 +2539,34 @@ def main(argv=None) -> int:
     out = run("iv:orthoiv", phase_orthoiv, ivdata, icfg,
               {"design": 1, "gram_and_vec": 2 * iters, "iv": 1, "iv_meat": 1,
                "iv_segmented": 1})
-    del ivdata
-    torch.cuda.empty_cache()
     if out is not None:
         for key in ("iv", "iv_meat", "iv_segmented"):
             count(key, "iv:orthoiv", out[0].get(key, 0))
         ry, rt, rz, phi, ifolds, itheta = out[2]
         records.update(run("kernels:iv-forms", lambda: run_cases(
             iv_cases(ry, rt, rz, phi, ifolds, itheta, k), timer)) or {})
+        # DRIV on the same data: its y / t / z cross-fit draws the same
+        # folds (seed 0) as OrthoIV's, so these are its residuals too
+        dout = run("driv:fit", phase_driv_fit, ivdata,
+                   dataclasses.replace(base, inference="none"),
+                   float(itheta[0]), args.seed)
+        if dout is not None:
+            c = dout[0]
+            count("design", "driv:fit", c.get("design", 0) - 1)
+            count("design@q3", "driv:fit", 1)
+            count("gram_and_vec", "driv:fit", c.get("gram_and_vec", 0))
+            count("iv@p1", "driv:fit", c.get("iv", 0))
+            count("iv_meat@p1", "driv:fit", c.get("iv_meat", 0))
+            ones = torch.ones_like(ry)[:, None]
+            th = torch.tensor([dout[2].theta_pre], device="cuda")
+            records.update(run("kernels:driv-forms", lambda: run_cases(
+                [c_ for c_ in iv_cases(ry, rt, rz, ones, ifolds, th, k)
+                 if c_.name in ("iv", "iv_meat")], timer, "@p1")) or {})
+            del ones, th, dout
         del ry, rt, rz, phi, ifolds, itheta, out
         torch.cuda.empty_cache()
+    del ivdata
+    torch.cuda.empty_cache()
     ivb = make_iv_data(n=BOOT_N, p=p, seed=args.seed)
     ibcfg = dataclasses.replace(base, inference="bootstrap",
                                 n_bootstrap=IV_BOOT_B,
@@ -2028,26 +2576,64 @@ def main(argv=None) -> int:
               {"design": 1, "gram_and_vec": 2 * iters, "iv": 1 + ichunks,
                "iv_meat": 1 + ichunks,
                "fold_weighted": ichunks * (1 + 4 * iters)})
-    del ivb
-    torch.cuda.empty_cache()
     if out is not None:
         for key in ("iv", "iv_meat", "fold_weighted"):
             count(key, "iv:bootstrap", out[0].get(key, 0))
         del out
+    torch.cuda.empty_cache()
+    dbcfg = dataclasses.replace(ibcfg, n_bootstrap=DRIV_BOOT_B)
+    out = run("driv:bootstrap", phase_driv_bootstrap, ivb, dbcfg)
+    if out is not None:
+        c, _, chunks = out
+        count("design", "driv:bootstrap", c.get("design", 0) - 1)
+        count("design@q3", "driv:bootstrap", 1)
+        count("gram_and_vec", "driv:bootstrap", c.get("gram_and_vec", 0))
+        count("iv@p1", "driv:bootstrap", c.get("iv", 0))
+        count("iv_meat@p1", "driv:bootstrap", c.get("iv_meat", 0))
+        count("fold_weighted", "driv:bootstrap", chunks * (1 + 4 * iters))
+        count("fold_weighted@k5", "driv:bootstrap", DRIV_BOOT_B)
+        count("residual_direct", "driv:bootstrap",
+              c.get("residual_direct", 0))
+        count(f"residual_meat@R{BOOT_CHUNK}", "driv:bootstrap",
+              c.get("residual_meat", 0))
+        del out
+    del ivb
+    torch.cuda.empty_cache()
 
     records.update(run("kernels:pair-forms", lambda: run_cases(
         pair_cases(args.seed, timer), timer)) or {})
     torch.cuda.empty_cache()
     run("invariants:pair", phase_pair_invariants, args.seed)
     torch.cuda.empty_cache()
-    pair_shapes = {}
-    for name, fn in (("sweep:segmented", lambda: phase_sweep(args.seed,
-                                                            timer)),
-                     ("store:ingest", lambda: phase_store(args.seed))):
-        out = run(name, fn)
+    pair_shapes, kept = {}, {}
+    build_dir = Path(__file__).resolve().parent / "build"
+    build_dir.mkdir(exist_ok=True)
+    ckpt_dir = tempfile.mkdtemp(prefix="store_ckpt_", dir=build_dir)
+    serving = None
+    try:
+        for name, fn in (("sweep:segmented", lambda: phase_sweep(args.seed,
+                                                                timer)),
+                         ("store:ingest", lambda: phase_store(args.seed,
+                                                              ckpt_dir))):
+            out = run(name, fn)
+            torch.cuda.empty_cache()
+            if out is not None:
+                pair_shapes[name], kept[name] = out[0], out[2]
+        if "store:ingest" in kept:
+            serving = run("serve:effects", phase_serve, args.seed, ckpt_dir,
+                          kept["store:ingest"])
+        else:
+            failed.append("serve:effects")
         torch.cuda.empty_cache()
-        if out is not None:
-            pair_shapes[name] = out[0]
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    if len(kept) == 2:
+        run("trace", phase_trace, args.seed, kept["sweep:segmented"],
+            kept["store:ingest"])
+    else:
+        failed.append("trace")
+    del kept
+    torch.cuda.empty_cache()
     for key, (form, S, qls) in PAIR_FORMS.items():
         for path, shapes in pair_shapes.items():
             count(key, path, sum(c for (f, s, ql, _), c in shapes.items()
@@ -2089,8 +2675,11 @@ def main(argv=None) -> int:
     for key, rec in records.items():
         rec["launches"] = launches.get(key, 0)
         if key in by_path:
-            rec["launches"] = sum(by_path[key].values())
-            rec["launches_by_path"] = by_path[key]
+            paths = by_path[key]
+            if launches.get(key):       # the main paths' own launches
+                paths = {"main": launches[key], **paths}
+            rec["launches"] = sum(paths.values())
+            rec["launches_by_path"] = paths
     if "flash_attention" in records:
         records["flash_attention"]["launches_by_path"] = flash_by_path
     for key, forms in scan_forms.items():
@@ -2103,7 +2692,10 @@ def main(argv=None) -> int:
             "bootstrap_replicates": args.bootstrap_replicates,
             "bootstrap_chunk": BOOT_CHUNK, "sweep_n": SWEEP_N,
             "sweep_segments": SWEEP_E, "store_day_rows": STORE_DAY,
-            "store_days": STORE_DAYS}
+            "store_days": STORE_DAYS, "dr_bootstrap_replicates": DR_BOOT_B,
+            "driv_bootstrap_replicates": DRIV_BOOT_B,
+            "serve_requests": SERVE_REQUESTS,
+            "serve_wave_sizes": list(SERVE_WAVES), "serving": serving}
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(

@@ -93,3 +93,21 @@ def store_state(np_state: Mapping[str, np.ndarray], *,
     fp32 tensors, for ``store.solve.refresh_column``."""
     dev = resolve_device(device)
     return {key: _f32(np_state[key], dev) for key in ("ng", "vg", "counts")}
+
+
+def serving_panel(np_thetas, np_ses, np_ok, *, n_features: int,
+                  version: int = 0, column: str = "",
+                  device: DeviceLike = None):
+    """The reference's ``ServingPanel`` arrays — thetas (E, pf), ses
+    (E, pf), ok (E,) — as the port's ``ServingPanel`` on ``device``, so
+    both packages can score the same panel."""
+    from repro_torch.serve_effects.panel import ServingPanel
+
+    dev = resolve_device(device)
+    thetas = _f32(np_thetas, dev)
+    return ServingPanel(thetas=thetas, ses=_f32(np_ses, dev),
+                        ok=torch.as_tensor(np.asarray(np_ok, dtype=bool),
+                                           device=dev),
+                        n_features=int(n_features),
+                        cate_features=int(thetas.shape[1]),
+                        version=int(version), column=column)

@@ -12,7 +12,10 @@ The k out-of-fold nuisance fits run in one of three engines:
                   majorizer for logistic).
 
 Fold assignment draws from an explicit ``torch.Generator``; parity
-tests hand in the reference's fold ids instead.
+tests hand in the reference's fold ids instead.  With a ``tracer``
+(``repro_torch.obs.Tracer``) each target's fits run inside a
+``crossfit:<nuisance>`` span that closes once the card has finished
+them.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ import torch
 
 from repro_torch.core.nuisance import (Nuisance, logistic_fit_folds,
                                        ridge_fit_folds)
+from repro_torch.obs.trace import maybe_span
 
 Tensor = torch.Tensor
 
@@ -105,28 +109,38 @@ class CrossfitResult:
     states_t: Any
 
 
+_ENGINES = {"parallel": crossfit_parallel,
+            "parallel_loo": crossfit_parallel_loo,
+            "sequential": crossfit_sequential}
+
+
 def crossfit_one(nuis: Nuisance, gen: torch.Generator, X: Tensor,
                  target: Tensor, folds: Tensor, k: int,
-                 engine: str = "parallel") -> Tuple[Tensor, Any]:
-    """Engine dispatch for ONE cross-fit target over fixed folds."""
-    if engine == "parallel":
-        return crossfit_parallel(nuis, gen, X, target, folds, k)
-    if engine == "parallel_loo":
-        return crossfit_parallel_loo(nuis, gen, X, target, folds, k)
-    if engine == "sequential":
-        return crossfit_sequential(nuis, gen, X, target, folds, k)
-    raise NotImplementedError(
-        f"engine {engine!r}: executor-mapped engines land with the runtime "
-        "slice (ROADMAP A.9); use parallel | sequential | parallel_loo")
+                 engine: str = "parallel", tracer=None
+                 ) -> Tuple[Tensor, Any]:
+    """Engine dispatch for ONE cross-fit target over fixed folds, in a
+    ``crossfit:<nuisance>`` span when ``tracer`` is given."""
+    fn = _ENGINES.get(engine)
+    if fn is None:
+        raise NotImplementedError(
+            f"engine {engine!r}: executor-mapped engines land with the "
+            "runtime slice (ROADMAP A.9); use parallel | sequential | "
+            "parallel_loo")
+    with maybe_span(tracer, f"crossfit:{nuis.name}", cat="crossfit", k=k,
+                    n=int(X.shape[0]), backend=engine):
+        out = fn(nuis, gen, X, target, folds, k)
+        if tracer is not None:
+            tracer.sync(out)
+    return out
 
 
 def crossfit(nuis_y: Nuisance, nuis_t: Nuisance, gen: torch.Generator,
              X: Tensor, y: Tensor, t: Tensor, k: int,
-             engine: str = "parallel") -> CrossfitResult:
+             engine: str = "parallel", tracer=None) -> CrossfitResult:
     """Cross-fit both nuisances over one fold assignment drawn on
     ``gen``."""
     folds = fold_ids(gen, X.shape[0], k, device=X.device)
-    oof_y, st_y = crossfit_one(nuis_y, gen, X, y, folds, k, engine)
-    oof_t, st_t = crossfit_one(nuis_t, gen, X, t, folds, k, engine)
+    oof_y, st_y = crossfit_one(nuis_y, gen, X, y, folds, k, engine, tracer)
+    oof_t, st_t = crossfit_one(nuis_t, gen, X, t, folds, k, engine, tracer)
     return CrossfitResult(oof_y=oof_y, oof_t=oof_t, folds=folds,
                           states_y=st_y, states_t=st_t)

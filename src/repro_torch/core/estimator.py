@@ -5,9 +5,11 @@ results.
 InferenceResults per (method, replicates, executor), and falls back to
 the analytic interval when inference is off.  Estimators plug in only
 ``_replicate_inference``.  ``SandwichEffectResult`` adds theta + HC0
-covariance (DML, OrthoIV).  Replicate inference: the delete-fold
-jackknife, and the pairs ("bootstrap") and multiplier bootstraps through
-an executor (``repro_torch.inference``).
+covariance (DML, OrthoIV); ``PseudoOutcomeEffectResult`` a scalar ATE
+(the mean pseudo-outcome) beside a theta projection (DRLearner, DRIV).
+Replicate inference: the delete-fold jackknife, and the pairs
+("bootstrap") and multiplier bootstraps through an executor
+(``repro_torch.inference``).
 """
 from __future__ import annotations
 
@@ -52,6 +54,11 @@ class EffectResult:
         return dict(memory_budget=cfg.runtime_memory_budget,
                     chunk=cfg.runtime_chunk)
 
+    def _resolve_method(self, method: str) -> str:
+        """Map or refuse inference methods the estimator cannot serve
+        (DR has no fold-state jackknife)."""
+        return method
+
     def _replicate_inference(self, method: str, n_boot: int, executor: Any,
                              alpha: float):
         raise NotImplementedError
@@ -79,6 +86,7 @@ class EffectResult:
         method = method or cfg.inference
         if method in ("none", ""):
             raise ValueError("cfg.inference='none'; pass method= to force")
+        method = self._resolve_method(method)
         n_boot = n_bootstrap or cfg.n_bootstrap
         exe = executor or cfg.inference_executor
         a = cfg.alpha if alpha is None else alpha
@@ -175,3 +183,32 @@ class SandwichEffectResult(EffectResult):
             lines.extend(extra)
         return "\n".join(lines)
 
+
+
+class PseudoOutcomeEffectResult(EffectResult):
+    """Scalar ATE = the mean pseudo-outcome, beside a theta projection on
+    phi (subclass dataclasses provide ``ate``, ``stderr`` (floats) and
+    ``theta`` (p_phi,))."""
+
+    def cate(self, X: Tensor, n_features: Optional[int] = None) -> Tensor:
+        """theta(x) = <phi(x), theta> per row of X (on theta's device)."""
+        nf = (n_features if n_features is not None
+              else self._config().cate_features)
+        return cate_basis(as_f32(X, self.theta.device), nf) @ self.theta
+
+    def conf_int(self, alpha: float = 0.05) -> Tuple[float, float]:
+        """Analytic ATE interval: ate ± z · stderr."""
+        z = z_crit(alpha)
+        return self.ate - z * self.stderr, self.ate + z * self.stderr
+
+    def _analytic_ate_interval(self, alpha: float) -> Tuple[float, float]:
+        return self.conf_int(alpha)
+
+    def summary(self) -> str:
+        """The ATE with its analytic interval, plus diagnostics."""
+        lo, hi = self.conf_int()
+        lines = [f"{self.estimator_name} result", "-" * 46,
+                 f"ATE = {self.ate:+.4f} (se {self.stderr:.4f}), "
+                 f"95% CI [{lo:+.4f}, {hi:+.4f}]"]
+        lines.extend(self._summary_extra())
+        return "\n".join(lines)

@@ -18,7 +18,18 @@ compliance designs it targets the LATE.
 
 Inference: the HC0 sandwich, the delete-fold jackknife (one
 fold-segmented instrumented Gram) and the pairs / multiplier bootstrap
-(``iv_bootstrap``).  DRIV waits for the estimators slice (ROADMAP A.6).
+(``iv_bootstrap``).
+
+DRIV — the doubly-robust IV CATE (Syrgkanis et al. 2019; EconML's
+DRIV): one more cross-fit nuisance β(x) = E[rt·rz|X] on the same folds
+(the conditional compliance covariance, clipped away from zero), a
+preliminary constant OrthoIV estimate θ_pre, and the pseudo-outcome
+
+    ψ = θ_pre + (ry - θ_pre·rt) · rz / clip(β(x))
+
+regressed on φ(x); mean ψ is the LATE functional.  Its inference is the
+pairs / multiplier bootstrap of the whole pipeline (``driv_bootstrap``);
+it has no delete-fold jackknife.
 """
 from __future__ import annotations
 
@@ -31,12 +42,14 @@ from repro_torch.config import CausalConfig
 from repro_torch.core import moments
 from repro_torch.core.crossfit import crossfit_one, fold_ids
 from repro_torch.core.estimands import IVDiagnostics, compute_iv_diagnostics
-from repro_torch.core.estimator import (SandwichEffectResult, inf_cache_field,
+from repro_torch.core.estimator import (PseudoOutcomeEffectResult,
+                                        SandwichEffectResult, inf_cache_field,
                                         resolve_scheme)
 from repro_torch.core.final_stage import cate_basis
-from repro_torch.core.nuisance import Nuisance, make_nuisance
+from repro_torch.core.nuisance import Nuisance, make_nuisance, make_ridge
 from repro_torch.device import DeviceLike, as_f32, resolve_device
-from repro_torch.inference.bootstrap import derive_seed, iv_bootstrap
+from repro_torch.inference.bootstrap import (derive_seed, driv_bootstrap,
+                                             iv_bootstrap)
 from repro_torch.inference.jackknife import delete_fold_jackknife_iv
 from repro_torch.inference.numerics import det_solve, sandwich
 
@@ -125,6 +138,7 @@ class IVFitContext:
     nuis_y: Nuisance
     nuis_t: Nuisance
     nuis_z: Nuisance
+    compliance: Optional[Nuisance] = None   # DRIV's β(x) nuisance
 
 
 @dataclasses.dataclass(frozen=True)
@@ -227,10 +241,131 @@ def clip_compliance(beta: Tensor, clip: float) -> Tensor:
                        torch.clamp(beta, max=-clip))
 
 
-class DRIV:
-    """Doubly-robust IV: waits for the estimators slice."""
+@dataclasses.dataclass(frozen=True)
+class DRIVResult(PseudoOutcomeEffectResult):
+    """A fitted DRIV: the LATE (mean ψ) with its stderr, the CATE
+    coefficients on phi(x), the pseudo-outcomes, the preliminary
+    constant OrthoIV estimate and the instrument diagnostics."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "DRIV needs the pseudo-outcome results and its compliance "
-            "nuisance; it lands with the estimators slice (ROADMAP A.6)")
+    ate: float                # mean pseudo-outcome: the LATE functional
+    stderr: float
+    theta: Tensor             # (p_phi,) CATE coefficients on phi(x)
+    pseudo: Tensor            # (n,) DRIV pseudo-outcomes
+    theta_pre: float          # the preliminary constant OrthoIV estimate
+    diagnostics: IVDiagnostics
+    cfg: Optional[CausalConfig] = None
+    fit_ctx: Optional[IVFitContext] = None
+    _inf_cache: Dict[Any, Any] = inf_cache_field()
+
+    estimator_name = "DRIV"
+
+    @property
+    def late(self) -> float:
+        """The LATE functional (= ``ate``, the mean pseudo-outcome)."""
+        return self.ate
+
+    def _resolve_method(self, method):
+        if method == "jackknife":
+            # the pseudo-outcome depends on every fold's nuisances, so
+            # there is no delete-fold shortcut; a bootstrap standing in
+            # would make jackknife-vs-jackknife comparisons lie
+            raise ValueError(
+                "DRIV has no delete-fold jackknife; use "
+                "method='bootstrap'|'multiplier', or OrthoIV for a "
+                "jackknife over the instrumented moment")
+        return method
+
+    def _replicate_inference(self, method, n_boot, exe, alpha):
+        """B weighted refits of the whole DRIV pipeline (nuisances,
+        compliance, preliminary estimate, pseudo-outcome regression)
+        through an executor; the LATE functional's draws ride along."""
+        cfg, ctx = self._config(), self.fit_ctx
+        return driv_bootstrap(
+            ctx.nuis_y, ctx.nuis_t, ctx.nuis_z, ctx.compliance,
+            n_folds=cfg.n_folds, XW=ctx.XW, y=ctx.y, t=ctx.t, z=ctx.z,
+            phi=ctx.phi, seed=derive_seed(ctx.seed, 0x1b00),
+            n_replicates=n_boot, scheme=resolve_scheme(method), executor=exe,
+            alpha=alpha, cov_clip=cfg.iv_cov_clip, point=self.theta,
+            ate_point=self.ate, row_block=cfg.row_block,
+            strategy=cfg.row_block_strategy, **self._runtime_kwargs())
+
+    def _summary_extra(self):
+        d = self.diagnostics
+        flag = "WEAK" if d.weak_instrument else "ok"
+        return (f"preliminary OrthoIV θ_pre = {self.theta_pre:+.4f}",
+                f"IV-moment |E[e·rz]| = {d.ortho_moment:.2e}",
+                f"first-stage F = {d.first_stage_f:.1f} [{flag}]")
+
+
+class DRIV:
+    """fit(y, t, z, X): four cross-fit nuisances (m_y, m_t, m_z, β) and
+    the doubly-robust pseudo-outcome regression; ``device=None`` runs on
+    the CUDA card."""
+
+    def __init__(self, cfg: CausalConfig,
+                 nuisance_y: Optional[Nuisance] = None,
+                 nuisance_t: Optional[Nuisance] = None,
+                 nuisance_z: Optional[Nuisance] = None,
+                 compliance: Optional[Nuisance] = None,
+                 device: DeviceLike = None):
+        self.cfg = cfg
+        base = OrthoIV(cfg, nuisance_y, nuisance_t, nuisance_z, device)
+        self.device = base.device
+        self.nuis_y, self.nuis_t, self.nuis_z = (base.nuis_y, base.nuis_t,
+                                                 base.nuis_z)
+        # β(x) = E[rt·rz|X] is a regression whatever Z and T are
+        self.compliance = compliance or make_ridge(
+            cfg.ridge_lambda, row_block=cfg.row_block,
+            strategy=cfg.row_block_strategy)
+
+    def fit(self, y, t, z, X, W=None,
+            gen: Optional[torch.Generator] = None) -> DRIVResult:
+        """y, t, z: (n,); X: (n, p) effect covariates; W: optional extra
+        controls.  ``gen`` draws the folds (default: a CPU generator
+        seeded 0); the compliance fit's generator and the bootstrap's
+        replicates derive from its initial seed."""
+        cfg, dev = self.cfg, self.device
+        gen = gen if gen is not None else torch.Generator().manual_seed(0)
+        seed = gen.initial_seed()
+        y, t, z, X = (as_f32(a, dev) for a in (y, t, z, X))
+        XW = X if W is None else torch.cat([X, as_f32(W, dev)], dim=1)
+        n = X.shape[0]
+        cf = iv_crossfit(self.nuis_y, self.nuis_t, self.nuis_z, gen, XW, y,
+                         t, z, cfg.n_folds, cfg.engine)
+        ry, rt, rz = y - cf.oof_y, t - cf.oof_t, z - cf.oof_z
+
+        # the compliance nuisance on the SAME folds: β(x) = E[rt·rz | X]
+        gb = torch.Generator().manual_seed(derive_seed(seed, 0xbe7a))
+        oof_b, _ = crossfit_one(self.compliance, gb, XW, rt * rz, cf.folds,
+                                cfg.n_folds, cfg.engine)
+        beta = clip_compliance(oof_b, cfg.iv_cov_clip)
+
+        # preliminary constant OrthoIV estimate (the same moment, phi = 1)
+        ones = torch.ones((n, 1), dtype=_F32, device=dev)
+        pre = fit_iv_final_stage(ry, rt, rz, ones, row_block=cfg.row_block,
+                                 strategy=cfg.row_block_strategy)
+        theta_pre = pre.theta[0]
+
+        psi = theta_pre + (ry - theta_pre * rt) * rz / beta
+        ate = float(psi.mean())
+        se = float(psi.std(correction=1) / n ** 0.5)
+
+        # the pseudo-outcome regression: one augmented-moments pass
+        phi = cate_basis(X, cfg.cate_features)
+        q = phi.shape[1]
+        Gaug, _ = moments.weighted_gram(
+            phi, torch.ones((n,), dtype=_F32, device=dev), append=psi,
+            row_block=cfg.row_block, strategy=cfg.row_block_strategy)
+        G = Gaug[:q, :q] + 1e-8 * n * torch.eye(q, dtype=_F32, device=dev)
+        theta = det_solve(G, Gaug[:q, q])
+
+        # the orthogonality diagnostic checks the moment that was zeroed:
+        # the preliminary 2SLS solve's residual
+        e = ry - theta_pre * rt
+        diag = compute_iv_diagnostics(t, z, cf.oof_t, cf.oof_z, e)
+        ctx = IVFitContext(y=y, t=t, z=z, XW=XW, phi=phi, seed=seed,
+                           nuis_y=self.nuis_y, nuis_t=self.nuis_t,
+                           nuis_z=self.nuis_z, compliance=self.compliance)
+        return DRIVResult(ate=ate, stderr=se, theta=theta, pseudo=psi,
+                          theta_pre=float(theta_pre), diagnostics=diag,
+                          cfg=cfg, fit_ctx=ctx)

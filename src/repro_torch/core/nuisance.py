@@ -144,7 +144,8 @@ def make_nuisance(kind: str, task: str, cfg: CausalConfig) -> Nuisance:
                              row_block=rb, strategy=st)
     if kind == "mlp":
         raise NotImplementedError(
-            "the mlp nuisance lands with the estimators slice (ROADMAP A.6)")
+            "the mlp nuisance lands with the metalearners slice "
+            "(ROADMAP A.6b)")
     if kind == "backbone":
         # heads over precomputed backbone features; the same linear math
         if task == "clf":

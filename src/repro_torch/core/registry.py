@@ -5,11 +5,12 @@ sweep engine and the effect store instead of private copies.
 Each name of the JAX package's registry is registered here with its
 base config and whether it needs an instrument, so the store's coverage
 gate and the engine's per-column isolation decide as the reference's
-do.  The DML family (``dml``, ``dml_p2_rb``, ``dml_loo``) and the
-OrthoIV family (``orthoiv``, ``orthoiv_p2_rb``) have their ``fit`` and
-``weighted_fit`` on the port's ``DML`` / ``OrthoIV``; the others raise
-``NotImplementedError`` naming ROADMAP A.6 (the estimators slice), as
-does the conformance suite built on them.
+do.  The DML family (``dml``, ``dml_p2_rb``, ``dml_loo``), the OrthoIV
+family (``orthoiv``, ``orthoiv_p2_rb``), ``drlearner`` and ``driv``
+have their ``fit`` and ``weighted_fit`` on the port's estimators; the
+S/T/X metalearners raise ``NotImplementedError``: they build on the
+task runtime (ROADMAP A.9) and land with A.6b, as does the conformance
+suite built on them.
 
 ``weighted_fit(cfg)`` returns the weighted single fit the sweep masks
 per segment: ``cell(folds, w, data)``, on given folds (torch cannot
@@ -25,10 +26,12 @@ import torch
 
 from repro_torch.config import CausalConfig
 from repro_torch.core.dml import DML
-from repro_torch.core.iv import OrthoIV
-from repro_torch.core.nuisance import make_nuisance
+from repro_torch.core.drlearner import DRLearner
+from repro_torch.core.iv import DRIV, OrthoIV
+from repro_torch.core.nuisance import make_logistic, make_nuisance, make_ridge
 
-_LATER = "lands with the estimators slice (ROADMAP A.6)"
+_LATER = ("builds on the task runtime (ROADMAP A.9) and lands with the "
+          "metalearners (ROADMAP A.6b)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -176,6 +179,54 @@ def _orthoiv_final_fit(cfg):
     return final
 
 
+# -- DRLearner ----------------------------------------------------------------
+
+def _fit_dr(data, cfg, gen):
+    return DRLearner(cfg, device=data.X.device).fit(data.y, data.t, data.X,
+                                                    gen=gen)
+
+
+def _dr_weighted_fit(cfg):
+    from repro_torch.inference.bootstrap import dr_theta_once
+    outcome = make_ridge(cfg.ridge_lambda, row_block=cfg.row_block,
+                         strategy=cfg.row_block_strategy)
+    propensity = make_logistic(cfg.ridge_lambda, cfg.newton_iters,
+                               row_block=cfg.row_block,
+                               strategy=cfg.row_block_strategy)
+
+    def cell(folds, w, data):
+        return dr_theta_once(outcome, propensity, cfg.n_folds, data["X"],
+                             data["y"], data["t"], data["phi"], folds, w,
+                             with_se=True, row_block=cfg.row_block,
+                             strategy=cfg.row_block_strategy)
+
+    return cell
+
+
+# -- DRIV -------------------------------------------------------------------
+
+def _fit_driv(data, cfg, gen):
+    return DRIV(cfg, device=data.X.device).fit(data.y, data.t, data.z,
+                                               data.X, gen=gen)
+
+
+def _driv_weighted_fit(cfg):
+    from repro_torch.inference.bootstrap import driv_theta_once
+    ny, nt, nz = _iv_nuisances(cfg)
+    compliance = make_ridge(cfg.ridge_lambda, row_block=cfg.row_block,
+                            strategy=cfg.row_block_strategy)
+
+    def cell(folds, w, data):
+        return driv_theta_once(ny, nt, nz, compliance, cfg.n_folds,
+                               data["X"], data["y"], data["t"], data["z"],
+                               data["phi"], folds, w,
+                               cov_clip=cfg.iv_cov_clip, with_se=True,
+                               row_block=cfg.row_block,
+                               strategy=cfg.row_block_strategy)
+
+    return cell
+
+
 # -- estimators of a later slice --------------------------------------------
 
 def _later(name: str):
@@ -196,11 +247,15 @@ def _later_weighted(name: str):
 _CFG = CausalConfig(n_folds=3, inference="none")
 
 
-def _spec(name, fit, point, cfg, iv=False):
+def _spec(name, fit, point, cfg, iv=False, weighted_fit=None):
     if fit is None:
         return EstimatorSpec(name=name, fit=_later(name), point=_later(name),
                              base_cfg=cfg, weighted_fit=_later_weighted(name),
                              needs_instrument=iv)
+    if weighted_fit is not None:
+        # pseudo-outcome estimators: no shared-nuisance split
+        return EstimatorSpec(name=name, fit=fit, point=point, base_cfg=cfg,
+                             weighted_fit=weighted_fit, needs_instrument=iv)
     if iv:
         return EstimatorSpec(name=name, fit=fit, point=point, base_cfg=cfg,
                              weighted_fit=_orthoiv_weighted_fit,
@@ -222,14 +277,15 @@ SPECS = (
           dataclasses.replace(_CFG, cate_features=2)),
     _spec("dml_loo", _fit_dml, _ATE,
           dataclasses.replace(_CFG, engine="parallel_loo")),
-    _spec("drlearner", None, None, _CFG),
+    _spec("drlearner", _fit_dr, _ATE, _CFG, weighted_fit=_dr_weighted_fit),
     _spec("s_learner", None, None, _CFG),
     _spec("t_learner", None, None, _CFG),
     _spec("x_learner", None, None, _CFG),
     _spec("orthoiv", _fit_orthoiv, _LATE, _CFG, iv=True),
     _spec("orthoiv_p2_rb", _fit_orthoiv, _LATE,
           dataclasses.replace(_CFG, cate_features=2), iv=True),
-    _spec("driv", None, None, _CFG, iv=True),
+    _spec("driv", _fit_driv, _LATE, _CFG, iv=True,
+          weighted_fit=_driv_weighted_fit),
 )
 
 SPEC_IDS = tuple(s.name for s in SPECS)

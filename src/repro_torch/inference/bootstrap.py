@@ -13,9 +13,14 @@ generator, seeded from ``(seed, b)`` alone (``replicate_generators``),
 so a B=100 run is a prefix of a B=200 run and any replicate can be
 replayed alone.  The generators are CPU generators, so the draws do not
 depend on the device the fit runs on.  torch cannot replay
-``jax.random``: ``dml_theta_once`` / ``iv_theta_once`` take folds and
-weights explicitly, which is how the tests feed both packages the same
-draws.
+``jax.random``: ``dml_theta_once`` / ``iv_theta_once`` /
+``dr_theta_once`` / ``driv_theta_once`` take folds and weights
+explicitly, which is how the tests feed both packages the same draws.
+
+The doubly-robust refits (``dr_*``, ``driv_*``) also draw the ATE / LATE
+functional itself — the weighted mean pseudo-outcome, which is not
+theta[0] outside the constant basis — into the result's
+``ate_replicates``.
 """
 from __future__ import annotations
 
@@ -117,7 +122,7 @@ def fit_predict_folds(nuis: Nuisance, X: Tensor, target: Tensor,
                                  strategy=st), X)
     raise NotImplementedError(
         f"weighted refits of the {nuis.name!r} nuisance land with the "
-        "estimators slice (ROADMAP A.6); ridge and logistic are ported")
+        "mlp nuisance (ROADMAP A.6b); ridge and logistic are ported")
 
 
 def _batch(folds: Tensor, w: Tensor):
@@ -188,13 +193,15 @@ def _run(replicate, executor, chunk: int, memory_budget: int,
     return exe.map(replicate, ids, *args), exe.name
 
 
-def _result(out, scheme, exe_name, point, point_se, alpha) -> InferenceResult:
+def _result(out, scheme, exe_name, point, point_se, alpha,
+            ate_point: Optional[float] = None) -> InferenceResult:
     thetas = out["theta"]
     return InferenceResult(
         method=scheme, executor=exe_name,
         point=thetas.mean(dim=0) if point is None else point,
         replicates=thetas, se=torch.std(thetas, dim=0, correction=1),
-        alpha=alpha, point_se=point_se, replicate_se=out.get("se"))
+        alpha=alpha, point_se=point_se, replicate_se=out.get("se"),
+        ate_replicates=out.get("ate"), ate_point=ate_point)
 
 
 def dml_bootstrap(nuis_y: Nuisance, nuis_t: Nuisance, *, n_folds: int,
@@ -271,3 +278,144 @@ def iv_bootstrap(nuis_y: Nuisance, nuis_t: Nuisance, nuis_z: Nuisance, *,
     out, name = _run(replicate, executor, chunk, memory_budget, n_replicates,
                      XW, y, t, z, phi)
     return _result(out, scheme, name, point, point_se, alpha)
+
+
+# ---------------------------------------------------------------------------
+# The doubly-robust refits: DRLearner (AIPW) and DRIV.
+# ---------------------------------------------------------------------------
+
+def _weighted_mean_rows(w: Tensor, psi: Tensor) -> Tensor:
+    """(R,) ``Σ w·psi / max(Σ w, 1)`` per replicate row, each row reduced
+    alone: a reduction over a (R, n) tensor may split its rows another
+    way at another R, and a replicate's bits must not depend on the
+    batch it sits in."""
+    wf = w.to(_F32)
+    return torch.stack([(wf[b] * psi[b]).sum()
+                        / torch.clamp(wf[b].sum(), min=1.0)
+                        for b in range(psi.shape[0])])
+
+
+def dr_theta_once(outcome: Nuisance, propensity: Nuisance, n_folds: int,
+                  X: Tensor, y: Tensor, t: Tensor, phi: Tensor,
+                  folds: Tensor, w: Tensor, *, clip: float = 0.01,
+                  with_se: bool = True, row_block: int = 0,
+                  strategy: Optional[str] = None) -> Dict[str, Tensor]:
+    """Weighted AIPW re-estimations (mirrors ``DRLearner.fit``) on given
+    folds and weights, (n,) or (R, n): both arms' outcome models under
+    ``fold_weights * arm * w`` and the propensity under
+    ``fold_weights * w`` (fold-and-replicate batched fits), the clipped
+    AIPW pseudo-outcome, then the weighted pseudo-outcome regression on
+    phi.  Returns {theta, ate[, se]}: theta (p_phi,) or (R, p_phi), ate
+    the weighted mean pseudo-outcome."""
+    folds, w, single = _batch(folds, w)
+    W = fold_weights(folds, n_folds)                    # (R, k, n)
+    tt = t.to(_F32)
+    yy = y.to(_F32)[None]
+    wk = w[:, None, :].to(_F32)
+    m0 = _oof_select(fit_predict_folds(outcome, X, y,
+                                       W * (1.0 - tt) * wk), folds)
+    m1 = _oof_select(fit_predict_folds(outcome, X, y, W * tt * wk), folds)
+    e = _oof_select(fit_predict_folds(propensity, X, tt, W * wk), folds)
+    e = torch.clamp(e, clip, 1.0 - clip)
+    psi = (m1 - m0 + tt * (yy - m1) / e
+           - (1.0 - tt) * (yy - m0) / (1.0 - e))
+    theta, se = weighted_theta(psi, torch.ones_like(psi), phi, w,
+                               with_se=with_se, row_block=row_block,
+                               strategy=strategy)
+    out = {"theta": theta, "ate": _weighted_mean_rows(w, psi)}
+    if se is not None:
+        out["se"] = se
+    return _unbatch(out, single)
+
+
+def dr_bootstrap(outcome: Nuisance, propensity: Nuisance, *, n_folds: int,
+                 X: Tensor, y: Tensor, t: Tensor, phi: Tensor, seed: int,
+                 n_replicates: int = 200, scheme: str = "pairs",
+                 executor="vmap", alpha: float = 0.05, clip: float = 0.01,
+                 with_se: bool = True, point: Optional[Tensor] = None,
+                 point_se: Optional[Tensor] = None,
+                 ate_point: Optional[float] = None, row_block: int = 0,
+                 strategy: Optional[str] = None, memory_budget: int = 0,
+                 chunk: int = 0) -> InferenceResult:
+    """B weighted AIPW refits through an executor, scheduled as
+    ``dml_bootstrap``; the ATE functional's own draws fill
+    ``ate_replicates``."""
+
+    def replicate(ids, X_, y_, t_, phi_):
+        folds, w = replicate_draws(seed, ids, X_.shape[0], n_folds, scheme,
+                                   device=X_.device)
+        return dr_theta_once(outcome, propensity, n_folds, X_, y_, t_, phi_,
+                             folds, w, clip=clip, with_se=with_se,
+                             row_block=row_block, strategy=strategy)
+
+    out, name = _run(replicate, executor, chunk, memory_budget, n_replicates,
+                     X, y, t, phi)
+    return _result(out, scheme, name, point, point_se, alpha, ate_point)
+
+
+def driv_theta_once(nuis_y: Nuisance, nuis_t: Nuisance, nuis_z: Nuisance,
+                    compliance: Nuisance, n_folds: int, XW: Tensor,
+                    y: Tensor, t: Tensor, z: Tensor, phi: Tensor,
+                    folds: Tensor, w: Tensor, *, cov_clip: float = 0.1,
+                    with_se: bool = True, row_block: int = 0,
+                    strategy: Optional[str] = None) -> Dict[str, Tensor]:
+    """Weighted DRIV re-estimations (mirrors ``DRIV.fit``) on given folds
+    and weights, (n,) or (R, n): the three residual nuisances and the
+    compliance β(x) = E[rt·rz|X] under ``fold_weights * w``, the
+    preliminary weighted constant OrthoIV, the pseudo-outcome
+    ψ = θ_pre + (ry - θ_pre·rt)·rz / clip(β), then its weighted
+    regression on phi.  Returns {theta, ate[, se]}, ate the weighted
+    mean ψ (the LATE functional).
+
+    The compliance target rt·rz differs per replicate, so its fold fit
+    runs one replicate at a time (each one fold-batched fit)."""
+    from repro_torch.core.iv import clip_compliance
+    folds, w, single = _batch(folds, w)
+    r = iv_residuals_once(nuis_y, nuis_t, nuis_z, n_folds, XW, y, t, z,
+                          folds, w)
+    ry, rt, rz = r["ry"], r["rt"], r["rz"]
+    Wk = fold_weights(folds, n_folds) * w[:, None, :].to(_F32)
+    target = rt * rz
+    preds = torch.stack([fit_predict_folds(compliance, XW, target[b], Wk[b])
+                         for b in range(target.shape[0])])
+    beta = clip_compliance(_oof_select(preds, folds), cov_clip)
+    ones = torch.ones((XW.shape[0], 1), dtype=_F32, device=XW.device)
+    th_pre, _ = weighted_iv_theta(ry, rt, rz, ones, w, with_se=False,
+                                  row_block=row_block, strategy=strategy)
+    th0 = th_pre[:, :1]
+    psi = th0 + (ry - th0 * rt) * rz / beta
+    theta, se = weighted_theta(psi, torch.ones_like(psi), phi, w,
+                               with_se=with_se, row_block=row_block,
+                               strategy=strategy)
+    out = {"theta": theta, "ate": _weighted_mean_rows(w, psi)}
+    if se is not None:
+        out["se"] = se
+    return _unbatch(out, single)
+
+
+def driv_bootstrap(nuis_y: Nuisance, nuis_t: Nuisance, nuis_z: Nuisance,
+                   compliance: Nuisance, *, n_folds: int, XW: Tensor,
+                   y: Tensor, t: Tensor, z: Tensor, phi: Tensor, seed: int,
+                   n_replicates: int = 200, scheme: str = "pairs",
+                   executor="vmap", alpha: float = 0.05,
+                   cov_clip: float = 0.1, with_se: bool = True,
+                   point: Optional[Tensor] = None,
+                   point_se: Optional[Tensor] = None,
+                   ate_point: Optional[float] = None, row_block: int = 0,
+                   strategy: Optional[str] = None, memory_budget: int = 0,
+                   chunk: int = 0) -> InferenceResult:
+    """B weighted DRIV refits through an executor, scheduled as
+    ``dml_bootstrap``; the LATE functional's own draws fill
+    ``ate_replicates``."""
+
+    def replicate(ids, XW_, y_, t_, z_, phi_):
+        folds, w = replicate_draws(seed, ids, XW_.shape[0], n_folds, scheme,
+                                   device=XW_.device)
+        return driv_theta_once(nuis_y, nuis_t, nuis_z, compliance, n_folds,
+                               XW_, y_, t_, z_, phi_, folds, w,
+                               cov_clip=cov_clip, with_se=with_se,
+                               row_block=row_block, strategy=strategy)
+
+    out, name = _run(replicate, executor, chunk, memory_budget, n_replicates,
+                     XW, y, t, z, phi)
+    return _result(out, scheme, name, point, point_se, alpha, ate_point)

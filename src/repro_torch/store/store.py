@@ -37,8 +37,12 @@ Contracts:
     fault-isolated: they land as failed ``ColumnResult``s with the
     gate's reason, never an exception.
 
-Tracing (ROADMAP A.8) and data meshes (ROADMAP A.10) land with later
-slices: ``tracer=`` / ``data_mesh=`` raise.
+Tracing: with ``tracer=`` (a ``repro_torch.obs.Tracer``) every ingest
+runs in a ``store.ingest`` span and every refresh in a ``store.refresh``
+span, each closing once the card has finished, and the tracer's metrics
+count ``store.ingests``, ``store.ingest.rows``, ``store.refreshes`` and
+gauge ``store.version``.  Data meshes (ROADMAP A.10) land with a later
+slice: ``data_mesh=`` raises.
 """
 from __future__ import annotations
 
@@ -54,6 +58,7 @@ from repro_torch.core.registry import EstimatorSpec, get_spec
 from repro_torch.device import DeviceLike, as_f32, resolve_device
 from repro_torch.inference.bootstrap import derive_seed
 from repro_torch.kernels.seg_gram import ops as sg_ops
+from repro_torch.obs.trace import maybe_span
 from repro_torch.store import stats as store_stats
 from repro_torch.store.solve import refresh_column
 from repro_torch.store.stats import ColumnLayout
@@ -125,13 +130,11 @@ class MomentStore:
 
     def __init__(self, spec: SweepSpec, n_features: int, seed: int = 0, *,
                  tracer=None, data_mesh=None, device: DeviceLike = None):
-        if tracer is not None:
-            raise NotImplementedError("tracing lands with the "
-                                      "observability slice (ROADMAP A.8)")
         if data_mesh is not None:
             raise NotImplementedError("data meshes land with the "
                                       "distributed slice (ROADMAP A.10)")
         self.spec = spec
+        self.tracer = tracer
         self.n_features = int(n_features)
         self.seed = int(seed)
         self.device = resolve_device(device)
@@ -209,35 +212,47 @@ class MomentStore:
         if needs_z and z is None:
             raise ValueError("store: spec has instrumented columns; "
                              "ingest requires z")
-        if n:
-            y, t = as_f32(y, dev), as_f32(t, dev)
-            z = None if z is None else as_f32(z, dev)
-            sids = torch.as_tensor(segment_ids, device=dev).long()
-            for i, col in enumerate(self._cols):
-                if col.layout is None:
-                    continue
-                cfg, layout = col.cfg, col.layout
-                rb = cfg.row_block
-                if rb > 0 and self.n_total % rb != 0:
-                    # prior ingests broke THIS column's block alignment:
-                    # still correct, but its bitwise contract degrades to
-                    # tolerance from here on
-                    col.aligned = False
-                folds = _row_folds(self.column_seed(i), self.n_total, n,
-                                   layout.k).to(dev)
-                comb = sids * layout.k + folds
-                phi = cate_basis(X, cfg.cate_features)
-                col.state = store_stats.ingest_cells(
-                    layout, col.state, X, t, y, z if layout.iv else None,
-                    phi, comb, self.spec.n_segments * layout.k,
-                    row_block=cfg.row_block,
-                    strategy=cfg.row_block_strategy)
-            self.seg_counts = self.seg_counts + sg_ops.segment_counts(
-                sids, self.spec.n_segments)
-            self.n_total += n
-        self.version += 1
-        self.n_ingests += 1
+        with maybe_span(self.tracer, "store.ingest", cat="store", rows=n,
+                        version=self.version + 1):
+            if n:
+                self._ingest_rows(X, y, t, z, segment_ids, n)
+            self.version += 1
+            self.n_ingests += 1
+            if self.tracer is not None:
+                self.tracer.sync(self.state_dict())
+        if self.tracer is not None:
+            m = self.tracer.metrics
+            m.counter("store.ingests").inc()
+            m.counter("store.ingest.rows").inc(n)
+            m.gauge("store.version").set(self.version)
         return self
+
+    def _ingest_rows(self, X, y, t, z, segment_ids, n: int) -> None:
+        dev = self.device
+        y, t = as_f32(y, dev), as_f32(t, dev)
+        z = None if z is None else as_f32(z, dev)
+        sids = torch.as_tensor(segment_ids, device=dev).long()
+        for i, col in enumerate(self._cols):
+            if col.layout is None:
+                continue
+            cfg, layout = col.cfg, col.layout
+            rb = cfg.row_block
+            if rb > 0 and self.n_total % rb != 0:
+                # prior ingests broke THIS column's block alignment:
+                # still correct, but its bitwise contract degrades to
+                # tolerance from here on
+                col.aligned = False
+            folds = _row_folds(self.column_seed(i), self.n_total, n,
+                               layout.k).to(dev)
+            comb = sids * layout.k + folds
+            phi = cate_basis(X, cfg.cate_features)
+            col.state = store_stats.ingest_cells(
+                layout, col.state, X, t, y, z if layout.iv else None,
+                phi, comb, self.spec.n_segments * layout.k,
+                row_block=cfg.row_block, strategy=cfg.row_block_strategy)
+        self.seg_counts = self.seg_counts + sg_ops.segment_counts(
+            sids, self.spec.n_segments)
+        self.n_total += n
 
     # ------------------------------------------------------------------
     # Refresh
@@ -245,6 +260,16 @@ class MomentStore:
     def refresh(self) -> EffectPanel:
         """Re-solve every column from its accumulators (no data pass)
         and emit the refreshed ``EffectPanel``."""
+        with maybe_span(self.tracer, "store.refresh", cat="store",
+                        version=self.version, n_total=self.n_total):
+            panel = self._refresh()
+            if self.tracer is not None:
+                self.tracer.sync(panel)
+        if self.tracer is not None:
+            self.tracer.metrics.counter("store.refreshes").inc()
+        return panel
+
+    def _refresh(self) -> EffectPanel:
         columns = []
         tag = (f"store:v{self.version}",)
         for i, col in enumerate(self._cols):

@@ -8,8 +8,14 @@ many-effects-cheaply execution.  A column that the one-pass kernels do
 not cover, which the reference runs as masked weighted cells through
 its task runtime, becomes a failed column naming ROADMAP A.9 (the
 runtime slice); so do ``mode="cells"``, replicate CIs
-(``with_ci=True``) and ``serial_loop``, at entry.  Tracing waits for
-A.8 and data meshes for A.10.
+(``with_ci=True``) and ``serial_loop``, at entry.  Data meshes wait for
+A.10.
+
+Tracing (``tracer=``, a ``repro_torch.obs.Tracer``): each column runs in
+a ``sweep.column[<i>]`` span that closes once the card has finished it,
+and the columns of one (estimator, nuisance signature) group nest in a
+``sweep.group:<name>`` span when the group has more than one.  The
+task runtime's chunk spans inside them land with A.9.
 
 Fault isolation: a failing column (unknown estimator, missing
 instrument, unsupported config, an error inside its fit) is recorded
@@ -33,6 +39,7 @@ from repro_torch.core.registry import (EstimatorSpec, get_spec,
                                        nuisance_signature)
 from repro_torch.device import DeviceLike, as_f32, resolve_device
 from repro_torch.inference.bootstrap import derive_seed
+from repro_torch.obs.trace import maybe_span
 from repro_torch.sweep.panel import ColumnResult, EffectPanel
 from repro_torch.sweep.segmented import segmented_column, segmented_supported
 from repro_torch.sweep.spec import SweepSpec, segment_counts
@@ -115,7 +122,7 @@ def _restore_column(mgr, idx: int, name: str, cfg: CausalConfig,
 
 def _segmented_or_cells(rspec: EstimatorSpec, cfg: CausalConfig,
                         col_index: int, base_data, n_segments: int,
-                        seed: int) -> ColumnResult:
+                        seed: int, tracer=None) -> ColumnResult:
     """mode="segmented" dispatch: the one-pass kernels where they apply;
     a column they do not cover would run as cells, which wait for the
     runtime slice."""
@@ -124,8 +131,12 @@ def _segmented_or_cells(rspec: EstimatorSpec, cfg: CausalConfig,
             estimator=rspec.name, cfg=cfg, key_index=col_index,
             error=(f"{rspec.name} with this config is outside the segmented "
                    f"kernels; its masked cells need {_RUNTIME}"))
-    out = segmented_column(cfg, base_data, n_segments,
-                           column_generator(seed, col_index))
+    with maybe_span(tracer, f"sweep.column[{col_index}]", cat="sweep",
+                    estimator=rspec.name, segmented=True):
+        out = segmented_column(cfg, base_data, n_segments,
+                               column_generator(seed, col_index))
+        if tracer is not None:
+            tracer.sync(out)
     return ColumnResult(estimator=rspec.name, cfg=cfg, thetas=out["theta"],
                         ates=out["ate"], ses=out.get("se"),
                         key_index=col_index, events=("segmented",))
@@ -147,6 +158,9 @@ def sweep(spec: SweepSpec, *, X, y, t, segment_ids, z=None, seed: int = 0,
     with_ci           True (replicate CIs) raises, naming A.9; the
                       segmented path computes point estimates and
                       sandwich se.
+    tracer            optional ``repro_torch.obs.Tracer``: column and
+                      group spans (see the module docstring); None
+                      records nothing.
     checkpoint        optional ``CheckpointManager``: each column saves
                       as step = column index the moment it settles
                       (success OR error); ``keep_latest`` is raised to
@@ -166,9 +180,6 @@ def sweep(spec: SweepSpec, *, X, y, t, segment_ids, z=None, seed: int = 0,
             "the port runs mode='segmented'")
     if with_ci:
         raise NotImplementedError(f"replicate CIs per cell need {_RUNTIME}")
-    if tracer is not None:
-        raise NotImplementedError("tracing lands with the observability "
-                                  "slice (ROADMAP A.8)")
     if data_mesh is not None:
         raise NotImplementedError("data meshes land with the distributed "
                                   "slice (ROADMAP A.10)")
@@ -222,14 +233,17 @@ def sweep(spec: SweepSpec, *, X, y, t, segment_ids, z=None, seed: int = 0,
                 record(idx, ColumnResult(estimator=name, cfg=cfg,
                                          key_index=idx, error=str(err)))
             continue
-        for idx, cfg in members:
-            try:
-                col = _segmented_or_cells(rspec, cfg, idx, base_data, n_seg,
-                                          seed)
-            except Exception as err:  # noqa: BLE001
-                col = ColumnResult(estimator=name, cfg=cfg, key_index=idx,
-                                   error=str(err))
-            record(idx, col)
+        group = tracer if len(members) > 1 else None
+        with maybe_span(group, f"sweep.group:{name}", cat="sweep",
+                        members=len(members), segments=n_seg):
+            for idx, cfg in members:
+                try:
+                    col = _segmented_or_cells(rspec, cfg, idx, base_data,
+                                              n_seg, seed, tracer)
+                except Exception as err:  # noqa: BLE001
+                    col = ColumnResult(estimator=name, cfg=cfg,
+                                       key_index=idx, error=str(err))
+                record(idx, col)
 
     columns = tuple(results[i] for i in range(len(spec.columns)))
     return EffectPanel(columns=columns, counts=counts, n_segments=n_seg,

@@ -70,6 +70,14 @@ byte for byte the generic form, both within those tolerances of plain
 and of the fp64 oracle; the generic form at Dk != Dv, N = 8 and D = 128;
 which form each shape takes; batch and head slices and a second run
 bitwise; the plans' shared memory equal to the library's.
+
+The doubly-robust estimators: DRLearner's and DRIV's fits and bootstraps
+on the card against the CPU (1e-4), with their seg_gram launches by form
+and no fallback, serial ≡ batched bitwise on the card.  Serving: the
+wave scorer on the card bitwise ``score_single`` at every wave shape of
+the server's ladder, through the server too.  ``Tracer.sync`` on the
+card waits for the work (a span around a large matmul lasts longer than
+its launch alone).
 """
 import numpy as np
 import pytest
@@ -1269,3 +1277,99 @@ def test_walk_plans_once_per_id_tensor(card):
     want = {(E, rows(k, q)), (E, rows(2, 2)), (E * k, rows(1, q)),
             (E * k, rows(q + 1, q + 1)), (E * k, rows(q, q))}
     assert dict(kern.PLANS) == {key: 1 for key in want}
+
+
+# ---------------------------------------------------------------------------
+# The doubly-robust estimators, serving and the tracer on the card.
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_dr_and_driv_on_card_match_cpu(card):
+    from repro_torch.config import CausalConfig
+    from repro_torch.core import moments
+    from repro_torch.core.drlearner import DRLearner
+    from repro_torch.core.iv import DRIV
+    from repro_torch.kernels.seg_gram import kernel as kern
+
+    d = _boot_data()
+    cfg = CausalConfig(cate_features=2, inference="bootstrap", n_bootstrap=4,
+                       runtime_chunk=4, row_block=1024,
+                       row_block_strategy="pallas")
+    it = cfg.newton_iters
+    want = {
+        "dr": {"fold_weighted": 2 * (2 + 2 * it), "design": 1,
+               "residual_direct": 1, "residual_meat": 1},
+        "driv": {"design": 3, "gram_and_vec": 2 * it, "iv": 2,
+                 "iv_meat": 1, "fold_weighted": 1 + 4 * it + 4,
+                 "residual_direct": 1, "residual_meat": 1}}
+    for name in ("dr", "driv"):
+        out = {}
+        for dev in ("cpu", card):
+            kern.LAUNCHES.clear()
+            moments.FALLBACKS.clear()
+            if name == "dr":
+                res = DRLearner(cfg, device=dev).fit(d.y, d.t, d.X)
+            else:
+                res = DRIV(cfg, device=dev).fit(d.y, d.t, d.z, d.X)
+            inf = res.inference()
+            out[str(dev)] = (torch.cat([res.theta.cpu(),
+                                        torch.tensor([res.ate])]),
+                             inf.replicates.cpu(), inf.ate_replicates.cpu(),
+                             res.pseudo.cpu())
+            if dev == card:
+                assert dict(kern.LAUNCHES) == want[name], name
+                assert not any(moments.FALLBACKS.values())
+                serial = res.inference(executor="serial")
+                assert torch.equal(serial.replicates, inf.replicates)
+                assert torch.equal(serial.ate_replicates, inf.ate_replicates)
+        for got, ref_ in zip(out[str(card)], out["cpu"]):
+            np.testing.assert_allclose(
+                got.numpy(), ref_.numpy(), rtol=1e-4,
+                atol=1e-4 * float(ref_.abs().max()), err_msg=name)
+
+
+@pytest.mark.cuda
+def test_serving_batched_equals_single_on_card(card):
+    from repro_torch.serve_effects import (EffectServer, ServingPanel,
+                                           score_batch, score_single)
+
+    g = torch.Generator().manual_seed(3)
+    E, p = 64, 500
+    thetas = torch.randn((E, 2), generator=g)
+    ses = torch.rand((E, 2), generator=g) * 0.1
+    ok = torch.rand(E, generator=g) > 0.1
+    panel = ServingPanel(thetas=thetas.to(card), ses=ses.to(card),
+                         ok=ok.to(card), n_features=p, cate_features=2)
+    X = torch.randn((64, p), generator=g).numpy()
+    sids = torch.randint(-1, E + 1, (64,), generator=g).numpy()
+    single = [score_single(panel, X[i], int(sids[i]), 1.96)
+              for i in range(64)]
+    for w in (8, 64):
+        for lo in range(0, 64, w):
+            out = score_batch(panel, X[lo:lo + w], sids[lo:lo + w], 1.96)
+            for i in range(w):
+                for f in ("cate", "lo", "hi", "se", "ok"):
+                    assert torch.equal(out[f][i], single[lo + i][f]), (w, f)
+    srv = EffectServer(panel, wave_sizes=(8, 64), max_queue=100)
+    for r, s in zip(srv.score(X[:37], sids[:37]), single):
+        assert (r.cate, r.se, r.ok) == (float(s["cate"]), float(s["se"]),
+                                        bool(s["ok"]))
+
+
+@pytest.mark.cuda
+def test_tracer_sync_waits_for_the_card(card):
+    from repro_torch.obs import Tracer
+
+    x = torch.randn((8192, 8192), device=card)
+    x @ x
+    torch.cuda.synchronize()
+    tr = Tracer()
+    with tr.span("launch"):
+        y = x @ x
+    torch.cuda.synchronize()
+    with tr.span("synced"):
+        y = tr.sync(x @ x)
+    launch, synced = (s.duration_s for s in tr.spans)
+    # 2 * 8192^3 FLOP: >= 16 ms at the H100's 67 TFLOP/s fp32
+    assert synced > 4 * launch and synced > 5e-3, (launch, synced)
+    assert y.shape == x.shape

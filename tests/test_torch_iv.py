@@ -12,7 +12,8 @@ moments) held against the JAX package's.
     point fit is the w = 1 weighted replicate bitwise, and a batch of
     replicates row by row;
   * ``make_iv_data`` + OrthoIV recover the true LATE within 4 se
-    (jackknife and bootstrap); DRIV refuses with its ROADMAP item.
+    (jackknife and bootstrap); DRIV builds its compliance nuisance and
+    fits (its parity tests: tests/test_torch_driv.py).
 
 Tolerances: Grams rtol 1e-5 plus atol 1e-5·max|G| (fp32 sums in another
 order, ~1e-5 relative on cross-moments, ROADMAP §C); θ, cov, jackknife
@@ -216,8 +217,13 @@ def test_make_iv_data_late_recovered(method):
 
 
 def test_driv_and_continuous_instrument():
-    with pytest.raises(NotImplementedError, match="A.6"):
-        tiv.DRIV(CausalConfig())
+    driv = tiv.DRIV(CausalConfig(), device="cpu")
+    assert driv.compliance.name == "ridge" and driv.compliance.task == "reg"
+    assert driv.nuis_z.name == "logistic"
+    d = make_iv_data(1000, 4, seed=1, device="cpu")
+    res = driv.fit(d.y, d.t, d.z, d.X)
+    assert res.late == res.ate and np.isfinite(res.late)
+    assert res.fit_ctx.compliance is driv.compliance
     cfg = CausalConfig(discrete_instrument=False)
     est = tiv.OrthoIV(cfg, device="cpu")
     assert est.nuis_z.name == "ridge" and est.nuis_z.task == "reg"

@@ -19,7 +19,8 @@ Inside torch, bitwise: aligned ingest partitions against one ingest
 checkpoint manager; and the misaligned-ingest flag per column,
 streaming-stable folds (the port's own splitmix64 draw), the coverage
 gate's reasons, a provenance mismatch, zero-row segments, the effect
-recovered, tracing and data meshes raising.
+recovered, a traced store bitwise the untraced one with its spans and
+counters, data meshes raising.
 """
 import dataclasses
 
@@ -328,7 +329,20 @@ def test_ingest_checks_and_later_features(rows):
         store.ingest(**_kw_rows("dml", rows))
     with pytest.raises(ValueError, match=r"\(n, 6\)"):
         store.ingest(**{**rows, "X": rows["X"][:, :4]})
-    with pytest.raises(NotImplementedError, match="A.8"):
-        MomentStore(spec, n_features=P, tracer=object(), device="cpu")
+    from repro_torch.obs import Tracer
+    tracer = Tracer()
+    traced = MomentStore(spec, n_features=P, tracer=tracer, device="cpu")
+    plain = MomentStore(spec, n_features=P, device="cpu")
+    for st in (traced, plain):
+        st.ingest(**_sliced(rows, 0, 512))
+        st.ingest(**_sliced(rows, 512, N))
+    _states_equal(traced, plain)
+    _panels_equal(traced.refresh(), plain.refresh())
+    assert tracer.span_names() == ["store.ingest", "store.ingest",
+                                   "store.refresh"]
+    snap = tracer.metrics.snapshot()
+    assert snap["counters"]["store.ingest.rows"] == N
+    assert snap["counters"]["store.refreshes"] == 1
+    assert snap["gauges"]["store.version"] == 2
     with pytest.raises(NotImplementedError, match="A.10"):
         MomentStore(spec, n_features=P, data_mesh=object(), device="cpu")

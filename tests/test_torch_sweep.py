@@ -13,8 +13,9 @@ reference's fold ids to the port by replacing
   * per-column isolation: an unsupported config names ROADMAP A.9, an
     unknown estimator or a missing instrument fail their column only,
     and the surviving column is bitwise the column swept alone;
-  * cells mode, replicate CIs, ``serial_loop``, tracing and data meshes
-    raise at entry naming A.9, A.8 and A.10;
+  * cells mode, replicate CIs, ``serial_loop`` and data meshes raise at
+    entry naming A.9 and A.10; a traced sweep is bitwise the untraced
+    one, with its column and group spans;
   * per-column checkpoints: resume restores matching columns bitwise,
     a changed config recomputes; the column callback;
   * zero-row segments flagged, spec validation, panel summary, the
@@ -159,10 +160,31 @@ def test_unknown_estimator_and_missing_instrument_isolated(data):
                                   "serial_loop"])
 def test_later_features_raise_at_entry(data, what):
     spec = SweepSpec(E, (("dml", CausalConfig(**_cfg())),))
+    if what == "tracer":
+        # tracing works: the traced sweep is bitwise the untraced one
+        from repro_torch.obs import Tracer
+        cfg = CausalConfig(**_cfg())
+        spec2 = SweepSpec(E, (("dml", cfg), ("dml", dataclasses.replace(
+            cfg, cate_features=2)), ("drlearner", cfg)))
+        tracer = Tracer()
+        kw = dict(X=data["X"], y=data["y"], t=data["t"],
+                  segment_ids=data["sids"], mode="segmented", device="cpu")
+        traced = sweep(spec2, tracer=tracer, **kw)
+        plain = sweep(spec2, **kw)
+        for a, b in zip(traced.columns, plain.columns):
+            assert a.error == b.error
+            if a.error is None:
+                assert torch.equal(a.thetas, b.thetas)
+                assert torch.equal(a.ses, b.ses)
+        assert tracer.span_names() == ["sweep.group:dml", "sweep.column[0]",
+                                       "sweep.column[1]"]
+        assert [s.depth for s in tracer.spans] == [0, 1, 1]
+        assert tracer.spans[1].attrs == {"estimator": "dml",
+                                         "segmented": True}
+        return
     kw = {"cells": dict(mode="cells"), "with_ci": dict(with_ci=True),
-          "tracer": dict(tracer=object()),
           "data_mesh": dict(data_mesh=object())}.get(what)
-    slice_ = {"tracer": "A.8", "data_mesh": "A.10"}.get(what, "A.9")
+    slice_ = {"data_mesh": "A.10"}.get(what, "A.9")
     with pytest.raises(NotImplementedError, match=slice_):
         if what == "serial_loop":
             serial_loop("dml", CausalConfig(), X=data["X"])
@@ -240,7 +262,9 @@ def test_column_keys_lineage():
 
 def test_registry_mirrors_reference():
     """All ten names, with the reference's instrument flags and base
-    configs; the estimators of a later slice raise naming A.6."""
+    configs; DRLearner and DRIV build their weighted cells (no shared-
+    nuisance split, as in the reference); the metalearners raise naming
+    the runtime they wait on (A.9)."""
     assert registry.SPEC_IDS == jregistry.SPEC_IDS
     cfg_fields = [f.name for f in dataclasses.fields(CausalConfig)]
     for spec in registry.SPECS:
@@ -250,12 +274,15 @@ def test_registry_mirrors_reference():
             assert getattr(spec.base_cfg, f) == getattr(ref.base_cfg, f), f
         assert registry.nuisance_signature(spec.base_cfg) == \
             jregistry.nuisance_signature(ref.base_cfg)
-        if spec.name in ("drlearner", "s_learner", "t_learner", "x_learner",
-                         "driv"):
-            with pytest.raises(NotImplementedError, match="A.6"):
+        if spec.name in ("s_learner", "t_learner", "x_learner"):
+            with pytest.raises(NotImplementedError, match="A.9"):
                 spec.fit(None, spec.base_cfg, None)
-            with pytest.raises(NotImplementedError, match="A.6"):
+            with pytest.raises(NotImplementedError, match="A.9"):
                 spec.weighted_fit(spec.base_cfg)
+        elif spec.name in ("drlearner", "driv"):
+            assert callable(spec.weighted_fit(spec.base_cfg))
+            assert spec.residual_fit is None and spec.final_fit is None
+            assert (ref.residual_fit, ref.final_fit) == (None, None)
         else:
             assert spec.residual_fit is not None
     with pytest.raises(ValueError, match="unknown estimator"):
