@@ -150,6 +150,46 @@ Phases (each failure makes the script exit non-zero):
      printed and a Chrome trace written to
      ``build/chip_smoke_trace.json``.
 
+ 23. the task runtime, the refutation suite, the sweep's cells mode and
+     jobs (every phase before and after reports 0 retry and 0 downgrade
+     events of the runtime; ``runtime:downgrade`` exactly one of each):
+     ``crossfit:executors`` — ``DML.fit`` at the tables cell on the
+     "parallel" engine, the "sequential" one (the fold axis through the
+     serial executor: one-fold batches, within 1e-4) and a traced
+     ``TaskRuntime("vmap")`` (bitwise "parallel"), times and spans;
+     ``refute:tables`` — ``run_all`` at the tables cell, 3 refits a
+     refuter, traced: each report with its seconds (its ``dag.task``
+     span), every refuter passing, the base ATE within 5 se of 1; then
+     ``kernels:refute-forms`` (fold_weighted at random_common_cause's
+     q = 503 with k = 5, and at R·k = 15 over 1M rows); ``runtime:budget``
+     — the DML bootstrap at n = 100,000, B = 32: the memory model probed
+     on the card, the budget set to its peak at 10 replicates, the
+     budgeted run traced as a call node of the runtime's DAG: base,
+     slope, the chunk it picks (< B), each chunk's predicted and
+     measured peak (<= 1.10 x the budget), replicates bitwise an
+     explicit ``runtime_chunk`` run's; ``runtime:downgrade`` — the same
+     bootstrap on an executor defined here whose first map call fails:
+     one downgrade to serial, bitwise; ``refute:iv`` —
+     ``placebo_instrument`` and ``weak_instrument`` on OrthoIV's fit at
+     ``make_iv_data(1_000_000, 500)``; ``quickstart`` —
+     ``examples/torch_quickstart.py``'s main; ``trace:runtime`` — the
+     budgeted run traced ≡ untraced bitwise, its Chrome trace
+     (``build/chip_smoke_runtime_trace.json``) strict JSON with
+     ``runtime.chunk`` and ``dag.task`` spans and audit rows;
+     ``sweep:cells`` — ``sweep(mode="cells")`` at the sweep cell's 64
+     segments x 500 at 2^18 rows (cut from 2^20 for time), the dml and
+     drlearner columns under a budget that chunks them (the dml cells'
+     memory model probed on the card, at its peak for 8 cells): chunk,
+     peak and seconds per column, every segment's ATE within 5 se of 1,
+     the largest |cells - segmented| ATE in se (no gate), a small cells
+     sweep card vs CPU (1e-4), ``with_ci`` (16 segments x 2^14 rows —
+     cut from 2^16 for time —, B = 16) bitwise at two chunk sizes,
+     ``serial_loop`` bitwise cells
+     (8 segments); then ``kernels:cells-forms`` (fold_weighted at the
+     chunk the budget picked); ``jobs`` — ``JobManager.submit`` of a
+     two-column cells spec (16 segments x 2^16 rows): the subscribed
+     events, the panel bitwise a direct sweep's.
+
 Every seg_gram record also names the kernel that ran (``design``:
 small, thin or big) and times its second pass alone (``reduce_ms``)
 and, for a segment walk, its plan alone (``plan_ms``; ``ms`` has the
@@ -2380,6 +2420,604 @@ def phase_backbone(seed: int, arch: str):
     return counts, X, y, t
 
 
+# ---------------------------------------------------------------------------
+# The task runtime, the refutation suite, the sweep's cells mode and jobs.
+# ---------------------------------------------------------------------------
+
+# runtime:budget: the bootstrap cell's B, and the chunk at which the
+# budget is set to the memory model's peak (it does not divide B)
+RT_BOOT_B, RT_BUDGET_AT = 32, 10
+# a chunk's measured peak may exceed the budget by at most this factor
+RT_PEAK_SLACK = 1.10
+REFUTE_REPS = 3                      # the reference's default refits
+# sweep:cells — the sweep cell's 64 segments x 500 covariates at 2^18
+# rows (cut from 2^20 for time), under a budget of the dml cells' memory
+# model (probed on the card) at CELLS_AT cells, which chunks them
+CELLS_N, CELLS_AT = 2 ** 18, 8
+# with_ci at 2^14 rows (cut from 2^16 for time)
+CI_E, CI_N, CI_B, CI_CHUNKS = 16, 2 ** 14, 16, (64, 96)
+LOOP_E, LOOP_N = 8, 2 ** 16
+JOB_E, JOB_N = 16, 2 ** 16
+
+
+class _launch_log:
+    """Every seg_gram launch made inside the block, counted by
+    (form, B, n, S, qL, qR) through the wrapper's launch observers."""
+
+    def __enter__(self):
+        from repro_torch.kernels.seg_gram import kernel as kern
+        self.counts = collections.Counter()
+        self._kern = kern
+        kern.LAUNCH_OBSERVERS.append(self._add)
+        return self.counts
+
+    def _add(self, key, B, n, S, qL, qR, _nbytes):
+        self.counts[(key, B, n, S, qL, qR)] += 1
+
+    def __exit__(self, *exc):
+        self._kern.LAUNCH_OBSERVERS.remove(self._add)
+        return False
+
+
+def _no_fallbacks() -> None:
+    fallbacks = _read_counters()[1]
+    if fallbacks:
+        raise AssertionError(f"fallback counters rose: {fallbacks}")
+
+
+def _fw_count(counts, B, n, q=None) -> int:
+    """fold_weighted launches of B weight rows over n rows (at width q)."""
+    return sum(c for (key, b, nn, _s, ql, _qr), c in counts.items()
+               if key == "fold_weighted" and b == B and nn == n
+               and (q is None or ql == q))
+
+
+def fold_weighted_case(name, form, D, Wk, reps=3):
+    """A fold_weighted Case: the B weighted Grams of D (n, q) under the
+    weight rows Wk (B, n), against plain, fp64 and one torch.matmul."""
+    from repro_torch.kernels.seg_gram import ops as sops
+    from repro_torch.kernels.seg_gram import ref
+
+    B, n = Wk.shape
+    q = D.shape[1]
+
+    def plain(dtype):
+        Dd = D.to(dtype)
+        return torch.stack([ref.seg_gram_plain(
+            ref.build_fold_weighted, [Wk[b:b + 1].T.to(dtype), Dd])
+            for b in range(B)])
+
+    return Case(name, form, lambda: sops.fold_weighted_design_gram(D, Wk),
+                lambda: plain(torch.float32), lambda: plain(torch.float64),
+                lambda: ((D[None] * Wk[:, :, None]).transpose(1, 2), D),
+                lambda ab: torch.matmul(*ab),
+                D.numel() * 4 + Wk.numel() * 4 + B * q * q * 4,
+                2.0 * B * n * q * (q + 1) / 2, reps, q=(q, q))
+
+
+def _boot_parts(data, cfg):
+    """DML.fit on the card; its bootstrap's fit context and keywords."""
+    from repro_torch.core.dml import DML
+    from repro_torch.inference.bootstrap import derive_seed
+
+    res = DML(cfg).fit(data.y, data.t, data.X,
+                       gen=torch.Generator().manual_seed(0))
+    c = res.fit_ctx
+    kw = dict(n_folds=cfg.n_folds, XW=c.XW, y=c.y, t=c.t, phi=c.phi,
+              seed=derive_seed(c.seed, 0x0B00), n_replicates=RT_BOOT_B,
+              scheme="pairs", row_block=cfg.row_block,
+              strategy=cfg.row_block_strategy)
+    return c, kw
+
+
+def phase_runtime_budget(data, cfg):
+    """The memory model probed on the card for the DML bootstrap's
+    replicate function, then the bootstrap under a budget of the model's
+    peak at RT_BUDGET_AT replicates, traced, run as a call node of the
+    runtime's DAG: the chunk it picks, each chunk's predicted and measured
+    peak (audit rows), replicates bitwise an explicit-chunk run's."""
+    from repro_torch.inference.bootstrap import (dml_bootstrap,
+                                                 make_dml_replicate_fn)
+    from repro_torch.obs import Tracer
+    from repro_torch.runtime import TaskRuntime
+
+    c, kw = _boot_parts(data, cfg)
+    B = RT_BOOT_B
+    fn = make_dml_replicate_fn(c.nuis_y, c.nuis_t, cfg.n_folds,
+                               seed=kw["seed"], scheme="pairs",
+                               row_block=cfg.row_block,
+                               strategy=cfg.row_block_strategy)
+    t0 = time.perf_counter()
+    _, model = TaskRuntime("vmap", memory_budget=1 << 50).plan_chunk(
+        fn, torch.arange(B), (c.XW, c.y, c.t, c.phi), B)
+    t_probe = time.perf_counter() - t0
+    if model is None or not model.slope > 0:
+        raise AssertionError(f"the probed model's slope is not positive: "
+                             f"{model}")
+    budget = int(model.peak(RT_BUDGET_AT))
+    tracer = Tracer()
+    rt = TaskRuntime("vmap", memory_budget=budget, tracer=tracer)
+    _reset_counters()
+    t0 = time.perf_counter()
+    fut = rt.call(lambda: dml_bootstrap(c.nuis_y, c.nuis_t, executor=rt,
+                                        **kw), label="dml_bootstrap")
+    traced = rt.gather(fut)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts, fallbacks = _read_counters()
+    rows = tracer.audit.as_dicts()
+    chunk = int(tracer.metrics.snapshot()["gauges"][
+        "runtime.chunk_size[dml_bootstrap]"])
+    # untraced, at the chunk the budget picked
+    explicit = dml_bootstrap(c.nuis_y, c.nuis_t, executor="vmap",
+                             chunk=chunk, **kw)
+    peaks = [r["probed_peak_bytes"] for r in rows]
+    same = (torch.equal(traced.replicates, explicit.replicates)
+            and torch.equal(traced.replicate_se, explicit.replicate_se))
+    log(f"runtime:budget: n={data.n} p={data.p} B={B}; the model probed on "
+        f"the card in {t_probe:.3f} s (chunks 1, 1, 8; outputs dropped; "
+        f"readings {model.probes}): base={model.base:.0f} B "
+        f"slope={model.slope:.0f} B/replicate; "
+        f"budget = peak({RT_BUDGET_AT}) = {budget} B ({budget / 2 ** 30:.3f}"
+        f" GiB); the budgeted run picked chunk {chunk} in {secs:.3f} s; "
+        f"chunks (size, predicted, measured peak bytes, ms): "
+        + ", ".join(f"({r['chunk_size']}, {r['predicted_peak_bytes']:.0f}, "
+                    f"{r['probed_peak_bytes']:.0f}, "
+                    f"{1e3 * r['measured_s']:.1f})" for r in rows)
+        + f"; max measured/budget {max(peaks) / budget:.4f} (gate "
+        f"{RT_PEAK_SLACK}); bitwise the runtime_chunk={chunk} run: {same}; "
+        f"launches={counts} fallbacks={fallbacks}")
+    log(tracer.audit.table())
+    if not 1 <= chunk < B:
+        raise AssertionError(f"the budget picked chunk {chunk}, not < {B}")
+    if max(peaks) > RT_PEAK_SLACK * budget:
+        raise AssertionError(f"a chunk peaked at {max(peaks):.0f} B > "
+                             f"{RT_PEAK_SLACK} x budget {budget}")
+    if not same:
+        raise AssertionError("budgeted replicates differ from the explicit "
+                             "chunk's")
+    if fallbacks:
+        raise AssertionError(f"fallback counters rose: {fallbacks}")
+    return c, kw, chunk, explicit, (tracer, traced, explicit)
+
+
+def phase_runtime_downgrade(c, kw, chunk, healthy):
+    """The same bootstrap on an executor whose first map call fails (a
+    lost worker): one downgrade to serial, replicates bitwise the healthy
+    run's."""
+    from repro_torch.inference.bootstrap import dml_bootstrap
+    from repro_torch.inference.executor import BatchedExecutor
+    from repro_torch.runtime import TaskRuntime
+
+    class LostWorker(BatchedExecutor):
+        """The vmap backend, losing its worker on its first map call."""
+
+        calls = 0
+
+        def map(self, fn, xs, *args):
+            self.calls += 1
+            if self.calls == 1:
+                raise RuntimeError("worker lost (injected by chip_smoke)")
+            return super().map(fn, xs, *args)
+
+    rt = TaskRuntime(LostWorker(), chunk=chunk)
+    _reset_counters()
+    t0 = time.perf_counter()
+    out = dml_bootstrap(c.nuis_y, c.nuis_t, executor=rt, **kw)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    ev = [(e.action, e.chunk_index, e.backend) for e in rt.events]
+    downs = [e for e in rt.events if e.action == "downgrade"]
+    same = torch.equal(out.replicates, healthy.replicates)
+    log(f"runtime:downgrade: chunk {chunk}, the first map call lost: "
+        f"{secs:.3f} s; events {ev}; bitwise the healthy run: {same}")
+    if len(downs) != 1 or downs[0].backend != "serial":
+        raise AssertionError(f"expected one downgrade to serial, got {ev}")
+    if not same:
+        raise AssertionError("the downgraded replicates differ")
+    _no_fallbacks()
+
+
+def phase_crossfit_executors(data, base):
+    """DML.fit at the tables cell on the "parallel" engine, the
+    "sequential" engine (the fold axis through the serial executor) and a
+    traced TaskRuntime("vmap"): times, spans, theta bitwise parallel's
+    through the runtime; sequential's one-fold batches sum in another
+    order (their matmuls have one column instead of k), gated at 1e-4."""
+    from repro_torch.core.dml import DML
+    from repro_torch.obs import Tracer
+    from repro_torch.runtime import TaskRuntime
+
+    cfg = dataclasses.replace(base, inference="none")
+    tracer = Tracer()
+    out = {}
+    for name, eng in (("parallel", "parallel"), ("sequential", "sequential"),
+                      ("runtime", TaskRuntime("vmap", tracer=tracer))):
+        _reset_counters()
+        t0 = time.perf_counter()
+        r = DML(dataclasses.replace(cfg, engine=eng)).fit(
+            data.y, data.t, data.X, gen=torch.Generator().manual_seed(0))
+        torch.cuda.synchronize()
+        out[name] = (r.theta, time.perf_counter() - t0, _read_counters())
+    spans = [(s.name, round(1e3 * s.duration_s, 2)) for s in tracer.spans
+             if not s.instant]
+    th = out["parallel"][0]
+    bitwise = {k: torch.equal(v[0], th) for k, v in out.items()}
+    e_seq = rel(out["sequential"][0], th)
+    log(f"crossfit:executors n={data.n} p={data.p}: " + "; ".join(
+        f"{k} fit {v[1]:.3f} s theta={v[0].cpu().tolist()} launches="
+        f"{v[2][0]}" for k, v in out.items())
+        + f"; bitwise parallel's: {bitwise}; sequential vs parallel max rel "
+        f"diff {e_seq:.3e}; traced spans (ms) {spans}")
+    if not bitwise["runtime"]:
+        raise AssertionError("the runtime-mapped fit differs from parallel")
+    if not e_seq <= 1e-4:
+        raise AssertionError(f"sequential differs from parallel: {e_seq:.3e}")
+    if any(v[2][1] for v in out.values()):
+        raise AssertionError("fallback counters rose")
+
+
+def phase_refute_tables(data, base):
+    """run_all at the tables cell (k = 5, basis [1, x0], 3 refits a
+    refuter) traced: each report, its seconds from its dag.task span;
+    every refuter passes; the base ATE within 5 se of 1.  Returns the
+    launch log for the refuters' kernel records."""
+    from repro_torch.core.dml import DML
+    from repro_torch.core.refutation import run_all
+    from repro_torch.obs import Tracer
+
+    cfg = dataclasses.replace(base, inference="none")
+    r0 = DML(cfg).fit(data.y, data.t, data.X,
+                      gen=torch.Generator().manual_seed(0))
+    z = abs(r0.ate - 1.0) / float(r0.stderr[0])
+    tracer = Tracer()
+    _reset_counters()
+    with _launch_log() as launches:
+        t0 = time.perf_counter()
+        reports = run_all(cfg, data.y, data.t, data.X, seed=0,
+                          tracer=tracer)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    counts, fallbacks = _read_counters()
+    dag = {s.attrs["label"]: s.duration_s for s in tracer.spans
+           if s.name == "dag.task"}
+    for rep in reports:
+        log(f"  {rep.row()} refuted={list(rep.refuted_ates)} "
+            f"({dag[rep.name]:.3f} s)")
+    log(f"refute:tables n={data.n} p={data.p} k={cfg.n_folds}: base ATE "
+        f"{r0.ate:.5f} se {float(r0.stderr[0]):.5f} |ATE-1|/se {z:.3f}; "
+        f"run_all (fit + 3 x {REFUTE_REPS} refits) {secs:.3f} s; "
+        f"launches={counts} by (form, B, n, S, qL, qR)="
+        f"{ {str(k): v for k, v in launches.items()} } fallbacks={fallbacks}")
+    if not all(rep.passed for rep in reports):
+        raise AssertionError("a refuter failed")
+    if not z <= 5.0:
+        raise AssertionError(f"base ATE not within 5 se of 1: {z:.3f}")
+    # fold_weighted per refit: ridge 1 + logistic 2 x newton_iters; the
+    # placebo and subset refits at R·k = 15 (two maps), the common-cause
+    # refits at k = 5, 1 + newton_iters of them on the q = p + 3 design
+    n, k, it = data.n, cfg.n_folds, cfg.newton_iters
+    got = (_fw_count(launches, REFUTE_REPS * k, n),
+           _fw_count(launches, k, n, q=data.p + 3))
+    want = (2 * (1 + 2 * it), REFUTE_REPS * (1 + it))
+    if got != want:
+        raise AssertionError(f"fold_weighted launches (R·k=15, q=503) {got},"
+                             f" expected {want}")
+    if fallbacks:
+        raise AssertionError(f"fallback counters rose: {fallbacks}")
+    return launches, secs, {rep.name: dag[rep.name] for rep in reports}
+
+
+def refute_cases(data, k, seed):
+    """The refuters' seg_gram call sites at the tables cell: the
+    nuisance design with random_common_cause's noise column (q = 503,
+    k weight rows) and the placebo / subset refits' fold_weighted Gram
+    of R·k = 15 weight rows (q = 502), one map of 3 refits."""
+    from repro_torch.core.crossfit import fold_weights
+    from repro_torch.core.moments import design
+    from repro_torch.core.refutation import refute_draws
+
+    n = data.X.shape[0]
+    d = refute_draws("noise", seed, torch.arange(REFUTE_REPS), n, k,
+                     device="cuda")
+    D = design(torch.cat([data.X, d["draw"][0][:, None]], dim=1),
+               intercept=True, append=data.y)
+    cases = [fold_weighted_case("fold_weighted@q503",
+                                "random_common_cause's nuisance design, k=5",
+                                D, fold_weights(d["folds"][0], k))]
+    del D
+    D = design(data.X, intercept=True, append=data.y)
+    Wk = fold_weights(d["folds"], k).reshape(REFUTE_REPS * k, n)
+    cases.append(fold_weighted_case(
+        f"fold_weighted@R{REFUTE_REPS * k}",
+        f"a refuter's {REFUTE_REPS} refits, R*k={REFUTE_REPS * k}", D, Wk))
+    return cases
+
+
+def phase_refute_iv(ivdata, cfg):
+    """placebo_instrument and weak_instrument on OrthoIV's fit at
+    make_iv_data(n, 500): both pass."""
+    from repro_torch.core.iv import OrthoIV
+    from repro_torch.core.refutation import (placebo_instrument,
+                                             weak_instrument)
+
+    est = OrthoIV(dataclasses.replace(cfg, inference="none"))
+    _reset_counters()
+    res = est.fit(ivdata.y, ivdata.t, ivdata.z, ivdata.X,
+                  gen=torch.Generator().manual_seed(0))
+    t0 = time.perf_counter()
+    weak = weak_instrument(res)
+    rep = placebo_instrument(est, ivdata.y, ivdata.t, ivdata.z, ivdata.X,
+                             original_ate=res.late, n_reps=REFUTE_REPS,
+                             seed=0)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    log(f"  {weak.row()}")
+    log(f"  {rep.row()} refuted={list(rep.refuted_ates)}")
+    log(f"refute:iv n={ivdata.n} p={ivdata.p}: LATE {res.late:.5f}; weak "
+        f"screen + {REFUTE_REPS} placebo-instrument refits {secs:.3f} s")
+    if not (weak.passed and rep.passed):
+        raise AssertionError("an instrument refuter failed")
+    _no_fallbacks()
+    return secs
+
+
+def phase_quickstart():
+    """examples/torch_quickstart.py's main on the card: the fit, its
+    jackknife CI and the refutation suite; theta0 within 5 se of the
+    ATE, every refuter passes."""
+    import importlib.util
+
+    path = Path(__file__).resolve().parent / "examples" / "torch_quickstart.py"
+    spec = importlib.util.spec_from_file_location("torch_quickstart", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    _reset_counters()
+    res, reports, true_ate, secs = mod.main([])
+    z = abs(res.ate - 1.0) / float(res.stderr[0])
+    log(f"quickstart: {secs:.3f} s; theta={res.theta.cpu().tolist()} "
+        f"|theta0-1|/se={z:.3f}; true ATE {true_ate:.5f}; refuters "
+        f"{[(r.name, r.passed) for r in reports]}")
+    if not (z <= 5.0 and all(r.passed for r in reports)):
+        raise AssertionError("the quickstart's fit or a refuter failed")
+    _no_fallbacks()
+    return secs
+
+
+def _cells_inputs(seed: int, n: int, e: int):
+    from repro_torch.data.causal_dgp import paper_demo_data
+    data = paper_demo_data(n=n, p=SWEEP_P, seed=seed)
+    g = torch.Generator(device="cuda").manual_seed(seed + 5)
+    sids = torch.randint(0, e, (n,), generator=g, device="cuda")
+    return data, sids
+
+
+def _cells_cfg(**kw):
+    from repro_torch.configs.sweep_synthetic import SWEEP
+    return dataclasses.replace(SWEEP, **{
+        "row_block": 65536, "row_block_strategy": "pallas",
+        "sweep_chunk": 0, **kw})
+
+
+def phase_sweep_cells(seed: int):
+    """sweep(mode="cells") at the sweep cell's 64 segments x 500 at 2^18
+    rows: the dml and drlearner columns under a budget that chunks them,
+    traced (chunk, peak and seconds per column); every segment's ATE
+    within 5 se of 1; the largest |cells - segmented| ATE in se (no
+    gate); a small cells sweep card vs CPU (1e-4); with_ci bitwise at two
+    chunk sizes; serial_loop bitwise cells."""
+    from repro_torch.data.causal_dgp import paper_demo_data
+    from repro_torch.obs import Tracer
+    from repro_torch.sweep import SweepSpec, serial_loop, sweep
+
+    from repro_torch.core.registry import get_spec
+    from repro_torch.runtime import TaskRuntime
+    from repro_torch.sweep import engine
+
+    data, sids = _cells_inputs(seed, CELLS_N, SWEEP_E)
+    cfg0 = _cells_cfg()
+    cell = engine._make_masked_cell(get_spec("dml").weighted_fit(cfg0), 5)
+    d = engine._column_data({"X": data.X, "y": data.y, "t": data.t,
+                             "sids": sids}, cfg0)
+    t0 = time.perf_counter()
+    _, model = TaskRuntime("vmap", memory_budget=1 << 50).plan_chunk(
+        cell, engine._cells(seed, 0, SWEEP_E), (d,), SWEEP_E)
+    t_probe = time.perf_counter() - t0
+    budget = int(model.peak(CELLS_AT))
+    del cell, d
+    cfg = _cells_cfg(runtime_memory_budget=budget)
+    spec = SweepSpec(SWEEP_E, (("dml", cfg), ("drlearner", cfg)))
+    tracer = Tracer()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counters()
+    with _launch_log() as launches:
+        t0 = time.perf_counter()
+        panel = sweep(spec, X=data.X, y=data.y, t=data.t, segment_ids=sids,
+                      seed=seed, tracer=tracer)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    counts, fallbacks = _read_counters()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    gauges = tracer.metrics.snapshot()["gauges"]
+    col_s = {s.name: s.duration_s for s in tracer.spans
+             if s.name.startswith("sweep.column")}
+    rows = tracer.audit.as_dicts()
+    chunks, lines = {}, []
+    for i, col in enumerate(panel.columns):
+        if col.failed:
+            raise AssertionError(f"cells column {i} failed: {col.error}")
+        label = f"sweep:{col.estimator}"
+        chunks[col.estimator] = int(gauges[f"runtime.chunk_size[{label}]"])
+        mpeak = max(r["probed_peak_bytes"] for r in rows
+                    if r["label"] == label)
+        ate, se = col.ates.double().cpu(), col.ses[:, 0].double().cpu()
+        zmax = float(((ate - 1.0).abs() / se).max())
+        lines.append(f"{col.estimator}: chunk {chunks[col.estimator]} "
+                     f"({col.events}), peak {mpeak / 2 ** 30:.3f} GiB "
+                     f"(budget {budget / 2 ** 30:.3f}), "
+                     f"{col_s[f'sweep.column[{i}]']:.3f} s, max |ate-1|/se "
+                     f"{zmax:.3f}")
+        if not zmax <= 5.0:
+            raise AssertionError(f"{col.estimator}: a segment's ATE is not "
+                                 f"within 5 se of 1: {zmax:.3f}")
+        if not chunks[col.estimator] < SWEEP_E:
+            raise AssertionError(f"{col.estimator} was not chunked")
+    seg = sweep(SweepSpec(SWEEP_E, (("dml", cfg),)), X=data.X, y=data.y,
+                t=data.t, segment_ids=sids, seed=seed,
+                mode="segmented").columns[0]
+    dcs = float(((panel.columns[0].ates - seg.ates).abs()
+                 / seg.ses[:, 0]).max())
+    log(f"sweep:cells n={CELLS_N} p={SWEEP_P} E={SWEEP_E} k=5: the dml "
+        f"cells' model probed in {t_probe:.3f} s (readings {model.probes}):"
+        f" base {model.base:.0f} B, slope {model.slope:.0f} B a cell, budget"
+        f" peak({CELLS_AT}) = {budget} B; the sweep {secs:.3f} s, peak "
+        f"device memory {peak:.2f} GiB; " + "; ".join(lines)
+        + f"; max |cells - segmented| ATE {dcs:.3f} se (no gate); "
+        f"launches={counts} fallbacks={fallbacks}")
+    if fallbacks:
+        raise AssertionError(f"fallback counters rose: {fallbacks}")
+    fw = {"chunk": chunks["dml"],
+          "launches": _fw_count(launches, chunks["dml"] * 5, CELLS_N)}
+    if not fw["launches"]:
+        raise AssertionError("no fold_weighted launch at the cells' chunk")
+    del panel, seg
+    torch.cuda.empty_cache()
+
+    small = paper_demo_data(n=4096, p=16, seed=seed, device="cpu")
+    ssid = torch.randint(0, 4, (4096,),
+                         generator=torch.Generator().manual_seed(seed + 6))
+    scfg = _cells_cfg(row_block=1024)
+    out = [sweep(SweepSpec(4, (("dml", scfg),)), X=small.X, y=small.y,
+                 t=small.t, segment_ids=ssid, seed=seed,
+                 device=dev).columns[0] for dev in ("cpu", "cuda")]
+    e = max(rel(out[1].thetas.cpu(), out[0].thetas),
+            rel(out[1].ses.cpu(), out[0].ses))
+    log(f"cells agreement (n=4096, p=16, E=4): card vs CPU max rel diff "
+        f"{e:.3e} (tol 1e-4)")
+    if not e <= 1e-4:
+        raise AssertionError(f"card and CPU cells disagree: {e:.3e}")
+
+    n, e16 = CI_N, CI_E
+    X, y, t, s16 = (data.X[:n], data.y[:n], data.t[:n], sids[:n] % e16)
+    ci = []
+    for c in CI_CHUNKS:
+        t0 = time.perf_counter()
+        col = sweep(SweepSpec(e16, (("dml", _cells_cfg(n_bootstrap=CI_B,
+                                                       sweep_chunk=c)),)),
+                    X=X, y=y, t=t, segment_ids=s16, seed=seed,
+                    with_ci=True).columns[0]
+        torch.cuda.synchronize()
+        ci.append((col, time.perf_counter() - t0))
+    a, b = ci[0][0], ci[1][0]
+    ci_same = (not a.failed and torch.equal(a.replicates, b.replicates)
+               and torch.equal(a.ci_lo, b.ci_lo)
+               and torch.equal(a.ci_hi, b.ci_hi))
+    n8, e8 = LOOP_N, LOOP_E
+    lcfg = _cells_cfg()
+    lkw = dict(X=data.X[:n8], y=data.y[:n8], t=data.t[:n8],
+               segment_ids=sids[:n8] % e8, seed=seed)
+    cells = sweep(SweepSpec(e8, (("dml", lcfg),)), **lkw).columns[0]
+    t0 = time.perf_counter()
+    loop = serial_loop("dml", lcfg, n_segments=e8, **lkw)
+    torch.cuda.synchronize()
+    t_loop = time.perf_counter() - t0
+    loop_same = (torch.equal(loop["theta"], cells.thetas)
+                 and torch.equal(loop["se"], cells.ses))
+    log(f"with_ci E={e16} n={n} B={CI_B}: chunks {CI_CHUNKS} of the "
+        f"{e16 * CI_B} (cell, replicate) pairs in {ci[0][1]:.3f} / "
+        f"{ci[1][1]:.3f} s, events {a.events} / {b.events}, bitwise: "
+        f"{ci_same}; CI of segment 0 [{float(a.ci_lo[0]):.5f}, "
+        f"{float(a.ci_hi[0]):.5f}]; serial_loop E={e8} n={n8} "
+        f"{t_loop:.3f} s, bitwise cells: {loop_same}")
+    if not ci_same:
+        raise AssertionError("with_ci replicates differ across chunkings")
+    if not loop_same:
+        raise AssertionError("serial_loop differs from cells")
+    del data, sids
+    torch.cuda.empty_cache()
+    return fw, secs, budget
+
+
+def cells_cases(seed: int, chunk: int):
+    """fold_weighted at the cells-mode batch: the first ``chunk`` cells'
+    fold weights times their segment masks (chunk·k weight rows) over the
+    sweep:cells rows."""
+    from repro_torch.core.crossfit import fold_weights
+    from repro_torch.core.moments import design
+    from repro_torch.sweep.engine import cell_folds, column_keys
+
+    data, sids = _cells_inputs(seed, CELLS_N, SWEEP_E)
+    keys = column_keys(seed, 0, SWEEP_E)[:chunk].tolist()
+    folds = torch.stack([cell_folds(key, CELLS_N, 5, "cuda") for key in keys])
+    mask = (sids[None, :] == torch.arange(chunk, device="cuda")[:, None]
+            ).float()
+    Wk = (fold_weights(folds, 5) * mask[:, None, :]).reshape(chunk * 5,
+                                                             CELLS_N)
+    D = design(data.X, intercept=True, append=data.y)
+    return [fold_weighted_case("fold_weighted@cells",
+                               f"sweep cells, {chunk} cells x k=5", D, Wk)]
+
+
+def phase_jobs(seed: int):
+    """JobManager.submit of a two-column cells spec on the card: the
+    events (submitted, a column per column, done) read by subscribing,
+    the panel bitwise a direct sweep's."""
+    from repro_torch.runtime import JobManager
+    from repro_torch.sweep import SweepSpec, sweep
+
+    data, sids = _cells_inputs(seed + 1, JOB_N, JOB_E)
+    cfg = _cells_cfg()
+    spec = SweepSpec(JOB_E, (("dml", cfg), ("drlearner", cfg)))
+    kw = dict(X=data.X, y=data.y, t=data.t, segment_ids=sids, seed=seed)
+    _reset_counters()
+    t0 = time.perf_counter()
+    job = JobManager().submit(spec, **kw)
+    events = [(e.action, e.label) for e in job.subscribe()]
+    panel = job.result(timeout=600)
+    secs = time.perf_counter() - t0
+    direct = sweep(spec, **kw)
+    same = all(not a.failed and torch.equal(a.thetas, b.thetas)
+               and torch.equal(a.ates, b.ates) and torch.equal(a.ses, b.ses)
+               for a, b in zip(panel.columns, direct.columns))
+    log(f"jobs: E={JOB_E} n={JOB_N}: job {secs:.3f} s; events {events}; "
+        f"status {job.status()}; panel bitwise a direct sweep: {same}")
+    if [a for a, _ in events] != ["submitted", "column", "column", "done"]:
+        raise AssertionError(f"job events {events}")
+    if not same:
+        raise AssertionError("the job's panel differs from a direct sweep")
+    _no_fallbacks()
+
+
+def phase_runtime_trace(rt_trace):
+    """The runtime:budget run: traced bitwise untraced (the same chunks
+    without a tracer); its Chrome trace strict JSON with runtime.chunk
+    and dag.task spans, audit rows."""
+    tracer, traced, untraced = rt_trace
+    same = (torch.equal(traced.replicates, untraced.replicates)
+            and torch.equal(traced.replicate_se, untraced.replicate_se))
+    out = Path(__file__).resolve().parent / "build" / \
+        "chip_smoke_runtime_trace.json"
+    out.parent.mkdir(exist_ok=True)
+    tracer.write_chrome_trace(str(out))
+
+    def refuse(token):
+        raise ValueError(f"non-strict JSON token {token}")
+
+    events = json.loads(out.read_text(), parse_constant=refuse)["traceEvents"]
+    names = collections.Counter(e["name"] for e in events)
+    log(f"runtime trace: {out} ({out.stat().st_size} bytes, strict JSON) "
+        f"span counts {dict(names)}; audit rows {len(tracer.audit)}; "
+        f"counters {tracer.metrics.snapshot()['counters']}; traced == "
+        f"untraced bitwise: {same}")
+    if not same:
+        raise AssertionError("the traced budgeted run differs")
+    if not (names["runtime.chunk"] and names["dag.task"]
+            and len(tracer.audit)):
+        raise AssertionError("runtime.chunk / dag.task spans or audit rows "
+                             "missing")
+
+
 def main(argv=None) -> int:
     """Run every phase; 0 only if all passed."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -2402,6 +3040,7 @@ def main(argv=None) -> int:
         from repro_torch.kernels.flash_attention import kernel as fa_kern
         from repro_torch.kernels.seg_gram import kernel as kern
         from repro_torch.kernels.ssm_scan import kernel as scan_kern
+        from repro_torch.runtime import scheduler as rt_sched
     except ImportError as e:
         print(f"chip_smoke: the repro_torch package is missing ({e})",
               file=sys.stderr)
@@ -2434,8 +3073,18 @@ def main(argv=None) -> int:
 
     def run(name, fn, *a):
         t = time.perf_counter()
+        before = dict(rt_sched.EVENT_COUNTS)
         try:
             out = fn(*a)
+            # the task runtime retried or downgraded nothing, outside the
+            # phase that injects a lost worker
+            ev = {k: rt_sched.EVENT_COUNTS[k] - before.get(k, 0)
+                  for k in ("retry", "downgrade")}
+            want = ({"retry": 1, "downgrade": 1}
+                    if name == "runtime:downgrade" else
+                    {"retry": 0, "downgrade": 0})
+            if ev != want:
+                raise AssertionError(f"runtime events {ev}, expected {want}")
             log(f"phase {name}: ok ({time.perf_counter() - t:.1f} s)")
             return out
         except Exception:                     # report, go on, fail at the end
@@ -2495,6 +3144,23 @@ def main(argv=None) -> int:
             data.X, data.y, data.t, folds, phi_d, psi_d, k), timer)) or {})
         del phi_d, psi_d, out
         torch.cuda.empty_cache()
+    del folds
+    run("crossfit:executors", phase_crossfit_executors, data, base)
+    torch.cuda.empty_cache()
+    out = run("refute:tables", phase_refute_tables, data, base)
+    torch.cuda.empty_cache()
+    refute_s = {}
+    if out is not None:
+        rl, refute_s["run_all"], refute_s["refuters"] = out
+        R15 = REFUTE_REPS * k
+        count(f"fold_weighted@R{R15}", "refute:tables",
+              _fw_count(rl, R15, args.n))
+        count("fold_weighted@q503", "refute:tables",
+              _fw_count(rl, k, args.n, q=p + 3))
+        records.update(run("kernels:refute-forms", lambda: run_cases(
+            refute_cases(data, k, args.seed), timer)) or {})
+        del rl, out
+        torch.cuda.empty_cache()
     del data
     torch.cuda.empty_cache()
 
@@ -2529,6 +3195,15 @@ def main(argv=None) -> int:
         count("residual_direct", "dr:bootstrap", c.get("residual_direct", 0))
         count(f"residual_meat@R{BOOT_CHUNK}", "dr:bootstrap",
               c.get("residual_meat", 0))
+    out = run("runtime:budget", phase_runtime_budget, bdata, bcfg)
+    rt_trace = None
+    if out is not None:
+        c_, kw_, rt_chunk, healthy, rt_trace = out
+        run("runtime:downgrade", phase_runtime_downgrade, c_, kw_, rt_chunk,
+            healthy)
+        del c_, kw_, healthy, out
+    else:
+        failed.append("runtime:downgrade")
     del bdata
     torch.cuda.empty_cache()
     run("main:bootstrap-agreement", phase_bootstrap_agreement, args.seed)
@@ -2565,6 +3240,8 @@ def main(argv=None) -> int:
             del ones, th, dout
         del ry, rt, rz, phi, ifolds, itheta, out
         torch.cuda.empty_cache()
+    refute_s["iv"] = run("refute:iv", phase_refute_iv, ivdata, base)
+    torch.cuda.empty_cache()
     del ivdata
     torch.cuda.empty_cache()
     ivb = make_iv_data(n=BOOT_N, p=p, seed=args.seed)
@@ -2598,6 +3275,8 @@ def main(argv=None) -> int:
               c.get("residual_meat", 0))
         del out
     del ivb
+    torch.cuda.empty_cache()
+    quick_s = run("quickstart", phase_quickstart)
     torch.cuda.empty_cache()
 
     records.update(run("kernels:pair-forms", lambda: run_cases(
@@ -2633,6 +3312,22 @@ def main(argv=None) -> int:
     else:
         failed.append("trace")
     del kept
+    torch.cuda.empty_cache()
+    if rt_trace is not None:
+        run("trace:runtime", phase_runtime_trace, rt_trace)
+    else:
+        failed.append("trace:runtime")
+    del rt_trace
+    out = run("sweep:cells", phase_sweep_cells, args.seed)
+    torch.cuda.empty_cache()
+    cells_s = cells_budget = None
+    if out is not None:
+        fw, cells_s, cells_budget = out
+        count("fold_weighted@cells", "sweep:cells", fw["launches"])
+        records.update(run("kernels:cells-forms", lambda: run_cases(
+            cells_cases(args.seed, fw["chunk"]), timer)) or {})
+        torch.cuda.empty_cache()
+    run("jobs", phase_jobs, args.seed)
     torch.cuda.empty_cache()
     for key, (form, S, qls) in PAIR_FORMS.items():
         for path, shapes in pair_shapes.items():
@@ -2695,7 +3390,12 @@ def main(argv=None) -> int:
             "store_days": STORE_DAYS, "dr_bootstrap_replicates": DR_BOOT_B,
             "driv_bootstrap_replicates": DRIV_BOOT_B,
             "serve_requests": SERVE_REQUESTS,
-            "serve_wave_sizes": list(SERVE_WAVES), "serving": serving}
+            "serve_wave_sizes": list(SERVE_WAVES), "serving": serving,
+            "runtime_bootstrap_replicates": RT_BOOT_B,
+            "refute_reps": REFUTE_REPS, "refute_seconds": refute_s,
+            "quickstart_seconds": quick_s, "cells_n": CELLS_N,
+            "cells_at": CELLS_AT, "cells_budget": cells_budget,
+            "cells_seconds": cells_s}
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(

@@ -73,8 +73,9 @@ class DMLResult(SandwichEffectResult):
             cf = self.crossfit
             return delete_fold_jackknife(
                 ctx.y, ctx.t, cf.oof_y, cf.oof_t, cf.folds, ctx.phi,
-                cfg.n_folds, alpha=alpha, point=self.theta,
-                point_se=self.stderr, row_block=cfg.row_block)
+                cfg.n_folds, alpha=alpha, executor=exe, point=self.theta,
+                point_se=self.stderr, row_block=cfg.row_block,
+                **self._runtime_kwargs())
         return dml_bootstrap(
             ctx.nuis_y, ctx.nuis_t, n_folds=cfg.n_folds, XW=ctx.XW, y=ctx.y,
             t=ctx.t, phi=ctx.phi, seed=derive_seed(ctx.seed, 0x0b00),

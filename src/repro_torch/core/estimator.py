@@ -8,8 +8,8 @@ the analytic interval when inference is off.  Estimators plug in only
 covariance (DML, OrthoIV); ``PseudoOutcomeEffectResult`` a scalar ATE
 (the mean pseudo-outcome) beside a theta projection (DRLearner, DRIV).
 Replicate inference: the delete-fold jackknife, and the pairs
-("bootstrap") and multiplier bootstraps through an executor
-(``repro_torch.inference``).
+("bootstrap") and multiplier bootstraps through the task runtime
+(``repro_torch.inference``, ``repro_torch.runtime``).
 """
 from __future__ import annotations
 
@@ -47,12 +47,14 @@ class EffectResult:
         return self.cfg or CausalConfig()
 
     def _runtime_kwargs(self) -> Dict[str, Any]:
-        """The replicate-scheduling knobs every bootstrap dispatch takes:
-        ``runtime_chunk`` replicates per batched call, and the memory
-        budget (which raises until the runtime slice, ROADMAP A.9)."""
+        """The task runtime's knobs every replicate dispatch takes:
+        ``runtime_chunk`` replicates per batched call (else the memory
+        model's chunk under ``runtime_memory_budget``) and
+        ``runtime_max_retries`` rungs of the downgrade ladder."""
         cfg = self._config()
         return dict(memory_budget=cfg.runtime_memory_budget,
-                    chunk=cfg.runtime_chunk)
+                    chunk=cfg.runtime_chunk,
+                    max_retries=cfg.runtime_max_retries)
 
     def _resolve_method(self, method: str) -> str:
         """Map or refuse inference methods the estimator cannot serve

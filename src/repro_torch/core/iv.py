@@ -165,9 +165,10 @@ class OrthoIVResult(SandwichEffectResult):
             cf = self.crossfit
             return delete_fold_jackknife_iv(
                 ctx.y, ctx.t, ctx.z, cf.oof_y, cf.oof_t, cf.oof_z, cf.folds,
-                ctx.phi, cfg.n_folds, alpha=alpha, point=self.theta,
-                point_se=self.stderr, row_block=cfg.row_block,
-                strategy=cfg.row_block_strategy)
+                ctx.phi, cfg.n_folds, alpha=alpha, executor=exe,
+                point=self.theta, point_se=self.stderr,
+                row_block=cfg.row_block, strategy=cfg.row_block_strategy,
+                **self._runtime_kwargs())
         return iv_bootstrap(
             ctx.nuis_y, ctx.nuis_t, ctx.nuis_z, n_folds=cfg.n_folds,
             XW=ctx.XW, y=ctx.y, t=ctx.t, z=ctx.z, phi=ctx.phi,

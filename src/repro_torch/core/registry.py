@@ -8,9 +8,9 @@ gate and the engine's per-column isolation decide as the reference's
 do.  The DML family (``dml``, ``dml_p2_rb``, ``dml_loo``), the OrthoIV
 family (``orthoiv``, ``orthoiv_p2_rb``), ``drlearner`` and ``driv``
 have their ``fit`` and ``weighted_fit`` on the port's estimators; the
-S/T/X metalearners raise ``NotImplementedError``: they build on the
-task runtime (ROADMAP A.9) and land with A.6b, as does the conformance
-suite built on them.
+S/T/X metalearners raise ``NotImplementedError``: they land with the
+mlp nuisance (ROADMAP A.6b), as does the conformance suite built on
+them.
 
 ``weighted_fit(cfg)`` returns the weighted single fit the sweep masks
 per segment: ``cell(folds, w, data)``, on given folds (torch cannot
@@ -30,8 +30,7 @@ from repro_torch.core.drlearner import DRLearner
 from repro_torch.core.iv import DRIV, OrthoIV
 from repro_torch.core.nuisance import make_logistic, make_nuisance, make_ridge
 
-_LATER = ("builds on the task runtime (ROADMAP A.9) and lands with the "
-          "metalearners (ROADMAP A.6b)")
+_LATER = "lands with the metalearners (ROADMAP A.6b)"
 
 
 @dataclasses.dataclass(frozen=True)

@@ -30,7 +30,6 @@ import torch
 
 from repro_torch.core.crossfit import _oof_select, fold_ids, fold_weights
 from repro_torch.core.nuisance import Nuisance
-from repro_torch.inference.executor import make_executor
 from repro_torch.inference.intervals import InferenceResult
 from repro_torch.inference.numerics import (logistic_fit_folds_w,
                                             predict_folds_linear,
@@ -38,6 +37,7 @@ from repro_torch.inference.numerics import (logistic_fit_folds_w,
                                             ridge_fit_folds_w,
                                             weighted_iv_theta,
                                             weighted_theta)
+from repro_torch.runtime import as_runtime
 
 Tensor = torch.Tensor
 _F32 = torch.float32
@@ -125,6 +125,13 @@ def fit_predict_folds(nuis: Nuisance, X: Tensor, target: Tensor,
         "mlp nuisance (ROADMAP A.6b); ridge and logistic are ported")
 
 
+def _rows(target: Tensor) -> Tensor:
+    """A target as (1, n), or its own (R, n) rows when it has one per
+    replicate (the refuters' permuted treatments and instruments)."""
+    target = target.to(_F32)
+    return target if target.dim() == 2 else target[None]
+
+
 def _batch(folds: Tensor, w: Tensor):
     """(folds, w) with a leading replicate axis, and whether to drop it."""
     single = folds.dim() == 1
@@ -141,11 +148,12 @@ def dml_residuals_once(nuis_y: Nuisance, nuis_t: Nuisance, n_folds: int,
     """The nuisance prefix of weighted DML re-estimations: both
     nuisances cross-fit under ``fold_weights(folds) * w`` for each
     replicate of the (R, n) folds and weights; returns the orthogonal
-    residuals {ry, rt}, each (R, n)."""
+    residuals {ry, rt}, each (R, n).  y and t are (n,), or (R, n) with a
+    target per replicate."""
     Wk = fold_weights(folds, n_folds) * w[:, None, :].to(_F32)
     oof_y = _oof_select(fit_predict_folds(nuis_y, XW, y, Wk), folds)
     oof_t = _oof_select(fit_predict_folds(nuis_t, XW, t, Wk), folds)
-    return {"ry": y.to(_F32)[None] - oof_y, "rt": t.to(_F32)[None] - oof_t}
+    return {"ry": _rows(y) - oof_y, "rt": _rows(t) - oof_t}
 
 
 def dml_theta_once(nuis_y: Nuisance, nuis_t: Nuisance, n_folds: int,
@@ -182,15 +190,15 @@ def make_dml_replicate_fn(nuis_y: Nuisance, nuis_t: Nuisance, n_folds: int,
     return replicate
 
 
-def _run(replicate, executor, chunk: int, memory_budget: int,
-         n_replicates: int, *args):
-    if memory_budget > 0:
-        raise NotImplementedError(
-            "memory-probed replicate chunking lands with the runtime slice "
-            "(ROADMAP A.9); set runtime_chunk instead")
-    exe = make_executor(executor, microbatch=chunk or None)
+def _run(replicate, n_replicates: int, label: str, args, *, executor,
+         memory_budget: int, chunk: int, max_retries: int, tracer):
+    """The B replicates as one map of the task runtime over the ids
+    0 .. B-1: chunked (``chunk``, or the memory model against
+    ``memory_budget``), each chunk retried down the backend ladder."""
+    rt = as_runtime(executor, memory_budget=memory_budget, chunk=chunk,
+                    max_retries=max_retries, tracer=tracer)
     ids = torch.arange(n_replicates)
-    return exe.map(replicate, ids, *args), exe.name
+    return rt.map(replicate, ids, *args, label=label), rt.name
 
 
 def _result(out, scheme, exe_name, point, point_se, alpha,
@@ -211,14 +219,21 @@ def dml_bootstrap(nuis_y: Nuisance, nuis_t: Nuisance, *, n_folds: int,
                   with_se: bool = True, point: Optional[Tensor] = None,
                   point_se: Optional[Tensor] = None, row_block: int = 0,
                   strategy: Optional[str] = None, memory_budget: int = 0,
-                  chunk: int = 0) -> InferenceResult:
-    """B weighted DML refits through an executor; ``chunk`` replicates
-    per batched call (0: all).  Replicate-ordered."""
+                  chunk: int = 0, max_retries: int = 2,
+                  tracer=None) -> InferenceResult:
+    """B weighted DML refits scheduled by the task runtime
+    (``repro_torch.runtime``): ``executor`` a name, Executor or
+    TaskRuntime; ``chunk`` replicates per batched call (0: all, or the
+    memory model's chunk under ``memory_budget``); each chunk retries
+    down the backend ladder up to ``max_retries`` times.
+    Replicate-ordered, bitwise the same at any chunking."""
     replicate = make_dml_replicate_fn(nuis_y, nuis_t, n_folds, seed=seed,
                                       scheme=scheme, with_se=with_se,
                                       row_block=row_block, strategy=strategy)
-    out, name = _run(replicate, executor, chunk, memory_budget, n_replicates,
-                     XW, y, t, phi)
+    out, name = _run(replicate, n_replicates, "dml_bootstrap",
+                     (XW, y, t, phi), executor=executor,
+                     memory_budget=memory_budget, chunk=chunk,
+                     max_retries=max_retries, tracer=tracer)
     return _result(out, scheme, name, point, point_se, alpha)
 
 
@@ -234,7 +249,7 @@ def iv_residuals_once(nuis_y: Nuisance, nuis_t: Nuisance, nuis_z: Nuisance,
     for key, nuis, target in (("ry", nuis_y, y), ("rt", nuis_t, t),
                               ("rz", nuis_z, z)):
         oof = _oof_select(fit_predict_folds(nuis, XW, target, Wk), folds)
-        r[key] = target.to(_F32)[None] - oof
+        r[key] = _rows(target) - oof
     return r
 
 
@@ -264,9 +279,9 @@ def iv_bootstrap(nuis_y: Nuisance, nuis_t: Nuisance, nuis_z: Nuisance, *,
                  point: Optional[Tensor] = None,
                  point_se: Optional[Tensor] = None, row_block: int = 0,
                  strategy: Optional[str] = None, memory_budget: int = 0,
-                 chunk: int = 0) -> InferenceResult:
-    """B weighted OrthoIV refits through an executor, scheduled as
-    ``dml_bootstrap``."""
+                 chunk: int = 0, max_retries: int = 2,
+                 tracer=None) -> InferenceResult:
+    """B weighted OrthoIV refits, scheduled as ``dml_bootstrap``."""
 
     def replicate(ids, XW_, y_, t_, z_, phi_):
         folds, w = replicate_draws(seed, ids, XW_.shape[0], n_folds, scheme,
@@ -275,8 +290,10 @@ def iv_bootstrap(nuis_y: Nuisance, nuis_t: Nuisance, nuis_z: Nuisance, *,
                              z_, phi_, folds, w, with_se=with_se,
                              row_block=row_block, strategy=strategy)
 
-    out, name = _run(replicate, executor, chunk, memory_budget, n_replicates,
-                     XW, y, t, z, phi)
+    out, name = _run(replicate, n_replicates, "iv_bootstrap",
+                     (XW, y, t, z, phi), executor=executor,
+                     memory_budget=memory_budget, chunk=chunk,
+                     max_retries=max_retries, tracer=tracer)
     return _result(out, scheme, name, point, point_se, alpha)
 
 
@@ -336,10 +353,10 @@ def dr_bootstrap(outcome: Nuisance, propensity: Nuisance, *, n_folds: int,
                  point_se: Optional[Tensor] = None,
                  ate_point: Optional[float] = None, row_block: int = 0,
                  strategy: Optional[str] = None, memory_budget: int = 0,
-                 chunk: int = 0) -> InferenceResult:
-    """B weighted AIPW refits through an executor, scheduled as
-    ``dml_bootstrap``; the ATE functional's own draws fill
-    ``ate_replicates``."""
+                 chunk: int = 0, max_retries: int = 2,
+                 tracer=None) -> InferenceResult:
+    """B weighted AIPW refits, scheduled as ``dml_bootstrap``; the ATE
+    functional's own draws fill ``ate_replicates``."""
 
     def replicate(ids, X_, y_, t_, phi_):
         folds, w = replicate_draws(seed, ids, X_.shape[0], n_folds, scheme,
@@ -348,8 +365,9 @@ def dr_bootstrap(outcome: Nuisance, propensity: Nuisance, *, n_folds: int,
                              folds, w, clip=clip, with_se=with_se,
                              row_block=row_block, strategy=strategy)
 
-    out, name = _run(replicate, executor, chunk, memory_budget, n_replicates,
-                     X, y, t, phi)
+    out, name = _run(replicate, n_replicates, "dr_bootstrap", (X, y, t, phi),
+                     executor=executor, memory_budget=memory_budget,
+                     chunk=chunk, max_retries=max_retries, tracer=tracer)
     return _result(out, scheme, name, point, point_se, alpha, ate_point)
 
 
@@ -403,10 +421,10 @@ def driv_bootstrap(nuis_y: Nuisance, nuis_t: Nuisance, nuis_z: Nuisance,
                    point_se: Optional[Tensor] = None,
                    ate_point: Optional[float] = None, row_block: int = 0,
                    strategy: Optional[str] = None, memory_budget: int = 0,
-                   chunk: int = 0) -> InferenceResult:
-    """B weighted DRIV refits through an executor, scheduled as
-    ``dml_bootstrap``; the LATE functional's own draws fill
-    ``ate_replicates``."""
+                   chunk: int = 0, max_retries: int = 2,
+                   tracer=None) -> InferenceResult:
+    """B weighted DRIV refits, scheduled as ``dml_bootstrap``; the LATE
+    functional's own draws fill ``ate_replicates``."""
 
     def replicate(ids, XW_, y_, t_, z_, phi_):
         folds, w = replicate_draws(seed, ids, XW_.shape[0], n_folds, scheme,
@@ -416,6 +434,8 @@ def driv_bootstrap(nuis_y: Nuisance, nuis_t: Nuisance, nuis_z: Nuisance,
                                cov_clip=cov_clip, with_se=with_se,
                                row_block=row_block, strategy=strategy)
 
-    out, name = _run(replicate, executor, chunk, memory_budget, n_replicates,
-                     XW, y, t, z, phi)
+    out, name = _run(replicate, n_replicates, "driv_bootstrap",
+                     (XW, y, t, z, phi), executor=executor,
+                     memory_budget=memory_budget, chunk=chunk,
+                     max_retries=max_retries, tracer=tracer)
     return _result(out, scheme, name, point, point_se, alpha, ate_point)

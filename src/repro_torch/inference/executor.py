@@ -1,9 +1,13 @@
 """Executors — how the replicates of replicate inference run (the
 single-card analogue of Ray's task pool).
 
-A replicate function takes a 1-D tensor of replicate ids (a leading
-batch) plus pass-through data arguments and returns a dict of tensors
-whose leading axis is that batch.  An executor maps it over all ids:
+A replicate function takes a tree of tensors that share a leading
+replicate axis (a dict, list or tuple of tensors, or one tensor — the
+bootstrap's 1-D ``ids`` is a one-leaf tree; the sweep's cells map
+``{"key", "sid"}``) plus pass-through data arguments, and returns a tree
+of tensors whose leading axis is that batch.  An executor maps it over
+the whole axis, slicing every input leaf and concatenating every output
+leaf:
 
   serial   one call per replicate, in turn — the EconML/Ray-less
            baseline;
@@ -15,32 +19,75 @@ whose leading axis is that batch.  An executor maps it over all ids:
 Both run the same function, so each replicate's arithmetic is the same
 in both wherever its operations are batch-invariant (the kernel's
 Grams, the elementwise solves, one mat-vec per fold).  ``shard_map``
-waits for the multi-card slice.
+waits for the multi-card slice.  ``repro_torch.runtime.TaskRuntime``
+schedules executors: chunking, the downgrade ladder, futures.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, List, Optional, Protocol
+from typing import Any, Callable, List, Optional, Protocol
 
 import torch
 
 Tensor = torch.Tensor
-ReplicateFn = Callable[..., Dict[str, Tensor]]
+ReplicateFn = Callable[..., Any]
+
+
+# -- trees of tensors ---------------------------------------------------------
+
+def tree_leaves(tree: Any) -> List[Any]:
+    """The leaves of a dict / list / tuple tree, in a fixed order."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
+def tree_map(fn: Callable[..., Any], tree: Any, *rest: Any) -> Any:
+    """``fn`` over the leaves of ``tree`` (and the same leaves of
+    ``rest``), keeping the structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *[r[k] for r in rest])
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v, *[r[i] for r in rest])
+                          for i, v in enumerate(tree))
+    return fn(tree, *rest)
+
+
+def leading_dim(xs: Any) -> int:
+    """The replicate axis' length (every tensor leaf shares it)."""
+    leaves = [x for x in tree_leaves(xs) if isinstance(x, Tensor)]
+    if not leaves:
+        raise ValueError("a map needs at least one tensor input")
+    b = leaves[0].shape[0]
+    if any(x.shape[0] != b for x in leaves):
+        raise ValueError("every leaf of a mapped input must share its "
+                         f"leading axis, got {[tuple(x.shape) for x in leaves]}")
+    return b
+
+
+def slice_tree(xs: Any, lo: int, hi: int) -> Any:
+    """Replicates [lo, hi) of every leaf."""
+    return tree_map(lambda x: x[lo:hi], xs)
+
+
+def concat_trees(outs: List[Any]) -> Any:
+    """Leafwise concatenation along the replicate axis, in order."""
+    if len(outs) == 1:
+        return outs[0]
+    return tree_map(lambda *ys: torch.cat(ys), outs[0], *outs[1:])
 
 
 class Executor(Protocol):
-    """Maps a replicate function over the leading axis of ``ids``;
+    """Maps a replicate function over the leading axis of ``xs``;
     ``*args`` pass through to every call."""
 
     name: str
 
-    def map(self, fn: ReplicateFn, ids: Tensor, *args: Any
-            ) -> Dict[str, Tensor]:
+    def map(self, fn: ReplicateFn, xs: Any, *args: Any) -> Any:
         ...
-
-
-def _concat(outs: List[Dict[str, Tensor]]) -> Dict[str, Tensor]:
-    return {key: torch.cat([o[key] for o in outs]) for key in outs[0]}
 
 
 @dataclasses.dataclass
@@ -49,10 +96,10 @@ class SerialExecutor:
 
     name: str = "serial"
 
-    def map(self, fn: ReplicateFn, ids: Tensor, *args: Any
-            ) -> Dict[str, Tensor]:
-        """Replicate-ordered outputs of ``fn`` on each id alone."""
-        return _concat([fn(ids[i:i + 1], *args) for i in range(len(ids))])
+    def map(self, fn: ReplicateFn, xs: Any, *args: Any) -> Any:
+        """Replicate-ordered outputs of ``fn`` on each replicate alone."""
+        return concat_trees([fn(slice_tree(xs, i, i + 1), *args)
+                             for i in range(leading_dim(xs))])
 
 
 @dataclasses.dataclass
@@ -65,12 +112,12 @@ class BatchedExecutor:
     microbatch: Optional[int] = None
     name: str = "vmap"
 
-    def map(self, fn: ReplicateFn, ids: Tensor, *args: Any
-            ) -> Dict[str, Tensor]:
-        """Replicate-ordered outputs of ``fn`` on chunks of ids."""
-        c = self.microbatch or len(ids)
-        return _concat([fn(ids[i:i + c], *args)
-                        for i in range(0, len(ids), c)])
+    def map(self, fn: ReplicateFn, xs: Any, *args: Any) -> Any:
+        """Replicate-ordered outputs of ``fn`` on chunks of replicates."""
+        b = leading_dim(xs)
+        c = self.microbatch or b
+        return concat_trees([fn(slice_tree(xs, i, i + c), *args)
+                             for i in range(0, b, c)])
 
 
 def make_executor(name, *, microbatch: Optional[int] = None) -> Executor:

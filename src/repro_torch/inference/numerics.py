@@ -88,7 +88,14 @@ def ridge_fit_folds_w(lam: float, X: Tensor, y: Tensor, Wk: Tensor, *,
                       ) -> Tensor:
     """Weighted ridge for every (…, k) weight row of ``Wk``: one
     augmented ``[X | 1 | y]`` Gram for the whole batch and a batched
-    solve.  Returns beta (…, k, p+1), intercept last."""
+    solve.  Returns beta (…, k, p+1), intercept last.  A target with a
+    leading replicate axis, y (R, n) beside Wk (R, k, n), is another
+    design per replicate: one such fit per replicate, stacked."""
+    if y.dim() == 2:
+        return torch.stack([ridge_fit_folds_w(lam, X, y[r], Wk[r],
+                                              row_block=row_block,
+                                              strategy=strategy)
+                            for r in range(y.shape[0])])
     q = X.shape[1] + 1
     lead = Wk.shape[:-1]
     Gaug, n_eff = moments.fold_weighted_gram(
@@ -109,12 +116,18 @@ def logistic_fit_folds_w(lam: float, iters: int, X: Tensor, t: Tensor,
     Grams: the gradient read off a Gram with the signed weights
     ``Wk·(mu - t)`` over ``[X | 1 | 1]`` (its last column), and the
     Hessian with weights ``Wk·mu(1 - mu)`` over ``[X | 1]``.  Returns
-    beta (…, k, p+1)."""
+    beta (…, k, p+1).  The target enters through the weights alone, so
+    it may carry a leading replicate axis, t (R, n) beside Wk (R, k, n),
+    in the same batched fit."""
     Xa = _aug(X.to(_F32))
     n, q = Xa.shape
     lead = Wk.shape[:-1]
     W = Wk.reshape(-1, n).to(_F32)
     tt = t.to(_F32)
+    if tt.dim() == 2:
+        tt = tt[:, None, :].expand(Wk.shape).reshape(-1, n)
+    else:
+        tt = tt[None, :]
     n_eff = torch.clamp(W.sum(1), min=1.0)
     lam_eye = lam * torch.eye(q, dtype=_F32, device=X.device)
     ones = torch.ones((n,), dtype=_F32, device=X.device)
@@ -123,7 +136,7 @@ def logistic_fit_folds_w(lam: float, iters: int, X: Tensor, t: Tensor,
         mu = _predict(beta, Xa, logistic=True)                 # (M, n)
         s = torch.clamp(mu * (1.0 - mu), min=1e-6) * W
         Gr, _ = moments.fold_weighted_gram(
-            Xa, W * (mu - tt[None, :]), append=ones, row_block=row_block,
+            Xa, W * (mu - tt), append=ones, row_block=row_block,
             strategy=strategy)
         g = Gr[:, :q, q] / n_eff[:, None] + lam * beta
         H, _ = moments.fold_weighted_gram(X, s, intercept=True,

@@ -20,7 +20,9 @@ to the plain version:
 the final stage at row_block=0, ``fold_weighted`` for the bootstrap's
 fold-and-replicate-weighted Grams), one per launch; ``SHAPES`` counts
 the same launches by ``(form, S, qL, qR)``; ``PLANS`` counts the walk
-plans made (``cached_walk_plan`` misses) by ``(S, rows per unit)``.
+plans made (``cached_walk_plan`` misses) by ``(S, rows per unit)``;
+``LAUNCH_OBSERVERS`` are called after every launch with its (form, B, n,
+S, qL, qR, input bytes): the task runtime counts a chunk's work there.
 
 ``design_of`` names the kernel a (qL, qR) output runs on (``"small"``,
 ``"thin"`` or ``"big"``); ``stage`` restricts the launches inside it to
@@ -58,6 +60,9 @@ _MEATS = ("residual_meat", "iv_meat")
 BIG_TILE = 128
 
 LAUNCHES: collections.Counter = collections.Counter()
+# Called after every launch as f(key, B, n, S, qL, qR, input_bytes): the
+# task runtime's per-chunk cost count (repro_torch.runtime.memory).
+LAUNCH_OBSERVERS: List = []
 SHAPES: collections.Counter = collections.Counter()
 PLANS: collections.Counter = collections.Counter()
 # the parts of a launch that the C entry points run: 1 the tile kernel,
@@ -146,6 +151,14 @@ def _check(name: str, x: torch.Tensor, dev: torch.device, dtype,
 
 def _ptr(x: Optional[torch.Tensor]):
     return None if x is None else _P(x.data_ptr())
+
+
+def _observe(key, B, n, S, qL, qR, inputs) -> None:
+    if LAUNCH_OBSERVERS:
+        nbytes = sum(x.numel() * x.element_size() for x in inputs
+                     if x is not None)
+        for f in LAUNCH_OBSERVERS:
+            f(key, B, n, S, qL, qR, nbytes)
 
 
 def _raise_on(lib, err: int, builder: str) -> None:
@@ -254,6 +267,7 @@ def seg_gram_cuda(builder: str, X: torch.Tensor, *,
     key = count_as or builder
     LAUNCHES[key] += 1
     SHAPES[(key, 1, qL, qR)] += 1
+    _observe(key, B, n, 1, qL, qR, (X, *scalars, theta, w))
     return out
 
 
@@ -463,6 +477,7 @@ def seg_walk_cuda(builder: str, X: torch.Tensor, *,
     key = count_as or (builder if builder == "pair" else builder + "_segmented")
     LAUNCHES[key] += 1
     SHAPES[(key, S, qL, qR)] += 1
+    _observe(key, B, n, S, qL, qR, (X, Y, *scalars, theta, w, seg, init))
     out = out if batched else out[0]
     if same:
         _mark_symmetric(out)

@@ -11,8 +11,9 @@ Thread ONE ``Tracer`` through ``sweep(tracer=...)``,
 ``MomentStore(tracer=...)``, ``crossfit(..., tracer=...)`` or
 ``EffectServer(tracer=...)``; ``tracer=None`` (the default everywhere)
 records nothing, so traced and untraced runs compute the same bits.
-The task runtime's chunk spans and audit rows land with the runtime
-slice (ROADMAP A.9).
+The task runtime (``repro_torch.runtime``) takes the same tracer:
+``runtime.map`` / ``runtime.chunk`` / ``dag.task`` spans, its event and
+chunk counters, and an audit row per chunk its memory model sized.
 """
 from repro_torch.obs.audit import ChunkAudit, CostAudit
 from repro_torch.obs.metrics import (Counter, Gauge, Histogram,

@@ -14,13 +14,17 @@ default peak: the port's Gram kernels are fp32 FMA) and 989 TFLOP/s
 dense bf16 on the tensor cores.  Pass other numbers for another device;
 the ratios stay comparable across runs with the same constants.
 
-The rows come from the task runtime's chunks, which land with the
-runtime slice (ROADMAP A.9); until then a caller records them itself.
+The rows come from the task runtime (``repro_torch.runtime``): one per
+chunk of a traced map that the memory model sized, its measured peak
+the CUDA allocator's and its work counted from the chunk's seg_gram
+launches.  A chunk whose work was not counted (no launch: the plain
+versions on the CPU) carries None there, and so do its roofline and
+time ratio.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 # NVIDIA H100 SXM data sheet
 HBM_BW = 3.35e12              # bytes / s
@@ -40,8 +44,8 @@ class ChunkAudit:
     chunk_size: int
     predicted_peak_bytes: float  # the memory model at chunk_size
     probed_peak_bytes: float  # the peak measured at chunk_size
-    flops: float  # operations of one execution of the chunk
-    hbm_bytes: float  # bytes it must move
+    flops: Optional[float]  # operations of one execution of the chunk
+    hbm_bytes: Optional[float]  # bytes it must move
     measured_s: float  # span duration (synchronized)
 
     @property
@@ -51,15 +55,20 @@ class ChunkAudit:
             self.probed_peak_bytes, _EPS)
 
     def roofline_s(self, peak_flops: float = PEAK_FLOPS,
-                   hbm_bw: float = HBM_BW) -> float:
-        """Roofline lower bound for one execution of the chunk."""
+                   hbm_bw: float = HBM_BW) -> Optional[float]:
+        """Roofline lower bound for one execution of the chunk (None
+        when its work was not counted)."""
+        if self.flops is None or self.hbm_bytes is None:
+            return None
         return max(self.flops / peak_flops, self.hbm_bytes / hbm_bw)
 
     def time_ratio(self, peak_flops: float = PEAK_FLOPS,
-                   hbm_bw: float = HBM_BW) -> float:
+                   hbm_bw: float = HBM_BW) -> Optional[float]:
         """Measured / roofline seconds (>= ~1 when the model is sane)."""
-        return max(self.measured_s, _EPS) / max(
-            self.roofline_s(peak_flops, hbm_bw), _EPS)
+        bound = self.roofline_s(peak_flops, hbm_bw)
+        if bound is None:
+            return None
+        return max(self.measured_s, _EPS) / max(bound, _EPS)
 
 
 class CostAudit:
@@ -100,15 +109,16 @@ class CostAudit:
         if not self.rows:
             return {"n_chunks": 0}
         pr = [r.peak_ratio for r in self.rows]
-        tr = [r.time_ratio(self.peak_flops, self.hbm_bw) for r in self.rows]
+        tr = [x for x in (r.time_ratio(self.peak_flops, self.hbm_bw)
+                          for r in self.rows) if x is not None]
         return {
             "n_chunks": len(self.rows),
             "labels": sorted({r.label for r in self.rows}),
             "peak_ratio_min": min(pr),
             "peak_ratio_max": max(pr),
             "peak_ratio_mean": sum(pr) / len(pr),
-            "time_ratio_min": min(tr),
-            "time_ratio_max": max(tr),
+            "time_ratio_min": min(tr) if tr else None,
+            "time_ratio_max": max(tr) if tr else None,
         }
 
     def table(self) -> str:
@@ -118,10 +128,11 @@ class CostAudit:
                 f"{'time_x':>9}")
         lines = [head, "-" * len(head)]
         for r in self.rows:
+            tr = r.time_ratio(self.peak_flops, self.hbm_bw)
             lines.append(
                 f"{r.label[:24]:<24} {r.chunk_index:>3} {r.chunk_size:>5} "
                 f"{r.predicted_peak_bytes:>10.0f} "
                 f"{r.probed_peak_bytes:>10.0f} {r.peak_ratio:>6.2f} "
                 f"{r.measured_s * 1e3:>8.2f} "
-                f"{r.time_ratio(self.peak_flops, self.hbm_bw):>9.1f}")
+                + (f"{tr:>9.1f}" if tr is not None else f"{'-':>9}"))
         return "\n".join(lines)

@@ -2,17 +2,20 @@
 
 The paper's case study is not one estimation but many (per user
 segment / treatment cohort / config variant).  A ``SweepSpec`` names
-the (E segments × C estimator-configs) grid; ``sweep(...,
-mode="segmented")`` solves every DML-family column's E·K fold-complement
-normal equations from ONE combined segment×fold Gram pass, on the
-segment-walking kernel on the card; results land in an ``EffectPanel``
-with per-cell validity instead of exceptions.  The persistent,
+the (E segments × C estimator-configs) grid; ``sweep`` runs each cell
+as a masked weighted fit through the task runtime (``mode="cells"``,
+the default), or solves every DML-family column's E·K fold-complement
+normal equations from ONE combined segment×fold Gram pass on the
+segment-walking kernel (``mode="segmented"``); results land in an
+``EffectPanel`` with per-cell validity instead of exceptions.  The persistent,
 incrementally refreshed variant of this panel lives in
 ``repro_torch.store``.
 """
 #   spec.py       SweepSpec — the (segments × estimator-configs) grid
-#   engine.py     sweep(): segmented mode, per-column isolation and
-#                 checkpoints (cells mode waits for ROADMAP A.9)
+#   engine.py     sweep(): cells mode through the task runtime (masked
+#                 weighted cells, replicate CIs via map_product,
+#                 serial_loop), segmented mode, per-column isolation
+#                 and checkpoints
 #   segmented.py  the one-pass segment×fold-Gram fast path (DML family)
 #   panel.py      EffectPanel — thetas, diagnostics, per-cell failure
 #                 status

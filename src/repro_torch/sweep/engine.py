@@ -1,26 +1,50 @@
 """The sweep engine: estimate E segments × C estimator-configs as
 batched programs instead of a Python loop.
 
-The port runs the reference's ``mode="segmented"``: every DML-family
-column collapses onto ONE segment×fold-segmented pass over the data
-(``sweep.segmented``, the segment-walking kernel on the card) — the
-many-effects-cheaply execution.  A column that the one-pass kernels do
-not cover, which the reference runs as masked weighted cells through
-its task runtime, becomes a failed column naming ROADMAP A.9 (the
-runtime slice); so do ``mode="cells"``, replicate CIs
-(``with_ci=True``) and ``serial_loop``, at entry.  Data meshes wait for
-A.10.
+Execution model
+---------------
+Each cell of the grid is a *masked weighted single fit* (the registry's
+``weighted_fit``): the segment mask enters the estimator exactly where
+bootstrap resampling weights do, so per-segment statistics stream
+through the seg_gram kernel — no per-segment data copies.  Each cell
+draws its own folds from its own seed (``column_keys``: the cell's fold
+generator, ``cell_folds``).  The port's cells are the batch-invariant
+closures the bootstrap's replicates run, so the panel is BITWISE a
+Python loop of the same single fits (``serial_loop``), proved in torch.
+
+Scheduling
+----------
+The cell axis ``{"key", "sid"}`` maps through the task runtime,
+inheriting its chunking (``CausalConfig.sweep_chunk`` /
+``runtime_chunk`` / the memory model against ``runtime_memory_budget``
+— at 64 segments × 5 folds a column is 320 fold-weighted Grams, so the
+budget is what keeps it on the card) and the per-chunk downgrade
+ladder.  Replicate CIs add the bootstrap axis through
+``runtime.map_product`` — (cell × replicate) flattened onto one
+replicate axis, each pair drawing its weights and folds from its own
+generator (``ci_draws``).
+
+Cost sharing
+------------
+  * columns that differ only in final stage (same
+    ``registry.nuisance_signature``) share one residual pass per
+    segment (``spec.residual_fit`` / ``spec.final_fit``);
+  * ``mode="segmented"`` (DML family) collapses the per-cell fold Grams
+    into ONE segment×fold-segmented pass over the data
+    (``sweep.segmented``, the segment-walking kernel on the card);
+    columns outside it fall back to cells.
 
 Tracing (``tracer=``, a ``repro_torch.obs.Tracer``): each column runs in
-a ``sweep.column[<i>]`` span that closes once the card has finished it,
-and the columns of one (estimator, nuisance signature) group nest in a
-``sweep.group:<name>`` span when the group has more than one.  The
-task runtime's chunk spans inside them land with A.9.
+a ``sweep.column[<i>]`` span and a shared-nuisance group (or several
+segmented columns of one estimator) in a ``sweep.group:<name>`` span,
+with the runtime's map and chunk spans nested inside.
 
 Fault isolation: a failing column (unknown estimator, missing
-instrument, unsupported config, an error inside its fit) is recorded
+instrument, a config the port cannot build — the s/t/x metalearners
+name ROADMAP A.6b — or an error past the downgrade ladder) is recorded
 on its ``ColumnResult.error``; every other column keeps its estimates.
-Zero-row segments yield flagged (``ok = False``) finite cells.
+Zero-row segments yield flagged (``ok = False``) finite cells.  Data
+meshes wait for ROADMAP A.10.
 
 Checkpoints (``checkpoint=``, a ``CheckpointManager``): each column
 saves as step = column index the moment it settles, with a provenance
@@ -35,18 +59,23 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.config import CausalConfig
+from repro_torch.core.crossfit import fold_ids
+from repro_torch.core.estimator import resolve_scheme
+from repro_torch.core.final_stage import cate_basis
 from repro_torch.core.registry import (EstimatorSpec, get_spec,
                                        nuisance_signature)
 from repro_torch.device import DeviceLike, as_f32, resolve_device
-from repro_torch.inference.bootstrap import derive_seed
+from repro_torch.inference.bootstrap import bootstrap_weights, derive_seed
+from repro_torch.inference.executor import make_executor
 from repro_torch.obs.trace import maybe_span
+from repro_torch.runtime import as_runtime
 from repro_torch.sweep.panel import ColumnResult, EffectPanel
 from repro_torch.sweep.segmented import segmented_column, segmented_supported
 from repro_torch.sweep.spec import SweepSpec, segment_counts
 
 Tensor = torch.Tensor
 
-_RUNTIME = "ROADMAP A.9 (the task runtime)"
+_BOOT_SCHEMES = ("bootstrap", "multiplier", "bayesian")
 
 
 def column_keys(seed: int, col_index: int, n_segments: int) -> Tensor:
@@ -62,6 +91,124 @@ def column_generator(seed: int, col_index: int) -> torch.Generator:
     """The CPU generator that draws column ``col_index``'s shared folds
     (a CPU generator: the card and the CPU see the same folds)."""
     return torch.Generator().manual_seed(derive_seed(seed, col_index))
+
+
+def cell_folds(seed: int, n: int, k: int, device=None) -> Tensor:
+    """(n,) folds of the cell whose seed is ``seed`` (``column_keys``),
+    drawn on its own CPU generator."""
+    return fold_ids(torch.Generator().manual_seed(int(seed)), n, k,
+                    device=device)
+
+
+def ci_draws(ci_seed: int, b: int, sid: int, n: int, k: int, scheme: str,
+             device=None) -> Tuple[Tensor, Tensor]:
+    """(folds (n,), weights (n,)) of replicate ``b`` of segment ``sid``'s
+    CI: its weights, then its folds, from one CPU generator seeded from
+    ``(ci_seed, b, sid)`` alone."""
+    g = torch.Generator().manual_seed(derive_seed(derive_seed(ci_seed, b),
+                                                  sid))
+    w = bootstrap_weights(g, n, scheme)
+    return fold_ids(g, n, k, device=device), w.to(device)
+
+
+def _segment_mask(sids: Tensor, sid: Tensor) -> Tensor:
+    """(c, n) fp32: 1 where row n is in segment sid[c]."""
+    return (sids[None, :] == sid.to(sids.device)[:, None]).to(torch.float32)
+
+
+def _runtime(cfg: CausalConfig, executor, tracer=None):
+    return as_runtime(
+        executor if executor is not None else cfg.inference_executor,
+        memory_budget=cfg.runtime_memory_budget,
+        chunk=cfg.sweep_chunk or cfg.runtime_chunk,
+        max_retries=cfg.runtime_max_retries, tracer=tracer)
+
+
+def _make_masked_cell(cell, n_folds: int):
+    def _masked_cell(xs, d):
+        n, dev = d["sids"].shape[0], d["sids"].device
+        folds = torch.stack([cell_folds(key, n, n_folds, dev)
+                             for key in xs["key"].tolist()])
+        return cell(folds, _segment_mask(d["sids"], xs["sid"]), d)
+
+    return _masked_cell
+
+
+def _make_masked_resid(resid_fn, n_folds: int):
+    def _masked_resid(xs, d):
+        n, dev = d["sids"].shape[0], d["sids"].device
+        folds = torch.stack([cell_folds(key, n, n_folds, dev)
+                             for key in xs["key"].tolist()])
+        return resid_fn(folds, _segment_mask(d["sids"], xs["sid"]), d)
+
+    return _masked_resid
+
+
+def _make_masked_final(final_fn):
+    def _masked_final(xs, d):
+        return final_fn(xs["resid"], _segment_mask(d["sids"], xs["sid"]), d)
+
+    return _masked_final
+
+
+def _make_replicate_cell(cell, ci_seed: int, n_folds: int, scheme: str):
+    def _rep_cell(xo, xi, d):
+        # per-(cell, replicate) draws: replicate b of segment sid
+        n, dev = d["sids"].shape[0], d["sids"].device
+        draws = [ci_draws(ci_seed, b, sid, n, n_folds, scheme, dev)
+                 for sid, b in zip(xo["sid"].tolist(), xi.tolist())]
+        folds = torch.stack([f for f, _ in draws])
+        w = _segment_mask(d["sids"], xo["sid"]) * torch.stack(
+            [w for _, w in draws])
+        out = cell(folds, w, d)
+        return {"theta": out["theta"], "ate": out["ate"]}
+
+    return _rep_cell
+
+
+def _column_data(base_data: Dict[str, Any], cfg: CausalConfig
+                 ) -> Dict[str, Any]:
+    d = dict(base_data)
+    d["phi"] = cate_basis(base_data["X"], cfg.cate_features)
+    return d
+
+
+def _cells(seed: int, col_index: int, n_segments: int) -> Dict[str, Tensor]:
+    return {"key": column_keys(seed, col_index, n_segments),
+            "sid": torch.arange(n_segments)}
+
+
+def _column_ci(cell, cfg: CausalConfig, rt, xs, data, seed: int,
+               col_index: int) -> Dict[str, Any]:
+    """(cell × replicate) bootstrap draws through map_product: the two
+    parallel axes flatten onto one replicate axis, chunked and
+    downgraded by the scheduler like any other replicate program."""
+    # non-resampling methods (jackknife) have no per-cell replicate
+    # program; they substitute the pairs bootstrap, and the column's
+    # events carry a "ci:<scheme>" tag so the substitution is visible
+    method = cfg.inference if cfg.inference in _BOOT_SCHEMES else "bootstrap"
+    scheme = resolve_scheme(method)
+    ci_seed = derive_seed(derive_seed(seed, col_index), 0x0B00)
+    rep_cell = _make_replicate_cell(cell, ci_seed, cfg.n_folds, scheme)
+    draws = rt.map_product(rep_cell, xs, torch.arange(cfg.n_bootstrap),
+                           data, label="sweep:ci")
+    a = cfg.alpha
+    return dict(ci_lo=torch.quantile(draws["ate"], a / 2.0, dim=1),
+                ci_hi=torch.quantile(draws["ate"], 1.0 - a / 2.0, dim=1),
+                replicates=draws["theta"], ci_scheme=scheme)
+
+
+def _events(rt, start_total: int = 0) -> Tuple[str, ...]:
+    # EventLog.since is drop-safe: start_total is an events.total
+    # checkpoint, valid even if the ring dropped older entries
+    return tuple(f"{e.action}:{e.backend}"
+                 for e in rt.events.since(start_total))
+
+
+def _want_ci(cfg: CausalConfig, with_ci: Optional[bool]) -> bool:
+    if with_ci is not None:
+        return bool(with_ci) and cfg.n_bootstrap > 0
+    return cfg.inference not in ("none", "") and cfg.n_bootstrap > 0
 
 
 # -- per-column checkpoints --------------------------------------------------
@@ -120,17 +267,110 @@ def _restore_column(mgr, idx: int, name: str, cfg: CausalConfig,
         aligned=extra.get("aligned"), **kw)
 
 
+def _ci_fields(extra: Dict[str, Any]) -> Dict[str, Any]:
+    return {k: extra.get(k) for k in ("ci_lo", "ci_hi", "replicates")}
+
+
+def _ci_tag(extra: Dict[str, Any]) -> Tuple[str, ...]:
+    return (f"ci:{extra['ci_scheme']}",) if "ci_scheme" in extra else ()
+
+
+def _run_column(rspec: EstimatorSpec, cfg: CausalConfig, col_index: int,
+                base_data, n_segments: int, seed: int, executor,
+                with_ci: Optional[bool], tracer=None) -> ColumnResult:
+    """One column as E masked single-fit cells through the runtime."""
+    cell = rspec.weighted_fit(cfg)
+    data = _column_data(base_data, cfg)
+    xs = _cells(seed, col_index, n_segments)
+    rt = _runtime(cfg, executor, tracer)
+    with maybe_span(rt.tracer, f"sweep.column[{col_index}]", cat="sweep",
+                    estimator=rspec.name, segments=n_segments):
+        out = rt.map(_make_masked_cell(cell, cfg.n_folds), xs, data,
+                     label=f"sweep:{rspec.name}")
+        extra: Dict[str, Any] = {}
+        if _want_ci(cfg, with_ci):
+            extra = _column_ci(cell, cfg, rt, xs, data, seed, col_index)
+        if rt.tracer is not None:
+            rt.tracer.sync(out)
+    return ColumnResult(estimator=rspec.name, cfg=cfg, thetas=out["theta"],
+                        ates=out["ate"], ses=out.get("se"),
+                        key_index=col_index,
+                        events=_events(rt) + _ci_tag(extra),
+                        **_ci_fields(extra))
+
+
+def _run_shared_group(rspec: EstimatorSpec,
+                      members: List[Tuple[int, CausalConfig]], base_data,
+                      n_segments: int, seed: int, executor,
+                      with_ci: Optional[bool], tracer=None
+                      ) -> List[Tuple[int, ColumnResult]]:
+    """Columns differing only in final stage: ONE residual pass per
+    segment (on the first member's cell seeds), then a cheap final-stage
+    map per column."""
+    first_idx, cfg0 = members[0]
+    xs = _cells(seed, first_idx, n_segments)
+    rt = _runtime(cfg0, executor, tracer)
+    # the shared residual pass is group-fatal by design (every member
+    # consumes it); everything after is isolated per member
+    with maybe_span(rt.tracer, f"sweep.group:{rspec.name}", cat="sweep",
+                    members=len(members), segments=n_segments):
+        resids = rt.map(_make_masked_resid(rspec.residual_fit(cfg0),
+                                           cfg0.n_folds),
+                        xs, dict(base_data),
+                        label=f"sweep:{rspec.name}:resid")
+        results = []
+        for col_index, cfg in members:
+            ev_start = rt.events.total
+            try:
+                col = _shared_member_column(
+                    rspec, cfg, first_idx, col_index, base_data, resids, xs,
+                    rt, seed, with_ci, ev_start)
+            except Exception as err:  # noqa: BLE001 — one member must not
+                # discard its siblings' already-computed columns
+                col = ColumnResult(estimator=rspec.name, cfg=cfg,
+                                   key_index=first_idx,
+                                   shared_nuisance=col_index != first_idx,
+                                   error=str(err))
+            results.append((col_index, col))
+    return results
+
+
+def _shared_member_column(rspec: EstimatorSpec, cfg: CausalConfig,
+                          first_idx: int, col_index: int, base_data, resids,
+                          xs, rt, seed: int, with_ci: Optional[bool],
+                          ev_start: int) -> ColumnResult:
+    data = _column_data(base_data, cfg)
+    with maybe_span(rt.tracer, f"sweep.column[{col_index}]", cat="sweep",
+                    estimator=rspec.name,
+                    shared_nuisance=col_index != first_idx):
+        out = rt.map(_make_masked_final(rspec.final_fit(cfg)),
+                     {"sid": xs["sid"], "resid": resids}, data,
+                     label=f"sweep:{rspec.name}:final")
+        extra: Dict[str, Any] = {}
+        if _want_ci(cfg, with_ci):
+            # replicate refits reweight the nuisances, so CIs cannot
+            # reuse the shared residuals — they run the full cell
+            extra = _column_ci(rspec.weighted_fit(cfg), cfg, rt, xs, data,
+                               seed, first_idx)
+        if rt.tracer is not None:
+            rt.tracer.sync(out)
+    return ColumnResult(estimator=rspec.name, cfg=cfg, thetas=out["theta"],
+                        ates=out["ate"], ses=out.get("se"),
+                        key_index=first_idx,
+                        shared_nuisance=col_index != first_idx,
+                        events=_events(rt, ev_start) + _ci_tag(extra),
+                        **_ci_fields(extra))
+
+
 def _segmented_or_cells(rspec: EstimatorSpec, cfg: CausalConfig,
                         col_index: int, base_data, n_segments: int,
-                        seed: int, tracer=None) -> ColumnResult:
-    """mode="segmented" dispatch: the one-pass kernels where they apply;
-    a column they do not cover would run as cells, which wait for the
-    runtime slice."""
+                        seed: int, executor, with_ci: Optional[bool],
+                        tracer=None) -> ColumnResult:
+    """mode="segmented" dispatch: the one-pass kernels where they apply,
+    the cells path otherwise."""
     if not segmented_supported(rspec, cfg):
-        return ColumnResult(
-            estimator=rspec.name, cfg=cfg, key_index=col_index,
-            error=(f"{rspec.name} with this config is outside the segmented "
-                   f"kernels; its masked cells need {_RUNTIME}"))
+        return _run_column(rspec, cfg, col_index, base_data, n_segments,
+                           seed, executor, with_ci, tracer)
     with maybe_span(tracer, f"sweep.column[{col_index}]", cat="sweep",
                     estimator=rspec.name, segmented=True):
         out = segmented_column(cfg, base_data, n_segments,
@@ -142,25 +382,46 @@ def _segmented_or_cells(rspec: EstimatorSpec, cfg: CausalConfig,
                         key_index=col_index, events=("segmented",))
 
 
+def _base_data(X, y, t, segment_ids, z, dev) -> Dict[str, Any]:
+    d: Dict[str, Any] = {"X": as_f32(X, dev), "y": as_f32(y, dev),
+                         "t": as_f32(t, dev),
+                         "sids": torch.as_tensor(segment_ids,
+                                                 device=dev).long()}
+    if z is not None:
+        d["z"] = as_f32(z, dev)
+    return d
+
+
 def sweep(spec: SweepSpec, *, X, y, t, segment_ids, z=None, seed: int = 0,
-          mode: str = "cells", with_ci: Optional[bool] = None, tracer=None,
-          data_mesh=None, checkpoint=None, resume: bool = True,
-          column_callback=None, device: DeviceLike = None) -> EffectPanel:
+          executor=None, mode: str = "cells", reuse: bool = True,
+          with_ci: Optional[bool] = None, tracer=None, data_mesh=None,
+          checkpoint=None, resume: bool = True, column_callback=None,
+          device: DeviceLike = None) -> EffectPanel:
     """Run the (segments × estimator-configs) grid.
 
+    mode="cells"      every cell is a masked weighted single fit through
+                      the task runtime — bitwise ``serial_loop`` (the
+                      default, as in the reference).
     mode="segmented"  DML-family columns collapse onto the one-pass
                       segment×fold Gram kernels (sweep.segmented);
-                      other columns fail naming ROADMAP A.9.
-    mode="cells"      the reference's default (masked weighted cells
-                      through the task runtime): raises, naming A.9.
-    seed              roots the fold lineage: column i draws its shared
-                      folds from ``column_generator(seed, i)``.
-    with_ci           True (replicate CIs) raises, naming A.9; the
-                      segmented path computes point estimates and
-                      sandwich se.
+                      other columns fall back to cells.
+    seed              roots the lineage: column i's cells draw their
+                      folds from ``column_keys(seed, i, E)`` (cells), or
+                      its shared folds from ``column_generator(seed, i)``
+                      (segmented).
+    executor          the cells' backend (None: cfg.inference_executor),
+                      a name, Executor or TaskRuntime.
+    reuse=True        columns sharing a nuisance signature share one
+                      residual pass (cells mode).
+    with_ci           None = per column from cfg.inference; True/False
+                      forces replicate CIs on/off.  CIs are resampling
+                      draws: a non-resampling cfg.inference (jackknife)
+                      substitutes the pairs bootstrap, tagged
+                      "ci:pairs" in the column's events.
     tracer            optional ``repro_torch.obs.Tracer``: column and
-                      group spans (see the module docstring); None
-                      records nothing.
+                      group spans with the runtime's spans inside (see
+                      the module docstring); None records nothing.
+    data_mesh         raises: data meshes land with ROADMAP A.10.
     checkpoint        optional ``CheckpointManager``: each column saves
                       as step = column index the moment it settles
                       (success OR error); ``keep_latest`` is raised to
@@ -169,28 +430,19 @@ def sweep(spec: SweepSpec, *, X, y, t, segment_ids, z=None, seed: int = 0,
                       completed columns (tagged "restored") and
                       recompute only missing/failed ones.
     column_callback   ``f(index, ColumnResult)`` called as each column
-                      settles (including restored ones).
+                      settles (including restored ones) — the event
+                      stream hook of ``runtime.jobs``.
     device            where the columns run (None: the CUDA card).
     """
     if mode not in ("cells", "segmented"):
         raise ValueError(f"unknown sweep mode {mode!r} (cells | segmented)")
-    if mode == "cells":
-        raise NotImplementedError(
-            f"sweep mode 'cells' runs masked cells through {_RUNTIME}; "
-            "the port runs mode='segmented'")
-    if with_ci:
-        raise NotImplementedError(f"replicate CIs per cell need {_RUNTIME}")
     if data_mesh is not None:
         raise NotImplementedError("data meshes land with the distributed "
                                   "slice (ROADMAP A.10)")
     dev = resolve_device(device)
     n_seg = spec.n_segments
-    sids = torch.as_tensor(segment_ids, device=dev).long()
-    base_data: Dict[str, Any] = {"X": as_f32(X, dev), "y": as_f32(y, dev),
-                                 "t": as_f32(t, dev), "sids": sids}
-    if z is not None:
-        base_data["z"] = as_f32(z, dev)
-    counts = segment_counts(sids, n_seg)
+    base_data = _base_data(X, y, t, segment_ids, z, dev)
+    counts = segment_counts(base_data["sids"], n_seg)
 
     results: Dict[int, ColumnResult] = {}
     if checkpoint is not None:
@@ -233,24 +485,62 @@ def sweep(spec: SweepSpec, *, X, y, t, segment_ids, z=None, seed: int = 0,
                 record(idx, ColumnResult(estimator=name, cfg=cfg,
                                          key_index=idx, error=str(err)))
             continue
-        group = tracer if len(members) > 1 else None
-        with maybe_span(group, f"sweep.group:{name}", cat="sweep",
-                        members=len(members), segments=n_seg):
+
+        if mode == "segmented":
+            group = tracer if len(members) > 1 else None
+            with maybe_span(group, f"sweep.group:{name}", cat="sweep",
+                            members=len(members), segments=n_seg):
+                for idx, cfg in members:
+                    try:
+                        col = _segmented_or_cells(
+                            rspec, cfg, idx, base_data, n_seg, seed,
+                            executor, with_ci, tracer)
+                    except Exception as err:  # noqa: BLE001
+                        col = ColumnResult(estimator=name, cfg=cfg,
+                                           key_index=idx, error=str(err))
+                    record(idx, col)
+            continue
+
+        shareable = (reuse and len(members) > 1
+                     and rspec.residual_fit is not None
+                     and rspec.final_fit is not None)
+        try:
+            if shareable:
+                for idx, col in _run_shared_group(
+                        rspec, members, base_data, n_seg, seed, executor,
+                        with_ci, tracer):
+                    record(idx, col)
+            else:
+                for idx, cfg in members:
+                    try:
+                        col = _run_column(rspec, cfg, idx, base_data, n_seg,
+                                          seed, executor, with_ci, tracer)
+                    except Exception as err:  # noqa: BLE001
+                        col = ColumnResult(estimator=name, cfg=cfg,
+                                           key_index=idx, error=str(err))
+                    record(idx, col)
+        except Exception as err:  # noqa: BLE001 — one group must not
+            # poison the panel; the runtime ladder already retried
             for idx, cfg in members:
-                try:
-                    col = _segmented_or_cells(rspec, cfg, idx, base_data,
-                                              n_seg, seed, tracer)
-                except Exception as err:  # noqa: BLE001
-                    col = ColumnResult(estimator=name, cfg=cfg,
-                                       key_index=idx, error=str(err))
-                record(idx, col)
+                if idx not in results:
+                    record(idx, ColumnResult(estimator=name, cfg=cfg,
+                                             key_index=idx, error=str(err)))
 
     columns = tuple(results[i] for i in range(len(spec.columns)))
     return EffectPanel(columns=columns, counts=counts, n_segments=n_seg,
                        segment_key=spec.segment_key)
 
 
-def serial_loop(*_args, **_kwargs):
-    """The reference's baseline loop of masked single fits per cell —
-    cells mode's certification partner — waits for the runtime slice."""
-    raise NotImplementedError(f"serial_loop runs masked cells: {_RUNTIME}")
+def serial_loop(estimator: str, cfg: CausalConfig, *, X, y, t, segment_ids,
+                n_segments: int, z=None, seed: int = 0, col_index: int = 0,
+                device: DeviceLike = None) -> Dict[str, Tensor]:
+    """The baseline: a Python loop of masked single-estimator fits, one
+    cell at a time through the ``serial`` executor, with exactly the
+    cell seeds ``sweep()`` gives column ``col_index`` — cells mode is
+    bitwise this loop (the cells are batch-invariant)."""
+    dev = resolve_device(device)
+    cell = get_spec(estimator).weighted_fit(cfg)
+    data = _column_data(_base_data(X, y, t, segment_ids, z, dev), cfg)
+    return make_executor("serial").map(_make_masked_cell(cell, cfg.n_folds),
+                                       _cells(seed, col_index, n_segments),
+                                       data)

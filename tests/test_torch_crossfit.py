@@ -119,7 +119,9 @@ def test_later_engines_and_nuisances_raise(data):
     from repro_torch.config import CausalConfig
 
     nu = tnu.make_ridge()
-    with pytest.raises(NotImplementedError, match="runtime"):
+    # any executor name maps the fold axis through the task runtime; the
+    # shard_map executor itself waits for the multi-card slice
+    with pytest.raises(NotImplementedError, match="A.10"):
         tcf.crossfit_one(nu, torch.Generator(), torch.zeros(10, 2),
                          torch.zeros(10), torch.zeros(10, dtype=torch.long),
                          2, engine="shard_map")

@@ -78,6 +78,14 @@ wave scorer on the card bitwise ``score_single`` at every wave shape of
 the server's ladder, through the server too.  ``Tracer.sync`` on the
 card waits for the work (a span around a large matmul lasts longer than
 its launch alone).
+
+The task runtime on the card: the DML bootstrap's memory model probed
+by running chunks under the allocator's peak counter has a positive
+slope, and a budget at its peak for 3 replicates chunks below B,
+bitwise the explicit chunk; every path of a map (chunked, downgraded,
+map_product, zero-length) keeps its tensors on the card; the refuters'
+q = 503 nuisance design through the large tile against plain and
+bitwise symmetric.
 """
 import numpy as np
 import pytest
@@ -1373,3 +1381,95 @@ def test_tracer_sync_waits_for_the_card(card):
     # 2 * 8192^3 FLOP: >= 16 ms at the H100's 67 TFLOP/s fp32
     assert synced > 4 * launch and synced > 5e-3, (launch, synced)
     assert y.shape == x.shape
+
+
+# ---------------------------------------------------------------------------
+# The task runtime on the card.
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_card_probe_slope_is_positive(card):
+    """The memory model of the DML bootstrap's replicate function, probed
+    on the card (chunks of 1, 1 and 8 run under the allocator's peak
+    counter): first-call allocations do not inflate the chunk-1 probe into
+    a slope <= 0, and a budget at its peak of 3 replicates chunks below B,
+    bitwise the explicit chunk's replicates."""
+    from repro_torch.config import CausalConfig
+    from repro_torch.core.dml import DML
+    from repro_torch.inference.bootstrap import (dml_bootstrap,
+                                                 make_dml_replicate_fn)
+    from repro_torch.runtime import TaskRuntime
+
+    d = _boot_data()
+    cfg = CausalConfig(cate_features=2, row_block=1024,
+                       row_block_strategy="pallas")
+    c = DML(cfg, device=card).fit(d.y, d.t, d.X).fit_ctx
+    B = 12
+    kw = dict(n_folds=cfg.n_folds, XW=c.XW, y=c.y, t=c.t, phi=c.phi, seed=5,
+              n_replicates=B, row_block=1024, strategy="pallas")
+    fn = make_dml_replicate_fn(c.nuis_y, c.nuis_t, cfg.n_folds, seed=5,
+                               row_block=1024, strategy="pallas")
+    _, model = TaskRuntime("vmap", memory_budget=1 << 50).plan_chunk(
+        fn, torch.arange(B), (c.XW, c.y, c.t, c.phi), B)
+    assert model is not None and model.slope > 0, model
+    budget = int(model.peak(3))
+    rt = TaskRuntime("vmap", memory_budget=budget)
+    out = dml_bootstrap(c.nuis_y, c.nuis_t, executor=rt, **kw)
+    chunk = int([e.detail for e in rt.events
+                 if e.action == "chunk"][0].split("chunk=")[1])
+    assert 1 <= chunk < B
+    want = dml_bootstrap(c.nuis_y, c.nuis_t, chunk=chunk, **kw)
+    assert torch.equal(out.replicates, want.replicates)
+
+
+@pytest.mark.cuda
+def test_runtime_keeps_every_tensor_on_the_card(card):
+    """A map of CUDA inputs returns CUDA outputs on every path: chunked,
+    downgraded, map_product, and the zero-length axis (meta evaluation,
+    materialized on the inputs' card)."""
+    from repro_torch.inference.executor import BatchedExecutor
+    from repro_torch.runtime import TaskRuntime
+
+    class Flaky(BatchedExecutor):
+        calls = 0
+
+        def map(self, fn, xs, *args):
+            self.calls += 1
+            if self.calls == 1:
+                raise RuntimeError("lost")
+            return super().map(fn, xs, *args)
+
+    xs = torch.randn((7, 3), device=card)
+    c = torch.tensor(1.0, device=card)
+
+    def fn(x, c_):
+        return {"y": x * 2 + c_, "s": x.sum(-1)}
+
+    outs = [TaskRuntime("vmap", chunk=3).map(fn, xs, c),
+            TaskRuntime(Flaky(), chunk=3).map(fn, xs, c),
+            TaskRuntime("vmap").map(fn, xs[:0], c),
+            TaskRuntime("vmap").map_product(
+                lambda a, b, c_: {"y": a * b + c_}, xs[:, 0], xs[:2, 1], c)]
+    for out in outs:
+        for v in out.values():
+            assert v.device.type == "cuda", v.device
+    assert torch.equal(outs[0]["y"], outs[1]["y"])
+
+
+@pytest.mark.cuda
+def test_q503_design_big_tile_matches_plain(card):
+    """The refuters' nuisance design at q = 503 (500 covariates, the
+    noise column, the intercept and y) through the large tile, with k = 5
+    fold weights: against plain (1e-5·max|G|) and bitwise symmetric."""
+    from repro_torch.kernels.seg_gram import kernel as kern
+
+    g = torch.Generator().manual_seed(4)
+    n = 20_000
+    D = torch.randn((n, 503), generator=g).to(card)
+    W = (torch.rand((5, n), generator=g) > 0.2).float().to(card)
+    assert kern.design_of(503, 503) == "big"
+    got = ops.fold_weighted_design_gram(D, W)
+    want = ops.fold_weighted_design_gram(D.cpu(), W.cpu())
+    assert got.shape == (5, 503, 503)
+    _close(got, want)
+    assert torch.equal(got, got.transpose(1, 2))

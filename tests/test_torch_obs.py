@@ -180,5 +180,8 @@ def test_traced_crossfit_bitwise_untraced():
                  tracer=tracer)
     b = crossfit(ny, nt, torch.Generator().manual_seed(1), X, y, t, 3)
     assert torch.equal(a.oof_y, b.oof_y) and torch.equal(a.oof_t, b.oof_t)
-    assert tracer.span_names() == ["crossfit:ridge", "crossfit:logistic"]
+    # each crossfit span holds the task runtime's map and chunk spans
+    assert tracer.span_names() == [
+        "crossfit:ridge", "runtime.map", "runtime.chunk",
+        "crossfit:logistic", "runtime.map", "runtime.chunk"]
     assert tracer.spans[0].attrs == {"k": 3, "n": 600, "backend": "parallel"}

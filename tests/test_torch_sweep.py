@@ -10,12 +10,15 @@ reference's fold ids to the port by replacing
     between its segmented path and per-segment fits (float summation
     order only);
   * ``sweep(mode="segmented")`` against the reference engine's panel;
-  * per-column isolation: an unsupported config names ROADMAP A.9, an
-    unknown estimator or a missing instrument fail their column only,
-    and the surviving column is bitwise the column swept alone;
-  * cells mode, replicate CIs, ``serial_loop`` and data meshes raise at
-    entry naming A.9 and A.10; a traced sweep is bitwise the untraced
-    one, with its column and group spans;
+  * per-column isolation: a column outside the segmented kernels runs
+    as cells (an mlp nuisance fails naming A.6b), an unknown estimator
+    or a missing instrument fail their column only, and the surviving
+    column is bitwise the column swept alone;
+  * cells mode runs (the default), ``serial_loop`` is bitwise it,
+    replicate CIs are bitwise across chunkings, data meshes raise at
+    entry naming A.10; a traced sweep is bitwise the untraced one,
+    with its column, group and runtime spans (the cells against the
+    reference's cells: tests/test_torch_sweep_cells.py);
   * per-column checkpoints: resume restores matching columns bitwise,
     a changed config recomputes; the column callback;
   * zero-row segments flagged, spec validation, panel summary, the
@@ -131,20 +134,25 @@ def test_engine_matches_reference(data, ref_folds):
 
 
 def test_unsupported_column_isolated_naming_runtime(data):
-    """A config outside the segmented kernels (an mlp outcome nuisance,
-    a non-DML family) fails its own column naming A.9; the neighbor is
-    bitwise the column swept alone."""
+    """A config outside the segmented kernels runs as masked cells
+    through the task runtime, as in the reference: a non-DML family
+    (drlearner) runs there; an mlp outcome nuisance fails its own column
+    naming the slice that brings it (A.6b).  The neighbor is bitwise the
+    column swept alone."""
     cfg = CausalConfig(**_cfg())
     mlp = dataclasses.replace(cfg, nuisance_y="mlp")
     panel = _sweep(SweepSpec(E, (("dml", cfg), ("dml", mlp),
                                  ("drlearner", cfg))), data)
-    for col in panel.columns[1:]:
-        assert col.failed and "A.9" in col.error
-        assert not bool(col.ok(panel.counts).any())
+    bad = panel.columns[1]
+    assert bad.failed and "A.6b" in bad.error
+    assert not bool(bad.ok(panel.counts).any())
+    dr = panel.columns[2]
+    assert not dr.failed and "segmented" not in dr.events
+    assert bool(dr.ok(panel.counts).all())
     alone = _sweep(SweepSpec(E, (("dml", cfg),)), data)
     assert torch.equal(panel.columns[0].thetas, alone.columns[0].thetas)
-    assert [i for i, _ in panel.failures()] == [1, 2]
-    assert bool(torch.isnan(panel.ate_table()[:, 1:]).all())
+    assert [i for i, _ in panel.failures()] == [1]
+    assert bool(torch.isnan(panel.ate_table()[:, 1]).all())
 
 
 def test_unknown_estimator_and_missing_instrument_isolated(data):
@@ -159,48 +167,76 @@ def test_unknown_estimator_and_missing_instrument_isolated(data):
 @pytest.mark.parametrize("what", ["cells", "with_ci", "tracer", "data_mesh",
                                   "serial_loop"])
 def test_later_features_raise_at_entry(data, what):
-    spec = SweepSpec(E, (("dml", CausalConfig(**_cfg())),))
+    """What the runtime slice brought works — cells mode, per-cell
+    replicate CIs, ``serial_loop``, a traced sweep — and data meshes
+    still raise at entry naming A.10."""
+    cfg = CausalConfig(**_cfg())
+    spec = SweepSpec(E, (("dml", cfg),))
+    kw = dict(X=data["X"], y=data["y"], t=data["t"],
+              segment_ids=data["sids"], device="cpu")
     if what == "tracer":
-        # tracing works: the traced sweep is bitwise the untraced one
+        # the traced sweep is bitwise the untraced one
         from repro_torch.obs import Tracer
-        cfg = CausalConfig(**_cfg())
         spec2 = SweepSpec(E, (("dml", cfg), ("dml", dataclasses.replace(
             cfg, cate_features=2)), ("drlearner", cfg)))
         tracer = Tracer()
-        kw = dict(X=data["X"], y=data["y"], t=data["t"],
-                  segment_ids=data["sids"], mode="segmented", device="cpu")
-        traced = sweep(spec2, tracer=tracer, **kw)
-        plain = sweep(spec2, **kw)
+        traced = sweep(spec2, tracer=tracer, mode="segmented", **kw)
+        plain = sweep(spec2, mode="segmented", **kw)
         for a, b in zip(traced.columns, plain.columns):
-            assert a.error == b.error
-            if a.error is None:
-                assert torch.equal(a.thetas, b.thetas)
-                assert torch.equal(a.ses, b.ses)
-        assert tracer.span_names() == ["sweep.group:dml", "sweep.column[0]",
-                                       "sweep.column[1]"]
-        assert [s.depth for s in tracer.spans] == [0, 1, 1]
+            assert a.error == b.error is None
+            assert torch.equal(a.thetas, b.thetas)
+            assert torch.equal(a.ses, b.ses)
+        names = tracer.span_names()
+        assert names[:3] == ["sweep.group:dml", "sweep.column[0]",
+                             "sweep.column[1]"]
+        assert [s.depth for s in tracer.spans[:3]] == [0, 1, 1]
         assert tracer.spans[1].attrs == {"estimator": "dml",
                                          "segmented": True}
+        # the drlearner column runs as cells: the runtime's spans nest
+        assert names[3:6] == ["sweep.column[2]", "runtime.map",
+                              "runtime.chunk"]
         return
-    kw = {"cells": dict(mode="cells"), "with_ci": dict(with_ci=True),
-          "data_mesh": dict(data_mesh=object())}.get(what)
-    slice_ = {"data_mesh": "A.10"}.get(what, "A.9")
-    with pytest.raises(NotImplementedError, match=slice_):
-        if what == "serial_loop":
-            serial_loop("dml", CausalConfig(), X=data["X"])
-        else:
-            sweep(spec, X=data["X"], y=data["y"], t=data["t"],
-                  segment_ids=data["sids"], device="cpu",
-                  **{"mode": "segmented", **kw})
-    with pytest.raises(ValueError, match="unknown sweep mode"):
-        sweep(spec, X=data["X"], y=data["y"], t=data["t"],
-              segment_ids=data["sids"], mode="bogus", device="cpu")
+    if what == "data_mesh":
+        with pytest.raises(NotImplementedError, match="A.10"):
+            sweep(spec, data_mesh=object(), mode="segmented", **kw)
+        with pytest.raises(ValueError, match="unknown sweep mode"):
+            sweep(spec, mode="bogus", **kw)
+        return
+    cells = sweep(spec, **kw)                       # mode="cells": default
+    col = cells.columns[0]
+    assert col.error is None and col.events == ()
+    assert bool(col.ok(cells.counts).all())
+    if what == "cells":
+        # the same estimator as the segmented path: the ATEs agree within
+        # the sampling noise of the folds (cells draw their own)
+        seg = _sweep(spec, data).columns[0]
+        assert float((col.ates - seg.ates).abs().max()) < 3 * float(
+            seg.ses[:, 0].max())
+        assert tuple(col.thetas.shape) == (E, 1)
+    elif what == "serial_loop":
+        loop = serial_loop("dml", cfg, n_segments=E, **kw)
+        for f in ("theta", "se", "ate"):
+            assert torch.equal(loop[f], getattr(col, {
+                "theta": "thetas", "se": "ses", "ate": "ates"}[f])), f
+    else:
+        ci = dataclasses.replace(cfg, n_bootstrap=5, sweep_chunk=0)
+        one = sweep(SweepSpec(E, (("dml", ci),)), with_ci=True, **kw)
+        two = sweep(SweepSpec(E, (("dml", dataclasses.replace(
+            ci, sweep_chunk=4)),)), with_ci=True, **kw)
+        a, b = one.columns[0], two.columns[0]
+        assert a.events == ("ci:pairs",)
+        assert b.events[0] == "chunk:vmap" and b.events[-1] == "ci:pairs"
+        assert tuple(a.replicates.shape) == (E, 5, 1)
+        assert torch.equal(a.replicates, b.replicates)
+        assert torch.equal(a.ci_lo, b.ci_lo) and bool((a.ci_lo <= a.ci_hi).all())
+        assert torch.equal(a.thetas, col.thetas)
 
 
 def test_checkpoint_resume_and_callback(data, tmp_path):
     cfg = CausalConfig(**_cfg())
     cfg2 = dataclasses.replace(cfg, cate_features=2)
-    spec = SweepSpec(E, (("dml", cfg), ("drlearner", cfg), ("dml", cfg2)))
+    # s_learner fails its column (A.6b): the failed column of the resume
+    spec = SweepSpec(E, (("dml", cfg), ("s_learner", cfg), ("dml", cfg2)))
     seen = []
     mgr = CheckpointManager(str(tmp_path), keep_latest=1)
     first = _sweep(spec, data, checkpoint=mgr,
@@ -246,7 +282,7 @@ def test_spec_validation():
 
 def test_panel_summary(data):
     cfg = CausalConfig(**_cfg(segment_key="cohort"))
-    panel = _sweep(SweepSpec.grid(E, estimators=("dml", "drlearner"),
+    panel = _sweep(SweepSpec.grid(E, estimators=("dml", "s_learner"),
                                   configs=(cfg,)), data)
     s = panel.summary()
     assert "cohort" in s and f"{E} segments" in s and "FAILED" in s
@@ -264,7 +300,7 @@ def test_registry_mirrors_reference():
     """All ten names, with the reference's instrument flags and base
     configs; DRLearner and DRIV build their weighted cells (no shared-
     nuisance split, as in the reference); the metalearners raise naming
-    the runtime they wait on (A.9)."""
+    the slice they wait on (A.6b)."""
     assert registry.SPEC_IDS == jregistry.SPEC_IDS
     cfg_fields = [f.name for f in dataclasses.fields(CausalConfig)]
     for spec in registry.SPECS:
@@ -275,9 +311,9 @@ def test_registry_mirrors_reference():
         assert registry.nuisance_signature(spec.base_cfg) == \
             jregistry.nuisance_signature(ref.base_cfg)
         if spec.name in ("s_learner", "t_learner", "x_learner"):
-            with pytest.raises(NotImplementedError, match="A.9"):
+            with pytest.raises(NotImplementedError, match="A.6b"):
                 spec.fit(None, spec.base_cfg, None)
-            with pytest.raises(NotImplementedError, match="A.9"):
+            with pytest.raises(NotImplementedError, match="A.6b"):
                 spec.weighted_fit(spec.base_cfg)
         elif spec.name in ("drlearner", "driv"):
             assert callable(spec.weighted_fit(spec.base_cfg))
