@@ -190,6 +190,37 @@ Phases (each failure makes the script exit non-zero):
      two-column cells spec (16 segments x 2^16 rows): the subscribed
      events, the panel bitwise a direct sweep's.
 
+ 24. the metalearners, the mlp nuisance and tuning (slice 11; no phase
+     catches its own failure, the fallback counters stay 0):
+     ``meta:fit`` — ``s_learner``, ``t_learner``, ``x_learner`` at the
+     tables cell ("pallas", row_block 4096), fold_weighted launches by
+     (weight rows, q) around each (S 1 at q = 1003; T 2 at q = 502; X
+     20 at q = 502 and 16 at q = 501), each ATE within 0.02 of 1, a small
+     fit of each card vs CPU (1e-4); then ``kernels:meta-forms``
+     (fold_weighted at one weight row, q = 1003, 502 and 501);
+     ``tune:penalty`` — ``tuned_nuisances`` at the tables cell (4 λ × 5
+     folds a grid: one ``map_product``, design 1 and gram_and_vec 16 at
+     20 weight rows), DML on the winners within 5 se of [1, 0.5], a
+     small grid's scores card vs CPU (1e-4) and its winners equal; then
+     ``kernels:tune-forms`` (design and gram_and_vec at R = 20);
+     ``meta:bootstrap`` — each learner's ``ate_interval`` at n = 100,000,
+     B = 32 (cut from 200 for time) in chunks of 8: launches by shape,
+     the bootstrap se finite, the truth within 5 se, serial ≡ batched
+     bitwise on 2 replicates; then ``kernels:meta-boot-forms``
+     (fold_weighted at the chunk's 8 weight rows, q = 502, 501 and 1003;
+     each record counts the launches of its own shape); ``tune:halving`` —
+     ``successive_halving("reg")`` at n = 100,000 × 500 (cut from 1M for
+     time), 8 learning rates, the reference's defaults (3 folds,
+     hidden (64,), base 25 steps, eta 2, 3 rungs): survivors 4, 2, 1,
+     and a small input's survivor sets on the card equal the CPU's;
+     ``mlp:dml`` — ``DML.fit`` with mlp outcome and treatment nuisances
+     (hidden (256, 256), 200 steps) at n = 100,000 × 500 (cut for time)
+     on the "parallel" engine: theta finite, its distance from [1, 0.5]
+     reported (these defaults overfit the noise columns, in the
+     reference too), the same fit on the "sequential" engine with
+     bitwise the same out-of-fold predictions, and a small mlp DML
+     (3000 × 200, hidden (32, 32)) card vs CPU (1e-3).
+
 Every seg_gram record also names the kernel that ran (``design``:
 small, thin or big) and times its second pass alone (``reduce_ms``)
 and, for a segment walk, its plan alone (``plan_ms``; ``ms`` has the
@@ -359,8 +390,9 @@ class Case:
     walk: tuple = None   # (seg, S, seeded) of a segment walk: its plan
 
 
-def kernel_cases(X, y, t, folds, k):
-    """The main path's kernel calls at its shapes."""
+def kernel_cases(X, y, t, folds, k, W=None):
+    """The main path's kernel calls at its shapes; ``W`` (B, n) replaces
+    the k fold weights of the batched forms (design, gram_and_vec)."""
     from repro_torch.core.crossfit import fold_weights
     from repro_torch.core.final_stage import cate_basis
     from repro_torch.core.moments import design
@@ -374,7 +406,8 @@ def kernel_cases(X, y, t, folds, k):
         return q * (q + 1) / 2
 
     n = X.shape[0]
-    W = fold_weights(folds, k)                       # (k, n)
+    W = fold_weights(folds, k) if W is None else W   # (B, n)
+    B = W.shape[0]
     seg = folds.to(torch.int32)
     Dr = design(X, intercept=True, append=y)         # ridge design (n, p+2)
     Dl = design(X, intercept=True)                   # logistic design (n, p+1)
@@ -390,14 +423,22 @@ def kernel_cases(X, y, t, folds, k):
         return torch.stack([
             ref.seg_gram_plain(builder, [a.to(dtype) for a in arrays],
                                w=w[b][:, None].to(dtype))
-            for b in range(k)])
+            for b in range(B)])
+
+    def gv_operand():
+        # [Dl·wg | v] built in one (B, n, ql + 1) buffer: the product and a
+        # concatenation of it would each hold another copy
+        A = torch.empty((B, n, ql + 1), device=X.device)
+        torch.mul(Dl[None], wg[:, :, None], out=A[..., :ql])
+        A[..., ql] = v
+        return A.transpose(1, 2), Dl
 
     def gv_plain(dtype):
         return torch.stack([
             ref.seg_gram_plain(ref.build_gram_and_vec,
                                [Dl.to(dtype), wg[b][:, None].to(dtype),
                                 v[b][:, None].to(dtype)])
-            for b in range(k)])
+            for b in range(B)])
 
     def seg_plain(dtype):
         return ref.seg_gram_plain(ref.build_design, [Dr.to(dtype)],
@@ -421,14 +462,14 @@ def kernel_cases(X, y, t, folds, k):
     col_bytes = 4 * n * 4 + phi.numel() * 4
     f32 = torch.float32
     return [
-        Case("design", "ridge weighted_gram, k=5 folds batched",
+        Case("design", f"ridge weighted_gram, {B} weight rows batched",
              lambda: kern.seg_gram_cuda("design", Dr, w=W),
              lambda: batched(ref.build_design, [Dr], W, f32),
              lambda: batched(ref.build_design, [Dr], W, torch.float64),
              lambda: ((Dr[None] * W[:, :, None]).transpose(1, 2), Dr),
              lambda ab: torch.matmul(*ab),
-             Dr.numel() * 4 + W.numel() * 4 + k * qr * qr * 4,
-             2.0 * k * n * sym(qr), 3, q=(qr, qr)),
+             Dr.numel() * 4 + W.numel() * 4 + B * qr * qr * 4,
+             2.0 * B * n * sym(qr), 3, q=(qr, qr)),
         Case("design_segmented", "fold_gram S=5 (parallel_loo)",
              lambda: kern.seg_walk_cuda("design", Dr, seg=seg,
                                         n_segments=k),
@@ -440,15 +481,13 @@ def kernel_cases(X, y, t, folds, k):
              lambda ab: torch.matmul(*ab),
              Dr.numel() * 4 + n * 4 + k * qr * qr * 4,
              2.0 * n * sym(qr), 3, q=(qr, qr), walk=(seg, k, False)),
-        Case("gram_and_vec", "logistic Newton step, k=5 folds batched",
+        Case("gram_and_vec", f"logistic Newton step, {B} weight rows",
              lambda: kern.seg_gram_cuda("gram_and_vec", Dl,
                                         scalars=(wg, v)),
              lambda: gv_plain(f32), lambda: gv_plain(torch.float64),
-             lambda: (torch.cat([Dl[None] * wg[:, :, None], v[:, :, None]],
-                                dim=2).transpose(1, 2), Dl),
-             lambda ab: torch.matmul(*ab),
-             Dl.numel() * 4 + 2 * wg.numel() * 4 + k * (ql + 1) * ql * 4,
-             2.0 * k * n * (sym(ql) + ql), 3, q=(ql + 1, ql)),
+             gv_operand, lambda ab: torch.matmul(*ab),
+             Dl.numel() * 4 + 2 * wg.numel() * 4 + B * (ql + 1) * ql * 4,
+             2.0 * B * n * (sym(ql) + ql), 3, q=(ql + 1, ql)),
         Case("residual", "final-stage residual_moments (G, b)",
              lambda: kern.seg_gram_cuda("residual", phi,
                                         scalars=(y, t, my, mt))[0],
@@ -731,8 +770,8 @@ def inference_cases(X, y, t, seed, R, k):
         return q * (q + 1) / 2
 
     n = X.shape[0]
-    folds, w = replicate_draws(seed, torch.arange(R), n, k, "pairs",
-                               device=X.device)
+    folds, w, _ = replicate_draws(seed, torch.arange(R), n, k, "pairs",
+                                  device=X.device)
     Wk = (fold_weights(folds, k) * w[:, None, :]).reshape(R * k, n)
     D = design(X, intercept=True, append=y)                  # (n, 502)
     q = D.shape[1]
@@ -980,7 +1019,7 @@ def phase_bootstrap_agreement(seed: int) -> None:
     cfg = CausalConfig(n_folds=5, cate_features=2, row_block=4096,
                        row_block_strategy="pallas", n_bootstrap=4,
                        runtime_chunk=4)
-    folds, w = replicate_draws(seed, torch.arange(4), d.n, 5, "pairs")
+    folds, w, _ = replicate_draws(seed, torch.arange(4), d.n, 5, "pairs")
     out = {}
     for dev in ("cpu", "cuda"):
         ny = make_nuisance("ridge", "reg", cfg)
@@ -3018,6 +3057,436 @@ def phase_runtime_trace(rt_trace):
                              "missing")
 
 
+# --- slice 11: the metalearners, the mlp nuisance and tuning ---------------
+
+# meta:fit's row_block (any R > 0 routes "pallas" to the kernel); the meta
+# bootstrap at the bootstrap cell's rows, B = 32 (cut from the config's 200
+# for time) in chunks of 8
+META_RB, META_BOOT_B, META_CHUNK = 4096, 32, 8
+# |ATE - truth| bound of meta:fit at 1M rows: a well-specified linear
+# learner's ATE se here is ~0.002-0.003, so 0.02 is ~7-10 of them
+META_ATE_TOL = 0.02
+# tune:halving: 8 learning rates under the reference's defaults (3 folds,
+# hidden (64,), base 25 steps, eta 2, 3 rungs)
+HALVING_LRS = (1e-4, 3e-4, 1e-3, 3e-3, 1e-2, 3e-2, 1e-1, 3e-1)
+# a small mlp DML, card against CPU from the same folds and inits:
+# max|card - cpu| / max|cpu| of theta after 200 AdamW steps of each
+# nuisance (each device's matmuls sum in their own order, ~1e-7 relative
+# a step, and Adam's normalisation can turn a small gradient entry's
+# difference into a full-size step's)
+MLP_TOL = 1e-3
+META_FNS = ("s_learner", "t_learner", "x_learner")
+TUNE_LAMS = (1e-4, 1e-3, 1e-2, 1e-1)      # tuned_nuisances' grid
+
+
+def _fw_shapes(launches, n):
+    """fold_weighted launches over n rows by (weight rows, q)."""
+    out = collections.Counter()
+    for (key, b, nn, _s, ql, _qr), c in launches.items():
+        if key == "fold_weighted" and nn == n:
+            out[(b, ql)] += c
+    return dict(out)
+
+
+def _meta_fit_counts(name, p, iters, R=1):
+    """One metalearner fit's fold_weighted launches by (weight rows, q),
+    its stages at R weight rows (a singleton fold axis): S one Gram of
+    [X | t | X·t | 1 | y]; T one per arm; X its two arms' outcome fits,
+    the propensity's gradient Gram over [X | 1 | 1] and Hessian over
+    [X | 1] per Newton step, and the two stage-2 fits, whose targets
+    differ per replicate, one replicate at a time."""
+    q = p + 2
+    if name == "s_learner":
+        return {(R, 2 * p + 3): 1}
+    if name == "t_learner":
+        return {(R, q): 2}
+    out = collections.Counter({(R, q): 2 + iters, (R, q - 1): iters})
+    out[(1, q)] += 2 * R
+    return dict(out)
+
+
+def _meta_fn(name):
+    from repro_torch.core import metalearners as meta
+    return getattr(meta, name)
+
+
+def phase_meta_fit(data, cfg, seed):
+    """s_learner, t_learner and x_learner on the card at the tables cell
+    ("pallas"), fold_weighted launches counted by shape around each;
+    each ATE within META_ATE_TOL of the truth; a small fit of each on
+    the card against the CPU (1e-4).  Returns seconds and launches."""
+    from repro_torch.data.causal_dgp import paper_demo_data
+
+    secs, logs = {}, collections.Counter()
+    for name in META_FNS:
+        torch.cuda.synchronize()
+        _reset_counters()
+        with _launch_log() as launches:
+            t0 = time.perf_counter()
+            res = _meta_fn(name)(data.y, data.t, data.X, cfg=cfg)
+            torch.cuda.synchronize()
+            secs[name] = time.perf_counter() - t0
+        counts, fallbacks = _read_counters()
+        got = _fw_shapes(launches, data.n)
+        want = _meta_fit_counts(name, data.p, cfg.newton_iters)
+        err = abs(res.ate - data.true_ate)
+        log(f"{name} n={data.n} p={data.p}: {secs[name]:.3f} s, ATE="
+            f"{res.ate:.5f} (true {data.true_ate:.5f}, |err| {err:.5f}, tol "
+            f"{META_ATE_TOL}) fold_weighted by (rows, q)={got} launches="
+            f"{counts} fallbacks={fallbacks}")
+        logs.update(launches)
+        if not bool(torch.isfinite(res.cate).all()):
+            raise AssertionError(f"{name}: non-finite CATE")
+        if not err <= META_ATE_TOL:
+            raise AssertionError(f"{name}: ATE {res.ate:.5f} not within "
+                                 f"{META_ATE_TOL} of the truth")
+        if got != want or set(counts) != {"fold_weighted"}:
+            raise AssertionError(f"{name}: launches {got} / {counts}, "
+                                 f"expected {want}")
+        if fallbacks:
+            raise AssertionError(f"fallback counters rose: {fallbacks}")
+        del res
+        torch.cuda.empty_cache()
+    small = paper_demo_data(n=4096, p=16, seed=seed, device="cpu")
+    scfg = dataclasses.replace(cfg, row_block=1024)
+    for name in META_FNS:
+        out = {}
+        for dev in ("cpu", "cuda"):
+            r = _meta_fn(name)(small.y, small.t, small.X, cfg=scfg,
+                               device=dev)
+            out[dev] = torch.cat([torch.tensor([r.ate]), r.cate.cpu()])
+        e = rel(out["cuda"], out["cpu"])
+        log(f"{name} small fit (n=4096, p=16) card vs CPU max rel diff "
+            f"{e:.3e} (tol 1e-4)")
+        if not e <= 1e-4:
+            raise AssertionError(f"{name}: card and CPU disagree: {e:.3e}")
+    return secs, logs
+
+
+def meta_cases(data):
+    """The metalearners' fold_weighted shapes at the tables cell: the
+    S-learner's one Gram of [X | t | X·t | 1 | y] (q = 1003), an arm
+    fit's one weight row (q = 502) and the X-learner's propensity
+    Hessian over [X | 1] (q = 501, its first Newton step's weights)."""
+    from repro_torch.core.moments import design
+
+    tt = data.t[:, None]
+    D = design(torch.cat([data.X, tt, data.X * tt], dim=1), intercept=True,
+               append=data.y)
+    ones = torch.ones((1, data.n), device="cuda")
+    cases = [fold_weighted_case("fold_weighted@q1003",
+                                "S-learner, 1 weight row", D, ones)]
+    del D
+    D = design(data.X, intercept=True, append=data.y)
+    cases.append(fold_weighted_case("fold_weighted@k1",
+                                    "T/X arm fit, 1 weight row", D,
+                                    data.t[None].contiguous()))
+    del D
+    D = design(data.X, intercept=True)
+    cases.append(fold_weighted_case("fold_weighted@k1q501",
+                                    "X propensity Hessian, 1 weight row", D,
+                                    torch.full((1, data.n), 0.25,
+                                               device="cuda")))
+    return cases
+
+
+def phase_tune_penalty(data, cfg, seed):
+    """tuned_nuisances on the card at the tables cell (4 λ × 5 folds, reg
+    and clf), each grid one map_product; then DML on the winners, theta
+    within 5 se of [1, 0.5]; the grids' scores and winners on a small
+    input on the card against the CPU.  Returns seconds and launches."""
+    from repro_torch.core import tuning
+    from repro_torch.core.dml import DML
+    from repro_torch.data.causal_dgp import paper_demo_data
+    from repro_torch.runtime import TaskRuntime
+
+    calls, real = [], TaskRuntime.map_product
+
+    def counted(self, fn, *a, **kw):
+        calls.append(kw.get("label"))
+        return real(self, fn, *a, **kw)
+
+    TaskRuntime.map_product = counted
+    try:
+        torch.cuda.synchronize()
+        _reset_counters()
+        with _launch_log() as launches:
+            t0 = time.perf_counter()
+            ny, nt = tuning.tuned_nuisances(
+                cfg, data.X, data.y, data.t,
+                gen=torch.Generator().manual_seed(0))
+            torch.cuda.synchronize()
+            t_tune = time.perf_counter() - t0
+    finally:
+        TaskRuntime.map_product = real
+    counts, fallbacks = _read_counters()
+    grid = dict(counts)
+    k, it = cfg.n_folds, cfg.newton_iters
+    rows = len(TUNE_LAMS) * k
+    want = {"design": 1, "gram_and_vec": it}
+    t0 = time.perf_counter()
+    res = DML(cfg, nuisance_y=ny, nuisance_t=nt).fit(
+        data.y, data.t, data.X, gen=torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    t_dml = time.perf_counter() - t0
+    theta, se = res.theta.double().cpu(), res.stderr.double().cpu()
+    z = (theta - torch.tensor([1.0, 0.5], dtype=torch.float64)).abs() / se
+    log(f"tune:penalty n={data.n} p={data.p}: tuned_nuisances ({rows} "
+        f"(λ, fold) cells a grid) {t_tune:.3f} s, map_product calls {calls};"
+        f" winners λ_y={ny.hyper['lam']} λ_t={nt.hyper['lam']}; DML on "
+        f"them {t_dml:.3f} s theta={theta.tolist()} HC0 se={se.tolist()} "
+        f"|theta-[1,0.5]|/se={z.tolist()}; grid launches={grid} by (form,"
+        f" B, n, S, qL, qR)={ {str(k_): v for k_, v in launches.items()} } "
+        f"fallbacks={fallbacks}")
+    if calls != ["tune_penalty"] * 2:
+        raise AssertionError(f"map_product calls {calls}, expected one a "
+                             "grid")
+    if grid != want or set(b for (_k, b, *_r) in launches) != {rows}:
+        raise AssertionError(f"grid launches {grid} / {dict(launches)}, "
+                             f"expected {want} at {rows} weight rows")
+    if not bool((z <= 5.0).all()):
+        raise AssertionError(f"theta not within 5 se of [1, 0.5]: {z}")
+    if fallbacks:
+        raise AssertionError(f"fallback counters rose: {fallbacks}")
+    small = paper_demo_data(n=4096, p=16, seed=seed, device="cpu")
+    scfg = dataclasses.replace(cfg, row_block=1024)
+    for task, target in (("reg", small.y), ("clf", small.t)):
+        out = {}
+        for dev in ("cpu", "cuda"):
+            out[dev] = tuning.tune_penalty(
+                task, TUNE_LAMS, small.X, target, n_folds=k,
+                gen=torch.Generator().manual_seed(1), newton_iters=it,
+                row_block=scfg.row_block, strategy=scfg.row_block_strategy,
+                device=dev)
+        e = rel(out["cuda"].scores.cpu(), out["cpu"].scores)
+        log(f"tune_penalty[{task}] small (n=4096, p=16) card vs CPU: scores"
+            f" max rel diff {e:.3e} (tol 1e-4), winners "
+            f"{out['cuda'].best_value} / {out['cpu'].best_value}")
+        if not (e <= 1e-4
+                and out["cuda"].best_index == out["cpu"].best_index):
+            raise AssertionError(f"tune_penalty[{task}]: card and CPU "
+                                 "disagree")
+    return {"tune": t_tune, "dml": t_dml}, launches
+
+
+def tune_cases(X, y, t, folds, k, W):
+    """design and gram_and_vec at the penalty grid's weight rows ``W``
+    (their library operands, (20, n, 503) and (20, n, 502), are 37.5 GiB
+    each at n = 1M)."""
+    return [c for c in kernel_cases(X, y, t, folds, k, W)
+            if c.name in ("design", "gram_and_vec")]
+
+
+def tune_grid_weights(n, k=5):
+    """The penalty grid's weight rows: the y grid's fold complements (its
+    folds drawn as ``tuned_nuisances`` draws them), one per (λ, fold)."""
+    from repro_torch.core.crossfit import fold_ids, fold_weights
+
+    folds = fold_ids(torch.Generator().manual_seed(0), n, k, device="cuda")
+    W = fold_weights(folds, k).repeat(len(TUNE_LAMS), 1)
+    return folds, W.contiguous()
+
+
+def phase_meta_bootstrap(data, cfg):
+    """Each learner's ate_interval at the bootstrap cell (pairs, "vmap",
+    B = META_BOOT_B in chunks of META_CHUNK), fold_weighted launches by
+    shape around it; the bootstrap se finite and the truth within 5 se;
+    serial ≡ batched bitwise on a chunk of 2 replicates, equal to the
+    run's first two.  Returns seconds and launches."""
+    from repro_torch.core.metalearners import meta_bootstrap
+    from repro_torch.inference.bootstrap import derive_seed
+
+    B, R, it = cfg.n_bootstrap, cfg.runtime_chunk, cfg.newton_iters
+    secs, logs = {}, collections.Counter()
+    for name in META_FNS:
+        torch.cuda.synchronize()
+        _reset_counters()
+        with _launch_log() as launches:
+            t0 = time.perf_counter()
+            res = _meta_fn(name)(data.y, data.t, data.X, cfg=cfg)
+            lo, hi = res.ate_interval()
+            torch.cuda.synchronize()
+            secs[name] = time.perf_counter() - t0
+        counts, fallbacks = _read_counters()
+        inf = res.inference()
+        se = float(inf.se[0])
+        z = abs(res.ate - data.true_ate) / se
+        got = _fw_shapes(launches, data.n)
+        want = collections.Counter(_meta_fit_counts(name, data.p, it))
+        for r in [R] * (B // R) + ([B % R] if B % R else []):
+            want.update(_meta_fit_counts(name, data.p, it, r))
+        ctx = res.fit_ctx
+        kw = dict(y=ctx["y"], t=ctx["t"], X=ctx["X"], n_replicates=2,
+                  seed=derive_seed(ctx["seed"], 0x0b00))
+        ser = meta_bootstrap(ctx["core"], executor="serial", **kw)
+        vec = meta_bootstrap(ctx["core"], executor="vmap", **kw)
+        same = torch.equal(ser.ate_replicates, vec.ate_replicates)
+        first = torch.equal(vec.ate_replicates, inf.ate_replicates[:2])
+        log(f"{name} bootstrap n={data.n} p={data.p} B={B} (cut from the "
+            f"config's 200 for time), chunks of {R}: fit + interval "
+            f"{secs[name]:.3f} s ({secs[name] / B:.4f} s a replicate); "
+            f"ATE={res.ate:.5f} bootstrap se={se:.5f} |ATE-true|/se={z:.3f}"
+            f" CI=[{lo:.5f}, {hi:.5f}]; serial vs batched (2 replicates) "
+            f"bitwise {same}, the run's first two {first}; fold_weighted by"
+            f" (rows, q)={got} launches={counts} fallbacks={fallbacks}")
+        logs.update(launches)
+        if not (bool(torch.isfinite(inf.ate_replicates).all()) and lo < hi
+                and np.isfinite(se) and se > 0):
+            raise AssertionError(f"{name}: non-finite draws or se")
+        if not z <= 5.0:
+            raise AssertionError(f"{name}: truth not within 5 se: {z:.3f}")
+        if not (same and first):
+            raise AssertionError(f"{name}: serial and batched differ")
+        if got != dict(want) or set(counts) != {"fold_weighted"}:
+            raise AssertionError(f"{name}: launches {got} / {counts}, "
+                                 f"expected {dict(want)}")
+        if fallbacks:
+            raise AssertionError(f"fallback counters rose: {fallbacks}")
+    return secs, logs
+
+
+def meta_boot_cases(data, seed):
+    """fold_weighted at the meta bootstrap's chunk, META_CHUNK replicates'
+    pairs weights, one fold each: an arm fit (q = 502), the X-learner's
+    propensity Hessian (q = 501) and the S-learner's Gram (q = 1003)."""
+    from repro_torch.core.moments import design
+    from repro_torch.inference.bootstrap import replicate_weights
+
+    w, _ = replicate_weights(seed, torch.arange(META_CHUNK), data.n, "pairs",
+                             device="cuda")
+    R = f"R{META_CHUNK}"
+    D = design(data.X, intercept=True, append=data.y)
+    cases = [fold_weighted_case(f"fold_weighted@{R}",
+                                f"meta bootstrap chunk, {META_CHUNK} rows x "
+                                "1 fold", D, (w * data.t[None]).contiguous())]
+    del D
+    D = design(data.X, intercept=True)
+    cases.append(fold_weighted_case(f"fold_weighted@{R}q501",
+                                    "meta bootstrap chunk, X propensity "
+                                    "Hessian", D, (0.25 * w).contiguous()))
+    del D
+    tt = data.t[:, None]
+    D = design(torch.cat([data.X, tt, data.X * tt], dim=1), intercept=True,
+               append=data.y)
+    cases.append(fold_weighted_case(f"fold_weighted@{R}q1003",
+                                    "meta bootstrap chunk, S-learner", D,
+                                    w.contiguous()))
+    return cases
+
+
+def phase_tune_halving(data, seed):
+    """successive_halving("reg") on the card at the bootstrap cell: 8
+    learning rates, the reference's defaults; the history's survivor sets
+    (4, 2, 1); on a small input the card's history against the CPU's
+    (the same survivors).  Returns seconds."""
+    from repro_torch.core import tuning
+    from repro_torch.data.causal_dgp import paper_demo_data
+
+    torch.cuda.synchronize()
+    _reset_counters()
+    t0 = time.perf_counter()
+    res = tuning.successive_halving("reg", HALVING_LRS, data.X, data.y,
+                                    gen=torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts, fallbacks = _read_counters()
+    for h in res.history:
+        log(f"  rung {h['rung']} ({h['steps']} steps): lrs {h['lrs']} "
+            f"scores {h['scores']} kept {h['kept']}")
+    log(f"tune:halving n={data.n} p={data.p}: {secs:.3f} s, best lr "
+        f"{res.best_lr}; launches={counts} fallbacks={fallbacks}")
+    sizes = [len(h["kept"]) for h in res.history]
+    if sizes != [4, 2, 1] or res.best_lr not in torch.tensor(
+            HALVING_LRS).tolist():
+        raise AssertionError(f"survivor sets {sizes}, best {res.best_lr}")
+    if not all(np.isfinite(h["scores"]).all() for h in res.history):
+        raise AssertionError("non-finite halving scores")
+    if counts or fallbacks:
+        raise AssertionError(f"launches {counts} / fallbacks {fallbacks}")
+    small = paper_demo_data(n=2048, p=16, seed=seed, device="cpu")
+    out = {}
+    for dev in ("cpu", "cuda"):
+        out[dev] = tuning.successive_halving(
+            "reg", HALVING_LRS, small.X, small.y, base_steps=10,
+            hidden=(16,), gen=torch.Generator().manual_seed(1), device=dev)
+    kept = {dev: [h["kept"] for h in r.history] for dev, r in out.items()}
+    e = max(rel(torch.tensor(a["scores"]), torch.tensor(b["scores"]))
+            for a, b in zip(out["cuda"].history, out["cpu"].history))
+    log(f"tune:halving small (n=2048, p=16) survivors card {kept['cuda']} "
+        f"CPU {kept['cpu']}; scores max rel diff {e:.3e}")
+    if kept["cuda"] != kept["cpu"]:
+        raise AssertionError("card and CPU survivor sets differ")
+    return secs
+
+
+def phase_mlp_dml(data, cfg, seed):
+    """DML.fit with mlp outcome and treatment nuisances (hidden (256,
+    256), 200 AdamW steps, the reference's defaults) on the "parallel"
+    engine at the bootstrap cell: theta finite, the final stage's
+    launches, theta's distance from [1, 0.5] in HC0 se reported (no gate:
+    at these defaults the nuisances overfit the 499 noise columns, in
+    the reference as in the port — tests/test_torch_mlp.py); the same
+    fit on the "sequential" engine (one fold model at a time) gives
+    bitwise the same out-of-fold predictions; then a small mlp DML on
+    the card against the CPU from the same folds and inits (MLP_TOL).
+    Returns seconds."""
+    from repro_torch.core.dml import DML
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counters()
+    t0 = time.perf_counter()
+    res = DML(cfg).fit(data.y, data.t, data.X,
+                       gen=torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts, fallbacks = _read_counters()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    theta, se = res.theta.double().cpu(), res.stderr.double().cpu()
+    z = (theta - torch.tensor([1.0, 0.5], dtype=torch.float64)).abs() / se
+    d = res.diagnostics
+    log(f"mlp:dml n={data.n} p={data.p} hidden {cfg.mlp_hidden} "
+        f"{cfg.mlp_steps} steps k={cfg.n_folds}: fit {secs:.3f} s, peak "
+        f"{peak:.2f} GiB; theta={theta.tolist()} HC0 se={se.tolist()} "
+        f"|theta-[1,0.5]|/se={z.tolist()} (reported, not gated); "
+        f"R²(y)={d.nuisance_r2_y:.4f} propensity in [{d.min_propensity:.3e},"
+        f" {d.max_propensity:.6f}]; launches={counts} fallbacks={fallbacks}")
+    if not bool(torch.isfinite(res.theta).all()):
+        raise AssertionError("non-finite theta")
+    if counts != {"residual": 1, "residual_meat": 1} or fallbacks:
+        raise AssertionError(f"launches {counts} / fallbacks {fallbacks}")
+    t0 = time.perf_counter()
+    seq = DML(dataclasses.replace(cfg, engine="sequential")).fit(
+        data.y, data.t, data.X, gen=torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    same = {key: torch.equal(getattr(seq.crossfit, key),
+                             getattr(res.crossfit, key))
+            for key in ("oof_y", "oof_t")}
+    log(f"mlp:dml sequential engine (one fold model at a time) "
+        f"{time.perf_counter() - t0:.3f} s: out-of-fold predictions bitwise"
+        f" the parallel engine's {same}, theta {seq.theta.tolist()}")
+    if not all(same.values()):
+        raise AssertionError(f"parallel and sequential mlp fits differ: "
+                             f"{same}")
+    del seq
+    g = torch.Generator().manual_seed(seed)
+    X = torch.randn((3000, 200), generator=g)
+    t = torch.bernoulli(torch.sigmoid(X[:, 0]), generator=g)
+    y = (1 + 0.5 * X[:, 0]) * t + X[:, 0] + torch.randn(3000, generator=g)
+    scfg = dataclasses.replace(cfg, n_folds=3, mlp_hidden=(32, 32),
+                               row_block=1024)
+    thetas = {}
+    for dev in ("cpu", "cuda"):
+        thetas[dev] = DML(scfg, device=dev).fit(
+            y, t, X, gen=torch.Generator().manual_seed(1)).theta.cpu()
+    e = rel(thetas["cuda"], thetas["cpu"])
+    log(f"mlp DML small (n=3000, p=200, hidden (32, 32), 200 steps, k=3) "
+        f"theta card {thetas['cuda'].tolist()} CPU {thetas['cpu'].tolist()}"
+        f" max rel diff {e:.3e} (tol {MLP_TOL:g})")
+    if not e <= MLP_TOL:
+        raise AssertionError(f"card and CPU mlp DML disagree: {e:.3e}")
+    return secs
+
 def main(argv=None) -> int:
     """Run every phase; 0 only if all passed."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -3161,6 +3630,39 @@ def main(argv=None) -> int:
             refute_cases(data, k, args.seed), timer)) or {})
         del rl, out
         torch.cuda.empty_cache()
+    slice11_s = {}
+    out = run("meta:fit", phase_meta_fit, data,
+              dataclasses.replace(base, inference="none", row_block=META_RB),
+              args.seed)
+    torch.cuda.empty_cache()
+    if out is not None:
+        slice11_s["meta:fit"], ml = out
+        count("fold_weighted@q1003", "meta:fit",
+              _fw_count(ml, 1, args.n, q=2 * p + 3))
+        count("fold_weighted@k1", "meta:fit",
+              _fw_count(ml, 1, args.n, q=p + 2))
+        count("fold_weighted@k1q501", "meta:fit",
+              _fw_count(ml, 1, args.n, q=p + 1))
+        records.update(run("kernels:meta-forms", lambda: run_cases(
+            meta_cases(data), timer)) or {})
+        del ml, out
+        torch.cuda.empty_cache()
+    out = run("tune:penalty", phase_tune_penalty, data,
+              dataclasses.replace(base, inference="none"), args.seed)
+    torch.cuda.empty_cache()
+    if out is not None:
+        slice11_s["tune:penalty"], tl = out
+        R20 = len(TUNE_LAMS) * k
+        for form in ("design", "gram_and_vec"):
+            count(f"{form}@R{R20}", "tune:penalty",
+                  sum(c for (f, b, *_r), c in tl.items()
+                      if f == form and b == R20))
+        gfolds, gW = tune_grid_weights(args.n, k)
+        records.update(run("kernels:tune-forms", lambda: run_cases(
+            tune_cases(data.X, data.y, data.t, gfolds, k, gW), timer,
+            f"@R{R20}")) or {})
+        del tl, out, gfolds, gW
+        torch.cuda.empty_cache()
     del data
     torch.cuda.empty_cache()
 
@@ -3204,6 +3706,28 @@ def main(argv=None) -> int:
         del c_, kw_, healthy, out
     else:
         failed.append("runtime:downgrade")
+    mbcfg = dataclasses.replace(base, inference="bootstrap",
+                                n_bootstrap=META_BOOT_B,
+                                runtime_chunk=META_CHUNK, row_block=META_RB)
+    out = run("meta:bootstrap", phase_meta_bootstrap, bdata, mbcfg)
+    torch.cuda.empty_cache()
+    if out is not None:
+        slice11_s["meta:bootstrap"], ml = out
+        for q, tag in ((p + 2, ""), (p + 1, "q501"), (2 * p + 3, "q1003")):
+            count(f"fold_weighted@R{META_CHUNK}{tag}", "meta:bootstrap",
+                  _fw_count(ml, META_CHUNK, BOOT_N, q=q))
+        records.update(run("kernels:meta-boot-forms", lambda: run_cases(
+            meta_boot_cases(bdata, args.seed), timer)) or {})
+        del ml, out
+        torch.cuda.empty_cache()
+    slice11_s["tune:halving"] = run("tune:halving", phase_tune_halving,
+                                    bdata, args.seed)
+    torch.cuda.empty_cache()
+    slice11_s["mlp:dml"] = run("mlp:dml", phase_mlp_dml, bdata,
+                               dataclasses.replace(base, inference="none",
+                                                   nuisance_y="mlp",
+                                                   nuisance_t="mlp"),
+                               args.seed)
     del bdata
     torch.cuda.empty_cache()
     run("main:bootstrap-agreement", phase_bootstrap_agreement, args.seed)
@@ -3395,7 +3919,9 @@ def main(argv=None) -> int:
             "refute_reps": REFUTE_REPS, "refute_seconds": refute_s,
             "quickstart_seconds": quick_s, "cells_n": CELLS_N,
             "cells_at": CELLS_AT, "cells_budget": cells_budget,
-            "cells_seconds": cells_s}
+            "cells_seconds": cells_s, "meta_bootstrap_replicates":
+            META_BOOT_B, "meta_chunk": META_CHUNK,
+            "halving_lrs": list(HALVING_LRS), "slice11_seconds": slice11_s}
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(

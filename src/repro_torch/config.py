@@ -1,11 +1,12 @@
 """Configuration dataclasses: copies of the JAX package's
-``ModelConfig``, ``ParallelConfig`` and ``CausalConfig``.
+``ModelConfig``, ``ParallelConfig``, ``TrainConfig`` and
+``CausalConfig``.
 
 Field for field the same as the JAX package's classes (same names,
 order and defaults), so a configuration written for one package runs
 unchanged in the other.  Where the reference holds a ``jnp`` dtype, the
-port holds the ``torch`` dtype of the same name.  ``TrainConfig`` and
-``ShapeConfig`` come with the training and serving slices.
+port holds the ``torch`` dtype of the same name.  ``ShapeConfig``
+comes with the serving slice.
 """
 from __future__ import annotations
 
@@ -197,6 +198,21 @@ class ParallelConfig:
     attention_impl: str = "dense"  # dense | chunked
     attention_chunk: int = 1024
     microbatch: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Optimizer hyper-parameters (``optim.adamw``; the mlp nuisance's
+    full-batch AdamW).  ``b2`` is 0.95, not torch's 0.999."""
+
+    learning_rate: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1_000
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    b1: float = 0.9
+    b2: float = 0.95
+    seed: int = 0
 
 
 @dataclasses.dataclass(frozen=True)

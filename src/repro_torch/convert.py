@@ -45,6 +45,29 @@ def fold_states(states: Mapping[str, np.ndarray], *,
     return {key: _f32(states[key], dev) for key in ("beta", "lam")}
 
 
+def mlp_state(np_state: Mapping[str, Any], *,
+              device: DeviceLike = None) -> Dict[str, Any]:
+    """The reference's mlp nuisance state — ``{"params": {"w0", "b0",
+    ...}, "opt": AdamWState}`` from its ``init`` (``_mlp_init``'s draws),
+    with numpy leaves and any leading batch axes — as the port's
+    ``make_mlp`` state.  The optimizer state comes across too; without
+    one it starts at 0."""
+    from repro_torch.optim.adamw import adamw_init
+
+    dev = resolve_device(device)
+    params = {key: _f32(v, dev) for key, v in np_state["params"].items()}
+    opt = np_state.get("opt")
+    if opt is None:
+        lead = params["w0"].dim() - 2
+        return {"params": params, "opt": adamw_init(params, batch_dims=lead)}
+
+    return {"params": params, "opt": {
+        "step": torch.as_tensor(np.array(opt.step, dtype=np.int32),
+                                device=dev),
+        "m": {key: _f32(v, dev) for key, v in opt.m.items()},
+        "v": {key: _f32(v, dev) for key, v in opt.v.items()}}}
+
+
 def theta_cov(theta, cov, *, device: DeviceLike = None
               ) -> Tuple[Tensor, Tensor]:
     """(theta (p_phi,), cov (p_phi, p_phi)) as fp32 tensors."""

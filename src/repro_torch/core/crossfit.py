@@ -34,6 +34,7 @@ import torch
 
 from repro_torch.core.nuisance import (Nuisance, logistic_fit_folds,
                                        ridge_fit_folds)
+from repro_torch.inference.executor import tree_map
 from repro_torch.obs.trace import maybe_span
 from repro_torch.runtime import as_runtime
 
@@ -62,8 +63,10 @@ def _oof_select(preds_kn: Tensor, folds: Tensor) -> Tensor:
     return torch.gather(preds_kn, -2, idx).squeeze(-2)
 
 
-def _stack_states(states) -> Dict[str, Tensor]:
-    return {key: torch.stack([s[key] for s in states]) for key in states[0]}
+def _stack_states(states) -> Dict[str, Any]:
+    """Per-fold init states (trees of tensors) -> one state with a
+    leading fold axis."""
+    return tree_map(lambda *xs: torch.stack(xs), states[0], *states[1:])
 
 
 @functools.lru_cache(maxsize=128)

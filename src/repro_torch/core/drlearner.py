@@ -115,29 +115,36 @@ class DRLearner:
         self.clip = clip
 
     def _crossfit_outcome_arm(self, X: Tensor, y: Tensor, t: Tensor,
-                              folds: Tensor, arm: int) -> Tensor:
+                              folds: Tensor, arm: int,
+                              gen: Optional[torch.Generator] = None
+                              ) -> Tensor:
         """Cross-fit E[Y|X, T=arm]: the training weights select the
-        fold's complement AND the arm."""
+        fold's complement AND the arm; an mlp draws its fold inits on
+        ``gen`` (``fit_predict_folds``)."""
         arm_mask = (t == arm).to(_F32)[None, :]
         W = fold_weights(folds, self.cfg.n_folds)
         return _oof_select(fit_predict_folds(self.outcome, X, y,
-                                             W * arm_mask), folds)
+                                             W * arm_mask,
+                                             None if gen is None else [gen]),
+                           folds)
 
     def fit(self, y, t, X, gen: Optional[torch.Generator] = None
             ) -> DRResult:
-        """y, t: (n,), t binary; X: (n, p).  ``gen`` draws the folds
-        (default: a CPU generator seeded 0); its initial seed is the one
-        the bootstrap replicates derive from."""
+        """y, t: (n,), t binary; X: (n, p).  ``gen`` draws the folds,
+        then an mlp nuisance's fold inits (default: a CPU generator
+        seeded 0); its initial seed is the one the bootstrap replicates
+        derive from."""
         dev, cfg = self.device, self.cfg
         gen = gen if gen is not None else torch.Generator().manual_seed(0)
         y, t, X = as_f32(y, dev), as_f32(t, dev), as_f32(X, dev)
         n, k = X.shape[0], cfg.n_folds
         folds = fold_ids(gen, n, k, device=dev)
 
-        m0 = self._crossfit_outcome_arm(X, y, t, folds, 0)
-        m1 = self._crossfit_outcome_arm(X, y, t, folds, 1)
+        m0 = self._crossfit_outcome_arm(X, y, t, folds, 0, gen)
+        m1 = self._crossfit_outcome_arm(X, y, t, folds, 1, gen)
         e = _oof_select(fit_predict_folds(self.propensity, X, t,
-                                          fold_weights(folds, k)), folds)
+                                          fold_weights(folds, k), [gen]),
+                        folds)
         e = torch.clamp(e, self.clip, 1.0 - self.clip)
 
         psi = (m1 - m0 + t * (y - m1) / e

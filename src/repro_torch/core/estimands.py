@@ -1,5 +1,5 @@
 """Orthogonality, overlap and instrument diagnostics of DML and OrthoIV
-fits."""
+fits, and the ATE / ATT read off a pointwise CATE."""
 from __future__ import annotations
 
 import dataclasses
@@ -101,3 +101,14 @@ def compute_iv_diagnostics(t, z, mt, mz, e=None, *,
         max_instrument_propensity=float(mz.max()),
         weak_instrument=bool(f_stat < f_threshold),
     )
+
+
+def ate_from_cate(cate: torch.Tensor) -> float:
+    """The ATE as the mean pointwise CATE."""
+    return float(cate.mean())
+
+
+def att_from_cate(cate: torch.Tensor, t: torch.Tensor) -> float:
+    """The effect on the treated: the CATE averaged over treated rows."""
+    tw = t.to(_F32)
+    return float((cate * tw).sum() / torch.clamp(tw.sum(), min=1.0))

@@ -8,20 +8,27 @@ Gram of the fit is one fold-batched kernel launch.  This is how the
 "parallel" cross-fit engine writes out the fold axis the JAX package
 vmaps.
 
-Closed-form ridge and Newton logistic are the main path.  The
-``backbone`` kind puts the same heads over features pooled by a frozen
-LM backbone (``backbone_features``: the Dream11 scenario, paper §4);
-the ``mlp`` nuisance arrives with a later slice.
+Closed-form ridge and Newton logistic are the main path.  The ``mlp``
+kind trains a GELU MLP by full-batch AdamW for a fixed step count; with
+a batched state it trains every model of the batch in one loop, each
+model's forward and backward on its own (so a model's numbers do not
+depend on the batch it sits in).  The ``backbone`` kind puts the linear
+heads over features pooled by a frozen LM backbone
+(``backbone_features``: the Dream11 scenario, paper §4).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Optional
+import math
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
-from repro_torch.config import CausalConfig
+from repro_torch.config import CausalConfig, TrainConfig
 from repro_torch.core import moments
+from repro_torch.inference.executor import tree_map
+from repro_torch.optim.adamw import adamw_init, adamw_update
 
 Tensor = torch.Tensor
 _F32 = torch.float32
@@ -134,6 +141,120 @@ def make_logistic(lam: float = 1e-3, iters: int = 16, row_block: int = 0,
                            "row_block": row_block, "strategy": strategy})
 
 
+# ---------------------------------------------------------------------------
+# MLP (full-batch AdamW for a fixed step count)
+# ---------------------------------------------------------------------------
+
+def _mlp_init(gen: Optional[torch.Generator], sizes, device=None
+              ) -> Dict[str, Tensor]:
+    """N(0, 1/fan_in) weights drawn on ``gen`` (default: a CPU generator
+    seeded 0), zero biases."""
+    gen = gen if gen is not None else torch.Generator().manual_seed(0)
+    params = {}
+    for i, (a, b) in enumerate(zip(sizes[:-1], sizes[1:])):
+        w = torch.randn((a, b), generator=gen, device=gen.device, dtype=_F32)
+        params[f"w{i}"] = (w / math.sqrt(a)).to(device)
+        params[f"b{i}"] = torch.zeros((b,), dtype=_F32, device=device)
+    return params
+
+
+def _mlp_forward(params: Dict[str, Tensor], X: Tensor, n_layers: int
+                 ) -> Tensor:
+    """One model's (n,) output; GELU is the tanh form, as ``jax.nn.gelu``."""
+    h = X
+    for i in range(n_layers):
+        h = h @ params[f"w{i}"] + params[f"b{i}"]
+        if i < n_layers - 1:
+            h = F.gelu(h, approximate="tanh")
+    return h[..., 0]
+
+
+def make_mlp(task: str, hidden: Tuple[int, ...] = (256, 256),
+             steps: int = 200, lr: float = 1e-3, wd: float = 1e-4
+             ) -> Nuisance:
+    """A GELU MLP trained by ``steps`` full-batch AdamW steps
+    (``TrainConfig``'s b1 / b2, clip 1.0) on the weighted mean loss —
+    squared error for "reg", log-loss on the logit for "clf" — from the
+    state ``init`` draws.  An ``"lr"`` state leaf overrides the rate
+    (scalar, or one per model of a batch), so tuning sweeps it as data.
+
+    ``fit`` takes w (n,), or (…, n) with a state of the same leading
+    axes (an unbatched state is copied to each); y may carry the same
+    leading axes.  The gradients are taken by ``torch.autograd.grad``
+    over the batched parameters, each model's loss built from its own
+    slice of them."""
+    tcfg = TrainConfig(learning_rate=lr, weight_decay=wd, grad_clip=1.0)
+    n_layers = len(hidden) + 1
+
+    def init(gen, p, device=None):
+        params = _mlp_init(gen, (p,) + tuple(hidden) + (1,), device)
+        return {"params": params, "opt": adamw_init(params)}
+
+    def loss_fn(params, X, y, w):
+        out = _mlp_forward(params, X, n_layers)
+        if task == "clf":
+            per = (torch.clamp(out, min=0) - out * y
+                   + torch.log1p(torch.exp(-torch.abs(out))))
+        else:
+            per = 0.5 * torch.square(out - y)
+        return torch.sum(per * w) / torch.clamp(w.sum(), min=1.0)
+
+    def grads(params, X, y, w):
+        leaves = {k: v.detach().requires_grad_(True)
+                  for k, v in params.items()}
+        models = {k: v.unbind(0) for k, v in leaves.items()}
+        total = None
+        for b in range(w.shape[0]):
+            loss = loss_fn({k: v[b] for k, v in models.items()}, X, y[b],
+                           w[b])
+            total = loss if total is None else total + loss
+        g = torch.autograd.grad(total, list(leaves.values()))
+        return dict(zip(leaves, g))
+
+    def fit(state, X, y, w):
+        Xf, yf, wf = X.to(_F32), y.to(_F32), w.to(_F32)
+        lead = tuple(wf.shape[:-1])
+        params, opt = state["params"], state["opt"]
+        lr_t = torch.as_tensor(state.get("lr", lr), dtype=_F32,
+                               device=Xf.device)
+        if params["w0"].dim() == 2:        # one init for every model
+            params, opt = tree_map(
+                lambda x: x.expand(lead + tuple(x.shape)).clone(),
+                (params, opt))
+        # one leading model axis (a single model is a batch of one)
+        params, opt = tree_map(
+            lambda x: x.reshape((-1,) + tuple(x.shape[len(lead):])),
+            (params, opt))
+        if lr_t.dim():
+            lr_t = lr_t.reshape(-1)
+        W = wf.reshape(-1, wf.shape[-1])
+        Y = yf.expand(lead + (yf.shape[-1],)).reshape(W.shape)
+        with torch.enable_grad():
+            for _ in range(steps):
+                g = grads(params, Xf, Y, W)
+                params, opt, _ = adamw_update(g, opt, params, lr_t, tcfg,
+                                              batch_dims=1)
+        return tree_map(lambda x: x.reshape(lead + tuple(x.shape[1:])),
+                        {"params": params, "opt": opt})
+
+    def predict(state, X):
+        params = state["params"]
+        Xf = X.to(_F32)
+        lead = tuple(params["w0"].shape[:-2])
+        flat = {k: v.reshape((-1,) + tuple(v.shape[len(lead):]))
+                for k, v in params.items()}
+        rows = []
+        for b in range(flat["w0"].shape[0]):
+            out = _mlp_forward({k: v[b] for k, v in flat.items()}, Xf,
+                               n_layers)
+            rows.append(torch.sigmoid(out) if task == "clf" else out)
+        preds = torch.stack(rows)
+        return preds.reshape(lead + (Xf.shape[0],))
+
+    return Nuisance(f"mlp_{task}", task, init, fit, predict,
+                    hyper={"hidden": hidden, "steps": steps, "lr": lr})
+
+
 def make_nuisance(kind: str, task: str, cfg: CausalConfig) -> Nuisance:
     """Nuisance factory from a CausalConfig."""
     rb, st = cfg.row_block, cfg.row_block_strategy
@@ -143,9 +264,7 @@ def make_nuisance(kind: str, task: str, cfg: CausalConfig) -> Nuisance:
         return make_logistic(cfg.ridge_lambda, cfg.newton_iters,
                              row_block=rb, strategy=st)
     if kind == "mlp":
-        raise NotImplementedError(
-            "the mlp nuisance lands with the metalearners slice "
-            "(ROADMAP A.6b)")
+        return make_mlp(task, cfg.mlp_hidden, cfg.mlp_steps, cfg.mlp_lr)
     if kind == "backbone":
         # heads over precomputed backbone features; the same linear math
         if task == "clf":

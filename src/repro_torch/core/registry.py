@@ -1,21 +1,17 @@
 """The estimator registry: one record per estimator of the catalogue
 (DML, DRLearner, the S/T/X metalearners, OrthoIV, DRIV), read by the
-sweep engine and the effect store instead of private copies.
+conformance suite, the sweep engine and the effect store instead of
+private copies.
 
-Each name of the JAX package's registry is registered here with its
-base config and whether it needs an instrument, so the store's coverage
-gate and the engine's per-column isolation decide as the reference's
-do.  The DML family (``dml``, ``dml_p2_rb``, ``dml_loo``), the OrthoIV
-family (``orthoiv``, ``orthoiv_p2_rb``), ``drlearner`` and ``driv``
-have their ``fit`` and ``weighted_fit`` on the port's estimators; the
-S/T/X metalearners raise ``NotImplementedError``: they land with the
-mlp nuisance (ROADMAP A.6b), as does the conformance suite built on
-them.
+Each name of the JAX package's registry is registered here with the
+reference's base config, conformance data and tolerances, and whether it
+needs an instrument, so the store's coverage gate and the engine's
+per-column isolation decide as the reference's do.
 
 ``weighted_fit(cfg)`` returns the weighted single fit the sweep masks
 per segment: ``cell(folds, w, data)``, on given folds (torch cannot
 replay the reference's fold keys; the bootstrap's replicates take their
-folds the same way).
+folds the same way).  The metalearners' cells ignore the folds.
 """
 from __future__ import annotations
 
@@ -28,19 +24,35 @@ from repro_torch.config import CausalConfig
 from repro_torch.core.dml import DML
 from repro_torch.core.drlearner import DRLearner
 from repro_torch.core.iv import DRIV, OrthoIV
+from repro_torch.core.metalearners import (make_meta_core, s_learner,
+                                           t_learner, x_learner)
 from repro_torch.core.nuisance import make_logistic, make_nuisance, make_ridge
+from repro_torch.data.causal_dgp import make_causal_data, make_iv_data
 
-_LATER = "lands with the metalearners (ROADMAP A.6b)"
+# Non-divisible on purpose: n % ROW_BLOCK != 0, so the zero-row padding
+# of the blocked decomposition is exercised by every chunked ≡ whole
+# assertion.
+N_CONF = 1100
+ROW_BLOCK = 256
+EFFECT = 1.2
 
 
 @dataclasses.dataclass(frozen=True)
 class EstimatorSpec:
-    """One estimator's registration.
+    """One estimator's registration with the conformance suite and the
+    sweep.
 
+    make_data(seed, device) -> the conformance data set
     fit(data, cfg, gen)   -> the estimator's result (folds drawn on gen)
     point(result)         -> float ATE/LATE read off that result
+    truth(data)           -> the data's true ATE/LATE
     base_cfg              the estimator's canonical config
-    weighted_fit(cfg)     -> cell(folds, w, data) -> {"theta", "se", "ate"}
+    boot(data, cfg, gen, executor, B) -> InferenceResult
+    boot_cfg              the row-blocked config of the serial ≡ batched
+                          check (None -> no bootstrap)
+    truth_tol             |point - truth| bound of the truth check
+    rb_tol                |point(rb=0) - point(rb=R)| tolerance
+    weighted_fit(cfg)     -> cell(folds, w, data) -> {"theta", "ate", ...}
                           the weighted single fit a sweep cell masks per
                           segment (w = segment mask)
     residual_fit(cfg)     -> resid(folds, w, data) -> residual dict (the
@@ -51,13 +63,39 @@ class EstimatorSpec:
     """
 
     name: str
+    make_data: Callable[..., Any]
     fit: Callable[[Any, CausalConfig, torch.Generator], Any]
     point: Callable[[Any], float]
+    truth: Callable[[Any], float]
     base_cfg: CausalConfig
+    boot: Optional[Callable[..., Any]] = None
+    boot_cfg: Optional[CausalConfig] = None
+    truth_tol: float = 0.25
+    rb_tol: float = 2e-3
     weighted_fit: Optional[Callable[[CausalConfig], Callable]] = None
     residual_fit: Optional[Callable[[CausalConfig], Callable]] = None
     final_fit: Optional[Callable[[CausalConfig], Callable]] = None
     needs_instrument: bool = False
+
+
+def _conf_data(seed: int, device=None):
+    return make_causal_data(N_CONF, 6, seed=seed, effect=EFFECT,
+                            device=device)
+
+
+def _conf_iv_data(seed: int, device=None):
+    return make_iv_data(N_CONF, 6, seed=seed, effect=EFFECT,
+                        compliance=0.75, device=device)
+
+
+def _boot_via_inference(fit):
+    """Estimators whose result exposes .inference(): one adapter."""
+
+    def boot(data, cfg, gen, executor, n_replicates):
+        return fit(data, cfg, gen).inference(executor=executor,
+                                             n_bootstrap=n_replicates)
+
+    return boot
 
 
 def nuisance_signature(cfg: CausalConfig) -> tuple:
@@ -226,65 +264,90 @@ def _driv_weighted_fit(cfg):
     return cell
 
 
-# -- estimators of a later slice --------------------------------------------
+# -- metalearners (weighted cores from core.metalearners; the cfg threads
+#    row_block / strategy through the nuisance hypers) -----------------------
 
-def _later(name: str):
-    def fit(*_args, **_kwargs):
-        raise NotImplementedError(f"{name} is not ported yet; it {_LATER}")
+def _fit_meta(learner_fn):
+    def fit(data, cfg, gen):
+        return learner_fn(data.y, data.t, data.X, gen=gen, cfg=cfg,
+                          device=data.X.device)
 
     return fit
 
 
-def _later_weighted(name: str):
+def _meta_weighted_fit(learner: str):
     def build(cfg):
-        raise NotImplementedError(f"{name}'s weighted fit is not ported "
-                                  f"yet; it {_LATER}")
+        core = make_meta_core(learner, cfg)
+
+        def cell(folds, w, data):
+            ate, _ = core(None, data["y"], data["t"], data["X"], w)
+            return {"theta": ate[..., None], "ate": ate}
+
+        return cell
 
     return build
 
 
 _CFG = CausalConfig(n_folds=3, inference="none")
+_CFG_BOOT_RB = CausalConfig(n_folds=3, n_bootstrap=4, row_block=ROW_BLOCK)
+_ATE = lambda r: r.ate                   # noqa: E731
+_LATE = lambda r: r.late                 # noqa: E731
+_TRUE_ATE = lambda d: d.true_ate         # noqa: E731
+_TRUE_LATE = lambda d: d.true_late       # noqa: E731
 
 
-def _spec(name, fit, point, cfg, iv=False, weighted_fit=None):
-    if fit is None:
-        return EstimatorSpec(name=name, fit=_later(name), point=_later(name),
-                             base_cfg=cfg, weighted_fit=_later_weighted(name),
-                             needs_instrument=iv)
-    if weighted_fit is not None:
-        # pseudo-outcome estimators: no shared-nuisance split
-        return EstimatorSpec(name=name, fit=fit, point=point, base_cfg=cfg,
-                             weighted_fit=weighted_fit, needs_instrument=iv)
-    if iv:
-        return EstimatorSpec(name=name, fit=fit, point=point, base_cfg=cfg,
-                             weighted_fit=_orthoiv_weighted_fit,
-                             residual_fit=_orthoiv_residual_fit,
-                             final_fit=_orthoiv_final_fit,
-                             needs_instrument=True)
-    return EstimatorSpec(name=name, fit=fit, point=point, base_cfg=cfg,
-                         weighted_fit=_dml_weighted_fit,
-                         residual_fit=_dml_residual_fit,
-                         final_fit=_dml_final_fit)
+def _dml_spec(name, cfg, boot_cfg=None, **kw):
+    return EstimatorSpec(
+        name=name, make_data=_conf_data, fit=_fit_dml, point=_ATE,
+        truth=_TRUE_ATE, base_cfg=cfg,
+        boot=_boot_via_inference(_fit_dml) if boot_cfg else None,
+        boot_cfg=boot_cfg, weighted_fit=_dml_weighted_fit,
+        residual_fit=_dml_residual_fit, final_fit=_dml_final_fit, **kw)
 
 
-_ATE = lambda r: r.ate      # noqa: E731
-_LATE = lambda r: r.late    # noqa: E731
+def _meta_spec(learner: str, learner_fn):
+    fit = _fit_meta(learner_fn)
+    return EstimatorSpec(
+        name=f"{learner}_learner", make_data=_conf_data, fit=fit,
+        point=_ATE, truth=_TRUE_ATE, base_cfg=_CFG,
+        boot=_boot_via_inference(fit), boot_cfg=_CFG_BOOT_RB,
+        weighted_fit=_meta_weighted_fit(learner))
+
+
+def _iv_spec(name, fit, cfg, boot_cfg, truth_tol, **kw):
+    return EstimatorSpec(
+        name=name, make_data=_conf_iv_data, fit=fit, point=_LATE,
+        truth=_TRUE_LATE, base_cfg=cfg, boot=_boot_via_inference(fit),
+        boot_cfg=boot_cfg, truth_tol=truth_tol, needs_instrument=True, **kw)
+
+
+def _orthoiv_spec(name, cfg, boot_cfg, truth_tol):
+    return _iv_spec(name, _fit_orthoiv, cfg, boot_cfg, truth_tol,
+                    weighted_fit=_orthoiv_weighted_fit,
+                    residual_fit=_orthoiv_residual_fit,
+                    final_fit=_orthoiv_final_fit)
+
 
 SPECS = (
-    _spec("dml", _fit_dml, _ATE, _CFG),
-    _spec("dml_p2_rb", _fit_dml, _ATE,
-          dataclasses.replace(_CFG, cate_features=2)),
-    _spec("dml_loo", _fit_dml, _ATE,
-          dataclasses.replace(_CFG, engine="parallel_loo")),
-    _spec("drlearner", _fit_dr, _ATE, _CFG, weighted_fit=_dr_weighted_fit),
-    _spec("s_learner", None, None, _CFG),
-    _spec("t_learner", None, None, _CFG),
-    _spec("x_learner", None, None, _CFG),
-    _spec("orthoiv", _fit_orthoiv, _LATE, _CFG, iv=True),
-    _spec("orthoiv_p2_rb", _fit_orthoiv, _LATE,
-          dataclasses.replace(_CFG, cate_features=2), iv=True),
-    _spec("driv", _fit_driv, _LATE, _CFG, iv=True,
-          weighted_fit=_driv_weighted_fit),
+    _dml_spec("dml", _CFG, _CFG_BOOT_RB),
+    # theta[0] is the x = 0 effect under the [1, x0] basis
+    _dml_spec("dml_p2_rb", dataclasses.replace(_CFG, cate_features=2),
+              dataclasses.replace(_CFG_BOOT_RB, cate_features=2),
+              truth_tol=0.4),
+    _dml_spec("dml_loo", dataclasses.replace(_CFG, engine="parallel_loo")),
+    EstimatorSpec(
+        name="drlearner", make_data=_conf_data, fit=_fit_dr, point=_ATE,
+        truth=_TRUE_ATE, base_cfg=_CFG, boot=_boot_via_inference(_fit_dr),
+        boot_cfg=_CFG_BOOT_RB, weighted_fit=_dr_weighted_fit),
+    _meta_spec("s", s_learner),
+    _meta_spec("t", t_learner),
+    _meta_spec("x", x_learner),
+    # IV variance at n = 1100 is wide
+    _orthoiv_spec("orthoiv", _CFG, _CFG_BOOT_RB, 0.35),
+    _orthoiv_spec("orthoiv_p2_rb", dataclasses.replace(_CFG, cate_features=2),
+                  dataclasses.replace(_CFG_BOOT_RB, cate_features=2), 0.5),
+    _iv_spec("driv", _fit_driv, _CFG, _CFG_BOOT_RB, 0.35,
+             weighted_fit=_driv_weighted_fit),
 )
 
 SPEC_IDS = tuple(s.name for s in SPECS)
@@ -301,3 +364,24 @@ def get_spec(name: str) -> EstimatorSpec:
         raise ValueError(
             f"unknown estimator {name!r}; registered: {sorted(REGISTRY)}"
         ) from None
+
+
+def _to_tree(obj):
+    """Dataclass results opened into plain dicts (caches, configs and fit
+    contexts left out), so ``tree_arrays`` reaches every nested tensor."""
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return {f.name: _to_tree(getattr(obj, f.name))
+                for f in dataclasses.fields(obj)
+                if not f.name.startswith("_")
+                and f.name not in ("cfg", "fit_ctx")}
+    return obj
+
+
+def tree_arrays(tree) -> tuple:
+    """The floating tensor leaves of an estimator result, in a fixed
+    order, for exact-equality comparison across execution strategies."""
+    from repro_torch.inference.executor import tree_leaves
+
+    return tuple(leaf for leaf in tree_leaves(_to_tree(tree))
+                 if isinstance(leaf, torch.Tensor)
+                 and leaf.dtype.is_floating_point)

@@ -1,0 +1,107 @@
+"""AdamW with decoupled weight decay and global-norm clipping, as plain
+functions on dicts of tensors (the JAX package's ``optim.adamw``).
+
+The math runs in fp32 whatever the parameter and moment dtypes.  Two
+points where it is not ``torch.optim.AdamW``:
+
+  * the weight decay is added into the step's ``delta`` on the
+    pre-step parameter, ``p - lr·(m̂/(√v̂ + 1e-8) + wd·p)``, not applied
+    as a separate ``p·(1 - lr·wd)``;
+  * ``b2`` defaults to 0.95 (``TrainConfig``), not 0.999.
+
+A dict may hold a *batch* of models: every leaf carries the same
+``batch_dims`` leading axes (the fold, trial or replicate axis of the
+mlp nuisance's batched fit).  Each model then has its own step count,
+its own global norm — over that model's leaves only, never over the
+batch — and may have its own learning rate.  Each model's norm is
+reduced alone, so a model's numbers do not depend on the batch it sits
+in.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+
+from repro_torch.config import TrainConfig
+
+Tensor = torch.Tensor
+Params = Dict[str, Tensor]
+_F32 = torch.float32
+
+
+def _bcast(v: Tensor, leaf: Tensor, batch_dims: int) -> Tensor:
+    """A per-model value (batch shape, or a scalar) broadcast against
+    ``leaf``'s trailing axes."""
+    if v.dim() == 0:
+        return v
+    return v.reshape(tuple(v.shape) + (1,) * (leaf.dim() - batch_dims))
+
+
+def adamw_init(params: Params, moment_dtype=_F32, batch_dims: int = 0
+               ) -> Dict[str, object]:
+    """Zero moments and a zero step count (one per model of the batch)."""
+    zeros = {key: torch.zeros(p.shape, dtype=moment_dtype, device=p.device)
+             for key, p in params.items()}
+    leaf = next(iter(params.values()))
+    return {"step": torch.zeros(leaf.shape[:batch_dims], dtype=torch.int32,
+                                device=leaf.device),
+            "m": zeros, "v": {key: z.clone() for key, z in zeros.items()}}
+
+
+def global_norm(tree: Params, batch_dims: int = 0) -> Tensor:
+    """sqrt(Σ_leaves Σ x²) per model: a scalar, or the batch shape.
+    Each model's sums are reduced on that model's leaf alone."""
+    total = None
+    for x in tree.values():
+        x32 = x.to(_F32)
+        if batch_dims == 0:
+            s = torch.sum(torch.square(x32))
+        else:
+            flat = x32.reshape((-1,) + tuple(x32.shape[batch_dims:]))
+            s = torch.stack([torch.sum(torch.square(m)) for m in flat]
+                            ).reshape(x32.shape[:batch_dims])
+        total = s if total is None else total + s
+    return torch.sqrt(total)
+
+
+def clip_by_global_norm(grads: Params, max_norm: float, batch_dims: int = 0
+                        ) -> Tuple[Params, Tensor]:
+    """Scale each model's gradients to a global norm of at most
+    ``max_norm``; returns (clipped grads, per-model norm)."""
+    norm = global_norm(grads, batch_dims)
+    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
+    return ({key: (g.to(_F32) * _bcast(scale, g, batch_dims)).to(g.dtype)
+             for key, g in grads.items()}, norm)
+
+
+def adamw_update(grads: Params, state: Dict[str, object], params: Params,
+                 lr, cfg: TrainConfig, moment_dtype=_F32,
+                 batch_dims: int = 0):
+    """One decoupled-weight-decay Adam step; returns (new params, new
+    state, metrics).  ``lr`` is a float, a scalar tensor, or a tensor of
+    the batch shape (one rate per model)."""
+    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip, batch_dims)
+    step = state["step"] + 1
+    b1, b2 = cfg.b1, cfg.b2
+    # the bias corrections in fp64, rounded once to fp32: a vectorized and
+    # a scalar fp32 pow may part by an ulp, and which one runs depends on
+    # the batch's size
+    step64 = step.to(torch.float64)
+    c1 = (1.0 - torch.pow(b1, step64)).to(_F32)
+    c2 = (1.0 - torch.pow(b2, step64)).to(_F32)
+    lr_t = torch.as_tensor(lr, dtype=_F32, device=step.device)
+    new_p, new_m, new_v = {}, {}, {}
+    for key, p in params.items():
+        g32 = grads[key].to(_F32)
+        m32 = b1 * state["m"][key].to(_F32) + (1 - b1) * g32
+        v32 = b2 * state["v"][key].to(_F32) + (1 - b2) * torch.square(g32)
+        mhat = m32 / _bcast(c1, p, batch_dims)
+        vhat = v32 / _bcast(c2, p, batch_dims)
+        p32 = p.to(_F32)
+        delta = mhat / (torch.sqrt(vhat) + 1e-8) + cfg.weight_decay * p32
+        new_p[key] = (p32 - _bcast(lr_t, p, batch_dims) * delta).to(p.dtype)
+        new_m[key] = m32.to(moment_dtype)
+        new_v[key] = v32.to(moment_dtype)
+    metrics = {"grad_norm": gnorm, "lr": lr_t}
+    return new_p, {"step": step, "m": new_m, "v": new_v}, metrics

@@ -125,7 +125,11 @@ def test_later_engines_and_nuisances_raise(data):
         tcf.crossfit_one(nu, torch.Generator(), torch.zeros(10, 2),
                          torch.zeros(10), torch.zeros(10, dtype=torch.long),
                          2, engine="shard_map")
-    with pytest.raises(NotImplementedError, match="slice"):
-        tnu.make_nuisance("mlp", "reg", CausalConfig())
+    # the mlp kind landed with the metalearners slice; unknown kinds raise
+    mlp = tnu.make_nuisance("mlp", "clf", CausalConfig(mlp_hidden=(8,)))
+    assert (mlp.name, mlp.task, mlp.hyper["hidden"]) == ("mlp_clf", "clf",
+                                                        (8,))
+    with pytest.raises(ValueError, match="unknown nuisance kind"):
+        tnu.make_nuisance("forest", "reg", CausalConfig())
     # the backbone kind landed with the LM-backbone slice: linear heads
     assert tnu.make_nuisance("backbone", "reg", CausalConfig()).name == "ridge"

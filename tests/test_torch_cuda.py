@@ -86,6 +86,13 @@ bitwise the explicit chunk; every path of a map (chunked, downgraded,
 map_product, zero-length) keeps its tensors on the card; the refuters'
 q = 503 nuisance design through the large tile against plain and
 bitwise symmetric.
+
+The metalearners, tuning and the mlp nuisance: each S/T/X fit on the
+card against the CPU (1e-4) through fold_weighted launches only, its
+bootstrap replicates bitwise serial ≡ batched ≡ chunked on the card;
+the penalty grid's scores against the CPU (1e-4) and the same winner;
+the mlp's batched fit bitwise each model alone on the card and within
+1e-3 of the CPU after 30 AdamW steps.
 """
 import numpy as np
 import pytest
@@ -1473,3 +1480,92 @@ def test_q503_design_big_tile_matches_plain(card):
     assert got.shape == (5, 503, 503)
     _close(got, want)
     assert torch.equal(got, got.transpose(1, 2))
+
+
+def _small_demo(seed=3, n=4096, p=16):
+    from repro_torch.data.causal_dgp import paper_demo_data
+    return paper_demo_data(n=n, p=p, seed=seed, device="cpu")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("learner", ["s_learner", "t_learner", "x_learner"])
+def test_metalearners_on_card_match_cpu(card, learner):
+    """Each learner's fit on the card ("pallas": the seg_gram kernel)
+    against the CPU (1e-4 on the ATE and the CATE), with fold_weighted
+    launches only; its bootstrap replicates on the card bitwise serial ≡
+    batched ≡ chunked."""
+    from repro_torch.config import CausalConfig
+    from repro_torch.core import metalearners as meta
+    from repro_torch.kernels.seg_gram import kernel as kern
+
+    d = _small_demo()
+    cfg = CausalConfig(row_block=1024, row_block_strategy="pallas")
+    fn = getattr(meta, learner)
+    kern.LAUNCHES.clear()
+    got = fn(d.y, d.t, d.X, cfg=cfg, device=card)
+    assert set(kern.LAUNCHES) == {"fold_weighted"}
+    want = fn(d.y, d.t, d.X, cfg=cfg, device="cpu")
+    assert abs(got.ate - want.ate) <= 1e-4 * abs(want.ate)
+    np.testing.assert_allclose(got.cate.cpu().numpy(), want.cate.numpy(),
+                               rtol=1e-4, atol=1e-4)
+    ctx = got.fit_ctx
+    kw = dict(y=ctx["y"], t=ctx["t"], X=ctx["X"], seed=5, n_replicates=3)
+    ser = meta.meta_bootstrap(ctx["core"], executor="serial", **kw)
+    vec = meta.meta_bootstrap(ctx["core"], executor="vmap", **kw)
+    chunked = meta.meta_bootstrap(ctx["core"], chunk=2, **kw)
+    assert torch.equal(ser.ate_replicates, vec.ate_replicates)
+    assert torch.equal(chunked.ate_replicates, vec.ate_replicates)
+    assert vec.ate_replicates.device.type == "cuda"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("task", ["reg", "clf"])
+def test_tune_penalty_on_card_matches_cpu(card, task):
+    """The penalty grid on the card (design / gram_and_vec at 20 weight
+    rows) against the CPU on the same folds: scores within 1e-4, the
+    same winner."""
+    from repro_torch.core import tuning
+    from repro_torch.kernels.seg_gram import kernel as kern
+
+    d = _small_demo()
+    target = d.y if task == "reg" else d.t
+    kw = dict(n_folds=5, row_block=1024, strategy="pallas")
+    kern.LAUNCHES.clear()
+    got = tuning.tune_penalty(task, [1e-4, 1e-2, 1.0, 30.0], d.X, target,
+                              gen=torch.Generator().manual_seed(0),
+                              device=card, **kw)
+    assert dict(kern.LAUNCHES) == ({"design": 1} if task == "reg"
+                                   else {"gram_and_vec": 16})
+    want = tuning.tune_penalty(task, [1e-4, 1e-2, 1.0, 30.0], d.X, target,
+                               gen=torch.Generator().manual_seed(0),
+                               device="cpu", **kw)
+    np.testing.assert_allclose(got.scores.cpu().numpy(), want.scores.numpy(),
+                               rtol=1e-4)
+    assert got.best_index == want.best_index
+
+
+@pytest.mark.cuda
+def test_mlp_batched_fit_bitwise_each_model_on_card(card):
+    """The mlp's batched fit on the card (3 fold models in one fit) is
+    bitwise each model fitted alone, and within 1e-3 of the CPU's."""
+    from repro_torch.core.crossfit import fold_ids, fold_weights
+    from repro_torch.core.nuisance import make_mlp
+    from repro_torch.inference.executor import tree_map
+
+    d = _small_demo(n=2048)
+    nuis = make_mlp("clf", hidden=(32, 16), steps=30, lr=3e-3)
+    W = fold_weights(fold_ids(torch.Generator().manual_seed(1), d.n, 3), 3)
+    states = [nuis.init(torch.Generator().manual_seed(j), d.p)
+              for j in range(3)]
+    batch = tree_map(lambda *xs: torch.stack(xs), states[0], *states[1:])
+    X, t = d.X.to(card), d.t.to(card)
+    fitted = nuis.fit(tree_map(lambda x: x.to(card), batch), X, t,
+                      W.to(card))
+    preds = nuis.predict(fitted, X)
+    for j in range(3):
+        alone = nuis.fit(tree_map(lambda x: x.to(card), states[j]), X, t,
+                         W[j].to(card))
+        assert torch.equal(nuis.predict(alone, X), preds[j]), j
+    cpu = nuis.predict(nuis.fit(batch, d.X, d.t, W), d.X)
+    np.testing.assert_allclose(preds.cpu().numpy(), cpu.numpy(), rtol=1e-3,
+                               atol=1e-3)

@@ -11,7 +11,8 @@ reference's fold ids to the port by replacing
     order only);
   * ``sweep(mode="segmented")`` against the reference engine's panel;
   * per-column isolation: a column outside the segmented kernels runs
-    as cells (an mlp nuisance fails naming A.6b), an unknown estimator
+    as cells (an mlp nuisance runs there; a column on the shard_map
+    executor fails naming A.10), an unknown estimator
     or a missing instrument fail their column only, and the surviving
     column is bitwise the column swept alone;
   * cells mode runs (the default), ``serial_loop`` is bitwise it,
@@ -136,23 +137,28 @@ def test_engine_matches_reference(data, ref_folds):
 def test_unsupported_column_isolated_naming_runtime(data):
     """A config outside the segmented kernels runs as masked cells
     through the task runtime, as in the reference: a non-DML family
-    (drlearner) runs there; an mlp outcome nuisance fails its own column
-    naming the slice that brings it (A.6b).  The neighbor is bitwise the
-    column swept alone."""
+    (drlearner) and an mlp outcome nuisance run there; a column on the
+    shard_map executor fails its own column naming the slice that brings
+    it (A.10).  The neighbor is bitwise the column swept alone."""
     cfg = CausalConfig(**_cfg())
-    mlp = dataclasses.replace(cfg, nuisance_y="mlp")
+    mlp = dataclasses.replace(cfg, nuisance_y="mlp", mlp_hidden=(8,),
+                              mlp_steps=5)
+    sharded = dataclasses.replace(cfg, inference_executor="shard_map")
     panel = _sweep(SweepSpec(E, (("dml", cfg), ("dml", mlp),
-                                 ("drlearner", cfg))), data)
-    bad = panel.columns[1]
-    assert bad.failed and "A.6b" in bad.error
+                                 ("drlearner", cfg),
+                                 ("drlearner", sharded))), data)
+    for i in (1, 2):
+        col = panel.columns[i]
+        assert not col.failed and "segmented" not in col.events
+        assert bool(col.ok(panel.counts).all())
+        assert bool(torch.isfinite(col.thetas).all())
+    bad = panel.columns[3]
+    assert bad.failed and "A.10" in bad.error
     assert not bool(bad.ok(panel.counts).any())
-    dr = panel.columns[2]
-    assert not dr.failed and "segmented" not in dr.events
-    assert bool(dr.ok(panel.counts).all())
     alone = _sweep(SweepSpec(E, (("dml", cfg),)), data)
     assert torch.equal(panel.columns[0].thetas, alone.columns[0].thetas)
-    assert [i for i, _ in panel.failures()] == [1]
-    assert bool(torch.isnan(panel.ate_table()[:, 1]).all())
+    assert [i for i, _ in panel.failures()] == [3]
+    assert bool(torch.isnan(panel.ate_table()[:, 3]).all())
 
 
 def test_unknown_estimator_and_missing_instrument_isolated(data):
@@ -235,19 +241,23 @@ def test_later_features_raise_at_entry(data, what):
 def test_checkpoint_resume_and_callback(data, tmp_path):
     cfg = CausalConfig(**_cfg())
     cfg2 = dataclasses.replace(cfg, cate_features=2)
-    # s_learner fails its column (A.6b): the failed column of the resume
-    spec = SweepSpec(E, (("dml", cfg), ("s_learner", cfg), ("dml", cfg2)))
+    # orthoiv without an instrument fails its column: the failed column of
+    # the resume; the s_learner column runs as cells and restores
+    spec = SweepSpec(E, (("dml", cfg), ("orthoiv", cfg), ("dml", cfg2),
+                         ("s_learner", cfg)))
     seen = []
     mgr = CheckpointManager(str(tmp_path), keep_latest=1)
     first = _sweep(spec, data, checkpoint=mgr,
                    column_callback=lambda i, c: seen.append(i))
-    assert seen == [0, 2, 1]          # by nuisance group, in spec order
-    assert mgr.keep_latest >= 4 and all(mgr.has_step(i) for i in range(3))
+    assert seen == [0, 2, 1, 3]       # by nuisance group, in spec order
+    assert first.columns[1].failed and not first.columns[3].failed
+    assert mgr.keep_latest >= 5 and all(mgr.has_step(i) for i in range(4))
     again = _sweep(spec, data, checkpoint=mgr)
-    for i in (0, 2):
+    for i in (0, 2, 3):
         assert again.columns[i].events[-1] == "restored"
         assert torch.equal(again.columns[i].thetas, first.columns[i].thetas)
-        assert torch.equal(again.columns[i].ses, first.columns[i].ses)
+        if first.columns[i].ses is not None:
+            assert torch.equal(again.columns[i].ses, first.columns[i].ses)
     # the failed column recomputes; a changed config does not restore
     assert "restored" not in again.columns[1].events
     changed = SweepSpec(E, (("dml", dataclasses.replace(cfg, ridge_lambda=1e-2)),))
@@ -282,11 +292,13 @@ def test_spec_validation():
 
 def test_panel_summary(data):
     cfg = CausalConfig(**_cfg(segment_key="cohort"))
-    panel = _sweep(SweepSpec.grid(E, estimators=("dml", "s_learner"),
+    panel = _sweep(SweepSpec.grid(E, estimators=("dml", "s_learner",
+                                              "orthoiv"),
                                   configs=(cfg,)), data)
     s = panel.summary()
     assert "cohort" in s and f"{E} segments" in s and "FAILED" in s
-    assert tuple(panel.ate_table().shape) == (E, 2)
+    assert tuple(panel.ate_table().shape) == (E, 3)
+    assert [i for i, _ in panel.failures()] == [2]      # no instrument
 
 
 def test_column_keys_lineage():
@@ -299,8 +311,7 @@ def test_column_keys_lineage():
 def test_registry_mirrors_reference():
     """All ten names, with the reference's instrument flags and base
     configs; DRLearner and DRIV build their weighted cells (no shared-
-    nuisance split, as in the reference); the metalearners raise naming
-    the slice they wait on (A.6b)."""
+    nuisance split, as in the reference); so do the metalearners."""
     assert registry.SPEC_IDS == jregistry.SPEC_IDS
     cfg_fields = [f.name for f in dataclasses.fields(CausalConfig)]
     for spec in registry.SPECS:
@@ -310,12 +321,8 @@ def test_registry_mirrors_reference():
             assert getattr(spec.base_cfg, f) == getattr(ref.base_cfg, f), f
         assert registry.nuisance_signature(spec.base_cfg) == \
             jregistry.nuisance_signature(ref.base_cfg)
-        if spec.name in ("s_learner", "t_learner", "x_learner"):
-            with pytest.raises(NotImplementedError, match="A.6b"):
-                spec.fit(None, spec.base_cfg, None)
-            with pytest.raises(NotImplementedError, match="A.6b"):
-                spec.weighted_fit(spec.base_cfg)
-        elif spec.name in ("drlearner", "driv"):
+        if spec.name in ("drlearner", "driv", "s_learner", "t_learner",
+                         "x_learner"):
             assert callable(spec.weighted_fit(spec.base_cfg))
             assert spec.residual_fit is None and spec.final_fit is None
             assert (ref.residual_fit, ref.final_fit) == (None, None)

@@ -6,7 +6,8 @@ torch cannot replay ``jax.random``: the tests replace
 ``repro_torch.sweep.engine.cell_folds`` with the reference's folds of
 each cell — cell s of column c has the key
 ``column_keys(key, c, E)[s]``, and its folds come from the first of its
-3 (DML), 4 (OrthoIV, DRLearner) or 5 (DRIV) splits — and
+3 (DML), 4 (OrthoIV, DRLearner) or 5 (DRIV) splits; the S/T/X
+metalearners' cells take no folds — and
 ``engine.ci_draws`` with the reference's replicate draws (replicate b of
 segment s: ``fold_in(replicate_keys(ci_key, B)[b], s)`` split into the
 weight key and the fit key).  Each cell's θ / ATE / se then matches the
@@ -113,15 +114,22 @@ def _close(got, want, fields=("thetas", "ates", "ses")):
                                    **_TOL)
 
 
-@pytest.mark.parametrize("name", ["dml", "orthoiv", "drlearner", "driv"])
+@pytest.mark.parametrize("name", ["dml", "orthoiv", "drlearner", "driv",
+                                  "s_learner", "t_learner", "x_learner"])
 def test_cells_match_reference(data, monkeypatch, name):
+    """The metalearners' cells take no folds: only their weights (the
+    segment masks) enter, so they match the reference as they are."""
     kw = _cfg()
     want = _jsweep(JSweepSpec(E, ((name, JCausalConfig(**kw)),)), data)
-    monkeypatch.setattr(engine, "cell_folds", _ref_cell_folds([(name, 0)]))
+    if name in _SPLITS:
+        monkeypatch.setattr(engine, "cell_folds",
+                            _ref_cell_folds([(name, 0)]))
     got = _tsweep(SweepSpec(E, ((name, CausalConfig(**kw)),)), data)
     jc, tc = want.columns[0], got.columns[0]
     assert jc.error is None and tc.error is None
-    _close(tc, jc)
+    assert (tc.ses is None) == (jc.ses is None)
+    _close(tc, jc, ("thetas", "ates") + (("ses",) if jc.ses is not None
+                                         else ()))
     assert tc.events == jc.events == ()
     assert bool(got.ok().all())
 
@@ -155,7 +163,8 @@ def test_with_ci_matches_reference(data, monkeypatch):
     _close(tc, jc, ("thetas", "replicates", "ci_lo", "ci_hi"))
 
 
-@pytest.mark.parametrize("name", ["dml", "orthoiv", "drlearner", "driv"])
+@pytest.mark.parametrize("name", ["dml", "orthoiv", "drlearner", "driv",
+                                  "s_learner", "t_learner", "x_learner"])
 def test_cells_equal_serial_loop_bitwise(data, name):
     """Cells mode is bitwise a Python loop of the same single fits, one
     cell at a time (proved in torch: the reference's own serial ≡ vmap
@@ -165,7 +174,9 @@ def test_cells_equal_serial_loop_bitwise(data, name):
     loop = serial_loop(name, cfg, n_segments=E, device="cpu", **data)
     assert torch.equal(loop["theta"], col.thetas)
     assert torch.equal(loop["ate"], col.ates)
-    assert torch.equal(loop["se"], col.ses)
+    assert ("se" in loop) == (col.ses is not None)
+    if col.ses is not None:
+        assert torch.equal(loop["se"], col.ses)
 
 
 def test_shared_group_bitwise_its_columns_alone(data):
@@ -183,13 +194,20 @@ def test_shared_group_bitwise_its_columns_alone(data):
 
 def test_cells_chunked_and_metalearners_isolated(data):
     """A chunked column (sweep_chunk 2 of E = 3 cells) is bitwise the
-    whole one, with its chunk event; an s/t/x column fails naming A.6b
-    beside it."""
+    whole one, with its chunk event; an s/t/x column beside it runs on
+    its own, bitwise the column swept alone, and a column on the
+    shard_map executor fails naming A.10 without touching either."""
     cfg = CausalConfig(**_cfg())
     whole = _tsweep(SweepSpec(E, (("dml", cfg),)), data).columns[0]
+    t_alone = _tsweep(SweepSpec(E, (("t_learner", cfg),)), data).columns[0]
     panel = _tsweep(SweepSpec(E, (
         ("dml", dataclasses.replace(cfg, sweep_chunk=2)),
-        ("t_learner", cfg))), data)
+        ("t_learner", cfg),
+        ("x_learner", dataclasses.replace(cfg,
+                                          inference_executor="shard_map")),
+    )), data)
     assert torch.equal(panel.columns[0].thetas, whole.thetas)
     assert panel.columns[0].events == ("chunk:vmap",)
-    assert panel.columns[1].failed and "A.6b" in panel.columns[1].error
+    assert not panel.columns[1].failed
+    assert torch.equal(panel.columns[1].ates, t_alone.ates)
+    assert panel.columns[2].failed and "A.10" in panel.columns[2].error
