@@ -221,12 +221,39 @@ Phases (each failure makes the script exit non-zero):
      bitwise the same out-of-fold predictions, and a small mlp DML
      (3000 × 200, hidden (32, 32)) card vs CPU (1e-3).
 
+ 25. LM serving (slice 12), ``lm_serve:<arch>`` right after each
+     ``backbone:<arch>``, on the model that phase built (full width and
+     depth): ``launch/serve.py``'s ``BatchServer`` serves a wave of 8
+     greedy requests (prompts of 96–128 tokens drawn from the seed,
+     left-padded to 128, 32 new tokens each, a cache of 256 positions),
+     then a wave of eight 128-token prompts, and its first request
+     alone.  Gates: each wave's prefill launches exactly the model's
+     kernels once per block (granite flash 40; rwkv6 GLA 32; zamba2 SSD
+     38 and flash 7; scans on the tiled form) and its decode steps none,
+     no fallback; block by block on the serving run's own hidden states
+     (``_serve_block_errors``: each block's residual halves), the
+     prefill through the kernels against the plain versions (output and
+     every cache leaf, the scans' fp32 final states too), each decode
+     step against the half's train form at that position, and one row
+     alone against its row in the batch; end to end (gated for
+     granite and rwkv6, printed for zamba2), the prefill's last-token
+     logits and cache leaves against the plain versions, teacher-forced
+     decode logits (the wave's own tokens) against ``train_hidden`` +
+     ``_logits`` over the whole sequence, and the wave's row against
+     the request alone up to the first token where they part.  Printed
+     with the card's name and power limit: prefill ms, decode ms a step,
+     tokens/s of the wave, the solo request's latency, the time to cast
+     the weights once, peak device memory.  The served launches enter
+     the flash and scan records' ``launches_by_path`` as
+     ``lm_serve:<arch>``.
+
 Every seg_gram record also names the kernel that ran (``design``:
 small, thin or big) and times its second pass alone (``reduce_ms``)
 and, for a segment walk, its plan alone (``plan_ms``; ``ms`` has the
 plan cached, as the sweep's repeated walks do).
 
-The backbone phases are named ``backbone:<arch>``.  The line before the
+The backbone phases are named ``backbone:<arch>``, the serving phases
+``lm_serve:<arch>``.  The line before the
 last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits 2 and prints
 no result.
@@ -2348,28 +2375,32 @@ def _block_errors(model, tokens) -> dict:
     return errs
 
 
+def _model_launches(cfg) -> dict:
+    """The model's kernel launches in one forward over a batch (a
+    features batch, or a serving wave's prefill): flash per dense layer
+    or per shared-block use, GLA per rwkv6 layer, SSD per mamba layer,
+    each scan on its tiled form."""
+    if cfg.family == "ssm":
+        return {"gla": cfg.num_layers, "gla:tiled": cfg.num_layers}
+    if cfg.family == "hybrid":           # one shared block after each group
+        return {"ssd": cfg.num_layers, "ssd:tiled": cfg.num_layers,
+                "flash_attention": -(-cfg.num_layers // cfg.shared_attn_every)}
+    return {"flash_attention": cfg.num_layers}
+
+
 def _backbone_launches(cfg, newton_iters: int) -> dict:
     """Launches one backbone path must count: the model's kernels per
-    batch (flash per dense layer or per shared-block use, GLA per rwkv6
-    layer, SSD per mamba layer, each scan on its tiled form) and the DML
-    heads' seg_gram forms."""
+    batch and the DML heads' seg_gram forms."""
     batches = -(-BACKBONE_USERS // BACKBONE_BATCH)
-    if cfg.family == "ssm":              # every scan on the tiled form
-        per_batch = {"gla": cfg.num_layers, "gla:tiled": cfg.num_layers}
-    elif cfg.family == "hybrid":         # one shared block after each group
-        per_batch = {"ssd": cfg.num_layers, "ssd:tiled": cfg.num_layers,
-                     "flash_attention": -(-cfg.num_layers
-                                          // cfg.shared_attn_every)}
-    else:
-        per_batch = {"flash_attention": cfg.num_layers}
-    return {**{k: n * batches for k, n in per_batch.items()},
+    return {**{k: n * batches for k, n in _model_launches(cfg).items()},
             "design": 1, "gram_and_vec": newton_iters, "residual": 1,
             "residual_meat": 1}
 
 
 def phase_backbone(seed: int, arch: str):
     """One LM-backbone main path at ``arch``'s full width and depth;
-    returns (launch counts, standardized features, y, t)."""
+    returns (launch counts, standardized features, y, t, the model —
+    which ``lm_serve:<arch>`` serves next)."""
     from repro_torch.config import CausalConfig, ParallelConfig
     from repro_torch.configs import get_config
     from repro_torch.core import moments
@@ -2455,8 +2486,429 @@ def phase_backbone(seed: int, arch: str):
         raise AssertionError(f"launches {counts}, expected {expected}")
     if fallbacks:
         raise AssertionError(f"fallback counters rose: {fallbacks}")
-    del model, plain, feats
-    return counts, X, y, t
+    del plain, feats
+    return counts, X, y, t, model
+
+
+# ---------------------------------------------------------------------------
+# LM serving (slice 12): prefill through the kernels, decode through none.
+# ---------------------------------------------------------------------------
+
+# lm_serve:<arch>: one wave of LM_WAVE greedy requests whose prompts have
+# LM_PROMPT_MIN..LM_PROMPT tokens (drawn from --seed, the first of
+# LM_PROMPT so that the wave pads to it), LM_NEW new tokens each, a cache
+# of LM_MAX_SEQ positions; then a wave of LM_PROMPT-token prompts, and
+# its row LM_SOLO_ROW served alone.
+LM_WAVE, LM_PROMPT_MIN, LM_PROMPT, LM_NEW, LM_MAX_SEQ = 8, 96, 128, 32, 256
+LM_SOLO_ROW = 0
+# The serving gates, block by block (all three backbones), on the
+# serving run's own hidden states, per residual half of each block
+# (``_halves``): the prefill through the kernels against the plain
+# versions, each decode step against the half's train form at that
+# position, and one row run alone against its row in the batch.  Each
+# pair rounds the same fp32 values to bf16 at the half's output and at
+# the residual sum, so they may part by one bf16 step at each:
+# BLOCK_TOL.  The prefill's fp32 scan states see the same inputs in both
+# runs and differ only by the scan's sums in another order: KERNEL_TOL.
+# End to end (last-token logits and every cache leaf of the prefill
+# against the plain versions; teacher-forced decode logits against the
+# train path; the same-length wave's row against the request alone, up
+# to the first token where they part), max|a - b| / max|b| is no
+# rounding-level quantity: at bf16 the untrained stacks carry one-step
+# flips through the layers into the logits of each position (which a
+# mean over 256 positions, the features gate, hides).  On the CPU,
+# ``tools/serve_drift.py --device cpu`` reads teacher-forced decode
+# against train 0.0329 for granite-3-2b cut to 4 of its 40 layers and
+# 0.0620 at 12, 0.0253 for rwkv6-3b at 4 of 32 and 0.0488 at 8 (the full
+# depth's init std kept): it grows about linearly with depth, to ~0.2
+# at full depth.  LM_E2E_TOL is therefore a coarse gate, for
+# granite-3-2b and rwkv6-3b (FEAT_GATED), that a cache or position
+# fault still fails (it moves the logits by their own size);
+# zamba2-1.2b's end-to-end numbers are printed, as its features are.
+LM_E2E_TOL = 0.5
+
+
+def _lm_counts() -> collections.Counter:
+    """Every kernel's launch counters, summed over the wrappers."""
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.seg_gram import kernel as sg_kernel
+    from repro_torch.kernels.ssm_scan import kernel as scan_kernel
+    c = collections.Counter()
+    for counter in (fa_kernel.LAUNCHES, scan_kernel.LAUNCHES,
+                    sg_kernel.LAUNCHES):
+        c.update(counter)
+    return c
+
+
+class _ServeRecorder:
+    """Wraps a ``BatchServer``'s prefill, decode and sampling: each call's
+    kernel launches (the counters' delta), its synchronized ms, the
+    logits every token was sampled from, and the prefill's outputs
+    (cloned: decode writes the cache in place).  Wrapping changes no
+    arithmetic; the server's own loop and sampling run as they are."""
+
+    def __init__(self, server):
+        self.server = server
+        self.fns = server._prefill, server._decode, server._sample
+        server._prefill = self._wrap(self.fns[0], "prefill")
+        server._decode = self._wrap(self.fns[1], "decode")
+        server._sample = self._sample
+        self.start()
+
+    def close(self):
+        """Give the server its own calls back.  The wrapped server and
+        this recorder refer to each other, and until the cycle is broken
+        (or the collector runs) it keeps the model's weights alive; so
+        would the server's bound ``_sample`` set on the server itself, so
+        the class's method takes its place again."""
+        self.server._prefill, self.server._decode = self.fns[:2]
+        del self.server._sample
+        self.server = self.fns = None
+
+    def start(self):
+        self.calls, self.logits, self.prefill_out = [], [], None
+
+    def _wrap(self, fn, kind):
+        from repro_torch.inference.executor import tree_map
+
+        def call(*a):
+            torch.cuda.synchronize()
+            before = _lm_counts()
+            t0 = time.perf_counter()
+            out = fn(*a)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            self.calls.append((kind, ms, dict(_lm_counts() - before)))
+            if kind == "prefill":
+                self.prefill_out = (out[0].clone(),
+                                    tree_map(torch.clone, out[1]))
+            return out
+        return call
+
+    def _sample(self, logits, temperature):
+        self.logits.append(logits[:, -1].clone())
+        return self.fns[2](logits, temperature)
+
+
+def _halves(model, kind: str, p) -> list:
+    """A block's residual halves, each as (name, train(x), prefill(x) ->
+    (y, cache), decode(x, cache, pos) -> (y, cache)): attention then MLP
+    (dense), time-mix then channel-mix (rwkv), the mamba block whole.
+    Their composition is the block (``_serve_block_errors`` checks it
+    bitwise against the port's ``Blocks``)."""
+    from repro_torch.models import attention as attn
+    from repro_torch.models import rwkv as rwkv_mod
+    from repro_torch.models.layers import mlp_apply
+
+    cfg, blocks = model.cfg, model.decoder.blocks
+    norm, par = blocks.norm, blocks.parallel
+
+    def stateless(f):
+        return (lambda x: x + f(x), lambda x: (x + f(x), {}),
+                lambda x, c, pos: (x + f(x), {}))
+
+    def mixer(train, prefill, decode):
+        def pre(x):
+            y, c = prefill(x)
+            return x + y, c
+
+        def dec(x, c, pos):
+            y, c = decode(x, c, pos)
+            return x + y, c
+        return (lambda x: x + train(x), pre, dec)
+
+    if kind == "dense":
+        n1 = lambda x: norm(p["ln1"], x)              # noqa: E731
+        return [("attn",) + mixer(
+                    lambda x: attn.gqa_train(p["attn"], cfg, n1(x), par),
+                    lambda x: attn.gqa_prefill(p["attn"], cfg, n1(x), par),
+                    lambda x, c, pos: attn.gqa_decode(p["attn"], cfg, n1(x),
+                                                      c, pos)),
+                ("mlp",) + stateless(lambda x: mlp_apply(
+                    p["mlp"], cfg, norm(p["ln2"], x)))]
+    if kind == "rwkv":
+        n1 = lambda x: norm(p["ln1"], x)              # noqa: E731
+        n2 = lambda x: norm(p["ln2"], x)              # noqa: E731
+        ch = cfg.ssm_chunk
+        return [("tm",) + mixer(
+                    lambda x: rwkv_mod.time_mix_train(p["tm"], cfg, n1(x),
+                                                      chunk=ch),
+                    lambda x: rwkv_mod.time_mix_prefill(p["tm"], cfg, n1(x),
+                                                        chunk=ch),
+                    lambda x, c, pos: rwkv_mod.time_mix_decode(
+                        p["tm"], cfg, n1(x), c)),
+                ("cm",) + mixer(
+                    lambda x: rwkv_mod.channel_mix_train(p["cm"], cfg,
+                                                         n2(x)),
+                    lambda x: rwkv_mod.channel_mix_prefill(p["cm"], cfg,
+                                                           n2(x)),
+                    lambda x, c, pos: rwkv_mod.channel_mix_decode(
+                        p["cm"], cfg, n2(x), c))]
+    return [("mamba", lambda x: blocks.mamba_train(p, x),
+             lambda x: blocks.mamba_prefill(p, x),
+             lambda x, c, pos: blocks.mamba_decode(p, x, c, pos))]
+
+
+@torch.no_grad()
+def _serve_block_errors(model, tokens, prompt: int, row: int) -> dict:
+    """The serving gates block by block on the serving run's own hidden
+    states — each block's residual halves (``_halves``) in prefill form
+    over ``tokens[:, :prompt]``, then in decode form for each later
+    position, each half's outputs the next half's inputs:
+
+      * ``plain``: the prefill through the kernels against the plain
+        versions, output and every cache leaf;
+      * ``train``: the decode outputs against the half's train form over
+        the same inputs, at every decoded position;
+      * ``solo``: row ``row`` alone (its prefill, then each decode step
+        on its own copy of the row's cache) against its row in the
+        batch, output and cache leaves.
+
+    Halves, not blocks: the decode form of a half may round one of its
+    values where the train form does not (rwkv6's time-mix readout is
+    fp32 out of the step and bf16 out of the scan, as in the reference),
+    and within one block the next half's gains would carry that step
+    past the rounding level the gate holds.  Each block's composed
+    prefill and decode outputs are checked bitwise against the port's
+    ``Blocks`` forms.  Returns {gate: {"<j>:<block> <half>": {what:
+    max|a - b| / max|b|}}}."""
+    from repro_torch.convert import _flatten
+    from repro_torch.inference.executor import tree_map
+    from repro_torch.models.layers import embed_tokens
+
+    stack, blocks = model.decoder, model.decoder.blocks
+    T = tokens.shape[1]
+    x = embed_tokens(model.embed, model.cfg, tokens)
+    pre_in, dec_in = x[:, :prompt], [x[:, t:t + 1] for t in range(prompt, T)]
+    r = slice(row, row + 1)
+    errs = {"plain": {}, "train": {}, "solo": {}}
+    for j, (name, kind, _, p) in enumerate(stack.serve_layers(model.stack)):
+        block_in, block_dec = pre_in, dec_in
+        caches = {}
+        for half, train, prefill, decode in _halves(model, kind, p):
+            key = f"{j}:{name} {half}"
+            out, cache = prefill(pre_in)
+            with _PlainKernels():
+                out_p, cache_p = prefill(pre_in)
+            out_r, cache_r = prefill(pre_in[r])
+            flat, flat_p, flat_r = (_flatten(c) for c in
+                                    (cache, cache_p, cache_r))
+            plain = {"out": rel(out, out_p)}
+            solo = {"prefill": rel(out_r, out[r])}
+            for leaf, c in flat.items():
+                plain[leaf] = rel(c, flat_p[leaf])
+                solo[f"prefill {leaf}"] = rel(flat_r[leaf], c[r])
+            caches[half] = tree_map(torch.clone, cache)
+            if kind == "dense" and cache:     # room for the decoded tokens
+                cache = {n: torch.cat([c, c.new_zeros(
+                    (c.shape[0], T - prompt) + c.shape[2:])], 1)
+                    for n, c in cache.items()}
+            outs, step, step_leaves = [], 0.0, 0.0
+            for t, h in zip(range(prompt, T), dec_in):
+                alone = tree_map(lambda a: a[r].clone(), cache)
+                o, cache = decode(h, cache, t)
+                o_r, alone = decode(h[r], alone, t)
+                step = max(step, rel(o_r, o[r]))
+                fa, fc = _flatten(alone), _flatten(cache)
+                step_leaves = max([step_leaves] + [rel(fa[k], fc[k][r])
+                                                   for k in fa])
+                outs.append(o)
+            solo["decode"], solo["decode leaves"] = step, step_leaves
+            want = train(torch.cat([pre_in] + dec_in, 1))[:, prompt:]
+            errs["plain"][key], errs["solo"][key] = plain, solo
+            errs["train"][key] = {"decode": rel(torch.cat(outs, 1), want)}
+            pre_in, dec_in = out, outs
+        # the halves compose to the port's block, bit for bit
+        out_b, _ = getattr(blocks, kind + "_prefill")(p, block_in)
+        state = {"dense": lambda: caches["attn"],
+                 "rwkv": lambda: {"tm": caches["tm"], "cm": caches["cm"]},
+                 "mamba": lambda: caches["mamba"]}[kind]()
+        if kind == "dense":                   # as the walk grew it
+            state = {n: torch.cat([c, c.new_zeros(
+                (c.shape[0], T - prompt) + c.shape[2:])], 1)
+                for n, c in state.items()}
+        dec_b, _ = getattr(blocks, kind + "_decode")(p, block_dec[0], state,
+                                                     prompt)
+        if not (torch.equal(out_b, pre_in) and torch.equal(dec_b, dec_in[0])):
+            raise AssertionError(f"{j}:{name}: the halves do not compose to "
+                                 f"the port's block")
+    return errs
+
+
+def _serve_block_failures(errs: dict) -> dict:
+    """Block errors over their tolerance: KERNEL_TOL for the prefill's
+    fp32 scan states against the plain scans, BLOCK_TOL otherwise."""
+    bad = {}
+    for gate, per_block in errs.items():
+        for block, e in per_block.items():
+            for what, v in e.items():
+                tol = (KERNEL_TOL if gate == "plain"
+                       and what in ("s", "ssm") else BLOCK_TOL)
+                if not v <= tol:
+                    bad[f"{gate} {block} {what}"] = v
+    return bad
+
+
+def _cast_ms(model) -> float:
+    """ms to cast every weight a decode step reads (the stack's and the
+    unembedding table) to the compute dtype once, as each step does."""
+    ct = model.cfg.compute_dtype
+    table = (model.embed["embedding"] if model.cfg.tie_embeddings
+             else model.embed["unembed"])
+    ws = [w for n, w in model.named_parameters() if n.startswith("stack.")]
+    torch.cuda.synchronize()
+    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+        enable_timing=True)
+    s.record()
+    for w in ws + [table]:
+        w.to(ct)
+    e.record()
+    e.synchronize()
+    return s.elapsed_time(e)
+
+
+def phase_lm_serve(seed: int, model):
+    """``lm_serve:<arch>``: ``launch/serve.py``'s ``BatchServer`` over the
+    model ``backbone:<arch>`` built (full width and depth), with the four
+    gates: the prefill through the kernels against the plain versions,
+    teacher-forced decode against the train path, the wave against a
+    request alone, and the launch counts (each wave's prefill launches
+    exactly ``_model_launches``, decode steps none, no fallback).
+    Returns (launches of the served calls, metrics)."""
+    from repro_torch.convert import _flatten
+    from repro_torch.core import moments
+    from repro_torch.launch.serve import BatchServer, Request
+    from repro_torch.models.layers import embed_tokens
+
+    cfg, dev = model.cfg, model.device
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(LM_PROMPT_MIN, LM_PROMPT + 1, LM_WAVE)
+    lens[0] = LM_PROMPT
+    draw = lambda n: torch.from_numpy(                      # noqa: E731
+        rng.integers(0, cfg.vocab_size, int(n))).to(dev)
+    ragged = [draw(n) for n in lens]
+    same = [draw(LM_PROMPT) for _ in range(LM_WAVE)]
+    expected = _model_launches(cfg)
+    moments.FALLBACKS.clear()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    server = BatchServer(model, max_seq=LM_MAX_SEQ)
+    rec = _ServeRecorder(server)
+    try:
+        served = collections.Counter()
+        waves = {}
+        for name, prompts in (("wave", ragged), ("same-length", same),
+                              ("solo", [same[LM_SOLO_ROW]])):
+            rec.start()
+            outs = server.serve_wave([Request(q, max_new_tokens=LM_NEW)
+                                      for q in prompts])
+            for kind, _, c in rec.calls:
+                served.update(c)
+            # gate 4: the prefill launches the table's counts, decode none
+            got = [c for _, _, c in rec.calls]
+            if got[0] != expected or any(got[1:]):
+                raise AssertionError(f"{name}: prefill launches {got[0]} "
+                                     f"(expected {expected}), decode launches "
+                                     f"{[c for c in got[1:] if c]}")
+            waves[name] = dict(outs=outs, calls=rec.calls, logits=rec.logits,
+                               prefill=rec.prefill_out)
+    finally:
+        rec.close()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    fallbacks = {f: c for f, c in moments.FALLBACKS.items() if c}
+    if fallbacks:
+        raise AssertionError(f"fallback counters rose: {fallbacks}")
+
+    # gate 1, end to end: the wave's prefill against the plain versions.
+    # Logits are compared over the real vocabulary: the padded slots hold
+    # -1e30 on both sides and would set max|b|.
+    V = cfg.vocab_size
+    w = waves["wave"]
+    toks = torch.stack([torch.nn.functional.pad(q, (LM_PROMPT - len(q), 0))
+                        for q in ragged])
+    with _PlainKernels():
+        plain_l, plain_c = model.prefill(toks)
+    got_l, got_c = w["prefill"]
+    flat, flat_p = _flatten(got_c), _flatten(plain_c)
+    e2e = {"prefill logits": rel(got_l[..., :V], plain_l[..., :V]),
+           "prefill cache": max(rel(flat[k], flat_p[k]) for k in flat)}
+    del plain_c, got_c, flat, flat_p
+    # gate 2, end to end: decode logits at each generated position against
+    # the train path over the whole sequence (teacher-forced: the wave's
+    # own tokens fed back in)
+    gen_toks = torch.tensor([c.tokens for c in w["outs"]], device=dev)
+    full = torch.cat([toks, gen_toks], 1)
+    with torch.no_grad():
+        h = model.decoder.train_hidden(
+            model.stack, embed_tokens(model.embed, cfg, full))
+        train_l = model._logits(h[:, LM_PROMPT - 1:LM_PROMPT - 1 + LM_NEW])
+    e2e["decode vs train"] = max(rel(lg[..., :V], train_l[:, s, :V])
+                                 for s, lg in enumerate(w["logits"]))
+    del h, train_l
+    # gate 3, end to end: the same-length wave's row against it alone
+    ws, solo = waves["same-length"], waves["solo"]
+    a, b = ws["outs"][LM_SOLO_ROW].tokens, solo["outs"][0].tokens
+    part = next((i for i, (u, v) in enumerate(zip(a, b)) if u != v), None)
+    upto = len(a) if part is None else part + 1
+    e2e["solo logits"] = max(rel(solo["logits"][s][0, :V],
+                                 ws["logits"][s][LM_SOLO_ROW, :V])
+                             for s in range(upto))
+    margin = None
+    if part is not None:
+        lw = ws["logits"][part][LM_SOLO_ROW, :V].double()
+        margin = float((lw[a[part]] - lw[b[part]]) / lw.abs().max())
+    # gates 1-3 block by block, on the first wave's own tokens
+    block = _serve_block_errors(model, full, LM_PROMPT, LM_SOLO_ROW)
+    worst = {g: max(((k, max(e.values())) for k, e in per.items()),
+                    key=lambda kv: kv[1]) for g, per in block.items()}
+
+    prefill_ms = [ms for kind, ms, _ in ws["calls"] if kind == "prefill"][0]
+    decode_ms = [ms for kind, ms, _ in ws["calls"] if kind == "decode"]
+    lat = ws["outs"][0].latency_s
+    metrics = {
+        "card": card_line(), "prompt": LM_PROMPT, "wave": LM_WAVE,
+        "new_tokens": LM_NEW, "prefill_ms": prefill_ms,
+        "decode_ms_per_step": float(np.mean(decode_ms)),
+        "wave_s": lat, "tokens_per_s": LM_WAVE * LM_NEW / lat,
+        "first_wave_s": w["outs"][0].latency_s,
+        "solo_latency_s": solo["outs"][0].latency_s,
+        "solo_prefill_ms": [ms for k, ms, _ in solo["calls"]
+                            if k == "prefill"][0],
+        "solo_decode_ms_per_step": float(np.mean(
+            [ms for k, ms, _ in solo["calls"] if k == "decode"])),
+        "weight_cast_ms": _cast_ms(model), "peak_gib": peak,
+        "e2e": e2e, "solo_parts_at": part, "solo_margin": margin,
+        "worst_block": {g: list(kv) for g, kv in worst.items()},
+        "launches_per_prefill": expected}
+    solo_note = ("equal" if part is None else
+                 f"part at step {part} (margin {margin:.3e})")
+    log(f"lm_serve {cfg.name} ({metrics['card']}): prefill {LM_WAVE} x "
+        f"{LM_PROMPT} {prefill_ms:.3f} ms, decode "
+        f"{metrics['decode_ms_per_step']:.3f} ms a step ({LM_WAVE} tokens), "
+        f"wave of {LM_WAVE} x {LM_NEW} new tokens {lat:.3f} s = "
+        f"{metrics['tokens_per_s']:.1f} tokens/s (first wave "
+        f"{metrics['first_wave_s']:.3f} s), solo request "
+        f"{metrics['solo_latency_s']:.3f} s (prefill "
+        f"{metrics['solo_prefill_ms']:.3f} ms, decode "
+        f"{metrics['solo_decode_ms_per_step']:.3f} ms a step), weights "
+        f"cast once {metrics['weight_cast_ms']:.3f} ms, peak device memory "
+        f"{peak:.2f} GiB; launches per prefill {expected}, per decode "
+        f"step none; end to end {e2e} "
+        f"({'tol %g' % LM_E2E_TOL if cfg.name in FEAT_GATED else 'not gated'})"
+        f"; solo tokens {solo_note}; worst blocks {worst} (tol "
+        f"{BLOCK_TOL:g}, fp32 states {KERNEL_TOL:g})")
+    finite = all(bool(torch.isfinite(lg.float()).all())
+                 for wv in waves.values() for lg in wv["logits"])
+    if not finite:
+        raise AssertionError("non-finite logits")
+    bad = _serve_block_failures(block)
+    if bad:
+        raise AssertionError(f"serving blocks over tolerance: {bad}")
+    if cfg.name in FEAT_GATED:
+        over = {k: v for k, v in e2e.items() if not v <= LM_E2E_TOL}
+        if over:
+            raise AssertionError(f"end to end over {LM_E2E_TOL}: {over}")
+    return dict(served), metrics
 
 
 # ---------------------------------------------------------------------------
@@ -3864,12 +4316,33 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     flash_by_path = {}
     scan_forms = {}     # scan record key -> {form: launches}
+    scan_by_path = {}   # scan record key -> {path: launches}
+    lm_serve = {}       # arch -> the serving phase's metrics
     for arch in BACKBONE_ARCHS:
         out = run(f"backbone:{arch}", phase_backbone, args.seed, arch)
         torch.cuda.empty_cache()
         if out is None:
+            failed.append(f"lm_serve:{arch}")
             continue
-        counts, X, y, t = out
+        counts, X, y, t, model = out
+        sout = run(f"lm_serve:{arch}", phase_lm_serve, args.seed, model)
+        del model, out
+        torch.cuda.empty_cache()
+        if sout is not None:
+            served, lm_serve[arch] = sout
+            path = f"lm_serve:{arch}"
+            if served.get("flash_attention"):
+                flash_by_path[path] = served["flash_attention"]
+            for key, scan in (("gla[bonus]", "gla"), ("ssd", "ssd")):
+                if served.get(scan):
+                    scan_by_path.setdefault(key, {})[path] = served[scan]
+                    scan_forms.setdefault(key, collections.Counter()).update(
+                        {f: n for f, n in served.items()
+                         if f.startswith(scan + ":")})
+        for key, scan in (("gla[bonus]", "gla"), ("ssd", "ssd")):
+            if counts.get(scan):
+                scan_by_path.setdefault(key, {})[f"backbone:{arch}"] = \
+                    counts[scan]
         flash_by_path[arch] = counts.get("flash_attention", 0)
         if arch == "granite-3-2b":
             launches["flash_attention"] = flash_by_path[arch]
@@ -3888,7 +4361,7 @@ def main(argv=None) -> int:
             records.update(run(f"kernels:backbone-heads{q}", phase_kernels,
                                X, y, t, bfolds, k, timer,
                                ("design", "gram_and_vec"), q) or {})
-        del X, y, t, out
+        del X, y, t
         torch.cuda.empty_cache()
 
     for key, rec in records.items():
@@ -3904,6 +4377,7 @@ def main(argv=None) -> int:
     for key, forms in scan_forms.items():
         if key in records:
             records[key]["launches_by_form"] = dict(forms)
+            records[key]["launches_by_path"] = scan_by_path.get(key, {})
     log(f"total {time.perf_counter() - t_start:.1f} s")
     line = {"kernels": list(records.values()), "n": args.n, "p": p,
             "k": k, "row_block": row_block, "users": BACKBONE_USERS,
@@ -3921,7 +4395,8 @@ def main(argv=None) -> int:
             "cells_at": CELLS_AT, "cells_budget": cells_budget,
             "cells_seconds": cells_s, "meta_bootstrap_replicates":
             META_BOOT_B, "meta_chunk": META_CHUNK,
-            "halving_lrs": list(HALVING_LRS), "slice11_seconds": slice11_s}
+            "halving_lrs": list(HALVING_LRS), "slice11_seconds": slice11_s,
+            "lm_serve": lm_serve}
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(

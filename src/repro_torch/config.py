@@ -5,8 +5,9 @@
 Field for field the same as the JAX package's classes (same names,
 order and defaults), so a configuration written for one package runs
 unchanged in the other.  Where the reference holds a ``jnp`` dtype, the
-port holds the ``torch`` dtype of the same name.  ``ShapeConfig``
-comes with the serving slice.
+port holds the ``torch`` dtype of the same name.  ``ShapeConfig`` and
+its shape cells serve the launch tooling's dry runs and come with it
+(ROADMAP A.14).
 """
 from __future__ import annotations
 

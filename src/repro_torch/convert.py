@@ -109,6 +109,59 @@ def model_params(cfg, tree: Mapping[str, Any], *,
     return got
 
 
+def _leaf(a, dtype: torch.dtype, dev) -> Tensor:
+    """A numpy leaf (bfloat16 included: ml_dtypes' arrays go through fp32,
+    exactly) as a tensor of ``dtype``."""
+    arr = np.asarray(a)
+    if arr.dtype.name == "bfloat16":
+        arr = arr.astype(np.float32)
+    return torch.as_tensor(np.array(arr), device=dev).to(dtype)
+
+
+def _flatten(tree: Mapping[str, Any], path: str = "") -> Dict[str, Any]:
+    """Nested dicts -> {dotted path: leaf}."""
+    out: Dict[str, Any] = {}
+    for k, v in tree.items():
+        sub = f"{path}.{k}" if path else k
+        out.update(_flatten(v, sub) if isinstance(v, Mapping) else {sub: v})
+    return out
+
+
+def cache(cfg, np_tree: Mapping[str, Any], *,
+          device: DeviceLike = None) -> Dict[str, Any]:
+    """The reference's serving cache (``Model.prefill`` / ``init_cache``
+    output, nested dicts with numpy leaves) -> the port's cache for
+    ``Model.decode_step``.  The layouts are the same leaf for leaf
+    (stacked on the layer axis); every path and shape is checked against
+    the port's ``init_cache`` at the tree's batch and sequence length,
+    and each leaf takes that cache's dtype."""
+    from repro_torch.config import ParallelConfig
+    from repro_torch.models.transformer import DecoderStack
+
+    dev = resolve_device(device)
+    flat = _flatten(np_tree)
+    batch = np.shape(next(iter(flat.values())))[1]
+    seq = [np.shape(a)[2] for p, a in flat.items()
+           if p.split(".")[-1] == "k"]
+    want = _flatten(DecoderStack(cfg, ParallelConfig()).init_cache(
+        batch, seq[0] if seq else 1, device="meta"))
+    if set(flat) != set(want):
+        raise ValueError(f"cache: paths differ from the port's layout: "
+                         f"missing {sorted(set(want) - set(flat))}, "
+                         f"extra {sorted(set(flat) - set(want))}")
+    out: Dict[str, Any] = {}
+    for path, a in flat.items():
+        if tuple(np.shape(a)) != tuple(want[path].shape):
+            raise ValueError(f"cache: {path} has shape {tuple(np.shape(a))}, "
+                             f"the port's {tuple(want[path].shape)}")
+        node = out
+        *head, name = path.split(".")
+        for k in head:
+            node = node.setdefault(k, {})
+        node[name] = _leaf(a, want[path].dtype, dev)
+    return out
+
+
 def store_state(np_state: Mapping[str, np.ndarray], *,
                 device: DeviceLike = None) -> Dict[str, Tensor]:
     """One store column's accumulators — the reference's

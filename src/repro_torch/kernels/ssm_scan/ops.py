@@ -4,8 +4,14 @@
 and its chunk rule: ``chunk`` is halved until it divides T.  A CUDA
 tensor goes to the Hopper kernel (kernel.py), a CPU tensor to the plain
 chunked version (ref.py).  Nothing else is taken, and nothing falls back.
-The single-token steps (``ref.gla_step``, ``ref.ssd_step``) have no
-kernel: one rank-1 update and a readout.
+
+``gla_decode_step`` and ``ssd_decode_step`` (serving: one new token
+against the recurrent state a prefill's scan left) are plain torch on
+both devices, as they are plain ``jnp`` in the reference
+(``ssm_scan/ops.py``): per head, one rank-1 update of the (Dk, Dv)
+state and one readout, a few hundred bytes of state read and written
+per product — bound by memory, with nothing for a tiled kernel to
+reuse.
 """
 from __future__ import annotations
 
@@ -49,3 +55,20 @@ def ssd(q: Tensor, k: Tensor, v: Tensor, a: Tensor, *, chunk: int = 32
     if _device(q, "ssd") == "cuda":
         return _kernel.ssd_cuda(q, k, v, a, chunk=chunk)
     return _ref.ssd_chunked_ref(q, k, v, a, chunk=chunk)
+
+
+def gla_decode_step(state: Tensor, q: Tensor, k: Tensor, v: Tensor,
+                    w: Tensor, u: Optional[Tensor] = None
+                    ) -> Tuple[Tensor, Tensor]:
+    """One token of the GLA recurrence: state (B, H, Dk, Dv) fp32;
+    q, k, w (B, H, Dk); v (B, H, Dv); u (H, Dk) or None.  Returns
+    (new state, o (B, H, Dv)); mixed dtypes promote as in the
+    reference (a bf16 q against the fp32 state reads out in fp32)."""
+    return _ref.gla_step(state, q, k, v, w, u)
+
+
+def ssd_decode_step(state: Tensor, q: Tensor, k: Tensor, v: Tensor,
+                    a: Tensor) -> Tuple[Tensor, Tensor]:
+    """One token of the SSD recurrence: state (B, H, N, P); q, k (B, N);
+    v (B, H, P); a (B, H).  Returns (new state, o (B, H, P))."""
+    return _ref.ssd_step(state, q, k, v, a)

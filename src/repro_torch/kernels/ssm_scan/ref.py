@@ -42,14 +42,23 @@ def _wt(x: Tensor) -> torch.dtype:
     return torch.float64 if x.dtype == torch.float64 else torch.float32
 
 
+def _readout(q: Tensor, s: Tensor) -> Tensor:
+    """q (..., Dk) . s (..., Dk, Dv), both promoted to their common type
+    first, as ``jnp.einsum`` promotes a bf16 q against an fp32 state."""
+    dt = torch.promote_types(q.dtype, s.dtype)
+    return torch.einsum("...k,...kv->...v", q.to(dt), s.to(dt))
+
+
 def gla_step(state: Tensor, q, k, v, w, u=None):
-    """Single-token recurrence (decode path). state: (..., Dk, Dv)."""
+    """Single-token recurrence (decode path). state: (..., Dk, Dv).
+    k v^T is formed in k's and v's dtype, and the state update and
+    readout promote, as the reference's ``gla_step`` does."""
     kv = k[..., :, None] * v[..., None, :]
     if u is None:
         state = state * w[..., :, None] + kv
-        o = torch.einsum("...k,...kv->...v", q, state)
+        o = _readout(q, state)
     else:
-        o = torch.einsum("...k,...kv->...v", q, state + u[..., :, None] * kv)
+        o = _readout(q, state + u[..., :, None] * kv)
         state = state * w[..., :, None] + kv
     return state, o
 

@@ -1,0 +1,3 @@
+"""Launch layer of the port: the LM serving driver (``serve.py``).  The
+reference's mesh, dry-run, roofline and train drivers come with ROADMAP
+A.13f and A.14."""

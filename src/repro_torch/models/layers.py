@@ -1,4 +1,4 @@
-"""Shared layers: norms, embeddings, RoPE, MLPs.
+"""Shared layers: norms, embeddings and the unembedding, RoPE, MLPs.
 
 Each layer is a pair of (schema fn, apply fn), as in the reference's
 ``models/layers.py``; apply fns take the parameters as a dict (or a
@@ -41,7 +41,7 @@ def make_norm(cfg: ModelConfig):
     """(schema fn, apply fn) of the family's norm."""
     if cfg.family == "audio":
         raise NotImplementedError(
-            "the layernorm family lands with whisper's slice (ROADMAP A.13)")
+            "the layernorm family lands with whisper's slice (ROADMAP A.13e)")
     return rmsnorm_schema, lambda p, x: rmsnorm(p, x, cfg.norm_eps)
 
 
@@ -67,8 +67,25 @@ def embed_tokens(params, cfg: ModelConfig, tokens: Tensor) -> Tensor:
     if cfg.learned_pos_emb:
         raise NotImplementedError(
             "learned position embeddings land with whisper's slice "
-            "(ROADMAP A.13, encoder-decoder)")
+            "(ROADMAP A.13e, encoder-decoder)")
     return params["embedding"][tokens.long()].to(cfg.compute_dtype)
+
+
+def unembed(params, cfg: ModelConfig, x: Tensor) -> Tensor:
+    """(..., d) -> (..., padded_vocab) logits in the compute dtype: the
+    tied table's transpose or the untied ``unembed``, cast per call; the
+    logits softcap; padded-vocab slots set to -1e30 (exact softmax over
+    the real vocabulary)."""
+    ct = cfg.compute_dtype
+    w = params["embedding"].T if cfg.tie_embeddings else params["unembed"]
+    logits = torch.matmul(x, w.to(ct))
+    if cfg.logits_softcap:
+        c = cfg.logits_softcap
+        logits = torch.tanh(logits / c) * c
+    if cfg.padded_vocab != cfg.vocab_size:
+        pad = torch.arange(cfg.padded_vocab, device=x.device) >= cfg.vocab_size
+        logits = logits.masked_fill(pad, -1e30)
+    return logits
 
 
 # ---------------------------------------------------------------------------

@@ -1,34 +1,37 @@
 """Model facade: an ``nn.Module`` that owns its parameters.
 
-The counterpart of the reference's ``models/model.py`` for the path this
-slice runs: ``features(tokens)`` — the pooled event-sequence
-representation that the Dream11 scenario uses as confounders (paper §4).
+The counterpart of the reference's ``models/model.py`` for the dense
+(granite), ssm (rwkv6) and hybrid (zamba2) families:
+``features(tokens)`` — the pooled event-sequence representation that
+the Dream11 scenario uses as confounders (paper §4) — and the serving
+forms ``prefill``, ``decode_step`` (alias ``serve_step``) and
+``init_cache``, which ``launch/serve.py``'s ``BatchServer`` drives.
 Parameters are registered under the reference's schema names
 (``embed.embedding``, ``stack.layers.attn.wq``, ``ln_f.scale``), so
 ``state_dict()`` keys are the reference's pytree paths and
-``convert.model_params`` loads the reference's weights unchanged.  The
-dense (granite), ssm (rwkv6) and hybrid (zamba2) families are built;
-an untied ``embed.unembed`` is held but ``features`` does not read it.
+``convert.model_params`` loads the reference's weights unchanged;
+``convert.cache`` carries a reference cache across the same way.
 
 ``Model(cfg, parallel, device=None, seed=0)`` initialises on a
 ``torch.Generator`` seeded ``seed`` on ``device`` (the card unless
 ``device="cpu"``), with the reference's init rule
 (``models/params.py``).  Off the CPU a family with attention (dense,
 hybrid) needs ``ParallelConfig(use_flash_attention=True)``; rwkv6 has
-none and needs no flag.  ``forward_train``, ``prefill``,
-``decode_step`` and the moe / vlm / encoder-decoder branches come with
-later slices.
+none and needs no flag.  Still to come: ``forward_train`` and the loss
+(ROADMAP A.13f), the MTP heads and the moe family (A.13b), the
+encoder-decoder and vlm branches (A.13e).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
 
 from repro_torch.config import ModelConfig, ParallelConfig
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models.layers import embed_tokens, embedding_schema, make_norm
+from repro_torch.models.layers import (embed_tokens, embedding_schema,
+                                      make_norm, unembed)
 from repro_torch.models.params import ParamTree, init_params
 from repro_torch.models.transformer import DecoderStack
 
@@ -45,7 +48,7 @@ class Model(nn.Module):
         if cfg.is_encdec:
             raise NotImplementedError(
                 "encoder-decoder models land with whisper's slice "
-                "(ROADMAP A.13)")
+                "(ROADMAP A.13e)")
         self.cfg = cfg
         self.parallel = parallel or ParallelConfig()
         self.decoder = DecoderStack(cfg, self.parallel)
@@ -69,8 +72,8 @@ class Model(nn.Module):
         of ``cfg``, without building one."""
         if cfg.mtp_depth:
             raise NotImplementedError(
-                "multi-token-prediction heads land with the training "
-                "slice (ROADMAP A.13)")
+                "multi-token-prediction heads land with deepseek's "
+                "slice (ROADMAP A.13b)")
         norm_schema, _ = make_norm(cfg)
         stack = DecoderStack(cfg, parallel or ParallelConfig())
         return {"embed": embedding_schema(cfg), "stack": stack.schema(),
@@ -91,3 +94,38 @@ class Model(nn.Module):
         h = self.decoder.train_hidden(self.stack, x)
         h = self.norm(self.ln_f, h)
         return h.mean(dim=1).to(torch.float32)
+
+    def _logits(self, h: Tensor) -> Tensor:
+        """Final norm and unembedding: (..., d) -> (..., padded_vocab)
+        logits in the compute dtype."""
+        return unembed(self.embed, self.cfg, self.norm(self.ln_f, h))
+
+    @torch.no_grad()
+    def prefill(self, tokens: Tensor) -> Tuple[Tensor, Any]:
+        """Full forward over the prompt (B, S): (last-token logits (B, 1,
+        V), the cache of S positions)."""
+        tokens = torch.as_tensor(tokens, device=self.device)
+        x = embed_tokens(self.embed, self.cfg, tokens)
+        h, cache = self.decoder.prefill_hidden(self.stack, x)
+        return self._logits(h[:, -1:]), cache
+
+    @torch.no_grad()
+    def decode_step(self, tokens: Tensor, cache: Any, pos: int
+                    ) -> Tuple[Tensor, Any]:
+        """One new token per row.  tokens: (B, 1); ``pos`` the index the
+        new token is written at (the cache holds positions < pos).
+        Returns (logits (B, 1, V), cache).  The cache is written IN
+        PLACE and the same tree returned (the reference donates it to
+        the jitted step), so a caller that needs the old cache keeps a
+        copy."""
+        tokens = torch.as_tensor(tokens, device=self.device)
+        x = embed_tokens(self.embed, self.cfg, tokens)
+        h, cache = self.decoder.decode_hidden(self.stack, x, cache, int(pos))
+        return self._logits(h), cache
+
+    serve_step = decode_step
+
+    def init_cache(self, batch: int, seq_len: int) -> Any:
+        """A zero cache for ``batch`` rows of ``seq_len`` positions, on
+        the model's device."""
+        return self.decoder.init_cache(batch, seq_len, device=self.device)

@@ -1,17 +1,25 @@
 """RWKV-6 "Finch" block (rwkv6-3b): attention-free time-mix with
 data-dependent per-channel decay, and a squared-ReLU channel-mix.
 
-The counterpart of the reference's ``models/rwkv.py`` for the forward
-path (``time_mix_train``, ``channel_mix_train``).  The time-mix
+The counterpart of the reference's ``models/rwkv.py``: the train
+forward (``time_mix_train``, ``channel_mix_train``) and the serving
+forms (``*_prefill``, ``*_decode``, ``rwkv_init_state``).  The time-mix
 recurrence runs on the chunked GLA scan in "bonus" mode:
 o_t = r_t (S_{t-1} + diag(u) k_t v_t^T),  S_t = diag(w_t) S_{t-1} +
 k_t v_t^T, with w_t = exp(-exp(w0 + tanh(x W_a) W_b)) per channel.  The
 scan takes (B, H, T, D) views of the (B, T, H, D) projections: the
 Hopper kernel reads them through their strides and writes o in v's
-layout, so no transpose is copied on the card.  Prefill and decode come
-with the serving slice.
+layout, so no transpose is copied on the card.
+
+Serving state per layer: the time-mix's GLA state ``s`` (B, H, hd, hd)
+in fp32 — the scan's final state after a prefill, then one
+``gla_decode_step`` per token, plain torch as in the reference — and
+each mix's last input ``x_prev`` (B, 1, d) in the compute dtype, which
+the token shift reads at the next step.
 """
 from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -70,9 +78,12 @@ def channel_mix_schema(cfg: ModelConfig):
     }
 
 
-def _shift(x: Tensor) -> Tensor:
-    """Token shift: x_{t-1}, zeros at t=0."""
-    return F.pad(x, (0, 0, 1, 0))[:, :-1]
+def _shift(x: Tensor, last: Optional[Tensor] = None) -> Tensor:
+    """Token shift: x_{t-1}; at t=0 zeros, or ``last`` (B, 1, d), the
+    input carried from the previous step."""
+    if last is None:
+        return F.pad(x, (0, 0, 1, 0))[:, :-1]
+    return torch.cat([last, x[:, :-1]], dim=1)
 
 
 def _lerp(x: Tensor, xs: Tensor, mu: Tensor) -> Tensor:
@@ -120,22 +131,77 @@ def _tm_qkvwg(params, cfg: ModelConfig, x: Tensor, xs: Tensor):
     return r, k, v, w, u, g
 
 
-def time_mix_train(params, cfg: ModelConfig, x: Tensor,
-                   chunk: int = 64) -> Tensor:
-    """(B, T, d) -> (B, T, d) in the compute dtype."""
+def _tm_out(params, cfg: ModelConfig, o: Tensor, g: Tensor) -> Tensor:
+    """Group norm of o (B, T, h, hd), the silu(g) gate, the projection."""
     ct = cfg.compute_dtype
-    r, k, v, w, u, g = _tm_qkvwg(params, cfg, x, _shift(x))
-    o, _ = scan_ops.gla(r, k, v, w, u, chunk=chunk)
-    o = _group_norm(cfg, params, o.transpose(1, 2))
-    o = (o * F.silu(g.to(_F32))).to(ct)
+    o = (_group_norm(cfg, params, o) * F.silu(g.to(_F32))).to(ct)
     return o @ params["wo"].to(ct)
 
 
-def channel_mix_train(params, cfg: ModelConfig, x: Tensor) -> Tensor:
+def time_mix_train(params, cfg: ModelConfig, x: Tensor,
+                   chunk: int = 64) -> Tensor:
     """(B, T, d) -> (B, T, d) in the compute dtype."""
+    r, k, v, w, u, g = _tm_qkvwg(params, cfg, x, _shift(x))
+    o, _ = scan_ops.gla(r, k, v, w, u, chunk=chunk)
+    return _tm_out(params, cfg, o.transpose(1, 2), g)
+
+
+def time_mix_prefill(params, cfg: ModelConfig, x: Tensor, chunk: int = 64
+                     ) -> Tuple[Tensor, Dict[str, Tensor]]:
+    """``time_mix_train`` plus the state after the last token: the
+    scan's final state ``s`` (fp32) and ``x_prev`` = x[:, -1:]."""
+    r, k, v, w, u, g = _tm_qkvwg(params, cfg, x, _shift(x))
+    o, s_final = scan_ops.gla(r, k, v, w, u, chunk=chunk)
+    return (_tm_out(params, cfg, o.transpose(1, 2), g),
+            {"s": s_final, "x_prev": x[:, -1:]})
+
+
+def time_mix_decode(params, cfg: ModelConfig, x: Tensor,
+                    state: Dict[str, Tensor]
+                    ) -> Tuple[Tensor, Dict[str, Tensor]]:
+    """x: (B, 1, d); state {"s": (B, h, hd, hd), "x_prev": (B, 1, d)}.
+    The readout o comes out of the step in fp32 (the reference's
+    promotion), where the scan returns it in v's dtype."""
+    r, k, v, w, u, g = _tm_qkvwg(params, cfg, x, state["x_prev"])
+    new_s, o = scan_ops.gla_decode_step(state["s"], r[:, :, 0], k[:, :, 0],
+                                        v[:, :, 0], w[:, :, 0], u)
+    return _tm_out(params, cfg, o[:, None], g), {"s": new_s, "x_prev": x}
+
+
+def channel_mix_train(params, cfg: ModelConfig, x: Tensor,
+                      x_prev: Optional[Tensor] = None) -> Tensor:
+    """(B, T, d) -> (B, T, d) in the compute dtype; ``x_prev`` (B, 1, d)
+    is the shift's carried input (zeros without one)."""
     ct = cfg.compute_dtype
-    xs = _shift(x)
+    xs = _shift(x, x_prev)
     k = _lerp(x, xs, params["mu_k"]) @ params["wk"].to(ct)
     kv = torch.relu(k).square() @ params["wv"].to(ct)
     r = torch.sigmoid(_lerp(x, xs, params["mu_r"]) @ params["wr"].to(ct))
     return r * kv
+
+
+def channel_mix_prefill(params, cfg: ModelConfig, x: Tensor
+                        ) -> Tuple[Tensor, Dict[str, Tensor]]:
+    """``channel_mix_train`` plus {"x_prev": x[:, -1:]}."""
+    return channel_mix_train(params, cfg, x), {"x_prev": x[:, -1:]}
+
+
+def channel_mix_decode(params, cfg: ModelConfig, x: Tensor,
+                       state: Dict[str, Tensor]
+                       ) -> Tuple[Tensor, Dict[str, Tensor]]:
+    """x: (B, 1, d) against {"x_prev": (B, 1, d)}."""
+    return (channel_mix_train(params, cfg, x, x_prev=state["x_prev"]),
+            {"x_prev": x})
+
+
+def rwkv_init_state(cfg: ModelConfig, batch: int, dtype,
+                    device=None) -> Dict[str, Dict[str, Tensor]]:
+    """One layer's zero state: the GLA state in fp32, the shifts'
+    ``x_prev`` in ``dtype`` (the compute dtype)."""
+    h, hd = _heads(cfg)
+    return {"tm": {"s": torch.zeros((batch, h, hd, hd), dtype=_F32,
+                                    device=device),
+                   "x_prev": torch.zeros((batch, 1, cfg.d_model),
+                                         dtype=dtype, device=device)},
+            "cm": {"x_prev": torch.zeros((batch, 1, cfg.d_model),
+                                         dtype=dtype, device=device)}}

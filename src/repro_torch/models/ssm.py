@@ -1,15 +1,22 @@
 """Mamba2 (SSD) block: the zamba2 hybrid backbone.
 
-The counterpart of the reference's ``models/ssm.py`` for the forward
-path (``mamba_train``).  The selective state-space recurrence runs on
+The counterpart of the reference's ``models/ssm.py``: the train
+forward (``mamba_train``) and the serving forms (``mamba_prefill``,
+``mamba_decode``, ``mamba_init_state``).  The selective state-space recurrence runs on
 the SSD scan: q = C and k = B shared across heads, v = dt·x per head,
 and a per-head scalar decay a_t = exp(-exp(A_log)·dt_t).  The scan takes
 v and a as (B, H, T, ·) views of (B, T, H, ·) tensors, which the Hopper
 kernel reads through their strides.  The causal depthwise conv is plain
-tensor code (the reference has no kernel for it).  Prefill and decode
-come with the serving slice.
+tensor code (the reference has no kernel for it).
+
+Serving state per layer: the SSD state ``ssm`` (B, H, N, P) in fp32 —
+the scan's final state after a prefill, then one ``ssd_decode_step`` per
+token, plain torch as in the reference — and the conv's last K - 1
+inputs ``conv`` (B, K-1, di) in the compute dtype.
 """
 from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -56,15 +63,22 @@ def _split_proj(cfg: ModelConfig, proj: Tensor):
     return torch.split(proj, [di, di, s, s, heads], dim=-1)
 
 
-def _causal_conv(xb: Tensor, w: Tensor, b: Tensor) -> Tensor:
-    """Depthwise causal conv. xb: (B, T, di); w: (K, di); zeros before
-    t=0.  The taps are summed in the reference's order."""
+def _causal_conv(xb: Tensor, w: Tensor, b: Tensor,
+                 state: Optional[Tensor] = None
+                 ) -> Tuple[Tensor, Optional[Tensor]]:
+    """Depthwise causal conv. xb: (B, T, di); w: (K, di); ``state``
+    (B, K-1, di) the inputs before t=0 (zeros without one).  Returns
+    (out, the last K-1 inputs: the next call's state; None at K = 1).
+    The taps are summed in the reference's order."""
     K, T = w.shape[0], xb.shape[1]
-    xp = F.pad(xb, (0, 0, K - 1, 0))
+    if state is None:
+        xp = F.pad(xb, (0, 0, K - 1, 0))
+    else:
+        xp = torch.cat([state.to(xb.dtype), xb], dim=1)
     out = xp[:, 0:T] * w[0]
     for i in range(1, K):
         out = out + xp[:, i:i + T] * w[i]
-    return out + b
+    return out + b, (xp[:, -(K - 1):] if K > 1 else None)
 
 
 def _ssd_inputs(cfg: ModelConfig, params, xb: Tensor, B: Tensor, C: Tensor,
@@ -95,17 +109,63 @@ def _gated_out(cfg: ModelConfig, params, y: Tensor, z: Tensor) -> Tensor:
     return y.to(ct) @ params["out_proj"].to(ct)
 
 
-def mamba_train(params, cfg: ModelConfig, x: Tensor) -> Tensor:
-    """(B, T, d) -> (B, T, d) in the compute dtype."""
-    ct = cfg.compute_dtype
+def _skip_out(cfg: ModelConfig, params, o: Tensor, xb: Tensor,
+              z: Tensor) -> Tensor:
+    """o (B, T, H, hd) plus the D skip over xb, gated and projected."""
     _, heads, hd = _dims(cfg)
-    proj = x @ params["in_proj"].to(ct)
-    z, xb, B, C, dt = _split_proj(cfg, proj)
-    xb = F.silu(_causal_conv(xb, params["conv_w"].to(ct),
-                             params["conv_b"].to(ct)))
-    q, k, v, a = _ssd_inputs(cfg, params, xb, B, C, dt)
-    o, _ = scan_ops.ssd(q, k, v, a, chunk=max(cfg.ssm_chunk, 32))
-    o = o.transpose(1, 2)                                # (B, T, H, hd)
     o = o + params["D"].to(_F32)[:, None] * \
         xb.reshape(*xb.shape[:2], heads, hd).to(_F32)
     return _gated_out(cfg, params, o, z)
+
+
+def _conv_in(cfg: ModelConfig, params, x: Tensor,
+             conv_state: Optional[Tensor] = None):
+    """in_proj, split, the causal conv and its silu: (z, xb, B, C, dt,
+    the conv's new state)."""
+    ct = cfg.compute_dtype
+    z, xb, B, C, dt = _split_proj(cfg, x @ params["in_proj"].to(ct))
+    xb, conv_state = _causal_conv(xb, params["conv_w"].to(ct),
+                                  params["conv_b"].to(ct), conv_state)
+    return z, F.silu(xb), B, C, dt, conv_state
+
+
+def mamba_train(params, cfg: ModelConfig, x: Tensor) -> Tensor:
+    """(B, T, d) -> (B, T, d) in the compute dtype."""
+    z, xb, B, C, dt, _ = _conv_in(cfg, params, x)
+    q, k, v, a = _ssd_inputs(cfg, params, xb, B, C, dt)
+    o, _ = scan_ops.ssd(q, k, v, a, chunk=max(cfg.ssm_chunk, 32))
+    return _skip_out(cfg, params, o.transpose(1, 2), xb, z)
+
+
+def mamba_prefill(params, cfg: ModelConfig, x: Tensor
+                  ) -> Tuple[Tensor, Dict[str, Tensor]]:
+    """``mamba_train`` plus the state after the last token: the scan's
+    final state ``ssm`` (fp32) and the conv's last inputs ``conv``."""
+    z, xb, B, C, dt, conv_state = _conv_in(cfg, params, x)
+    q, k, v, a = _ssd_inputs(cfg, params, xb, B, C, dt)
+    o, ssm_state = scan_ops.ssd(q, k, v, a, chunk=max(cfg.ssm_chunk, 32))
+    return (_skip_out(cfg, params, o.transpose(1, 2), xb, z),
+            {"ssm": ssm_state, "conv": conv_state})
+
+
+def mamba_init_state(cfg: ModelConfig, batch: int, dtype=_F32,
+                     device=None) -> Dict[str, Tensor]:
+    """One layer's zero state: ``ssm`` (B, H, N, P) fp32, ``conv``
+    (B, K-1, di) in ``dtype``."""
+    di, heads, hd = _dims(cfg)
+    return {"ssm": torch.zeros((batch, heads, cfg.ssm_state, hd),
+                               dtype=_F32, device=device),
+            "conv": torch.zeros((batch, cfg.ssm_conv - 1, di), dtype=dtype,
+                                device=device)}
+
+
+def mamba_decode(params, cfg: ModelConfig, x: Tensor,
+                 state: Dict[str, Tensor]
+                 ) -> Tuple[Tensor, Dict[str, Tensor]]:
+    """x: (B, 1, d): one O(1) state update."""
+    z, xb, B, C, dt, conv_state = _conv_in(cfg, params, x, state["conv"])
+    q, k, v, a = _ssd_inputs(cfg, params, xb, B, C, dt)
+    new_ssm, o = scan_ops.ssd_decode_step(state["ssm"], q[:, 0], k[:, 0],
+                                          v[:, :, 0], a[:, :, 0])
+    return (_skip_out(cfg, params, o[:, None], xb, z),
+            {"ssm": new_ssm, "conv": conv_state})

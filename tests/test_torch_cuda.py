@@ -93,6 +93,14 @@ bootstrap replicates bitwise serial ≡ batched ≡ chunked on the card;
 the penalty grid's scores against the CPU (1e-4) and the same winner;
 the mlp's batched fit bitwise each model alone on the card and within
 1e-3 of the CPU after 30 AdamW steps.
+
+LM serving on the card (small bf16 models of the three families): a
+served wave's prefill launches one kernel per attention or scan block
+(scans on the tiled form) and its decode steps none; the prefill's
+logits and cache leaves against the plain versions and the CPU
+(2e-2·max, the features rule; the first layer's fp32 scan state 1e-4);
+dense attention refused on the card for train and prefill, decode
+attention on the card against the CPU (1e-5).
 """
 import numpy as np
 import pytest
@@ -1569,3 +1577,140 @@ def test_mlp_batched_fit_bitwise_each_model_on_card(card):
     cpu = nuis.predict(nuis.fit(batch, d.X, d.t, W), d.X)
     np.testing.assert_allclose(preds.cpu().numpy(), cpu.numpy(), rtol=1e-3,
                                atol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# LM serving on the card: prefill through the kernels, decode through none.
+# ---------------------------------------------------------------------------
+
+def _serve_model(card, arch):
+    import dataclasses
+
+    from repro_torch.config import ParallelConfig
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+
+    over = dict(d_model=128, num_layers=3, compute_dtype=torch.bfloat16)
+    if arch.startswith("granite"):
+        over.update(num_heads=4, num_kv_heads=2, head_dim=32)
+    if arch.startswith("zamba2"):       # the SSD's tiled form: N = P = 64
+        over.update(ssm_state=64)
+    cfg = dataclasses.replace(get_config(arch), **over)
+    return Model(cfg, ParallelConfig(use_flash_attention=True), device=card,
+                 seed=3)
+
+
+def _serve_launches():
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.seg_gram import kernel as sg_kernel
+    from repro_torch.kernels.ssm_scan import kernel as sk
+    return {**dict(fa_kernel.LAUNCHES), **dict(sk.LAUNCHES),
+            **dict(sg_kernel.LAUNCHES)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["granite-3-2b-smoke", "rwkv6-3b-smoke",
+                                  "zamba2-1.2b-smoke"])
+def test_serve_prefill_launches_kernels_and_decode_none(card, arch):
+    """A served wave on the card: its prefill launches one kernel per
+    attention / scan block (scans on the tiled form), its decode steps
+    launch none; the prefill's logits and cache leaves against the same
+    prefill through the plain versions (2e-2·max: one-step bf16 flips
+    carried through the layers, as the features test; the first layer's
+    fp32 scan state, whose inputs are the same in both runs, 1e-4), and
+    against the same prefill on the CPU (2e-2·max)."""
+    import collections
+
+    from repro_torch.convert import _flatten
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.ssm_scan import ops as sops
+    from repro_torch.kernels.ssm_scan import ref as sref
+    from repro_torch.launch.serve import BatchServer, Request
+
+    model = _serve_model(card, arch)
+    cfg = model.cfg
+    rng = np.random.default_rng(0)
+    prompts = [torch.from_numpy(rng.integers(0, 250, (n,))) for n in (32, 20)]
+    server = BatchServer(model, max_seq=64)
+    seen = []
+    prefill, decode = server._prefill, server._decode
+
+    def counted(fn, tag):
+        def run(*a):
+            before = collections.Counter(_serve_launches())
+            out = fn(*a)
+            torch.cuda.synchronize()
+            seen.append((tag, dict(collections.Counter(_serve_launches())
+                                   - before)))
+            return out
+        return run
+
+    server._prefill = counted(prefill, "prefill")
+    server._decode = counted(decode, "decode")
+    outs = server.serve_wave([Request(p, max_new_tokens=6) for p in prompts])
+    L = cfg.num_layers
+    want = ({"flash_attention": L} if cfg.family == "dense" else
+            {"gla": L, "gla:tiled": L} if cfg.family == "ssm" else
+            {"ssd": L, "ssd:tiled": L, "flash_attention": L})
+    assert seen[0] == ("prefill", want)
+    assert [s for s in seen[1:]] == [("decode", {})] * 5
+    assert [len(o.tokens) for o in outs] == [6, 6]
+
+    toks = torch.stack([torch.nn.functional.pad(p, (32 - len(p), 0))
+                        for p in prompts]).to(card)
+    logits, cache = model.prefill(toks)
+    saved = (fa_ops.flash_attention, sops.gla, sops.ssd)
+    try:
+        fa_ops.flash_attention = _fa_plain
+        sops.gla = lambda *a, chunk: sref.gla_chunked_ref(*a, chunk=chunk)
+        sops.ssd = lambda *a, chunk: sref.ssd_chunked_ref(*a, chunk=chunk)
+        plain_l, plain_c = model.prefill(toks)
+    finally:
+        fa_ops.flash_attention, sops.gla, sops.ssd = saved
+
+    def rel(a, b):
+        a, b = a.float(), b.float()
+        return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+    V = cfg.vocab_size                    # padded slots hold -1e30
+    assert rel(logits[..., :V], plain_l[..., :V]) <= 2e-2
+    got, ref_ = _flatten(cache), _flatten(plain_c)
+    for key in got:
+        assert rel(got[key], ref_[key]) <= 2e-2, key
+    # the first layer's scan state sees the same inputs in both runs
+    if cfg.family != "dense":
+        key = "tm.s" if cfg.family == "ssm" else "mamba.ssm"
+        assert rel(got[key][0], ref_[key][0]) <= 1e-4
+    # the same prefill on the CPU (the plain versions)
+    cpu = _serve_model(torch.device("cpu"), arch)
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    l_cpu, _ = cpu.prefill(toks.cpu())
+    assert rel(logits[..., :V].cpu(), l_cpu[..., :V]) <= 2e-2
+
+
+@pytest.mark.cuda
+def test_dense_attention_refused_on_card_for_train_and_prefill(card):
+    """Off the CPU, train and prefill attention run through the flash
+    kernel or raise; decode attention (no kernel in the reference) runs
+    as plain tensor code on the card."""
+    from repro_torch.config import ParallelConfig
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention
+
+    cfg = get_config("granite-3-2b-smoke")
+    rng = np.random.default_rng(1)
+    mk = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(s).astype(np.float32) * s[0] ** -0.5).to(card)
+    p = {"wq": mk(64, 4, 16), "wk": mk(64, 2, 16), "wv": mk(64, 2, 16),
+         "wo": mk(4, 16, 64)}
+    x = mk(2, 8, 64)
+    for fn in (attention.gqa_train, attention.gqa_prefill):
+        with pytest.raises(NotImplementedError, match="use_flash_attention"):
+            fn(p, cfg, x, ParallelConfig())
+    cache = {"k": mk(2, 12, 2, 16), "v": mk(2, 12, 2, 16)}
+    cpu = {k: v.cpu() for k, v in cache.items()}
+    got, _ = attention.gqa_decode(p, cfg, x[:, :1], cache, 5)
+    want, _ = attention.gqa_decode({k: v.cpu() for k, v in p.items()}, cfg,
+                                   x[:, :1].cpu(), cpu, 5)
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-5,
+                               atol=1e-5 * float(want.abs().max()))
