@@ -247,6 +247,27 @@ Phases (each failure makes the script exit non-zero):
      the flash and scan records' ``launches_by_path`` as
      ``lm_serve:<arch>``.
 
+ 26. the data mesh (slice 13), after the tables phases: ``mesh:ranks``
+     spawns 4 ranks on cuda:0 (``launch/dist_smoke.spawn_ranks``; a gloo
+     world, rank 0 alone in an nccl group — one card takes no second
+     nccl rank — the kernels built here first), which run
+     ``mesh:reduce`` — weighted_gram (q 502) and fold_gram (S 5) at 1M ×
+     500, "pallas", 131,072 rows a block, one seg_gram launch a block on
+     its rank: bitwise across 1 (nccl), 2 and 4 (gloo, the accumulators
+     staged through host memory) ranks, within 1e-5·max + 1e-6 of one
+     kernel pass, psum within 1e-5 of ordered —; ``mesh:dml`` — the
+     tables cell's fit + jackknife at that block size on 2 ranks bitwise
+     the 1-rank fit, within 1e-4 of the fit with no mesh, theta within 5
+     se —; ``mesh:ladder`` — a DML bootstrap at 100k × 500, B = 32 in
+     chunks of 8 under ``TaskRuntime(data_mesh=)`` on 2 ranks (one block
+     each), once healthy and once with one injected lost shard: one
+     retry and one downgrade, replicates bitwise —; ``mesh:shard_map`` —
+     the same 32 replicates split over 4 ranks, bitwise the vmap
+     executor's.  Each prints its seconds, backend, ranks, seg_gram
+     launches per rank and the accumulator bytes that crossed the group
+     (beside the rows' bytes); the launches enter the seg_gram records'
+     ``launches_by_path`` as ``mesh:<phase>``.
+
 Every seg_gram record also names the kernel that ran (``design``:
 small, thin or big) and times its second pass alone (``reduce_ms``)
 and, for a segment walk, its plan alone (``plan_ms``; ``ms`` has the
@@ -3939,6 +3960,348 @@ def phase_mlp_dml(data, cfg, seed):
         raise AssertionError(f"card and CPU mlp DML disagree: {e:.3e}")
     return secs
 
+
+# -- the data mesh (slice 13): ranks of one process group on cuda:0 ----------
+
+MESH_RANKS = 4                 # groups of 1 (nccl), 2 and 4 (gloo) ranks
+MESH_RB = 131_072              # rows a block under the mesh: 8 blocks of 1M
+MESH_BOOT_B, MESH_CHUNK = 32, 16
+MESH_BOOT_RB = 50_000          # the bootstrap's 100k rows: 1 block a rank
+MESH_FIT_TOL = 1e-4            # 2-rank fit vs the fit with no mesh
+MESH_KERNEL_TOL = 1e-5         # block-wise Grams vs one pass: x·max + 1e-6
+MESH_PSUM_TOL = 1e-5           # psum vs ordered, max|d| / max
+MESH_TIMEOUT = 600
+
+
+def _no_op() -> None:
+    pass
+
+
+def _sha(ts) -> str:
+    """SHA-256 over the bytes of a list of tensors."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in ts:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _mesh_run(fn):
+    """(fn(), this rank's record): seconds, seg_gram launches, accumulator
+    bytes into collectives, bytes staged through the host."""
+    from repro_torch.kernels.seg_gram import kernel as kern
+    from repro_torch.runtime import distributed as rd
+
+    sync = torch.cuda.synchronize if torch.cuda.is_available() else _no_op
+    sync()
+    launches = collections.Counter(kern.LAUNCHES)
+    nbytes, staged = rd.TRAFFIC["bytes"], rd.TRAFFIC["staged_bytes"]
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    return out, {"seconds": time.perf_counter() - t0,
+                 "launches": dict(collections.Counter(kern.LAUNCHES)
+                                  - launches),
+                 "bytes": rd.TRAFFIC["bytes"] - nbytes,
+                 "staged": rd.TRAFFIC["staged_bytes"] - staged}
+
+
+def _within(got, want, x, y=0.0) -> float:
+    """max|got - want| / (x·max|want| + y): <= 1 passes."""
+    got, want = got.double(), want.double()
+    return float((got - want).abs().max()
+                 / (x * want.abs().max() + y).clamp_min(1e-300))
+
+
+def _mesh_rank(rank: int, z: dict, cfg, boot_cfg) -> dict:
+    """One rank of the mesh phases (spawned by ``phase_mesh_ranks``):
+    ``mesh:reduce`` on all ranks, ``mesh:dml`` and ``mesh:ladder`` on
+    ranks 0-1, ``mesh:shard_map`` on all four.  ``z``: the sizes (n, p,
+    k, seed, rb, boot_n, boot_b, chunk), the device and rank 0's
+    one-rank backend.  Returns what the parent checks."""
+    import torch.distributed as dist
+
+    from repro_torch.core import moments
+    from repro_torch.core.crossfit import fold_ids
+    from repro_torch.core.dml import DML
+    from repro_torch.core.registry import tree_arrays
+    from repro_torch.data.causal_dgp import paper_demo_data
+    from repro_torch.inference.bootstrap import derive_seed, dml_bootstrap
+    from repro_torch.inference.executor import ShardMapExecutor
+    from repro_torch.runtime import (TaskRuntime, inject_shard_failure,
+                                     make_data_mesh, use_data_mesh)
+
+    n, p, k, seed = z["n"], z["p"], z["k"], z["seed"]
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if z["device"] == "cuda" else torch.device("cpu"))
+    g1 = dist.new_group([0], backend=z["one_rank_backend"])
+    g2 = dist.new_group([0, 1], backend="gloo")
+    mesh = {4: make_data_mesh(device=dev, backend="gloo")}
+    if rank < 2:
+        mesh[2] = make_data_mesh(group=g2, device=dev, backend="gloo")
+    if rank == 0:
+        mesh[1] = make_data_mesh(group=g1, device=dev,
+                                 backend=z["one_rank_backend"])
+    out = {"rank": rank, "card": (torch.cuda.get_device_name(dev)
+                                  if dev.type == "cuda" else "cpu"),
+           "meshes": {s: (m.label, m.backend) for s, m in mesh.items()}}
+
+    # mesh:reduce — weighted_gram and fold_gram at 1M x 500, "pallas"
+    data = paper_demo_data(n=n, p=p, seed=seed, device=dev)
+    folds = fold_ids(torch.Generator().manual_seed(seed), n, k, device=dev)
+    kw = dict(row_block=z["rb"], strategy="pallas")
+    grams = {
+        "weighted_gram": lambda: moments.weighted_gram(
+            data.X, data.propensity, intercept=True, append=data.y, **kw)[0],
+        "fold_gram": lambda: moments.fold_gram(
+            data.X, folds, k, intercept=True, append=data.y, **kw)[0]}
+    dist.barrier()
+    red, kept = {}, {}
+    for s, dm in [(4, mesh[4]),
+                  ("4:psum", dataclasses.replace(mesh[4], reduction="psum")),
+                  (2, mesh.get(2)), (1, mesh.get(1))]:
+        if dm is None:
+            continue
+        for form, fn in grams.items():
+            with use_data_mesh(dm):
+                G, rec = _mesh_run(fn)
+            rec["sha"] = _sha([G])
+            red[(s, form)] = rec
+            if rank == 0:
+                kept[(s, form)] = G
+            del G
+    if rank == 0:
+        for form, fn in grams.items():
+            single = fn()
+            red[("errors", form)] = {
+                "kernel": _within(kept[(2, form)], single, MESH_KERNEL_TOL,
+                                  1e-6),
+                "psum": rel(kept[("4:psum", form)], kept[(4, form)])}
+            del single
+    out["reduce"] = red
+    del kept, folds
+    free = torch.cuda.empty_cache if dev.type == "cuda" else _no_op
+    free()
+
+    # mesh:dml — the tables cell's fit + jackknife on 2 ranks, 1 rank, none
+    dist.barrier()
+    if rank < 2:
+        def fit():
+            res = DML(cfg, device=dev).fit(
+                data.y, data.t, data.X, gen=torch.Generator().manual_seed(0))
+            inf = res.inference()
+            return res, [*tree_arrays(res), inf.se, inf.replicates]
+
+        with use_data_mesh(mesh[2]):
+            (res2, leaves), rec = _mesh_run(fit)
+        rec["sha"] = _sha(leaves)
+        theta, se = res2.theta.double().cpu(), leaves[-2].double().cpu()
+        target = torch.tensor([1.0, 0.5], dtype=torch.float64)
+        rec["z"] = ((theta - target).abs() / torch.maximum(
+            se, res2.stderr.double().cpu())).tolist()
+        rec["theta"] = theta.tolist()
+        if rank == 0:
+            with use_data_mesh(mesh[1]):
+                (_, ones), rec1 = _mesh_run(fit)
+            rec1["sha"] = _sha(ones)
+            (res0, plain), rec0 = _mesh_run(fit)
+            rec["vs_no_mesh"] = max(rel(a, b) for a, b in zip(leaves, plain))
+            rec["theta_no_mesh"] = res0.theta.tolist()
+            out["dml_1"], out["dml_none"] = rec1, rec0
+            del ones, plain, res0
+        out["dml"] = rec
+        del res2, leaves
+    del data
+    free()
+
+    # mesh:ladder — one lost shard in a B = 32 bootstrap at 100k
+    bdata = paper_demo_data(n=z["boot_n"], p=p, seed=seed, device=dev)
+    res = DML(boot_cfg, device=dev).fit(bdata.y, bdata.t, bdata.X,
+                                        gen=torch.Generator().manual_seed(0))
+    c = res.fit_ctx
+    bkw = dict(n_folds=boot_cfg.n_folds, XW=c.XW, y=c.y, t=c.t, phi=c.phi,
+               seed=derive_seed(c.seed, 0x0B00), n_replicates=z["boot_b"],
+               scheme="pairs", row_block=boot_cfg.row_block,
+               strategy=boot_cfg.row_block_strategy)
+    dist.barrier()
+    if rank < 2:
+        runs = {}
+        for name, lose in (("healthy", 0), ("struck", 1)):
+            rt = TaskRuntime("vmap", chunk=z["chunk"], data_mesh=mesh[2])
+            inject_shard_failure(lose)
+            try:
+                b, rec = _mesh_run(lambda: dml_bootstrap(
+                    c.nuis_y, c.nuis_t, executor=rt, **bkw))
+            finally:
+                inject_shard_failure(0)
+            rec["sha"] = _sha([b.replicates])
+            rec["events"] = [(e.action, e.chunk_index, e.backend)
+                             for e in rt.events]
+            runs[name] = rec
+        out["ladder"] = runs
+
+    # mesh:shard_map — the same bootstrap's replicates over 4 ranks
+    dist.barrier()
+    sm, rec = _mesh_run(lambda: dml_bootstrap(
+        c.nuis_y, c.nuis_t, executor=ShardMapExecutor(mesh[4]), **bkw))
+    rec["sha"] = _sha([sm.replicates])
+    if rank == 0:
+        vm, rec_v = _mesh_run(lambda: dml_bootstrap(
+            c.nuis_y, c.nuis_t, executor="vmap", **bkw))
+        rec["vmap_sha"], rec["vmap_seconds"] = (_sha([vm.replicates]),
+                                                rec_v["seconds"])
+    out["shard_map"] = rec
+    dist.barrier()
+    return out
+
+
+def phase_mesh_ranks(args, base):
+    """Spawn MESH_RANKS ranks on cuda:0 (gloo world, an nccl group of rank
+    0 alone) and run ``_mesh_rank`` on each; the kernels are built."""
+    from repro_torch.launch.dist_smoke import spawn_ranks
+
+    cfg = dataclasses.replace(base, row_block=MESH_RB)
+    boot_cfg = dataclasses.replace(base, inference="none",
+                                   row_block=MESH_BOOT_RB)
+    sizes = dict(n=args.n, p=500, k=5, seed=args.seed, rb=MESH_RB,
+                 boot_n=BOOT_N, boot_b=MESH_BOOT_B, chunk=MESH_CHUNK,
+                 device="cuda", one_rank_backend="nccl")
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(_mesh_rank, MESH_RANKS, sizes, cfg, boot_cfg,
+                        backend="gloo", device="cuda", timeout=MESH_TIMEOUT)
+    log(f"mesh: {MESH_RANKS} ranks on {ranks[0]['card']} (gloo world; "
+        f"meshes {ranks[0]['meshes']}) in {time.perf_counter() - t0:.1f} s "
+        "with their start")
+    return ranks
+
+
+def _per_rank(ranks, get) -> list:
+    return [get(r) for r in ranks if get(r) is not None]
+
+
+def phase_mesh_reduce(ranks, rows_bytes):
+    """``mesh:reduce``: weighted_gram (q 502) and fold_gram (S 5) at
+    MESH_RB, every block a seg_gram launch on cuda:0: bitwise across 1
+    (nccl), 2 and 4 (gloo) ranks and on every rank, within
+    MESH_KERNEL_TOL of one kernel pass, psum within MESH_PSUM_TOL."""
+    fails = []
+    launches = collections.Counter()
+    for form in ("weighted_gram", "fold_gram"):
+        shas = {}
+        for s in (1, 2, 4, "4:psum"):
+            recs = _per_rank(ranks, lambda r: r["reduce"].get((s, form)))
+            if s != "4:psum":
+                shas[s] = {rec["sha"] for rec in recs}
+            for rec in recs:
+                launches.update(rec["launches"])
+            log(f"mesh:reduce {form} on {s} rank(s) "
+                f"[{'nccl' if s == 1 else 'gloo'}]: "
+                f"{max(rec['seconds'] for rec in recs):.3f} s; seg_gram "
+                f"launches per rank {[rec['launches'] for rec in recs]}; "
+                f"bytes across the group {recs[0]['bytes']:,} "
+                f"(rows {rows_bytes:,}); staged per rank "
+                f"{[rec['staged'] for rec in recs]}")
+            if any(sum(rec["launches"].values()) == 0 for rec in recs):
+                fails.append(f"{form}@{s}: a rank launched no kernel")
+        err = ranks[0]["reduce"][("errors", form)]
+        log(f"mesh:reduce {form}: bitwise across 1/2/4 ranks "
+            f"{len(set.union(*shas.values())) == 1}; vs one kernel pass "
+            f"{err['kernel']:.3e} of tol; psum vs ordered {err['psum']:.3e}")
+        if len(set.union(*shas.values())) != 1:
+            fails.append(f"{form}: not bitwise across ranks {shas}")
+        if not err["kernel"] <= 1.0:
+            fails.append(f"{form}: {err['kernel']:.3e} of the kernel tol")
+        if not err["psum"] <= MESH_PSUM_TOL:
+            fails.append(f"{form}: psum {err['psum']:.3e}")
+    if fails:
+        raise AssertionError("; ".join(fails))
+    return dict(launches)
+
+
+
+def phase_mesh_dml(ranks):
+    """``mesh:dml``: the tables cell's DML fit + jackknife (row_block
+    MESH_RB, "pallas") on 2 gloo ranks bitwise the 1-rank (nccl) fit,
+    within MESH_FIT_TOL of the fit with no mesh, theta within 5 se."""
+    r0, r1 = ranks[0], ranks[1]
+    d0, d1 = r0["dml"], r1["dml"]
+    for name, rec in (("2 ranks [gloo]", d0), ("1 rank [nccl]", r0["dml_1"]),
+                      ("no mesh", r0["dml_none"])):
+        log(f"mesh:dml {name}: {rec['seconds']:.3f} s, seg_gram launches "
+            f"{rec['launches']}, bytes across the group {rec['bytes']:,}")
+    log(f"mesh:dml 2-rank launches per rank {[d0['launches'], d1['launches']]}"
+        f"; theta {d0['theta']} (no mesh {d0['theta_no_mesh']}); "
+        f"|theta-[1,0.5]|/se {d0['z']}; "
+        f"vs no mesh {d0['vs_no_mesh']:.3e} (tol {MESH_FIT_TOL:g}); bitwise "
+        f"2 ranks = 1 rank {d0['sha'] == r0['dml_1']['sha']}, rank 0 = rank "
+        f"1 {d0['sha'] == d1['sha']}")
+    fails = []
+    if not d0["sha"] == d1["sha"] == r0["dml_1"]["sha"]:
+        fails.append("the 2-rank fit is not bitwise the 1-rank fit")
+    if not d0["vs_no_mesh"] <= MESH_FIT_TOL:
+        fails.append(f"{d0['vs_no_mesh']:.3e} from the no-mesh fit")
+    if not max(d0["z"]) <= 5.0:
+        fails.append(f"theta not within 5 se: {d0['z']}")
+    if not all(sum(d["launches"].values()) for d in (d0, d1)):
+        fails.append("a rank launched no kernel")
+    if fails:
+        raise AssertionError("; ".join(fails))
+    return {key: d0["launches"].get(key, 0) + d1["launches"].get(key, 0)
+            for key in set(d0["launches"]) | set(d1["launches"])}
+
+
+def phase_mesh_ladder(ranks):
+    """``mesh:ladder``: B = MESH_BOOT_B at 100k in chunks of MESH_CHUNK on
+    2 gloo ranks; one injected lost shard: one retry and one downgrade (the
+    first chunk, on each rank alone), replicates bitwise the healthy
+    run's."""
+    fails, launches = [], collections.Counter()
+    for r in ranks[:2]:
+        h, s = r["ladder"]["healthy"], r["ladder"]["struck"]
+        launches.update(h["launches"])
+        launches.update(s["launches"])
+        log(f"mesh:ladder rank {r['rank']} [gloo, 2 ranks]: healthy "
+            f"{h['seconds']:.3f} s, struck {s['seconds']:.3f} s; seg_gram "
+            f"launches {h['launches']} / {s['launches']}; bytes across the "
+            f"group {h['bytes']:,} / {s['bytes']:,}; events {s['events']}")
+        acts = [(e[0], e[1]) for e in s["events"] if e[0] != "chunk"]
+        if acts != [("retry", 0), ("downgrade", 0)]:
+            fails.append(f"rank {r['rank']}: events {s['events']}")
+        if [e for e in h["events"] if e[0] != "chunk"]:
+            fails.append(f"rank {r['rank']}: healthy events {h['events']}")
+        if s["sha"] != h["sha"] or h["sha"] != ranks[0]["ladder"]["healthy"][
+                "sha"]:
+            fails.append(f"rank {r['rank']}: replicates not bitwise")
+        if not sum(h["launches"].values()):
+            fails.append(f"rank {r['rank']}: no kernel launched")
+    log(f"mesh:ladder: bitwise the healthy run {not fails}")
+    if fails:
+        raise AssertionError("; ".join(fails))
+    return dict(launches)
+
+
+def phase_mesh_shard_map(ranks):
+    """``mesh:shard_map``: the same bootstrap's B = MESH_BOOT_B replicates
+    split over 4 gloo ranks (8 each), bitwise the vmap executor's run on
+    rank 0."""
+    recs = [r["shard_map"] for r in ranks]
+    launches = collections.Counter()
+    for rec in recs:
+        launches.update(rec["launches"])
+    same = len({rec["sha"] for rec in recs}) == 1 and \
+        recs[0]["sha"] == recs[0]["vmap_sha"]
+    log(f"mesh:shard_map [gloo, 4 ranks]: {max(x['seconds'] for x in recs):.3f}"
+        f" s (vmap alone {recs[0]['vmap_seconds']:.3f} s); seg_gram launches "
+        f"per rank {[x['launches'] for x in recs]}; bytes across the group "
+        f"{recs[0]['bytes']:,}; bitwise vmap {same}")
+    if not same:
+        raise AssertionError("shard_map replicates differ from vmap's")
+    if not all(sum(x["launches"].values()) for x in recs):
+        raise AssertionError("a rank launched no kernel")
+    return dict(launches)
+
+
 def main(argv=None) -> int:
     """Run every phase; 0 only if all passed."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -4117,6 +4480,19 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
     del data
     torch.cuda.empty_cache()
+
+    mesh_ranks = run("mesh:ranks", phase_mesh_ranks, args, base)
+    for name, fn, a in (
+            ("mesh:reduce", phase_mesh_reduce, (args.n * p * 4,)),
+            ("mesh:dml", phase_mesh_dml, ()),
+            ("mesh:ladder", phase_mesh_ladder, ()),
+            ("mesh:shard_map", phase_mesh_shard_map, ())):
+        if mesh_ranks is None:
+            failed.append(name)
+            continue
+        for key, c in (run(name, fn, mesh_ranks, *a) or {}).items():
+            count(key, name, c)
+    del mesh_ranks
 
     bdata = paper_demo_data(n=BOOT_N, p=p, seed=args.seed)
     forms = run("kernels:inference-forms", lambda: run_cases(

@@ -61,6 +61,16 @@ def _use_pallas(n: int, row_block: int, strategy: Optional[str]) -> bool:
     return strategy == "pallas" and resolve_row_block(n, row_block) > 0
 
 
+def _active_data_mesh():
+    """The active DataMesh, if ``repro_torch.runtime.distributed`` is
+    loaded and a ``use_data_mesh`` context is open.  The sys.modules
+    probe keeps this module free of a runtime-layer import: a mesh can
+    only be active once the module that activates it is loaded."""
+    import sys
+    rd = sys.modules.get("repro_torch.runtime.distributed")
+    return None if rd is None else rd.current_data_mesh()
+
+
 def design(X: Tensor, *, intercept: bool = False,
            append: Optional[Tensor] = None) -> Tensor:
     """The fp32 design ``[X | 1? | append?]``."""
@@ -107,7 +117,10 @@ def blocked_reduce(block_fn: Callable[..., Any], arrays: Sequence[Tensor],
     ``pad_values`` sets the per-array padding constant (-1 for integer
     fold ids).  ``init`` seeds the left fold instead of zeros.  Under
     ``strategy="pallas"`` (a form with no fused builder) the call is
-    counted in ``FALLBACKS[form]`` and runs chunked."""
+    counted in ``FALLBACKS[form]`` and runs chunked.  Inside
+    ``use_data_mesh`` the blocks split over the mesh's ranks
+    (``runtime.distributed.dist_reduce``; "ordered": bitwise this
+    function's fold)."""
     arrays = tuple(arrays)
     n = arrays[0].shape[0]
     r = resolve_row_block(n, row_block)
@@ -122,6 +135,13 @@ def blocked_reduce(block_fn: Callable[..., Any], arrays: Sequence[Tensor],
     if strategy not in ("whole", "chunked"):
         raise ValueError(f"unknown strategy {strategy!r} "
                          "(expected whole | chunked | pallas)")
+    dm = _active_data_mesh()
+    if dm is not None:
+        # the blocks split over the mesh's ranks; the ordered reduction
+        # replays this function's left fold (runtime.distributed)
+        from repro_torch.runtime.distributed import dist_reduce
+        return dist_reduce(block_fn, arrays, row_block=r, dm=dm,
+                           pad_values=pad_values, init=init)
     pv = tuple(pad_values or (0,) * len(arrays))
     nb = -(-n // r)
 
@@ -173,7 +193,7 @@ def weighted_gram(X: Tensor, w: Tensor, *, intercept: bool = False,
     ``G[..., :, -1]``."""
     if _use_pallas(X.shape[0], row_block, strategy):
         D = design(X, intercept=intercept, append=append)
-        G = sg_ops.design_gram(D, w=w.to(_F32))
+        G = sg_ops.design_gram(D, w=w.to(_F32), row_block=row_block)
         return G, w.to(_F32).sum(-1)
     if append is None:
         def block(Xb, wb):
@@ -201,7 +221,8 @@ def weighted_gram_and_vec(X: Tensor, wg: Tensor, v: Tensor, *,
     ``[d | 1]`` (the augmented form, chunk-stable)."""
     if _use_pallas(X.shape[0], row_block, strategy):
         D = design(X, intercept=intercept)
-        G, u = sg_ops.gram_and_vec(D, wg.to(_F32), v.to(_F32))
+        G, u = sg_ops.gram_and_vec(D, wg.to(_F32), v.to(_F32),
+                                   row_block=row_block)
         n_eff = blocked_reduce(lambda wb: wb.sum(0), (_rows(wg),),
                                row_block=row_block)
         return G, u, n_eff
@@ -232,7 +253,7 @@ def fold_gram(X: Tensor, folds: Tensor, k: int, *, intercept: bool = False,
     counts (k,).  Padded fold ids are -1 and match no fold."""
     if _use_pallas(X.shape[0], row_block, strategy):
         D = design(X, intercept=intercept, append=append)
-        return sg_ops.fold_design_gram(D, folds, k)
+        return sg_ops.fold_design_gram(D, folds, k, row_block=row_block)
 
     def block(Xb, fb, *rest):
         D = design(Xb, intercept=intercept,
@@ -265,7 +286,7 @@ def fold_weighted_gram(X: Tensor, Wk: Tensor, *, intercept: bool = False,
         return _wgram(D, Wk.T), n_eff
     if strategy == "pallas":
         D = design(X, intercept=intercept, append=append)
-        return sg_ops.fold_weighted_design_gram(D, Wk), n_eff
+        return sg_ops.fold_weighted_design_gram(D, Wk, row_block=r), n_eff
 
     def block(Xb, Wb, *rest):
         D = design(Xb, intercept=intercept,
@@ -295,7 +316,7 @@ def residual_moments(y: Tensor, t: Tensor, my: Tensor, mt: Tensor,
     if r == 0:
         return rg_ops.residual_gram(y, t, my, mt, phi)
     if strategy == "pallas":
-        return sg_ops.residual_gram(y, t, my, mt, phi)
+        return sg_ops.residual_gram(y, t, my, mt, phi, row_block=r)
 
     def block(yb, tb, myb, mtb, phib):
         ry = (yb - myb).to(_F32)
@@ -317,7 +338,8 @@ def residual_weighted_gram(ry: Tensor, rt: Tensor, phi: Tensor, w: Tensor,
     ``m = [rt·phi | ry]`` plus ``n_eff = Σ w`` — the weighted final
     stage's moment.  ry, rt, w (n,) or (R, n); phi (n, p) shared."""
     if _use_pallas(phi.shape[0], row_block, strategy):
-        return sg_ops.residual_weighted_gram(ry, rt, phi, w)
+        return sg_ops.residual_weighted_gram(ry, rt, phi, w,
+                                             row_block=row_block)
     if ry.dim() == 2:
         return _stack_each([residual_weighted_gram(
             ry[b], rt[b], phi, w[b], row_block=row_block, strategy=strategy)
@@ -351,7 +373,8 @@ def residual_meat(y: Tensor, t: Tensor, my: Tensor, mt: Tensor,
     (R, p) -> (R, p, p)."""
     p = phi.shape[1]
     if _use_pallas(phi.shape[0], row_block, strategy):
-        return sg_ops.residual_meat(y, t, my, mt, phi, theta, w=w)
+        return sg_ops.residual_meat(y, t, my, mt, phi, theta, w=w,
+                                    row_block=row_block)
     if y.dim() == 2:
         return torch.stack([residual_meat(
             y[b], t[b], my[b], mt[b], phi, theta[b],
@@ -395,7 +418,7 @@ def iv_gram(ry: Tensor, rt: Tensor, rz: Tensor, phi: Tensor, w: Tensor, *,
     ``m = [rz·phi | rt·phi | ry]`` ((2p+1, 2p+1)) plus ``n_eff = Σ w``.
     ry, rt, rz, w (n,) or (R, n); phi (n, p) shared."""
     if _use_pallas(phi.shape[0], row_block, strategy):
-        return sg_ops.iv_gram(ry, rt, rz, phi, w)
+        return sg_ops.iv_gram(ry, rt, rz, phi, w, row_block=row_block)
     if ry.dim() == 2:
         return _stack_each([iv_gram(
             ry[b], rt[b], rz[b], phi, w[b], row_block=row_block,
@@ -425,7 +448,8 @@ def iv_meat(ry: Tensor, rt: Tensor, rz: Tensor, phi: Tensor, theta: Tensor,
     Batched as ``residual_meat``."""
     p = phi.shape[1]
     if _use_pallas(phi.shape[0], row_block, strategy):
-        return sg_ops.iv_meat(ry, rt, rz, phi, theta, w=w)
+        return sg_ops.iv_meat(ry, rt, rz, phi, theta, w=w,
+                              row_block=row_block)
     if ry.dim() == 2:
         return torch.stack([iv_meat(
             ry[b], rt[b], rz[b], phi, theta[b],
@@ -456,7 +480,8 @@ def fold_iv_gram(ry: Tensor, rt: Tensor, rz: Tensor, phi: Tensor,
     m_n m_nᵀ`` ((k, 2p+1, 2p+1)) plus per-fold row counts — the IV
     jackknife's one pass.  Padded fold ids are -1 and match no fold."""
     if _use_pallas(phi.shape[0], row_block, strategy):
-        return sg_ops.fold_iv_gram(ry, rt, rz, phi, folds, k)
+        return sg_ops.fold_iv_gram(ry, rt, rz, phi, folds, k,
+                                   row_block=row_block)
 
     def block(ryb, rtb, rzb, phib, fb):
         M = _iv_rows(ryb, rtb, rzb, phib)

@@ -84,6 +84,25 @@ def make_causal_data(n: int, p: int, *, seed: int = 0,
                       propensity=prop)
 
 
+def make_sharded_causal_data(n: int, p: int, n_shards: int, shard: int, *,
+                             seed: int = 0, device: DeviceLike = None,
+                             **kw) -> CausalData:
+    """Rows of one shard: ``make_causal_data(n // n_shards, p)`` on a
+    generator seeded from (seed, shard) alone (splitmix64, the port's
+    stand-in for the reference's ``fold_in``), so each host makes its
+    rows without the others' and the union over shards is one
+    deterministic data set.  As in the reference, each shard also draws
+    its own confounding coefficients."""
+    from repro_torch.inference.bootstrap import derive_seed
+
+    if n % n_shards:
+        raise ValueError(f"{n} rows do not split into {n_shards} shards")
+    if not 0 <= shard < n_shards:
+        raise ValueError(f"shard {shard} is not in [0, {n_shards})")
+    return make_causal_data(n // n_shards, p, seed=derive_seed(seed, shard),
+                            device=device, **kw)
+
+
 def paper_demo_data(n: int = 100_000, p: int = 500, *, seed: int = 0,
                     gen: Optional[torch.Generator] = None,
                     device: DeviceLike = None) -> CausalData:

@@ -14,13 +14,17 @@ leaf:
   vmap     the replicate axis written out as a leading batch dimension
            (the reference's name: it vmaps there), in microbatches of
            ``microbatch`` replicates (all at once when unset): every
-           weighted Gram of a microbatch is one kernel launch.
+           weighted Gram of a microbatch is one kernel launch;
+  shard_map  the replicate axis split into contiguous chunks over the
+           ranks of a data mesh (``runtime.distributed.DataMesh``), each
+           rank mapping its chunk as ``vmap`` does, one ``all_gather``
+           returning every chunk in replicate order.
 
-Both run the same function, so each replicate's arithmetic is the same
-in both wherever its operations are batch-invariant (the kernel's
-Grams, the elementwise solves, one mat-vec per fold).  ``shard_map``
-waits for the multi-card slice.  ``repro_torch.runtime.TaskRuntime``
-schedules executors: chunking, the downgrade ladder, futures.
+All run the same function, so each replicate's arithmetic is the same
+in all wherever its operations are batch-invariant (the kernel's
+Grams, the elementwise solves, one mat-vec per fold).
+``repro_torch.runtime.TaskRuntime`` schedules executors: chunking, the
+downgrade ladder, futures.
 """
 from __future__ import annotations
 
@@ -120,9 +124,43 @@ class BatchedExecutor:
                              for i in range(0, b, c)])
 
 
-def make_executor(name, *, microbatch: Optional[int] = None) -> Executor:
-    """``serial`` | ``vmap`` (``microbatch`` replicates per call); an
-    executor object passes through."""
+@dataclasses.dataclass
+class ShardMapExecutor:
+    """The replicate axis split over ``mesh``'s ranks: padded to a
+    multiple of the rank count (the padding replays replicate 0 and is
+    dropped), rank r maps chunk r with the batched executor, and one
+    ``all_gather`` a leaf returns the chunks in replicate order — so
+    every rank holds every replicate.  Inside its chunk no data mesh is
+    active: the rank's replicates are its own, so their rows must not be
+    pooled with another rank's."""
+
+    mesh: Any
+    name: str = "shard_map"
+
+    def map(self, fn: ReplicateFn, xs: Any, *args: Any) -> Any:
+        """Replicate-ordered outputs of ``fn``, every rank's chunk."""
+        from repro_torch.runtime.distributed import (all_gather_rows,
+                                                     no_data_mesh)
+
+        dm = self.mesh
+        b = leading_dim(xs)
+        c = -(-b // dm.n_shards)
+        pad = c * dm.n_shards - b
+        if pad:
+            xs = tree_map(lambda x: torch.cat(
+                [x, x[:1].expand((pad,) + tuple(x.shape[1:]))]), xs)
+        lo = dm.rank * c
+        with no_data_mesh():
+            out = BatchedExecutor().map(fn, slice_tree(xs, lo, lo + c),
+                                        *args)
+        return tree_map(lambda y: all_gather_rows(dm, y)[:b], out)
+
+
+def make_executor(name, *, microbatch: Optional[int] = None,
+                  mesh=None) -> Executor:
+    """``serial`` | ``vmap`` (``microbatch`` replicates per call) |
+    ``shard_map`` over ``mesh`` (default: the active data mesh; raises
+    without one); an executor object passes through."""
     if not isinstance(name, str):
         return name
     if name == "serial":
@@ -130,8 +168,13 @@ def make_executor(name, *, microbatch: Optional[int] = None) -> Executor:
     if name == "vmap":
         return BatchedExecutor(microbatch=microbatch)
     if name == "shard_map":
-        raise NotImplementedError(
-            "the shard_map executor spreads replicates over several cards; "
-            "it lands with the multi-card slice (ROADMAP A.10)")
+        if mesh is None:
+            from repro_torch.runtime.distributed import current_data_mesh
+            mesh = current_data_mesh()
+        if mesh is None:
+            raise ValueError("the shard_map executor splits replicates over "
+                             "a DataMesh: pass mesh= or call inside "
+                             "use_data_mesh")
+        return ShardMapExecutor(mesh)
     raise ValueError(f"unknown executor {name!r} "
                      "(expected serial | vmap | shard_map)")

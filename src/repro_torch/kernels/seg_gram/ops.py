@@ -30,8 +30,14 @@ rows of two ingests.
 
 The moments engine routes here only on its blocked path (row_block > 0);
 the kernel's own row partition is fixed by its tile configuration
-(csrc/seg_gram.cu), so no block size is passed.  Counts and n_eff are
-plain sums outside the kernel.
+(csrc/seg_gram.cu), so ``row_block`` sets no tile.  It matters under a
+data mesh only (``runtime.distributed``): with a mesh active and
+0 < row_block < n, each block of row_block rows is one ``seg_reduce`` —
+one kernel launch on the card, the plain version on the CPU — on the
+rank that owns it, and ``dist_reduce`` folds the partials in block
+order, from ``init``, which no block launch sees.  Padded rows carry
+w = 0, zero columns or segment id -1, which add exact zeros.  Counts and
+n_eff are plain sums outside the kernel.
 """
 from __future__ import annotations
 
@@ -80,6 +86,57 @@ _MEATS = {_ref.build_residual_meat: ("residual_meat", 4),
           _ref.build_iv_meat: ("iv_meat", 3)}
 
 
+def _active_data_mesh():
+    """The active DataMesh (the sys.modules probe of core.moments: no
+    runtime-layer import unless a mesh can be active)."""
+    import sys
+    rd = sys.modules.get("repro_torch.runtime.distributed")
+    return None if rd is None else rd.current_data_mesh()
+
+
+def _seg_reduce_dist(builder, arrays, seg, w, n_segments, init, row_block,
+                     dm):
+    """``seg_reduce`` per block of ``row_block`` rows over the mesh's
+    ranks.  Row inputs go to the distributed fold rows first — (n, d)
+    as they are, a batched (B, n, d) input and (B, n) weights transposed
+    — and come back to their own layout inside each block; broadcast
+    rows (theta's (1, d) or (B, 1, d)) reach every block whole."""
+    from repro_torch.runtime.distributed import dist_reduce
+
+    n = max(a.shape[-2] for a in arrays)
+    rows, pads, kinds = [], [], []
+    for a in arrays:
+        if a.shape[-2] != n:
+            kinds.append(a)                      # broadcast: passed whole
+            continue
+        kinds.append(a.dim())
+        rows.append(a if a.dim() == 2 else a.transpose(0, 1))
+        pads.append(0)
+    if seg is not None:
+        rows.append(seg)
+        pads.append(-1)
+    if w is not None:
+        rows.append(w if w.dim() == 1 else w.T)
+        pads.append(0)
+
+    def block(*blks):
+        it = iter(blks)
+        arrs = [k if isinstance(k, Tensor) else
+                (next(it) if k == 2 else next(it).transpose(0, 1))
+                for k in kinds]
+        sb = next(it) if seg is not None else None
+        wb = None
+        if w is not None:
+            wb = next(it)
+            wb = wb if w.dim() == 1 else wb.T
+        return seg_reduce(builder, arrs, seg=sb, w=wb,
+                          n_segments=n_segments)
+
+    return dist_reduce(block, rows, row_block=row_block, dm=dm,
+                       pad_values=pads,
+                       init=None if init is None else init.to(_F32))
+
+
 def _kernel_args(builder, arrays, w=None):
     """(kernel builder name, X, scalar columns, theta, row weights,
     LAUNCHES key or None) for a CUDA launch."""
@@ -111,12 +168,19 @@ def _kernel_args(builder, arrays, w=None):
 
 def seg_reduce(builder, arrays: Sequence[Tensor], *,
                seg: Optional[Tensor] = None, w: Optional[Tensor] = None,
-               n_segments: int = 1, init: Optional[Tensor] = None
-               ) -> Tensor:
+               n_segments: int = 1, init: Optional[Tensor] = None,
+               row_block: int = 0) -> Tensor:
     """``G[s] = Σ_{seg_n = s} w_n L_n ⊗ R_n``: (qL, qR) for one segment,
     else (S, qL, qR), with a leading B when ``w`` or an input is
-    batched; ``init`` seeds it."""
+    batched; ``init`` seeds it.  ``row_block``: the mesh's block size
+    (module docstring)."""
     arrays = [a.to(_F32) for a in arrays]
+    if row_block > 0:
+        dm = _active_data_mesh()
+        if dm is not None and row_block < max(a.shape[-2] for a in arrays):
+            return _seg_reduce_dist(builder, arrays, seg,
+                                    None if w is None else w.to(_F32),
+                                    n_segments, init, int(row_block), dm)
     dev = arrays[0].device
     w = None if w is None else w.to(_F32)
     if builder is _ref.build_fold_weighted and (w is not None
@@ -183,93 +247,101 @@ def segment_counts(seg: Tensor, n_segments: int) -> Tensor:
     return torch.bincount(ids, minlength=n_segments + 1)[:n_segments].to(_F32)
 
 
-def design_gram(D: Tensor, *, w: Optional[Tensor] = None) -> Tensor:
+def design_gram(D: Tensor, *, w: Optional[Tensor] = None,
+                row_block: int = 0) -> Tensor:
     """(q, q) weighted Gram over a pre-assembled design ((B, q, q) for
     (B, n) weights)."""
-    return seg_reduce(_ref.build_design, [D], w=w)
+    return seg_reduce(_ref.build_design, [D], w=w, row_block=row_block)
 
 
-def fold_design_gram(D: Tensor, folds: Tensor,
-                     k: int) -> Tuple[Tensor, Tensor]:
+def fold_design_gram(D: Tensor, folds: Tensor, k: int, *,
+                     row_block: int = 0) -> Tuple[Tensor, Tensor]:
     """(k, q, q) fold-segmented Gram + per-fold counts."""
-    G = seg_reduce(_ref.build_design, [D], seg=folds, n_segments=k)
+    G = seg_reduce(_ref.build_design, [D], seg=folds, n_segments=k,
+                   row_block=row_block)
     return G, segment_counts(folds, k)
 
 
-def gram_and_vec(D: Tensor, wg: Tensor, v: Tensor) -> Tuple[Tensor, Tensor]:
+def gram_and_vec(D: Tensor, wg: Tensor, v: Tensor, *,
+                 row_block: int = 0) -> Tuple[Tensor, Tensor]:
     """(Σ wg d dᵀ, Σ v d) in one pass, read off the augmented
     L = [wg·d | v]; wg, v (n,) or (B, n)."""
     q = D.shape[1]
-    Gaug = seg_reduce(_ref.build_gram_and_vec, [D, _col(wg), _col(v)])
+    Gaug = seg_reduce(_ref.build_gram_and_vec, [D, _col(wg), _col(v)],
+                      row_block=row_block)
     return Gaug[..., :q, :], Gaug[..., q, :]
 
 
 def residual_gram(y: Tensor, t: Tensor, my: Tensor, mt: Tensor,
-                  phi: Tensor, *,
-                  w: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
+                  phi: Tensor, *, w: Optional[Tensor] = None,
+                  row_block: int = 0) -> Tuple[Tensor, Tensor]:
     """(G (p, p), b (p,)) of the orthogonal moment, read off the fused
     augmented Gram M = [rt*phi | ry]."""
     p = phi.shape[1]
     Gaug = seg_reduce(_ref.build_residual,
-                      [_col(y), _col(t), _col(my), _col(mt), phi], w=w)
+                      [_col(y), _col(t), _col(my), _col(mt), phi], w=w,
+                      row_block=row_block)
     return Gaug[:p, :p], Gaug[:p, p]
 
 
 def residual_meat(y: Tensor, t: Tensor, my: Tensor, mt: Tensor,
                   phi: Tensor, theta: Tensor, *,
-                  w: Optional[Tensor] = None) -> Tensor:
+                  w: Optional[Tensor] = None, row_block: int = 0) -> Tensor:
     """(p, p) HC0 meat at theta; w scales e before squaring.  Batched:
     y, t, my, mt, w (B, n) and theta (B, p) -> (B, p, p)."""
     arrays = [_col(y), _col(t), _col(my), _col(mt), phi, _row(theta)]
     if w is not None:
         arrays.append(_col(w))
-    return seg_reduce(_ref.build_residual_meat, arrays)
+    return seg_reduce(_ref.build_residual_meat, arrays, row_block=row_block)
 
 
-def fold_weighted_design_gram(D: Tensor, Wk: Tensor) -> Tensor:
+def fold_weighted_design_gram(D: Tensor, Wk: Tensor, *,
+                              row_block: int = 0) -> Tensor:
     """(k, q, q) dense-weight Gram ``G[k] = Σ_n Wk[k, n] d_n d_nᵀ`` for
     Wk (k, n) — k any batch of folds (times replicates).  One launch of
     the design kernel with Wk as a batched row weight, counted as
     ``fold_weighted``; n_eff stays outside (moments.fold_weighted_gram)."""
     k, q = Wk.shape[0], D.shape[1]
-    G = seg_reduce(_ref.build_fold_weighted, [Wk.T, D])
+    G = seg_reduce(_ref.build_fold_weighted, [Wk.T, D], row_block=row_block)
     return G.reshape(k, q, q)
 
 
-def residual_weighted_gram(ry: Tensor, rt: Tensor, phi: Tensor,
-                           w: Tensor) -> Tuple[Tensor, Tensor]:
+def residual_weighted_gram(ry: Tensor, rt: Tensor, phi: Tensor, w: Tensor,
+                           *, row_block: int = 0) -> Tuple[Tensor, Tensor]:
     """(weighted augmented residual Gram over M = [rt·phi | ry], n_eff):
     ((p+1, p+1), ()) or, for ry, rt, w (B, n), ((B, p+1, p+1), (B,))."""
     Gaug = seg_reduce(_ref.build_residual_direct,
-                      [_col(ry), _col(rt), phi], w=w)
+                      [_col(ry), _col(rt), phi], w=w, row_block=row_block)
     return Gaug, w.to(_F32).sum(-1)
 
 
-def iv_gram(ry: Tensor, rt: Tensor, rz: Tensor, phi: Tensor,
-            w: Tensor) -> Tuple[Tensor, Tensor]:
+def iv_gram(ry: Tensor, rt: Tensor, rz: Tensor, phi: Tensor, w: Tensor, *,
+            row_block: int = 0) -> Tuple[Tensor, Tensor]:
     """((2p+1, 2p+1) instrumented augmented Gram over
     M = [rz·phi | rt·phi | ry], n_eff); batched as residual_weighted_gram."""
     Gaug = seg_reduce(_ref.build_iv, [_col(ry), _col(rt), _col(rz), phi],
-                      w=w)
+                      w=w, row_block=row_block)
     return Gaug, w.to(_F32).sum(-1)
 
 
 def fold_iv_gram(ry: Tensor, rt: Tensor, rz: Tensor, phi: Tensor,
-                 folds: Tensor, k: int) -> Tuple[Tensor, Tensor]:
+                 folds: Tensor, k: int, *,
+                 row_block: int = 0) -> Tuple[Tensor, Tensor]:
     """((k, 2p+1, 2p+1) fold-segmented instrumented Gram, counts)."""
     G = seg_reduce(_ref.build_iv, [_col(ry), _col(rt), _col(rz), phi],
-                   seg=folds, n_segments=k)
+                   seg=folds, n_segments=k, row_block=row_block)
     return G, segment_counts(folds, k)
 
 
 def iv_meat(ry: Tensor, rt: Tensor, rz: Tensor, phi: Tensor,
-            theta: Tensor, *, w: Optional[Tensor] = None) -> Tensor:
+            theta: Tensor, *, w: Optional[Tensor] = None,
+            row_block: int = 0) -> Tensor:
     """(p, p) HC0 meat of the instrumented moment at theta (batched as
     residual_meat)."""
     arrays = [_col(ry), _col(rt), _col(rz), phi, _row(theta)]
     if w is not None:
         arrays.append(_col(w))
-    return seg_reduce(_ref.build_iv_meat, arrays)
+    return seg_reduce(_ref.build_iv_meat, arrays, row_block=row_block)
 
 
 def segment_outer(U: Tensor, V: Tensor, seg: Tensor, n_segments: int, *,

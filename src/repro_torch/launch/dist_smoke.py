@@ -1,0 +1,155 @@
+"""Multi-process smoke test of the data mesh, and the launcher of ranks.
+
+    python -m repro_torch.launch.dist_smoke [--nprocs 2] [--device cpu]
+
+``spawn_ranks(fn, nprocs, *args)`` starts ``nprocs`` processes with
+``torch.multiprocessing`` (spawn, never fork), joins them into one
+``torch.distributed`` group through a ``FileStore`` in a temporary
+directory (no TCP port to clash with another run), runs
+``fn(rank, *args)`` on each and returns every rank's result in rank
+order.  A rank that raises makes the call raise and stops the others; a
+run past ``timeout`` stops every rank and raises.  A CUDA rank runs on
+card ``rank % device_count`` — all of them on ``cuda:0`` of a one-card
+machine, where only a gloo group can hold more than one rank
+(``runtime.distributed``).  Kernels are built by the caller before the
+ranks start: each rank loads the built library and builds nothing.
+
+The smoke test: ``--nprocs`` ranks (default 2) of a gloo group on
+``--device`` (default the card) run ``dist_reduce`` of a weighted Gram
+in the "ordered" and "psum" modes against a float64 numpy reference, and
+``moments.weighted_gram`` ("chunked") under ``use_data_mesh`` against
+the same call without a mesh, bitwise.  It prints one JSON line per
+rank and a verdict, and exits 0 only if every rank passed: a failure to
+form the group, a rank that raised or timed out, or a disagreement all
+exit non-zero.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import tempfile
+import time
+from typing import Any, Callable, List
+
+import numpy as np
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+SMOKE_TOL = 1e-5          # |got - float64| / max|float64|
+# rows (no multiple of the block), columns, rows a block
+SMOKE_N, SMOKE_P, SMOKE_RB = 100_003, 64, 8192
+
+
+def _entry(rank: int, fn: Callable[..., Any], nprocs: int, tmp: str,
+           backend: str, device: str, args: tuple) -> None:
+    if device == "cuda":
+        torch.cuda.set_device(rank % torch.cuda.device_count())
+    # ranks of one machine talk over the loopback interface
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    dist.init_process_group(backend, rank=rank, world_size=nprocs,
+                            store=dist.FileStore(os.path.join(tmp, "store"),
+                                                 nprocs))
+    try:
+        out = fn(rank, *args)
+    finally:
+        dist.destroy_process_group()
+    torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+
+
+def spawn_ranks(fn: Callable[..., Any], nprocs: int, *args: Any,
+                backend: str = "gloo", device: str = "cpu",
+                timeout: float = 600.0) -> List[Any]:
+    """``[fn(0, *args), ..., fn(nprocs - 1, *args)]``, each in a process
+    of its own joined into one ``backend`` group (module docstring).
+    ``fn`` and ``args`` must pickle: a module-level function and plain
+    values or CPU tensors."""
+    if device not in ("cpu", "cuda"):
+        raise ValueError(f"device must be cpu or cuda, not {device!r}")
+    with tempfile.TemporaryDirectory(prefix="ranks_") as tmp:
+        ctx = mp.start_processes(
+            _entry, args=(fn, nprocs, tmp, backend, device, args),
+            nprocs=nprocs, join=False, start_method="spawn")
+        deadline = time.monotonic() + timeout
+        try:
+            while not ctx.join(timeout=max(0.0,
+                                           deadline - time.monotonic())):
+                if time.monotonic() >= deadline:
+                    raise TimeoutError(f"{nprocs} ranks did not finish in "
+                                       f"{timeout:.0f} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.terminate()
+            for p in ctx.processes:
+                p.join(10)
+        # the ranks' own files (torch.save above): full unpickling
+        return [torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                           weights_only=False) for r in range(nprocs)]
+
+
+def _smoke_rank(rank: int, n: int, p: int, row_block: int,
+                device: str) -> dict:
+    from repro_torch.core import moments
+    from repro_torch.runtime.distributed import (TRAFFIC, dist_reduce,
+                                                 make_data_mesh,
+                                                 use_data_mesh)
+
+    dev = torch.device("cuda", torch.cuda.current_device()) \
+        if device == "cuda" else torch.device("cpu")
+    rng = np.random.default_rng(0)
+    X = rng.standard_normal((n, p)).astype(np.float32)
+    w = rng.random(n).astype(np.float32)
+    ref = (X.astype(np.float64) * w[:, None]).T @ X.astype(np.float64)
+    Xt, wt = torch.from_numpy(X).to(dev), torch.from_numpy(w).to(dev)
+
+    def block(xb, wb):
+        return (xb * wb[:, None]).T @ xb
+
+    out = {"rank": rank, "device": str(dev), "errors": {}, "meshes": []}
+    for mode in ("ordered", "psum"):
+        dm = make_data_mesh(device=dev, reduction=mode)
+        got = dist_reduce(block, [Xt, wt], row_block=row_block, dm=dm)
+        out["errors"][mode] = float(np.abs(got.double().cpu().numpy() - ref)
+                                    .max() / np.abs(ref).max())
+        out["meshes"].append(f"{dm.label} {dm.backend}")
+    plain = moments.weighted_gram(Xt, wt, intercept=True,
+                                  row_block=row_block, strategy="chunked")
+    with use_data_mesh(make_data_mesh(device=dev)):
+        meshed = moments.weighted_gram(Xt, wt, intercept=True,
+                                       row_block=row_block,
+                                       strategy="chunked")
+    out["bitwise"] = all(torch.equal(a, b) for a, b in zip(plain, meshed))
+    out["bytes"] = int(TRAFFIC["bytes"])
+    out["ok"] = out["bitwise"] and max(out["errors"].values()) < SMOKE_TOL
+    return out
+
+
+def main(argv=None) -> int:
+    """Run the smoke test; 0 only if every rank passed."""
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--nprocs", type=int, default=2)
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    args = ap.parse_args(argv)
+    if args.device == "cuda" and not torch.cuda.is_available():
+        print("dist_smoke: FAIL (no CUDA device; pass --device cpu)")
+        return 2
+    try:
+        results = spawn_ranks(_smoke_rank, args.nprocs, SMOKE_N, SMOKE_P,
+                              SMOKE_RB, args.device, backend="gloo",
+                              device=args.device, timeout=300)
+    except Exception as e:      # noqa: BLE001 — the verdict names it
+        print(f"dist_smoke: FAIL ({type(e).__name__}: {e})")
+        return 1
+    for r in results:
+        print(json.dumps(r))
+    ok = all(r["ok"] for r in results)
+    print(f"dist_smoke: {'OK' if ok else 'FAIL'} ({args.nprocs} ranks, "
+          f"gloo, {args.device})")
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

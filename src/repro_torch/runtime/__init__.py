@@ -1,7 +1,7 @@
-"""repro_torch.runtime — the Ray-style task-graph runtime on one card.
+"""repro_torch.runtime — the Ray-style task-graph runtime and the data mesh.
 
 The scheduling layer the paper attributes to Ray, over the port's
-executors (``serial | vmap``): ``TaskFuture`` handles and deterministic
+executors (``serial | vmap | shard_map``): ``TaskFuture`` handles and deterministic
 DAG execution give Ray's ``ObjectRef`` semantics (``future``), an affine
 peak-memory model fitted from two probed chunks sizes replicate chunks
 against ``runtime_memory_budget`` (``memory``), and ``TaskRuntime``
@@ -9,11 +9,14 @@ against ``runtime_memory_budget`` (``memory``), and ``TaskRuntime``
 ladder — results stay bitwise the no-failure run's, because every
 replicate function of the port is batch-invariant.  Bootstrap,
 jackknife, crossfit, refutation and the sweep's cells all dispatch
-through it; ``jobs`` runs sweeps as background jobs.
-
-The reference's ``runtime.distributed`` (the row-sharded data mesh:
-``DataMesh``, ``make_data_mesh``, ``use_data_mesh``, ``dist_reduce``,
-``ShardLostError``, ...) lands with the multi-card slice, ROADMAP A.10.
+through it; ``jobs`` runs sweeps as background jobs.  The paper's
+data parallelism is ``distributed``: rows split over the ranks of a
+``torch.distributed`` group, each rank reduces its row blocks to
+Gram-shaped partials and only those cross the group — bitwise the
+single-process chunked fold in the "ordered" mode — and
+``TaskRuntime(data_mesh=...)`` runs its chunks on the mesh first, with a
+lost shard dropping the chunk to the single-host ladder.  Sweeps, the
+store and jobs under a mesh are ROADMAP A.10b.
 """
 #   future.py     TaskFuture handles + deterministic DAG execution
 #                 (submit/call/gather — Ray's ObjectRef semantics)
@@ -21,12 +24,24 @@ The reference's ``runtime.distributed`` (the row-sharded data mesh:
 #                 allocator's peak) -> auto chunk sizing; chunk costs
 #                 from the seg_gram launches
 #   scheduler.py  TaskRuntime: memory-aware chunked maps, per-chunk
-#                 retry with backend downgrade (vmap -> serial, bitwise
-#                 results), nested (outer x inner) parallelism via
-#                 map_product
+#                 retry with backend downgrade (data mesh -> shard_map
+#                 -> vmap -> serial, bitwise results), nested (outer x
+#                 inner) parallelism via map_product
+#   distributed.py row-sharded moment reduction over a torch.distributed
+#                 group — ordered mode bitwise the single-process chunked
+#                 fold, psum mode one all-reduce
 #   jobs.py       minimal job-submission + event-stream API over
 #                 sweeps: submit a SweepSpec, poll status, subscribe
 #                 to per-column completion events (EventLog-backed)
+from repro_torch.runtime.distributed import (
+    DataMesh,
+    ShardLostError,
+    current_data_mesh,
+    dist_reduce,
+    inject_shard_failure,
+    make_data_mesh,
+    use_data_mesh,
+)
 from repro_torch.runtime.future import TaskFuture, TaskGraph, resolve
 from repro_torch.runtime.memory import (
     ChunkCost,
@@ -46,6 +61,13 @@ from repro_torch.runtime.scheduler import (
 from repro_torch.runtime.jobs import JobManager, SweepJob
 
 __all__ = [
+    "DataMesh",
+    "ShardLostError",
+    "current_data_mesh",
+    "dist_reduce",
+    "inject_shard_failure",
+    "make_data_mesh",
+    "use_data_mesh",
     "JobManager",
     "SweepJob",
     "TaskFuture",

@@ -8,12 +8,20 @@ layer the paper attributes to Ray:
                        peak the affine memory model (runtime.memory)
                        predicts under ``memory_budget``;
   fault tolerance      each chunk retries down the backend ladder
-                       (vmap → serial, on the same card with the same
-                       kernels) on failure, the stand-in for Ray
+                       (shard_map → vmap → serial, on the same card with
+                       the same kernels) on failure, the stand-in for Ray
                        re-executing a lost task on another worker.
                        Results stay bitwise: the port's replicate
                        functions are batch-invariant, so a downgraded
                        chunk computes the same bits;
+  data mesh            with ``data_mesh=``, a chunk first runs on the
+                       primary executor inside ``use_data_mesh`` (its
+                       blocked moments row-sharded over the mesh's
+                       ranks, runtime.distributed); a lost shard drops
+                       that chunk to the ladder on this rank alone,
+                       inside the mesh's one-rank twin: the same blocks
+                       folded in the same order with no collective, so
+                       the same bits for every strategy ("ordered");
   deterministic order  chunks are dispatched and concatenated in fixed
                        replicate order, whatever backends ran them;
   nested parallelism   ``map_product`` flattens two parallel axes
@@ -30,8 +38,9 @@ callers onto the runtime costs nothing on the happy path.
 
 Differences from the reference's scheduler:
 
-  * the ladder has no ``shard_map`` rung: that executor, and
-    ``data_mesh=``, raise naming ROADMAP A.10;
+  * the shard_map executor takes its mesh from ``data_mesh=`` or the
+    active mesh and raises without one, where the reference spans the
+    process's devices;
   * the reference's ``jit_cache_miss[...]`` counters have no
     counterpart: eager PyTorch compiles no per-closure program, so there
     is no miss to count (the kernels are built once per process);
@@ -63,6 +72,7 @@ from repro_torch.inference.executor import (Executor, concat_trees,
                                             tree_map)
 from repro_torch.obs.audit import ChunkAudit
 from repro_torch.obs.trace import Tracer, maybe_span
+from repro_torch.runtime.distributed import DataMesh, use_data_mesh
 from repro_torch.runtime.future import TaskFuture, TaskGraph, resolve
 from repro_torch.runtime.memory import (ChunkCost, MemoryModel,
                                         cached_model, input_device,
@@ -186,6 +196,12 @@ class TaskRuntime:
                    memory model (CausalConfig.runtime_chunk).
     max_retries    extra attempts a chunk gets after its first failure
                    (each attempt moves one rung down the ladder).
+    data_mesh      optional ``runtime.distributed.DataMesh``: each chunk
+                   first runs on the primary executor with the mesh
+                   active (the rung ``data_mesh[<label>]:<executor>``),
+                   then down the ladder inside the mesh's one-rank
+                   twin; a shard_map executor splits its replicates over
+                   this mesh.
     tracer         optional repro_torch.obs.Tracer: spans around map /
                    chunk / DAG-node execution (synchronized with the
                    card), chunk latency histograms, downgrade / retry
@@ -212,10 +228,16 @@ class TaskRuntime:
                  tracer: Optional[Tracer] = None,
                  probe: Optional[Callable] = None,
                  events_maxlen: int = 512):
-        if data_mesh is not None:
-            raise NotImplementedError(
-                "data meshes land with the distributed slice (ROADMAP A.10)")
-        self._primary = make_executor(executor)
+        if data_mesh is not None and not isinstance(data_mesh, DataMesh):
+            raise TypeError(f"data_mesh must be a DataMesh, got "
+                            f"{type(data_mesh).__name__}")
+        self.data_mesh = data_mesh
+        self._primary = make_executor(executor, mesh=data_mesh)
+        # fn -> its closure inside the mesh / inside the one-rank twin
+        self._mesh_fns: "weakref.WeakKeyDictionary" = \
+            weakref.WeakKeyDictionary()
+        self._local_fns: "weakref.WeakKeyDictionary" = \
+            weakref.WeakKeyDictionary()
         self.memory_budget = int(memory_budget)
         self.chunk = int(chunk)
         self.max_retries = int(max_retries)
@@ -256,6 +278,28 @@ class TaskRuntime:
                 out.append(exe)
         return tuple(out)
 
+    def _on_mesh(self, fn, local: bool):
+        """A stable per-(runtime, fn) closure that runs ``fn`` with the
+        data mesh active — or, ``local``, its one-rank twin: the same
+        row blocks and fold on this rank alone, no collective."""
+        cache = self._local_fns if local else self._mesh_fns
+        wrapped = cache.get(fn)
+        if wrapped is None:
+            dm = self.data_mesh
+            if local:
+                dm = dataclasses.replace(dm, group=None, rank=0, n_hosts=1,
+                                         n_devices=1, backend=None)
+            # a weak reference: a strong capture would pin the key alive
+            # through its own value
+            fn_ref = weakref.ref(fn)
+
+            def wrapped(*a, **kw):
+                with use_data_mesh(dm):
+                    return fn_ref()(*a, **kw)
+
+            cache[fn] = wrapped
+        return wrapped
+
     def _attempt(self, exe: Executor, fn, xs_c: Any, args: Tuple[Any, ...],
                  label: str, index: int, measure: bool) -> _Chunk:
         size = leading_dim(xs_c)
@@ -284,15 +328,25 @@ class TaskRuntime:
     def _run_chunk(self, fn, xs_c: Any, args: Tuple[Any, ...], label: str,
                    index: int, measure: bool = False) -> _Chunk:
         err: Optional[BaseException] = None
-        plans = self._ladder()
-        for attempt, exe in enumerate(plans):
+        # the attempt plan: the data-mesh rung on the primary executor
+        # first, then the backend ladder — under a mesh, on this rank
+        # alone inside its one-rank twin (the same bits)
+        plans: List[Tuple[Executor, Any, str]] = []
+        rung_fn = fn
+        if self.data_mesh is not None:
+            plans.append((self._primary, self._on_mesh(fn, local=False),
+                          f"data_mesh[{self.data_mesh.label}]:"
+                          f"{self._primary.name}"))
+            rung_fn = self._on_mesh(fn, local=True)
+        plans.extend((exe, rung_fn, exe.name) for exe in self._ladder())
+        for attempt, (exe, run_fn, rung) in enumerate(plans):
             if attempt > self.max_retries:
                 break
             if attempt:
-                self._emit(RuntimeEvent("downgrade", label, index, exe.name,
+                self._emit(RuntimeEvent("downgrade", label, index, rung,
                                         str(err)))
             try:
-                ch = self._attempt(exe, fn, xs_c, args, label, index,
+                ch = self._attempt(exe, run_fn, xs_c, args, label, index,
                                    measure)
             except Exception as e:  # noqa: BLE001 — the ladder handles it
                 if poisons_context(e):
@@ -301,7 +355,7 @@ class TaskRuntime:
                 # a re-attempt is coming iff the ladder has a lower rung
                 # left AND the retry budget allows it
                 if attempt < self.max_retries and attempt + 1 < len(plans):
-                    self._emit(RuntimeEvent("retry", label, index, exe.name,
+                    self._emit(RuntimeEvent("retry", label, index, rung,
                                             str(e)))
                 continue
             # a failed attempt's traceback holds this frame, and with it
@@ -460,13 +514,15 @@ class TaskRuntime:
 
 
 def as_runtime(executor, *, memory_budget: int = 0, chunk: int = 0,
-               max_retries: int = 2, tracer: Optional[Tracer] = None
-               ) -> TaskRuntime:
+               max_retries: int = 2, tracer: Optional[Tracer] = None,
+               data_mesh: Optional[DataMesh] = None) -> TaskRuntime:
     """Coerce an executor name / Executor / TaskRuntime into a
     TaskRuntime — the adapter every migrated caller goes through.  A
-    TaskRuntime passes through untouched (it keeps its own tracer);
-    ``tracer`` attaches to freshly-built runtimes only."""
+    TaskRuntime passes through untouched (it keeps its own tracer and
+    data mesh); ``tracer`` / ``data_mesh`` attach to freshly-built
+    runtimes only."""
     if isinstance(executor, TaskRuntime):
         return executor
     return TaskRuntime(executor, memory_budget=memory_budget, chunk=chunk,
-                       max_retries=max_retries, tracer=tracer)
+                       max_retries=max_retries, data_mesh=data_mesh,
+                       tracer=tracer)

@@ -41,8 +41,8 @@ Tracing: with ``tracer=`` (a ``repro_torch.obs.Tracer``) every ingest
 runs in a ``store.ingest`` span and every refresh in a ``store.refresh``
 span, each closing once the card has finished, and the tracer's metrics
 count ``store.ingests``, ``store.ingest.rows``, ``store.refreshes`` and
-gauge ``store.version``.  Data meshes (ROADMAP A.10) land with a later
-slice: ``data_mesh=`` raises.
+gauge ``store.version``.  A store under a data mesh is ROADMAP A.10b:
+``data_mesh=`` raises.
 """
 from __future__ import annotations
 
@@ -131,8 +131,8 @@ class MomentStore:
     def __init__(self, spec: SweepSpec, n_features: int, seed: int = 0, *,
                  tracer=None, data_mesh=None, device: DeviceLike = None):
         if data_mesh is not None:
-            raise NotImplementedError("data meshes land with the "
-                                      "distributed slice (ROADMAP A.10)")
+            raise NotImplementedError("a store under a data mesh is "
+                                      "ROADMAP A.10b")
         self.spec = spec
         self.tracer = tracer
         self.n_features = int(n_features)

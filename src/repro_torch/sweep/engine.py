@@ -43,8 +43,9 @@ Fault isolation: a failing column (unknown estimator, missing
 instrument, a config the port cannot build — the s/t/x metalearners
 name ROADMAP A.6b — or an error past the downgrade ladder) is recorded
 on its ``ColumnResult.error``; every other column keeps its estimates.
-Zero-row segments yield flagged (``ok = False``) finite cells.  Data
-meshes wait for ROADMAP A.10.
+Zero-row segments yield flagged (``ok = False``) finite cells.  Sweeps
+under a data mesh, and columns on the shard_map executor (which needs
+one), wait for ROADMAP A.10b.
 
 Checkpoints (``checkpoint=``, a ``CheckpointManager``): each column
 saves as step = column index the moment it settles, with a provenance
@@ -117,8 +118,13 @@ def _segment_mask(sids: Tensor, sid: Tensor) -> Tensor:
 
 
 def _runtime(cfg: CausalConfig, executor, tracer=None):
+    executor = executor if executor is not None else cfg.inference_executor
+    if executor == "shard_map":
+        raise NotImplementedError("a column on the shard_map executor needs "
+                                  "a data mesh; sweeps under a mesh are "
+                                  "ROADMAP A.10b")
     return as_runtime(
-        executor if executor is not None else cfg.inference_executor,
+        executor,
         memory_budget=cfg.runtime_memory_budget,
         chunk=cfg.sweep_chunk or cfg.runtime_chunk,
         max_retries=cfg.runtime_max_retries, tracer=tracer)
@@ -421,7 +427,7 @@ def sweep(spec: SweepSpec, *, X, y, t, segment_ids, z=None, seed: int = 0,
     tracer            optional ``repro_torch.obs.Tracer``: column and
                       group spans with the runtime's spans inside (see
                       the module docstring); None records nothing.
-    data_mesh         raises: data meshes land with ROADMAP A.10.
+    data_mesh         raises: sweeps under a data mesh are ROADMAP A.10b.
     checkpoint        optional ``CheckpointManager``: each column saves
                       as step = column index the moment it settles
                       (success OR error); ``keep_latest`` is raised to
@@ -437,8 +443,8 @@ def sweep(spec: SweepSpec, *, X, y, t, segment_ids, z=None, seed: int = 0,
     if mode not in ("cells", "segmented"):
         raise ValueError(f"unknown sweep mode {mode!r} (cells | segmented)")
     if data_mesh is not None:
-        raise NotImplementedError("data meshes land with the distributed "
-                                  "slice (ROADMAP A.10)")
+        raise NotImplementedError("sweeps under a data mesh are ROADMAP "
+                                  "A.10b")
     dev = resolve_device(device)
     n_seg = spec.n_segments
     base_data = _base_data(X, y, t, segment_ids, z, dev)

@@ -120,8 +120,8 @@ def test_later_engines_and_nuisances_raise(data):
 
     nu = tnu.make_ridge()
     # any executor name maps the fold axis through the task runtime; the
-    # shard_map executor itself waits for the multi-card slice
-    with pytest.raises(NotImplementedError, match="A.10"):
+    # shard_map executor needs a data mesh, and none is active
+    with pytest.raises(ValueError, match="DataMesh"):
         tcf.crossfit_one(nu, torch.Generator(), torch.zeros(10, 2),
                          torch.zeros(10), torch.zeros(10, dtype=torch.long),
                          2, engine="shard_map")

@@ -94,6 +94,12 @@ the penalty grid's scores against the CPU (1e-4) and the same winner;
 the mlp's batched fit bitwise each model alone on the card and within
 1e-3 of the CPU after 30 AdamW steps.
 
+The data mesh (runtime.distributed): two gloo ranks on cuda:0 reduce
+the kernel forms one seg_gram launch a block, the accumulators staged
+through host memory — bitwise the 1-rank mesh, within 1e-5·max of one
+kernel pass over all rows; two NCCL ranks on one card refuse to build a
+mesh, naming gloo.
+
 LM serving on the card (small bf16 models of the three families): a
 served wave's prefill launches one kernel per attention or scan block
 (scans on the tiled form) and its decode steps none; the prefill's
@@ -940,11 +946,17 @@ def test_sweep_on_card_matches_cpu(card, strategy):
     out = [sweep(spec, X=d.X, y=d.y, t=d.t, segment_ids=sids,
                  mode="segmented", device=dev) for dev in ("cpu", card)]
     got, want = out[1].columns[0], out[0].columns[0]
-    assert got.events == ("segmented",) and out[1].columns[1].failed
+    assert got.events == ("segmented",)
     np.testing.assert_allclose(got.thetas.cpu().numpy(),
                                want.thetas.numpy(), rtol=1e-4, atol=1e-5)
     np.testing.assert_allclose(got.ses.cpu().numpy(), want.ses.numpy(),
                                rtol=1e-4, atol=1e-6)
+    # the drlearner column has no segmented kernel: it runs as masked
+    # cells, on the same per-cell folds on both devices
+    dr, dr_cpu = out[1].columns[1], out[0].columns[1]
+    assert not dr.failed and dr.events == ()
+    np.testing.assert_allclose(dr.thetas.cpu().numpy(),
+                               dr_cpu.thetas.numpy(), rtol=1e-4, atol=1e-5)
 
 
 def _store_data(n=4096, p=8, seed=0):
@@ -1714,3 +1726,102 @@ def test_dense_attention_refused_on_card_for_train_and_prefill(card):
                                    x[:, :1].cpu(), cpu, 5)
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-5,
                                atol=1e-5 * float(want.abs().max()))
+
+
+# ---------------------------------------------------------------------------
+# The data mesh on the card (runtime.distributed): ranks on cuda:0
+# ---------------------------------------------------------------------------
+
+_MESH_N, _MESH_P, _MESH_RB = 100_003, 31, 16_384
+
+
+def _mesh_rank_kernel(rank: int) -> dict:
+    """Rank side of the gloo mesh test: the kernel forms per block on
+    cuda:0 under a 1-rank and a 2-rank mesh, with the launches counted."""
+    import hashlib
+
+    import torch.distributed as dist
+    from repro_torch.core import moments
+    from repro_torch.kernels.seg_gram import kernel as kern
+    from repro_torch.runtime import make_data_mesh, use_data_mesh
+    from repro_torch.runtime.distributed import TRAFFIC
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    g1 = dist.new_group([0])
+    g = torch.Generator(device=dev).manual_seed(3)
+    X = torch.randn((_MESH_N, _MESH_P), generator=g, device=dev)
+    w = torch.rand(_MESH_N, generator=g, device=dev)
+    folds = torch.randint(0, 5, (_MESH_N,), generator=g, device=dev)
+
+    def forms():
+        kw = dict(row_block=_MESH_RB, strategy="pallas")
+        return (moments.weighted_gram(X, w, intercept=True, **kw)[0],
+                moments.fold_gram(X, folds, 5, intercept=True, **kw)[0])
+
+    def digest(ts):
+        return [hashlib.sha256(t.contiguous().cpu().numpy().tobytes())
+                .hexdigest() for t in ts]
+
+    out = {"rank": rank}
+    meshes = {2: make_data_mesh(device=dev, backend="gloo")}
+    if rank == 0:
+        meshes[1] = make_data_mesh(group=g1, device=dev)
+        out["single"] = [t.cpu() for t in forms()]
+    for s, dm in sorted(meshes.items()):
+        kern.LAUNCHES.clear()
+        b0 = TRAFFIC["staged_bytes"]
+        with use_data_mesh(dm):
+            got = forms()
+        torch.cuda.synchronize()
+        out[s] = {"digest": digest(got), "launches": dict(kern.LAUNCHES),
+                  "staged": TRAFFIC["staged_bytes"] - b0,
+                  "values": [t.cpu() for t in got]}
+    return out
+
+
+@pytest.mark.cuda
+def test_mesh_gloo_two_ranks_kernel_blocks_bitwise(card):
+    """Two gloo ranks on cuda:0: every block partial is a seg_gram launch
+    on the card (design, and design_segmented for fold_gram), the
+    accumulators staged through host memory; the result is bitwise the
+    1-rank mesh's and within 1e-5·max of one kernel pass over all rows."""
+    from repro_torch.kernels.seg_gram import kernel as kern
+    from repro_torch.launch.dist_smoke import spawn_ranks
+
+    kern.library()                  # built here, loaded by the ranks
+    r0, r1 = spawn_ranks(_mesh_rank_kernel, 2, backend="gloo",
+                         device="cuda", timeout=300)
+    blocks = -(-_MESH_N // _MESH_RB)
+    per_rank = -(-blocks // 2)
+    assert r0[2]["digest"] == r1[2]["digest"] == r0[1]["digest"]
+    for r in (r0, r1):
+        assert r[2]["launches"] == {"design": per_rank,
+                                    "design_segmented": per_rank}
+        assert r[2]["staged"] > 0
+    assert r0[1]["launches"] == {"design": blocks,
+                                 "design_segmented": blocks}
+    for got, want in zip(r0[2]["values"], r0["single"]):
+        _close(got, want)
+
+
+def _nccl_one_card(rank: int) -> str:
+    from repro_torch.runtime import make_data_mesh
+
+    torch.cuda.set_device(0)            # both ranks on one card
+    try:
+        make_data_mesh(device="cuda:0")
+    except RuntimeError as e:
+        return str(e)
+    return ""
+
+
+@pytest.mark.cuda
+def test_mesh_nccl_two_ranks_on_one_card_raises(card):
+    """NCCL cannot hold two ranks on one device: the mesh refuses to be
+    built, naming the shared card and gloo, instead of falling back."""
+    from repro_torch.launch.dist_smoke import spawn_ranks
+
+    msgs = spawn_ranks(_nccl_one_card, 2, backend="nccl", device="cuda",
+                       timeout=120)
+    for m in msgs:
+        assert "card of its own" in m and "gloo" in m, m

@@ -167,14 +167,20 @@ def test_device_none_without_cuda_raises(monkeypatch):
 def test_bootstrap_inference_waits_for_its_slice(data):
     """The default inference (the pairs bootstrap) is served, under a
     memory budget too; what is still to come raises naming its ROADMAP
-    item: the shard_map executor (A.10)."""
+    item; the shard_map executor, outside a data mesh, raises."""
     X, y, t = convert.data(*data, device="cpu")
     res = DML(CausalConfig(n_bootstrap=4), device="cpu").fit(
         y[:500], t[:500], X[:500])
     lo, hi = res.ate_interval()
     assert lo < hi and res.inference().method == "pairs"
-    with pytest.raises(NotImplementedError, match="A.10"):
+    with pytest.raises(ValueError, match="DataMesh"):
         res.inference(executor="shard_map")
+    # inside a data mesh it splits the replicates over the mesh's ranks
+    # (one here): the same replicates as vmap
+    from repro_torch.runtime import make_data_mesh, use_data_mesh
+    with use_data_mesh(make_data_mesh(device="cpu")):
+        sharded = res.inference(executor="shard_map")
+    assert torch.equal(sharded.replicates, res.inference().replicates)
     # the memory budget reaches the task runtime (one chunk on the CPU,
     # where torch keeps no peak counter): the same interval
     budgeted = DML(CausalConfig(n_bootstrap=4, runtime_memory_budget=1 << 30),
