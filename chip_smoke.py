@@ -140,7 +140,8 @@ Phases (each failure makes the script exit non-zero):
      B = 16 (launches, serial ≡ batched);
  21. ``serve:effects``: the store's 64-cohort panels — day 5 from the
      refresh (equal to its snapshot's), day 3 through
-     ``panel_from_checkpoint`` — serving 2^20 requests through
+     ``panel_from_checkpoint`` — serving 2^19 requests (cut from 2^20
+     for time) through
      ``EffectServer`` waves of (8, 64): requests per second and the
      server's own wave and request p50 / p99, every wave bitwise
      ``score_single`` on a sample of 1,024 requests, padded slots
@@ -176,14 +177,16 @@ Phases (each failure makes the script exit non-zero):
      budgeted run traced ≡ untraced bitwise, its Chrome trace
      (``build/chip_smoke_runtime_trace.json``) strict JSON with
      ``runtime.chunk`` and ``dag.task`` spans and audit rows;
-     ``sweep:cells`` — ``sweep(mode="cells")`` at the sweep cell's 64
-     segments x 500 at 2^18 rows (cut from 2^20 for time), the dml and
+     ``sweep:cells`` — ``sweep(mode="cells")`` at 32 segments (cut
+     from the sweep cell's 64 for time) x 500 at 2^18 rows (cut from
+     2^20 for time), the dml and
      drlearner columns under a budget that chunks them (the dml cells'
      memory model probed on the card, at its peak for 8 cells): chunk,
      peak and seconds per column, every segment's ATE within 5 se of 1,
      the largest |cells - segmented| ATE in se (no gate), a small cells
      sweep card vs CPU (1e-4), ``with_ci`` (16 segments x 2^14 rows —
-     cut from 2^16 for time —, B = 16) bitwise at two chunk sizes,
+     cut from 2^16 for time —, B = 8, cut from 16) bitwise at two chunk
+     sizes,
      ``serial_loop`` bitwise cells
      (8 segments); then ``kernels:cells-forms`` (fold_weighted at the
      chunk the budget picked); ``jobs`` — ``JobManager.submit`` of a
@@ -266,7 +269,28 @@ Phases (each failure makes the script exit non-zero):
      executor's.  Each prints its seconds, backend, ranks, seg_gram
      launches per rank and the accumulator bytes that crossed the group
      (beside the rows' bytes); the launches enter the seg_gram records'
-     ``launches_by_path`` as ``mesh:<phase>``.
+     ``launches_by_path`` as ``mesh:<phase>``;
+ 27. the mesh's consumers and the paper's cells as steps (slice 14), on
+     the same ranks: ``mesh:sweep`` — a cells sweep (dml and drlearner
+     columns) of 16 segments × 2^17 rows × 500, 65,536 rows a block, on
+     2 ranks bitwise the 1-rank (nccl) panel, within 1e-4 of the panel
+     with no mesh, every dml ATE within 5 se —; ``mesh:shard_map-sweep``
+     — a dml column's cells split over 4 ranks, bitwise the vmap
+     column —; ``mesh:resume`` — a lost shard with no retry budget fails
+     its column alone, its neighbour bitwise the healthy mesh run (the
+     job below), and a re-run restores the neighbour and recomputes that
+     column bitwise; ``elastic_sweep`` twice, the second restoring —;
+     ``mesh:jobs`` — a threaded ``JobManager.submit(data_mesh=)`` of
+     that spec, its events and its panel bitwise the re-run's —; ``mesh:store`` — 64 cohorts,
+     2 days of 2^18 rows: 2 ranks bitwise 1, one-shot bitwise two
+     ingests, within 1e-5·max + 1e-6 of the store with no mesh —;
+     ``cell:dml`` / ``cell:iv`` — ``launch/dml_cell``'s steps at 2^20 ×
+     500 with no mesh bitwise ``DML`` / ``OrthoIV``'s fit on the same
+     folds, on 2 ranks within 1e-4 of it, theta within 5 se; then, in
+     this process, ``cell:sweep`` — ``launch/sweep_cell``'s segmented
+     step at 2^20 × 500 × 64 (every segment within 5 se) and its cells
+     step at 2^16 × 8 (32,768 rows a block) bitwise ``serial_loop``.
+     Every rank of every mesh phase must launch seg_gram.
 
 Every seg_gram record also names the kernel that ran (``design``:
 small, thin or big) and times its second pass alone (``reduce_ms``)
@@ -1915,13 +1939,14 @@ def phase_driv_bootstrap(data, cfg):
     return counts, secs, chunks
 
 
-SERVE_REQUESTS, SERVE_WAVES, SERVE_SAMPLE = 2 ** 20, (8, 64), 1024
+# 2^19 requests (cut from 2^20 for time)
+SERVE_REQUESTS, SERVE_WAVES, SERVE_SAMPLE = 2 ** 19, (8, 64), 1024
 
 
 def phase_serve(seed: int, ckpt_dir: str, day5_panel):
     """The store's 64-cohort panels served: a ServingPanel from the day-5
     refresh and one from the day-3 snapshot (panel_from_checkpoint);
-    2^20 requests through EffectServer waves of the reference's ladder;
+    SERVE_REQUESTS through EffectServer waves of the reference's ladder;
     every wave bitwise ``score_single`` on a sample of 1,024 requests,
     padded slots flagged; a hot-swap to day 5 and a rollback, bitwise
     day 3's scores again.  Returns requests per second and the server's
@@ -2942,12 +2967,13 @@ RT_BOOT_B, RT_BUDGET_AT = 32, 10
 # a chunk's measured peak may exceed the budget by at most this factor
 RT_PEAK_SLACK = 1.10
 REFUTE_REPS = 3                      # the reference's default refits
-# sweep:cells — the sweep cell's 64 segments x 500 covariates at 2^18
-# rows (cut from 2^20 for time), under a budget of the dml cells' memory
-# model (probed on the card) at CELLS_AT cells, which chunks them
-CELLS_N, CELLS_AT = 2 ** 18, 8
-# with_ci at 2^14 rows (cut from 2^16 for time)
-CI_E, CI_N, CI_B, CI_CHUNKS = 16, 2 ** 14, 16, (64, 96)
+# sweep:cells — 32 segments (cut from the sweep cell's 64 for time) x
+# 500 covariates at 2^18 rows (cut from 2^20 for time), under a budget of
+# the dml cells' memory model (probed on the card) at CELLS_AT cells,
+# which chunks them
+CELLS_N, CELLS_E, CELLS_AT = 2 ** 18, 32, 8
+# with_ci at 2^14 rows (cut from 2^16 for time), B = 8 (cut from 16)
+CI_E, CI_N, CI_B, CI_CHUNKS = 16, 2 ** 14, 8, (64, 96)
 LOOP_E, LOOP_N = 8, 2 ** 16
 JOB_E, JOB_N = 16, 2 ** 16
 
@@ -3312,8 +3338,7 @@ def _cells_cfg(**kw):
 
 
 def phase_sweep_cells(seed: int):
-    """sweep(mode="cells") at the sweep cell's 64 segments x 500 at 2^18
-    rows: the dml and drlearner columns under a budget that chunks them,
+    """sweep(mode="cells") at CELLS_E segments x 500 at 2^18 rows: the dml and drlearner columns under a budget that chunks them,
     traced (chunk, peak and seconds per column); every segment's ATE
     within 5 se of 1; the largest |cells - segmented| ATE in se (no
     gate); a small cells sweep card vs CPU (1e-4); with_ci bitwise at two
@@ -3326,19 +3351,19 @@ def phase_sweep_cells(seed: int):
     from repro_torch.runtime import TaskRuntime
     from repro_torch.sweep import engine
 
-    data, sids = _cells_inputs(seed, CELLS_N, SWEEP_E)
+    data, sids = _cells_inputs(seed, CELLS_N, CELLS_E)
     cfg0 = _cells_cfg()
     cell = engine._make_masked_cell(get_spec("dml").weighted_fit(cfg0), 5)
     d = engine._column_data({"X": data.X, "y": data.y, "t": data.t,
                              "sids": sids}, cfg0)
     t0 = time.perf_counter()
     _, model = TaskRuntime("vmap", memory_budget=1 << 50).plan_chunk(
-        cell, engine._cells(seed, 0, SWEEP_E), (d,), SWEEP_E)
+        cell, engine._cells(seed, 0, CELLS_E), (d,), CELLS_E)
     t_probe = time.perf_counter() - t0
     budget = int(model.peak(CELLS_AT))
     del cell, d
     cfg = _cells_cfg(runtime_memory_budget=budget)
-    spec = SweepSpec(SWEEP_E, (("dml", cfg), ("drlearner", cfg)))
+    spec = SweepSpec(CELLS_E, (("dml", cfg), ("drlearner", cfg)))
     tracer = Tracer()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -3373,14 +3398,14 @@ def phase_sweep_cells(seed: int):
         if not zmax <= 5.0:
             raise AssertionError(f"{col.estimator}: a segment's ATE is not "
                                  f"within 5 se of 1: {zmax:.3f}")
-        if not chunks[col.estimator] < SWEEP_E:
+        if not chunks[col.estimator] < CELLS_E:
             raise AssertionError(f"{col.estimator} was not chunked")
-    seg = sweep(SweepSpec(SWEEP_E, (("dml", cfg),)), X=data.X, y=data.y,
+    seg = sweep(SweepSpec(CELLS_E, (("dml", cfg),)), X=data.X, y=data.y,
                 t=data.t, segment_ids=sids, seed=seed,
                 mode="segmented").columns[0]
     dcs = float(((panel.columns[0].ates - seg.ates).abs()
                  / seg.ses[:, 0]).max())
-    log(f"sweep:cells n={CELLS_N} p={SWEEP_P} E={SWEEP_E} k=5: the dml "
+    log(f"sweep:cells n={CELLS_N} p={SWEEP_P} E={CELLS_E} k=5: the dml "
         f"cells' model probed in {t_probe:.3f} s (readings {model.probes}):"
         f" base {model.base:.0f} B, slope {model.slope:.0f} B a cell, budget"
         f" peak({CELLS_AT}) = {budget} B; the sweep {secs:.3f} s, peak "
@@ -3459,8 +3484,8 @@ def cells_cases(seed: int, chunk: int):
     from repro_torch.core.moments import design
     from repro_torch.sweep.engine import cell_folds, column_keys
 
-    data, sids = _cells_inputs(seed, CELLS_N, SWEEP_E)
-    keys = column_keys(seed, 0, SWEEP_E)[:chunk].tolist()
+    data, sids = _cells_inputs(seed, CELLS_N, CELLS_E)
+    keys = column_keys(seed, 0, CELLS_E)[:chunk].tolist()
     folds = torch.stack([cell_folds(key, CELLS_N, 5, "cuda") for key in keys])
     mask = (sids[None, :] == torch.arange(chunk, device="cuda")[:, None]
             ).float()
@@ -3996,6 +4021,7 @@ def _mesh_run(fn):
     sync = torch.cuda.synchronize if torch.cuda.is_available() else _no_op
     sync()
     launches = collections.Counter(kern.LAUNCHES)
+    shapes = collections.Counter(kern.SHAPES)
     nbytes, staged = rd.TRAFFIC["bytes"], rd.TRAFFIC["staged_bytes"]
     t0 = time.perf_counter()
     out = fn()
@@ -4003,6 +4029,7 @@ def _mesh_run(fn):
     return out, {"seconds": time.perf_counter() - t0,
                  "launches": dict(collections.Counter(kern.LAUNCHES)
                                   - launches),
+                 "shapes": dict(collections.Counter(kern.SHAPES) - shapes),
                  "bytes": rd.TRAFFIC["bytes"] - nbytes,
                  "staged": rd.TRAFFIC["staged_bytes"] - staged}
 
@@ -4152,6 +4179,9 @@ def _mesh_rank(rank: int, z: dict, cfg, boot_cfg) -> dict:
         rec["vmap_sha"], rec["vmap_seconds"] = (_sha([vm.replicates]),
                                                 rec_v["seconds"])
     out["shard_map"] = rec
+    del bdata, res, c, bkw, sm
+    free()
+    out.update(_mesh_rank_consumers(rank, z, mesh, dev, cfg))
     dist.barrier()
     return out
 
@@ -4164,12 +4194,20 @@ def phase_mesh_ranks(args, base):
     cfg = dataclasses.replace(base, row_block=MESH_RB)
     boot_cfg = dataclasses.replace(base, inference="none",
                                    row_block=MESH_BOOT_RB)
+    build_dir = Path(__file__).resolve().parent / "build"
+    build_dir.mkdir(exist_ok=True)
+    ckpt = tempfile.mkdtemp(prefix="mesh_ckpt_", dir=build_dir)
     sizes = dict(n=args.n, p=500, k=5, seed=args.seed, rb=MESH_RB,
                  boot_n=BOOT_N, boot_b=MESH_BOOT_B, chunk=MESH_CHUNK,
-                 device="cuda", one_rank_backend="nccl")
+                 device="cuda", one_rank_backend="nccl", ckpt=ckpt,
+                 **MESH_CONSUMER_SIZES)
     t0 = time.perf_counter()
-    ranks = spawn_ranks(_mesh_rank, MESH_RANKS, sizes, cfg, boot_cfg,
-                        backend="gloo", device="cuda", timeout=MESH_TIMEOUT)
+    try:
+        ranks = spawn_ranks(_mesh_rank, MESH_RANKS, sizes, cfg, boot_cfg,
+                            backend="gloo", device="cuda",
+                            timeout=MESH_TIMEOUT)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
     log(f"mesh: {MESH_RANKS} ranks on {ranks[0]['card']} (gloo world; "
         f"meshes {ranks[0]['meshes']}) in {time.perf_counter() - t0:.1f} s "
         "with their start")
@@ -4300,6 +4338,506 @@ def phase_mesh_shard_map(ranks):
     if not all(sum(x["launches"].values()) for x in recs):
         raise AssertionError("a rank launched no kernel")
     return dict(launches)
+
+
+# -- slice 14: the mesh's consumers and the paper's cells as steps ----------
+
+# mesh:sweep — 16 segments (cut from the sweep cell's 64 for time) of
+# 2^17 rows (cut from 2^20 for time) x 500, one chunk of 16 cells, two
+# blocks of 65,536 rows;
+# mesh:shard_map-sweep / resume / jobs at 2^16 rows x 8 segments, two
+# blocks; mesh:store — 64 cohorts, 2 days (cut from 5 for time) of 2^18
+# rows, two blocks a day; cell:dml / cell:iv at the reference cell's
+# 2^20 x 500, eight blocks under the mesh
+MESH_CONSUMER_SIZES = dict(
+    sweep=(2 ** 17, 16, 65_536), small=(2 ** 16, 8, 32_768),
+    store=(2 ** 18, 2, 131_072, 64), cell=(2 ** 20, 131_072))
+CELL_SWEEP_SMALL = (2 ** 16, 8, 32_768)     # rows, segments, rows a block
+# cells-mode launches under the record of their form's nearest shape
+_CELLS_KEYS = {"fold_weighted": "fold_weighted@cells",
+               "residual_meat": f"residual_meat@R{BOOT_CHUNK}"}
+
+
+def _mesh_cells_data(seed: int, n: int, p: int, e: int, dev):
+    """``paper_demo_data`` rows and segment ids, drawn on ``dev`` (on the
+    card the draws of ``_cells_inputs``)."""
+    from repro_torch.data.causal_dgp import paper_demo_data
+
+    data = paper_demo_data(n=n, p=p, seed=seed, device=dev)
+    g = torch.Generator(device=dev).manual_seed(seed + 5)
+    return data, torch.randint(0, e, (n,), generator=g, device=dev)
+
+
+def _panel_rec(panel) -> dict:
+    """A panel's SHA-256, its columns on the host, errors and events."""
+    cols = panel.columns
+    return {"sha": _sha([x for c in cols if not c.failed
+                         for x in (c.thetas, c.ates, c.ses)]),
+            "cols": [None if c.failed else
+                     (c.thetas.cpu(), c.ates.cpu(), c.ses.cpu())
+                     for c in cols],
+            "sha_cols": [None if c.failed else
+                         _sha([c.thetas, c.ates, c.ses]) for c in cols],
+            "errors": [c.error for c in cols],
+            "events": [tuple(c.events) for c in cols]}
+
+
+def _mesh_rank_consumers(rank: int, z: dict, mesh: dict, dev, cfg) -> dict:
+    """Slice 14's phases on one rank of ``_mesh_rank``'s group:
+    ``mesh:sweep`` (2 ranks; rank 2 the panel with no mesh; rank 0 the
+    1-rank nccl panel), ``mesh:shard_map-sweep`` (4 ranks),
+    ``mesh:resume`` and ``mesh:jobs`` (2 ranks), ``mesh:store`` (2 ranks;
+    rank 0 the 1-rank and no-mesh stores), ``cell:dml`` and ``cell:iv``
+    (2 ranks; rank 0 the steps with no mesh and the estimators)."""
+    import os
+
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.core.crossfit import fold_ids
+    from repro_torch.core.dml import DML
+    from repro_torch.core.iv import OrthoIV
+    from repro_torch.data.causal_dgp import (make_causal_data, make_iv_data,
+                                             paper_demo_data)
+    from repro_torch.launch.dml_cell import make_dml_step, make_iv_step
+    from repro_torch.launch.elastic import elastic_sweep
+    from repro_torch.runtime import (JobManager, inject_shard_failure,
+                                     use_data_mesh)
+    from repro_torch.store import MomentStore
+    from repro_torch.sweep import SweepSpec, sweep
+
+    p, seed = z["p"], z["seed"]
+    free = torch.cuda.empty_cache if dev.type == "cuda" else _no_op
+    out = {}
+
+    # mesh:sweep — cells mode, a dml and a drlearner column
+    n, e, rb = z["sweep"]
+    data, sids = _mesh_cells_data(seed, n, p, e, dev)
+    scfg = _cells_cfg(row_block=rb, sweep_chunk=e)
+    spec = SweepSpec(e, (("dml", scfg), ("drlearner", scfg)))
+    kw = dict(X=data.X, y=data.y, t=data.t, segment_ids=sids, seed=seed)
+    dist.barrier()
+    rec = {}
+    if rank < 2:
+        panel, rec["mesh2"] = _mesh_run(lambda: sweep(spec,
+                                                      data_mesh=mesh[2], **kw))
+        rec["mesh2"].update(_panel_rec(panel))
+        if rank == 0:
+            panel, rec["mesh1"] = _mesh_run(lambda: sweep(
+                spec, data_mesh=mesh[1], **kw))
+            rec["mesh1"].update(_panel_rec(panel))
+    elif rank == 2:
+        panel, rec["none"] = _mesh_run(lambda: sweep(spec, device=dev, **kw))
+        rec["none"].update(_panel_rec(panel))
+    out["sweep"] = rec
+    del data, sids, kw, spec
+    free()
+
+    # mesh:shard_map-sweep — a dml column's cells over 4 ranks
+    n, e, rb = z["small"]
+    data, sids = _mesh_cells_data(seed + 1, n, p, e, dev)
+    kw = dict(X=data.X, y=data.y, t=data.t, segment_ids=sids, seed=seed)
+    vcfg = _cells_cfg(row_block=rb)
+    dist.barrier()
+    panel, rec = _mesh_run(lambda: sweep(SweepSpec(e, (("dml", dataclasses
+        .replace(vcfg, inference_executor="shard_map")),)),
+        data_mesh=mesh[4], **kw))
+    rec.update(_panel_rec(panel))
+    if rank == 0:
+        panel, rec_v = _mesh_run(lambda: sweep(SweepSpec(e, (("dml", vcfg),)),
+                                               device=dev, **kw))
+        rec["vmap_sha"], rec["vmap_seconds"] = (_panel_rec(panel)["sha"],
+                                                rec_v["seconds"])
+    out["shard_map_sweep"] = rec
+
+    # mesh:resume and mesh:jobs — 2 ranks, one checkpoint directory
+    rspec = SweepSpec(e, (("dml", dataclasses.replace(
+        vcfg, runtime_max_retries=0)), ("drlearner", vcfg)))
+    dist.barrier()
+    if rank < 2:
+        runs = {}
+        path = os.path.join(z["ckpt"], "resume")
+        inject_shard_failure(1)
+        try:
+            panel, runs["struck"] = _mesh_run(lambda: sweep(
+                rspec, data_mesh=mesh[2], checkpoint=CheckpointManager(path),
+                **kw))
+        finally:
+            inject_shard_failure(0)
+        runs["struck"].update(_panel_rec(panel))
+        panel, runs["again"] = _mesh_run(lambda: sweep(
+            rspec, data_mesh=mesh[2], checkpoint=CheckpointManager(path),
+            **kw))
+        runs["again"].update(_panel_rec(panel))
+        espec = SweepSpec(e, (("dml", vcfg),))
+        epath = os.path.join(z["ckpt"], "elastic")
+        for name in ("elastic1", "elastic2"):
+            panel, runs[name] = _mesh_run(lambda: elastic_sweep(
+                espec, directory=epath, data_mesh=mesh[2], **kw))
+            runs[name].update(_panel_rec(panel))
+        out["resume"] = runs
+
+        # the healthy run of the same spec, as a threaded job
+        def job():
+            j = JobManager().submit(rspec, data_mesh=mesh[2], **kw)
+            events = [(ev.action, ev.label) for ev in j.subscribe()]
+            return j.result(timeout=MESH_TIMEOUT), events, j.status()
+
+        (panel, events, status), rec = _mesh_run(job)
+        rec.update(_panel_rec(panel))
+        rec["job_events"], rec["status"] = events, status["status"]
+        out["jobs"] = rec
+    del data, sids, kw, rspec
+    free()
+
+    # mesh:store — 64 cohorts, aligned daily ingests
+    day, days, rb, e = z["store"]
+    d = make_causal_data(n=day * days, p=p, seed=seed,
+                         discrete_treatment=False, device=dev)
+    g = torch.Generator(device=dev).manual_seed(seed + 9)
+    ssid = torch.randint(0, e, (day * days,), generator=g, device=dev)
+    sspec = SweepSpec(e, (("dml", _store_cfg(row_block=rb)),))
+
+    def store(dm, cuts):
+        st = MomentStore(sspec, p, seed=seed, data_mesh=dm, device=dev)
+        for lo, hi in zip(cuts[:-1], cuts[1:]):
+            st.ingest(X=d.X[lo:hi], y=d.y[lo:hi], t=d.t[lo:hi],
+                      segment_ids=ssid[lo:hi])
+        return st
+
+    def leaves(st):
+        c = st.state_dict()["col0"]
+        return [c["ng"], c["vg"], c["counts"]]
+
+    daily = [i * day for i in range(days + 1)]
+    dist.barrier()
+    if rank < 2:
+        runs = {}
+        st2, runs["mesh2"] = _mesh_run(lambda: store(mesh[2], daily))
+        runs["mesh2"]["sha"] = _sha(leaves(st2))
+        if rank == 0:
+            st, runs["mesh1"] = _mesh_run(lambda: store(mesh[1], daily))
+            runs["mesh1"]["sha"] = _sha(leaves(st))
+            del st
+            st, runs["once"] = _mesh_run(lambda: store(mesh[1],
+                                                       [0, day * days]))
+            runs["once"]["sha"] = _sha(leaves(st))
+            del st
+            free()
+            st, runs["none"] = _mesh_run(lambda: store(None, daily))
+            runs["vs_no_mesh"] = max(
+                _within(a, b, MESH_KERNEL_TOL, 1e-6)
+                for a, b in zip(leaves(st2), leaves(st)))
+            del st
+            col = st2.refresh().columns[0]
+            runs["finite"] = bool(torch.isfinite(col.thetas).all()
+                                  and torch.isfinite(col.ses).all())
+            runs["ate"] = (float(col.ates.min()), float(col.ates.max()))
+        out["store"] = runs
+        del st2
+    del d, ssid
+    free()
+
+    # cell:dml and cell:iv — the paper's steps at 2^20 x 500
+    n, rb = z["cell"]
+    ccfg = dataclasses.replace(cfg, row_block=rb, inference="none")
+    k = ccfg.n_folds
+    folds = fold_ids(torch.Generator().manual_seed(0), n, k, device=dev)
+    for name in ("dml", "iv"):
+        if name == "dml":
+            dd = paper_demo_data(n=n, p=p, seed=seed, device=dev)
+            args = (dd.X, dd.y, dd.t, folds)
+            step = make_dml_step(ccfg, ccfg.engine, device=dev)
+            truth = [1.0, 0.5]
+
+            def fit():
+                return DML(ccfg, device=dev).fit(
+                    dd.y, dd.t, dd.X, gen=torch.Generator().manual_seed(0))
+        else:
+            dd = make_iv_data(n=n, p=p, seed=seed, device=dev)
+            args = (dd.X, dd.y, dd.t, dd.z, folds)
+            step = make_iv_step(ccfg, ccfg.engine, device=dev)
+            truth = [dd.true_late]
+
+            def fit():
+                return OrthoIV(ccfg, device=dev).fit(
+                    dd.y, dd.t, dd.z, dd.X,
+                    gen=torch.Generator().manual_seed(0))
+        dist.barrier()
+        if rank < 2:
+            with use_data_mesh(mesh[2]):
+                (th2, cov2), rec = _mesh_run(lambda: step(*args))
+            rec["sha"] = _sha([th2, cov2])
+            se = torch.sqrt(torch.diagonal(cov2)).double().cpu()
+            th = th2.double().cpu()
+            rec["theta"] = th.tolist()
+            rec["z"] = [abs(float(th[i]) - v) / float(se[i])
+                        for i, v in enumerate(truth)]
+            if rank == 0:
+                (th0, cov0), rec["none"] = _mesh_run(lambda: step(*args))
+                res, rec["fit"] = _mesh_run(fit)
+                rec["bitwise_fit"] = bool(torch.equal(th0, res.theta)
+                                          and torch.equal(cov0, res.cov))
+                rec["vs_no_mesh"] = max(rel(th2, th0), rel(cov2, cov0))
+                del res
+            out[f"cell_{name}"] = rec
+        del dd, args, step
+        free()
+    return out
+
+
+def _sum_launches(recs, rename=None) -> dict:
+    """Launches of ``recs`` summed over ranks, under record keys."""
+    c = collections.Counter()
+    for rec in recs:
+        for key, n in rec["launches"].items():
+            c[(rename or {}).get(key, key)] += n
+    return dict(c)
+
+
+def _launch_gate(fails, what, recs) -> None:
+    for i, rec in enumerate(recs):
+        if not sum(rec["launches"].values()):
+            fails.append(f"{what}: rank {i} launched no kernel")
+
+
+def phase_mesh_sweep(ranks):
+    """``mesh:sweep``: the cells panel on 2 gloo ranks bitwise the 1-rank
+    (nccl) panel, within MESH_FIT_TOL of the panel with no mesh, every
+    dml segment's ATE within 5 se of 1; each rank launched seg_gram."""
+    two = [r["sweep"]["mesh2"] for r in ranks[:2]]
+    one, none = ranks[0]["sweep"]["mesh1"], ranks[2]["sweep"]["none"]
+    fails = []
+    for rec in (*two, one, none):
+        fails += [f"column failed: {err}" for err in rec["errors"] if err]
+    if fails:
+        raise AssertionError("; ".join(fails))
+    vs = max(rel(a, b) for ca, cb in zip(two[0]["cols"], none["cols"])
+             for a, b in zip(ca, cb))
+    ate, se = two[0]["cols"][0][1].double(), two[0]["cols"][0][2][:, 0]
+    zmax = float(((ate - 1.0).abs() / se.double()).max())
+    for name, rec in (("2 ranks [gloo] rank 0", two[0]),
+                      ("2 ranks [gloo] rank 1", two[1]),
+                      ("1 rank [nccl]", one), ("no mesh", none)):
+        log(f"mesh:sweep {name}: {rec['seconds']:.3f} s; seg_gram launches "
+            f"{rec['launches']}; bytes across the group {rec['bytes']:,}, "
+            f"staged {rec['staged']:,}")
+    same = two[0]["sha"] == two[1]["sha"] == one["sha"]
+    log(f"mesh:sweep: 2 ranks bitwise 1 rank {same}; vs no mesh {vs:.3e} "
+        f"(tol {MESH_FIT_TOL:g}); dml max |ate-1|/se {zmax:.3f}")
+    if not same:
+        fails.append("the 2-rank panel is not bitwise the 1-rank panel")
+    if not vs <= MESH_FIT_TOL:
+        fails.append(f"{vs:.3e} from the panel with no mesh")
+    if not zmax <= 5.0:
+        fails.append(f"a dml segment's ATE is {zmax:.3f} se from 1")
+    _launch_gate(fails, "mesh:sweep", two)
+    if fails:
+        raise AssertionError("; ".join(fails))
+    return _sum_launches(two, _CELLS_KEYS)
+
+
+def phase_mesh_shard_map_sweep(ranks):
+    """``mesh:shard_map-sweep``: a dml column on ``ShardMapExecutor`` over
+    4 ranks, bitwise the vmap column with no mesh."""
+    recs = [r["shard_map_sweep"] for r in ranks]
+    same = (len({rec["sha"] for rec in recs}) == 1
+            and recs[0]["sha"] == recs[0]["vmap_sha"]
+            and not any(err for rec in recs for err in rec["errors"]))
+    log(f"mesh:shard_map-sweep [gloo, 4 ranks]: "
+        f"{max(rec['seconds'] for rec in recs):.3f} s (vmap alone "
+        f"{recs[0]['vmap_seconds']:.3f} s); seg_gram launches per rank "
+        f"{[rec['launches'] for rec in recs]}; bytes across the group "
+        f"{recs[0]['bytes']:,}; bitwise vmap {same}")
+    fails = [] if same else ["the shard_map column differs from vmap's"]
+    _launch_gate(fails, "mesh:shard_map-sweep", recs)
+    if fails:
+        raise AssertionError("; ".join(fails))
+    return _sum_launches(recs, _CELLS_KEYS)
+
+
+def phase_mesh_resume(ranks):
+    """``mesh:resume`` on 2 ranks: the struck column (no retry budget)
+    fails, its neighbour bitwise the healthy run's (``mesh:jobs``' job of
+    the same spec); the re-run restores only the neighbour and
+    recomputes the struck column bitwise; ``elastic_sweep``'s second
+    call restores."""
+    fails, recs = [], []
+    for r in ranks[:2]:
+        runs, h = r["resume"], r["jobs"]
+        s, a = runs["struck"], runs["again"]
+        e1, e2 = runs["elastic1"], runs["elastic2"]
+        recs += [s, a, e1]
+        log(f"mesh:resume rank {r['rank']} [gloo, 2 ranks]: struck "
+            f"{s['seconds']:.3f} s, re-run {a['seconds']:.3f} s, elastic "
+            f"{e1['seconds']:.3f} / {e2['seconds']:.3f} s; events struck "
+            f"{s['events']}, re-run {a['events']}, elastic {e2['events']}; "
+            f"seg_gram launches struck {s['launches']}, re-run "
+            f"{a['launches']}")
+        if h["errors"] != [None, None]:
+            fails.append(f"rank {r['rank']}: healthy run failed {h['errors']}")
+        if not (s["errors"][0] and "injected shard failure" in s["errors"][0]
+                and s["errors"][1] is None):
+            fails.append(f"rank {r['rank']}: struck errors {s['errors']}")
+        if s["sha_cols"][1] != h["sha_cols"][1]:
+            fails.append(f"rank {r['rank']}: the neighbour is not bitwise")
+        if "restored" in a["events"][0] or "restored" not in a["events"][1]:
+            fails.append(f"rank {r['rank']}: re-run events {a['events']}")
+        if a["sha_cols"] != h["sha_cols"]:
+            fails.append(f"rank {r['rank']}: the re-run is not bitwise")
+        if "restored" not in e2["events"][0] or e2["sha"] != e1["sha"] or \
+                e1["sha_cols"][0] != h["sha_cols"][0]:
+            fails.append(f"rank {r['rank']}: elastic {e1['events']} / "
+                         f"{e2['events']}")
+        if not (sum(a["launches"].values()) and sum(s["launches"].values())):
+            fails.append(f"rank {r['rank']}: a run launched no kernel")
+    if ranks[0]["resume"]["again"]["sha"] != ranks[1]["resume"]["again"][
+            "sha"]:
+        fails.append("the ranks' re-runs differ")
+    log(f"mesh:resume: one column lost, restored and recomputed bitwise "
+        f"{not fails}")
+    if fails:
+        raise AssertionError("; ".join(fails))
+    return _sum_launches(recs, _CELLS_KEYS)
+
+
+def phase_mesh_jobs(ranks):
+    """``mesh:jobs``: a threaded job of the resume spec on 2 ranks; its
+    events (submitted, a column per column, done) and its panel bitwise
+    the direct sweep of that spec under the same mesh (``mesh:resume``'s
+    re-run)."""
+    fails, recs = [], [r["jobs"] for r in ranks[:2]]
+    for r, rec in zip(ranks, recs):
+        acts = [a for a, _ in rec["job_events"]]
+        same = rec["sha"] == r["resume"]["again"]["sha"]
+        log(f"mesh:jobs rank {r['rank']} [gloo, 2 ranks]: "
+            f"{rec['seconds']:.3f} s; events {rec['job_events']}; status "
+            f"{rec['status']}; bitwise the direct sweep {same}; seg_gram "
+            f"launches {rec['launches']}")
+        if acts != ["submitted", "column", "column", "done"]:
+            fails.append(f"rank {r['rank']}: job events {acts}")
+        if not same:
+            fails.append(f"rank {r['rank']}: the job's panel differs")
+    _launch_gate(fails, "mesh:jobs", recs)
+    if fails:
+        raise AssertionError("; ".join(fails))
+    return _sum_launches(recs, _CELLS_KEYS)
+
+
+def phase_mesh_store(ranks):
+    """``mesh:store``: 2 gloo ranks bitwise the 1-rank (nccl) store,
+    one-shot bitwise the daily ingests, within MESH_KERNEL_TOL of the
+    store with no mesh, the refreshed panel finite."""
+    two = [r["store"]["mesh2"] for r in ranks[:2]]
+    r0 = ranks[0]["store"]
+    for name, rec in (("2 ranks [gloo] rank 0", two[0]),
+                      ("2 ranks [gloo] rank 1", two[1]),
+                      ("1 rank [nccl]", r0["mesh1"]),
+                      ("1 rank one-shot", r0["once"]), ("no mesh", r0["none"])):
+        log(f"mesh:store {name}: {rec['seconds']:.3f} s; seg_gram launches "
+            f"{rec['launches']}; bytes across the group {rec['bytes']:,}, "
+            f"staged {rec['staged']:,}")
+    same = two[0]["sha"] == two[1]["sha"] == r0["mesh1"]["sha"]
+    once = r0["once"]["sha"] == r0["mesh1"]["sha"]
+    log(f"mesh:store: 2 ranks bitwise 1 rank {same}; one-shot bitwise two "
+        f"ingests {once}; vs no mesh {r0['vs_no_mesh']:.3e} of tol; "
+        f"refreshed ATE range {r0['ate']}, finite {r0['finite']}")
+    fails = []
+    if not same:
+        fails.append("the 2-rank store is not bitwise the 1-rank store")
+    if not once:
+        fails.append("one-shot differs from the daily ingests")
+    if not r0["vs_no_mesh"] <= 1.0:
+        fails.append(f"{r0['vs_no_mesh']:.3e} of the tol from no mesh")
+    if not r0["finite"]:
+        fails.append("the refreshed panel is not finite")
+    _launch_gate(fails, "mesh:store", two)
+    if fails:
+        raise AssertionError("; ".join(fails))
+    c = collections.Counter()
+    for rec in two:
+        for (key, S, ql, _qr), n in rec["shapes"].items():
+            c["pair:ng" if ql == SWEEP_P + 3 else
+              "pair:vg" if ql == 2 * (SWEEP_P + 3) else key] += n
+    return dict(c)
+
+
+def phase_cell(ranks, name):
+    """``cell:dml`` / ``cell:iv``: the step with no mesh bitwise the
+    estimator's fit on the same folds; on 2 ranks within MESH_FIT_TOL of
+    it, bitwise across the ranks, theta within 5 se."""
+    recs = [r[f"cell_{name}"] for r in ranks[:2]]
+    r0 = recs[0]
+    log(f"cell:{name} at 2^20 x 500: 2 ranks [gloo] {r0['seconds']:.3f} s "
+        f"(launches per rank {[rec['launches'] for rec in recs]}, bytes "
+        f"across the group {r0['bytes']:,}); no mesh "
+        f"{r0['none']['seconds']:.3f} s (launches {r0['none']['launches']}); "
+        f"the estimator's fit {r0['fit']['seconds']:.3f} s; theta "
+        f"{r0['theta']}, |theta - truth|/se {r0['z']}; no mesh bitwise the "
+        f"fit {r0['bitwise_fit']}; 2 ranks vs no mesh {r0['vs_no_mesh']:.3e}"
+        f" (tol {MESH_FIT_TOL:g})")
+    fails = []
+    if not r0["bitwise_fit"]:
+        fails.append("the step is not bitwise the estimator's fit")
+    if recs[0]["sha"] != recs[1]["sha"]:
+        fails.append("the ranks' results differ")
+    if not r0["vs_no_mesh"] <= MESH_FIT_TOL:
+        fails.append(f"{r0['vs_no_mesh']:.3e} from no mesh")
+    if not max(r0["z"]) <= 5.0:
+        fails.append(f"theta not within 5 se: {r0['z']}")
+    _launch_gate(fails, f"cell:{name}", recs)
+    if fails:
+        raise AssertionError("; ".join(fails))
+    return _sum_launches(recs + [r0["none"]])
+
+
+def phase_cell_sweep(seed: int):
+    """``cell:sweep``: ``make_sweep_step("segmented")`` at the sweep cell's
+    2^20 x 500 x 64 (every segment's ATE within 5 se of 1), and
+    ``make_sweep_step("cells")`` at 2^16 x 8 bitwise ``serial_loop``.
+    Returns the launches and the pair launches by shape."""
+    from repro_torch.launch.sweep_cell import make_sweep_step
+    from repro_torch.sweep import serial_loop
+
+    data, sids, spec = _sweep_inputs(seed)
+    cfg = spec.columns[0][1]
+    _reset_counters()
+    t0 = time.perf_counter()
+    theta, se = make_sweep_step(cfg, SWEEP_E, "segmented")(
+        data.X, data.y, data.t, sids)
+    torch.cuda.synchronize()
+    seg_s = time.perf_counter() - t0
+    counts, fallbacks = _read_counters()
+    shapes = dict(_counters()[2])
+    z = ((theta[:, 0].double() - 1.0).abs() / se[:, 0].double()).max()
+    del data, sids
+    torch.cuda.empty_cache()
+    n, e, rb = CELL_SWEEP_SMALL
+    data, sids = _mesh_cells_data(seed, n, SWEEP_P, e, "cuda")
+    ccfg = _cells_cfg(row_block=rb)
+    t0 = time.perf_counter()
+    ct, cse = make_sweep_step(ccfg, e, "cells")(data.X, data.y, data.t, sids)
+    torch.cuda.synchronize()
+    cells_s = time.perf_counter() - t0
+    cells_counts = dict(collections.Counter(_read_counters()[0])
+                        - collections.Counter(counts))
+    loop = serial_loop("dml", ccfg, X=data.X, y=data.y, t=data.t,
+                       segment_ids=sids, n_segments=e, seed=0, col_index=0)
+    same = torch.equal(ct, loop["theta"]) and torch.equal(cse, loop["se"])
+    log(f"cell:sweep segmented n={SWEEP_N} p={SWEEP_P} E={SWEEP_E}: "
+        f"{seg_s:.3f} s, max |ate-1|/se {float(z):.3f}, launches {counts}; "
+        f"cells n={n} E={e}: {cells_s:.3f} s, launches {cells_counts}, "
+        f"bitwise serial_loop {same}; fallbacks {fallbacks}")
+    if not (bool(torch.isfinite(theta).all()) and float(z) <= 5.0):
+        raise AssertionError(f"a segment's ATE is {float(z):.3f} se from 1")
+    if not same:
+        raise AssertionError("the cells step differs from serial_loop")
+    if not (counts and cells_counts.get("fold_weighted")):
+        raise AssertionError("a step launched no seg_gram kernel")
+    if fallbacks:
+        raise AssertionError(f"fallback counters rose: {fallbacks}")
+    cells = {_CELLS_KEYS.get(k, k): c for k, c in cells_counts.items()}
+    return counts, cells, shapes
 
 
 def main(argv=None) -> int:
@@ -4486,13 +5024,28 @@ def main(argv=None) -> int:
             ("mesh:reduce", phase_mesh_reduce, (args.n * p * 4,)),
             ("mesh:dml", phase_mesh_dml, ()),
             ("mesh:ladder", phase_mesh_ladder, ()),
-            ("mesh:shard_map", phase_mesh_shard_map, ())):
+            ("mesh:shard_map", phase_mesh_shard_map, ()),
+            ("mesh:sweep", phase_mesh_sweep, ()),
+            ("mesh:shard_map-sweep", phase_mesh_shard_map_sweep, ()),
+            ("mesh:resume", phase_mesh_resume, ()),
+            ("mesh:jobs", phase_mesh_jobs, ()),
+            ("mesh:store", phase_mesh_store, ()),
+            ("cell:dml", phase_cell, ("dml",)),
+            ("cell:iv", phase_cell, ("iv",))):
         if mesh_ranks is None:
             failed.append(name)
             continue
         for key, c in (run(name, fn, mesh_ranks, *a) or {}).items():
             count(key, name, c)
     del mesh_ranks
+    out = run("cell:sweep", phase_cell_sweep, args.seed)
+    torch.cuda.empty_cache()
+    cell_pairs = {}
+    if out is not None:
+        _, cells_counts, cell_pairs = out
+        for key, c in cells_counts.items():
+            count(key, "cell:sweep", c)
+        del out
 
     bdata = paper_demo_data(n=BOOT_N, p=p, seed=args.seed)
     forms = run("kernels:inference-forms", lambda: run_cases(
@@ -4681,6 +5234,7 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
     run("jobs", phase_jobs, args.seed)
     torch.cuda.empty_cache()
+    pair_shapes["cell:sweep"] = cell_pairs
     for key, (form, S, qls) in PAIR_FORMS.items():
         for path, shapes in pair_shapes.items():
             count(key, path, sum(c for (f, s, ql, _), c in shapes.items()
@@ -4768,6 +5322,7 @@ def main(argv=None) -> int:
             "runtime_bootstrap_replicates": RT_BOOT_B,
             "refute_reps": REFUTE_REPS, "refute_seconds": refute_s,
             "quickstart_seconds": quick_s, "cells_n": CELLS_N,
+            "cells_segments": CELLS_E,
             "cells_at": CELLS_AT, "cells_budget": cells_budget,
             "cells_seconds": cells_s, "meta_bootstrap_replicates":
             META_BOOT_B, "meta_chunk": META_CHUNK,

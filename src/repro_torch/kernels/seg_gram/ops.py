@@ -345,11 +345,12 @@ def iv_meat(ry: Tensor, rt: Tensor, rz: Tensor, phi: Tensor,
 
 
 def segment_outer(U: Tensor, V: Tensor, seg: Tensor, n_segments: int, *,
-                  w: Optional[Tensor] = None,
-                  init: Optional[Tensor] = None) -> Tensor:
+                  w: Optional[Tensor] = None, init: Optional[Tensor] = None,
+                  row_block: int = 0) -> Tensor:
     """(S, qU, qV) segmented outer-product sums ``Σ_{seg_n = s} w_n U_n
     ⊗ V_n`` — the sweep's MM gradient terms and per-segment final stage,
     the store's accumulators.  U, V (n, q) or (n,); ``init`` (S, qU, qV)
-    seeds the sum (see ``seg_reduce``)."""
+    seeds the sum; ``row_block``: the mesh's block size (see
+    ``seg_reduce``: without a mesh it changes nothing)."""
     return seg_reduce(_ref.build_pair, [_as_rows(U), _as_rows(V)], seg=seg, w=w,
-                      n_segments=n_segments, init=init)
+                      n_segments=n_segments, init=init, row_block=row_block)

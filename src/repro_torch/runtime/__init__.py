@@ -15,8 +15,11 @@ data parallelism is ``distributed``: rows split over the ranks of a
 Gram-shaped partials and only those cross the group — bitwise the
 single-process chunked fold in the "ordered" mode — and
 ``TaskRuntime(data_mesh=...)`` runs its chunks on the mesh first, with a
-lost shard dropping the chunk to the single-host ladder.  Sweeps, the
-store and jobs under a mesh are ROADMAP A.10b.
+lost shard dropping the chunk to the single-host ladder.  The sweep's
+cells (``sweep(data_mesh=)``, a shard_map column splitting its cells over
+the ranks), the store's ingests (``MomentStore(data_mesh=)``) and jobs
+(``JobManager.submit(data_mesh=)``) run under a mesh; checkpoints under
+a mesh are written by rank 0 (``first_rank_writes``).
 """
 #   future.py     TaskFuture handles + deterministic DAG execution
 #                 (submit/call/gather — Ray's ObjectRef semantics)
@@ -36,8 +39,10 @@ store and jobs under a mesh are ROADMAP A.10b.
 from repro_torch.runtime.distributed import (
     DataMesh,
     ShardLostError,
+    agree_min,
     current_data_mesh,
     dist_reduce,
+    first_rank_writes,
     inject_shard_failure,
     make_data_mesh,
     use_data_mesh,
@@ -63,8 +68,10 @@ from repro_torch.runtime.jobs import JobManager, SweepJob
 __all__ = [
     "DataMesh",
     "ShardLostError",
+    "agree_min",
     "current_data_mesh",
     "dist_reduce",
+    "first_rank_writes",
     "inject_shard_failure",
     "make_data_mesh",
     "use_data_mesh",

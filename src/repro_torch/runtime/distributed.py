@@ -175,6 +175,14 @@ def make_data_mesh(n_hosts: int = 0, n_devices: int = 0, *, group=None,
     return DataMesh(group, rank, h, d, dev, actual, reduction)
 
 
+def check_data_mesh(dm: Any) -> Optional[DataMesh]:
+    """``dm`` itself when it is a DataMesh or None; a TypeError else."""
+    if dm is not None and not isinstance(dm, DataMesh):
+        raise TypeError(f"data_mesh must be a DataMesh, got "
+                        f"{type(dm).__name__}")
+    return dm
+
+
 # -- context-scoped activation (thread-local: job threads must not leak a
 # -- mesh into each other's reductions) ---------------------------------------
 
@@ -223,6 +231,48 @@ def no_data_mesh():
     return _pushed(None)
 
 
+# -- what every rank must agree on --------------------------------------------
+
+def _object_device(dm: DataMesh):
+    """Where ``broadcast_object_list`` stages its bytes: the card for
+    nccl, the host for gloo."""
+    return dm.device if dm.backend == "nccl" else None
+
+
+def first_rank_writes(dm: Optional[DataMesh], write: Callable[[], Any]) -> Any:
+    """Run ``write`` — a write to storage every rank shares, such as a
+    checkpoint directory — on rank 0 of ``dm``'s group alone, then meet
+    the other ranks: no two ranks race on one file, and no rank goes on
+    before the write has landed.  A write that raised on rank 0 raises
+    on every rank.  Returns ``write()``'s result on rank 0 and None on
+    the others; without a mesh or a group, ``write()``."""
+    if dm is None or dm.group is None:
+        return write()
+    out, msg = None, [None]
+    if dm.rank == 0:
+        try:
+            out = write()
+        except Exception as e:  # noqa: BLE001 — every rank raises it below
+            msg[0] = f"{type(e).__name__}: {e}"
+    dist.broadcast_object_list(msg, src=dist.get_global_rank(dm.group, 0),
+                               group=dm.group, device=_object_device(dm))
+    if msg[0] is not None:
+        raise RuntimeError(f"rank 0's write failed: {msg[0]}")
+    return out
+
+
+def agree_min(dm: Optional[DataMesh], value: int) -> int:
+    """The least ``value`` over ``dm``'s ranks (``value`` itself without
+    a group): a chunk size every rank then maps with, so the ranks' maps
+    meet in the same collectives."""
+    if dm is None or dm.group is None:
+        return int(value)
+    x = torch.tensor([int(value)], dtype=torch.int64,
+                     device=dm.device if dm.backend == "nccl" else "cpu")
+    dist.all_reduce(x, op=dist.ReduceOp.MIN, group=dm.group)
+    return int(x.item())
+
+
 # -- deterministic failure injection (the lost-shard ladder rung) -------------
 
 _FAIL_BUDGET = [0]
@@ -232,7 +282,9 @@ def inject_shard_failure(n: int = 1) -> None:
     """Arm the next ``n`` distributed reductions of this process to raise
     ``ShardLostError`` before they run — a deterministic stand-in for a
     dead worker (every rank arms its own, so the ranks fail together).
-    ``inject_shard_failure(0)`` disarms."""
+    ``inject_shard_failure(0)`` disarms.  The budget is one per process,
+    not per thread: armed on the main thread, it strikes the next
+    reduction of any thread, a job's thread included."""
     _FAIL_BUDGET[0] = int(n)
 
 

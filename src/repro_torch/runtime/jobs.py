@@ -12,6 +12,15 @@ Elasticity composes: pass ``checkpoint=`` and a failed column (lost
 shard, bad cell) costs exactly that column on the next submission of
 the same spec (sweep.engine resume).
 
+Under a data mesh, pass ``data_mesh=`` to ``submit``: it reaches the
+sweep, whose runtimes activate the mesh on the job's own thread.  A
+``use_data_mesh`` around ``submit`` does not reach the job — the active
+mesh is per thread — so a threaded job would run unsharded.  Every rank
+of the mesh submits the same jobs in the same order, so their
+collectives meet.  ``runtime.distributed.inject_shard_failure`` arms one
+budget per process: armed on any thread, it strikes the next reduction
+of whichever job reaches one first.
+
 Events are RuntimeEvents with action ``"column"`` (label = estimator
 name, chunk_index = column index, detail = "" or the column error),
 bracketed by ``"submitted"`` / ``"done"`` / ``"failed"`` markers.
@@ -166,13 +175,16 @@ class JobManager:
                device=None, block: bool = False, events_maxlen: int = 512,
                **sweep_kwargs) -> SweepJob:
         """Start ``sweep(spec, ...)`` as a job on ``device`` (None: the
-        CUDA card).  ``sweep_kwargs`` pass through (executor, checkpoint,
-        resume, mode, with_ci, ...); ``block=True`` runs inline —
-        deterministic, for tests and scripted pipelines."""
+        mesh's device, else the CUDA card).  ``sweep_kwargs`` pass
+        through (executor, data_mesh, checkpoint, resume, mode, with_ci,
+        ...); ``block=True`` runs inline — deterministic, for tests and
+        scripted pipelines."""
         # lazy: the runtime must not import the sweep
         from repro_torch.sweep import sweep
 
-        dev = resolve_device(device)
+        mesh = sweep_kwargs.get("data_mesh")
+        dev = resolve_device(device if device is not None or mesh is None
+                             else mesh.device)
         if dev.type == "cuda" and dev.index is None:
             # the submitting thread's card, fixed before the job's thread
             # starts with a current device of its own

@@ -21,7 +21,9 @@ layer the paper attributes to Ray:
                        that chunk to the ladder on this rank alone,
                        inside the mesh's one-rank twin: the same blocks
                        folded in the same order with no collective, so
-                       the same bits for every strategy ("ordered");
+                       the same bits for every strategy ("ordered").
+                       A chunk the memory model sizes is the least
+                       over the ranks (each probes its own peak);
   deterministic order  chunks are dispatched and concatenated in fixed
                        replicate order, whatever backends ran them;
   nested parallelism   ``map_product`` flattens two parallel axes
@@ -72,7 +74,8 @@ from repro_torch.inference.executor import (Executor, concat_trees,
                                             tree_map)
 from repro_torch.obs.audit import ChunkAudit
 from repro_torch.obs.trace import Tracer, maybe_span
-from repro_torch.runtime.distributed import DataMesh, use_data_mesh
+from repro_torch.runtime.distributed import (DataMesh, agree_min,
+                                             check_data_mesh, use_data_mesh)
 from repro_torch.runtime.future import TaskFuture, TaskGraph, resolve
 from repro_torch.runtime.memory import (ChunkCost, MemoryModel,
                                         cached_model, input_device,
@@ -200,8 +203,9 @@ class TaskRuntime:
                    first runs on the primary executor with the mesh
                    active (the rung ``data_mesh[<label>]:<executor>``),
                    then down the ladder inside the mesh's one-rank
-                   twin; a shard_map executor splits its replicates over
-                   this mesh.
+                   twin; a shard_map executor instead splits its
+                   replicates over this mesh, each replicate whole on
+                   one rank, and its ladder runs without the mesh.
     tracer         optional repro_torch.obs.Tracer: spans around map /
                    chunk / DAG-node execution (synchronized with the
                    card), chunk latency histograms, downgrade / retry
@@ -228,10 +232,7 @@ class TaskRuntime:
                  tracer: Optional[Tracer] = None,
                  probe: Optional[Callable] = None,
                  events_maxlen: int = 512):
-        if data_mesh is not None and not isinstance(data_mesh, DataMesh):
-            raise TypeError(f"data_mesh must be a DataMesh, got "
-                            f"{type(data_mesh).__name__}")
-        self.data_mesh = data_mesh
+        self.data_mesh = check_data_mesh(data_mesh)
         self._primary = make_executor(executor, mesh=data_mesh)
         # fn -> its closure inside the mesh / inside the one-rank twin
         self._mesh_fns: "weakref.WeakKeyDictionary" = \
@@ -333,7 +334,10 @@ class TaskRuntime:
         # alone inside its one-rank twin (the same bits)
         plans: List[Tuple[Executor, Any, str]] = []
         rung_fn = fn
-        if self.data_mesh is not None:
+        # a shard_map primary splits the replicates over the mesh instead:
+        # each replicate runs whole on one rank, with no mesh, on every
+        # rung (ShardMapExecutor)
+        if self.data_mesh is not None and self._primary.name != "shard_map":
             plans.append((self._primary, self._on_mesh(fn, local=False),
                           f"data_mesh[{self.data_mesh.label}]:"
                           f"{self._primary.name}"))
@@ -388,7 +392,11 @@ class TaskRuntime:
         model = memory_model(fn, xs, args, b, probe)
         if model is None:
             return b, None, done
-        return model.max_chunk(self.memory_budget, b), model, done
+        # each rank reads its own peaks; the ranks of a mesh map with the
+        # least chunk, so their chunks meet in the same collectives
+        return (agree_min(self.data_mesh,
+                          model.max_chunk(self.memory_budget, b)),
+                model, done)
 
     def plan_chunk(self, fn, xs: Any, args: Tuple[Any, ...], b: int
                    ) -> Tuple[int, Optional[MemoryModel]]:

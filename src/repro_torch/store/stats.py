@@ -134,9 +134,9 @@ def ingest_cells(layout: ColumnLayout, state: State, X: Tensor, t: Tensor,
         v = _vrow(layout, phi, dn)
         return {
             "ng": sg_ops.segment_outer(dn, dn, comb, n_cells,
-                                       init=state["ng"]),
+                                       init=state["ng"], row_block=row_block),
             "vg": sg_ops.segment_outer(v, v, comb, n_cells,
-                                       init=state["vg"]),
+                                       init=state["vg"], row_block=row_block),
             "counts": state["counts"] + sg_ops.segment_counts(comb, n_cells),
         }
 

@@ -41,8 +41,20 @@ Tracing: with ``tracer=`` (a ``repro_torch.obs.Tracer``) every ingest
 runs in a ``store.ingest`` span and every refresh in a ``store.refresh``
 span, each closing once the card has finished, and the tracer's metrics
 count ``store.ingests``, ``store.ingest.rows``, ``store.refreshes`` and
-gauge ``store.version``.  A store under a data mesh is ROADMAP A.10b:
-``data_mesh=`` raises.
+gauge ``store.version``.
+
+Data mesh (``data_mesh=``, a ``runtime.DataMesh``): every rank of the
+mesh's group holds the store and ingests the same rows; each column's
+ingest runs inside ``use_data_mesh``, so the rank reduces its own row
+blocks of ``cfg.row_block`` rows and meets the other ranks in one
+collective — under "pallas" one seg_gram launch a block.  "ordered"
+mode seeds the fold of the blocks' partials with the standing
+accumulators, the same left fold one pass over the concatenated rows
+runs, so one-shot ≡ incremental stays bitwise on aligned ingests, and
+the store is bitwise across rank counts.  On "chunked" it is bitwise
+the store with no mesh.  On the card under "pallas" it is within
+tolerance of it: with no mesh ``init`` seeds the kernel's own
+accumulator, under a mesh it seeds the fold of per-block launches.
 """
 from __future__ import annotations
 
@@ -59,6 +71,8 @@ from repro_torch.device import DeviceLike, as_f32, resolve_device
 from repro_torch.inference.bootstrap import derive_seed
 from repro_torch.kernels.seg_gram import ops as sg_ops
 from repro_torch.obs.trace import maybe_span
+from repro_torch.runtime.distributed import (DataMesh, check_data_mesh,
+                                             first_rank_writes, use_data_mesh)
 from repro_torch.store import stats as store_stats
 from repro_torch.store.solve import refresh_column
 from repro_torch.store.stats import ColumnLayout
@@ -124,20 +138,22 @@ class MomentStore:
     ``n_features`` fixes the X width up front so every accumulator (and
     the checkpoint template) exists before the first row arrives.
     ``seed`` roots the fold-assignment lineage (column i draws from
-    ``derive_seed(seed, i)``, as the sweep's columns do).  ``device``:
-    where the accumulators live (None: the CUDA card).
+    ``derive_seed(seed, i)``, as the sweep's columns do).  ``data_mesh``
+    row-shards every ingest (module docstring).  ``device``: where the
+    accumulators live (None: the mesh's device, else the CUDA card).
     """
 
     def __init__(self, spec: SweepSpec, n_features: int, seed: int = 0, *,
-                 tracer=None, data_mesh=None, device: DeviceLike = None):
-        if data_mesh is not None:
-            raise NotImplementedError("a store under a data mesh is "
-                                      "ROADMAP A.10b")
+                 tracer=None, data_mesh: Optional[DataMesh] = None,
+                 device: DeviceLike = None):
         self.spec = spec
         self.tracer = tracer
+        self.data_mesh = check_data_mesh(data_mesh)
         self.n_features = int(n_features)
         self.seed = int(seed)
-        self.device = resolve_device(device)
+        self.device = resolve_device(
+            device if device is not None or data_mesh is None
+            else data_mesh.device)
         self.n_total = 0
         self.n_ingests = 0
         self.version = 0
@@ -246,10 +262,12 @@ class MomentStore:
                                layout.k).to(dev)
             comb = sids * layout.k + folds
             phi = cate_basis(X, cfg.cate_features)
-            col.state = store_stats.ingest_cells(
-                layout, col.state, X, t, y, z if layout.iv else None,
-                phi, comb, self.spec.n_segments * layout.k,
-                row_block=cfg.row_block, strategy=cfg.row_block_strategy)
+            with use_data_mesh(self.data_mesh):
+                col.state = store_stats.ingest_cells(
+                    layout, col.state, X, t, y, z if layout.iv else None,
+                    phi, comb, self.spec.n_segments * layout.k,
+                    row_block=cfg.row_block,
+                    strategy=cfg.row_block_strategy)
         self.seg_counts = self.seg_counts + sg_ops.segment_counts(
             sids, self.spec.n_segments)
         self.n_total += n
@@ -314,10 +332,12 @@ class MomentStore:
 
     def save(self, manager, *, metric: Optional[float] = None) -> int:
         """Snapshot the store at its current version through a
-        ``checkpoint.CheckpointManager`` (atomic tmp+rename).  Returns
-        the step (= version) written."""
-        manager.save(self.version, self.state_dict(), metric=metric,
-                     extra=self._meta())
+        ``checkpoint.CheckpointManager`` (atomic tmp+rename; under a mesh
+        rank 0 writes and the other ranks wait for it).  Returns the step
+        (= version) written."""
+        first_rank_writes(self.data_mesh, lambda: manager.save(
+            self.version, self.state_dict(), metric=metric,
+            extra=self._meta()))
         return self.version
 
     def restore(self, manager, *, step: Optional[int] = None

@@ -43,14 +43,29 @@ Fault isolation: a failing column (unknown estimator, missing
 instrument, a config the port cannot build — the s/t/x metalearners
 name ROADMAP A.6b — or an error past the downgrade ladder) is recorded
 on its ``ColumnResult.error``; every other column keeps its estimates.
-Zero-row segments yield flagged (``ok = False``) finite cells.  Sweeps
-under a data mesh, and columns on the shard_map executor (which needs
-one), wait for ROADMAP A.10b.
+Zero-row segments yield flagged (``ok = False``) finite cells.
+
+Data mesh (``data_mesh=``, a ``runtime.DataMesh``): every rank of the
+mesh's group calls ``sweep`` with the same arguments.  The cells' runtime
+takes the mesh (``TaskRuntime(data_mesh=)``), so each blocked moment of a
+cell (``cfg.row_block > 0``) reduces the rank's own row blocks and meets
+the other ranks in one collective — under "pallas" one seg_gram launch a
+block — and a lost shard drops its chunk to the ladder on each rank
+alone.  "ordered" panels are bitwise across rank counts, and bitwise the
+panel with no mesh off the kernel ("chunked"); under "pallas" they are
+within tolerance of it (per-block launches against one pass).  A column
+on the shard_map executor splits its cells over the mesh's ranks
+instead, each cell whole on one rank (bitwise the vmap column with no
+mesh), and raises without a mesh.  The segmented fast path stays
+single-host: the mesh reaches only its cells fallback.
 
 Checkpoints (``checkpoint=``, a ``CheckpointManager``): each column
 saves as step = column index the moment it settles, with a provenance
 signature; a resumed sweep restores matching completed columns (tagged
-"restored") and recomputes only missing or failed ones.
+"restored") and recomputes only missing or failed ones.  Under a mesh
+with a group, rank 0 writes and the other ranks wait for it, and every
+rank reads the same directory; the signature does not hold the rank
+count, so columns saved on N ranks restore on M (``launch.elastic``).
 """
 from __future__ import annotations
 
@@ -70,6 +85,8 @@ from repro_torch.inference.bootstrap import bootstrap_weights, derive_seed
 from repro_torch.inference.executor import make_executor
 from repro_torch.obs.trace import maybe_span
 from repro_torch.runtime import as_runtime
+from repro_torch.runtime.distributed import (check_data_mesh,
+                                             first_rank_writes)
 from repro_torch.sweep.panel import ColumnResult, EffectPanel
 from repro_torch.sweep.segmented import segmented_column, segmented_supported
 from repro_torch.sweep.spec import SweepSpec, segment_counts
@@ -117,17 +134,14 @@ def _segment_mask(sids: Tensor, sid: Tensor) -> Tensor:
     return (sids[None, :] == sid.to(sids.device)[:, None]).to(torch.float32)
 
 
-def _runtime(cfg: CausalConfig, executor, tracer=None):
-    executor = executor if executor is not None else cfg.inference_executor
-    if executor == "shard_map":
-        raise NotImplementedError("a column on the shard_map executor needs "
-                                  "a data mesh; sweeps under a mesh are "
-                                  "ROADMAP A.10b")
+def _runtime(cfg: CausalConfig, executor, tracer=None, data_mesh=None):
+    """The column's TaskRuntime; "shard_map" raises without a mesh."""
     return as_runtime(
-        executor,
+        executor if executor is not None else cfg.inference_executor,
         memory_budget=cfg.runtime_memory_budget,
         chunk=cfg.sweep_chunk or cfg.runtime_chunk,
-        max_retries=cfg.runtime_max_retries, tracer=tracer)
+        max_retries=cfg.runtime_max_retries, tracer=tracer,
+        data_mesh=data_mesh)
 
 
 def _make_masked_cell(cell, n_folds: int):
@@ -283,12 +297,13 @@ def _ci_tag(extra: Dict[str, Any]) -> Tuple[str, ...]:
 
 def _run_column(rspec: EstimatorSpec, cfg: CausalConfig, col_index: int,
                 base_data, n_segments: int, seed: int, executor,
-                with_ci: Optional[bool], tracer=None) -> ColumnResult:
+                with_ci: Optional[bool], tracer=None,
+                data_mesh=None) -> ColumnResult:
     """One column as E masked single-fit cells through the runtime."""
     cell = rspec.weighted_fit(cfg)
     data = _column_data(base_data, cfg)
     xs = _cells(seed, col_index, n_segments)
-    rt = _runtime(cfg, executor, tracer)
+    rt = _runtime(cfg, executor, tracer, data_mesh)
     with maybe_span(rt.tracer, f"sweep.column[{col_index}]", cat="sweep",
                     estimator=rspec.name, segments=n_segments):
         out = rt.map(_make_masked_cell(cell, cfg.n_folds), xs, data,
@@ -308,14 +323,14 @@ def _run_column(rspec: EstimatorSpec, cfg: CausalConfig, col_index: int,
 def _run_shared_group(rspec: EstimatorSpec,
                       members: List[Tuple[int, CausalConfig]], base_data,
                       n_segments: int, seed: int, executor,
-                      with_ci: Optional[bool], tracer=None
+                      with_ci: Optional[bool], tracer=None, data_mesh=None
                       ) -> List[Tuple[int, ColumnResult]]:
     """Columns differing only in final stage: ONE residual pass per
     segment (on the first member's cell seeds), then a cheap final-stage
     map per column."""
     first_idx, cfg0 = members[0]
     xs = _cells(seed, first_idx, n_segments)
-    rt = _runtime(cfg0, executor, tracer)
+    rt = _runtime(cfg0, executor, tracer, data_mesh)
     # the shared residual pass is group-fatal by design (every member
     # consumes it); everything after is isolated per member
     with maybe_span(rt.tracer, f"sweep.group:{rspec.name}", cat="sweep",
@@ -371,12 +386,13 @@ def _shared_member_column(rspec: EstimatorSpec, cfg: CausalConfig,
 def _segmented_or_cells(rspec: EstimatorSpec, cfg: CausalConfig,
                         col_index: int, base_data, n_segments: int,
                         seed: int, executor, with_ci: Optional[bool],
-                        tracer=None) -> ColumnResult:
+                        tracer=None, data_mesh=None) -> ColumnResult:
     """mode="segmented" dispatch: the one-pass kernels where they apply,
-    the cells path otherwise."""
+    the cells path otherwise.  The one-pass path stays single-host; the
+    mesh reaches only the cells fallback."""
     if not segmented_supported(rspec, cfg):
         return _run_column(rspec, cfg, col_index, base_data, n_segments,
-                           seed, executor, with_ci, tracer)
+                           seed, executor, with_ci, tracer, data_mesh)
     with maybe_span(tracer, f"sweep.column[{col_index}]", cat="sweep",
                     estimator=rspec.name, segmented=True):
         out = segmented_column(cfg, base_data, n_segments,
@@ -427,25 +443,29 @@ def sweep(spec: SweepSpec, *, X, y, t, segment_ids, z=None, seed: int = 0,
     tracer            optional ``repro_torch.obs.Tracer``: column and
                       group spans with the runtime's spans inside (see
                       the module docstring); None records nothing.
-    data_mesh         raises: sweeps under a data mesh are ROADMAP A.10b.
+    data_mesh         optional ``runtime.DataMesh``: every rank calls
+                      ``sweep`` alike and the cells' blocked moments
+                      row-shard over the ranks (module docstring); a
+                      shard_map column splits its cells over them.
+                      The segmented fast path stays single-host.
     checkpoint        optional ``CheckpointManager``: each column saves
                       as step = column index the moment it settles
-                      (success OR error); ``keep_latest`` is raised to
-                      cover the grid.
+                      (success OR error; under a mesh rank 0 writes);
+                      ``keep_latest`` is raised to cover the grid.
     resume            with ``checkpoint``: restore provenance-matching
                       completed columns (tagged "restored") and
                       recompute only missing/failed ones.
     column_callback   ``f(index, ColumnResult)`` called as each column
                       settles (including restored ones) — the event
                       stream hook of ``runtime.jobs``.
-    device            where the columns run (None: the CUDA card).
+    device            where the columns run (None: the mesh's device,
+                      else the CUDA card).
     """
     if mode not in ("cells", "segmented"):
         raise ValueError(f"unknown sweep mode {mode!r} (cells | segmented)")
-    if data_mesh is not None:
-        raise NotImplementedError("sweeps under a data mesh are ROADMAP "
-                                  "A.10b")
-    dev = resolve_device(device)
+    check_data_mesh(data_mesh)
+    dev = resolve_device(device if device is not None or data_mesh is None
+                         else data_mesh.device)
     n_seg = spec.n_segments
     base_data = _base_data(X, y, t, segment_ids, z, dev)
     counts = segment_counts(base_data["sids"], n_seg)
@@ -460,7 +480,9 @@ def sweep(spec: SweepSpec, *, X, y, t, segment_ids, z=None, seed: int = 0,
     def record(idx: int, col: ColumnResult, *, save: bool = True) -> None:
         results[idx] = col
         if save and checkpoint is not None:
-            _save_column(checkpoint, idx, col, n_seg)
+            # one writer a directory; the other ranks wait for it
+            first_rank_writes(data_mesh, lambda: _save_column(
+                checkpoint, idx, col, n_seg))
         if column_callback is not None:
             column_callback(idx, col)
 
@@ -500,7 +522,7 @@ def sweep(spec: SweepSpec, *, X, y, t, segment_ids, z=None, seed: int = 0,
                     try:
                         col = _segmented_or_cells(
                             rspec, cfg, idx, base_data, n_seg, seed,
-                            executor, with_ci, tracer)
+                            executor, with_ci, tracer, data_mesh)
                     except Exception as err:  # noqa: BLE001
                         col = ColumnResult(estimator=name, cfg=cfg,
                                            key_index=idx, error=str(err))
@@ -514,13 +536,14 @@ def sweep(spec: SweepSpec, *, X, y, t, segment_ids, z=None, seed: int = 0,
             if shareable:
                 for idx, col in _run_shared_group(
                         rspec, members, base_data, n_seg, seed, executor,
-                        with_ci, tracer):
+                        with_ci, tracer, data_mesh):
                     record(idx, col)
             else:
                 for idx, cfg in members:
                     try:
                         col = _run_column(rspec, cfg, idx, base_data, n_seg,
-                                          seed, executor, with_ci, tracer)
+                                          seed, executor, with_ci, tracer,
+                                          data_mesh)
                     except Exception as err:  # noqa: BLE001
                         col = ColumnResult(estimator=name, cfg=cfg,
                                            key_index=idx, error=str(err))

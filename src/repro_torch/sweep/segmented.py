@@ -27,6 +27,12 @@ reference.  The per-row coefficient gathers (the reference's
 q = 501) run over row blocks of ``GATHER_ROWS``, so the gathered
 coefficients stay under 0.7 GB.
 
+Inside ``use_data_mesh`` (``launch/sweep_cell.py`` under a mesh) the
+fold Grams and the final stage's two Grams pass ``cfg.row_block``: each
+block is one launch on the rank that owns it.  The MM loop's gradient
+terms stay whole-array on every rank, as the reference's do.  The
+sweep engine runs its segmented columns without a mesh.
+
 Contract: a *different execution* of the same estimator, not the same
 bits — it shares one fold assignment across cells and swaps Newton for
 MM, so tests assert tolerance-equality against the reference's sweep on
@@ -119,7 +125,9 @@ def _segment_fold_logistic(Xa, tt, sids, folds, comb, n_segments, k, lam,
         + lam * eye
     if strategy == "pallas":
         # held-in sums per segment (t1) and own-fold sums (t2) by the
-        # segment walk: no one-hot mask, no multiplied zeros
+        # segment walk: no one-hot mask, no multiplied zeros.  These run
+        # whole-array (no row_block), as the reference's in-loop calls
+        # do; the final stage's pass the config's row_block
         def grad_terms(r, rr):
             t1 = sg_ops.segment_outer(r, Xa, sids, n_segments)
             t2 = sg_ops.segment_outer(rr, Xa, comb, n_segments * k)
@@ -146,7 +154,7 @@ def _segment_fold_logistic(Xa, tt, sids, folds, comb, n_segments, k, lam,
 
 
 def _segment_final_stage(ry, rt, phi, sids, n_segments, ridge=1e-8,
-                         strategy=None):
+                         row_block=0, strategy=None):
     """Per-segment orthogonal final stage + HC0 sandwich, all E segments
     from segment-Grams over the residuals: the segment walk under
     strategy="pallas", one-hot einsums otherwise."""
@@ -154,7 +162,8 @@ def _segment_final_stage(ry, rt, phi, sids, n_segments, ridge=1e-8,
     z = rt[:, None] * phi
     m = torch.cat([z, ry[:, None]], dim=1)
     if strategy == "pallas":
-        gaug = sg_ops.segment_outer(m, m, sids, n_segments)
+        gaug = sg_ops.segment_outer(m, m, sids, n_segments,
+                                    row_block=row_block)
         nseg = torch.clamp(sg_ops.segment_counts(sids, n_segments), min=1.0)
     else:
         oh_seg = _one_hot(sids, n_segments)
@@ -166,7 +175,8 @@ def _segment_final_stage(ry, rt, phi, sids, n_segments, ridge=1e-8,
     e = ry - (z * theta[sids]).sum(dim=1)
     me = e[:, None] * z
     if strategy == "pallas":
-        meat = sg_ops.segment_outer(me, me, sids, n_segments)
+        meat = sg_ops.segment_outer(me, me, sids, n_segments,
+                                    row_block=row_block)
     else:
         meat = torch.einsum("ns,ni,nj->sij", oh_seg, me, me)
     ainv = det_inv(a)
@@ -210,7 +220,7 @@ def segmented_dml_sweep(cfg: CausalConfig, X: Tensor, y: Tensor, t: Tensor,
     rt = tt - mt
     phi = cate_basis(X, cfg.cate_features)
     theta, se = _segment_final_stage(ry, rt, phi, sids, n_segments,
-                                     strategy=st)
+                                     row_block=rb, strategy=st)
     return {"theta": theta, "se": se, "ate": theta[:, 0]}
 
 

@@ -98,7 +98,9 @@ The data mesh (runtime.distributed): two gloo ranks on cuda:0 reduce
 the kernel forms one seg_gram launch a block, the accumulators staged
 through host memory — bitwise the 1-rank mesh, within 1e-5·max of one
 kernel pass over all rows; two NCCL ranks on one card refuse to build a
-mesh, naming gloo.
+mesh, naming gloo.  ``segment_outer(row_block=)`` with no mesh is the
+one-pass call bitwise; a store under the card's one-rank mesh ingests
+one pair launch a block, one-shot ≡ incremental bitwise.
 
 LM serving on the card (small bf16 models of the three families): a
 served wave's prefill launches one kernel per attention or scan block
@@ -1004,6 +1006,65 @@ def test_store_on_card(card, strategy):
     np.testing.assert_allclose(pa.columns[0].thetas.cpu().numpy(),
                                pc.columns[0].thetas.numpy(), rtol=1e-4,
                                atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_segment_outer_row_block_without_mesh_is_one_pass(card):
+    """With no data mesh ``row_block`` changes nothing: the pair form at
+    the store's seeded shape and the sweep's final stage is bitwise the
+    call without it, in one launch each."""
+    from repro_torch.kernels.seg_gram import kernel as kern
+
+    g = torch.Generator().manual_seed(11)
+    n, q, S = 20_000, 37, 12
+    U = torch.randn((n, q), generator=g).to(card)
+    seg = torch.randint(-1, S, (n,), generator=g).to(card)
+    init = torch.randn((S, q, q), generator=g).to(card)
+    for kw in ({}, {"init": init}):
+        want = ops.segment_outer(U, U, seg, S, **kw)
+        kern.LAUNCHES.clear()
+        got = ops.segment_outer(U, U, seg, S, row_block=4096, **kw)
+        assert dict(kern.LAUNCHES) == {"pair": 1}
+        assert torch.equal(got, want), kw
+
+
+@pytest.mark.cuda
+def test_store_ingest_one_rank_mesh_on_card(card):
+    """A store under the card's one-rank mesh ("pallas"): each block of
+    row_block rows one pair launch a Gram, one-shot ≡ two aligned
+    ingests bitwise, within 1e-5 relative plus 1e-5·max of the store
+    with no mesh (there init seeds the kernel's accumulator, here the
+    blocks' fold)."""
+    from repro_torch.config import CausalConfig
+    from repro_torch.kernels.seg_gram import kernel as kern
+    from repro_torch.runtime import make_data_mesh
+    from repro_torch.store import MomentStore
+    from repro_torch.sweep import SweepSpec
+
+    d, sids = _store_data()
+    cfg = CausalConfig(n_folds=3, inference="none", row_block=512,
+                       row_block_strategy="pallas", nuisance_t="ridge",
+                       discrete_treatment=False, cate_features=2)
+    spec = SweepSpec(6, (("dml", cfg),))
+    dm = make_data_mesh(device=card)
+
+    def store(cuts, mesh):
+        s = MomentStore(spec, n_features=d.p, data_mesh=mesh, device=card)
+        bounds = [0, *cuts, d.n]
+        for lo, hi in zip(bounds[:-1], bounds[1:]):
+            s.ingest(X=d.X[lo:hi], y=d.y[lo:hi], t=d.t[lo:hi],
+                     segment_ids=sids[lo:hi])
+        return s
+
+    kern.LAUNCHES.clear()
+    inc = store((2048,), dm)
+    assert dict(kern.LAUNCHES) == {"pair": 2 * (d.n // 512)}
+    one, plain = store((), dm), store((), None)
+    a, b, c = (x.state_dict()["col0"] for x in (one, inc, plain))
+    for key in ("ng", "vg", "counts"):
+        assert torch.equal(a[key], b[key]), key
+        _close(a[key], c[key])
+    assert bool(torch.isfinite(inc.refresh().columns[0].thetas).all())
 
 
 # ---------------------------------------------------------------------------

@@ -20,7 +20,8 @@ checkpoint manager; and the misaligned-ingest flag per column,
 streaming-stable folds (the port's own splitmix64 draw), the coverage
 gate's reasons, a provenance mismatch, zero-row segments, the effect
 recovered, a traced store bitwise the untraced one with its spans and
-counters, data meshes raising.
+counters, a data mesh that is not a DataMesh refused (stores under a
+mesh: tests/test_torch_mesh_sweep.py).
 """
 import dataclasses
 
@@ -344,5 +345,5 @@ def test_ingest_checks_and_later_features(rows):
     assert snap["counters"]["store.ingest.rows"] == N
     assert snap["counters"]["store.refreshes"] == 1
     assert snap["gauges"]["store.version"] == 2
-    with pytest.raises(NotImplementedError, match="A.10"):
+    with pytest.raises(TypeError, match="DataMesh"):
         MomentStore(spec, n_features=P, data_mesh=object(), device="cpu")

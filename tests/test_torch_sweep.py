@@ -12,12 +12,12 @@ reference's fold ids to the port by replacing
   * ``sweep(mode="segmented")`` against the reference engine's panel;
   * per-column isolation: a column outside the segmented kernels runs
     as cells (an mlp nuisance runs there; a column on the shard_map
-    executor fails naming A.10), an unknown estimator
+    executor with no data mesh fails naming DataMesh), an unknown estimator
     or a missing instrument fail their column only, and the surviving
     column is bitwise the column swept alone;
   * cells mode runs (the default), ``serial_loop`` is bitwise it,
-    replicate CIs are bitwise across chunkings, data meshes raise at
-    entry naming A.10; a traced sweep is bitwise the untraced one,
+    replicate CIs are bitwise across chunkings, a data mesh that is not
+    a DataMesh raises at entry; a traced sweep is bitwise the untraced one,
     with its column, group and runtime spans (the cells against the
     reference's cells: tests/test_torch_sweep_cells.py);
   * per-column checkpoints: resume restores matching columns bitwise,
@@ -138,8 +138,8 @@ def test_unsupported_column_isolated_naming_runtime(data):
     """A config outside the segmented kernels runs as masked cells
     through the task runtime, as in the reference: a non-DML family
     (drlearner) and an mlp outcome nuisance run there; a column on the
-    shard_map executor fails its own column naming the slice that brings
-    it (A.10).  The neighbor is bitwise the column swept alone."""
+    shard_map executor with no data mesh fails its own column naming
+    DataMesh.  The neighbor is bitwise the column swept alone."""
     cfg = CausalConfig(**_cfg())
     mlp = dataclasses.replace(cfg, nuisance_y="mlp", mlp_hidden=(8,),
                               mlp_steps=5)
@@ -153,7 +153,7 @@ def test_unsupported_column_isolated_naming_runtime(data):
         assert bool(col.ok(panel.counts).all())
         assert bool(torch.isfinite(col.thetas).all())
     bad = panel.columns[3]
-    assert bad.failed and "A.10" in bad.error
+    assert bad.failed and "DataMesh" in bad.error
     assert not bool(bad.ok(panel.counts).any())
     alone = _sweep(SweepSpec(E, (("dml", cfg),)), data)
     assert torch.equal(panel.columns[0].thetas, alone.columns[0].thetas)
@@ -174,8 +174,9 @@ def test_unknown_estimator_and_missing_instrument_isolated(data):
                                   "serial_loop"])
 def test_later_features_raise_at_entry(data, what):
     """What the runtime slice brought works — cells mode, per-cell
-    replicate CIs, ``serial_loop``, a traced sweep — and data meshes
-    still raise at entry naming A.10."""
+    replicate CIs, ``serial_loop``, a traced sweep — and a data mesh
+    that is not a DataMesh raises at entry (sweeps under a mesh:
+    tests/test_torch_mesh_sweep.py)."""
     cfg = CausalConfig(**_cfg())
     spec = SweepSpec(E, (("dml", cfg),))
     kw = dict(X=data["X"], y=data["y"], t=data["t"],
@@ -203,7 +204,7 @@ def test_later_features_raise_at_entry(data, what):
                               "runtime.chunk"]
         return
     if what == "data_mesh":
-        with pytest.raises(NotImplementedError, match="A.10"):
+        with pytest.raises(TypeError, match="DataMesh"):
             sweep(spec, data_mesh=object(), mode="segmented", **kw)
         with pytest.raises(ValueError, match="unknown sweep mode"):
             sweep(spec, mode="bogus", **kw)

@@ -196,7 +196,8 @@ def test_cells_chunked_and_metalearners_isolated(data):
     """A chunked column (sweep_chunk 2 of E = 3 cells) is bitwise the
     whole one, with its chunk event; an s/t/x column beside it runs on
     its own, bitwise the column swept alone, and a column on the
-    shard_map executor fails naming A.10 without touching either."""
+    shard_map executor with no data mesh fails naming DataMesh without
+    touching either."""
     cfg = CausalConfig(**_cfg())
     whole = _tsweep(SweepSpec(E, (("dml", cfg),)), data).columns[0]
     t_alone = _tsweep(SweepSpec(E, (("t_learner", cfg),)), data).columns[0]
@@ -210,4 +211,4 @@ def test_cells_chunked_and_metalearners_isolated(data):
     assert panel.columns[0].events == ("chunk:vmap",)
     assert not panel.columns[1].failed
     assert torch.equal(panel.columns[1].ates, t_alone.ates)
-    assert panel.columns[2].failed and "A.10" in panel.columns[2].error
+    assert panel.columns[2].failed and "DataMesh" in panel.columns[2].error

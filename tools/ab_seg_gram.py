@@ -17,7 +17,8 @@ runs after a warm-up; 10 for the small forms and flash):
     on inputs made here from one seed, so both trees see the same ones —
     the sweep's MM terms pair:t1 (2^20 × 5 by 2^20 × 501, S = 64) and
     pair:t2 (1 × 501, S = 320), its final stage pair:final (2 × 2,
-    S = 64); OrthoIV's iv, iv_meat and iv_segmented (S = 5) at n = 1M,
+    S = 64) and pair:final@rb, the same call with ``row_block=65536``
+    where the tree's ``segment_outer`` takes it; OrthoIV's iv, iv_meat and iv_segmented (S = 5) at n = 1M,
     phi 2 wide; the final stage's residual, residual_meat and
     residual_gram at n = 1M; the bootstrap's residual_direct and
     residual_meat at n = 100k, R = 25.  ``ms`` times the eager call,
@@ -34,7 +35,9 @@ runs after a warm-up; 10 for the small forms and flash):
     (``paper_demo_data(n=100_000, p=500)``, R·k = 125), the store's
     seeded walks (e) ng (503 wide) and (f) vg (1006 wide) of a day of
     2^18 rows into 320 cells, seeded with the tree's own Grams of a first
-    day, and flash attention at the backbone's shape (q (256, 256, 32,
+    day (and ``pair:ng@rb`` / ``pair:vg@rb``: the same seeded walks
+    through ``segment_outer``, with ``row_block=65536`` where the tree
+    takes it; SHA-256 only), and flash attention at the backbone's shape (q (256, 256, 32,
     64), k/v 8 heads, bf16, causal);
   * ``scans``: the GLA scan in bonus and post mode at rwkv6-3b's
     main-path shape (B 256 × H 40 × T 256 × 64, bf16 r/k/v as strided
@@ -74,6 +77,16 @@ def sha(out) -> str:
     return hashlib.sha256(flat.numpy().tobytes()).hexdigest()
 
 
+def _row_block(ops) -> dict:
+    """``row_block=65536`` where the tree's ``segment_outer`` takes it
+    (without a data mesh it must change no bit), else nothing: the
+    parent's call is the one without it."""
+    import inspect
+
+    params = inspect.signature(ops.segment_outer).parameters
+    return {"row_block": 65536} if "row_block" in params else {}
+
+
 def thin_small_forms():
     """(name, fn, walk) of the thin and small forms; walk is (seg, S, qL,
     qR) for a segment walk, else None."""
@@ -107,12 +120,15 @@ def thin_small_forms():
     wb = torch.rand((R, nb), generator=g, device=dev)
     zero = torch.zeros_like(ryb)
     thb = theta + 0.01 * rnd(R, 2)
+    rb = _row_block(ops)
     return [
         ("pair:t1", lambda: ops.segment_outer(r, Xa, sids, E),
          (sids, E, k, 501)),
         ("pair:t2", lambda: ops.segment_outer(rr, Xa, comb, E * k),
          (comb, E * k, 1, 501)),
         ("pair:final", lambda: ops.segment_outer(m, m, sids, E),
+         (sids, E, 2, 2)),
+        ("pair:final@rb", lambda: ops.segment_outer(m, m, sids, E, **rb),
          (sids, E, 2, 2)),
         ("iv", lambda: ops.iv_gram(ry, rt, rz, phi, ones)[0], None),
         ("iv_meat", lambda: ops.iv_meat(ry, rt, rz, phi, theta), None),
@@ -230,9 +246,11 @@ def time_store(timer):
     import torch
 
     from repro_torch.kernels.seg_gram import kernel as kern
+    from repro_torch.kernels.seg_gram import ops
 
     g = torch.Generator(device="cuda").manual_seed(SEED)
     nd, p, S = 2 ** 18, 500, 320
+    rb = _row_block(ops)
     dn = torch.cat([torch.randn((nd, p), generator=g, device="cuda"),
                     torch.ones((nd, 1), device="cuda"),
                     torch.randn((nd, 2), generator=g, device="cuda")], 1)
@@ -249,6 +267,9 @@ def time_store(timer):
 
         digest[name] = sha(walk())
         ms[name] = timer.ms(walk, 3)
+        # the store's call, through segment_outer with its row_block
+        digest[name + "@rb"] = sha(ops.segment_outer(M, M, seg, S, init=init,
+                                                     **rb))
         del init
     return ms, digest
 
