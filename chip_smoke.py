@@ -2,7 +2,15 @@
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one H100.
 
     python3 chip_smoke.py [--n 1000000] [--bootstrap-replicates 100]
-                          [--out results.json]
+                          [--out results.json] [--phases a,b,...]
+
+``--phases`` runs only the phases whose names equal or start with one of
+its comma-separated entries (``--phases lm_serve:arctic-480b``,
+``--phases kernels:flash,lm_serve:deepseek``); a phase that takes
+another's output (``lm_serve:granite-3-2b`` the model of
+``backbone:granite-3-2b``, ``kernels:dr-forms`` ``dr:fit``'s residuals)
+is skipped unless that one is selected too.  With no option every phase
+runs, as the contract's run does.  The record lists the phases that ran.
 
 Phases (each failure makes the script exit non-zero):
 
@@ -291,6 +299,27 @@ Phases (each failure makes the script exit non-zero):
      step at 2^20 × 500 × 64 (every segment within 5 se) and its cells
      step at 2^16 × 8 (32,768 rows a block) bitwise ``serial_loop``.
      Every rank of every mesh phase must launch seg_gram.
+
+ 28. the other decoder-only families (slice 15), ``lm_serve:<arch>`` after
+     the backbones, each on a model built for it (``family_model``) at
+     its published widths in fp32 parameters: phi4-mini-3.8b (partial
+     NeoX RoPE) and chatglm3-6b (interleaved RoPE on half the head) at
+     full depth, yi-34b cut to 8 of 60 layers, arctic-480b to 1 of 35
+     (all 128 experts), deepseek-v3-671b to 2 of 61 (one dense layer,
+     one MoE layer with all 256 experts, MLA), the cut stacks' weights
+     rescaled to the full depth's init std; the cuts are printed and
+     recorded (``reduced``) before the serving run.  Each serves
+     ``phase_lm_serve``'s waves with its gates; the prefill's flash
+     launches must all run at the model's head dims (deepseek-v3: q.k
+     192, v 128); the MoE blocks print their dropped picks (prefill,
+     train form; decode must drop none), the share of tokens whose
+     expert set differs between the kernel and plain runs (at most
+     MOE_FLIP_MAX) and the block's error on the other tokens (at most
+     MOE_BLOCK_TOL), and the train and solo gates of a MoE half skip
+     the tokens whose routing parted or whose picks dropped.
+     ``kernels:flash`` also holds the (192, 128) kernel against plain
+     and fp64 at deepseek-v3's prefill wave (8 x 128 tokens, 128 heads),
+     bf16 and fp32, with SDPA's time where it takes Ev != E.
 
 Every seg_gram record also names the kernel that ran (``design``:
 small, thin or big) and times its second pass alone (``reduce_ms``)
@@ -2095,16 +2124,18 @@ def _fa_plain(q, k, v, causal=True, softcap=0.0, scale=None):
 
 
 def phase_flash(seed: int, timer) -> dict:
-    """Flash attention vs plain vs fp64 at the backbone's shape, and at
-    two small shapes (fp32, softcap); timings at the backbone's shape."""
+    """Flash attention vs plain vs fp64 at the backbone's shape, at
+    deepseek-v3's MLA prefill (q/k 192, v 128 wide) and at two small
+    shapes (fp32, softcap); timings at the backbone's and the MLA
+    shapes."""
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
 
     g = torch.Generator(device="cuda").manual_seed(seed + 11)
     dev = "cuda"
 
-    def qkv(B, S, H, KV, D, dtype):
-        return tuple(torch.randn((B, S, h, D), generator=g, device=dev)
-                     .to(dtype) for h in (H, KV, KV))
+    def qkv(B, S, H, KV, D, dtype, Dv=None):
+        return tuple(torch.randn((B, S, h, d), generator=g, device=dev)
+                     .to(dtype) for h, d in ((H, D), (KV, D), (KV, Dv or D)))
 
     def check(q, k, v, causal, cap, what):
         got = fa_kernel.flash_attention_cuda(q, k, v, causal=causal,
@@ -2193,6 +2224,52 @@ def phase_flash(seed: int, timer) -> dict:
         del q, k, v
         torch.cuda.empty_cache()
     records["flash_attention"]["other_checks"] = extra
+    # MLA's prefill at deepseek-v3's widths: a serving wave of LM_WAVE
+    # prompts of LM_PROMPT tokens, 128 heads, q/k 128 + 64, v 128
+    B, S, H, D, Dv = LM_WAVE, LM_PROMPT, 128, 192, 128
+    for dtype, key, peak, peak_name in (
+            (torch.bfloat16, "flash_attention[mla]", BF16_TC_FLOP_PER_S,
+             "989 TFLOP/s bf16"),
+            (torch.float32, "flash_attention[mla,fp32]", FP32_FLOP_PER_S,
+             "67 TFLOP/s fp32")):
+        q, k, v = qkv(B, S, H, H, D, dtype, Dv)
+        tag = str(dtype).replace("torch.", "")
+        path = check(q, k, v, True, 0.0,
+                     f"mla prefill: {tag}, causal, q.k {D} / v {Dv}")
+        ms = timer.ms(lambda: fa_kernel.flash_attention_cuda(q, k, v), 10)
+        plain_ms = timer.ms(lambda: _fa_plain(q, k, v), 3)
+        qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        try:            # SDPA with a value head dim of its own, if it takes one
+            lib_ms = timer.ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    qh, kh, vh, is_causal=True), 10)
+            lib_note = f"library_ms={lib_ms:.4f} (SDPA)"
+        except RuntimeError as e:
+            lib_ms, lib_note = None, f"SDPA refuses Ev != E ({e})"
+        del qh, kh, vh
+        nbytes = q.element_size() * (q.numel() + k.numel() + v.numel()
+                                     + B * S * H * Dv)
+        flops = 2.0 * B * H * S * S * (D + Dv) / 2   # QK and PV, causal half
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / peak * 1e3
+        log(f"kernel {key} [mla prefill] ms={ms:.4f} plain_ms={plain_ms:.4f} "
+            f"{lib_note} bound_ms={max(t_bytes, t_ops):.4f} "
+            f"({'bytes' if t_bytes >= t_ops else 'operations'}: "
+            f"{nbytes / 1e9:.4f} GB at 3.35 TB/s, {flops / 1e9:.2f} GFLOP "
+            f"at {peak_name})")
+        records[key] = {
+            "name": key, "route": "cuda", "source": FA_SRC,
+            "replaces": FA_TPU, "launches": None,
+            "max_abs_err": path["max_abs_err"], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": lib_ms,
+            "err_kernel_vs_fp64": path["err_kernel_vs_fp64"],
+            "err_plain_vs_fp64": path["err_plain_vs_fp64"],
+            "bitwise_plain_share": path["bitwise_plain_share"],
+            "shape": path["q"], "v_shape": list(v.shape), "dtype": tag}
+        del q, k, v
+        torch.cuda.empty_cache()
     return records
 
 
@@ -2573,6 +2650,60 @@ LM_SOLO_ROW = 0
 # zamba2-1.2b's end-to-end numbers are printed, as its features are.
 LM_E2E_TOL = 0.5
 
+# lm_serve:<arch> for the other decoder-only families (slice 15), each
+# on a model built for the phase at its published widths, in the
+# configs' fp32 parameters.  Depth is cut only where one card's 80 GB or
+# the run's time forces it (layers kept here; the rest run whole):
+# yi-34b's 60 layers are 138 GB, 8 of them 22 GB (cut for time, as its
+# 0.56 B-parameter layers all repeat one block); arctic-480b's one layer
+# with all 128 experts is 54.5 GB; deepseek-v3-671b keeps one dense
+# (first_k_dense) and one MoE layer with all 256 experts, 56 GB.  In a
+# cut model the stacked weights are rescaled to the std the full
+# depth's init gives them (the reference's fan-in is the stacked layer
+# axis, so 1/sqrt(full layers)), so each layer's gains are the full
+# model's.  phi4-mini-3.8b and chatglm3-6b run whole.
+LM_FAMILY_ARCHS = ("phi4-mini-3.8b", "chatglm3-6b", "yi-34b", "arctic-480b",
+                   "deepseek-v3-671b")
+LM_FAMILY_LAYERS = {"yi-34b": 8, "arctic-480b": 1, "deepseek-v3-671b": 2}
+# end-to-end gate (LM_E2E_TOL): the dense GQA stacks, as granite's; the
+# MoE stacks' end-to-end numbers are printed, not gated — a routing flip
+# or a pick dropped in one run and kept in the other moves a token's
+# logits by their own size, and the block gates below hold the layers
+LM_E2E_GATED = FEAT_GATED + ("phi4-mini-3.8b", "chatglm3-6b", "yi-34b")
+# MoE blocks: the kernel and plain runs' expert sets may part where a
+# one-step difference of the attention output moves a near-tied router
+# logit.  With the router logits' spread over E = 128 / 256 experts and
+# one bf16 step (2^-8) at a few hundredths of the d_model inputs, a
+# token's top-k boundary moves by ~1e-3 of the gap to its neighbour:
+# flips should touch well under 1 % of the tokens; MOE_FLIP_MAX = 5 %
+# fails a routing or dispatch fault (which moves most tokens) with room.
+MOE_FLIP_MAX = 0.05
+# The whole MoE block (attention, then the MoE on its output) through
+# the kernel and through the plain attention, on the tokens whose
+# experts agree: each half parts by up to BLOCK_TOL, and the SwiGLU
+# experts carry their input's relative difference about twice (silu(g)
+# times u, two linear images of it) before the residual sum rounds
+# again, hence 4 x BLOCK_TOL.
+MOE_BLOCK_TOL = 4 * BLOCK_TOL
+# MLA's attention half, teacher-forced decode (absorbed) against the
+# train form (expanded) and a row alone against the batch, in bf16: not
+# a rounding-level quantity at deepseek-v3's dense layers.  The
+# reference's init takes fan-in from the stacked layer axis, so the
+# first_k_dense = 3 dense layers draw std 1/sqrt(3): q and k come out
+# ~20x the inputs' scale, the scaled logits in the hundreds, and a
+# one-step bf16 difference of q·k (the absorbed form rounds q·wk_b, the
+# expanded one c·wk_b; another batch size takes other GEMM tiles) moves
+# a near-tied row's softmax off its top key (on an NVIDIA H100 80GB HBM3
+# at 700 W: 7.4e-2 and 5.9e-2 against BLOCK_TOL, logits up to 3.7e3,
+# 4.7 % of the query rows' top two logits within two bf16 steps; the
+# MoE layer's MLA, std 1/sqrt(58), stayed within BLOCK_TOL).  ``_mla_fp32_gates`` therefore holds those two
+# gates on the half's fp32-compute twin (same weights, the inputs
+# upcast, the fp32 flash template), where a logit moves by ~1e-7 of its
+# hundreds: ~1e-4 of a near-tied row's p, MLA_FP32_TOL with room; the
+# bf16 numbers are printed, with the share of query rows whose top two
+# logits lie within two bf16 steps.
+MLA_FP32_TOL = 1e-3
+
 
 def _lm_counts() -> collections.Counter:
     """Every kernel's launch counters, summed over the wrappers."""
@@ -2636,18 +2767,22 @@ class _ServeRecorder:
         return self.fns[2](logits, temperature)
 
 
-def _halves(model, kind: str, p) -> list:
+def _halves(model, kind: str, p, blocks=None) -> list:
     """A block's residual halves, each as (name, train(x), prefill(x) ->
-    (y, cache), decode(x, cache, pos) -> (y, cache)): attention then MLP
-    (dense), time-mix then channel-mix (rwkv), the mamba block whole.
-    Their composition is the block (``_serve_block_errors`` checks it
-    bitwise against the port's ``Blocks``)."""
-    from repro_torch.models import attention as attn
+    (y, cache), decode(x, cache, pos) -> (y, cache), route): attention
+    (GQA or MLA) then MLP or MoE (dense), time-mix then channel-mix
+    (rwkv), the mamba block whole.  Their composition is the block
+    (``_serve_block_errors`` checks it bitwise against the port's
+    ``Blocks``).  ``route`` is None but for the MoE half: a dict whose
+    "last" holds the routing (``moe_apply``'s stats: the picks and
+    whether each was kept) of the half's latest call.  ``blocks`` (the
+    model's by default) binds them to another config: the fp32 twin of
+    ``_mla_fp32_gates``."""
+    from repro_torch.models import moe as moe_mod
     from repro_torch.models import rwkv as rwkv_mod
-    from repro_torch.models.layers import mlp_apply
 
-    cfg, blocks = model.cfg, model.decoder.blocks
-    norm, par = blocks.norm, blocks.parallel
+    blocks = blocks or model.decoder.blocks
+    cfg, norm = blocks.cfg, blocks.norm
 
     def stateless(f):
         return (lambda x: x + f(x), lambda x: (x + f(x), {}),
@@ -2665,13 +2800,22 @@ def _halves(model, kind: str, p) -> list:
 
     if kind == "dense":
         n1 = lambda x: norm(p["ln1"], x)              # noqa: E731
-        return [("attn",) + mixer(
-                    lambda x: attn.gqa_train(p["attn"], cfg, n1(x), par),
-                    lambda x: attn.gqa_prefill(p["attn"], cfg, n1(x), par),
-                    lambda x, c, pos: attn.gqa_decode(p["attn"], cfg, n1(x),
-                                                      c, pos)),
-                ("mlp",) + stateless(lambda x: mlp_apply(
-                    p["mlp"], cfg, norm(p["ln2"], x)))]
+        halves = [("attn",) + mixer(
+            lambda x: blocks.attn_train(p["attn"], n1(x)),
+            lambda x: blocks.attn_prefill(p["attn"], n1(x)),
+            lambda x, c, pos: blocks.attn_decode(p["attn"], n1(x), c, pos))
+            + (None,)]
+        if "moe" not in p:
+            return halves + [("mlp",) + stateless(
+                lambda x: blocks.ffn(p, x)[0]) + (None,)]
+        route = {}
+
+        def moe_y(x):                 # blocks.ffn's call, with its stats
+            st = {}
+            y, _ = moe_mod.moe_apply(p["moe"], cfg, norm(p["ln2"], x), st)
+            route["last"] = st
+            return y
+        return halves + [("moe",) + stateless(moe_y) + (route,)]
     if kind == "rwkv":
         n1 = lambda x: norm(p["ln1"], x)              # noqa: E731
         n2 = lambda x: norm(p["ln2"], x)              # noqa: E731
@@ -2682,17 +2826,89 @@ def _halves(model, kind: str, p) -> list:
                     lambda x: rwkv_mod.time_mix_prefill(p["tm"], cfg, n1(x),
                                                         chunk=ch),
                     lambda x, c, pos: rwkv_mod.time_mix_decode(
-                        p["tm"], cfg, n1(x), c)),
+                        p["tm"], cfg, n1(x), c)) + (None,),
                 ("cm",) + mixer(
                     lambda x: rwkv_mod.channel_mix_train(p["cm"], cfg,
                                                          n2(x)),
                     lambda x: rwkv_mod.channel_mix_prefill(p["cm"], cfg,
                                                            n2(x)),
                     lambda x, c, pos: rwkv_mod.channel_mix_decode(
-                        p["cm"], cfg, n2(x), c))]
+                        p["cm"], cfg, n2(x), c)) + (None,)]
     return [("mamba", lambda x: blocks.mamba_train(p, x),
              lambda x: blocks.mamba_prefill(p, x),
-             lambda x, c, pos: blocks.mamba_decode(p, x, c, pos))]
+             lambda x, c, pos: blocks.mamba_decode(p, x, c, pos), None)]
+
+
+def _experts_of(route) -> torch.Tensor:
+    """Each token's expert set (its picks sorted): (B, S, k)."""
+    return route["idx"].sort(-1).values
+
+
+def _agree(a, b) -> torch.Tensor:
+    """(B, S): where two routings pick the same expert set."""
+    return (_experts_of(a) == _experts_of(b)).all(-1)
+
+
+def _rel_on(a, b, keep) -> float:
+    """``rel`` over the tokens ``keep`` (B, S) marks; 0 if none."""
+    return rel(a[keep], b[keep]) if bool(keep.any()) else 0.0
+
+
+@torch.no_grad()
+def _mla_fp32_gates(model, p, pre_in, dec_in, prompt: int, row: int
+                    ) -> dict:
+    """An MLA attention half's ``train`` and ``solo`` gates on its
+    fp32-compute twin: the same weights and the bf16 inputs upcast,
+    prefill over ``pre_in``, then decode at each later position; also
+    the share of the prefill's query rows whose top two scaled logits
+    lie within two bf16 steps of each other (``near-tie share``) and
+    the largest |logit|, from the bf16 model's own q and k."""
+    from repro_torch.inference.executor import tree_map
+    from repro_torch.models import attention as attn
+    from repro_torch.models.transformer import Blocks
+
+    cfg = model.cfg
+    twin = Blocks(dataclasses.replace(cfg, compute_dtype=torch.float32),
+                  model.decoder.blocks.parallel)
+    _, train, prefill, decode, _ = _halves(model, "dense", p, twin)[0]
+    T = prompt + len(dec_in)
+    x0, xs = pre_in.float(), [h.float() for h in dec_in]
+    r = slice(row, row + 1)
+    out, cache = prefill(x0)
+    out_r, cache_r = prefill(x0[r])
+    res = {"solo prefill": rel(out_r, out[r])}
+    for leaf, c in cache.items():
+        res[f"solo prefill {leaf}"] = rel(cache_r[leaf], c[r])
+    cache = {n: torch.cat([c, c.new_zeros((c.shape[0], T - prompt)
+                                          + c.shape[2:])], 1)
+             for n, c in cache.items()}
+    outs, step = [], 0.0
+    for t, h in zip(range(prompt, T), xs):
+        alone = tree_map(lambda a: a[r].clone(), cache)
+        o, cache = decode(h, cache, t)
+        o_r, alone = decode(h[r], alone, t)
+        step = max(step, rel(o_r, o[r]))
+        outs.append(o)
+    res["solo decode"] = step
+    want = train(torch.cat([x0] + xs, 1))[:, prompt:]
+    res["train decode"] = rel(torch.cat(outs, 1), want)
+    # the bf16 model's scaled logits over the prompt
+    h = model.decoder.blocks.norm(p["ln1"], pre_in)
+    B, S, _ = h.shape
+    pos = torch.arange(S, device=h.device).expand(B, S)
+    q_nope, q_rope = attn._mla_q(p["attn"], cfg, h, pos)
+    c_kv, k_rope = attn._mla_latent(p["attn"], cfg, h, pos)
+    k_nope = torch.einsum("bsr,rhk->bshk", c_kv,
+                          p["attn"]["wk_b"].to(cfg.compute_dtype))
+    lg = (torch.einsum("bqhd,bkhd->bhqk", q_nope.float(), k_nope.float())
+          + torch.einsum("bqhd,bkd->bhqk", q_rope.float(), k_rope.float())
+          ) * attn._scale(cfg.qk_nope_head_dim + cfg.qk_rope_head_dim)
+    lg = lg.masked_fill(torch.ones(S, S, dtype=torch.bool,
+                                   device=h.device).triu(1), float("-inf"))
+    top = lg[:, :, 1:].topk(2, dim=-1).values        # rows with 2+ keys
+    near = (top[..., 0] - top[..., 1]) <= 2 * 2 ** -8 * top[..., 0].abs()
+    return {"gates": res, "near-tie share": float(near.double().mean()),
+            "max |logit|": float(top[..., 0].abs().max())}
 
 
 @torch.no_grad()
@@ -2716,8 +2932,23 @@ def _serve_block_errors(model, tokens, prompt: int, row: int) -> dict:
     and within one block the next half's gains would carry that step
     past the rounding level the gate holds.  Each block's composed
     prefill and decode outputs are checked bitwise against the port's
-    ``Blocks`` forms.  Returns {gate: {"<j>:<block> <half>": {what:
-    max|a - b| / max|b|}}}."""
+    ``Blocks`` forms.
+
+    A MoE half is compared only on the tokens whose expert sets agree
+    between the two runs (a one-step difference of a router input can
+    flip a near-tied pick), and ``train`` also only where the train
+    form (one dispatch group of the whole sequence) dropped none of the
+    token's picks; decode (one token a group) drops none.  Its
+    ``moe`` entry: the prefill's dropped picks, the train form's, the
+    decode steps' (must be 0), the tokens left out of ``train`` and
+    ``solo``, and the kernel-vs-plain check of the whole block — the
+    MoE half applied to the attention half's plain output as well:
+    the share of tokens whose expert set differs from the kernel run's
+    (``flip share``) and the block's output on the other tokens
+    (``block``).  An MLA attention half's ``train`` and ``solo`` gates
+    move to ``mla fp32`` (``_mla_fp32_gates``; its bf16 numbers under
+    ``mla bf16``, with the near-tie share).  Returns {gate: {"<j>:<block>
+    <half>": {what: max|a - b| / max|b|}}}."""
     from repro_torch.convert import _flatten
     from repro_torch.inference.executor import tree_map
     from repro_torch.models.layers import embed_tokens
@@ -2727,20 +2958,29 @@ def _serve_block_errors(model, tokens, prompt: int, row: int) -> dict:
     x = embed_tokens(model.embed, model.cfg, tokens)
     pre_in, dec_in = x[:, :prompt], [x[:, t:t + 1] for t in range(prompt, T)]
     r = slice(row, row + 1)
-    errs = {"plain": {}, "train": {}, "solo": {}}
+    errs = {"plain": {}, "train": {}, "solo": {}, "moe": {}, "mla fp32": {},
+            "mla bf16": {}}
+    mla = model.cfg.attention == "mla"
     for j, (name, kind, _, p) in enumerate(stack.serve_layers(model.stack)):
         block_in, block_dec = pre_in, dec_in
-        caches = {}
-        for half, train, prefill, decode in _halves(model, kind, p):
+        caches, plain_out = {}, None
+        for half, train, prefill, decode, route in _halves(model, kind, p):
             key = f"{j}:{name} {half}"
             out, cache = prefill(pre_in)
+            rk = route["last"] if route is not None else None
             with _PlainKernels():
                 out_p, cache_p = prefill(pre_in)
             out_r, cache_r = prefill(pre_in[r])
             flat, flat_p, flat_r = (_flatten(c) for c in
                                     (cache, cache_p, cache_r))
             plain = {"out": rel(out, out_p)}
-            solo = {"prefill": rel(out_r, out[r])}
+            if route is None:
+                solo = {"prefill": rel(out_r, out[r])}
+            else:
+                keep_r = _agree(route["last"], {"idx": rk["idx"][r]})
+                solo = {"prefill": _rel_on(out_r, out[r], keep_r)}
+                moe = {"prefill drops": int((~rk["kept"]).sum()),
+                       "solo left out": int((~keep_r).sum())}
             for leaf, c in flat.items():
                 plain[leaf] = rel(c, flat_p[leaf])
                 solo[f"prefill {leaf}"] = rel(flat_r[leaf], c[r])
@@ -2750,20 +2990,58 @@ def _serve_block_errors(model, tokens, prompt: int, row: int) -> dict:
                     (c.shape[0], T - prompt) + c.shape[2:])], 1)
                     for n, c in cache.items()}
             outs, step, step_leaves = [], 0.0, 0.0
+            dec_routes, dec_drops = [], 0
             for t, h in zip(range(prompt, T), dec_in):
                 alone = tree_map(lambda a: a[r].clone(), cache)
                 o, cache = decode(h, cache, t)
+                if route is not None:
+                    rd = route["last"]
+                    dec_routes.append(rd)
+                    dec_drops += int((~rd["kept"]).sum())
                 o_r, alone = decode(h[r], alone, t)
-                step = max(step, rel(o_r, o[r]))
+                if route is None:
+                    step = max(step, rel(o_r, o[r]))
+                else:
+                    keep = _agree(route["last"], {"idx": rd["idx"][r]})
+                    moe["solo left out"] += int((~keep).sum())
+                    step = max(step, _rel_on(o_r, o[r], keep))
                 fa, fc = _flatten(alone), _flatten(cache)
                 step_leaves = max([step_leaves] + [rel(fa[k], fc[k][r])
                                                    for k in fa])
                 outs.append(o)
             solo["decode"], solo["decode leaves"] = step, step_leaves
             want = train(torch.cat([pre_in] + dec_in, 1))[:, prompt:]
+            got = torch.cat(outs, 1)
+            if route is None:
+                errs["train"][key] = {"decode": rel(got, want)}
+            else:
+                rt = route["last"]
+                dec = {"idx": torch.cat([d["idx"] for d in dec_routes], 1)}
+                tr = {"idx": rt["idx"][:, prompt:]}
+                keep = _agree(dec, tr) & rt["kept"][:, prompt:].all(-1)
+                errs["train"][key] = {"decode": _rel_on(got, want, keep)}
+                moe.update({"train drops": int((~rt["kept"]).sum()),
+                            "decode drops": dec_drops,
+                            "train left out": int((~keep).sum())})
+                # the whole block, kernel against plain: this half on the
+                # attention half's plain output too
+                out_pp, _ = prefill(plain_out)
+                agree = _agree(rk, route["last"])
+                moe["flip share"] = 1.0 - float(agree.double().mean())
+                moe["block"] = _rel_on(out, out_pp, agree)
+                errs["moe"][key] = moe
             errs["plain"][key], errs["solo"][key] = plain, solo
-            errs["train"][key] = {"decode": rel(torch.cat(outs, 1), want)}
-            pre_in, dec_in = out, outs
+            if mla and half == "attn":
+                tw = _mla_fp32_gates(model, p, pre_in, dec_in, prompt, row)
+                errs["mla fp32"][key] = tw["gates"]
+                errs["mla bf16"][key] = {
+                    **{f"solo {k}": v for k, v in
+                       errs["solo"].pop(key).items()},
+                    **{f"train {k}": v for k, v in
+                       errs["train"].pop(key).items()},
+                    "near-tie share": tw["near-tie share"],
+                    "max |logit|": tw["max |logit|"]}
+            pre_in, dec_in, plain_out = out, outs, out_p
         # the halves compose to the port's block, bit for bit
         out_b, _ = getattr(blocks, kind + "_prefill")(p, block_in)
         state = {"dense": lambda: caches["attn"],
@@ -2783,13 +3061,26 @@ def _serve_block_errors(model, tokens, prompt: int, row: int) -> dict:
 
 def _serve_block_failures(errs: dict) -> dict:
     """Block errors over their tolerance: KERNEL_TOL for the prefill's
-    fp32 scan states against the plain scans, BLOCK_TOL otherwise."""
+    fp32 scan states against the plain scans, BLOCK_TOL otherwise; a
+    MoE block's flip share MOE_FLIP_MAX, its block error on the agreeing
+    tokens MOE_BLOCK_TOL, and no dropped pick in decode; an MLA attention
+    half's fp32-twin gates MLA_FP32_TOL."""
     bad = {}
     for gate, per_block in errs.items():
+        if gate == "mla bf16":                  # printed, not gated
+            continue
         for block, e in per_block.items():
             for what, v in e.items():
-                tol = (KERNEL_TOL if gate == "plain"
-                       and what in ("s", "ssm") else BLOCK_TOL)
+                if gate == "mla fp32":
+                    tol = MLA_FP32_TOL
+                elif gate == "moe":
+                    tol = {"flip share": MOE_FLIP_MAX, "block": MOE_BLOCK_TOL,
+                           "decode drops": 0}.get(what)
+                    if tol is None:
+                        continue
+                else:
+                    tol = (KERNEL_TOL if gate == "plain"
+                           and what in ("s", "ssm") else BLOCK_TOL)
                 if not v <= tol:
                     bad[f"{gate} {block} {what}"] = v
     return bad
@@ -2813,16 +3104,26 @@ def _cast_ms(model) -> float:
     return s.elapsed_time(e)
 
 
-def phase_lm_serve(seed: int, model):
+def _attn_dims(cfg):
+    """(q.k, v) head dims of the model's flash launches."""
+    if cfg.attention == "mla":
+        return (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim, cfg.v_head_dim)
+    return (cfg.head_dim, cfg.head_dim)
+
+
+def phase_lm_serve(seed: int, model, reduced=None):
     """``lm_serve:<arch>``: ``launch/serve.py``'s ``BatchServer`` over the
-    model ``backbone:<arch>`` built (full width and depth), with the four
-    gates: the prefill through the kernels against the plain versions,
-    teacher-forced decode against the train path, the wave against a
-    request alone, and the launch counts (each wave's prefill launches
-    exactly ``_model_launches``, decode steps none, no fallback).
-    Returns (launches of the served calls, metrics)."""
+    model ``backbone:<arch>`` built (full width and depth) or
+    ``phase_lm_family`` built (``reduced`` says how it was cut), with the
+    four gates: the prefill through the kernels against the plain
+    versions, teacher-forced decode against the train path, the wave
+    against a request alone, and the launch counts (each wave's prefill
+    launches exactly ``_model_launches``, all at the model's head dims,
+    decode steps none, no fallback).  Returns (launches of the served
+    calls, metrics)."""
     from repro_torch.convert import _flatten
     from repro_torch.core import moments
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.launch.serve import BatchServer, Request
     from repro_torch.models.layers import embed_tokens
 
@@ -2836,6 +3137,7 @@ def phase_lm_serve(seed: int, model):
     same = [draw(LM_PROMPT) for _ in range(LM_WAVE)]
     expected = _model_launches(cfg)
     moments.FALLBACKS.clear()
+    dims_before = collections.Counter(fa_kernel.LAUNCHES_BY_DIMS)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     server = BatchServer(model, max_seq=LM_MAX_SEQ)
@@ -2864,6 +3166,13 @@ def phase_lm_serve(seed: int, model):
     fallbacks = {f: c for f, c in moments.FALLBACKS.items() if c}
     if fallbacks:
         raise AssertionError(f"fallback counters rose: {fallbacks}")
+    # every served flash launch ran at the model's head dims
+    dims = dict(collections.Counter(fa_kernel.LAUNCHES_BY_DIMS) - dims_before)
+    want_dims = ({_attn_dims(cfg): served["flash_attention"]}
+                 if served.get("flash_attention") else {})
+    if dims != want_dims:
+        raise AssertionError(f"flash launches by head dims {dims}, "
+                             f"expected {want_dims}")
 
     # gate 1, end to end: the wave's prefill against the plain versions.
     # Logits are compared over the real vocabulary: the padded slots hold
@@ -2906,7 +3215,15 @@ def phase_lm_serve(seed: int, model):
     # gates 1-3 block by block, on the first wave's own tokens
     block = _serve_block_errors(model, full, LM_PROMPT, LM_SOLO_ROW)
     worst = {g: max(((k, max(e.values())) for k, e in per.items()),
-                    key=lambda kv: kv[1]) for g, per in block.items()}
+                    key=lambda kv: kv[1])
+             for g, per in block.items()
+             if per and g not in ("moe", "mla bf16")}
+    moe = None
+    if block["moe"]:
+        per = block["moe"].values()
+        moe = {what: (max if what in ("flip share", "block") else sum)(
+                   e[what] for e in per)
+               for what in next(iter(per))}
 
     prefill_ms = [ms for kind, ms, _ in ws["calls"] if kind == "prefill"][0]
     decode_ms = [ms for kind, ms, _ in ws["calls"] if kind == "decode"]
@@ -2925,7 +3242,12 @@ def phase_lm_serve(seed: int, model):
         "weight_cast_ms": _cast_ms(model), "peak_gib": peak,
         "e2e": e2e, "solo_parts_at": part, "solo_margin": margin,
         "worst_block": {g: list(kv) for g, kv in worst.items()},
-        "launches_per_prefill": expected}
+        "launches_per_prefill": expected,
+        "flash_launches_by_dims": {f"{a}x{b}": n for (a, b), n in
+                                   dims.items()},
+        "moe": moe, "moe_blocks": block["moe"] or None,
+        "mla_bf16": block["mla bf16"] or None,
+        "layers": cfg.num_layers, "reduced": reduced}
     solo_note = ("equal" if part is None else
                  f"part at step {part} (margin {margin:.3e})")
     log(f"lm_serve {cfg.name} ({metrics['card']}): prefill {LM_WAVE} x "
@@ -2938,11 +3260,22 @@ def phase_lm_serve(seed: int, model):
         f"{metrics['solo_prefill_ms']:.3f} ms, decode "
         f"{metrics['solo_decode_ms_per_step']:.3f} ms a step), weights "
         f"cast once {metrics['weight_cast_ms']:.3f} ms, peak device memory "
-        f"{peak:.2f} GiB; launches per prefill {expected}, per decode "
-        f"step none; end to end {e2e} "
-        f"({'tol %g' % LM_E2E_TOL if cfg.name in FEAT_GATED else 'not gated'})"
+        f"{peak:.2f} GiB; launches per prefill {expected} (by head dims "
+        f"{dims}), per decode step none; end to end {e2e} "
+        f"({'tol %g' % LM_E2E_TOL if cfg.name in LM_E2E_GATED else 'not gated'})"
         f"; solo tokens {solo_note}; worst blocks {worst} (tol "
-        f"{BLOCK_TOL:g}, fp32 states {KERNEL_TOL:g})")
+        f"{BLOCK_TOL:g}, fp32 states {KERNEL_TOL:g})"
+        + ("" if moe is None else
+           f"; MoE (all layers): dropped picks {moe['prefill drops']} in "
+           f"the wave's block prefill, {moe['train drops']} in the train "
+           f"form, {moe['decode drops']} in decode; tokens left out of the "
+           f"train gate {moe['train left out']}, of the solo gate "
+           f"{moe['solo left out']}; kernel-vs-plain expert-set flip share "
+           f"{moe['flip share']:.4f} (max {MOE_FLIP_MAX:g}), block error on "
+           f"agreeing tokens {moe['block']:.3e} (tol {MOE_BLOCK_TOL:g})")
+        + ("" if not block["mla bf16"] else
+           f"; MLA attention halves in bf16 (train and solo not gated: "
+           f"their fp32 twin is, tol {MLA_FP32_TOL:g}) {block['mla bf16']}"))
     finite = all(bool(torch.isfinite(lg.float()).all())
                  for wv in waves.values() for lg in wv["logits"])
     if not finite:
@@ -2950,11 +3283,80 @@ def phase_lm_serve(seed: int, model):
     bad = _serve_block_failures(block)
     if bad:
         raise AssertionError(f"serving blocks over tolerance: {bad}")
-    if cfg.name in FEAT_GATED:
+    if cfg.name in LM_E2E_GATED:
         over = {k: v for k, v in e2e.items() if not v <= LM_E2E_TOL}
         if over:
             raise AssertionError(f"end to end over {LM_E2E_TOL}: {over}")
     return dict(served), metrics
+
+
+def family_model(seed: int, arch: str):
+    """``arch`` at its published widths in its config's dtypes, with the
+    layers LM_FAMILY_LAYERS keeps (one dense layer of deepseek-v3's
+    first_k_dense kept beside its MoE layer), port init from ``seed`` on
+    the card, the stacked "scaled" weights of a cut stack rescaled to
+    the full depth's std.  Returns (model, reduced): the cuts, each as
+    [kept, published]."""
+    from repro_torch.config import ParallelConfig
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.models.params import map_schema
+
+    full = get_config(arch)
+    L = LM_FAMILY_LAYERS.get(arch, full.num_layers)
+    cfg = dataclasses.replace(
+        full, num_layers=L, first_k_dense=min(full.first_k_dense, L - 1))
+    # layers of each stack: kept, published
+    stacks = {"stack.layers": (L, full.num_layers),
+              "stack.dense_layers": (cfg.first_k_dense, full.first_k_dense),
+              "stack.moe_layers": (L - cfg.first_k_dense,
+                                   full.num_layers - full.first_k_dense)}
+    model = Model(cfg, ParallelConfig(use_flash_attention=True), seed=seed)
+    params = dict(model.named_parameters())
+    scaled = []
+    map_schema(lambda path, d: scaled.append(path) if d.init == "scaled"
+               else None, Model.schema_of(cfg))
+    with torch.no_grad():
+        for path in scaled:
+            for prefix, (kept, pub) in stacks.items():
+                if path.startswith(prefix + ".") and kept != pub:
+                    params[path].mul_((kept / pub) ** 0.5)
+    reduced = {}
+    if L != full.num_layers:
+        reduced["num_layers"] = [L, full.num_layers]
+        if full.first_k_dense:
+            reduced["first_k_dense"] = [cfg.first_k_dense,
+                                        full.first_k_dense]
+        reduced["init"] = ("stacked weights rescaled by sqrt(kept / "
+                           "published layers) to the full depth's std")
+    return model, reduced
+
+
+def phase_lm_family(seed: int, arch: str):
+    """``lm_serve:<arch>`` for a family with no backbone phase: the model
+    of ``family_model``, then ``phase_lm_serve`` over it (features are
+    checked there, on the wave's prompts, through the per-block gates).
+    Returns what ``phase_lm_serve`` returns; the model is freed."""
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model, reduced = family_model(seed, arch)
+    torch.cuda.synchronize()
+    cfg = model.cfg
+    n = sum(p.numel() for p in model.parameters())
+    log(f"lm_serve {arch}: {cfg.num_layers} layers ({cfg.family}, "
+        f"{cfg.attention}{', first_k_dense %d' % cfg.first_k_dense if cfg.first_k_dense else ''}), "
+        f"d_model {cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads "
+        f"x {cfg.head_dim}, flash head dims {_attn_dims(cfg)}, d_ff "
+        f"{cfg.d_ff}, experts {cfg.num_experts} top-{cfg.experts_per_token}"
+        f", vocab {cfg.padded_vocab}; {n / 1e9:.3f} B params "
+        f"({str(cfg.param_dtype).replace('torch.', '')}, "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB), init "
+        f"{time.perf_counter() - t0:.2f} s; reduced {reduced or 'none'}")
+    try:
+        return phase_lm_serve(seed, model, reduced)
+    finally:
+        del model
+        torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -4849,7 +5251,18 @@ def main(argv=None) -> int:
     ap.add_argument("--bootstrap-replicates", type=int, default=BOOT_B,
                     help="B of main:bootstrap (the config default is 200)")
     ap.add_argument("--out", default="", help="also write the record here")
+    ap.add_argument("--phases", default="",
+                    help="comma-separated phase names or prefixes to run "
+                         "(e.g. lm_serve:deepseek,kernels:flash); all by "
+                         "default.  A phase that takes another's output "
+                         "runs only if that one is selected too")
     args = ap.parse_args(argv)
+    selection = [x.strip() for x in args.phases.split(",") if x.strip()]
+
+    def selected(name: str) -> bool:
+        """Whether the selection takes phase ``name`` (all without one)."""
+        return not selection or any(name == x or name.startswith(x)
+                                    for x in selection)
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4869,7 +5282,7 @@ def main(argv=None) -> int:
         return 3
 
     t_start = time.perf_counter()
-    failed = []
+    failed, ran = [], []
     card = card_line()
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -4894,6 +5307,8 @@ def main(argv=None) -> int:
     records = {}
 
     def run(name, fn, *a):
+        if not selected(name):
+            return None
         t = time.perf_counter()
         before = dict(rt_sched.EVENT_COUNTS)
         try:
@@ -4908,12 +5323,23 @@ def main(argv=None) -> int:
             if ev != want:
                 raise AssertionError(f"runtime events {ev}, expected {want}")
             log(f"phase {name}: ok ({time.perf_counter() - t:.1f} s)")
+            ran.append(name)
             return out
         except Exception:                     # report, go on, fail at the end
             traceback.print_exc()
             log(f"phase {name}: FAILED")
             failed.append(name)
             return None
+
+    def blocked(name: str, needs: str) -> None:
+        """``name`` cannot run without ``needs``'s output: a failure if
+        ``needs`` failed, else (not selected) a skip."""
+        if not selected(name):
+            return
+        if needs in failed:
+            failed.append(name)
+        else:
+            log(f"phase {name}: skipped (it needs {needs}, not selected)")
 
     folds = fold_ids(torch.Generator().manual_seed(args.seed), args.n, k,
                      device="cuda")
@@ -5033,7 +5459,7 @@ def main(argv=None) -> int:
             ("cell:dml", phase_cell, ("dml",)),
             ("cell:iv", phase_cell, ("iv",))):
         if mesh_ranks is None:
-            failed.append(name)
+            blocked(name, "mesh:ranks")
             continue
         for key, c in (run(name, fn, mesh_ranks, *a) or {}).items():
             count(key, name, c)
@@ -5086,7 +5512,7 @@ def main(argv=None) -> int:
             healthy)
         del c_, kw_, healthy, out
     else:
-        failed.append("runtime:downgrade")
+        blocked("runtime:downgrade", "runtime:budget")
     mbcfg = dataclasses.replace(base, inference="bootstrap",
                                 n_bootstrap=META_BOOT_B,
                                 runtime_chunk=META_CHUNK, row_block=META_RB)
@@ -5207,7 +5633,7 @@ def main(argv=None) -> int:
             serving = run("serve:effects", phase_serve, args.seed, ckpt_dir,
                           kept["store:ingest"])
         else:
-            failed.append("serve:effects")
+            blocked("serve:effects", "store:ingest")
         torch.cuda.empty_cache()
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
@@ -5215,13 +5641,14 @@ def main(argv=None) -> int:
         run("trace", phase_trace, args.seed, kept["sweep:segmented"],
             kept["store:ingest"])
     else:
-        failed.append("trace")
+        blocked("trace", "sweep:segmented" if "store:ingest" in ran
+                else "store:ingest")
     del kept
     torch.cuda.empty_cache()
     if rt_trace is not None:
         run("trace:runtime", phase_runtime_trace, rt_trace)
     else:
-        failed.append("trace:runtime")
+        blocked("trace:runtime", "runtime:budget")
     del rt_trace
     out = run("sweep:cells", phase_sweep_cells, args.seed)
     torch.cuda.empty_cache()
@@ -5252,7 +5679,7 @@ def main(argv=None) -> int:
         out = run(f"backbone:{arch}", phase_backbone, args.seed, arch)
         torch.cuda.empty_cache()
         if out is None:
-            failed.append(f"lm_serve:{arch}")
+            blocked(f"lm_serve:{arch}", f"backbone:{arch}")
             continue
         counts, X, y, t, model = out
         sout = run(f"lm_serve:{arch}", phase_lm_serve, args.seed, model)
@@ -5294,6 +5721,17 @@ def main(argv=None) -> int:
         del X, y, t
         torch.cuda.empty_cache()
 
+    for arch in LM_FAMILY_ARCHS:
+        sout = run(f"lm_serve:{arch}", phase_lm_family, args.seed, arch)
+        torch.cuda.empty_cache()
+        if sout is not None:
+            served, lm_serve[arch] = sout
+            path = f"lm_serve:{arch}"
+            flash_by_path[path] = served.get("flash_attention", 0)
+            if arch == "deepseek-v3-671b":     # the (192, 128) launches
+                by_path["flash_attention[mla]"] = {
+                    path: served.get("flash_attention", 0)}
+
     for key, rec in records.items():
         rec["launches"] = launches.get(key, 0)
         if key in by_path:
@@ -5327,7 +5765,9 @@ def main(argv=None) -> int:
             "cells_seconds": cells_s, "meta_bootstrap_replicates":
             META_BOOT_B, "meta_chunk": META_CHUNK,
             "halving_lrs": list(HALVING_LRS), "slice11_seconds": slice11_s,
-            "lm_serve": lm_serve}
+            "lm_serve": lm_serve, "lm_families": list(LM_FAMILY_ARCHS),
+            "phases": ran, "selection": selection or None,
+            "seconds": time.perf_counter() - t_start}
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(

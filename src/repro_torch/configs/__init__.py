@@ -17,17 +17,17 @@ _MODULES: Dict[str, str] = {
     "granite-3-2b": "granite_3_2b",
     "rwkv6-3b": "rwkv6_3b",
     "zamba2-1.2b": "zamba2_1_2b",
+    "yi-34b": "yi_34b",
+    "phi4-mini-3.8b": "phi4_mini_3_8b",
+    "chatglm3-6b": "chatglm3_6b",
+    "arctic-480b": "arctic_480b",
+    "deepseek-v3-671b": "deepseek_v3_671b",
 }
 
 # arch id -> the ROADMAP item that ports its model family
 _LATER: Dict[str, str] = {
-    "yi-34b": "ROADMAP A.13 (dense GQA at 34B: a config file only)",
-    "phi4-mini-3.8b": "ROADMAP A.13 (partial RoPE)",
-    "chatglm3-6b": "ROADMAP A.13 (interleaved partial RoPE)",
-    "pixtral-12b": "ROADMAP A.13 (vlm front end)",
-    "arctic-480b": "ROADMAP A.13 (MoE)",
-    "deepseek-v3-671b": "ROADMAP A.13 (MLA and MoE)",
-    "whisper-tiny": "ROADMAP A.13 (encoder-decoder)",
+    "pixtral-12b": "ROADMAP A.13e (vlm front end)",
+    "whisper-tiny": "ROADMAP A.13e (encoder-decoder)",
 }
 
 

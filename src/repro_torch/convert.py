@@ -78,7 +78,9 @@ def theta_cov(theta, cov, *, device: DeviceLike = None
 def model_params(cfg, tree: Mapping[str, Any], *,
                  device: DeviceLike = None) -> Dict[str, Tensor]:
     """The reference's ``Model.init`` pytree (nested dicts of arrays,
-    stacked ``(L, ...)`` per layer) -> the port's ``Model`` state_dict
+    stacked ``(L, ...)`` per layer; moe's ``dense_layers`` /
+    ``moe_layers`` with their ``moe.shared`` / ``moe.dense`` sub-trees
+    and MLA's weights too) -> the port's ``Model`` state_dict
     (dotted schema paths, fp32 tensors).  Every path and shape is checked
     against the port's schema for ``cfg``."""
     dev = resolve_device(device)
@@ -130,7 +132,8 @@ def _flatten(tree: Mapping[str, Any], path: str = "") -> Dict[str, Any]:
 def cache(cfg, np_tree: Mapping[str, Any], *,
           device: DeviceLike = None) -> Dict[str, Any]:
     """The reference's serving cache (``Model.prefill`` / ``init_cache``
-    output, nested dicts with numpy leaves) -> the port's cache for
+    output, nested dicts with numpy leaves: moe's {"dense", "moe"} and
+    MLA's {"c_kv", "k_rope"} too) -> the port's cache for
     ``Model.decode_step``.  The layouts are the same leaf for leaf
     (stacked on the layer axis); every path and shape is checked against
     the port's ``init_cache`` at the tree's batch and sequence length,
@@ -142,7 +145,7 @@ def cache(cfg, np_tree: Mapping[str, Any], *,
     flat = _flatten(np_tree)
     batch = np.shape(next(iter(flat.values())))[1]
     seq = [np.shape(a)[2] for p, a in flat.items()
-           if p.split(".")[-1] == "k"]
+           if p.split(".")[-1] in ("k", "c_kv")]
     want = _flatten(DecoderStack(cfg, ParallelConfig()).init_cache(
         batch, seq[0] if seq else 1, device="meta"))
     if set(flat) != set(want):

@@ -17,9 +17,9 @@
 // -inf, so they add exactly 0.  The dtype picks one of two templates.
 //
 // bf16 (fa_bf16_kernel): the tensor cores.  One block per (query tile,
-// head, batch) of 8 warps (a 128-row tile; 4 warps, 64 rows, at D = 128,
-// where registers and shared memory allow no more); each warp owns 16
-// query rows.
+// head, batch) of 8 warps (a 128-row tile; 4 warps, 64 rows, at q.k^T
+// head dims above 64, where registers and shared memory allow no more);
+// each warp owns 16 query rows.
 //   * q.k^T: mma.sync.m16n8k16 bf16 x bf16 -> fp32.  bf16 products are
 //     exact in fp32, so this is the TPU kernel's fp32 math (kernel.py
 //     l.47-50) up to summation order.  q's fragments are loaded once
@@ -53,6 +53,16 @@
 //   * GQA: the G = H / KV query heads of a group are neighbouring blocks
 //     of the grid (x: query tile, y: head), so their reads of one K/V
 //     block hit L2; a block does not share a staged tile across heads.
+//
+// Head dims.  q and k share one head dim (DQK: the q.k^T k-steps, the q
+// and k tiles), v and o another (DV: the p.v column tiles, the v tile,
+// the accumulator); both templates take the square dims 16, 32, 64, 128
+// and MLA's (192, 128) (deepseek-v3: qk_nope 128 + qk_rope 64 against
+// v 128).  At (192, 128) the bf16 block is 4 warps with 111,616 bytes
+// of shared memory (two blocks fit an SM) and holds 48 registers of q
+// fragments and 64 of accumulator a thread; the fp32 one stages 149,248
+// bytes (one block an SM).  The square instantiations compute what they
+// computed before the split, bit for bit.
 //
 // fp32 (fa_fwd_kernel): the first design, on the CUDA cores.  The query
 // tile is staged once in shared memory, transposed (Qt[d][i]); each
@@ -95,10 +105,10 @@ static_assert(BQ == BK, "stage() stages 64-row tiles of either");
 static_assert((NT / TX) * RM == BQ, "the thread grid covers the tile");
 
 struct Args {
-  const void* q;  // (B, Sq, H, D)
-  const void* k;  // (B, Sk, KV, D)
-  const void* v;  // (B, Sk, KV, D)
-  void* o;        // (B, Sq, H, D), q's dtype
+  const void* q;  // (B, Sq, H, Dqk)
+  const void* k;  // (B, Sk, KV, Dqk)
+  const void* v;  // (B, Sk, KV, Dv)
+  void* o;        // (B, Sq, H, Dv), q's dtype
   int B, Sq, Sk, H, KV;
   float scale, softcap;  // softcap 0: none
   int causal;
@@ -139,27 +149,29 @@ __device__ __forceinline__ void stage(const T* base, long long row_stride,
   }
 }
 
-template <int D>
-constexpr int smem_floats() { return 2 * D * LDT + BK * D + BQ * LDT; }
+template <int DQK, int DV>
+constexpr int smem_floats() { return 2 * DQK * LDT + BK * DV + BQ * LDT; }
 
-template <typename T, int D>
+template <typename T, int DQK, int DV>
 __global__ void __launch_bounds__(NT) fa_fwd_kernel(Args a) {
-  constexpr int ON = D / TX;  // output columns per thread
+  constexpr int ON = DV / TX;  // output columns per thread
   extern __shared__ __align__(16) float smem[];
-  float* Qt = smem;            // D x LDT
-  float* Kt = Qt + D * LDT;    // D x LDT
-  float* Vs = Kt + D * LDT;    // BK x D
-  float* Ps = Vs + BK * D;     // BQ x LDT
+  float* Qt = smem;              // DQK x LDT
+  float* Kt = Qt + DQK * LDT;    // DQK x LDT
+  float* Vs = Kt + DQK * LDT;    // BK x DV
+  float* Ps = Vs + BK * DV;      // BQ x LDT
 
   const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / (a.H / a.KV);
   const int tid = threadIdx.x, ty = tid / TX, tx = tid % TX;
-  const long long qs = (long long)a.H * D, ks = (long long)a.KV * D;
-  const T* qb = static_cast<const T*>(a.q) + ((long long)b * a.Sq * a.H + h) * D;
-  const T* kb = static_cast<const T*>(a.k) + ((long long)b * a.Sk * a.KV + kvh) * D;
-  const T* vb = static_cast<const T*>(a.v) + ((long long)b * a.Sk * a.KV + kvh) * D;
+  // row strides of q, k (DQK wide) and v, o (DV wide)
+  const long long qs = (long long)a.H * DQK, ks = (long long)a.KV * DQK;
+  const long long vs = (long long)a.KV * DV, os = (long long)a.H * DV;
+  const T* qb = static_cast<const T*>(a.q) + ((long long)b * a.Sq * a.H + h) * DQK;
+  const T* kb = static_cast<const T*>(a.k) + ((long long)b * a.Sk * a.KV + kvh) * DQK;
+  const T* vb = static_cast<const T*>(a.v) + ((long long)b * a.Sk * a.KV + kvh) * DV;
 
-  stage<T, D, true>(qb, qs, q0, a.Sq, Qt);
+  stage<T, DQK, true>(qb, qs, q0, a.Sq, Qt);
 
   float o[RM][ON], m[RM], l[RM];
 #pragma unroll
@@ -179,8 +191,8 @@ __global__ void __launch_bounds__(NT) fa_fwd_kernel(Args a) {
   for (int kbi = 0; kbi < nkb; ++kbi) {
     const int k0 = kbi * BK;
     __syncthreads();  // the previous block's readers of Kt, Vs, Ps are done
-    stage<T, D, true>(kb, ks, k0, a.Sk, Kt);
-    stage<T, D, false>(vb, ks, k0, a.Sk, Vs);
+    stage<T, DQK, true>(kb, ks, k0, a.Sk, Kt);
+    stage<T, DV, false>(vb, vs, k0, a.Sk, Vs);
     __syncthreads();
 
     float s[RM][CN];
@@ -189,7 +201,7 @@ __global__ void __launch_bounds__(NT) fa_fwd_kernel(Args a) {
 #pragma unroll
       for (int c = 0; c < CN; ++c) s[i][c] = 0.f;
 #pragma unroll 4
-    for (int d = 0; d < D; ++d) {
+    for (int d = 0; d < DQK; ++d) {
       float qv[RM], kv[CN];
 #pragma unroll
       for (int i = 0; i < RM; ++i) qv[i] = Qt[d * LDT + ty * RM + i];
@@ -243,7 +255,7 @@ __global__ void __launch_bounds__(NT) fa_fwd_kernel(Args a) {
 #pragma unroll
       for (int i = 0; i < RM; ++i) pv[i] = Ps[(ty * RM + i) * LDT + j];
 #pragma unroll
-      for (int c = 0; c < ON; ++c) vv[c] = Vs[j * D + tx + TX * c];
+      for (int c = 0; c < ON; ++c) vv[c] = Vs[j * DV + tx + TX * c];
 #pragma unroll
       for (int i = 0; i < RM; ++i)
 #pragma unroll
@@ -251,7 +263,7 @@ __global__ void __launch_bounds__(NT) fa_fwd_kernel(Args a) {
     }
   }
 
-  T* ob = static_cast<T*>(a.o) + ((long long)b * a.Sq * a.H + h) * D;
+  T* ob = static_cast<T*>(a.o) + ((long long)b * a.Sq * a.H + h) * DV;
 #pragma unroll
   for (int i = 0; i < RM; ++i) {
     const int qi = q0 + ty * RM + i;
@@ -259,23 +271,23 @@ __global__ void __launch_bounds__(NT) fa_fwd_kernel(Args a) {
     const float den = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int c = 0; c < ON; ++c)
-      store1(ob + (long long)qi * qs + tx + TX * c, o[i][c] / den);
+      store1(ob + (long long)qi * os + tx + TX * c, o[i][c] / den);
   }
 }
 
-template <typename T, int D>
+template <typename T, int DQK, int DV>
 cudaError_t launch(const Args& a, cudaStream_t st) {
-  constexpr int bytes = smem_floats<D>() * (int)sizeof(float);
+  constexpr int bytes = smem_floats<DQK, DV>() * (int)sizeof(float);
   static bool configured = false;
   if (!configured) {
     const cudaError_t e = cudaFuncSetAttribute(
-        fa_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        bytes);
+        fa_fwd_kernel<T, DQK, DV>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (e != cudaSuccess) return e;
     configured = true;
   }
   const dim3 grid((a.Sq + BQ - 1) / BQ, a.H, a.B);
-  fa_fwd_kernel<T, D><<<grid, NT, bytes, st>>>(a);
+  fa_fwd_kernel<T, DQK, DV><<<grid, NT, bytes, st>>>(a);
   return cudaGetLastError();
 }
 
@@ -350,14 +362,19 @@ __device__ __forceinline__ void stage_async(const __nv_bfloat16* base,
 
 // Warps per block (16 query rows each): 8 -- a 128-row query tile, so a
 // staged key block serves twice the rows -- where its shared memory and
-// registers allow two blocks per SM, else 4.
-template <int D>
-__host__ __device__ constexpr int tc_warps() { return D <= 64 ? 8 : 4; }
+// registers allow two blocks per SM, else 4 (q.k^T head dims above 64).
+template <int DQK>
+__host__ __device__ constexpr int tc_warps() { return DQK <= 64 ? 8 : 4; }
 
-template <int D>
+// The q tile and two K buffers (rows of DQK + 8), two V buffers (rows of
+// DV + 8), bf16.  (192, 128): 111,616 bytes, two blocks in an SM's 228 KB.
+template <int DQK, int DV>
 __host__ __device__ constexpr int tc_smem_bytes() {
-  return (16 * tc_warps<D>() + 4 * BK) * (D + 8) * 2;
+  return ((16 * tc_warps<DQK>() + 2 * BK) * (DQK + 8) +
+          2 * BK * (DV + 8)) * 2;
 }
+static_assert(2 * (tc_smem_bytes<192, 128>() + 1024) <= 233472,
+              "two (192, 128) blocks fit an SM");
 
 constexpr float LOG2E = 1.4426950408889634f;
 
@@ -369,42 +386,45 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-template <int D>
-__global__ void __launch_bounds__(32 * tc_warps<D>(), 2)
+template <int DQK, int DV>
+__global__ void __launch_bounds__(32 * tc_warps<DQK>(), 2)
 fa_bf16_kernel(Args a) {
-  constexpr int NW = tc_warps<D>(), NTB = 32 * NW, BQT = 16 * NW;
-  constexpr int LDS = D + 8;      // padded row, bf16 elements
-  constexpr int KS = D / 16;      // k-steps of q.k^T
-  constexpr int NO = D / 8;       // 8-wide column tiles of o
+  constexpr int NW = tc_warps<DQK>(), NTB = 32 * NW, BQT = 16 * NW;
+  constexpr int LDQ = DQK + 8;    // padded q / k row, bf16 elements
+  constexpr int LDV = DV + 8;     // padded v / o row
+  constexpr int KS = DQK / 16;    // k-steps of q.k^T
+  constexpr int NO = DV / 8;      // 8-wide column tiles of o
   constexpr int NS = BK / 8;      // 8-wide key tiles of a score block
   extern __shared__ __align__(16) unsigned char tc_smem[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(tc_smem);  // BQT x LDS
-  __nv_bfloat16* Ks = Qs + BQT * LDS;                               // 2 x BK x LDS
-  __nv_bfloat16* Vs = Ks + 2 * BK * LDS;                            // 2 x BK x LDS
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(tc_smem);  // BQT x LDQ
+  __nv_bfloat16* Ks = Qs + BQT * LDQ;                               // 2 x BK x LDQ
+  __nv_bfloat16* Vs = Ks + 2 * BK * LDQ;                            // 2 x BK x LDV
 
   const int q0 = blockIdx.x * BQT, h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / (a.H / a.KV);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;   // fragment row group, column pair
-  const long long qs = (long long)a.H * D, ks = (long long)a.KV * D;
+  // row strides of q, k (DQK wide) and v, o (DV wide)
+  const long long qs = (long long)a.H * DQK, ks = (long long)a.KV * DQK;
+  const long long vs = (long long)a.KV * DV, os = (long long)a.H * DV;
   const __nv_bfloat16* qb =
-      static_cast<const __nv_bfloat16*>(a.q) + ((long long)b * a.Sq * a.H + h) * D;
+      static_cast<const __nv_bfloat16*>(a.q) + ((long long)b * a.Sq * a.H + h) * DQK;
   const __nv_bfloat16* kb =
-      static_cast<const __nv_bfloat16*>(a.k) + ((long long)b * a.Sk * a.KV + kvh) * D;
+      static_cast<const __nv_bfloat16*>(a.k) + ((long long)b * a.Sk * a.KV + kvh) * DQK;
   const __nv_bfloat16* vb =
-      static_cast<const __nv_bfloat16*>(a.v) + ((long long)b * a.Sk * a.KV + kvh) * D;
+      static_cast<const __nv_bfloat16*>(a.v) + ((long long)b * a.Sk * a.KV + kvh) * DV;
 
   int kend = a.Sk;
   if (a.causal) kend = min(kend, min(q0 + BQT, a.Sq));
   const int nkb = (kend + BK - 1) / BK;
 
-  stage_async<D, BQT, NTB>(qb, qs, q0, a.Sq, Qs);
-  stage_async<D, BK, NTB>(kb, ks, 0, a.Sk, Ks);
-  stage_async<D, BK, NTB>(vb, ks, 0, a.Sk, Vs);
+  stage_async<DQK, BQT, NTB>(qb, qs, q0, a.Sq, Qs);
+  stage_async<DQK, BK, NTB>(kb, ks, 0, a.Sk, Ks);
+  stage_async<DV, BK, NTB>(vb, vs, 0, a.Sk, Vs);
   cp_async_commit();
   if (nkb > 1) {
-    stage_async<D, BK, NTB>(kb, ks, BK, a.Sk, Ks + BK * LDS);
-    stage_async<D, BK, NTB>(vb, ks, BK, a.Sk, Vs + BK * LDS);
+    stage_async<DQK, BK, NTB>(kb, ks, BK, a.Sk, Ks + BK * LDQ);
+    stage_async<DV, BK, NTB>(vb, vs, BK, a.Sk, Vs + BK * LDV);
   }
   cp_async_commit();             // (an empty group when there is one block)
 
@@ -426,7 +446,7 @@ fa_bf16_kernel(Args a) {
   __syncthreads();
 #pragma unroll
   for (int kk = 0; kk < KS; ++kk)
-    ldsm_x4(smem_addr(Qs + (warp * 16 + lr + 8 * (lm & 1)) * LDS + 16 * kk +
+    ldsm_x4(smem_addr(Qs + (warp * 16 + lr + 8 * (lm & 1)) * LDQ + 16 * kk +
                       8 * (lm >> 1)),
             qf[kk]);
 
@@ -438,8 +458,8 @@ fa_bf16_kernel(Args a) {
     const int k0 = kbi * BK;
     // a key block wholly above this warp's rows adds nothing to them
     if (!(a.causal && k0 > w0 + 15)) {
-      const __nv_bfloat16* Kb = Ks + (kbi & 1) * BK * LDS;
-      const __nv_bfloat16* Vb = Vs + (kbi & 1) * BK * LDS;
+      const __nv_bfloat16* Kb = Ks + (kbi & 1) * BK * LDQ;
+      const __nv_bfloat16* Vb = Vs + (kbi & 1) * BK * LDV;
 
       float s[NS][4];
 #pragma unroll
@@ -451,7 +471,7 @@ fa_bf16_kernel(Args a) {
         uint32_t kf[NS / 2][4];
 #pragma unroll
         for (int jp = 0; jp < NS / 2; ++jp)
-          ldsm_x4(smem_addr(Kb + (16 * jp + lr + 8 * (lm >> 1)) * LDS +
+          ldsm_x4(smem_addr(Kb + (16 * jp + lr + 8 * (lm >> 1)) * LDQ +
                             16 * kk + 8 * (lm & 1)),
                   kf[jp]);
 #pragma unroll
@@ -538,7 +558,7 @@ fa_bf16_kernel(Args a) {
         uint32_t vf[NO / 2][4];
 #pragma unroll
         for (int jp = 0; jp < NO / 2; ++jp)
-          ldsm_x4_t(smem_addr(Vb + (16 * kk + lr + 8 * (lm & 1)) * LDS +
+          ldsm_x4_t(smem_addr(Vb + (16 * kk + lr + 8 * (lm & 1)) * LDV +
                               16 * jp + 8 * (lm >> 1)),
                     vf[jp]);
 #pragma unroll
@@ -555,69 +575,77 @@ fa_bf16_kernel(Args a) {
     }
     __syncthreads();             // every warp is done with this buffer
     if (kbi + 2 < nkb) {
-      stage_async<D, BK, NTB>(kb, ks, (kbi + 2) * BK, a.Sk,
-                              Ks + (kbi & 1) * BK * LDS);
-      stage_async<D, BK, NTB>(vb, ks, (kbi + 2) * BK, a.Sk,
-                              Vs + (kbi & 1) * BK * LDS);
+      stage_async<DQK, BK, NTB>(kb, ks, (kbi + 2) * BK, a.Sk,
+                                Ks + (kbi & 1) * BK * LDQ);
+      stage_async<DV, BK, NTB>(vb, vs, (kbi + 2) * BK, a.Sk,
+                               Vs + (kbi & 1) * BK * LDV);
     }
     cp_async_commit();
   }
 
-  // o / l as bf16 into the warp's own rows of Qs, then 16-byte stores
+  // o / l as bf16 into the warp's own rows of Qs (16 rows of LDV within
+  // its 16 of LDQ >= LDV), then 16-byte stores
   const float den[2] = {fmaxf(l[0], 1e-30f), fmaxf(l[1], 1e-30f)};
-  __nv_bfloat16* Os = Qs + warp * 16 * LDS;
+  __nv_bfloat16* Os = Qs + warp * 16 * LDQ;
 #pragma unroll
   for (int j = 0; j < NO; ++j) {
-    *reinterpret_cast<uint32_t*>(Os + g * LDS + 8 * j + 2 * t) =
+    *reinterpret_cast<uint32_t*>(Os + g * LDV + 8 * j + 2 * t) =
         pack_bf16(o[j][0] / den[0], o[j][1] / den[0]);
-    *reinterpret_cast<uint32_t*>(Os + (g + 8) * LDS + 8 * j + 2 * t) =
+    *reinterpret_cast<uint32_t*>(Os + (g + 8) * LDV + 8 * j + 2 * t) =
         pack_bf16(o[j][2] / den[1], o[j][3] / den[1]);
   }
   __syncwarp();
   __nv_bfloat16* ob =
-      static_cast<__nv_bfloat16*>(a.o) + ((long long)b * a.Sq * a.H + h) * D;
-  constexpr int CPR = D / 8;
+      static_cast<__nv_bfloat16*>(a.o) + ((long long)b * a.Sq * a.H + h) * DV;
+  constexpr int CPR = DV / 8;
   for (int e = lane; e < 16 * CPR; e += 32) {
     const int r = e / CPR, c = (e % CPR) * 8;
     const int qi = w0 + r;
     if (qi < a.Sq)
-      *reinterpret_cast<uint4*>(ob + (long long)qi * qs + c) =
-          *reinterpret_cast<const uint4*>(Os + r * LDS + c);
+      *reinterpret_cast<uint4*>(ob + (long long)qi * os + c) =
+          *reinterpret_cast<const uint4*>(Os + r * LDV + c);
   }
 }
 
-template <int D>
+template <int DQK, int DV>
 cudaError_t launch_tc(const Args& a, cudaStream_t st) {
-  constexpr int bytes = tc_smem_bytes<D>();
+  constexpr int bytes = tc_smem_bytes<DQK, DV>();
   static bool configured = false;
   if (!configured) {
     const cudaError_t e = cudaFuncSetAttribute(
-        fa_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+        fa_bf16_kernel<DQK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        bytes);
     if (e != cudaSuccess) return e;
     configured = true;
   }
-  constexpr int BQT = 16 * tc_warps<D>();
+  constexpr int BQT = 16 * tc_warps<DQK>();
   const dim3 grid((a.Sq + BQT - 1) / BQT, a.H, a.B);
-  fa_bf16_kernel<D><<<grid, 32 * tc_warps<D>(), bytes, st>>>(a);
+  fa_bf16_kernel<DQK, DV><<<grid, 32 * tc_warps<DQK>(), bytes, st>>>(a);
   return cudaGetLastError();
 }
 
-cudaError_t launch_fp32(const Args& a, int D, cudaStream_t st) {
-  switch (D) {
-    case 16: return launch<float, 16>(a, st);
-    case 32: return launch<float, 32>(a, st);
-    case 64: return launch<float, 64>(a, st);
-    case 128: return launch<float, 128>(a, st);
+// (q.k^T head dim, v head dim): the square dims, and MLA's (192, 128)
+// (deepseek-v3: qk_nope 128 + qk_rope 64 against v 128).
+cudaError_t launch_fp32(const Args& a, int Dqk, int Dv, cudaStream_t st) {
+  if (Dqk == 192 && Dv == 128) return launch<float, 192, 128>(a, st);
+  if (Dqk != Dv) return cudaErrorInvalidValue;
+  switch (Dqk) {
+    case 16: return launch<float, 16, 16>(a, st);
+    case 32: return launch<float, 32, 32>(a, st);
+    case 64: return launch<float, 64, 64>(a, st);
+    case 128: return launch<float, 128, 128>(a, st);
     default: return cudaErrorInvalidValue;
   }
 }
 
-cudaError_t launch_bf16(const Args& a, int D, cudaStream_t st) {
-  switch (D) {
-    case 16: return launch_tc<16>(a, st);
-    case 32: return launch_tc<32>(a, st);
-    case 64: return launch_tc<64>(a, st);
-    case 128: return launch_tc<128>(a, st);
+cudaError_t launch_bf16(const Args& a, int Dqk, int Dv, cudaStream_t st) {
+  if (Dqk == 192 && Dv == 128) return launch_tc<192, 128>(a, st);
+  if (Dqk != Dv) return cudaErrorInvalidValue;
+  switch (Dqk) {
+    case 16: return launch_tc<16, 16>(a, st);
+    case 32: return launch_tc<32, 32>(a, st);
+    case 64: return launch_tc<64, 64>(a, st);
+    case 128: return launch_tc<128, 128>(a, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -626,11 +654,12 @@ cudaError_t launch_bf16(const Args& a, int D, cudaStream_t st) {
 
 extern "C" {
 
-// dtype: 0 fp32, 1 bf16.  Returns a cudaError_t (0 on success).
+// dtype: 0 fp32, 1 bf16; q, k (..., Dqk), v, o (..., Dv).  Returns a
+// cudaError_t (0 on success).
 int flash_attention_run(int dtype, const void* q, const void* k,
                         const void* v, void* o, int B, int Sq, int Sk, int H,
-                        int KV, int D, float scale, float softcap, int causal,
-                        void* stream) {
+                        int KV, int Dqk, int Dv, float scale, float softcap,
+                        int causal, void* stream) {
   if (B <= 0 || Sq <= 0 || Sk <= 0 || KV <= 0 || H % KV != 0 || B > 65535 ||
       H > 65535)
     return (int)cudaErrorInvalidValue;
@@ -639,8 +668,8 @@ int flash_attention_run(int dtype, const void* q, const void* k,
   a.B = B; a.Sq = Sq; a.Sk = Sk; a.H = H; a.KV = KV;
   a.scale = scale; a.softcap = softcap; a.causal = causal;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)launch_fp32(a, D, st);
-  if (dtype == 1) return (int)launch_bf16(a, D, st);
+  if (dtype == 0) return (int)launch_fp32(a, Dqk, Dv, st);
+  if (dtype == 1) return (int)launch_bf16(a, Dqk, Dv, st);
   return (int)cudaErrorInvalidValue;
 }
 

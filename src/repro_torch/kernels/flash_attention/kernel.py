@@ -1,14 +1,17 @@
 """ctypes binding of the Hopper flash-attention kernel
 (csrc/flash_attention.cu).
 
-``flash_attention_cuda`` takes q (B, Sq, H, D) and k, v (B, Sk, KV, D)
-in the model's layout, bf16 or fp32 (all three alike), contiguous, on
-one CUDA device; checks all of that, launches the kernel on the current
-stream and returns o (B, Sq, H, D) in q's dtype.  Any Sq, Sk: the kernel
-masks ragged tails.  D must be 16, 32, 64 or 128.  It raises on anything
-it does not take and whenever the launch returns a CUDA error; it never
-falls back to the plain version.  ``LAUNCHES["flash_attention"]`` counts
-launches, one per call.
+``flash_attention_cuda`` takes q (B, Sq, H, Dqk), k (B, Sk, KV, Dqk)
+and v (B, Sk, KV, Dv) in the model's layout, bf16 or fp32 (all three
+alike), contiguous, on one CUDA device; checks all of that, launches the
+kernel on the current stream and returns o (B, Sq, H, Dv) in q's dtype.
+Any Sq, Sk: the kernel masks ragged tails.  (Dqk, Dv) must be one of
+``HEAD_DIMS``: 16, 32, 64 or 128 for both, or MLA's (192, 128).  The
+default scale is 1/sqrt(Dqk).  It raises on anything it does not take
+and whenever the launch returns a CUDA error; it never falls back to the
+plain version.  ``LAUNCHES["flash_attention"]`` counts launches, one
+per call, and ``LAUNCHES_BY_DIMS[(Dqk, Dv)]`` the same launches by head
+dims.
 
 Replaces ``src/repro/kernels/flash_attention/kernel.py:
 flash_attention_pallas``; the design and its bound on the H100 are in the
@@ -26,10 +29,12 @@ import torch
 from repro_torch.kernels import build
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
-HEAD_DIMS = (16, 32, 64, 128)
+# (q.k^T head dim, v head dim) pairs the kernel is instantiated for
+HEAD_DIMS = ((16, 16), (32, 32), (64, 64), (128, 128), (192, 128))
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 LAUNCHES: collections.Counter = collections.Counter()
+LAUNCHES_BY_DIMS: collections.Counter = collections.Counter()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -42,7 +47,8 @@ def library() -> ctypes.CDLL:
     if not getattr(lib, "_typed", False):
         lib.flash_attention_run.argtypes = [
             _I, _P, _P, _P, _P,          # dtype, q, k, v, o
-            _I, _I, _I, _I, _I, _I,      # B, Sq, Sk, H, KV, D
+            _I, _I, _I, _I, _I,          # B, Sq, Sk, H, KV
+            _I, _I,                      # Dqk, Dv
             _F, _F, _I, _P,              # scale, softcap, causal, stream
         ]
         lib.flash_attention_run.restype = _I
@@ -82,13 +88,15 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"flash_attention: {name} must be 16-byte "
                              f"aligned")
     B, Sq, H, D = q.shape
-    Sk, KV = k.shape[1], k.shape[2]
-    if tuple(k.shape) != (B, Sk, KV, D) or tuple(v.shape) != tuple(k.shape):
+    Sk, KV, Dv = k.shape[1], k.shape[2], v.shape[-1]
+    if tuple(k.shape) != (B, Sk, KV, D) or \
+            tuple(v.shape) != (B, Sk, KV, Dv):
         raise ValueError(f"flash_attention: k {tuple(k.shape)} and v "
-                         f"{tuple(v.shape)} must both be (B, Sk, KV, D) with "
-                         f"B={B}, D={D}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {D} not in {HEAD_DIMS}")
+                         f"{tuple(v.shape)} must be (B, Sk, KV, Dqk) and "
+                         f"(B, Sk, KV, Dv) with B={B}, Dqk={D}")
+    if (D, Dv) not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dims (q.k {D}, v {Dv}) "
+                         f"not in {HEAD_DIMS}")
     if KV < 1 or H % KV:
         raise ValueError(f"flash_attention: {H} heads do not group over "
                          f"{KV} kv heads")
@@ -96,16 +104,17 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention: unsupported sizes B={B} Sq={Sq} "
                          f"Sk={Sk} H={H}")
     sc = float(scale) if scale is not None else 1.0 / (D ** 0.5)
-    out = torch.empty_like(q)
+    out = q.new_empty((B, Sq, H, Dv))
     lib = library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_attention_run(
             _DTYPES[q.dtype], _P(q.data_ptr()), _P(k.data_ptr()),
             _P(v.data_ptr()), _P(out.data_ptr()), B, Sq, Sk, H, KV, D,
-            sc, float(softcap), int(bool(causal)), _P(stream))
+            Dv, sc, float(softcap), int(bool(causal)), _P(stream))
     if err != 0:
         msg = lib.flash_attention_error_string(err).decode()
         raise RuntimeError(f"flash_attention launch failed: {msg} ({err})")
     LAUNCHES["flash_attention"] += 1
+    LAUNCHES_BY_DIMS[(D, Dv)] += 1
     return out

@@ -1,6 +1,7 @@
 """Dispatch for flash attention in the model's layout.
 
-Model code passes q (B, Sq, H, D) and k, v (B, Sk, KV, D).  A CUDA
+Model code passes q (B, Sq, H, D), k (B, Sk, KV, D) and v (B, Sk, KV,
+Dv); Dv differs from D in MLA's prefill.  A CUDA
 tensor goes to the Hopper kernel (kernel.py), which reads that layout
 directly; a CPU tensor to the plain version (ref.py), transposed to its
 (B, heads, S, D) layout and back.  Nothing else is taken, and nothing
@@ -19,7 +20,8 @@ from repro_torch.kernels.flash_attention import ref as _ref
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, softcap: float = 0.0,
                     scale: Optional[float] = None) -> torch.Tensor:
-    """q: (B,Sq,H,D); k,v: (B,Sk,KV,D). Returns (B,Sq,H,D) in q's dtype."""
+    """q: (B,Sq,H,D); k: (B,Sk,KV,D); v: (B,Sk,KV,Dv). Returns (B,Sq,H,Dv)
+    in q's dtype."""
     if q.device.type == "cuda":
         return _kernel.flash_attention_cuda(q, k, v, causal=causal,
                                             softcap=softcap, scale=scale)

@@ -19,9 +19,10 @@ _F32 = torch.float32
 def attention_ref(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
                   softcap: float = 0.0,
                   scale: Optional[float] = None) -> Tensor:
-    """q: (B,H,Sq,D); k,v: (B,KV,Sk,D); H % KV == 0. Returns (B,H,Sq,D)."""
+    """q, k: (B,H,Sq,D), (B,KV,Sk,D); v: (B,KV,Sk,Dv); H % KV == 0.
+    Returns (B,H,Sq,Dv); the default scale is 1/sqrt(D)."""
     B, H, Sq, D = q.shape
-    KV, Sk = k.shape[1], k.shape[2]
+    KV, Sk, Dv = k.shape[1], k.shape[2], v.shape[-1]
     G = H // KV
     wt = torch.float64 if q.dtype == torch.float64 else _F32
     sc = scale if scale is not None else 1.0 / (D ** 0.5)
@@ -35,4 +36,4 @@ def attention_ref(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
         s = torch.where(mask, s, torch.full_like(s, -1e30))
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqs,bksd->bkgqd", p, v.to(wt))
-    return o.reshape(B, H, Sq, D).to(q.dtype)
+    return o.reshape(B, H, Sq, Dv).to(q.dtype)

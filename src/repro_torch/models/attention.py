@@ -1,8 +1,8 @@
-"""Attention: GQA train / prefill (dense or flash) and decode with a
-KV cache.
+"""Attention: GQA and MLA (DeepSeek) train / prefill (dense or flash)
+and decode with a KV cache.
 
-The counterpart of the reference's ``models/attention.py`` for the
-dense GQA family.  The dense path (``_sdpa``) computes what the
+The counterpart of the reference's ``models/attention.py`` for GQA and
+MLA.  The dense path (``_sdpa``) computes what the
 reference's does — scores and softmax in fp32, probabilities cast to
 v's dtype before the P.V product, fp32 accumulation — and with
 ``ParallelConfig.use_flash_attention`` the train and prefill forward
@@ -16,10 +16,19 @@ Serving: ``gqa_prefill`` is the train forward that also returns the
 layer's k / v; ``gqa_decode`` writes one token's k / v into the cache
 and attends over it through ``_sdpa_decode``, the one dense attention
 that runs on the card (its docstring says why).  ``init_cache`` sizes
-the stacked (layers, B, S, KV, hd) cache.  MLA (ROADMAP A.13b),
-cross-attention (A.13e), the chunked XLA attention (A.13f) and partial
-RoPE (A.13a's remaining configs) raise ``NotImplementedError`` naming
-their item.
+the stacked (layers, B, S, KV, hd) cache.  RoPE is selected as the
+reference selects it: interleaved pairs iff ``rope_fraction < 1`` and
+the config's name starts with "chatglm", else the NeoX halves over the
+rotated fraction (phi4-mini's 0.75).
+
+MLA: ``mla_train`` is the expanded form (train and prefill: per-head k
+from the latent, the shared RoPE key broadcast to every head, attention
+through ``_maybe_flash`` — the flash kernel at (q.k 192, v 128) at
+deepseek-v3's widths); ``mla_decode`` the weight-absorbed latent
+attention over the (c_kv, k_rope) cache.  Both scale scores by
+1/sqrt(qk_nope + qk_rope), with no YaRN factor, as the reference.
+Cross-attention (ROADMAP A.13e) and the chunked XLA attention (A.13f)
+raise ``NotImplementedError`` naming their item.
 """
 from __future__ import annotations
 
@@ -29,7 +38,7 @@ import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.kernels.flash_attention import ops as fa_ops
-from repro_torch.models.layers import apply_rope, rope_frequencies
+from repro_torch.models.layers import apply_rope, rmsnorm, rope_frequencies
 from repro_torch.models.params import ParamDef
 
 Tensor = torch.Tensor
@@ -45,12 +54,31 @@ def gqa_schema(cfg: ModelConfig):
             "wo": ParamDef((h, hd, d), init="scaled")}
 
 
+def mla_schema(cfg: ModelConfig):
+    """MLA: the kv down-projection wkv_a (d, kvr + dr) with its norm, the
+    per-head up-projections wk_b (kvr, H, dn) and wv_b (kvr, H, dv), wo
+    (H, dv, d); the query through the q-LoRA wq_a (d, qr), its norm and
+    wq_b (qr, H, dn + dr), or one wq (d, H, dn + dr) without it."""
+    d, h = cfg.d_model, cfg.num_heads
+    qr, kvr = cfg.q_lora_rank, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    sch = {"wkv_a": ParamDef((d, kvr + dr), init="scaled"),
+           "kv_norm": ParamDef((kvr,), init="ones"),
+           "wk_b": ParamDef((kvr, h, dn), init="scaled"),
+           "wv_b": ParamDef((kvr, h, dv), init="scaled"),
+           "wo": ParamDef((h, dv, d), init="scaled")}
+    if qr:
+        sch["wq_a"] = ParamDef((d, qr), init="scaled")
+        sch["q_norm"] = ParamDef((qr,), init="ones")
+        sch["wq_b"] = ParamDef((qr, h, dn + dr), init="scaled")
+    else:
+        sch["wq"] = ParamDef((d, h, dn + dr), init="scaled")
+    return sch
+
+
 def attention_schema(cfg: ModelConfig):
-    """The family's attention weights (GQA only in this slice)."""
-    if cfg.attention == "mla":
-        raise NotImplementedError(
-            "MLA attention lands with the deepseek slice (ROADMAP A.13b)")
-    return gqa_schema(cfg)
+    """The family's attention weights: MLA or GQA."""
+    return mla_schema(cfg) if cfg.attention == "mla" else gqa_schema(cfg)
 
 
 def _repeat_kv(x: Tensor, heads: int) -> Tensor:
@@ -145,20 +173,20 @@ def _maybe_flash(cfg: ModelConfig, parallel, q: Tensor, k: Tensor,
 
 
 def gqa_project_qkv(params, cfg: ModelConfig, x: Tensor, positions: Tensor):
-    """q (B,S,H,hd), k/v (B,S,KV,hd) in the compute dtype, NeoX RoPE
-    applied."""
+    """q (B,S,H,hd), k/v (B,S,KV,hd) in the compute dtype, RoPE applied
+    to ``rope_fraction`` of the head dim: interleaved pairs for chatglm's
+    partial RoPE, the NeoX halves otherwise.  The selection by name is
+    the reference's (``attention.py`` ``gqa_project_qkv``)."""
     ct = cfg.compute_dtype
     q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(ct))
     k = torch.einsum("bsd,dhk->bshk", x, params["wk"].to(ct))
     v = torch.einsum("bsd,dhk->bshk", x, params["wv"].to(ct))
     if cfg.use_rope:
-        if cfg.rope_fraction < 1.0:
-            raise NotImplementedError(
-                "partial RoPE (phi4-mini; chatglm3's interleaved pairs) "
-                "lands with those models' configs (ROADMAP A.13a)")
+        interleaved = (cfg.rope_fraction < 1.0
+                       and cfg.name.startswith("chatglm"))
         sin, cos = rope_frequencies(cfg, positions)
-        q = apply_rope(q, sin, cos)
-        k = apply_rope(k, sin, cos)
+        q = apply_rope(q, sin, cos, interleaved)
+        k = apply_rope(k, sin, cos, interleaved)
     return q, k, v
 
 
@@ -215,15 +243,122 @@ def gqa_decode(params, cfg: ModelConfig, x: Tensor,
     return out, {"k": k, "v": v}
 
 
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V3): expanded for train / prefill, weight-absorbed latent
+# attention for decode.
+# ---------------------------------------------------------------------------
+
+def _rms(x: Tensor, scale: Tensor, eps: float) -> Tensor:
+    """The latents' RMSNorm (fp32, result in x's dtype)."""
+    return rmsnorm({"scale": scale}, x, eps)
+
+
+def _mla_q(params, cfg: ModelConfig, x: Tensor, positions: Tensor):
+    """(q_nope (B,S,H,dn), q_rope (B,S,H,dr)) in the compute dtype, RoPE
+    on q_rope; through the q-LoRA and its norm where the config has one."""
+    ct = cfg.compute_dtype
+    dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    if cfg.q_lora_rank:
+        ql = torch.matmul(x, params["wq_a"].to(ct))
+        ql = _rms(ql, params["q_norm"], cfg.norm_eps)
+        q = torch.einsum("bsr,rhk->bshk", ql, params["wq_b"].to(ct))
+    else:
+        q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(ct))
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    sin, cos = rope_frequencies(cfg, positions, head_dim=dr)
+    return q_nope, apply_rope(q_rope, sin, cos)
+
+
+def _mla_latent(params, cfg: ModelConfig, x: Tensor, positions: Tensor):
+    """The compressed per-token latent: c_kv (B,S,kvr), normed, and the
+    shared RoPE key k_rope (B,S,dr), rotated."""
+    ct = cfg.compute_dtype
+    kvr, dr = cfg.kv_lora_rank, cfg.qk_rope_head_dim
+    kv = torch.matmul(x, params["wkv_a"].to(ct))
+    c_kv = _rms(kv[..., :kvr], params["kv_norm"], cfg.norm_eps)
+    sin, cos = rope_frequencies(cfg, positions, head_dim=dr)
+    k_rope = apply_rope(kv[..., None, kvr:], sin, cos)[..., 0, :]
+    return c_kv, k_rope
+
+
+def mla_train(params, cfg: ModelConfig, x: Tensor, parallel=None,
+              return_cache: bool = False):
+    """The expanded MLA forward over the whole sequence, causal:
+    (B, S, d) -> (B, S, d), plus the layer's {"c_kv", "k_rope"} with
+    ``return_cache`` (the prefill).  q and k are (dn + dr) wide, v dv
+    wide; attention goes through ``_maybe_flash``."""
+    ct = cfg.compute_dtype
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device).expand(B, S)
+    q_nope, q_rope = _mla_q(params, cfg, x, positions)
+    c_kv, k_rope = _mla_latent(params, cfg, x, positions)
+    k_nope = torch.einsum("bsr,rhk->bshk", c_kv, params["wk_b"].to(ct))
+    v = torch.einsum("bsr,rhk->bshk", c_kv, params["wv_b"].to(ct))
+    k_rope_h = k_rope[:, :, None, :].expand(B, S, cfg.num_heads,
+                                            cfg.qk_rope_head_dim)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope_h], dim=-1)
+    out = _maybe_flash(cfg, parallel, q, k, v.contiguous(), causal=True)
+    out = torch.einsum("bshk,hkd->bsd", out, params["wo"].to(ct))
+    if return_cache:
+        return out, {"c_kv": c_kv, "k_rope": k_rope}
+    return out
+
+
+def mla_decode(params, cfg: ModelConfig, x: Tensor,
+               cache: Dict[str, Tensor], pos: int
+               ) -> Tuple[Tensor, Dict[str, Tensor]]:
+    """One-token weight-absorbed decode: x (B, 1, d); cache c_kv (B, S,
+    kvr), k_rope (B, S, dr).  wk_b is absorbed into the query and wv_b
+    applied to the latent context, so attention runs in the kvr-wide
+    latent space over a cache of kvr + dr values a token.
+
+    This is the reference's einsums (``attention.py`` ``mla_decode``),
+    outside any Pallas kernel there, so it runs as plain tensor code on
+    the card too, as ``_sdpa_decode`` does: fp32 scores (products of the
+    compute-dtype operands, exact in fp32) and softmax, p cast to the
+    cache's dtype, an fp32 latent context.  As ``gqa_decode``, the new
+    latents are written into ``cache`` IN PLACE at the index clamped
+    into [0, S - 1], and the key mask is ``arange(S) <= pos``."""
+    ct = cfg.compute_dtype
+    B = x.shape[0]
+    dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    positions = torch.full((B, 1), int(pos), device=x.device,
+                           dtype=torch.long)
+    q_nope, q_rope = _mla_q(params, cfg, x, positions)     # (B,1,H,dn/dr)
+    c_new, kr_new = _mla_latent(params, cfg, x, positions)
+    c_kv, k_rope = cache["c_kv"], cache["k_rope"]
+    S = c_kv.shape[1]
+    at = min(max(int(pos), 0), S - 1)
+    c_kv[:, at] = c_new[:, 0]
+    k_rope[:, at] = kr_new[:, 0]
+    q_lat = torch.einsum("bqhk,rhk->bqhr", q_nope, params["wk_b"].to(ct))
+    s_lat = torch.einsum("bqhr,bsr->bhqs", q_lat.to(_F32), c_kv.to(_F32))
+    s_rope = torch.einsum("bqhk,bsk->bhqs", q_rope.to(_F32),
+                          k_rope.to(_F32))
+    scores = (s_lat + s_rope) * _scale(dn + dr)
+    mask = torch.arange(S, device=x.device) <= int(pos)
+    scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
+    probs = torch.softmax(scores, dim=-1)
+    ctx = torch.einsum("bhqs,bsr->bqhr", probs.to(c_kv.dtype).to(_F32),
+                       c_kv.to(_F32))
+    out = torch.einsum("bqhr,rhk->bqhk", ctx.to(ct), params["wv_b"].to(ct))
+    out = torch.einsum("bqhk,hkd->bqd", out, params["wo"].to(ct))
+    return out, {"c_kv": c_kv, "k_rope": k_rope}
+
+
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int, n_layers: int,
                dtype=None, device=None) -> Dict[str, Tensor]:
-    """Zeros of one layer stack's decode cache: k / v (n_layers, batch,
-    seq_len, KV, hd) in ``dtype`` (the compute dtype by default)."""
-    if cfg.attention == "mla":
-        raise NotImplementedError(
-            "MLA's latent cache lands with the deepseek slice "
-            "(ROADMAP A.13b)")
-    shape = (n_layers, batch, seq_len, cfg.num_kv_heads, cfg.head_dim)
+    """Zeros of one layer stack's decode cache in ``dtype`` (the compute
+    dtype by default): k / v (n_layers, batch, seq_len, KV, hd), or MLA's
+    c_kv (n_layers, batch, seq_len, kvr) and k_rope (..., dr)."""
     dt = dtype or cfg.compute_dtype
+    if cfg.attention == "mla":
+        lead = (n_layers, batch, seq_len)
+        return {"c_kv": torch.zeros(lead + (cfg.kv_lora_rank,), dtype=dt,
+                                    device=device),
+                "k_rope": torch.zeros(lead + (cfg.qk_rope_head_dim,),
+                                      dtype=dt, device=device)}
+    shape = (n_layers, batch, seq_len, cfg.num_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dt, device=device),
             "v": torch.zeros(shape, dtype=dt, device=device)}

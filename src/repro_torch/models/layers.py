@@ -9,6 +9,8 @@ outside any Pallas kernel in the reference.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 
@@ -92,9 +94,13 @@ def unembed(params, cfg: ModelConfig, x: Tensor) -> Tensor:
 # RoPE (full / partial fraction / interleaved GLM-style)
 # ---------------------------------------------------------------------------
 
-def rope_frequencies(cfg: ModelConfig, positions: Tensor):
-    """(sin, cos), each positions.shape + (rot_dim/2,), fp32."""
-    rot = int(cfg.head_dim * cfg.rope_fraction)
+def rope_frequencies(cfg: ModelConfig, positions: Tensor,
+                     head_dim: Optional[int] = None):
+    """(sin, cos), each positions.shape + (rot_dim/2,), fp32; rot_dim is
+    ``rope_fraction`` of ``head_dim`` (``cfg.head_dim`` by default; MLA
+    rotates its ``qk_rope_head_dim``)."""
+    hd = head_dim if head_dim is not None else cfg.head_dim
+    rot = int(hd * cfg.rope_fraction)
     rot -= rot % 2
     exps = torch.arange(0, rot, 2, dtype=_F32, device=positions.device) / rot
     inv = 1.0 / (cfg.rope_theta ** exps)
@@ -129,9 +135,11 @@ def apply_rope(x: Tensor, sin: Tensor, cos: Tensor,
 # MLPs
 # ---------------------------------------------------------------------------
 
-def mlp_schema(cfg: ModelConfig):
-    """SwiGLU (gate, up, down) or GELU (in, out) weights."""
-    d, ff = cfg.d_model, cfg.d_ff
+def mlp_schema(cfg: ModelConfig, d_ff: Optional[int] = None):
+    """SwiGLU (gate, up, down) or GELU (in, out) weights, ``d_ff`` wide
+    (``cfg.d_ff`` by default; deepseek's first dense layers take
+    ``dense_ff``)."""
+    d, ff = cfg.d_model, d_ff or cfg.d_ff
     if cfg.mlp == "swiglu":
         return {"wi_gate": ParamDef((d, ff), init="scaled"),
                 "wi_up": ParamDef((d, ff), init="scaled"),

@@ -1,7 +1,8 @@
 """Model facade: an ``nn.Module`` that owns its parameters.
 
 The counterpart of the reference's ``models/model.py`` for the dense
-(granite), ssm (rwkv6) and hybrid (zamba2) families:
+(granite, yi, phi4-mini, chatglm3), moe (arctic, deepseek-v3: MLA and
+MoE), ssm (rwkv6) and hybrid (zamba2) families:
 ``features(tokens)`` — the pooled event-sequence representation that
 the Dream11 scenario uses as confounders (paper §4) — and the serving
 forms ``prefill``, ``decode_step`` (alias ``serve_step``) and
@@ -16,10 +17,10 @@ Parameters are registered under the reference's schema names
 ``torch.Generator`` seeded ``seed`` on ``device`` (the card unless
 ``device="cpu"``), with the reference's init rule
 (``models/params.py``).  Off the CPU a family with attention (dense,
-hybrid) needs ``ParallelConfig(use_flash_attention=True)``; rwkv6 has
-none and needs no flag.  Still to come: ``forward_train`` and the loss
-(ROADMAP A.13f), the MTP heads and the moe family (A.13b), the
-encoder-decoder and vlm branches (A.13e).
+moe, hybrid) needs ``ParallelConfig(use_flash_attention=True)``; rwkv6
+has none and needs no flag.  Still to come: ``forward_train``, the loss
+and deepseek-v3's multi-token-prediction heads, which only its loss
+reads (ROADMAP A.13f); the encoder-decoder and vlm branches (A.13e).
 """
 from __future__ import annotations
 
@@ -39,7 +40,7 @@ Tensor = torch.Tensor
 
 
 class Model(nn.Module):
-    """A frozen LM backbone of the dense, ssm or hybrid family."""
+    """A frozen LM backbone of the dense, moe, ssm or hybrid family."""
 
     def __init__(self, cfg: ModelConfig,
                  parallel: Optional[ParallelConfig] = None, *,
@@ -72,8 +73,8 @@ class Model(nn.Module):
         of ``cfg``, without building one."""
         if cfg.mtp_depth:
             raise NotImplementedError(
-                "multi-token-prediction heads land with deepseek's "
-                "slice (ROADMAP A.13b)")
+                "multi-token-prediction heads land with the training "
+                "slice, beside the loss that reads them (ROADMAP A.13f)")
         norm_schema, _ = make_norm(cfg)
         stack = DecoderStack(cfg, parallel or ParallelConfig())
         return {"embed": embedding_schema(cfg), "stack": stack.schema(),

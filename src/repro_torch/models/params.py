@@ -94,6 +94,9 @@ class ParamTree(nn.Module):
     def __getitem__(self, key: str):
         return getattr(self, key)
 
+    def __contains__(self, key: str) -> bool:
+        return key in self._parameters or key in self._modules
+
 
 def layer_slice(tree, i: int) -> Dict[str, Any]:
     """Layer ``i`` of a stacked tree (every leaf indexed on axis 0)."""

@@ -1,27 +1,32 @@
-"""Decoder-only stack assembly: dense, ssm (rwkv6) and hybrid (zamba2).
+"""Decoder-only stack assembly: dense, moe, ssm (rwkv6) and hybrid
+(zamba2).
 
 The counterpart of the reference's ``models/transformer.py`` for the
-dense GQA stack, the rwkv6 stack and zamba2's groups of mamba layers
-each followed by one weight-shared attention block.  A Python loop over
-the stacked layers takes the place of ``lax.scan``; every pass (train,
-prefill, decode) walks the blocks in the one order ``serve_layers``
-gives.  The train forward has no backward here, so ``remat`` has no
-meaning.  Serving caches are stacked on a leading layer axis as the
-reference's ``scan`` stacks them, so a cache converts leaf for leaf:
-dense {"k", "v"} (L, B, S, KV, hd); ssm {"tm": {"s", "x_prev"}, "cm":
-{"x_prev"}} (L, ...); hybrid {"mamba": {"ssm", "conv"} (L, ...),
-"attn": {"k", "v"} (groups, ...)}.  The moe (ROADMAP A.13b), vlm and
-audio (A.13e) families raise ``NotImplementedError`` naming their item.
+dense stack (GQA or MLA attention), the moe stack (arctic, deepseek-v3:
+``first_k_dense`` dense layers, ``dense_ff`` wide, then MoE layers), the
+rwkv6 stack and zamba2's groups of mamba layers each followed by one
+weight-shared attention block.  A Python loop over the stacked layers
+takes the place of ``lax.scan``; every pass (train, prefill, decode)
+walks the blocks in the one order ``serve_layers`` gives.  The train
+forward has no backward here, so ``remat`` has no meaning.  Serving
+caches are stacked on a leading layer axis as the reference's ``scan``
+stacks them, so a cache converts leaf for leaf: dense {"k", "v"} (L, B,
+S, KV, hd), or MLA's {"c_kv", "k_rope"} (L, B, S, ...); moe {"dense",
+"moe"} of those (no "dense" without ``first_k_dense``); ssm {"tm": {"s",
+"x_prev"}, "cm": {"x_prev"}} (L, ...); hybrid {"mamba": {"ssm", "conv"}
+(L, ...), "attn": {"k", "v"} (groups, ...)}.  The vlm and audio families
+(ROADMAP A.13e) raise ``NotImplementedError`` naming their item.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Iterator, List, Tuple
+from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import torch
 
 from repro_torch.config import ModelConfig, ParallelConfig
 from repro_torch.inference.executor import tree_map
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import make_norm, mlp_apply, mlp_schema
@@ -30,14 +35,13 @@ from repro_torch.models.params import layer_slice, stack_schema
 Tensor = torch.Tensor
 
 _LATER = {
-    "moe": "the MoE slice (ROADMAP A.13b: arctic, deepseek)",
     "vlm": "the vlm slice (ROADMAP A.13e: pixtral front end)",
     "audio": "the encoder-decoder slice (ROADMAP A.13e: whisper)",
 }
 
 
 def _require_ported(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "ssm", "hybrid"):
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet: "
             f"{_LATER.get(cfg.family, 'no slice planned')}")
@@ -64,34 +68,71 @@ class Blocks:
         self.cfg, self.parallel = cfg, parallel
         self.norm_schema, self.norm = make_norm(cfg)
 
-    def dense_schema(self):
-        """ln1, attention, ln2, MLP."""
+    def dense_schema(self, d_ff: Optional[int] = None,
+                     use_moe: bool = False):
+        """ln1, attention (GQA or MLA), ln2, then the MLP (``d_ff`` wide)
+        or, with ``use_moe``, the MoE."""
         cfg = self.cfg
-        return {"ln1": self.norm_schema(cfg.d_model),
-                "attn": attn.attention_schema(cfg),
-                "ln2": self.norm_schema(cfg.d_model),
-                "mlp": mlp_schema(cfg)}
+        sch = {"ln1": self.norm_schema(cfg.d_model),
+               "attn": attn.attention_schema(cfg),
+               "ln2": self.norm_schema(cfg.d_model)}
+        if use_moe:
+            sch["moe"] = moe_mod.moe_schema(cfg)
+        else:
+            sch["mlp"] = mlp_schema(cfg, d_ff)
+        return sch
 
-    def _mlp(self, p, x: Tensor) -> Tensor:
-        return x + mlp_apply(p["mlp"], self.cfg, self.norm(p["ln2"], x))
+    def attn_train(self, p, x: Tensor) -> Tensor:
+        """The attention weights ``p`` over normed x: GQA or MLA."""
+        if self.cfg.attention == "mla":
+            return attn.mla_train(p, self.cfg, x, self.parallel)
+        return attn.gqa_train(p, self.cfg, x, self.parallel)
 
-    def dense_train(self, p, x: Tensor) -> Tensor:
-        """Pre-norm residual block: (B, S, d) -> (B, S, d)."""
-        x = x + attn.gqa_train(p["attn"], self.cfg, self.norm(p["ln1"], x),
-                               self.parallel)
-        return self._mlp(p, x)
+    def attn_prefill(self, p, x: Tensor):
+        """``attn_train`` plus the layer's cache ({"k", "v"} or MLA's
+        {"c_kv", "k_rope"})."""
+        if self.cfg.attention == "mla":
+            return attn.mla_train(p, self.cfg, x, self.parallel,
+                                  return_cache=True)
+        return attn.gqa_prefill(p, self.cfg, x, self.parallel)
+
+    def attn_decode(self, p, x: Tensor, cache, pos: int):
+        """One token against the layer's cache (written in place)."""
+        if self.cfg.attention == "mla":
+            return attn.mla_decode(p, self.cfg, x, cache, pos)
+        return attn.gqa_decode(p, self.cfg, x, cache, pos)
+
+    def ffn(self, p, x: Tensor) -> Tuple[Tensor, Optional[Tensor]]:
+        """The block's second half over the residual x, un-added: (the
+        MLP's or the MoE's output, the MoE's aux loss or None)."""
+        h = self.norm(p["ln2"], x)
+        if "moe" in p:
+            return moe_mod.moe_apply(p["moe"], self.cfg, h)
+        return mlp_apply(p["mlp"], self.cfg, h), None
+
+    def _ffn(self, p, x: Tensor, aux: Optional[list] = None) -> Tensor:
+        y, a = self.ffn(p, x)
+        if aux is not None and a is not None:
+            aux.append(a)
+        return x + y
+
+    def dense_train(self, p, x: Tensor, aux: Optional[list] = None
+                    ) -> Tensor:
+        """Pre-norm residual block: (B, S, d) -> (B, S, d); a MoE
+        block's aux loss is appended to ``aux`` where one is given."""
+        x = x + self.attn_train(p["attn"], self.norm(p["ln1"], x))
+        return self._ffn(p, x, aux)
 
     def dense_prefill(self, p, x: Tensor):
-        """``dense_train`` plus the layer's {"k", "v"}."""
-        y, cache = attn.gqa_prefill(p["attn"], self.cfg,
-                                    self.norm(p["ln1"], x), self.parallel)
-        return self._mlp(p, x + y), cache
+        """``dense_train`` plus the layer's attention cache."""
+        y, cache = self.attn_prefill(p["attn"], self.norm(p["ln1"], x))
+        return self._ffn(p, x + y), cache
 
     def dense_decode(self, p, x: Tensor, cache, pos: int):
-        """One token against the layer's KV cache (written in place)."""
-        y, cache = attn.gqa_decode(p["attn"], self.cfg,
-                                   self.norm(p["ln1"], x), cache, pos)
-        return self._mlp(p, x + y), cache
+        """One token against the layer's cache (written in place)."""
+        y, cache = self.attn_decode(p["attn"], self.norm(p["ln1"], x),
+                                    cache, pos)
+        return self._ffn(p, x + y), cache
 
     def mamba_schema(self):
         """ln, mamba."""
@@ -164,12 +205,23 @@ class DecoderStack:
 
     def schema(self):
         """The stacked (num_layers, ...) layer weights; hybrid adds the
-        one shared attention block."""
+        one shared attention block; moe stacks ``dense_layers`` (the
+        first ``first_k_dense``) and ``moe_layers``."""
         cfg, b = self.cfg, self.blocks
         if cfg.family == "hybrid":
             return {"mamba_layers": stack_schema(b.mamba_schema(),
                                                  cfg.num_layers),
                     "shared_attn": b.dense_schema()}
+        if cfg.family == "moe":
+            sch = {}
+            if cfg.first_k_dense:
+                sch["dense_layers"] = stack_schema(
+                    b.dense_schema(d_ff=cfg.dense_ff or cfg.d_ff),
+                    cfg.first_k_dense)
+            sch["moe_layers"] = stack_schema(b.dense_schema(use_moe=True),
+                                             cfg.num_layers
+                                             - cfg.first_k_dense)
+            return sch
         layer = b.rwkv_schema() if cfg.family == "ssm" else b.dense_schema()
         return {"layers": stack_schema(layer, cfg.num_layers)}
 
@@ -180,64 +232,85 @@ class DecoderStack:
         g = cfg.shared_attn_every or cfg.num_layers
         return [min(g, cfg.num_layers - s) for s in range(0, cfg.num_layers, g)]
 
-    def serve_layers(self, params) -> Iterator[Tuple[str, str, int, Any]]:
-        """(name, kind, cache index, weights) of every block, in the order
-        the forward applies them; kind is "dense", "mamba" or "rwkv".
-        Hybrid puts the shared attention block after each group; its
-        cache index is the group's."""
+    def serve_layers(self, params
+                     ) -> Iterator[Tuple[str, str, Tuple[Optional[str], int],
+                                         Any]]:
+        """(name, kind, (cache part, index), weights) of every block, in
+        the order the forward applies them; kind is "dense", "mamba" or
+        "rwkv", and the block's cache is ``cache[part][index]`` (the
+        whole cache's ``[index]`` where part is None).  Hybrid puts the
+        shared attention block after each group, at the group's index of
+        "attn"; moe walks "dense" then "moe"."""
         cfg = self.cfg
         if cfg.family == "hybrid":
             start = 0
             for g, size in enumerate(self._groups()):
                 for i in range(start, start + size):
-                    yield (f"mamba {i}", "mamba", i,
+                    yield (f"mamba {i}", "mamba", ("mamba", i),
                            layer_slice(params["mamba_layers"], i))
-                yield "shared attn", "dense", g, params["shared_attn"]
+                yield ("shared attn", "dense", ("attn", g),
+                       params["shared_attn"])
                 start += size
+            return
+        if cfg.family == "moe":
+            for i in range(cfg.first_k_dense):
+                yield (f"dense {i}", "dense", ("dense", i),
+                       layer_slice(params["dense_layers"], i))
+            for i in range(cfg.num_layers - cfg.first_k_dense):
+                yield (f"moe {i}", "dense", ("moe", i),
+                       layer_slice(params["moe_layers"], i))
             return
         kind = "rwkv" if cfg.family == "ssm" else "dense"
         for i in range(cfg.num_layers):
-            yield f"layer {i}", kind, i, layer_slice(params["layers"], i)
+            yield (f"layer {i}", kind, (None, i),
+                   layer_slice(params["layers"], i))
 
     def layers(self, params):
         """(name, train block fn, its weights) of every block, in order."""
         for name, kind, _, p in self.serve_layers(params):
             yield name, getattr(self.blocks, kind + "_train"), p
 
-    def cache_part(self, cache, kind: str):
-        """The stacked cache that blocks of ``kind`` index into."""
-        if self.cfg.family == "hybrid":
-            return cache["attn"] if kind == "dense" else cache["mamba"]
-        return cache
+    @staticmethod
+    def cache_part(cache, part: Optional[str]):
+        """The stacked cache a block of ``part`` indexes into."""
+        return cache if part is None else cache[part]
 
-    def train_hidden(self, params, x: Tensor) -> Tensor:
-        """All blocks in order over x (B, S, d).  These families have no
-        auxiliary loss, so the reference's (x, aux) is just x here."""
-        for _, block, p in self.layers(params):
-            x = block(p, x)
-        return x
+    def train_hidden(self, params, x: Tensor, with_aux: bool = False):
+        """All blocks in order over x (B, S, d).  With ``with_aux``,
+        (x, the MoE layers' aux losses summed from an fp32 0) as the
+        reference's ``train_hidden`` returns; else x alone."""
+        aux: List[Tensor] = []
+        for _, kind, _, p in self.serve_layers(params):
+            if kind == "dense":
+                x = self.blocks.dense_train(p, x, aux)
+            else:
+                x = getattr(self.blocks, kind + "_train")(p, x)
+        if not with_aux:
+            return x
+        total = torch.zeros((), dtype=torch.float32, device=x.device)
+        for a in aux:
+            total = total + a
+        return x, total
 
     def prefill_hidden(self, params, x: Tensor):
         """All blocks in prefill form over the prompt x (B, S, d):
         (hidden states, the cache stacked per layer)."""
-        per: Dict[str, List[Any]] = {}
-        for _, kind, _, p in self.serve_layers(params):
+        per: Dict[Optional[str], List[Any]] = {}
+        for _, kind, (part, _), p in self.serve_layers(params):
             x, c = getattr(self.blocks, kind + "_prefill")(p, x)
-            per.setdefault(kind, []).append(c)
-        stacked = {kind: tree_map(lambda *a: torch.stack(a), *cs)
-                   for kind, cs in per.items()}
-        if self.cfg.family == "hybrid":
-            return x, {"mamba": stacked["mamba"], "attn": stacked["dense"]}
-        return x, next(iter(stacked.values()))
+            per.setdefault(part, []).append(c)
+        stacked = {part: tree_map(lambda *a: torch.stack(a), *cs)
+                   for part, cs in per.items()}
+        return x, stacked.get(None, stacked)
 
     def decode_hidden(self, params, x: Tensor, cache, pos: int):
         """All blocks in decode form for one token x (B, 1, d) at
         ``pos``.  Writes ``cache`` in place and returns it."""
-        for _, kind, i, p in self.serve_layers(params):
-            part = self.cache_part(cache, kind)
+        for _, kind, (part, i), p in self.serve_layers(params):
+            stack = self.cache_part(cache, part)
             x, new = getattr(self.blocks, kind + "_decode")(
-                p, x, tree_map(lambda a: a[i], part), pos)
-            _write(part, i, new)
+                p, x, tree_map(lambda a: a[i], stack), pos)
+            _write(stack, i, new)
         return x, cache
 
     def init_cache(self, batch: int, seq_len: int, device=None):
@@ -258,4 +331,13 @@ class DecoderStack:
         if cfg.family == "ssm":
             return per_layer(rwkv_mod.rwkv_init_state(cfg, batch, dt, device),
                              cfg.num_layers)
+        if cfg.family == "moe":
+            caches = {}
+            if cfg.first_k_dense:
+                caches["dense"] = attn.init_cache(
+                    cfg, batch, seq_len, cfg.first_k_dense, dt, device)
+            caches["moe"] = attn.init_cache(
+                cfg, batch, seq_len, cfg.num_layers - cfg.first_k_dense, dt,
+                device)
+            return caches
         return attn.init_cache(cfg, batch, seq_len, cfg.num_layers, dt, device)

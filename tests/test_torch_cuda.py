@@ -49,6 +49,7 @@ GQA and MQA, bf16 and fp32, softcap, ragged Sq/Sk, several key blocks),
 the bf16 tensor-core template at every head dim, G = 1, 4, 8, ragged
 Sq and Sk and several key blocks per tile, against plain and fp64 and
 bitwise plain's on nearly all of its output (which p as one bf16 fails),
+both templates at MLA's head dims (q.k 192, v 128),
 a small bf16 ``Model.features`` through the kernel against the same
 run through the plain attention, and the refusal of dense attention on
 the card (``Model(cfg)`` without ``use_flash_attention=True``).
@@ -298,6 +299,54 @@ def test_flash_kernel_refuses_what_it_does_not_take(card):
     q3, k3, v3 = _qkv(card, 1, 64, 64, 3, 2, 64, "float32")
     with pytest.raises(ValueError, match="group"):
         fa_kernel.flash_attention_cuda(q3, k3, v3)
+
+
+# B, S, H, causal, softcap at MLA's head dims (q.k 192, v 128): one
+# query tile and a ragged one, several key blocks, a softcap
+_FA_MLA_CASES = [
+    (1, 128, 16, True, 0.0),
+    (2, 200, 8, True, 0.0),
+    (1, 320, 4, False, 30.0),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("case", _FA_MLA_CASES)
+def test_flash_mla_head_dims_match_plain(card, case, dtype):
+    """q and k 192 wide, v 128 (deepseek-v3's MLA prefill): o is 128
+    wide, scaled by 1/sqrt(192); against plain within the square dims'
+    tolerances, and bf16 within bf16's half step of fp64 and bitwise
+    plain's on >= FA_BF16_SAME of o.  A pair not instantiated is
+    refused."""
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+
+    B, S, H, causal, cap = case
+    rng = np.random.default_rng(7)
+    dt = getattr(torch, dtype)
+    mk = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(s).astype(np.float32)).to(card).to(dt)
+    q, k, v = mk(B, S, H, 192), mk(B, S, H, 192), mk(B, S, H, 128)
+    n0 = fa_kernel.LAUNCHES["flash_attention"]
+    got = fa_kernel.flash_attention_cuda(q, k, v, causal=causal,
+                                         softcap=cap)
+    want = _fa_plain(q, k, v, causal=causal, softcap=cap)
+    torch.cuda.synchronize()
+    assert fa_kernel.LAUNCHES["flash_attention"] == n0 + 1
+    assert got.dtype == dt and tuple(got.shape) == (B, S, H, 128)
+    tol = 8e-3 if dtype == "bfloat16" else 1e-5
+    top = float(want.float().abs().max())
+    assert float((got.double() - want.double()).abs().max()) <= tol * top
+    if dtype == "bfloat16":
+        exact = _fa_plain(q.double(), k.double(), v.double(), causal=causal,
+                          softcap=cap)
+        err_k = float((got.double() - exact).abs().max())
+        err_p = float((want.double() - exact).abs().max())
+        assert err_k <= 3.91e-3 * float(exact.abs().max())
+        assert err_k <= 1.1 * err_p
+        assert float((got == want).double().mean()) >= FA_BF16_SAME
+    with pytest.raises(ValueError, match="head dims"):
+        fa_kernel.flash_attention_cuda(q, k, v[..., :64].contiguous())
 
 
 @pytest.mark.cuda

@@ -8,6 +8,10 @@ against the JAX package's.
   * ``ops.flash_attention`` in the model's (B, S, heads, D) layout
     against the reference's ``ops.flash_attention`` (the layout round
     trip), and a device that is neither CPU nor CUDA is refused;
+  * a value head dim of its own (MLA's prefill: q/k 24 wide, v 16),
+    causal and softcapped, GQA and MHA, against the reference's dense
+    ``models.attention._sdpa`` — the reference's flash oracle reshapes o
+    to q's head dim and cannot take that shape;
   * the card's bf16 rounding, emulated here in plain torch (q·kᵀ of
     bf16 values summed in fp32, the online softmax in fp32 over key
     blocks, p split into bf16 hi + lo for the P·V product), against the
@@ -26,6 +30,7 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels.flash_attention import kernel as jfa_kernel  # noqa: E402
+from repro.models import attention as jattn  # noqa: E402
 from repro.kernels.flash_attention import ops as jfa_ops  # noqa: E402
 from repro.kernels.flash_attention import ref as jfa_ref  # noqa: E402
 from repro_torch.kernels.flash_attention import ops, ref  # noqa: E402
@@ -90,6 +95,27 @@ def test_ops_layout_round_trip(causal):
     direct = ref.attention_ref(*(torch.from_numpy(a).transpose(1, 2)
                                  for a in (q, k, v)), causal=causal)
     assert torch.equal(got, direct.transpose(1, 2))
+
+
+@pytest.mark.parametrize("H,KV,cap", [(4, 2, 0.0), (4, 4, 0.0),
+                                      (4, 2, 20.0)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_value_head_dim_of_its_own(H, KV, cap, dtype):
+    """q/k (..., 24), v (..., 16): o is (..., 16), scaled by 1/sqrt(24)."""
+    B, S, D, Dv = 2, 40, 24, 16
+    rng = np.random.default_rng(2)
+    q = rng.standard_normal((B, S, H, D)).astype(np.float32)
+    k = rng.standard_normal((B, S, KV, D)).astype(np.float32)
+    v = rng.standard_normal((B, S, KV, Dv)).astype(np.float32)
+    td, jd = getattr(torch, dtype), getattr(jnp, dtype)
+    got = ops.flash_attention(*(torch.from_numpy(a).to(td)
+                                for a in (q, k, v)), causal=True,
+                              softcap=cap)
+    assert tuple(got.shape) == (B, S, H, Dv) and got.dtype == td
+    want = jattn._sdpa(*(jnp.asarray(a, jd) for a in (q, k, v)),
+                       causal=True, softcap=cap)
+    _close(got.float().numpy(), np.asarray(want.astype(jnp.float32)),
+           dtype == "bfloat16")
 
 
 def test_ops_refuses_other_devices():

@@ -90,8 +90,9 @@ def test_parallel_config_matches_reference(over):
 
 def test_registry_refusals():
     assert get_config("granite-3-2b").num_layers == 40
+    assert get_config("arctic-480b-smoke").num_experts == 4
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("arctic-480b-smoke")
+        get_config("pixtral-12b-smoke")
     with pytest.raises(KeyError):
         get_config("no-such-arch")
 
@@ -174,14 +175,24 @@ def test_gqa_train_matches_reference(weights):
 
 
 def test_gqa_refuses_partial_rope_and_dense_off_cpu(weights):
+    """Partial RoPE, once refused, now runs as the reference's (NeoX
+    halves over the rotated half here: the name is not chatglm's); dense
+    attention still refuses tensors off the CPU."""
     _, _, tree, _ = weights
-    lp = {k: torch.from_numpy(np.array(v[0]))
+    lp = {k: np.array(v[0])
           for k, v in tree["stack"]["layers"]["attn"].items()}
-    x = torch.zeros((1, 8, 64))
+    x = np.random.default_rng(5).standard_normal((1, 8, 64)).astype(
+        np.float32)
     partial = dataclasses.replace(get_config(_ARCH), rope_fraction=0.5)
-    with pytest.raises(NotImplementedError, match="partial RoPE"):
-        attention.gqa_train(lp, partial, x,
-                            ParallelConfig(use_flash_attention=True))
+    got = attention.gqa_train({k: torch.from_numpy(v) for k, v in lp.items()},
+                              partial, torch.from_numpy(x),
+                              ParallelConfig(use_flash_attention=True))
+    want = jattn.gqa_train({k: jnp.asarray(v) for k, v in lp.items()},
+                           dataclasses.replace(jget_config(_ARCH),
+                                               rope_fraction=0.5),
+                           jnp.asarray(x), parallel=JParallelConfig(
+                               use_flash_attention=True))
+    _close(got.numpy(), np.asarray(want), msg="partial RoPE")
     # off the CPU the dense path refuses: only the kernel runs there
     q = torch.empty((1, 8, 4, 16), device="meta")
     kv = torch.empty((1, 8, 2, 16), device="meta")

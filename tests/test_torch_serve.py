@@ -269,7 +269,7 @@ def test_unembed_matches_reference(tied, vocab, softcap):
 def test_attention_device_rule():
     """Decode attention is plain tensor code on any device (the meta
     device stands in for the card); train and prefill dense attention
-    refuse off the CPU; MLA's cache names its item."""
+    refuse off the CPU, MLA's expanded form too; MLA's latent cache."""
     cfg = get_config(_GRANITE)
     p = {k: torch.empty(v.shape, device="meta") for k, v in
          _attn_params(np.random.default_rng(0), 64, 4, 2, 16).items()}
@@ -283,9 +283,14 @@ def test_attention_device_rule():
         attention.gqa_prefill(p, cfg, x, ParallelConfig())
     with pytest.raises(NotImplementedError, match="use_flash_attention"):
         attention.gqa_train(p, cfg, x, ParallelConfig())
-    with pytest.raises(NotImplementedError, match="A.13b"):
-        attention.init_cache(dataclasses.replace(cfg, attention="mla"),
-                             1, 8, 2)
+    mla = get_config("deepseek-v3-671b-smoke")
+    c = attention.init_cache(mla, 1, 8, 2, device="meta")
+    assert {k: tuple(v.shape) for k, v in c.items()} == \
+        {"c_kv": (2, 1, 8, 16), "k_rope": (2, 1, 8, 8)}
+    mp = {k: torch.empty(d.shape, device="meta")
+          for k, d in attention.mla_schema(mla).items()}
+    with pytest.raises(NotImplementedError, match="use_flash_attention"):
+        attention.mla_train(mp, mla, x, ParallelConfig())
 
 
 # ---------------------------------------------------------------------------
@@ -624,9 +629,9 @@ def test_serving_refusals():
             [Request(torch.zeros(4, dtype=torch.long))],
             extras={"frames": torch.zeros(1)})
     from repro_torch.models.transformer import DecoderStack
-    moe = dataclasses.replace(get_config(_GRANITE), family="moe")
-    with pytest.raises(NotImplementedError, match="A.13b"):
-        DecoderStack(moe, ParallelConfig())
+    vlm = dataclasses.replace(get_config(_GRANITE), family="vlm")
+    with pytest.raises(NotImplementedError, match="A.13e"):
+        DecoderStack(vlm, ParallelConfig())
     with pytest.raises(NotImplementedError, match="A.13e"):
         layers.embed_tokens({}, dataclasses.replace(
             get_config(_GRANITE), learned_pos_emb=True), torch.zeros(1, 1))

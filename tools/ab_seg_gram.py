@@ -3,7 +3,7 @@
 one card, in turns, with a SHA-256 of every output.
 
     python3 tools/ab_seg_gram.py PARENT_TREE [CHANGE_TREE] [--pairs 1]
-                                 [--forms all|thin-small|big|scans]
+                                 [--forms all|thin-small|big|scans|flash]
 
 Each tree is the root of a checkout (``git archive`` of a commit,
 unpacked into a directory ``.gitignore`` lists; CHANGE_TREE defaults to
@@ -47,7 +47,15 @@ runs after a warm-up; 10 for the small forms and flash):
     T 256, chunk 16) and at T = 200 (bf16, the chunk halved to 8), the
     SSD at T = 200 (chunk 8); each through the tree's ``gla_cuda`` /
     ``ssd_cuda`` (the form its shape takes there), with the SHA-256 of o
-    and of the final state apart (``<form>:o``, ``<form>:state``).
+    and of the final state apart (``<form>:o``, ``<form>:state``);
+  * ``flash``: flash attention's square head dims as chip_smoke's
+    ``kernels:flash`` runs them — the backbone's shape (q (256, 256, 32,
+    64), k/v 8 heads, causal) in bf16 and fp32, fp32 causal at 5 key
+    blocks (2 × 320 × 8/2 × 64), bf16 with a softcap of 30 (2 × 192 ×
+    8/8 × 64) — and the bf16 and fp32 templates at every square head
+    dim (16, 32, 64, 128) on ragged, GQA and MQA shapes, causal and
+    not, with a softcap; through the tree's ``flash_attention_cuda``,
+    whose call is the same in both trees.
 
 It prints one JSON line per run (``ms``, ``sha256`` per form; for the
 thin and small forms ``ms_graph``, and ``ms_warm`` and ``split`` where
@@ -327,6 +335,44 @@ def time_scans(timer) -> dict:
     return {"ms": ms, "sha256": digest}
 
 
+def flash_forms():
+    """(name, fn) of the flash-attention cases (inputs made here from one
+    seed, so both trees see the same ones)."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import kernel as fa
+
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def case(B, S, H, KV, D, dtype, causal=True, cap=0.0, Sk=None):
+        q = torch.randn((B, S, H, D), generator=g, device="cuda").to(dtype)
+        k, v = (torch.randn((B, Sk or S, KV, D), generator=g,
+                            device="cuda").to(dtype) for _ in range(2))
+        return lambda: fa.flash_attention_cuda(q, k, v, causal=causal,
+                                               softcap=cap)
+
+    bf, f32 = torch.bfloat16, torch.float32
+    out = [("flash:backbone:bf16", case(256, 256, 32, 8, 64, bf)),
+           ("flash:backbone:fp32", case(256, 256, 32, 8, 64, f32)),
+           ("flash:fp32:5blocks", case(2, 320, 8, 2, 64, f32)),
+           ("flash:bf16:softcap30", case(2, 192, 8, 8, 64, bf, cap=30.0))]
+    for D in (16, 32, 64, 128):
+        for tag, dt in (("bf16", bf), ("fp32", f32)):
+            out += [(f"flash:{tag}:D{D}:causal", case(2, 320, 16, 4, D, dt)),
+                    (f"flash:{tag}:D{D}:ragged", case(1, 200, 8, 1, D, dt,
+                                                      False, 30.0, Sk=320))]
+    return out
+
+
+def time_flash(timer) -> dict:
+    """ms (10 runs) and the SHA-256 of o of each flash case."""
+    ms, digest = {}, {}
+    for name, fn in flash_forms():
+        digest[name] = sha(fn())
+        ms[name] = timer.ms(fn, 10)
+    return {"ms": ms, "sha256": digest}
+
+
 def time_tree(root: str, forms: str) -> dict:
     """ms and sha256 per form of ``root``'s kernels (run inside the child
     process)."""
@@ -345,6 +391,10 @@ def time_tree(root: str, forms: str) -> dict:
         scans = time_scans(timer)
         out["ms"].update(scans["ms"])
         out["sha256"].update(scans["sha256"])
+    if forms in ("all", "flash"):
+        flash = time_flash(timer)
+        out["ms"].update(flash["ms"])
+        out["sha256"].update(flash["sha256"])
     return out
 
 
@@ -356,7 +406,8 @@ def main(argv=None) -> int:
     ap.add_argument("change", nargs="?",
                     default=str(Path(__file__).resolve().parents[1]))
     ap.add_argument("--pairs", type=int, default=1)
-    ap.add_argument("--forms", choices=("all", "thin-small", "big", "scans"),
+    ap.add_argument("--forms", choices=("all", "thin-small", "big", "scans",
+                                        "flash"),
                     default="all")
     ap.add_argument("--time", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
