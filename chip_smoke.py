@@ -321,6 +321,21 @@ Phases (each failure makes the script exit non-zero):
      and fp64 at deepseek-v3's prefill wave (8 x 128 tokens, 128 heads),
      bf16 and fp32, with SDPA's time where it takes Ev != E.
 
+ 29. the families with extras (slice 16), ``lm_serve:whisper-tiny`` and
+     ``lm_serve:pixtral-12b`` after them, whole at their published widths
+     and depths in fp32 parameters and bf16 compute: whisper's waves
+     take 1500 frames a request (0.1 · normal from the seed), its
+     encoder's 4 layers run the flash kernel bidirectionally at Sq = Sk =
+     1500 and its decoder's 4 causally, its cross-attention dense over
+     the encoder's K/V; pixtral's take LM_PATCHES patch embeddings a
+     request over the front of the left-padded prompt.  The per-block
+     gates walk whisper's encoder halves (attention, MLP: ``plain`` and
+     ``solo``) and its decoder halves (self, cross, MLP: all three
+     gates); each prefill's flash launches are counted by form
+     (bidirectional, causal).  ``kernels:flash`` also holds the kernel
+     against plain and fp64 at whisper's encoder form (8 x 1500 frames,
+     6/6 heads x 64, bf16, bidirectional), with SDPA's time.
+
 Every seg_gram record also names the kernel that ran (``design``:
 small, thin or big) and times its second pass alone (``reduce_ms``)
 and, for a segment walk, its plan alone (``plan_ms``; ``ms`` has the
@@ -2125,8 +2140,9 @@ def _fa_plain(q, k, v, causal=True, softcap=0.0, scale=None):
 
 def phase_flash(seed: int, timer) -> dict:
     """Flash attention vs plain vs fp64 at the backbone's shape, at
-    deepseek-v3's MLA prefill (q/k 192, v 128 wide) and at two small
-    shapes (fp32, softcap); timings at the backbone's and the MLA
+    deepseek-v3's MLA prefill (q/k 192, v 128 wide), at whisper-tiny's
+    bidirectional encoder over its 1500 frames and at two small shapes
+    (fp32, softcap); timings at the backbone's, the MLA and the encoder's
     shapes."""
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
 
@@ -2270,6 +2286,46 @@ def phase_flash(seed: int, timer) -> dict:
             "shape": path["q"], "v_shape": list(v.shape), "dtype": tag}
         del q, k, v
         torch.cuda.empty_cache()
+    # whisper-tiny's encoder: a serving wave's frames attend to each other
+    # bidirectionally, Sq = Sk = max_source_positions (1500, a multiple of
+    # no tile: the kernel masks the last blocks' rows and keys), 6/6 x 64
+    from repro_torch.configs import get_config
+    wcfg = get_config("whisper-tiny")
+    B, S, H, D = (LM_WAVE, wcfg.max_source_positions, wcfg.num_heads,
+                  wcfg.head_dim)
+    q, k, v = qkv(B, S, H, H, D, torch.bfloat16)
+    path = check(q, k, v, False, 0.0,
+                 f"whisper encoder: bf16, bidirectional, {S} frames")
+    ms = timer.ms(lambda: fa_kernel.flash_attention_cuda(q, k, v,
+                                                         causal=False), 10)
+    plain_ms = timer.ms(lambda: _fa_plain(q, k, v, causal=False), 3)
+    qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    lib_ms = timer.ms(
+        lambda: torch.nn.functional.scaled_dot_product_attention(qh, kh, vh),
+        10)
+    del qh, kh, vh
+    nbytes = q.element_size() * 4 * q.numel()      # q, k, v read, o written
+    flops = 4.0 * B * H * S * S * D                 # QK and PV, every pair
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_TC_FLOP_PER_S * 1e3
+    key = "flash_attention[bidir]"
+    log(f"kernel {key} [whisper encoder] ms={ms:.4f} plain_ms={plain_ms:.4f} "
+        f"library_ms={lib_ms:.4f} (SDPA) bound_ms={max(t_bytes, t_ops):.4f} "
+        f"({'bytes' if t_bytes >= t_ops else 'operations'}: "
+        f"{nbytes / 1e9:.4f} GB at 3.35 TB/s, {flops / 1e9:.2f} GFLOP at "
+        f"989 TFLOP/s bf16)")
+    records[key] = {
+        "name": key, "route": "cuda", "source": FA_SRC, "replaces": FA_TPU,
+        "launches": None, "max_abs_err": path["max_abs_err"], "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": lib_ms,
+        "err_kernel_vs_fp64": path["err_kernel_vs_fp64"],
+        "err_plain_vs_fp64": path["err_plain_vs_fp64"],
+        "bitwise_plain_share": path["bitwise_plain_share"],
+        "shape": path["q"], "dtype": "bfloat16", "causal": False}
+    del q, k, v
+    torch.cuda.empty_cache()
     return records
 
 
@@ -2489,7 +2545,8 @@ def _block_errors(model, tokens) -> dict:
     errs = {}
     for i in range(0, tokens.shape[0], BACKBONE_BATCH):
         h = embed_tokens(model.embed, model.cfg, tokens[i:i + BACKBONE_BATCH])
-        for j, (name, block, p) in enumerate(model.decoder.layers(model.stack)):
+        for j, (name, block, p) in enumerate(
+                model.decoder_stack.layers(model.stack)):
             with _PlainKernels():
                 want = block(p, h)
             h = block(p, h)
@@ -2500,15 +2557,24 @@ def _block_errors(model, tokens) -> dict:
 
 def _model_launches(cfg) -> dict:
     """The model's kernel launches in one forward over a batch (a
-    features batch, or a serving wave's prefill): flash per dense layer
-    or per shared-block use, GLA per rwkv6 layer, SSD per mamba layer,
-    each scan on its tiled form."""
+    features batch, or a serving wave's prefill): flash per dense layer,
+    per shared-block use or per encoder and decoder layer (whisper), GLA
+    per rwkv6 layer, SSD per mamba layer, each scan on its tiled form."""
     if cfg.family == "ssm":
         return {"gla": cfg.num_layers, "gla:tiled": cfg.num_layers}
     if cfg.family == "hybrid":           # one shared block after each group
         return {"ssd": cfg.num_layers, "ssd:tiled": cfg.num_layers,
                 "flash_attention": -(-cfg.num_layers // cfg.shared_attn_every)}
-    return {"flash_attention": cfg.num_layers}
+    return {"flash_attention": cfg.num_layers + cfg.encoder_layers}
+
+
+def _flash_forms(cfg) -> dict:
+    """The model's flash launches in one forward by mask: whisper's
+    encoder layers bidirectional, every other attention causal."""
+    n = _model_launches(cfg).get("flash_attention", 0)
+    forms = {"causal": n - cfg.encoder_layers,
+             "bidirectional": cfg.encoder_layers}
+    return {f: c for f, c in forms.items() if c}
 
 
 def _backbone_launches(cfg, newton_iters: int) -> dict:
@@ -2624,6 +2690,9 @@ def phase_backbone(seed: int, arch: str):
 # its row LM_SOLO_ROW served alone.
 LM_WAVE, LM_PROMPT_MIN, LM_PROMPT, LM_NEW, LM_MAX_SEQ = 8, 96, 128, 32, 256
 LM_SOLO_ROW = 0
+# pixtral's patch positions at a LM_PROMPT-token prompt: the reference's
+# stub splices max(1, min(256, seq_len // 4)) of them at the front
+LM_PATCHES = max(1, min(256, LM_PROMPT // 4))
 # The serving gates, block by block (all three backbones), on the
 # serving run's own hidden states, per residual half of each block
 # (``_halves``): the prefill through the kernels against the plain
@@ -2664,12 +2733,23 @@ LM_E2E_TOL = 0.5
 # model's.  phi4-mini-3.8b and chatglm3-6b run whole.
 LM_FAMILY_ARCHS = ("phi4-mini-3.8b", "chatglm3-6b", "yi-34b", "arctic-480b",
                    "deepseek-v3-671b")
+# and the two families with extras (slice 16), whole at their published
+# widths and depths: whisper-tiny's 4 + 4 layers over 1500 frames a
+# request, pixtral-12b's 40 layers (12.25 B fp32 parameters, 45.6 GiB)
+# with LM_PATCHES patch embeddings a request
+LM_ENCODER_ARCHS = ("whisper-tiny", "pixtral-12b")
 LM_FAMILY_LAYERS = {"yi-34b": 8, "arctic-480b": 1, "deepseek-v3-671b": 2}
 # end-to-end gate (LM_E2E_TOL): the dense GQA stacks, as granite's; the
 # MoE stacks' end-to-end numbers are printed, not gated — a routing flip
 # or a pick dropped in one run and kept in the other moves a token's
 # logits by their own size, and the block gates below hold the layers
-LM_E2E_GATED = FEAT_GATED + ("phi4-mini-3.8b", "chatglm3-6b", "yi-34b")
+LM_E2E_GATED = FEAT_GATED + ("phi4-mini-3.8b", "chatglm3-6b", "yi-34b",
+                             "pixtral-12b")
+# (whisper-tiny is printed, not gated: its untrained encoder's
+# bidirectional attention over 1500 frames amplifies one-step bf16
+# differences, and ``tools/serve_drift.py --device cpu --arch
+# whisper-tiny --layers 4`` reads teacher-forced decode against train
+# 0.6228 at its full depth, over LM_E2E_TOL; its halves are gated.)
 # MoE blocks: the kernel and plain runs' expert sets may part where a
 # one-step difference of the attention output moves a near-tied router
 # logit.  With the router logits' spread over E = 128 / 256 experts and
@@ -2748,11 +2828,11 @@ class _ServeRecorder:
     def _wrap(self, fn, kind):
         from repro_torch.inference.executor import tree_map
 
-        def call(*a):
+        def call(*a, **kw):
             torch.cuda.synchronize()
             before = _lm_counts()
             t0 = time.perf_counter()
-            out = fn(*a)
+            out = fn(*a, **kw)
             torch.cuda.synchronize()
             ms = (time.perf_counter() - t0) * 1e3
             self.calls.append((kind, ms, dict(_lm_counts() - before)))
@@ -2767,22 +2847,31 @@ class _ServeRecorder:
         return self.fns[2](logits, temperature)
 
 
-def _halves(model, kind: str, p, blocks=None) -> list:
+def _halves(model, kind: str, p, blocks=None, kv=None) -> list:
     """A block's residual halves, each as (name, train(x), prefill(x) ->
     (y, cache), decode(x, cache, pos) -> (y, cache), route): attention
     (GQA or MLA) then MLP or MoE (dense), time-mix then channel-mix
-    (rwkv), the mamba block whole.  Their composition is the block
-    (``_serve_block_errors`` checks it bitwise against the port's
-    ``Blocks``).  ``route`` is None but for the MoE half: a dict whose
-    "last" holds the routing (``moe_apply``'s stats: the picks and
-    whether each was kept) of the half's latest call.  ``blocks`` (the
-    model's by default) binds them to another config: the fp32 twin of
-    ``_mla_fp32_gates``."""
+    (rwkv), the mamba block whole; whisper's encoder layer: its
+    bidirectional attention, then its MLP (no decode form); its decoder
+    layer: causal self-attention, cross-attention over ``kv`` (the
+    layer's encoder K/V of the whole wave, and the solo row's slice
+    (rows) of it, which a call on one row reads), then its MLP.  Their
+    composition is the block (``_block_gates`` checks it bitwise against
+    the port's ``Blocks`` or ``models/encdec.py``).  ``route`` is None
+    but for the MoE half: a dict whose "last" holds the routing
+    (``moe_apply``'s stats: the picks and whether each was kept) of the
+    half's latest call.  ``blocks`` (the model's by default) binds them
+    to another config: the fp32 twin of ``_mla_fp32_gates``."""
+    from repro_torch.models import attention as attn
     from repro_torch.models import moe as moe_mod
     from repro_torch.models import rwkv as rwkv_mod
+    from repro_torch.models.layers import mlp_apply
 
-    blocks = blocks or model.decoder.blocks
-    cfg, norm = blocks.cfg, blocks.norm
+    if kind in ("encoder", "decoder"):
+        cfg, norm, par = model.cfg, model.norm, model.parallel
+    else:
+        blocks = blocks or model.decoder_stack.blocks
+        cfg, norm = blocks.cfg, blocks.norm
 
     def stateless(f):
         return (lambda x: x + f(x), lambda x: (x + f(x), {}),
@@ -2798,6 +2887,27 @@ def _halves(model, kind: str, p, blocks=None) -> list:
             return x + y, c
         return (lambda x: x + train(x), pre, dec)
 
+    if kind == "encoder":
+        return [("attn",) + stateless(lambda x: attn.gqa_train(
+                    p["attn"], cfg, norm(p["ln1"], x), par, causal=False))
+                + (None,),
+                ("mlp",) + stateless(lambda x: mlp_apply(
+                    p["mlp"], cfg, norm(p["ln2"], x))) + (None,)]
+    if kind == "decoder":
+        whole, rows = kv
+        kv_of = (lambda x: whole if x.shape[0] == whole["k"].shape[0]
+                 else {n: t[rows] for n, t in whole.items()})
+        n1 = lambda x: norm(p["ln1"], x)              # noqa: E731
+        return [("self",) + mixer(
+                    lambda x: attn.gqa_train(p["self"], cfg, n1(x), par,
+                                             causal=True),
+                    lambda x: attn.gqa_prefill(p["self"], cfg, n1(x), par),
+                    lambda x, c, pos: attn.gqa_decode(p["self"], cfg, n1(x),
+                                                      c, pos)) + (None,),
+                ("cross",) + stateless(lambda x: attn.cross_attn(
+                    p["cross"], cfg, norm(p["ln2"], x), kv_of(x))) + (None,),
+                ("mlp",) + stateless(lambda x: mlp_apply(
+                    p["mlp"], cfg, norm(p["ln3"], x))) + (None,)]
     if kind == "dense":
         n1 = lambda x: norm(p["ln1"], x)              # noqa: E731
         halves = [("attn",) + mixer(
@@ -2869,7 +2979,7 @@ def _mla_fp32_gates(model, p, pre_in, dec_in, prompt: int, row: int
 
     cfg = model.cfg
     twin = Blocks(dataclasses.replace(cfg, compute_dtype=torch.float32),
-                  model.decoder.blocks.parallel)
+                  model.decoder_stack.blocks.parallel)
     _, train, prefill, decode, _ = _halves(model, "dense", p, twin)[0]
     T = prompt + len(dec_in)
     x0, xs = pre_in.float(), [h.float() for h in dec_in]
@@ -2893,7 +3003,7 @@ def _mla_fp32_gates(model, p, pre_in, dec_in, prompt: int, row: int
     want = train(torch.cat([x0] + xs, 1))[:, prompt:]
     res["train decode"] = rel(torch.cat(outs, 1), want)
     # the bf16 model's scaled logits over the prompt
-    h = model.decoder.blocks.norm(p["ln1"], pre_in)
+    h = model.decoder_stack.blocks.norm(p["ln1"], pre_in)
     B, S, _ = h.shape
     pos = torch.arange(S, device=h.device).expand(B, S)
     q_nope, q_rope = attn._mla_q(p["attn"], cfg, h, pos)
@@ -2912,7 +3022,8 @@ def _mla_fp32_gates(model, p, pre_in, dec_in, prompt: int, row: int
 
 
 @torch.no_grad()
-def _serve_block_errors(model, tokens, prompt: int, row: int) -> dict:
+def _serve_block_errors(model, tokens, prompt: int, row: int,
+                        extras=None) -> dict:
     """The serving gates block by block on the serving run's own hidden
     states — each block's residual halves (``_halves``) in prefill form
     over ``tokens[:, :prompt]``, then in decode form for each later
@@ -2932,7 +3043,15 @@ def _serve_block_errors(model, tokens, prompt: int, row: int) -> dict:
     and within one block the next half's gains would carry that step
     past the rounding level the gate holds.  Each block's composed
     prefill and decode outputs are checked bitwise against the port's
-    ``Blocks`` forms.
+    ``Blocks`` forms (whisper's: ``models/encdec.py``'s layer forms).
+
+    whisper (``extras["frames"]``) walks its encoder layers first, over
+    the frames with their positions: ``plain`` and ``solo`` on the
+    prefill form (the encoder has no decode form, so no ``train``);
+    then its decoder layers over the tokens, each cross-attention half
+    over the layer's K/V of the walk's own encoder output.  pixtral's
+    ``extras["patch_embeds"]`` take the first positions of the tokens'
+    embeddings, as in the model.
 
     A MoE half is compared only on the tokens whose expert sets agree
     between the two runs (a one-step difference of a router input can
@@ -2949,114 +3068,167 @@ def _serve_block_errors(model, tokens, prompt: int, row: int) -> dict:
     move to ``mla fp32`` (``_mla_fp32_gates``; its bf16 numbers under
     ``mla bf16``, with the near-tie share).  Returns {gate: {"<j>:<block>
     <half>": {what: max|a - b| / max|b|}}}."""
-    from repro_torch.convert import _flatten
-    from repro_torch.inference.executor import tree_map
+    from repro_torch.models import encdec
     from repro_torch.models.layers import embed_tokens
+    from repro_torch.models.params import layer_slice
 
-    stack, blocks = model.decoder, model.decoder.blocks
+    cfg, extras = model.cfg, extras or {}
     T = tokens.shape[1]
-    x = embed_tokens(model.embed, model.cfg, tokens)
-    pre_in, dec_in = x[:, :prompt], [x[:, t:t + 1] for t in range(prompt, T)]
-    r = slice(row, row + 1)
     errs = {"plain": {}, "train": {}, "solo": {}, "moe": {}, "mla fp32": {},
             "mla bf16": {}}
+    j = 0
+    if cfg.is_encdec:
+        ct, fr = cfg.compute_dtype, extras["frames"]
+        h = fr.to(ct) + model.encoder["pos"][:fr.shape[1]].to(ct)
+        for i in range(cfg.encoder_layers):
+            h, _ = _block_gates(model, errs, f"{j}:encoder {i}", "encoder",
+                                layer_slice(model.encoder["layers"], i), h,
+                                [], h.shape[1], row)
+            j += 1
+        cross = encdec.encoder_cross_kv(
+            model.decoder, cfg, model.norm(model.encoder["ln_f"], h))
+        blocks = [(f"decoder {i}", "decoder", layer_slice(model.decoder, i),
+                   {n: c[i] for n, c in cross.items()})
+                  for i in range(cfg.num_layers)]
+        x = embed_tokens(model.embed, cfg, tokens)
+    else:
+        blocks = [(name, kind, p, None) for name, kind, _, p in
+                  model.decoder_stack.serve_layers(model.stack)]
+        x = model._embed_in(tokens, None, extras.get("patch_embeds"))
+    pre_in, dec_in = x[:, :prompt], [x[:, t:t + 1] for t in range(prompt, T)]
+    for name, kind, p, kv in blocks:
+        pre_in, dec_in = _block_gates(model, errs, f"{j}:{name}", kind, p,
+                                      pre_in, dec_in, prompt, row, kv)
+        j += 1
+    return errs
+
+
+def _block_gates(model, errs: dict, label: str, kind: str, p, pre_in,
+                 dec_in: list, prompt: int, row: int, kv=None):
+    """``_serve_block_errors``'s gates of one block (its ``kind`` and
+    weights ``p``, its cross K/V ``kv`` for a whisper decoder layer) on
+    the prefill input ``pre_in`` and the decode inputs ``dec_in`` (none
+    for an encoder layer), written into ``errs`` under ``label``.
+    Returns the block's (prefill output, decode outputs)."""
+    from repro_torch.convert import _flatten
+    from repro_torch.inference.executor import tree_map
+    from repro_torch.models import encdec
+
+    T = prompt + len(dec_in)
+    r = slice(row, row + 1)
     mla = model.cfg.attention == "mla"
-    for j, (name, kind, _, p) in enumerate(stack.serve_layers(model.stack)):
-        block_in, block_dec = pre_in, dec_in
-        caches, plain_out = {}, None
-        for half, train, prefill, decode, route in _halves(model, kind, p):
-            key = f"{j}:{name} {half}"
-            out, cache = prefill(pre_in)
-            rk = route["last"] if route is not None else None
-            with _PlainKernels():
-                out_p, cache_p = prefill(pre_in)
-            out_r, cache_r = prefill(pre_in[r])
-            flat, flat_p, flat_r = (_flatten(c) for c in
-                                    (cache, cache_p, cache_r))
-            plain = {"out": rel(out, out_p)}
+    block_in, block_dec = pre_in, dec_in
+    caches, plain_out = {}, None
+    grows = kind in ("dense", "decoder")        # a KV cache, not a state
+    for half, train, prefill, decode, route in _halves(
+            model, kind, p, kv=None if kv is None else (kv, r)):
+        key = f"{label} {half}"
+        out, cache = prefill(pre_in)
+        rk = route["last"] if route is not None else None
+        with _PlainKernels():
+            out_p, cache_p = prefill(pre_in)
+        out_r, cache_r = prefill(pre_in[r])
+        flat, flat_p, flat_r = (_flatten(c) for c in
+                                (cache, cache_p, cache_r))
+        plain = {"out": rel(out, out_p)}
+        if route is None:
+            solo = {"prefill": rel(out_r, out[r])}
+        else:
+            keep_r = _agree(route["last"], {"idx": rk["idx"][r]})
+            solo = {"prefill": _rel_on(out_r, out[r], keep_r)}
+            moe = {"prefill drops": int((~rk["kept"]).sum()),
+                   "solo left out": int((~keep_r).sum())}
+        for leaf, c in flat.items():
+            plain[leaf] = rel(c, flat_p[leaf])
+            solo[f"prefill {leaf}"] = rel(flat_r[leaf], c[r])
+        caches[half] = tree_map(torch.clone, cache)
+        if grows and cache:               # room for the decoded tokens
+            cache = {n: torch.cat([c, c.new_zeros(
+                (c.shape[0], T - prompt) + c.shape[2:])], 1)
+                for n, c in cache.items()}
+        outs, step, step_leaves = [], 0.0, 0.0
+        dec_routes, dec_drops = [], 0
+        for t, h in zip(range(prompt, T), dec_in):
+            alone = tree_map(lambda a: a[r].clone(), cache)
+            o, cache = decode(h, cache, t)
+            if route is not None:
+                rd = route["last"]
+                dec_routes.append(rd)
+                dec_drops += int((~rd["kept"]).sum())
+            o_r, alone = decode(h[r], alone, t)
             if route is None:
-                solo = {"prefill": rel(out_r, out[r])}
+                step = max(step, rel(o_r, o[r]))
             else:
-                keep_r = _agree(route["last"], {"idx": rk["idx"][r]})
-                solo = {"prefill": _rel_on(out_r, out[r], keep_r)}
-                moe = {"prefill drops": int((~rk["kept"]).sum()),
-                       "solo left out": int((~keep_r).sum())}
-            for leaf, c in flat.items():
-                plain[leaf] = rel(c, flat_p[leaf])
-                solo[f"prefill {leaf}"] = rel(flat_r[leaf], c[r])
-            caches[half] = tree_map(torch.clone, cache)
-            if kind == "dense" and cache:     # room for the decoded tokens
-                cache = {n: torch.cat([c, c.new_zeros(
-                    (c.shape[0], T - prompt) + c.shape[2:])], 1)
-                    for n, c in cache.items()}
-            outs, step, step_leaves = [], 0.0, 0.0
-            dec_routes, dec_drops = [], 0
-            for t, h in zip(range(prompt, T), dec_in):
-                alone = tree_map(lambda a: a[r].clone(), cache)
-                o, cache = decode(h, cache, t)
-                if route is not None:
-                    rd = route["last"]
-                    dec_routes.append(rd)
-                    dec_drops += int((~rd["kept"]).sum())
-                o_r, alone = decode(h[r], alone, t)
-                if route is None:
-                    step = max(step, rel(o_r, o[r]))
-                else:
-                    keep = _agree(route["last"], {"idx": rd["idx"][r]})
-                    moe["solo left out"] += int((~keep).sum())
-                    step = max(step, _rel_on(o_r, o[r], keep))
-                fa, fc = _flatten(alone), _flatten(cache)
-                step_leaves = max([step_leaves] + [rel(fa[k], fc[k][r])
-                                                   for k in fa])
-                outs.append(o)
+                keep = _agree(route["last"], {"idx": rd["idx"][r]})
+                moe["solo left out"] += int((~keep).sum())
+                step = max(step, _rel_on(o_r, o[r], keep))
+            fa, fc = _flatten(alone), _flatten(cache)
+            step_leaves = max([step_leaves] + [rel(fa[k], fc[k][r])
+                                               for k in fa])
+            outs.append(o)
+        if dec_in:                        # an encoder layer has none
             solo["decode"], solo["decode leaves"] = step, step_leaves
             want = train(torch.cat([pre_in] + dec_in, 1))[:, prompt:]
             got = torch.cat(outs, 1)
-            if route is None:
+        if route is None:
+            if dec_in:
                 errs["train"][key] = {"decode": rel(got, want)}
-            else:
-                rt = route["last"]
-                dec = {"idx": torch.cat([d["idx"] for d in dec_routes], 1)}
-                tr = {"idx": rt["idx"][:, prompt:]}
-                keep = _agree(dec, tr) & rt["kept"][:, prompt:].all(-1)
-                errs["train"][key] = {"decode": _rel_on(got, want, keep)}
-                moe.update({"train drops": int((~rt["kept"]).sum()),
-                            "decode drops": dec_drops,
-                            "train left out": int((~keep).sum())})
-                # the whole block, kernel against plain: this half on the
-                # attention half's plain output too
-                out_pp, _ = prefill(plain_out)
-                agree = _agree(rk, route["last"])
-                moe["flip share"] = 1.0 - float(agree.double().mean())
-                moe["block"] = _rel_on(out, out_pp, agree)
-                errs["moe"][key] = moe
-            errs["plain"][key], errs["solo"][key] = plain, solo
-            if mla and half == "attn":
-                tw = _mla_fp32_gates(model, p, pre_in, dec_in, prompt, row)
-                errs["mla fp32"][key] = tw["gates"]
-                errs["mla bf16"][key] = {
-                    **{f"solo {k}": v for k, v in
-                       errs["solo"].pop(key).items()},
-                    **{f"train {k}": v for k, v in
-                       errs["train"].pop(key).items()},
-                    "near-tie share": tw["near-tie share"],
-                    "max |logit|": tw["max |logit|"]}
-            pre_in, dec_in, plain_out = out, outs, out_p
-        # the halves compose to the port's block, bit for bit
-        out_b, _ = getattr(blocks, kind + "_prefill")(p, block_in)
+        else:
+            rt = route["last"]
+            dec = {"idx": torch.cat([d["idx"] for d in dec_routes], 1)}
+            tr = {"idx": rt["idx"][:, prompt:]}
+            keep = _agree(dec, tr) & rt["kept"][:, prompt:].all(-1)
+            errs["train"][key] = {"decode": _rel_on(got, want, keep)}
+            moe.update({"train drops": int((~rt["kept"]).sum()),
+                        "decode drops": dec_drops,
+                        "train left out": int((~keep).sum())})
+            # the whole block, kernel against plain: this half on the
+            # attention half's plain output too
+            out_pp, _ = prefill(plain_out)
+            agree = _agree(rk, route["last"])
+            moe["flip share"] = 1.0 - float(agree.double().mean())
+            moe["block"] = _rel_on(out, out_pp, agree)
+            errs["moe"][key] = moe
+        errs["plain"][key], errs["solo"][key] = plain, solo
+        if mla and half == "attn":
+            tw = _mla_fp32_gates(model, p, pre_in, dec_in, prompt, row)
+            errs["mla fp32"][key] = tw["gates"]
+            errs["mla bf16"][key] = {
+                **{f"solo {k}": v for k, v in
+                   errs["solo"].pop(key).items()},
+                **{f"train {k}": v for k, v in
+                   errs["train"].pop(key).items()},
+                "near-tie share": tw["near-tie share"],
+                "max |logit|": tw["max |logit|"]}
+        pre_in, dec_in, plain_out = out, outs, out_p
+    # the halves compose to the port's block, bit for bit
+    cfg, par = model.cfg, model.parallel
+    if kind == "encoder":
+        out_b, dec_b = encdec.encoder_layer(p, cfg, block_in, par), None
+    else:
         state = {"dense": lambda: caches["attn"],
+                 "decoder": lambda: caches["self"],
                  "rwkv": lambda: {"tm": caches["tm"], "cm": caches["cm"]},
                  "mamba": lambda: caches["mamba"]}[kind]()
-        if kind == "dense":                   # as the walk grew it
+        if grows:                             # as the walk grew it
             state = {n: torch.cat([c, c.new_zeros(
                 (c.shape[0], T - prompt) + c.shape[2:])], 1)
                 for n, c in state.items()}
-        dec_b, _ = getattr(blocks, kind + "_decode")(p, block_dec[0], state,
-                                                     prompt)
-        if not (torch.equal(out_b, pre_in) and torch.equal(dec_b, dec_in[0])):
-            raise AssertionError(f"{j}:{name}: the halves do not compose to "
-                                 f"the port's block")
-    return errs
+        if kind == "decoder":
+            out_b, _ = encdec.decoder_layer_prefill(p, cfg, block_in, kv,
+                                                    par)
+            dec_b, _ = encdec.decoder_layer_decode(p, cfg, block_dec[0],
+                                                   state, kv, prompt)
+        else:
+            blocks = model.decoder_stack.blocks
+            out_b, _ = getattr(blocks, kind + "_prefill")(p, block_in)
+            dec_b, _ = getattr(blocks, kind + "_decode")(p, block_dec[0],
+                                                         state, prompt)
+    if not (torch.equal(out_b, pre_in)
+            and (dec_b is None or torch.equal(dec_b, dec_in[0]))):
+        raise AssertionError(f"{label}: the halves do not compose to the "
+                             f"port's block")
+    return pre_in, dec_in
 
 
 def _serve_block_failures(errs: dict) -> dict:
@@ -3087,12 +3259,14 @@ def _serve_block_failures(errs: dict) -> dict:
 
 
 def _cast_ms(model) -> float:
-    """ms to cast every weight a decode step reads (the stack's and the
-    unembedding table) to the compute dtype once, as each step does."""
+    """ms to cast every weight a decode step reads (the stack's or the
+    decoder's, and the unembedding table) to the compute dtype once, as
+    each step does."""
     ct = model.cfg.compute_dtype
     table = (model.embed["embedding"] if model.cfg.tie_embeddings
              else model.embed["unembed"])
-    ws = [w for n, w in model.named_parameters() if n.startswith("stack.")]
+    ws = [w for n, w in model.named_parameters()
+          if n.startswith(("stack.", "decoder."))]
     torch.cuda.synchronize()
     s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
         enable_timing=True)
@@ -3111,6 +3285,22 @@ def _attn_dims(cfg):
     return (cfg.head_dim, cfg.head_dim)
 
 
+def _lm_extras(cfg, seed: int, dev) -> dict:
+    """A wave's extras, 0.1 · normal from ``seed`` in the compute dtype,
+    as the reference's tests draw them: whisper's frames (LM_WAVE,
+    max_source_positions, d_model), pixtral's patch embeddings (LM_WAVE,
+    LM_PATCHES, d_model); none for the other families."""
+    shape = ((LM_WAVE, cfg.max_source_positions, cfg.d_model)
+             if cfg.is_encdec else (LM_WAVE, LM_PATCHES, cfg.d_model)
+             if cfg.family == "vlm" else None)
+    if shape is None:
+        return {}
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = 0.1 * torch.randn(shape, generator=g, device=dev)
+    return {"frames" if cfg.is_encdec else "patch_embeds":
+            x.to(cfg.compute_dtype)}
+
+
 def phase_lm_serve(seed: int, model, reduced=None):
     """``lm_serve:<arch>``: ``launch/serve.py``'s ``BatchServer`` over the
     model ``backbone:<arch>`` built (full width and depth) or
@@ -3118,14 +3308,15 @@ def phase_lm_serve(seed: int, model, reduced=None):
     four gates: the prefill through the kernels against the plain
     versions, teacher-forced decode against the train path, the wave
     against a request alone, and the launch counts (each wave's prefill
-    launches exactly ``_model_launches``, all at the model's head dims,
-    decode steps none, no fallback).  Returns (launches of the served
-    calls, metrics)."""
+    launches exactly ``_model_launches``, all at the model's head dims
+    and in the model's forms (``_flash_forms``), decode steps none, no
+    fallback).  whisper's waves take frames and pixtral's patch
+    embeddings (``_lm_extras``); a request alone takes its row's.
+    Returns (launches of the served calls, metrics)."""
     from repro_torch.convert import _flatten
     from repro_torch.core import moments
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.launch.serve import BatchServer, Request
-    from repro_torch.models.layers import embed_tokens
 
     cfg, dev = model.cfg, model.device
     rng = np.random.default_rng(seed)
@@ -3135,9 +3326,12 @@ def phase_lm_serve(seed: int, model, reduced=None):
         rng.integers(0, cfg.vocab_size, int(n))).to(dev)
     ragged = [draw(n) for n in lens]
     same = [draw(LM_PROMPT) for _ in range(LM_WAVE)]
+    ex_wave, ex_same = (_lm_extras(cfg, seed + i, dev) for i in (1, 2))
+    solo_row = slice(LM_SOLO_ROW, LM_SOLO_ROW + 1)
     expected = _model_launches(cfg)
     moments.FALLBACKS.clear()
     dims_before = collections.Counter(fa_kernel.LAUNCHES_BY_DIMS)
+    forms_before = collections.Counter(fa_kernel.LAUNCHES_BY_FORM)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     server = BatchServer(model, max_seq=LM_MAX_SEQ)
@@ -3145,11 +3339,13 @@ def phase_lm_serve(seed: int, model, reduced=None):
     try:
         served = collections.Counter()
         waves = {}
-        for name, prompts in (("wave", ragged), ("same-length", same),
-                              ("solo", [same[LM_SOLO_ROW]])):
+        for name, prompts, extras in (
+                ("wave", ragged, ex_wave), ("same-length", same, ex_same),
+                ("solo", [same[LM_SOLO_ROW]],
+                 {k: v[solo_row] for k, v in ex_same.items()})):
             rec.start()
             outs = server.serve_wave([Request(q, max_new_tokens=LM_NEW)
-                                      for q in prompts])
+                                      for q in prompts], extras=extras)
             for kind, _, c in rec.calls:
                 served.update(c)
             # gate 4: the prefill launches the table's counts, decode none
@@ -3173,6 +3369,13 @@ def phase_lm_serve(seed: int, model, reduced=None):
     if dims != want_dims:
         raise AssertionError(f"flash launches by head dims {dims}, "
                              f"expected {want_dims}")
+    # and by mask: each of the three prefills launches the model's forms
+    forms = dict(collections.Counter(fa_kernel.LAUNCHES_BY_FORM)
+                 - forms_before)
+    want_forms = {f: 3 * n for f, n in _flash_forms(cfg).items()}
+    if forms != want_forms:
+        raise AssertionError(f"flash launches by form {forms}, expected "
+                             f"{want_forms}")
 
     # gate 1, end to end: the wave's prefill against the plain versions.
     # Logits are compared over the real vocabulary: the padded slots hold
@@ -3182,7 +3385,7 @@ def phase_lm_serve(seed: int, model, reduced=None):
     toks = torch.stack([torch.nn.functional.pad(q, (LM_PROMPT - len(q), 0))
                         for q in ragged])
     with _PlainKernels():
-        plain_l, plain_c = model.prefill(toks)
+        plain_l, plain_c = model.prefill(toks, **ex_wave)
     got_l, got_c = w["prefill"]
     flat, flat_p = _flatten(got_c), _flatten(plain_c)
     e2e = {"prefill logits": rel(got_l[..., :V], plain_l[..., :V]),
@@ -3194,8 +3397,7 @@ def phase_lm_serve(seed: int, model, reduced=None):
     gen_toks = torch.tensor([c.tokens for c in w["outs"]], device=dev)
     full = torch.cat([toks, gen_toks], 1)
     with torch.no_grad():
-        h = model.decoder.train_hidden(
-            model.stack, embed_tokens(model.embed, cfg, full))
+        h = model._hidden(full, **ex_wave)
         train_l = model._logits(h[:, LM_PROMPT - 1:LM_PROMPT - 1 + LM_NEW])
     e2e["decode vs train"] = max(rel(lg[..., :V], train_l[:, s, :V])
                                  for s, lg in enumerate(w["logits"]))
@@ -3213,7 +3415,8 @@ def phase_lm_serve(seed: int, model, reduced=None):
         lw = ws["logits"][part][LM_SOLO_ROW, :V].double()
         margin = float((lw[a[part]] - lw[b[part]]) / lw.abs().max())
     # gates 1-3 block by block, on the first wave's own tokens
-    block = _serve_block_errors(model, full, LM_PROMPT, LM_SOLO_ROW)
+    block = _serve_block_errors(model, full, LM_PROMPT, LM_SOLO_ROW,
+                                ex_wave)
     worst = {g: max(((k, max(e.values())) for k, e in per.items()),
                     key=lambda kv: kv[1])
              for g, per in block.items()
@@ -3245,6 +3448,8 @@ def phase_lm_serve(seed: int, model, reduced=None):
         "launches_per_prefill": expected,
         "flash_launches_by_dims": {f"{a}x{b}": n for (a, b), n in
                                    dims.items()},
+        "flash_launches_by_form": forms,
+        "extras": {k: list(v.shape) for k, v in ex_wave.items()},
         "moe": moe, "moe_blocks": block["moe"] or None,
         "mla_bf16": block["mla bf16"] or None,
         "layers": cfg.num_layers, "reduced": reduced}
@@ -3260,8 +3465,9 @@ def phase_lm_serve(seed: int, model, reduced=None):
         f"{metrics['solo_prefill_ms']:.3f} ms, decode "
         f"{metrics['solo_decode_ms_per_step']:.3f} ms a step), weights "
         f"cast once {metrics['weight_cast_ms']:.3f} ms, peak device memory "
-        f"{peak:.2f} GiB; launches per prefill {expected} (by head dims "
-        f"{dims}), per decode step none; end to end {e2e} "
+        f"{peak:.2f} GiB; launches per prefill {expected} (served: by head "
+        f"dims {dims}, by form {forms}), per decode step none; extras "
+        f"{metrics['extras'] or 'none'}; end to end {e2e} "
         f"({'tol %g' % LM_E2E_TOL if cfg.name in LM_E2E_GATED else 'not gated'})"
         f"; solo tokens {solo_note}; worst blocks {worst} (tol "
         f"{BLOCK_TOL:g}, fp32 states {KERNEL_TOL:g})"
@@ -3348,6 +3554,8 @@ def phase_lm_family(seed: int, arch: str):
         f"d_model {cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads "
         f"x {cfg.head_dim}, flash head dims {_attn_dims(cfg)}, d_ff "
         f"{cfg.d_ff}, experts {cfg.num_experts} top-{cfg.experts_per_token}"
+        f", encoder layers {cfg.encoder_layers} over "
+        f"{cfg.max_source_positions if cfg.is_encdec else 0} frames"
         f", vocab {cfg.padded_vocab}; {n / 1e9:.3f} B params "
         f"({str(cfg.param_dtype).replace('torch.', '')}, "
         f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB), init "
@@ -5721,16 +5929,20 @@ def main(argv=None) -> int:
         del X, y, t
         torch.cuda.empty_cache()
 
-    for arch in LM_FAMILY_ARCHS:
+    for arch in LM_FAMILY_ARCHS + LM_ENCODER_ARCHS:
         sout = run(f"lm_serve:{arch}", phase_lm_family, args.seed, arch)
         torch.cuda.empty_cache()
         if sout is not None:
             served, lm_serve[arch] = sout
             path = f"lm_serve:{arch}"
-            flash_by_path[path] = served.get("flash_attention", 0)
+            forms = lm_serve[arch]["flash_launches_by_form"]
+            flash_by_path[path] = forms.get("causal", 0)
             if arch == "deepseek-v3-671b":     # the (192, 128) launches
                 by_path["flash_attention[mla]"] = {
                     path: served.get("flash_attention", 0)}
+            if forms.get("bidirectional"):     # whisper's encoder
+                by_path["flash_attention[bidir]"] = {
+                    path: forms["bidirectional"]}
 
     for key, rec in records.items():
         rec["launches"] = launches.get(key, 0)
@@ -5765,7 +5977,8 @@ def main(argv=None) -> int:
             "cells_seconds": cells_s, "meta_bootstrap_replicates":
             META_BOOT_B, "meta_chunk": META_CHUNK,
             "halving_lrs": list(HALVING_LRS), "slice11_seconds": slice11_s,
-            "lm_serve": lm_serve, "lm_families": list(LM_FAMILY_ARCHS),
+            "lm_serve": lm_serve, "lm_families": list(LM_FAMILY_ARCHS
+                                                      + LM_ENCODER_ARCHS),
             "phases": ran, "selection": selection or None,
             "seconds": time.perf_counter() - t_start}
     if args.out:

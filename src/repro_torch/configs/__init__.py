@@ -1,10 +1,8 @@
 """Architecture registry: ``get_config("<arch-id>")`` -> ModelConfig.
 
-The port carries the configurations whose model path it runs; an arch
-id ending in ``-smoke`` gives the reduced CPU variant
-(``config.smoke_variant``).  The other architectures of the JAX
-package's registry raise ``NotImplementedError`` naming the ROADMAP
-slice that brings their model code.
+The port carries every configuration of the JAX package's registry;
+an arch id ending in ``-smoke`` gives the reduced CPU variant
+(``config.smoke_variant``).
 """
 from __future__ import annotations
 
@@ -22,12 +20,8 @@ _MODULES: Dict[str, str] = {
     "chatglm3-6b": "chatglm3_6b",
     "arctic-480b": "arctic_480b",
     "deepseek-v3-671b": "deepseek_v3_671b",
-}
-
-# arch id -> the ROADMAP item that ports its model family
-_LATER: Dict[str, str] = {
-    "pixtral-12b": "ROADMAP A.13e (vlm front end)",
-    "whisper-tiny": "ROADMAP A.13e (encoder-decoder)",
+    "pixtral-12b": "pixtral_12b",
+    "whisper-tiny": "whisper_tiny",
 }
 
 
@@ -35,12 +29,8 @@ def get_config(arch: str) -> ModelConfig:
     """The port's config for ``arch`` (``-smoke`` suffix: the reduced
     variant)."""
     name = arch[:-len("-smoke")] if arch.endswith("-smoke") else arch
-    if name in _LATER:
-        raise NotImplementedError(
-            f"{name} is not ported yet: {_LATER[name]}")
     if name not in _MODULES:
-        raise KeyError(f"unknown arch {arch!r}; known: "
-                       f"{sorted(set(_MODULES) | set(_LATER))}")
+        raise KeyError(f"unknown arch {arch!r}; known: {sorted(_MODULES)}")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
     cfg: ModelConfig = mod.CONFIG
     return smoke_variant(cfg) if arch.endswith("-smoke") else cfg

@@ -79,8 +79,9 @@ def model_params(cfg, tree: Mapping[str, Any], *,
                  device: DeviceLike = None) -> Dict[str, Tensor]:
     """The reference's ``Model.init`` pytree (nested dicts of arrays,
     stacked ``(L, ...)`` per layer; moe's ``dense_layers`` /
-    ``moe_layers`` with their ``moe.shared`` / ``moe.dense`` sub-trees
-    and MLA's weights too) -> the port's ``Model`` state_dict
+    ``moe_layers`` with their ``moe.shared`` / ``moe.dense`` sub-trees,
+    MLA's weights and the encoder-decoder's ``encoder`` / ``decoder``
+    trees too) -> the port's ``Model`` state_dict
     (dotted schema paths, fp32 tensors).  Every path and shape is checked
     against the port's schema for ``cfg``."""
     dev = resolve_device(device)
@@ -132,22 +133,33 @@ def _flatten(tree: Mapping[str, Any], path: str = "") -> Dict[str, Any]:
 def cache(cfg, np_tree: Mapping[str, Any], *,
           device: DeviceLike = None) -> Dict[str, Any]:
     """The reference's serving cache (``Model.prefill`` / ``init_cache``
-    output, nested dicts with numpy leaves: moe's {"dense", "moe"} and
-    MLA's {"c_kv", "k_rope"} too) -> the port's cache for
-    ``Model.decode_step``.  The layouts are the same leaf for leaf
-    (stacked on the layer axis); every path and shape is checked against
-    the port's ``init_cache`` at the tree's batch and sequence length,
-    and each leaf takes that cache's dtype."""
+    output, nested dicts with numpy leaves: moe's {"dense", "moe"},
+    MLA's {"c_kv", "k_rope"} and the encoder-decoder's {"self",
+    "cross"} too) -> the port's cache for ``Model.decode_step``.  The
+    layouts are the same leaf for leaf (stacked on the layer axis); every
+    path and shape is checked against the port's ``init_cache`` at the
+    tree's batch and sequence length (an encoder-decoder's cross half at
+    its own source length), and each leaf takes that cache's dtype."""
     from repro_torch.config import ParallelConfig
+    from repro_torch.models import attention as attn
     from repro_torch.models.transformer import DecoderStack
 
     dev = resolve_device(device)
     flat = _flatten(np_tree)
     batch = np.shape(next(iter(flat.values())))[1]
-    seq = [np.shape(a)[2] for p, a in flat.items()
-           if p.split(".")[-1] in ("k", "c_kv")]
-    want = _flatten(DecoderStack(cfg, ParallelConfig()).init_cache(
-        batch, seq[0] if seq else 1, device="meta"))
+
+    def seq_of(prefix=""):
+        seq = [np.shape(a)[2] for p, a in flat.items() if p.startswith(prefix)
+               and p.split(".")[-1] in ("k", "c_kv")]
+        return seq[0] if seq else 1
+
+    if cfg.is_encdec:
+        want = _flatten({part: attn.init_cache(
+            cfg, batch, seq_of(part + "."), cfg.num_layers, device="meta")
+            for part in ("self", "cross")})
+    else:
+        want = _flatten(DecoderStack(cfg, ParallelConfig()).init_cache(
+            batch, seq_of(), device="meta"))
     if set(flat) != set(want):
         raise ValueError(f"cache: paths differ from the port's layout: "
                          f"missing {sorted(set(want) - set(flat))}, "

@@ -278,16 +278,21 @@ def make_nuisance(kind: str, task: str, cfg: CausalConfig) -> Nuisance:
 # LM-backbone features (the Dream11 scenario: event-sequence confounders)
 # ---------------------------------------------------------------------------
 
-def backbone_features(model, tokens: Tensor, batch_size: int = 0) -> Tensor:
+def backbone_features(model, tokens: Tensor, batch_size: int = 0,
+                      extras: Optional[Dict[str, Tensor]] = None) -> Tensor:
     """Pooled (n, d_model) fp32 features of ``model``
     (``repro_torch.models.model.Model``) over (n, S) user event
     sequences, ``batch_size`` sequences per forward (0: all at once).
-    The backbone is frozen; nuisance heads (ridge / logistic) are
-    cross-fit on top."""
+    ``extras`` (whisper's ``frames``, pixtral's ``patch_embeds``, n rows
+    each) are sliced with the tokens.  The backbone is frozen; nuisance
+    heads (ridge / logistic) are cross-fit on top."""
+    extras = extras or {}
     if not batch_size or tokens.shape[0] <= batch_size:
-        return model.features(tokens)
-    return torch.cat([model.features(tokens[i:i + batch_size])
-                      for i in range(0, tokens.shape[0], batch_size)], dim=0)
+        return model.features(tokens, **extras)
+    return torch.cat([
+        model.features(tokens[i:i + batch_size],
+                       **{k: v[i:i + batch_size] for k, v in extras.items()})
+        for i in range(0, tokens.shape[0], batch_size)], dim=0)
 
 
 # ---------------------------------------------------------------------------

@@ -10,8 +10,8 @@ Any Sq, Sk: the kernel masks ragged tails.  (Dqk, Dv) must be one of
 default scale is 1/sqrt(Dqk).  It raises on anything it does not take
 and whenever the launch returns a CUDA error; it never falls back to the
 plain version.  ``LAUNCHES["flash_attention"]`` counts launches, one
-per call, and ``LAUNCHES_BY_DIMS[(Dqk, Dv)]`` the same launches by head
-dims.
+per call, ``LAUNCHES_BY_DIMS[(Dqk, Dv)]`` the same launches by head
+dims and ``LAUNCHES_BY_FORM["causal" | "bidirectional"]`` by mask.
 
 Replaces ``src/repro/kernels/flash_attention/kernel.py:
 flash_attention_pallas``; the design and its bound on the H100 are in the
@@ -35,6 +35,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 LAUNCHES: collections.Counter = collections.Counter()
 LAUNCHES_BY_DIMS: collections.Counter = collections.Counter()
+LAUNCHES_BY_FORM: collections.Counter = collections.Counter()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -117,4 +118,5 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(f"flash_attention launch failed: {msg} ({err})")
     LAUNCHES["flash_attention"] += 1
     LAUNCHES_BY_DIMS[(D, Dv)] += 1
+    LAUNCHES_BY_FORM["causal" if causal else "bidirectional"] += 1
     return out

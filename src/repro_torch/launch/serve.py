@@ -13,7 +13,10 @@ shorter prompt, and RoPE positions count them.  Greedy decoding takes
 the first index of the largest logit.  A temperature > 0 (the first
 request's, for the whole wave) samples on one explicit
 ``torch.Generator`` on the model's device — the caller's, or one seeded
-0.  Everything runs on the model's device.
+0.  A wave's extras (whisper's frames, pixtral's patch embeddings) go
+to the prefill beside its tokens; pixtral's patches overwrite the first
+positions of the left-padded wave, pads included, as in the reference.
+Everything runs on the model's device.
 """
 from __future__ import annotations
 
@@ -69,10 +72,9 @@ class BatchServer:
                    extras: Optional[Dict[str, Any]] = None
                    ) -> List[Completion]:
         """Prefill the wave, then decode until every request has its
-        ``max_new_tokens``."""
-        if extras:
-            raise NotImplementedError(
-                "vlm / encoder-decoder inputs land with ROADMAP A.13e")
+        ``max_new_tokens``.  ``extras`` go to the prefill as they are, one
+        row per request: an encoder-decoder's ``frames`` (B, T_src,
+        d_model), a vlm's ``patch_embeds`` (B, P, d_model)."""
         t0 = time.perf_counter()
         dev = self.model.device
         B = len(requests)
@@ -85,7 +87,7 @@ class BatchServer:
         # prefill against a cache sized for prompt + generation budget
         budget = min(S + max(r.max_new_tokens for r in requests),
                      self.max_seq)
-        logits, wave_cache = self._prefill(toks)
+        logits, wave_cache = self._prefill(toks, **(extras or {}))
         cache = _splice_prefill(self.model.init_cache(B, budget),
                                 wave_cache, S)
 
@@ -107,8 +109,11 @@ class BatchServer:
 
 def _splice_prefill(full_cache, wave_cache, s: int):
     """Copy the prefill cache (seq length ``s``) into the front of the
-    generation-budget cache, in the budget cache's dtype.  A leaf of the
-    same shape (a recurrent state) is the prefill's own tensor."""
+    generation-budget cache, in the budget cache's dtype, walking nested
+    dicts (an encoder-decoder's {"self", "cross"}).  A leaf of the same
+    shape (a recurrent state, a cross cache of ``max_source_positions``
+    frames) is the prefill's own tensor; a cross cache of fewer frames
+    lands at the front of the zeros, as the reference splices it."""
     if isinstance(full_cache, dict):
         return {k: _splice_prefill(full_cache[k], wave_cache[k], s)
                 for k in full_cache}

@@ -8,15 +8,15 @@ v's dtype before the P.V product, fp32 accumulation — and with
 ``ParallelConfig.use_flash_attention`` the train and prefill forward
 routes through the flash-attention kernel instead
 (``kernels/flash_attention``: the Hopper kernel on the card, its plain
-version on the CPU), which keeps p in fp32.  The dense path runs on CPU
-tensors only: on the card, train and prefill attention go through the
-kernel or raise.
+version on the CPU), which keeps p in fp32.  Self-attention runs dense
+on CPU tensors only: on the card, train and prefill self-attention go
+through the kernel or raise.
 
 Serving: ``gqa_prefill`` is the train forward that also returns the
 layer's k / v; ``gqa_decode`` writes one token's k / v into the cache
-and attends over it through ``_sdpa_decode``, the one dense attention
-that runs on the card (its docstring says why).  ``init_cache`` sizes
-the stacked (layers, B, S, KV, hd) cache.  RoPE is selected as the
+and attends over it through ``_sdpa_decode``, a dense attention that
+runs on the card (its docstring says why; ``cross_attn`` is the
+other).  ``init_cache`` sizes the stacked (layers, B, S, KV, hd) cache.  RoPE is selected as the
 reference selects it: interleaved pairs iff ``rope_fraction < 1`` and
 the config's name starts with "chatglm", else the NeoX halves over the
 rotated fraction (phi4-mini's 0.75).
@@ -27,8 +27,14 @@ through ``_maybe_flash`` — the flash kernel at (q.k 192, v 128) at
 deepseek-v3's widths); ``mla_decode`` the weight-absorbed latent
 attention over the (c_kv, k_rope) cache.  Both scale scores by
 1/sqrt(qk_nope + qk_rope), with no YaRN factor, as the reference.
-Cross-attention (ROADMAP A.13e) and the chunked XLA attention (A.13f)
-raise ``NotImplementedError`` naming their item.
+
+Cross-attention (whisper's decoder): ``cross_kv`` projects the encoder
+output once, ``cross_attn`` attends over it through the dense ``_sdpa``,
+unmasked and not causal, on both devices — the reference computes it
+outside any Pallas kernel, with or without ``use_flash_attention``.
+The encoder's bidirectional self-attention is ``gqa_train(causal=False)``
+through ``_maybe_flash``.  The chunked XLA attention (A.13f) raises
+``NotImplementedError`` naming its item.
 """
 from __future__ import annotations
 
@@ -92,8 +98,12 @@ def _sdpa(q: Tensor, k: Tensor, v: Tensor, *, causal: bool,
           softcap: float = 0.0) -> Tensor:
     """Dense attention.  q: (B,Sq,H,Dq) k/v: (B,Sk,KV,D*) -> (B,Sq,H,Dv).
     ``q_offset`` shifts the queries' causal positions; ``kv_mask``
-    (B, Sk) marks the valid keys."""
+    (B, Sk) marks the valid keys.  One query row that is not causal
+    over grouped kv heads goes to ``_sdpa_decode``, as the reference
+    routes it (whisper-smoke's cross-attention decode)."""
     B, Sq, H, Dq = q.shape
+    if Sq == 1 and not causal and H != k.shape[2]:
+        return _sdpa_decode(q, k, v, kv_mask=kv_mask, softcap=softcap)
     k = _repeat_kv(k, H)
     v = _repeat_kv(v, H)
     Sk = k.shape[1]
@@ -129,9 +139,9 @@ def _sdpa_decode(q: Tensor, k: Tensor, v: Tensor, *,
     KV, D) is never repeated to H heads.  Same arithmetic as ``_sdpa``:
     fp32 scores and softmax, p cast to v's dtype, fp32 P.V.
 
-    This is the one dense attention that runs on the card, and only
-    ``gqa_decode`` calls it.  The reference computes decode attention
-    outside any Pallas kernel (``attention.py`` ``gqa_decode`` ->
+    A dense attention that runs on the card (``cross_attn`` is the
+    other); only ``gqa_decode`` calls it.  The reference computes decode
+    attention outside any Pallas kernel (``attention.py`` ``gqa_decode`` ->
     ``_sdpa`` / ``_sdpa_decode``, plain ``jnp``), so it has no kernel
     to port: per step it reads the cache once and does two products of
     one query row per head, bound by the cache's bytes.  Train and
@@ -345,6 +355,32 @@ def mla_decode(params, cfg: ModelConfig, x: Tensor,
     out = torch.einsum("bqhr,rhk->bqhk", ctx.to(ct), params["wv_b"].to(ct))
     out = torch.einsum("bqhk,hkd->bqd", out, params["wo"].to(ct))
     return out, {"c_kv": c_kv, "k_rope": k_rope}
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (whisper decoder)
+# ---------------------------------------------------------------------------
+
+def cross_kv(params, cfg: ModelConfig, enc_out: Tensor) -> Dict[str, Tensor]:
+    """The cross-attention keys and values of the encoder output (B,
+    T_src, d): {"k", "v"} (B, T_src, KV, hd) in the compute dtype."""
+    ct = cfg.compute_dtype
+    return {"k": torch.einsum("bsd,dhk->bshk", enc_out, params["wk"].to(ct)),
+            "v": torch.einsum("bsd,dhk->bshk", enc_out, params["wv"].to(ct))}
+
+
+def cross_attn(params, cfg: ModelConfig, x: Tensor,
+               kv: Dict[str, Tensor]) -> Tensor:
+    """The decoder's queries x (B, S, d) over the precomputed encoder
+    keys and values ``kv`` (``cross_kv``): dense ``_sdpa``, every key
+    valid, no softcap.  This is the one attention over a whole sequence
+    that runs dense on the card: the reference runs it outside any
+    Pallas kernel (``attention.py`` ``cross_attn``), so it has no kernel
+    to port; its scores are (B, H, S, T_src) fp32."""
+    ct = cfg.compute_dtype
+    q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(ct))
+    out = _sdpa(q, kv["k"], kv["v"], causal=False)
+    return torch.einsum("bshk,hkd->bsd", out, params["wo"].to(ct))
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int, n_layers: int,

@@ -39,11 +39,28 @@ def rmsnorm(params, x: Tensor, eps: float = 1e-5) -> Tensor:
     return (x * params["scale"].to(_F32)).to(dtype)
 
 
+def layernorm_schema(d: int):
+    """LayerNorm scale and bias."""
+    return {"scale": ParamDef((d,), init="ones"),
+            "bias": ParamDef((d,), init="zeros")}
+
+
+def layernorm(params, x: Tensor, eps: float = 1e-5) -> Tensor:
+    """LayerNorm in fp32 (mean, variance, scale and bias), result in x's
+    dtype."""
+    dtype = x.dtype
+    x = x.to(_F32)
+    mu = x.mean(dim=-1, keepdim=True)
+    var = (x - mu).square().mean(dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * params["scale"].to(_F32) + params["bias"].to(_F32)).to(dtype)
+
+
 def make_norm(cfg: ModelConfig):
-    """(schema fn, apply fn) of the family's norm."""
+    """(schema fn, apply fn) of the family's norm: LayerNorm for the
+    audio family (whisper), RMSNorm otherwise."""
     if cfg.family == "audio":
-        raise NotImplementedError(
-            "the layernorm family lands with whisper's slice (ROADMAP A.13e)")
+        return layernorm_schema, lambda p, x: layernorm(p, x, cfg.norm_eps)
     return rmsnorm_schema, lambda p, x: rmsnorm(p, x, cfg.norm_eps)
 
 
@@ -64,13 +81,17 @@ def embedding_schema(cfg: ModelConfig):
     return sch
 
 
-def embed_tokens(params, cfg: ModelConfig, tokens: Tensor) -> Tensor:
-    """(B, S) token ids -> (B, S, d) in the compute dtype."""
+def embed_tokens(params, cfg: ModelConfig, tokens: Tensor,
+                 pos_offset: int = 0) -> Tensor:
+    """(B, S) token ids -> (B, S, d) in the compute dtype; with learned
+    positions, plus ``pos[pos_offset : pos_offset + S]`` cast to the
+    compute dtype."""
+    ct = cfg.compute_dtype
+    x = params["embedding"][tokens.long()].to(ct)
     if cfg.learned_pos_emb:
-        raise NotImplementedError(
-            "learned position embeddings land with whisper's slice "
-            "(ROADMAP A.13e, encoder-decoder)")
-    return params["embedding"][tokens.long()].to(cfg.compute_dtype)
+        S = tokens.shape[-1]
+        x = x + params["pos"][pos_offset:pos_offset + S].to(ct)
+    return x
 
 
 def unembed(params, cfg: ModelConfig, x: Tensor) -> Tensor:

@@ -14,8 +14,9 @@ stacks them, so a cache converts leaf for leaf: dense {"k", "v"} (L, B,
 S, KV, hd), or MLA's {"c_kv", "k_rope"} (L, B, S, ...); moe {"dense",
 "moe"} of those (no "dense" without ``first_k_dense``); ssm {"tm": {"s",
 "x_prev"}, "cm": {"x_prev"}} (L, ...); hybrid {"mamba": {"ssm", "conv"}
-(L, ...), "attn": {"k", "v"} (groups, ...)}.  The vlm and audio families
-(ROADMAP A.13e) raise ``NotImplementedError`` naming their item.
+(L, ...), "attn": {"k", "v"} (groups, ...)}.  The vlm family (pixtral) is a
+dense stack, as in the reference; the audio family (whisper) has no
+decoder-only stack (``models/encdec.py``).
 """
 from __future__ import annotations
 
@@ -34,17 +35,7 @@ from repro_torch.models.params import layer_slice, stack_schema
 
 Tensor = torch.Tensor
 
-_LATER = {
-    "vlm": "the vlm slice (ROADMAP A.13e: pixtral front end)",
-    "audio": "the encoder-decoder slice (ROADMAP A.13e: whisper)",
-}
-
-
-def _require_ported(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet: "
-            f"{_LATER.get(cfg.family, 'no slice planned')}")
+_FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid")
 
 
 def _write(dst, i: int, src) -> None:
@@ -199,7 +190,10 @@ class DecoderStack:
     """Hidden-state pipeline: embeddings in, hidden states out."""
 
     def __init__(self, cfg: ModelConfig, parallel: ParallelConfig):
-        _require_ported(cfg)
+        if cfg.family not in _FAMILIES:
+            raise ValueError(f"family {cfg.family!r} has no decoder-only "
+                             f"stack (one of {_FAMILIES}); an encoder-"
+                             f"decoder runs through models/encdec.py")
         self.cfg, self.parallel = cfg, parallel
         self.blocks = Blocks(cfg, parallel)
 

@@ -40,9 +40,9 @@ segmented columns of one estimator) in a ``sweep.group:<name>`` span,
 with the runtime's map and chunk spans nested inside.
 
 Fault isolation: a failing column (unknown estimator, missing
-instrument, a config the port cannot build — the s/t/x metalearners
-name ROADMAP A.6b — or an error past the downgrade ladder) is recorded
-on its ``ColumnResult.error``; every other column keeps its estimates.
+instrument, a config the port cannot build, or an error past the
+downgrade ladder) is recorded on its ``ColumnResult.error``; every other
+column keeps its estimates.
 Zero-row segments yield flagged (``ok = False``) finite cells.
 
 Data mesh (``data_mesh=``, a ``runtime.DataMesh``): every rank of the

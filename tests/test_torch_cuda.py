@@ -51,8 +51,10 @@ Sq and Sk and several key blocks per tile, against plain and fp64 and
 bitwise plain's on nearly all of its output (which p as one bf16 fails),
 both templates at MLA's head dims (q.k 192, v 128),
 a small bf16 ``Model.features`` through the kernel against the same
-run through the plain attention, and the refusal of dense attention on
-the card (``Model(cfg)`` without ``use_flash_attention=True``).
+run through the plain attention, whisper-smoke and pixtral-smoke with
+their extras on the card against the CPU (flash launches by form), and
+the refusal of dense attention on the card (``Model(cfg)`` without
+``use_flash_attention=True``).
 Tolerance: fp32 outputs 1e-5 (fp32 sums in another order); bf16 outputs 8e-3 relative to max|o| — both
 round the same fp32 value to bf16, so they differ by at most one bf16
 step (2^-8 relative) where the fp32 sums straddle a rounding boundary;
@@ -392,6 +394,66 @@ def test_features_kernel_matches_plain(card, monkeypatch):
     assert np.isfinite(got).all()
     np.testing.assert_allclose(got, want, rtol=0,
                                atol=2e-2 * np.abs(want).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["whisper-tiny-smoke", "pixtral-12b-smoke"])
+def test_extras_models_on_card_match_cpu(card, arch):
+    """whisper-smoke (frames) and pixtral-smoke (patch embeddings), fp32,
+    on the card through the fp32 flash template against the same weights
+    on the CPU through the plain version: prefill logits and caches, two
+    decode steps, features; the prefill's flash launches by form
+    (whisper's encoder bidirectional, the decoders causal).  Tolerance
+    3e-4·max, ``tests/test_torch_encdec.py``'s end-to-end bound: the
+    untrained whisper encoder carries fp32 sums in another order (~1e-6
+    an attention) to ~1e-4 of its output."""
+    import collections
+
+    from repro_torch.config import ParallelConfig
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.models.model import Model
+
+    cfg, par = get_config(arch), ParallelConfig(use_flash_attention=True)
+    gpu = Model(cfg, par, device=card, seed=3)
+    cpu = Model(cfg, par, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    rng = np.random.default_rng(5)
+    toks = torch.from_numpy(rng.integers(0, 256, (2, 18)))
+    shape = (2, cfg.max_source_positions if cfg.is_encdec else 4, 64)
+    x = torch.from_numpy((0.1 * rng.standard_normal(shape)).astype(
+        np.float32))
+    extras = {"frames" if cfg.is_encdec else "patch_embeds": x}
+    on_card = {k: v.to(card) for k, v in extras.items()}
+
+    def close(got, want, what):
+        got, want = got.float().cpu().numpy(), want.float().numpy()
+        np.testing.assert_allclose(got, want, rtol=3e-4,
+                                   atol=3e-4 * np.abs(want).max(),
+                                   err_msg=what)
+
+    forms0 = collections.Counter(fa_kernel.LAUNCHES_BY_FORM)
+    gl, gc = gpu.prefill(toks[:, :16].to(card), **on_card)
+    forms = dict(collections.Counter(fa_kernel.LAUNCHES_BY_FORM) - forms0)
+    want_forms = {"causal": cfg.num_layers}
+    if cfg.is_encdec:
+        want_forms["bidirectional"] = cfg.encoder_layers
+    assert forms == want_forms
+    cl, cc = cpu.prefill(toks[:, :16], **extras)
+    close(gl, cl, "prefill logits")
+    from repro_torch.convert import _flatten
+    from repro_torch.launch.serve import _splice_prefill
+    gf, cf = _flatten(gc), _flatten(cc)
+    for key in cf:
+        close(gf[key], cf[key], key)
+    gc = _splice_prefill(gpu.init_cache(2, 18), gc, 16)
+    cc = _splice_prefill(cpu.init_cache(2, 18), cc, 16)
+    for pos in (16, 17):
+        gl, gc = gpu.decode_step(toks[:, pos:pos + 1].to(card), gc, pos)
+        cl, cc = cpu.decode_step(toks[:, pos:pos + 1], cc, pos)
+        close(gl, cl, f"decode {pos}")
+    close(gpu.features(toks.to(card), **on_card),
+          cpu.features(toks, **extras), "features")
 
 
 # ---------------------------------------------------------------------------

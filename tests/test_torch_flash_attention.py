@@ -4,7 +4,8 @@ against the JAX package's.
   * the plain version against the Pallas kernel run in interpret mode
     (``flash_attention_pallas(..., interpret=True)``) and against the
     reference's ``attention_ref``: causal and not, GQA (H != KV) and
-    MQA, softcap, fp32 and bf16 inputs;
+    MQA, softcap, fp32 and bf16 inputs; and against ``attention_ref``
+    alone at whisper's encoder form, bidirectional at a ragged length;
   * ``ops.flash_attention`` in the model's (B, S, heads, D) layout
     against the reference's ``ops.flash_attention`` (the layout round
     trip), and a device that is neither CPU nor CUDA is refused;
@@ -116,6 +117,32 @@ def test_value_head_dim_of_its_own(H, KV, cap, dtype):
                        causal=True, softcap=cap)
     _close(got.float().numpy(), np.asarray(want.astype(jnp.float32)),
            dtype == "bfloat16")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_bidirectional_ragged_matches_reference(dtype):
+    """whisper's encoder form — not causal, 6/6 heads × 64 — at Sq = Sk =
+    75, a multiple of no tile (the Pallas kernel asserts Sq % block_q ==
+    0, so its interpret mode cannot take it): the plain version against
+    the reference's ``attention_ref``, and the card's bf16 rounding,
+    emulated over a ragged last key block, within 1e-4 of the plain
+    version on the same bf16 inputs."""
+    B, S, H, D = 2, 75, 6, 64
+    arrs = _inputs(B, S, S, H, H, D, seed=4)
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    tq, tk, tv = (torch.from_numpy(a).to(td) for a in arrs)
+    got = ref.attention_ref(tq, tk, tv, causal=False)
+    want = jfa_ref.attention_ref(*(jnp.asarray(a).astype(jd) for a in arrs),
+                                 causal=False)
+    _close(got.float().numpy(), np.asarray(want.astype(jnp.float32)),
+           dtype == "bfloat16")
+    bq, bk, bv = (t.to(torch.bfloat16) for t in (tq, tk, tv))
+    o32 = _tensor_core_rounding(bq, bk, bv, causal=False, softcap=0.0,
+                                block=32)
+    plain = ref.attention_ref(bq.float(), bk.float(), bv.float(),
+                              causal=False)
+    np.testing.assert_allclose(o32.numpy(), plain.numpy(), rtol=0,
+                               atol=1e-4 * float(plain.abs().max()))
 
 
 def test_ops_refuses_other_devices():

@@ -6,8 +6,9 @@ head), arctic-480b (MoE with a dense residual MLP) and deepseek-v3-671b
 dense layer), each at its ``-smoke`` config (2 layers, d 64, 4 heads;
 MLA 8 + 8 / 16; 4 experts, top-2).
 
-  * the registry: every field of the five configs, full and ``-smoke``,
-    against the reference's; only pixtral-12b and whisper-tiny refuse;
+  * the registry: every field of the five configs (and of pixtral-12b
+    and whisper-tiny), full and ``-smoke``, against the reference's;
+    every architecture of the reference's registry builds and prefills;
   * the schema's paths and shapes against the reference's;
   * with ``use_flash_attention`` True and False on both sides, on the
     reference's weights (through ``convert.model_params``):
@@ -38,6 +39,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.config import ParallelConfig as JParallelConfig  # noqa: E402
+from repro.configs import ARCH_IDS as JARCH_IDS  # noqa: E402
 from repro.configs import get_config as jget_config  # noqa: E402
 from repro.launch import serve as jserve  # noqa: E402
 from repro.models import attention as jattn  # noqa: E402
@@ -120,7 +122,11 @@ def ref(request):
     return arch, jmodel, params, _port(arch, tree, flash)
 
 
-@pytest.mark.parametrize("arch", _FULL + _ARCHS)
+_ENCODER = ["pixtral-12b", "whisper-tiny"]
+
+
+@pytest.mark.parametrize("arch", _FULL + _ARCHS + _ENCODER
+                         + [a + "-smoke" for a in _ENCODER])
 def test_config_matches_reference(arch):
     t, j = get_config(arch), jget_config(arch)
     assert _by_name(t) == _by_name(j)
@@ -128,13 +134,22 @@ def test_config_matches_reference(arch):
     assert t.active_param_count() == j.active_param_count()
 
 
-@pytest.mark.parametrize("arch", ["pixtral-12b", "whisper-tiny-smoke"])
-def test_only_the_encoder_families_still_refuse(arch):
-    with pytest.raises(NotImplementedError, match="A.13e"):
-        get_config(arch)
+@pytest.mark.parametrize("arch", JARCH_IDS)
+def test_every_registry_arch_builds(arch):
+    """Every architecture of the reference's registry builds at its
+    ``-smoke`` config, on the reference's weights, and serves a token."""
+    cfg = get_config(arch + "-smoke")
+    model = _port(arch + "-smoke", _weights(arch + "-smoke"), False)
+    extras = {}
+    if cfg.is_encdec:
+        extras["frames"] = torch.zeros((1, 8, cfg.d_model))
+    logits, cache = model.prefill(torch.zeros((1, 4), dtype=torch.long),
+                                  **extras)
+    assert tuple(logits.shape) == (1, 1, cfg.padded_vocab)
+    assert bool(torch.isfinite(logits).all())
 
 
-@pytest.mark.parametrize("arch", _ARCHS)
+@pytest.mark.parametrize("arch", _ARCHS + [a + "-smoke" for a in _ENCODER])
 def test_schema_matches_reference(arch):
     got = {}
     map_schema(lambda p, d: got.__setitem__(p, tuple(d.shape)),
@@ -181,13 +196,13 @@ def test_moe_aux_matches_reference(arch):
     model = _port(arch, tree, True)
     toks = np.random.default_rng(7).integers(0, 256, (2, 16))
     x = embed_tokens(model.embed, model.cfg, torch.from_numpy(toks))
-    h, aux = model.decoder.train_hidden(model.stack, x, with_aux=True)
+    h, aux = model.decoder_stack.train_hidden(model.stack, x, with_aux=True)
     jx = jnp.asarray(x.numpy())
     jh, jaux = jmodel.stack.train_hidden(params["stack"], jx)
     _close(h, jh, msg="hidden")
     _close(aux, jaux, msg="aux")
     assert float(aux) > 0
-    assert torch.equal(model.decoder.train_hidden(model.stack, x), h)
+    assert torch.equal(model.decoder_stack.train_hidden(model.stack, x), h)
 
 
 @pytest.mark.parametrize("arch,interleaved", [("phi4-mini-3.8b-smoke", False),
@@ -230,7 +245,7 @@ def test_mla_absorbed_decode_matches_expanded():
     toks = torch.from_numpy(
         np.random.default_rng(9).integers(0, 256, (2, 24)).astype(np.int64))
     with torch.no_grad():
-        full = model._logits(model.decoder.train_hidden(
+        full = model._logits(model.decoder_stack.train_hidden(
             model.stack, embed_tokens(model.embed, model.cfg, toks)))
     logits, cache = model.prefill(toks[:, :12])
     _close(logits[:, 0], full[:, 11], msg="prefill")

@@ -23,8 +23,8 @@ the shared MHA block, state 8, chunk 32).
     prompts (a port of ``tests/test_serve_and_train.py``'s), and
     temperature sampling reproducible from one generator seed;
   * the device rule: decode attention takes a non-CPU tensor, train and
-    prefill dense attention refuse one; what still raises names its
-    ROADMAP item.
+    prefill dense attention refuse one; extras a model does not read
+    are refused.
 
 The rwkv6 and zamba2 weights have their zero / one leaves (token-shift
 mixes, bonus, decay base, conv bias, A_log, dt_bias, D) drawn at random
@@ -535,7 +535,7 @@ def test_teacher_forced_decode_matches_train(ref):
         np.random.default_rng(8).integers(0, 256, (2, 32)).astype(np.int64))
     from repro_torch.models.layers import embed_tokens
     with torch.no_grad():
-        full = model._logits(model.decoder.train_hidden(
+        full = model._logits(model.decoder_stack.train_hidden(
             model.stack, embed_tokens(model.embed, model.cfg, toks)))
     logits, cache = model.prefill(toks[:, :16])
     _close(logits[:, 0], full[:, 15], msg="prefill")
@@ -623,15 +623,18 @@ def test_temperature_sampling_is_reproducible():
 
 
 def test_serving_refusals():
+    """A wave's extras the model does not read, and a family with no
+    decoder-only stack, are refused."""
     model = Model(get_config(_RWKV), device="cpu")
-    with pytest.raises(NotImplementedError, match="A.13e"):
+    with pytest.raises(ValueError, match="frames"):
         BatchServer(model).serve_wave(
             [Request(torch.zeros(4, dtype=torch.long))],
-            extras={"frames": torch.zeros(1)})
+            extras={"frames": torch.zeros((1, 8, 64))})
+    with pytest.raises(ValueError, match="patch_embeds"):
+        BatchServer(model).serve_wave(
+            [Request(torch.zeros(4, dtype=torch.long))],
+            extras={"patch_embeds": torch.zeros((1, 2, 64))})
     from repro_torch.models.transformer import DecoderStack
-    vlm = dataclasses.replace(get_config(_GRANITE), family="vlm")
-    with pytest.raises(NotImplementedError, match="A.13e"):
-        DecoderStack(vlm, ParallelConfig())
-    with pytest.raises(NotImplementedError, match="A.13e"):
-        layers.embed_tokens({}, dataclasses.replace(
-            get_config(_GRANITE), learned_pos_emb=True), torch.zeros(1, 1))
+    audio = dataclasses.replace(get_config(_GRANITE), family="audio")
+    with pytest.raises(ValueError, match="encdec"):
+        DecoderStack(audio, ParallelConfig())

@@ -86,7 +86,7 @@ def main(argv=None) -> int:
         a, b = a.double(), b.double()
         return float((a - b).abs().max() / b.abs().max().clamp_min(1e-300))
 
-    blocks = list(model.decoder.layers(model.stack))
+    blocks = list(model.decoder_stack.layers(model.stack))
     series = []
     with torch.no_grad():
         hk = hp = embed_tokens(model.embed, cfg, tokens)
