@@ -336,6 +336,32 @@ Phases (each failure makes the script exit non-zero):
      against plain and fp64 at whisper's encoder form (8 x 1500 frames,
      6/6 heads x 64, bf16, bidirectional), with SDPA's time.
 
+ 30. LM training (slice 17), after the families: ``kernels:flash-train``
+     holds the flash route under autograd in bf16 at granite-3-2b's
+     causal 8 x 1024 (32/8 heads x 64), deepseek-v3's MLA (q.k 192, v
+     128) at 2 x 1024 x 128 heads and whisper-tiny's bidirectional 8 x
+     1500 frames: o with the LSE bitwise o without, the LSE within 1e-3
+     of the plain fp32 logsumexp, (dq, dk, dv) through
+     ``ops.flash_attention`` (the kernel's forward, the plain blocked
+     backward) within 1e-2·max of autograd through the plain version in
+     fp32; it times the forward with the LSE, the plain backward, and
+     SDPA's forward and forward + backward (the ``flash_attention[lse]``
+     record, its ``backward`` the plain backward's, not a kernel).
+     ``lm_train:granite-3-2b`` trains the whole model (40 layers, d
+     2048, vocab 49155) through ``launch/train.make_train_step``: batch 8
+     x 1024 in 2 microbatches, remat "nothing", fp32 master weights and
+     AdamW moments, one warm step and 8 timed on a ``ShardedFeed`` on
+     the card; gates: finite losses and grad norms, the last loss below
+     the first, 160 flash launches a step all with the LSE, and the
+     first batch's loss and grad norm through the flash route within
+     1e-2 / 5e-2 of ``attention_impl="chunked"``'s from the same init;
+     rwkv6-3b (1 layer) refuses a step (A.13g).  ``lm_train:whisper-tiny``
+     trains the whole model on 8 x 128 tokens over 1500 frames a row for
+     3 timed steps (flash bidirectional in its encoder under autograd;
+     finite losses and grad norms, 16 launches a step with the LSE).
+     Printed with the card's name and power limit: ms a step, tokens/s,
+     peak GiB, flash launches a step.
+
 Every seg_gram record also names the kernel that ran (``design``:
 small, thin or big) and times its second pass alone (``reduce_ms``)
 and, for a segment walk, its plan alone (``plan_ms``; ``ms`` has the
@@ -2130,8 +2156,9 @@ def phase_trace(seed: int, sweep_col, store_panel):
 
 
 
-def _fa_plain(q, k, v, causal=True, softcap=0.0, scale=None):
-    """The plain version in the model's (B, S, heads, D) layout."""
+def _fa_plain(q, k, v, causal=True, softcap=0.0, scale=None, chunk=None):
+    """The plain version in the model's (B, S, heads, D) layout (``chunk``,
+    the card's backward's key block, is ignored)."""
     from repro_torch.kernels.flash_attention import ref as fa_ref
     return fa_ref.attention_ref(q.transpose(1, 2), k.transpose(1, 2),
                                 v.transpose(1, 2), causal=causal,
@@ -5450,6 +5477,362 @@ def phase_cell_sweep(seed: int):
     return counts, cells, shapes
 
 
+# ---------------------------------------------------------------------------
+# LM training (slice 17): the flash kernel under autograd, granite-3-2b
+# and whisper-tiny trained on the card.
+# ---------------------------------------------------------------------------
+
+# (dq, dk, dv) of the flash route (the kernel's bf16 forward with its LSE,
+# the plain fp32 blocked backward, results rounded to bf16) against
+# autograd through the plain version in fp32: max|diff| / max|ref|.  The
+# bf16 rounding of the gradients and of o (in delta = rowsum(o·do))
+# gives ~3e-3 (tests/test_torch_train.py's CPU rehearsal of the backward
+# on bf16 inputs); 1e-2 allows three such steps.
+FA_BWD_TOL = 1e-2
+FA_LSE_TOL = 1e-3            # |lse - plain fp32 logsumexp|, absolute
+# the train-form shapes: (name, B, S, H, KV, Dqk, Dv, causal)
+FA_TRAIN_SHAPES = (
+    ("granite-3-2b", 8, 1024, 32, 8, 64, 64, True),
+    ("deepseek-v3-671b mla", 2, 1024, 128, 128, 192, 128, True),
+    ("whisper-tiny encoder", 8, 1500, 6, 6, 64, 64, False))
+# lm_train: granite-3-2b's batch and microbatches, timed steps after one
+# warm step; flash vs chunked from one init on one batch: loss and grad
+# norm within these (bf16 compute: the two round at other places)
+LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_MICRO, LM_TRAIN_STEPS = 8, 1024, 2, 8
+LM_TRAIN_LOSS_TOL, LM_TRAIN_GNORM_TOL = 1e-2, 5e-2
+LM_TRAIN_LR = 1e-3
+LM_TRAIN_ARCHS = ("granite-3-2b", "whisper-tiny")
+WHISPER_TRAIN_BATCH, WHISPER_TRAIN_SEQ, WHISPER_TRAIN_STEPS = 8, 128, 3
+
+
+def _bwd_flops(B, H, Sq, Sk, D, Dv, causal) -> float:
+    """The blocked backward's products over the pairs it needs: the
+    scores again (D), dv and dp (Dv each), dk and dq (D each)."""
+    pairs = B * H * (Sq * (Sq + 1) / 2 if causal else Sq * Sk)
+    return 2.0 * pairs * (3 * D + 2 * Dv)
+
+
+def phase_flash_train(seed: int, timer) -> dict:
+    """The flash route under autograd at LM training's shapes (bf16):
+    granite-3-2b's causal 8 x 1024 (32/8 heads x 64), deepseek-v3's MLA
+    (q.k 192, v 128) at 2 x 1024 and whisper-tiny's bidirectional
+    encoder over 8 x 1500 frames.  Gates: o with the LSE bitwise o
+    without; the LSE within FA_LSE_TOL of the plain fp32 logsumexp;
+    (dq, dk, dv) through ``ops.flash_attention`` within FA_BWD_TOL of
+    autograd through the plain version in fp32.  Times: the kernel's
+    forward with the LSE, the plain blocked backward, the plain
+    forward + LSE, and SDPA's forward and forward + backward."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    g = torch.Generator(device="cuda").manual_seed(seed + 17)
+    records, shapes = {}, []
+    for name, B, S, H, KV, D, Dv, causal in FA_TRAIN_SHAPES:
+        mk = lambda *s: torch.randn(s, generator=g,  # noqa: E731
+                                    device="cuda").to(torch.bfloat16)
+        q, k, v, do = mk(B, S, H, D), mk(B, S, KV, D), mk(B, S, KV, Dv), \
+            mk(B, S, H, Dv)
+        o0 = fa_kernel.flash_attention_cuda(q, k, v, causal=causal)
+        o, lse = fa_kernel.flash_attention_cuda(q, k, v, causal=causal,
+                                                return_lse=True)
+        plain_o = _fa_plain(q, k, v, causal=causal)
+        plain_lse = fa_ref.attention_lse(q.transpose(1, 2),
+                                         k.transpose(1, 2), causal=causal)
+        torch.cuda.synchronize()
+        bitwise = bool(torch.equal(o, o0))
+        lse_err = float((lse - plain_lse).abs().max())
+        o_err = float((o.double() - plain_o.double()).abs().max())
+        del o0, plain_o, plain_lse
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        fa_ops.flash_attention(*leaves, causal=causal).backward(do)
+        refs = [x.float().requires_grad_() for x in (q, k, v)]
+        _fa_plain(*refs, causal=causal).backward(do.float())
+        torch.cuda.synchronize()
+        grad_err = {n: rel(a.grad, r.grad) for n, a, r in
+                    zip(("dq", "dk", "dv"), leaves, refs)}
+        del leaves, refs
+        torch.cuda.empty_cache()
+        ok = (bitwise and lse_err <= FA_LSE_TOL
+              and max(grad_err.values()) <= FA_BWD_TOL)
+        log(f"flash train form [{name}] q={tuple(q.shape)} "
+            f"kv={tuple(k.shape)}/{tuple(v.shape)} "
+            f"{'causal' if causal else 'bidirectional'}: o with LSE "
+            f"bitwise o without {bitwise}; |lse - plain| {lse_err:.3e} "
+            f"(tol {FA_LSE_TOL:g}); grads vs plain fp32 autograd "
+            + " ".join(f"{n} {e:.3e}" for n, e in grad_err.items())
+            + f" (tol {FA_BWD_TOL:g}) {'OK' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"flash train form disagrees [{name}]")
+
+        fwd_ms = timer.ms(lambda: fa_kernel.flash_attention_cuda(
+            q, k, v, causal=causal, return_lse=True), 5)
+        plain_fwd_ms = timer.ms(lambda: (
+            _fa_plain(q, k, v, causal=causal),
+            fa_ref.attention_lse(q.transpose(1, 2), k.transpose(1, 2),
+                                 causal=causal)), 2)
+        bwd_ms = timer.ms(lambda: fa_ops.flash_attention_bwd_blocks(
+            q, k, v, o, lse, do, causal=causal), 2)
+        G = H // KV
+        qh = q.transpose(1, 2).detach().requires_grad_()
+        kh = k.repeat_interleave(G, dim=2).transpose(1, 2).detach() \
+            .requires_grad_()
+        vh = v.repeat_interleave(G, dim=2).transpose(1, 2).detach() \
+            .requires_grad_()
+        doh = do.transpose(1, 2)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qh, kh, vh,
+                                                  is_causal=causal)
+
+        def sdpa_fb():
+            torch.autograd.grad(sdpa(), (qh, kh, vh), doh)
+
+        try:
+            with torch.no_grad():
+                lib_fwd_ms = timer.ms(sdpa, 5)
+            lib_fb_ms = timer.ms(sdpa_fb, 5)
+        except RuntimeError as e:       # a backend refusing Ev != E
+            log(f"SDPA refuses [{name}]: {e}")
+            lib_fwd_ms = lib_fb_ms = None
+        del qh, kh, vh, doh
+        el = q.element_size()
+        pairs = B * H * (S * (S + 1) / 2 if causal else S * S)
+        fwd_bytes = el * (q.numel() + k.numel() + v.numel() + o.numel()) \
+            + 4 * lse.numel()
+        fwd_ops = 2.0 * pairs * (D + Dv)
+        bwd_bytes = el * (2 * (q.numel() + k.numel() + v.numel())
+                          + 2 * o.numel()) + 4 * lse.numel()
+        bwd_ops = _bwd_flops(B, H, S, S, D, Dv, causal)
+
+        def bound(nbytes, ops):
+            tb = nbytes / HBM_BYTES_PER_S * 1e3
+            to = ops / BF16_TC_FLOP_PER_S * 1e3
+            return max(tb, to), "bytes" if tb >= to else "operations"
+
+        fb, fby = bound(fwd_bytes, fwd_ops)
+        bb, bby = bound(bwd_bytes, bwd_ops)
+        lib_note = ("SDPA refused" if lib_fwd_ms is None else
+                    f"SDPA fwd {lib_fwd_ms:.4f} fwd+bwd {lib_fb_ms:.4f}")
+        log(f"flash train form [{name}] kernel fwd+LSE ms={fwd_ms:.4f} "
+            f"(bound {fb:.4f}, {fby}) plain fwd+LSE ms={plain_fwd_ms:.4f}; "
+            f"plain blocked bwd ms={bwd_ms:.4f} (bound {bb:.4f}, {bby}: "
+            f"{bwd_bytes / 1e9:.4f} GB at 3.35 TB/s, {bwd_ops / 1e9:.1f} "
+            f"GFLOP at 989 TFLOP/s bf16); {lib_note}")
+        rec = {"what": name, "q": list(q.shape), "kv": list(k.shape),
+               "v": list(v.shape), "causal": causal, "ms": fwd_ms,
+               "plain_ms": plain_fwd_ms, "bound_ms": fb, "bound_by": fby,
+               "library_ms": lib_fwd_ms, "max_abs_err": o_err,
+               "lse_err": lse_err, "grad_err": grad_err,
+               "o_with_lse_bitwise": bitwise,
+               "backward": {"route": "plain", "ms": bwd_ms,
+                            "bound_ms": bb, "bound_by": bby,
+                            "library_ms": lib_fb_ms,
+                            "library": "SDPA forward + backward"}}
+        shapes.append(rec)
+        del q, k, v, do, o, lse
+        torch.cuda.empty_cache()
+    main = shapes[0]
+    records["flash_attention[lse]"] = {
+        "name": "flash_attention[lse]", "route": "cuda", "source": FA_SRC,
+        "replaces": FA_TPU, "launches": None,
+        "max_abs_err": main["max_abs_err"], "ms": main["ms"],
+        "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+        "shape": main["q"], "dtype": "bfloat16", "lse_err": main["lse_err"],
+        "grad_err": main["grad_err"], "backward": main["backward"],
+        "other_shapes": shapes[1:]}
+    return records
+
+
+class _attention_impl:
+    """Run a model's attention through another ``ParallelConfig`` (the
+    block functions hold the config; the weights are untouched)."""
+
+    def __init__(self, model, parallel):
+        self.model, self.parallel = model, parallel
+
+    def __enter__(self):
+        from repro_torch.models.transformer import DecoderStack
+        m = self.model
+        self.saved = (m.parallel, m.decoder_stack)
+        m.parallel = self.parallel
+        if m.decoder_stack is not None:
+            m.decoder_stack = DecoderStack(m.cfg, self.parallel)
+
+    def __exit__(self, *exc):
+        self.model.parallel, self.model.decoder_stack = self.saved
+
+
+def _train_batch(cfg, seed: int, step: int, B: int, S: int) -> dict:
+    """Batch ``step`` of the seeded token stream (and whisper's frames,
+    0.1 · normal from the same generator)."""
+    from repro_torch.data.lm_data import lm_batch, step_generator
+    gen = step_generator(seed, step)
+    b = lm_batch(gen, B, S, cfg.vocab_size)
+    if cfg.is_encdec:
+        b["frames"] = 0.1 * torch.randn(
+            (B, cfg.max_source_positions, cfg.d_model), generator=gen)
+    return b
+
+
+def phase_lm_train(seed: int, arch: str) -> dict:
+    """``launch/train.py``'s step on the card at ``arch``'s full width and
+    depth (granite-3-2b: batch 8 x 1024, 2 microbatches; whisper-tiny: 8
+    x 128 tokens over 1500 frames), remat "nothing", the batches from a
+    ``ShardedFeed`` on the card: one warm step and LM_TRAIN_STEPS (3 for
+    whisper) timed.  Gates: every loss and grad norm finite, the flash
+    kernel launched with its LSE twice a layer a microbatch (the forward
+    and remat's recompute) and never without; for granite, the last loss
+    below the first (whisper's untrained loss starts at ln V, which a
+    few steps of a bigram stream do not move: printed), and the loss
+    and pre-clip grad norm of the first
+    batch through the flash route and through ``attention_impl=
+    "chunked"`` from the same init within LM_TRAIN_LOSS_TOL /
+    LM_TRAIN_GNORM_TOL.  For granite, rwkv6-3b (1 of 32 layers) must
+    refuse a step (its GLA kernel has no backward: A.13g)."""
+    from repro_torch.config import ParallelConfig, TrainConfig
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import ShardedFeed
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.launch.train import (init_state, loss_and_grads,
+                                          make_train_step)
+    from repro_torch.models.model import Model
+    from repro_torch.optim.adamw import global_norm
+
+    cfg = get_config(arch)
+    granite = arch == "granite-3-2b"
+    B, S = ((LM_TRAIN_BATCH, LM_TRAIN_SEQ) if granite else
+            (WHISPER_TRAIN_BATCH, WHISPER_TRAIN_SEQ))
+    steps = LM_TRAIN_STEPS if granite else WHISPER_TRAIN_STEPS
+    micro = LM_TRAIN_MICRO if granite else 1
+    pc = ParallelConfig(use_flash_attention=True, remat_policy="nothing",
+                        microbatch=micro)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Model(cfg, pc, seed=seed)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"lm_train {arch}: {cfg.num_layers} layers"
+        f"{f' + {cfg.encoder_layers} encoder' if cfg.encoder_layers else ''}"
+        f", d {cfg.d_model}, vocab {cfg.vocab_size}, {n_params / 1e9:.3f} B "
+        f"params (init {t_init:.1f} s); batch {B} x {S}, microbatch "
+        f"{micro}, remat nothing")
+    out = {"arch": arch, "params": n_params, "batch": B, "seq": S,
+           "microbatch": micro, "steps": steps}
+    layers = cfg.num_layers + cfg.encoder_layers
+
+    if granite:                # flash vs chunked from the same init
+        batch = {k: v.cuda() for k, v in
+                 _train_batch(cfg, seed, 0, B, S).items()}
+        probe = {}
+        for impl, par in (("flash", pc), ("chunked", dataclasses.replace(
+                pc, use_flash_attention=False, attention_impl="chunked"))):
+            t0 = time.perf_counter()
+            with _attention_impl(model, par):
+                met, grads = loss_and_grads(model, dict(model.state_dict()),
+                                            batch)
+            gn = float(global_norm(grads))
+            del grads
+            torch.cuda.synchronize()
+            probe[impl] = (float(met["loss"]), gn,
+                           time.perf_counter() - t0)
+            torch.cuda.empty_cache()
+        (lf, gf, tf), (lc, gc, tc) = probe["flash"], probe["chunked"]
+        d_loss, d_gn = abs(lf - lc) / abs(lc), abs(gf - gc) / abs(gc)
+        ok = d_loss <= LM_TRAIN_LOSS_TOL and d_gn <= LM_TRAIN_GNORM_TOL
+        log(f"lm_train {arch}: first batch flash loss {lf:.5f} gnorm "
+            f"{gf:.4f} ({tf:.2f} s) vs chunked loss {lc:.5f} gnorm {gc:.4f} "
+            f"({tc:.2f} s): rel {d_loss:.2e} (tol {LM_TRAIN_LOSS_TOL:g}), "
+            f"{d_gn:.2e} (tol {LM_TRAIN_GNORM_TOL:g}) "
+            f"{'OK' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("flash and chunked attention part")
+        out["flash_vs_chunked"] = {"loss": [lf, lc], "grad_norm": [gf, gc],
+                                   "seconds": [tf, tc]}
+        del batch
+
+    tcfg = TrainConfig(learning_rate=LM_TRAIN_LR, warmup_steps=1,
+                       total_steps=steps + 1)
+    state = init_state(model)
+    step_fn = make_train_step(model, tcfg)
+    feed = ShardedFeed(lambda s: _train_batch(cfg, seed, s, B, S),
+                       device="cuda")
+    losses, gnorms, times = [], [], []
+    try:
+        for i in range(steps + 1):
+            batch = next(feed)
+            if i == 1:
+                fa_kernel.LAUNCHES.clear()
+                fa_kernel.LAUNCHES_BY_FORM.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state.params, state.opt, met = step_fn(state.params, state.opt,
+                                                   batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(float(met["loss"]))
+            gnorms.append(float(met["grad_norm"]))
+    finally:
+        feed.close()
+    launches = dict(fa_kernel.LAUNCHES)
+    forms = dict(fa_kernel.LAUNCHES_BY_FORM)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ms = 1e3 * float(np.mean(times[1:]))
+    tok_s = B * S / (ms / 1e3)
+    want = 2 * layers * micro * steps
+    per_step = launches.get("flash_attention[lse]", 0) / steps
+    log(f"lm_train {arch} [{card_line()}]: {ms:.1f} ms a step "
+        f"(warm step {1e3 * times[0]:.1f} ms), {tok_s:.0f} tokens/s, peak "
+        f"{peak:.2f} GiB; losses {' '.join(f'{x:.4f}' for x in losses)}; "
+        f"grad norms {' '.join(f'{x:.3f}' for x in gnorms)}; flash "
+        f"launches {per_step:g} a step, all with the LSE (by form "
+        f"{forms})")
+    fails = []
+    if not all(np.isfinite(losses)) or not all(np.isfinite(gnorms)):
+        fails.append("a loss or grad norm is not finite")
+    if granite and not losses[-1] < losses[0]:
+        fails.append(f"the last loss {losses[-1]} is not below the first "
+                     f"{losses[0]}")
+    if launches.get("flash_attention[lse]", 0) != want or \
+            launches.get("flash_attention", 0) != want:
+        fails.append(f"flash launches {launches}, expected {want} with the "
+                     f"LSE")
+    if fails:
+        raise AssertionError(f"lm_train {arch}: {fails}")
+    out.update({"ms_per_step": ms, "warm_step_ms": 1e3 * times[0],
+                "tokens_per_s": tok_s, "peak_gib": peak, "losses": losses,
+                "grad_norms": gnorms, "flash_lse_launches": launches.get(
+                    "flash_attention[lse]", 0),
+                "flash_launches_per_step": per_step,
+                "flash_launches_by_form": forms})
+    del state, step_fn, model
+    torch.cuda.empty_cache()
+
+    if granite:                # rwkv6's scans refuse autograd on the card
+        rcfg = dataclasses.replace(get_config("rwkv6-3b"), num_layers=1)
+        rwkv = Model(rcfg, seed=seed)
+        rst = init_state(rwkv)
+        rb = {k: v.cuda() for k, v in
+              _train_batch(rcfg, seed, 0, 2, 128).items()}
+        try:
+            make_train_step(rwkv, tcfg)(rst.params, rst.opt, rb)
+        except NotImplementedError as e:
+            if "A.13g" not in str(e):
+                raise
+            log(f"lm_train rwkv6-3b (1 of 32 layers): refused on the card "
+                f"as it must: {e}")
+        else:
+            raise AssertionError("rwkv6's train step ran on the card")
+        del rwkv, rst, rb
+        torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     """Run every phase; 0 only if all passed."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -5944,6 +6327,18 @@ def main(argv=None) -> int:
                 by_path["flash_attention[bidir]"] = {
                     path: forms["bidirectional"]}
 
+    records.update(run("kernels:flash-train", phase_flash_train, args.seed,
+                       timer) or {})
+    torch.cuda.empty_cache()
+    lm_train = {}       # arch -> the training phase's metrics
+    for arch in LM_TRAIN_ARCHS:
+        out = run(f"lm_train:{arch}", phase_lm_train, args.seed, arch)
+        torch.cuda.empty_cache()
+        if out is not None:
+            lm_train[arch] = out
+            by_path.setdefault("flash_attention[lse]", {})[
+                f"lm_train:{arch}"] = out["flash_lse_launches"]
+
     for key, rec in records.items():
         rec["launches"] = launches.get(key, 0)
         if key in by_path:
@@ -5979,6 +6374,7 @@ def main(argv=None) -> int:
             "halving_lrs": list(HALVING_LRS), "slice11_seconds": slice11_s,
             "lm_serve": lm_serve, "lm_families": list(LM_FAMILY_ARCHS
                                                       + LM_ENCODER_ARCHS),
+            "lm_train": lm_train,
             "phases": ran, "selection": selection or None,
             "seconds": time.perf_counter() - t_start}
     if args.out:

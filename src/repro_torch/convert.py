@@ -112,6 +112,18 @@ def model_params(cfg, tree: Mapping[str, Any], *,
     return got
 
 
+def adamw_state(np_state, *, device: DeviceLike = None) -> Dict[str, Any]:
+    """The reference's ``AdamWState`` of an LM (``step`` and the moments
+    ``m`` / ``v`` as nested dicts like its params, numpy leaves) -> the
+    port's AdamW state {"step": int32, "m", "v": {dotted path: fp32}},
+    leaf for leaf under ``model_params``' names."""
+    dev = resolve_device(device)
+    return {"step": torch.as_tensor(np.array(np_state.step, dtype=np.int32),
+                                    device=dev),
+            "m": {k: _f32(v, dev) for k, v in _flatten(np_state.m).items()},
+            "v": {k: _f32(v, dev) for k, v in _flatten(np_state.v).items()}}
+
+
 def _leaf(a, dtype: torch.dtype, dev) -> Tensor:
     """A numpy leaf (bfloat16 included: ml_dtypes' arrays go through fp32,
     exactly) as a tensor of ``dtype``."""

@@ -54,6 +54,14 @@
 //     of the grid (x: query tile, y: head), so their reads of one K/V
 //     block hit L2; a block does not share a staged tile across heads.
 //
+// LSE.  Given a non-null lse pointer, either template also writes each
+// query row's logsumexp of its scores, m + ln(max(l, 1e-30)) in the units
+// of the scaled, soft-capped scores (fp32, (B, H, Sq)): the row statistic
+// the reference's blocked backward (src/repro/models/attention.py:
+// _flash_xla_bwd) recomputes probabilities from.  It is one 4-byte store
+// a row in the epilogue; o is computed as before, so a launch without it
+// is bit for bit what it was.
+//
 // Head dims.  q and k share one head dim (DQK: the q.k^T k-steps, the q
 // and k tiles), v and o another (DV: the p.v column tiles, the v tile,
 // the accumulator); both templates take the square dims 16, 32, 64, 128
@@ -109,6 +117,7 @@ struct Args {
   const void* k;  // (B, Sk, KV, Dqk)
   const void* v;  // (B, Sk, KV, Dv)
   void* o;        // (B, Sq, H, Dv), q's dtype
+  float* lse;     // (B, H, Sq) fp32, or null: not written
   int B, Sq, Sk, H, KV;
   float scale, softcap;  // softcap 0: none
   int causal;
@@ -272,6 +281,8 @@ __global__ void __launch_bounds__(NT) fa_fwd_kernel(Args a) {
 #pragma unroll
     for (int c = 0; c < ON; ++c)
       store1(ob + (long long)qi * os + tx + TX * c, o[i][c] / den);
+    if (a.lse != nullptr && tx == 0)
+      a.lse[((long long)b * a.H + h) * a.Sq + qi] = m[i] + logf(den);
   }
 }
 
@@ -377,6 +388,7 @@ static_assert(2 * (tc_smem_bytes<192, 128>() + 1024) <= 233472,
               "two (192, 128) blocks fit an SM");
 
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 // 2^x in one MUFU op (flushing results below 2^-126 to 0, which adds
 // nothing to a sum of p).
@@ -586,6 +598,13 @@ fa_bf16_kernel(Args a) {
   // o / l as bf16 into the warp's own rows of Qs (16 rows of LDV within
   // its 16 of LDQ >= LDV), then 16-byte stores
   const float den[2] = {fmaxf(l[0], 1e-30f), fmaxf(l[1], 1e-30f)};
+  if (a.lse != nullptr && t == 0) {
+    // m is in log2 units: lse = m ln 2 + ln l, in the units of the
+    // scaled (soft-capped) scores
+    float* lb = a.lse + ((long long)b * a.H + h) * a.Sq;
+    if (rowA < a.Sq) lb[rowA] = m[0] * LN2 + logf(den[0]);
+    if (rowB < a.Sq) lb[rowB] = m[1] * LN2 + logf(den[1]);
+  }
   __nv_bfloat16* Os = Qs + warp * 16 * LDQ;
 #pragma unroll
   for (int j = 0; j < NO; ++j) {
@@ -654,17 +673,20 @@ cudaError_t launch_bf16(const Args& a, int Dqk, int Dv, cudaStream_t st) {
 
 extern "C" {
 
-// dtype: 0 fp32, 1 bf16; q, k (..., Dqk), v, o (..., Dv).  Returns a
-// cudaError_t (0 on success).
+// dtype: 0 fp32, 1 bf16; q, k (..., Dqk), v, o (..., Dv); lse (B, H, Sq)
+// fp32 -- each query row's logsumexp of its scaled, soft-capped, masked
+// scores, which a backward pass reads -- or null (nothing is written, and
+// o is the same bits either way).  Returns a cudaError_t (0 on success).
 int flash_attention_run(int dtype, const void* q, const void* k,
-                        const void* v, void* o, int B, int Sq, int Sk, int H,
-                        int KV, int Dqk, int Dv, float scale, float softcap,
-                        int causal, void* stream) {
+                        const void* v, void* o, void* lse, int B, int Sq,
+                        int Sk, int H, int KV, int Dqk, int Dv, float scale,
+                        float softcap, int causal, void* stream) {
   if (B <= 0 || Sq <= 0 || Sk <= 0 || KV <= 0 || H % KV != 0 || B > 65535 ||
       H > 65535)
     return (int)cudaErrorInvalidValue;
   Args a;
   a.q = q; a.k = k; a.v = v; a.o = o;
+  a.lse = static_cast<float*>(lse);
   a.B = B; a.Sq = Sq; a.Sk = Sk; a.H = H; a.KV = KV;
   a.scale = scale; a.softcap = softcap; a.causal = causal;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);

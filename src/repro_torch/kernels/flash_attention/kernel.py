@@ -7,11 +7,15 @@ alike), contiguous, on one CUDA device; checks all of that, launches the
 kernel on the current stream and returns o (B, Sq, H, Dv) in q's dtype.
 Any Sq, Sk: the kernel masks ragged tails.  (Dqk, Dv) must be one of
 ``HEAD_DIMS``: 16, 32, 64 or 128 for both, or MLA's (192, 128).  The
-default scale is 1/sqrt(Dqk).  It raises on anything it does not take
+default scale is 1/sqrt(Dqk).  With ``return_lse=True`` it returns (o,
+lse): lse (B, H, Sq) fp32, each query row's logsumexp of its scaled,
+soft-capped scores, which the backward reads (``ops.py``); o is the
+same bits with or without it.  It raises on anything it does not take
 and whenever the launch returns a CUDA error; it never falls back to the
 plain version.  ``LAUNCHES["flash_attention"]`` counts launches, one
-per call, ``LAUNCHES_BY_DIMS[(Dqk, Dv)]`` the same launches by head
-dims and ``LAUNCHES_BY_FORM["causal" | "bidirectional"]`` by mask.
+per call, ``LAUNCHES["flash_attention[lse]"]`` those of them that wrote
+the LSE, ``LAUNCHES_BY_DIMS[(Dqk, Dv)]`` the launches by head dims and
+``LAUNCHES_BY_FORM["causal" | "bidirectional"]`` by mask.
 
 Replaces ``src/repro/kernels/flash_attention/kernel.py:
 flash_attention_pallas``; the design and its bound on the H100 are in the
@@ -47,7 +51,7 @@ def library() -> ctypes.CDLL:
     lib, _ = build.load_library(SOURCE)
     if not getattr(lib, "_typed", False):
         lib.flash_attention_run.argtypes = [
-            _I, _P, _P, _P, _P,          # dtype, q, k, v, o
+            _I, _P, _P, _P, _P, _P,      # dtype, q, k, v, o, lse
             _I, _I, _I, _I, _I,          # B, Sq, Sk, H, KV
             _I, _I,                      # Dqk, Dv
             _F, _F, _I, _P,              # scale, softcap, causal, stream
@@ -67,9 +71,10 @@ def build_log() -> str:
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, softcap: float = 0.0,
-                         scale: Optional[float] = None) -> torch.Tensor:
-    """Launch the kernel on (B, S, heads, D) tensors; see the module
-    docstring."""
+                         scale: Optional[float] = None,
+                         return_lse: bool = False):
+    """Launch the kernel on (B, S, heads, D) tensors: o, or (o, lse)
+    with ``return_lse``; see the module docstring."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_cuda needs CUDA tensors, q is on "
                          f"{q.device}")
@@ -106,12 +111,15 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"Sk={Sk} H={H}")
     sc = float(scale) if scale is not None else 1.0 / (D ** 0.5)
     out = q.new_empty((B, Sq, H, Dv))
+    lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     lib = library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_attention_run(
             _DTYPES[q.dtype], _P(q.data_ptr()), _P(k.data_ptr()),
-            _P(v.data_ptr()), _P(out.data_ptr()), B, Sq, Sk, H, KV, D,
+            _P(v.data_ptr()), _P(out.data_ptr()),
+            _P(lse.data_ptr() if return_lse else None), B, Sq, Sk, H, KV, D,
             Dv, sc, float(softcap), int(bool(causal)), _P(stream))
     if err != 0:
         msg = lib.flash_attention_error_string(err).decode()
@@ -119,4 +127,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     LAUNCHES["flash_attention"] += 1
     LAUNCHES_BY_DIMS[(D, Dv)] += 1
     LAUNCHES_BY_FORM["causal" if causal else "bidirectional"] += 1
+    if return_lse:
+        LAUNCHES["flash_attention[lse]"] += 1
+        return out, lse
     return out

@@ -37,3 +37,24 @@ def attention_ref(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqs,bksd->bkgqd", p, v.to(wt))
     return o.reshape(B, H, Sq, Dv).to(q.dtype)
+
+
+def attention_lse(q: Tensor, k: Tensor, *, causal: bool = True,
+                  softcap: float = 0.0,
+                  scale: Optional[float] = None) -> Tensor:
+    """Each query row's logsumexp of its scaled, soft-capped, masked
+    scores in fp32 (fp64 for fp64 inputs): what the kernel writes with
+    ``return_lse``.  q (B,H,Sq,D), k (B,KV,Sk,D) -> (B,H,Sq)."""
+    B, H, Sq, D = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    wt = torch.float64 if q.dtype == torch.float64 else _F32
+    sc = scale if scale is not None else 1.0 / (D ** 0.5)
+    s = torch.einsum("bkgqd,bksd->bkgqs",
+                     q.reshape(B, KV, H // KV, Sq, D).to(wt), k.to(wt)) * sc
+    if softcap:
+        s = torch.tanh(s / softcap) * softcap
+    if causal:
+        mask = (torch.arange(Sq, device=q.device)[:, None]
+                >= torch.arange(Sk, device=q.device)[None, :])
+        s = torch.where(mask, s, torch.full_like(s, -1e30))
+    return torch.logsumexp(s, dim=-1).reshape(B, H, Sq)

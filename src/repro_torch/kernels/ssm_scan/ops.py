@@ -5,6 +5,12 @@ and its chunk rule: ``chunk`` is halved until it divides T.  A CUDA
 tensor goes to the Hopper kernel (kernel.py), a CPU tensor to the plain
 chunked version (ref.py).  Nothing else is taken, and nothing falls back.
 
+The kernels have no backward (nor have the reference's Pallas scans): on
+the card, a call under grad whose inputs require grad raises
+``NotImplementedError`` (ROADMAP A.13g) rather than return a tensor cut
+off from its inputs' gradients.  On the CPU autograd differentiates the
+plain scans.
+
 ``gla_decode_step`` and ``ssd_decode_step`` (serving: one new token
 against the recurrent state a prefill's scan left) are plain torch on
 both devices, as they are plain ``jnp`` in the reference
@@ -37,6 +43,15 @@ def _device(x: Tensor, what: str) -> str:
     return x.device.type
 
 
+def _no_grad_on_card(what: str, *xs) -> None:
+    if torch.is_grad_enabled() and any(
+            x is not None and x.requires_grad for x in xs):
+        raise NotImplementedError(
+            f"{what} on the card has no backward: the scans under autograd "
+            f"on the card are ROADMAP A.13g (train on the CPU, or call it "
+            f"under torch.no_grad())")
+
+
 def gla(q: Tensor, k: Tensor, v: Tensor, w: Tensor,
         u: Optional[Tensor] = None, *, chunk: int = 64
         ) -> Tuple[Tensor, Tensor]:
@@ -44,6 +59,7 @@ def gla(q: Tensor, k: Tensor, v: Tensor, w: Tensor,
     q,k,w (B,H,T,Dk); v (B,H,T,Dv); u (H,Dk) or None."""
     chunk = _fit_chunk(chunk, q.shape[2])
     if _device(q, "gla") == "cuda":
+        _no_grad_on_card("gla", q, k, v, w, u)
         return _kernel.gla_cuda(q, k, v, w, u, chunk=chunk)
     return _ref.gla_chunked_ref(q, k, v, w, u, chunk=chunk)
 
@@ -53,6 +69,7 @@ def ssd(q: Tensor, k: Tensor, v: Tensor, a: Tensor, *, chunk: int = 32
     """Mamba2 SSD scan. q,k (B,T,N); v (B,H,T,P); a (B,H,T)."""
     chunk = _fit_chunk(chunk, q.shape[1])
     if _device(q, "ssd") == "cuda":
+        _no_grad_on_card("ssd", q, k, v, a)
         return _kernel.ssd_cuda(q, k, v, a, chunk=chunk)
     return _ref.ssd_chunked_ref(q, k, v, a, chunk=chunk)
 

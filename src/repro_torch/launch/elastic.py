@@ -1,4 +1,17 @@
-"""Elastic resume of a sweep: run it with per-column checkpoints, and on
+"""Elastic resume: of an LM train state, and of a sweep.
+
+LM training (the reference's ``state_template`` / ``elastic_restore``):
+``launch/train.train_loop`` saves {"params", "opt"} through a
+``CheckpointManager``; ``elastic_restore(manager, model)`` rebuilds the
+state's template from the model's schema (shapes and dtypes on the meta
+device, no memory) and loads the latest (or a given) checkpoint onto a
+device, with its meta (``meta["step"]``).  The checkpoint format holds
+no placement, so a state saved on one device resumes on another; the
+data resumes from the saved step, since a batch is a pure function of
+(seed, step).  Re-placing the state under a new mesh's shardings
+(``state_shardings``) waits for the launch tooling (ROADMAP A.14).
+
+Sweeps: run one with per-column checkpoints, and on
 a re-run — after a lost shard, a killed process, or on another number
 of ranks — restore every completed column from disk and recompute only
 the rest.  This is the causal path's answer to Ray's recovery of the
@@ -12,14 +25,51 @@ grid's height, not with the mesh, so a sweep saved on N ranks resumes on
 M.  Under a mesh every rank calls ``elastic_sweep`` alike with the same
 ``directory``, which all ranks must see; rank 0 writes it.
 
-The reference's ``state_template`` / ``state_shardings`` /
-``elastic_restore`` re-place an LM train state onto a new mesh's
-shardings; they come with the LM training side (ROADMAP A.13f) and the
-launch tooling (A.14), with ``CheckpointManager.restore(shardings=)``.
 """
 from __future__ import annotations
 
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
 from repro_torch.checkpoint.manager import CheckpointManager
+from repro_torch.models.model import Model
+from repro_torch.models.params import flatten, map_schema
+
+
+def state_template(model: Model) -> Dict[str, Any]:
+    """The train state's template, matching ``train_loop``'s checkpoints:
+    {"params": {path: fp32}, "opt": {"step": int32, "m", "v": {path:
+    the moment dtype}}}, every tensor on the meta device."""
+    cfg, moments = model.cfg, model.parallel.adam_moment_dtype
+
+    def like(dtype):
+        return flatten(map_schema(lambda _, d: torch.empty(
+            d.shape, dtype=d.dtype or dtype, device="meta"),
+            Model.schema_of(cfg, model.parallel)))
+
+    return {"params": like(cfg.param_dtype),
+            "opt": {"step": torch.empty((), dtype=torch.int32,
+                                        device="meta"),
+                    "m": like(moments), "v": like(moments)}}
+
+
+def state_shardings(model: Model, rules, mesh):
+    """The reference's per-leaf shardings of the train state on a mesh."""
+    raise NotImplementedError(
+        "re-placing a train state under a mesh's shardings lands with the "
+        "launch tooling (ROADMAP A.14)")
+
+
+def elastic_restore(manager: CheckpointManager, model: Model, *,
+                    step: Optional[int] = None, device=None
+                    ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """(state, meta) of the latest checkpoint (or ``step``) on ``device``
+    (the model's by default), leaf for leaf against ``state_template``:
+    a changed layout fails loudly instead of misloading."""
+    return manager.restore(state_template(model), step=step,
+                           device=device if device is not None
+                           else model.device)
 
 
 def sweep_checkpoint_manager(directory: str, spec, *,

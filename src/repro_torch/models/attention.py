@@ -10,7 +10,7 @@ routes through the flash-attention kernel instead
 (``kernels/flash_attention``: the Hopper kernel on the card, its plain
 version on the CPU), which keeps p in fp32.  Self-attention runs dense
 on CPU tensors only: on the card, train and prefill self-attention go
-through the kernel or raise.
+through the kernel (or the chunked attention below) or raise.
 
 Serving: ``gqa_prefill`` is the train forward that also returns the
 layer's k / v; ``gqa_decode`` writes one token's k / v into the cache
@@ -33,8 +33,19 @@ output once, ``cross_attn`` attends over it through the dense ``_sdpa``,
 unmasked and not causal, on both devices — the reference computes it
 outside any Pallas kernel, with or without ``use_flash_attention``.
 The encoder's bidirectional self-attention is ``gqa_train(causal=False)``
-through ``_maybe_flash``.  The chunked XLA attention (A.13f) raises
-``NotImplementedError`` naming its item.
+through ``_maybe_flash``.
+
+Training: under autograd the flash route is ``fa_ops.flash_attention``'s
+``autograd.Function`` on the card (the kernel's forward with its LSE
+rows, the plain blocked backward) and autograd of the plain version on
+the CPU.  ``attention_impl="chunked"`` is the reference's XLA
+attention, ``_chunked_attn``: an online-softmax scan over key blocks of
+``attention_chunk`` in fp32 with a flash-style backward
+(``_FlashXLA``, whose backward is the same
+``fa_ops.flash_attention_bwd_blocks``), plain torch on either device.
+Its dense fallback (keys not a multiple of the chunk, one query row, a
+softcap) runs on the CPU only; on the card it raises, as dense
+attention does.
 """
 from __future__ import annotations
 
@@ -163,23 +174,95 @@ def _sdpa_decode(q: Tensor, k: Tensor, v: Tensor, *,
     return out.reshape(B, Sq, H, Dv).to(q.dtype)
 
 
-def _maybe_flash(cfg: ModelConfig, parallel, q: Tensor, k: Tensor,
-                 v: Tensor, *, causal: bool) -> Tensor:
-    if parallel is not None and getattr(parallel, "use_flash_attention",
-                                        False):
-        return fa_ops.flash_attention(q, k, v, causal=causal,
-                                      softcap=cfg.logits_softcap)
-    if parallel is not None and \
-            getattr(parallel, "attention_impl", "dense") == "chunked":
-        raise NotImplementedError(
-            "attention_impl='chunked' (the XLA online-softmax scan) lands "
-            "with the training slice (ROADMAP A.13f); use "
-            "use_flash_attention=True")
+def _dense_on_cpu(q: Tensor, k: Tensor, v: Tensor, *, causal: bool,
+                  softcap: float) -> Tensor:
     if q.device.type != "cpu":
         raise NotImplementedError(
             f"dense attention runs on the CPU only; on {q.device} use "
             f"ParallelConfig(use_flash_attention=True) (the flash kernel)")
-    return _sdpa(q, k, v, causal=causal, softcap=cfg.logits_softcap)
+    return _sdpa(q, k, v, causal=causal, softcap=softcap)
+
+
+def _chunked_attn(q: Tensor, k: Tensor, v: Tensor, *, causal: bool,
+                  softcap: float = 0.0, chunk: int = 1024) -> Tensor:
+    """The reference's ``_chunked_attn``: online-softmax attention over
+    key blocks of ``chunk`` in fp32, result in q's dtype, with a
+    flash-style backward that recomputes each block's probabilities
+    from the saved logsumexp rows (``_FlashXLA``).  Keys not a multiple
+    of the chunk, one query row or a softcap take the dense ``_sdpa``,
+    as in the reference (on the CPU only)."""
+    Sq, Sk = q.shape[1], k.shape[1]
+    if Sk % chunk != 0 or Sq == 1 or softcap:
+        return _dense_on_cpu(q, k, v, causal=causal, softcap=softcap)
+    return _FlashXLA.apply(q.to(_F32), k.to(_F32), v.to(_F32), causal,
+                           chunk).to(q.dtype)
+
+
+class _FlashXLA(torch.autograd.Function):
+    """The reference's ``_flash_xla`` / ``_flash_xla_fwd`` /
+    ``_flash_xla_bwd`` (a ``jax.custom_vjp``): q (B,Sq,H,Dq), k
+    (B,Sk,KV,Dq), v (B,Sk,KV,Dv) in fp32.  The forward keeps the running
+    max m, normaliser l and accumulator per query row over the key
+    blocks and saves (q, k, v, out, lse = m + log(max(l, 1e-30)));
+    the backward is ``fa_ops.flash_attention_bwd_blocks``.  The kv heads
+    are not repeated to H: a group's G query heads are one axis."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, chunk):
+        B, Sq, H, Dq = q.shape
+        Sk, KV, Dv = k.shape[1], k.shape[2], v.shape[-1]
+        G = H // KV
+        sc = _scale(Dq)
+        qg = q.reshape(B, Sq, KV, G, Dq).permute(0, 2, 3, 1, 4)
+        kt, vt = k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
+        qi = torch.arange(Sq, device=q.device)
+        m = torch.full((B, KV, G, Sq, 1), -1e30, dtype=_F32, device=q.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((B, KV, G, Sq, Dv), dtype=_F32, device=q.device)
+        for start in range(0, Sk, chunk):
+            s = torch.einsum("bkgqd,bksd->bkgqs", qg,
+                             kt[:, :, start:start + chunk]) * sc
+            if causal:
+                ki = torch.arange(start, start + chunk, device=q.device)
+                s = torch.where(qi[:, None] >= ki[None, :], s,
+                                torch.full_like(s, -1e30))
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            p = torch.exp(s - m_new)
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(-1, keepdim=True)
+            acc = acc * alpha + torch.einsum("bkgqs,bksd->bkgqd", p,
+                                             vt[:, :, start:start + chunk])
+            m = m_new
+        den = torch.clamp(l, min=1e-30)
+        lse = (m + torch.log(den)).reshape(B, H, Sq)
+        out = (acc / den).permute(0, 3, 1, 2, 4).reshape(B, Sq, H, Dv)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (causal, chunk)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, chunk = ctx.args
+        dq, dk, dv = fa_ops.flash_attention_bwd_blocks(
+            q, k, v, out, lse, dout, causal=causal, scale=_scale(q.shape[-1]),
+            chunk=chunk)
+        return dq, dk, dv, None, None
+
+
+def _maybe_flash(cfg: ModelConfig, parallel, q: Tensor, k: Tensor,
+                 v: Tensor, *, causal: bool) -> Tensor:
+    if parallel is not None and getattr(parallel, "use_flash_attention",
+                                        False):
+        return fa_ops.flash_attention(
+            q, k, v, causal=causal, softcap=cfg.logits_softcap,
+            chunk=getattr(parallel, "attention_chunk", 1024))
+    if parallel is not None and \
+            getattr(parallel, "attention_impl", "dense") == "chunked":
+        return _chunked_attn(q, k, v, causal=causal,
+                             softcap=cfg.logits_softcap,
+                             chunk=getattr(parallel, "attention_chunk", 1024))
+    return _dense_on_cpu(q, k, v, causal=causal, softcap=cfg.logits_softcap)
 
 
 def gqa_project_qkv(params, cfg: ModelConfig, x: Tensor, positions: Tensor):

@@ -8,7 +8,9 @@ positions, the bidirectional encoder, the causal decoder with one
 cross-attention per layer, LayerNorm throughout.
 
 A Python loop over the stacked layer axis takes the place of
-``lax.scan``, as in ``transformer.DecoderStack``.  Each layer is one
+``lax.scan``, as in ``transformer.DecoderStack``; under autograd each
+encoder and decoder layer runs under ``transformer.remat`` with
+``parallel.remat_policy``, as the reference scans them.  Each layer is one
 function per form (``encoder_layer``; ``decoder_layer_train`` /
 ``_prefill`` / ``_decode``), and the stack functions walk them.  The
 encoder's self-attention is ``gqa_train(causal=False)``, through
@@ -28,7 +30,9 @@ from repro_torch.config import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (layernorm, layernorm_schema,
                                       mlp_apply, mlp_schema)
-from repro_torch.models.params import ParamDef, layer_slice, stack_schema
+from repro_torch.models.params import (ParamDef, layer_list, layer_slice,
+                                       stack_schema)
+from repro_torch.models.transformer import remat
 
 Tensor = torch.Tensor
 KV = Dict[str, Tensor]
@@ -78,9 +82,13 @@ def encode(params, cfg: ModelConfig, frames: Tensor,
     the encoder output (B, T_src, d_model) in the compute dtype."""
     ct = cfg.compute_dtype
     x = frames.to(ct) + params["pos"][:frames.shape[1]].to(ct)
-    for i in range(cfg.encoder_layers):
-        x = encoder_layer(layer_slice(params["layers"], i), cfg, x, parallel)
+    for lp in layer_list(params["layers"]):
+        x = remat(_policy(parallel), encoder_layer, lp, cfg, x, parallel)
     return _ln(params["ln_f"], x, cfg)
+
+
+def _policy(parallel) -> str:
+    return parallel.remat_policy if parallel is not None else "nothing"
 
 
 def encoder_cross_kv(params, cfg: ModelConfig, enc_out: Tensor) -> KV:
@@ -134,9 +142,9 @@ def decoder_train(params, cfg: ModelConfig, x: Tensor, enc_out: Tensor,
                   parallel=None) -> Tensor:
     """x: (B, S, d) token embeddings (with positions); enc_out: (B,
     T_src, d).  Returns the hidden states (B, S, d)."""
-    for i in range(cfg.num_layers):
-        x = decoder_layer_train(layer_slice(params, i), cfg, x, enc_out,
-                                parallel)
+    for lp in layer_list(params):
+        x = remat(_policy(parallel), decoder_layer_train, lp, cfg, x, enc_out,
+                  parallel)
     return x
 
 

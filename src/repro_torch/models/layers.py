@@ -179,3 +179,22 @@ def mlp_apply(params, cfg: ModelConfig, x: Tensor) -> Tensor:
     else:
         h = F.gelu(torch.matmul(x, params["wi"].to(ct)), approximate="tanh")
     return torch.matmul(h, params["wo"].to(ct))
+
+
+# ---------------------------------------------------------------------------
+# Losses
+# ---------------------------------------------------------------------------
+
+def softmax_cross_entropy(logits: Tensor, labels: Tensor,
+                          mask: Optional[Tensor] = None) -> Tensor:
+    """Mean next-token CE in fp32: logits (B, S, V) of any float dtype,
+    labels (B, S) integer ids.  With ``mask`` (B, S), the masked mean:
+    Σ mask·nll / max(Σ mask, 1)."""
+    logits = logits.to(_F32)
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = logz - ll
+    if mask is not None:
+        mask = mask.to(_F32)
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()

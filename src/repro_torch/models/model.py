@@ -24,10 +24,19 @@ reference's schema names (``embed.embedding``, ``stack.layers.attn.wq``,
 ``torch.Generator`` seeded ``seed`` on ``device`` (the card unless
 ``device="cpu"``), with the reference's init rule
 (``models/params.py``).  Off the CPU a family with self-attention
-(every one but ssm) needs ``ParallelConfig(use_flash_attention=True)``;
-rwkv6 has none and needs no flag.  Still to come: ``forward_train``,
-the loss and deepseek-v3's multi-token-prediction heads, which only its
-loss reads (ROADMAP A.13f).
+(every one but ssm) needs ``ParallelConfig(use_flash_attention=True)``
+(the flash kernel) or ``attention_impl="chunked"`` (the reference's XLA
+attention, plain torch); rwkv6 has none and needs no flag.
+
+Training: ``forward_train`` (logits in the compute dtype and the aux
+loss: the MoE layers' and, with ``mtp_depth``, deepseek-v3's
+multi-token-prediction loss ``_mtp_loss``, weighted ``MTP_WEIGHT``) and
+``loss_fn`` (CE + aux).  Both take ``params=``: a nested dict of the
+model's trees ({"embed": ..., "stack": ..., "ln_f": ...}, the
+state_dict's paths) that replaces the module's own weights, which is
+how ``launch/train.py`` runs on weights cast to the compute dtype with
+the gradients flowing back to fp32 masters.  Without it the module's
+own (frozen) parameters are read.
 """
 from __future__ import annotations
 
@@ -41,12 +50,16 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import encdec
 from repro_torch.models.layers import (embed_tokens, embedding_schema,
-                                      make_norm, unembed)
-from repro_torch.models.params import (ParamTree, init_params,
+                                      make_norm, softmax_cross_entropy,
+                                      unembed)
+from repro_torch.models.params import (ParamDef, ParamTree, init_params,
                                        stack_schema)
-from repro_torch.models.transformer import DecoderStack
+from repro_torch.models.transformer import Blocks, DecoderStack
 
 Tensor = torch.Tensor
+Params = Optional[Dict[str, Any]]
+
+MTP_WEIGHT = 0.3  # deepseek-v3's MTP loss weight (the paper's lambda)
 
 
 class Model(nn.Module):
@@ -65,10 +78,12 @@ class Model(nn.Module):
         _, self.norm = make_norm(cfg)
         dev = resolve_device(device)
         if (dev.type != "cpu" and cfg.family != "ssm"
-                and not self.parallel.use_flash_attention):
+                and not self.parallel.use_flash_attention
+                and self.parallel.attention_impl != "chunked"):
             raise NotImplementedError(
-                f"on {dev} attention runs through the flash kernel only: "
-                f"pass ParallelConfig(use_flash_attention=True)")
+                f"on {dev} attention runs through the flash kernel or the "
+                f"chunked attention only: pass ParallelConfig("
+                f"use_flash_attention=True) or attention_impl='chunked'")
         gen = torch.Generator(device=dev).manual_seed(seed)
         for name, tree in init_params(gen, self.schema_of(cfg, self.parallel),
                                       cfg.param_dtype).items():
@@ -80,10 +95,7 @@ class Model(nn.Module):
                   ) -> Dict[str, Any]:
         """The reference's parameter schema (``Model.schema``) of a model
         of ``cfg``, without building one."""
-        if cfg.mtp_depth:
-            raise NotImplementedError(
-                "multi-token-prediction heads land with the training "
-                "slice, beside the loss that reads them (ROADMAP A.13f)")
+        parallel = parallel or ParallelConfig()
         norm_schema, _ = make_norm(cfg)
         sch: Dict[str, Any] = {"embed": embedding_schema(cfg)}
         if cfg.is_encdec:
@@ -91,8 +103,14 @@ class Model(nn.Module):
             sch["decoder"] = stack_schema(encdec.decoder_layer_schema(cfg),
                                           cfg.num_layers)
         else:
-            sch["stack"] = DecoderStack(
-                cfg, parallel or ParallelConfig()).schema()
+            sch["stack"] = DecoderStack(cfg, parallel).schema()
+            if cfg.mtp_depth:
+                d = cfg.d_model
+                sch["mtp"] = {
+                    "proj": ParamDef((2 * d, d), init="scaled"),
+                    "ln_h": norm_schema(d), "ln_e": norm_schema(d),
+                    "block": Blocks(cfg, parallel).dense_schema(
+                        d_ff=cfg.dense_ff or cfg.d_ff)}
         sch["ln_f"] = norm_schema(cfg.d_model)
         return sch
 
@@ -101,14 +119,20 @@ class Model(nn.Module):
         """Where the parameters live."""
         return self.embed["embedding"].device
 
-    def _encode(self, frames: Tensor) -> Tensor:
+    def _tree(self, params: Params, name: str):
+        """The weights ``name`` ("embed", "stack", ...): ``params``'s if
+        given, else the module's own."""
+        return getattr(self, name) if params is None else params[name]
+
+    def _encode(self, frames: Tensor, params: Params = None) -> Tensor:
         """An encoder-decoder's encoder output (B, T_src, d)."""
-        return encdec.encode(self.encoder, self.cfg,
+        return encdec.encode(self._tree(params, "encoder"), self.cfg,
                              torch.as_tensor(frames, device=self.device),
                              self.parallel)
 
     def _embed_in(self, tokens: Tensor, frames: Optional[Tensor] = None,
-                  patch_embeds: Optional[Tensor] = None) -> Tensor:
+                  patch_embeds: Optional[Tensor] = None,
+                  params: Params = None) -> Tensor:
         """The tokens' embeddings (B, S, d) in the compute dtype; a vlm's
         ``patch_embeds`` (B, P, d) take the first P positions.  Refuses
         an extra the model does not read, and an encoder-decoder without
@@ -122,8 +146,8 @@ class Model(nn.Module):
         if patch_embeds is not None and cfg.family != "vlm":
             raise ValueError(f"{cfg.name}: patch_embeds are a vlm's input, "
                              f"not this {cfg.family} model's")
-        x = embed_tokens(self.embed, cfg, torch.as_tensor(tokens,
-                                                          device=self.device))
+        x = embed_tokens(self._tree(params, "embed"), cfg,
+                         torch.as_tensor(tokens, device=self.device))
         if patch_embeds is not None:
             pe = torch.as_tensor(patch_embeds, device=self.device).to(
                 cfg.compute_dtype)
@@ -133,11 +157,70 @@ class Model(nn.Module):
     def _hidden(self, tokens: Tensor, frames: Optional[Tensor] = None,
                 patch_embeds: Optional[Tensor] = None) -> Tensor:
         """The train forward's hidden states (B, S, d), before ln_f."""
-        x = self._embed_in(tokens, frames, patch_embeds)
+        return self._hidden_aux(tokens, frames, patch_embeds)[0]
+
+    def _hidden_aux(self, tokens: Tensor, frames: Optional[Tensor] = None,
+                    patch_embeds: Optional[Tensor] = None,
+                    params: Params = None) -> Tuple[Tensor, Tensor]:
+        """``_hidden`` at ``params`` and the MoE layers' aux loss (an fp32
+        0 for the other families)."""
+        x = self._embed_in(tokens, frames, patch_embeds, params)
         if self.cfg.is_encdec:
-            return encdec.decoder_train(self.decoder, self.cfg, x,
-                                        self._encode(frames), self.parallel)
-        return self.decoder_stack.train_hidden(self.stack, x)
+            h = encdec.decoder_train(self._tree(params, "decoder"), self.cfg,
+                                     x, self._encode(frames, params),
+                                     self.parallel)
+            return h, torch.zeros((), dtype=torch.float32, device=h.device)
+        return self.decoder_stack.train_hidden(self._tree(params, "stack"),
+                                               x, with_aux=True)
+
+    def forward_train(self, tokens: Tensor, labels: Optional[Tensor] = None,
+                      *, frames: Optional[Tensor] = None,
+                      patch_embeds: Optional[Tensor] = None,
+                      mask: Optional[Tensor] = None,
+                      params: Params = None) -> Tuple[Tensor, Tensor]:
+        """(logits (B, S, padded_vocab) in the compute dtype, the aux loss
+        (fp32 scalar)): the reference's ``Model.forward_train``.  The aux
+        is the MoE layers' load-balance losses plus, with ``mtp_depth``,
+        the multi-token-prediction loss, which reads ``labels``; ``mask``
+        is the loss's (``loss_fn``), taken here for the batch's sake."""
+        h, aux = self._hidden_aux(tokens, frames, patch_embeds, params)
+        logits = self._logits(h, params)
+        if self.cfg.mtp_depth:
+            aux = aux + self._mtp_loss(tokens, labels, h, params)
+        return logits, aux
+
+    def _mtp_loss(self, tokens: Tensor, labels: Tensor, h: Tensor,
+                  params: Params = None) -> Tensor:
+        """DeepSeek-V3's multi-token prediction at depth 1: token t+2
+        from [norm(h_t); norm(emb(token t+1))] through ``proj`` and one
+        dense block, CE over the shared unembedding, times MTP_WEIGHT."""
+        cfg, p = self.cfg, self._tree(params, "mtp")
+        tokens = torch.as_tensor(tokens, device=self.device)
+        labels = torch.as_tensor(labels, device=self.device)
+        e_next = embed_tokens(self._tree(params, "embed"), cfg, tokens[:, 1:])
+        z = torch.cat([self.norm(p["ln_h"], h[:, :-1]),
+                       self.norm(p["ln_e"], e_next)], dim=-1)
+        z = torch.matmul(z, p["proj"].to(cfg.compute_dtype))
+        z = self.decoder_stack.blocks.dense_train(p["block"], z)
+        logits = self._logits(z, params)                 # (B, S-1, V)
+        return MTP_WEIGHT * softmax_cross_entropy(logits[:, :-1],
+                                                  labels[:, 2:])
+
+    def loss_fn(self, tokens: Tensor, labels: Tensor, *,
+                frames: Optional[Tensor] = None,
+                patch_embeds: Optional[Tensor] = None,
+                mask: Optional[Tensor] = None, params: Params = None
+                ) -> Tuple[Tensor, Dict[str, Tensor]]:
+        """(CE + aux, {"ce", "aux"}): the reference's ``Model.loss_fn``
+        over one batch; the CE is masked by ``mask`` (B, S) if given."""
+        logits, aux = self.forward_train(tokens, labels, frames=frames,
+                                         patch_embeds=patch_embeds,
+                                         params=params)
+        labels = torch.as_tensor(labels, device=self.device)
+        if mask is not None:
+            mask = torch.as_tensor(mask, device=self.device)
+        ce = softmax_cross_entropy(logits, labels, mask)
+        return ce + aux, {"ce": ce, "aux": aux}
 
     @torch.no_grad()
     def features(self, tokens: Tensor, *, frames: Optional[Tensor] = None,
@@ -148,10 +231,11 @@ class Model(nn.Module):
         h = self.norm(self.ln_f, self._hidden(tokens, frames, patch_embeds))
         return h.mean(dim=1).to(torch.float32)
 
-    def _logits(self, h: Tensor) -> Tensor:
+    def _logits(self, h: Tensor, params: Params = None) -> Tensor:
         """Final norm and unembedding: (..., d) -> (..., padded_vocab)
         logits in the compute dtype."""
-        return unembed(self.embed, self.cfg, self.norm(self.ln_f, h))
+        return unembed(self._tree(params, "embed"), self.cfg,
+                       self.norm(self._tree(params, "ln_f"), h))
 
     @torch.no_grad()
     def prefill(self, tokens: Tensor, *, frames: Optional[Tensor] = None,

@@ -21,7 +21,7 @@ tree or from a plain dict alike.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Mapping, Optional, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import torch
 from torch import nn
@@ -104,3 +104,42 @@ def layer_slice(tree, i: int) -> Dict[str, Any]:
              if isinstance(tree, ParamTree) else list(tree))
     return {k: (layer_slice(tree[k], i) if isinstance(tree[k], (ParamTree, Mapping))
                 else tree[k][i]) for k in names}
+
+
+def layer_list(tree) -> List[Dict[str, Any]]:
+    """Every layer of a stacked tree, as ``layer_slice`` gives them one at
+    a time, from one ``unbind`` a leaf: under autograd the layers'
+    gradients then meet in one stacked tensor, where a slice per layer
+    would write a zero-filled stack per layer."""
+    names = (list(tree._parameters) + list(tree._modules)
+             if isinstance(tree, ParamTree) else list(tree))
+    per = {k: (layer_list(tree[k]) if isinstance(tree[k], (ParamTree, Mapping))
+               else torch.unbind(tree[k])) for k in names}
+    n = len(next(iter(per.values())))
+    return [{k: per[k][i] for k in names} for i in range(n)]
+
+
+def flatten(tree, prefix: str = "") -> Dict[str, Any]:
+    """Nested dicts (or ``ParamTree``s) -> {dotted path: leaf}, the
+    ``state_dict()`` keys."""
+    names = (list(tree._parameters) + list(tree._modules)
+             if isinstance(tree, ParamTree) else list(tree))
+    out: Dict[str, Any] = {}
+    for k in names:
+        path = f"{prefix}.{k}" if prefix else k
+        v = tree[k]
+        out.update(flatten(v, path) if isinstance(v, (ParamTree, Mapping))
+                   else {path: v})
+    return out
+
+
+def unflatten(flat: Mapping[str, Any]) -> Dict[str, Any]:
+    """{dotted path: leaf} -> nested dicts."""
+    out: Dict[str, Any] = {}
+    for path, v in flat.items():
+        node = out
+        *head, last = path.split(".")
+        for k in head:
+            node = node.setdefault(k, {})
+        node[last] = v
+    return out

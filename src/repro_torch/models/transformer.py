@@ -7,8 +7,12 @@ dense stack (GQA or MLA attention), the moe stack (arctic, deepseek-v3:
 rwkv6 stack and zamba2's groups of mamba layers each followed by one
 weight-shared attention block.  A Python loop over the stacked layers
 takes the place of ``lax.scan``; every pass (train, prefill, decode)
-walks the blocks in the one order ``serve_layers`` gives.  The train
-forward has no backward here, so ``remat`` has no meaning.  Serving
+walks the blocks in the one order ``serve_layers`` gives.  Under
+autograd ``train_hidden`` runs each block the reference scans under
+``remat_policy`` (``remat``): "nothing" recomputes the whole block in
+the backward (``torch.utils.checkpoint``), "dots" saves the matrix
+products' outputs and recomputes the rest (selective checkpointing),
+"full_save" saves everything; without grad the blocks just run.  Serving
 caches are stacked on a leading layer axis as the reference's ``scan``
 stacks them, so a cache converts leaf for leaf: dense {"k", "v"} (L, B,
 S, KV, hd), or MLA's {"c_kv", "k_rope"} (L, B, S, ...); moe {"dense",
@@ -20,9 +24,11 @@ decoder-only stack (``models/encdec.py``).
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import torch
+from torch.utils import checkpoint as _ckpt
 
 from repro_torch.config import ModelConfig, ParallelConfig
 from repro_torch.inference.executor import tree_map
@@ -31,11 +37,38 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import make_norm, mlp_apply, mlp_schema
-from repro_torch.models.params import layer_slice, stack_schema
+from repro_torch.models.params import layer_list, stack_schema
 
 Tensor = torch.Tensor
 
 _FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid")
+REMAT_POLICIES = ("nothing", "dots", "full_save")
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """The "dots" policy: keep the matrix products' outputs, recompute
+    everything else (the reference's ``dots_with_no_batch_dims_saveable``
+    keeps its weight products; torch's einsums reach ``bmm`` too)."""
+    return (_ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else _ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat(policy: str, fn, *args):
+    """``fn(*args)`` under the reference's remat ``policy`` when autograd
+    records it (``jax.checkpoint`` around its scan body); without grad,
+    or under "full_save", plainly."""
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"remat_policy {policy!r} not in {REMAT_POLICIES}")
+    if not torch.is_grad_enabled() or policy == "full_save":
+        return fn(*args)
+    if policy == "dots":
+        return _ckpt.checkpoint(
+            fn, *args, use_reentrant=False,
+            context_fn=functools.partial(
+                _ckpt.create_selective_checkpoint_contexts, _save_dots))
+    return _ckpt.checkpoint(fn, *args, use_reentrant=False)
 
 
 def _write(dst, i: int, src) -> None:
@@ -237,27 +270,24 @@ class DecoderStack:
         "attn"; moe walks "dense" then "moe"."""
         cfg = self.cfg
         if cfg.family == "hybrid":
-            start = 0
+            start, mamba = 0, layer_list(params["mamba_layers"])
             for g, size in enumerate(self._groups()):
                 for i in range(start, start + size):
-                    yield (f"mamba {i}", "mamba", ("mamba", i),
-                           layer_slice(params["mamba_layers"], i))
+                    yield (f"mamba {i}", "mamba", ("mamba", i), mamba[i])
                 yield ("shared attn", "dense", ("attn", g),
                        params["shared_attn"])
                 start += size
             return
         if cfg.family == "moe":
-            for i in range(cfg.first_k_dense):
-                yield (f"dense {i}", "dense", ("dense", i),
-                       layer_slice(params["dense_layers"], i))
-            for i in range(cfg.num_layers - cfg.first_k_dense):
-                yield (f"moe {i}", "dense", ("moe", i),
-                       layer_slice(params["moe_layers"], i))
+            if cfg.first_k_dense:
+                for i, p in enumerate(layer_list(params["dense_layers"])):
+                    yield (f"dense {i}", "dense", ("dense", i), p)
+            for i, p in enumerate(layer_list(params["moe_layers"])):
+                yield (f"moe {i}", "dense", ("moe", i), p)
             return
         kind = "rwkv" if cfg.family == "ssm" else "dense"
-        for i in range(cfg.num_layers):
-            yield (f"layer {i}", kind, (None, i),
-                   layer_slice(params["layers"], i))
+        for i, p in enumerate(layer_list(params["layers"])):
+            yield (f"layer {i}", kind, (None, i), p)
 
     def layers(self, params):
         """(name, train block fn, its weights) of every block, in order."""
@@ -269,22 +299,30 @@ class DecoderStack:
         """The stacked cache a block of ``part`` indexes into."""
         return cache if part is None else cache[part]
 
-    def train_hidden(self, params, x: Tensor, with_aux: bool = False):
-        """All blocks in order over x (B, S, d).  With ``with_aux``,
-        (x, the MoE layers' aux losses summed from an fp32 0) as the
-        reference's ``train_hidden`` returns; else x alone."""
+    def _block_train(self, kind: str, p, x: Tensor):
+        """One block's train form: (x, its MoE aux loss or None)."""
+        if kind != "dense":
+            return getattr(self.blocks, kind + "_train")(p, x), None
         aux: List[Tensor] = []
-        for _, kind, _, p in self.serve_layers(params):
-            if kind == "dense":
-                x = self.blocks.dense_train(p, x, aux)
-            else:
-                x = getattr(self.blocks, kind + "_train")(p, x)
-        if not with_aux:
-            return x
+        x = self.blocks.dense_train(p, x, aux)
+        return x, (aux[0] if aux else None)
+
+    def train_hidden(self, params, x: Tensor, with_aux: bool = False):
+        """All blocks in order over x (B, S, d), each the reference scans
+        under ``remat`` with ``parallel.remat_policy`` (zamba2's shared
+        block, applied outside its scan, plainly).  With ``with_aux``, (x,
+        the MoE layers' aux losses summed from an fp32 0) as the
+        reference's ``train_hidden`` returns; else x alone."""
+        policy = self.parallel.remat_policy
         total = torch.zeros((), dtype=torch.float32, device=x.device)
-        for a in aux:
-            total = total + a
-        return x, total
+        for name, kind, _, p in self.serve_layers(params):
+            if name == "shared attn":
+                x, a = self._block_train(kind, p, x)
+            else:
+                x, a = remat(policy, self._block_train, kind, p, x)
+            if a is not None:
+                total = total + a
+        return (x, total) if with_aux else x
 
     def prefill_hidden(self, params, x: Tensor):
         """All blocks in prefill form over the prompt x (B, S, d):

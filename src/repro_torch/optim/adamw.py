@@ -75,6 +75,31 @@ def clip_by_global_norm(grads: Params, max_norm: float, batch_dims: int = 0
              for key, g in grads.items()}, norm)
 
 
+def _adam_leaf(g32: Tensor, m: Tensor, v: Tensor, p: Tensor, c1: Tensor,
+               c2: Tensor, lr_t: Tensor, cfg: TrainConfig, batch_dims: int
+               ) -> Tuple[Tensor, Tensor, Tensor]:
+    """One leaf's (new p in fp32, new m, new v in fp32)."""
+    m32 = cfg.b1 * m.to(_F32) + (1 - cfg.b1) * g32
+    v32 = cfg.b2 * v.to(_F32) + (1 - cfg.b2) * torch.square(g32)
+    mhat = m32 / _bcast(c1, p, batch_dims)
+    vhat = v32 / _bcast(c2, p, batch_dims)
+    p32 = p.to(_F32)
+    delta = mhat / (torch.sqrt(vhat) + 1e-8) + cfg.weight_decay * p32
+    return p32 - _bcast(lr_t, p, batch_dims) * delta, m32, v32
+
+
+def _step_terms(state, lr, cfg: TrainConfig):
+    """(step + 1, the bias corrections c1, c2, lr as an fp32 tensor).
+    The corrections 1 - b^step are taken in fp64 and rounded once to
+    fp32: a vectorized and a scalar fp32 pow may part by an ulp, and
+    which one runs depends on the batch's size."""
+    step = state["step"] + 1
+    step64 = step.to(torch.float64)
+    c1 = (1.0 - torch.pow(cfg.b1, step64)).to(_F32)
+    c2 = (1.0 - torch.pow(cfg.b2, step64)).to(_F32)
+    return step, c1, c2, torch.as_tensor(lr, dtype=_F32, device=step.device)
+
+
 def adamw_update(grads: Params, state: Dict[str, object], params: Params,
                  lr, cfg: TrainConfig, moment_dtype=_F32,
                  batch_dims: int = 0):
@@ -82,26 +107,42 @@ def adamw_update(grads: Params, state: Dict[str, object], params: Params,
     state, metrics).  ``lr`` is a float, a scalar tensor, or a tensor of
     the batch shape (one rate per model)."""
     grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip, batch_dims)
-    step = state["step"] + 1
-    b1, b2 = cfg.b1, cfg.b2
-    # the bias corrections in fp64, rounded once to fp32: a vectorized and
-    # a scalar fp32 pow may part by an ulp, and which one runs depends on
-    # the batch's size
-    step64 = step.to(torch.float64)
-    c1 = (1.0 - torch.pow(b1, step64)).to(_F32)
-    c2 = (1.0 - torch.pow(b2, step64)).to(_F32)
-    lr_t = torch.as_tensor(lr, dtype=_F32, device=step.device)
+    step, c1, c2, lr_t = _step_terms(state, lr, cfg)
     new_p, new_m, new_v = {}, {}, {}
     for key, p in params.items():
-        g32 = grads[key].to(_F32)
-        m32 = b1 * state["m"][key].to(_F32) + (1 - b1) * g32
-        v32 = b2 * state["v"][key].to(_F32) + (1 - b2) * torch.square(g32)
-        mhat = m32 / _bcast(c1, p, batch_dims)
-        vhat = v32 / _bcast(c2, p, batch_dims)
-        p32 = p.to(_F32)
-        delta = mhat / (torch.sqrt(vhat) + 1e-8) + cfg.weight_decay * p32
-        new_p[key] = (p32 - _bcast(lr_t, p, batch_dims) * delta).to(p.dtype)
+        p32, m32, v32 = _adam_leaf(grads[key].to(_F32), state["m"][key],
+                                   state["v"][key], p, c1, c2, lr_t, cfg,
+                                   batch_dims)
+        new_p[key] = p32.to(p.dtype)
         new_m[key] = m32.to(moment_dtype)
         new_v[key] = v32.to(moment_dtype)
     metrics = {"grad_norm": gnorm, "lr": lr_t}
     return new_p, {"step": step, "m": new_m, "v": new_v}, metrics
+
+
+def adamw_update_(grads: Params, state: Dict[str, object], params: Params,
+                  lr, cfg: TrainConfig):
+    """``adamw_update`` of one model (no batch axes) IN PLACE, leaf by
+    leaf, with the same arithmetic and so the same bits: ``params`` and
+    the state's moments are overwritten (in their own dtypes) and the
+    state's step replaced, and ``grads`` is consumed (each leaf popped
+    as it is used).  LM training takes it, as the reference donates its
+    params and optimizer state to the jitted step: the step then needs
+    no second copy of the weights and moments, only one leaf's
+    temporaries.  Returns (params, state, metrics)."""
+    gnorm = global_norm(grads)
+    scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-12),
+                        max=1.0)
+    step, c1, c2, lr_t = _step_terms(state, lr, cfg)
+    for key, p in params.items():
+        g = grads.pop(key)
+        g32 = (g.to(_F32) * scale).to(g.dtype).to(_F32)
+        del g
+        m, v = state["m"][key], state["v"][key]
+        p32, m32, v32 = _adam_leaf(g32, m, v, p, c1, c2, lr_t, cfg, 0)
+        del g32
+        p.copy_(p32)
+        m.copy_(m32)
+        v.copy_(v32)
+    state["step"] = step
+    return params, state, {"grad_norm": gnorm, "lr": lr_t}

@@ -208,7 +208,7 @@ def _qkv(dev, B, Sq, Sk, H, KV, D, dtype, seed=0):
     return mk(B, Sq, H, D), mk(B, Sk, KV, D), mk(B, Sk, KV, D)
 
 
-def _fa_plain(q, k, v, causal=True, softcap=0.0, scale=None):
+def _fa_plain(q, k, v, causal=True, softcap=0.0, scale=None, chunk=None):
     from repro_torch.kernels.flash_attention import ref as fa_ref
     return fa_ref.attention_ref(q.transpose(1, 2), k.transpose(1, 2),
                                 v.transpose(1, 2), causal=causal,
@@ -1997,3 +1997,149 @@ def test_mesh_nccl_two_ranks_on_one_card_raises(card):
                        timeout=120)
     for m in msgs:
         assert "card of its own" in m and "gloo" in m, m
+
+
+# B, Sq (= Sk), H, KV, Dqk, Dv, causal, softcap: LM training's forms —
+# GQA, a ragged bidirectional length, MLA's (192, 128), a softcap, and a
+# length shorter than one tile
+_FA_TRAIN_CASES = [
+    (2, 256, 8, 2, 64, 64, True, 0.0),
+    (2, 300, 6, 6, 64, 64, False, 0.0),
+    (1, 200, 8, 8, 192, 128, True, 0.0),
+    (1, 130, 4, 2, 128, 128, True, 30.0),
+    (1, 75, 4, 4, 16, 16, False, 0.0),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("case", _FA_TRAIN_CASES)
+def test_flash_lse_and_backward(card, case, dtype):
+    """With ``return_lse`` the kernel's o is bitwise its o without, and
+    its LSE within 1e-3 (bf16) / 1e-4 (fp32) of the plain fp32
+    logsumexp; under autograd ``ops.flash_attention`` (the kernel's
+    forward, the plain blocked backward over key blocks of 64) gives
+    (dq, dk, dv) within 1e-2·max (bf16: the grads and o rounded to bf16,
+    ~3e-3 measured on the CPU) / 1e-4·max (fp32) of autograd through the
+    plain version in fp32, and launches the kernel once, with its LSE."""
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    B, S, H, KV, D, Dv, causal, cap = case
+    rng = np.random.default_rng(11)
+    dt = getattr(torch, dtype)
+    mk = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(s).astype(np.float32)).to(card).to(dt)
+    q, k, v, do = mk(B, S, H, D), mk(B, S, KV, D), mk(B, S, KV, Dv), \
+        mk(B, S, H, Dv)
+    o0 = fa_kernel.flash_attention_cuda(q, k, v, causal=causal, softcap=cap)
+    o, lse = fa_kernel.flash_attention_cuda(q, k, v, causal=causal,
+                                            softcap=cap, return_lse=True)
+    want = fa_ref.attention_lse(q.transpose(1, 2), k.transpose(1, 2),
+                                causal=causal, softcap=cap)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o0)
+    assert lse.dtype == torch.float32 and lse.shape == (B, H, S)
+    lse_tol = 1e-3 if dtype == "bfloat16" else 1e-4
+    assert float((lse - want).abs().max()) <= lse_tol
+
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    n0 = dict(fa_kernel.LAUNCHES)
+    out = fa_ops.flash_attention(*leaves, causal=causal, softcap=cap,
+                                 chunk=64)
+    out.backward(do)
+    assert torch.equal(out.detach(), o0)
+    assert fa_kernel.LAUNCHES["flash_attention"] == \
+        n0.get("flash_attention", 0) + 1
+    assert fa_kernel.LAUNCHES["flash_attention[lse]"] == \
+        n0.get("flash_attention[lse]", 0) + 1
+    refs = [x.float().requires_grad_() for x in (q, k, v)]
+    _fa_plain(*refs, causal=causal, softcap=cap).backward(do.float())
+    tol = 1e-2 if dtype == "bfloat16" else 1e-4
+    for name, got, ref_ in zip("qkv", leaves, refs):
+        assert got.grad.dtype == dt
+        err = float((got.grad.double() - ref_.grad.double()).abs().max()
+                    / ref_.grad.double().abs().max())
+        assert err <= tol, (name, err)
+
+
+@pytest.mark.cuda
+def test_scans_refuse_grad_on_card(card):
+    """The scan kernels have no backward: under grad with inputs that
+    require it they raise naming ROADMAP A.13g; without grad they run."""
+    from repro_torch.kernels.ssm_scan import ops as sops
+
+    q, k, v, w, _ = _gla_case(card, 1, 2, 32, 64, 64, "float32", False)
+    rng = np.random.default_rng(1)
+    f = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(s).astype(np.float32)).to(card)
+    sq, sk, sv = f(1, 32, 64), f(1, 32, 64), f(1, 2, 32, 64)
+    sa = torch.from_numpy(rng.uniform(1e-3, 1, (1, 2, 32)).astype(
+        np.float32)).to(card)
+    with pytest.raises(NotImplementedError, match="A.13g"):
+        sops.gla(q.requires_grad_(), k, v, w, chunk=16)
+    with pytest.raises(NotImplementedError, match="A.13g"):
+        sops.ssd(sq, sk, sv.requires_grad_(), sa, chunk=32)
+    with torch.no_grad():
+        assert torch.isfinite(sops.gla(q, k, v, w, chunk=16)[0]).all()
+        assert torch.isfinite(sops.ssd(sq, sk, sv, sa, chunk=32)[0]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,impl", [
+    ("granite-3-2b-smoke", "flash"), ("granite-3-2b-smoke", "chunked"),
+    ("whisper-tiny-smoke", "flash"), ("deepseek-v3-671b-smoke", "flash")])
+def test_train_step_on_card_matches_cpu(card, arch, impl):
+    """One ``make_train_step`` step (fp32, remat "nothing") on the card
+    against the same step on the CPU from the same weights and batch:
+    loss rel 1e-5, params rtol 1e-5 / atol 5e-2·lr (the AdamW ratio where
+    the moments nearly cancel; tests/test_torch_train.py); on the flash
+    route the kernel runs with its LSE twice a layer (the forward and
+    remat's recompute).  rwkv6's step raises on the card (A.13g)."""
+    from repro_torch.config import ParallelConfig, TrainConfig
+    from repro_torch.configs import get_config
+    from repro_torch.data.lm_data import lm_batch, step_generator
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.launch.train import init_state, make_train_step
+    from repro_torch.models.model import Model
+
+    cfg = get_config(arch)
+    pc = (ParallelConfig(use_flash_attention=True, attention_chunk=8)
+          if impl == "flash" else
+          ParallelConfig(attention_impl="chunked", attention_chunk=8))
+    tcfg = TrainConfig(learning_rate=1e-3, warmup_steps=1, total_steps=10)
+    batch = lm_batch(step_generator(0, 0), 4, 16, cfg.vocab_size)
+    if cfg.is_encdec:
+        batch["frames"] = 0.1 * torch.randn(
+            (4, cfg.max_source_positions, cfg.d_model),
+            generator=torch.Generator().manual_seed(1))
+    cpu = Model(cfg, pc, device="cpu", seed=2)
+    gpu = Model(cfg, pc, device=card, seed=2)
+    gpu.load_state_dict(cpu.state_dict())
+    out = []
+    for model in (cpu, gpu):
+        st = init_state(model)
+        dev = model.device
+        n0 = fa_kernel.LAUNCHES["flash_attention[lse]"]
+        p, _, met = make_train_step(model, tcfg)(
+            st.params, st.opt, {k: x.to(dev) for k, x in batch.items()})
+        out.append((p, met, fa_kernel.LAUNCHES["flash_attention[lse]"] - n0))
+    (pc_, mc, nc), (pg, mg, ng) = out
+    assert nc == 0
+    layers = cfg.num_layers + cfg.encoder_layers
+    assert ng == (2 * layers if impl == "flash" else 0)
+    assert abs(float(mg["loss"]) - float(mc["loss"])) <= 1e-5 * float(
+        mc["loss"])
+    for path, x in pc_.items():
+        np.testing.assert_allclose(pg[path].cpu().numpy(), x.numpy(),
+                                   rtol=1e-5, atol=5e-2 * tcfg.learning_rate,
+                                   err_msg=path)
+    if arch == "granite-3-2b-smoke" and impl == "flash":
+        rcfg = get_config("rwkv6-3b-smoke")
+        rwkv = Model(rcfg, device=card, seed=0)
+        st = init_state(rwkv)
+        rb = lm_batch(step_generator(0, 0), 2, 16, rcfg.vocab_size)
+        with pytest.raises(NotImplementedError, match="A.13g"):
+            make_train_step(rwkv, tcfg)(st.params, st.opt, {
+                k: x.to(card) for k, x in rb.items()})

@@ -54,8 +54,11 @@ runs after a warm-up; 10 for the small forms and flash):
     blocks (2 × 320 × 8/2 × 64), bf16 with a softcap of 30 (2 × 192 ×
     8/8 × 64) — and the bf16 and fp32 templates at every square head
     dim (16, 32, 64, 128) on ragged, GQA and MQA shapes, causal and
-    not, with a softcap; through the tree's ``flash_attention_cuda``,
-    whose call is the same in both trees.
+    not, with a softcap, then deepseek-v3's MLA prefill wave (8 × 128,
+    128 heads, q.k 192 / v 128) in both templates and whisper-tiny's
+    bidirectional encoder wave (8 × 1500 frames, 6 heads × 64, bf16);
+    through the tree's ``flash_attention_cuda``, whose call is the same
+    in both trees (a launch asking for no LSE).
 
 It prints one JSON line per run (``ms``, ``sha256`` per form; for the
 thin and small forms ``ms_graph``, and ``ms_warm`` and ``split`` where
@@ -344,10 +347,10 @@ def flash_forms():
 
     g = torch.Generator(device="cuda").manual_seed(SEED)
 
-    def case(B, S, H, KV, D, dtype, causal=True, cap=0.0, Sk=None):
+    def case(B, S, H, KV, D, dtype, causal=True, cap=0.0, Sk=None, Dv=None):
         q = torch.randn((B, S, H, D), generator=g, device="cuda").to(dtype)
-        k, v = (torch.randn((B, Sk or S, KV, D), generator=g,
-                            device="cuda").to(dtype) for _ in range(2))
+        k, v = (torch.randn((B, Sk or S, KV, d), generator=g,
+                            device="cuda").to(dtype) for d in (D, Dv or D))
         return lambda: fa.flash_attention_cuda(q, k, v, causal=causal,
                                                softcap=cap)
 
@@ -361,6 +364,11 @@ def flash_forms():
             out += [(f"flash:{tag}:D{D}:causal", case(2, 320, 16, 4, D, dt)),
                     (f"flash:{tag}:D{D}:ragged", case(1, 200, 8, 1, D, dt,
                                                       False, 30.0, Sk=320))]
+    # deepseek-v3's MLA prefill wave (q.k 192, v 128) and whisper-tiny's
+    # bidirectional encoder wave over 1500 frames, as kernels:flash runs them
+    out += [("flash:mla:bf16", case(8, 128, 128, 128, 192, bf, Dv=128)),
+            ("flash:mla:fp32", case(8, 128, 128, 128, 192, f32, Dv=128)),
+            ("flash:bidir1500:bf16", case(8, 1500, 6, 6, 64, bf, False))]
     return out
 
 

@@ -71,7 +71,7 @@ def main(argv=None) -> int:
                              seed=args.seed).tokens
     kernels = (fa_ops.flash_attention, sops.gla, sops.ssd)
 
-    def fa_plain(q, k, v, **kw):
+    def fa_plain(q, k, v, chunk=None, **kw):
         return fa_ref.attention_ref(q.transpose(1, 2), k.transpose(1, 2),
                                     v.transpose(1, 2), **kw).transpose(1, 2)
 
