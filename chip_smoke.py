@@ -354,13 +354,49 @@ Phases (each failure makes the script exit non-zero):
      the card; gates: finite losses and grad norms, the last loss below
      the first, 160 flash launches a step all with the LSE, and the
      first batch's loss and grad norm through the flash route within
-     1e-2 / 5e-2 of ``attention_impl="chunked"``'s from the same init;
-     rwkv6-3b (1 layer) refuses a step (A.13g).  ``lm_train:whisper-tiny``
+     1e-2 / 5e-2 of ``attention_impl="chunked"``'s from the same init.
+     ``lm_train:whisper-tiny``
      trains the whole model on 8 x 128 tokens over 1500 frames a row for
      3 timed steps (flash bidirectional in its encoder under autograd;
      finite losses and grad norms, 16 launches a step with the LSE).
      Printed with the card's name and power limit: ms a step, tokens/s,
      peak GiB, flash launches a step.
+
+ 31. the scans under autograd (slice 18), after ``kernels:flash-train``:
+     ``kernels:scan-train`` runs ``ssm_scan.ops``'s Functions (the
+     kernel's forward, the plain fp32 backward ``gla_bwd_chunks`` /
+     ``ssd_bwd_chunks``) at one microbatch of 4 x 1024: rwkv6-3b's GLA
+     bonus (40 heads x 64, bf16 r/k/v, fp32 w and u, chunk 16) and
+     zamba2-1.2b's SSD (64 heads, N = P = 64, fp32, chunk 32), in the
+     models' (B, T, H, D) views.  Gates: the kernel's o and state
+     within SCAN_TOL of the plain chunked scan (with the fp64 naive
+     oracle printed), one launch under grad, o and
+     the state bitwise the no-grad launch's; each gradient before the
+     cast within 1e-4·max of autograd through the plain chunked scan in
+     fp32 on the card, and the Function's bf16 gradients one bf16 step
+     (2^-7 of the element) more; times (CUDA events) of the kernel's
+     forward, the plain backward (its bound twice the forward's
+     products, at 67 TFLOP/s fp32) and plain autograd forward + backward
+     (the
+     ``gla[bonus]@train`` / ``ssd@train`` records, ``backward`` the
+     plain backward's, not a kernel).  ``lm_train:rwkv6-3b`` (32 layers,
+     d 2560, vocab 65536) and ``lm_train:zamba2-1.2b`` (38 mamba layers
+     and the shared attention block after each 6, d 2048) train whole
+     as granite does (8 x 1024 in 2 microbatches, remat "nothing",
+     fp32 masters and moments, a ``ShardedFeed`` on the card), one warm
+     step and 12 timed (rwkv6: its init's u gradient carries the grad
+     norm for about two steps) or 5 (zamba2); gates: finite losses and
+     grad norms, the last loss below the first, GLA 128 launches a step
+     (2 x 32 x 2) and SSD 152 (2 x 38 x 2) with zamba2's shared block's
+     14 flash launches with the LSE, every scan launch through its
+     Function, the first batch's loss and grad norm through the scan
+     kernels within 1e-2 / 5e-2 of autograd through the plain chunked
+     scans from the same init, and every gradient leaf of both against
+     the plain route in fp32 compute: the kernel route's error (·the
+     leaf's max) within 2 x the plain route's + 1e-3 (granite's flash
+     and chunked routes too).  Printed with the card's name and power
+     limit: ms a
+     step, tokens/s, peak GiB, launches a step by kernel.
 
 Every seg_gram record also names the kernel that ran (``design``:
 small, thin or big) and times its second pass alone (``reduce_ms``)
@@ -377,6 +413,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import dataclasses
 import json
 import shutil
@@ -2539,17 +2576,23 @@ def phase_scans(seed: int, timer) -> dict:
 
 
 class _PlainKernels:
-    """Route the model's flash attention and scans to their plain
-    versions (the features gate's reference run); restores the kernels
-    on exit."""
+    """Route the model's flash attention (unless ``flash`` is False) and
+    scans to their plain versions, autograd differentiating them under
+    grad (the features gate's and lm_train's reference runs); restores
+    the kernels on exit."""
+
+    def __init__(self, flash: bool = True):
+        self.flash = flash
 
     def __enter__(self):
         from repro_torch.kernels.flash_attention import ops as fa_ops
         from repro_torch.kernels.ssm_scan import ops as sops
         from repro_torch.kernels.ssm_scan import ref as sref
-        self.saved = [(fa_ops, "flash_attention", fa_ops.flash_attention),
-                      (sops, "gla", sops.gla), (sops, "ssd", sops.ssd)]
-        fa_ops.flash_attention = _fa_plain
+        self.saved = [(sops, "gla", sops.gla), (sops, "ssd", sops.ssd)]
+        if self.flash:
+            self.saved.append((fa_ops, "flash_attention",
+                               fa_ops.flash_attention))
+            fa_ops.flash_attention = _fa_plain
         sops.gla = lambda *a, chunk: sref.gla_chunked_ref(*a, chunk=chunk)
         sops.ssd = lambda *a, chunk: sref.ssd_chunked_ref(*a, chunk=chunk)
 
@@ -5501,8 +5544,36 @@ FA_TRAIN_SHAPES = (
 LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_MICRO, LM_TRAIN_STEPS = 8, 1024, 2, 8
 LM_TRAIN_LOSS_TOL, LM_TRAIN_GNORM_TOL = 1e-2, 5e-2
 LM_TRAIN_LR = 1e-3
-LM_TRAIN_ARCHS = ("granite-3-2b", "whisper-tiny")
 WHISPER_TRAIN_BATCH, WHISPER_TRAIN_SEQ, WHISPER_TRAIN_STEPS = 8, 128, 3
+# rwkv6-3b and zamba2-1.2b: granite's batch and microbatches, whole, the
+# scans under their Functions; kernel vs plain scan route from one init
+# on the first batch within LM_TRAIN_LOSS_TOL / LM_TRAIN_GNORM_TOL,
+# every leaf as below.  rwkv6-3b takes more steps: at its init every
+# head's o at t = 0 is 0 (u = 0, no history), so its group norm sits at
+# var = 0 and the u leaf's gradient, through 1/sqrt(norm_eps), carries
+# nearly the whole grad norm (the reference's too); clipping then
+# starves every other leaf until u has moved, about two steps
+SCAN_TRAIN_STEPS, RWKV_TRAIN_STEPS = 5, 12
+# every gradient leaf, against the plain route in fp32 compute from the
+# same init (max|g - g32| / max|g32|): the kernel route's within
+# LM_TRAIN_LEAF_RATIO x the bf16 plain route's + LM_TRAIN_LEAF_FLOOR (two
+# bf16 routes of an untrained stack part by O(1)·max on some leaves:
+# PERF.md §6)
+LM_TRAIN_LEAF_RATIO, LM_TRAIN_LEAF_FLOOR = 2.0, 1e-3
+# (batch, seq, microbatches, timed steps) of each lm_train phase
+LM_TRAIN_FORMS = {
+    "granite-3-2b": (LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_MICRO,
+                     LM_TRAIN_STEPS),
+    "whisper-tiny": (WHISPER_TRAIN_BATCH, WHISPER_TRAIN_SEQ, 1,
+                     WHISPER_TRAIN_STEPS),
+    "rwkv6-3b": (LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_MICRO,
+                 RWKV_TRAIN_STEPS),
+    "zamba2-1.2b": (LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_MICRO,
+                    SCAN_TRAIN_STEPS)}
+LM_TRAIN_ARCHS = tuple(LM_TRAIN_FORMS)
+# Untrained losses these few steps at LM_TRAIN_LR do not move (printed,
+# not gated): whisper-tiny's sits at ~ln V
+LM_TRAIN_FLAT = ("whisper-tiny",)
 
 
 def _bwd_flops(B, H, Sq, Sk, D, Dv, causal) -> float:
@@ -5647,23 +5718,209 @@ def phase_flash_train(seed: int, timer) -> dict:
     return records
 
 
-class _attention_impl:
-    """Run a model's attention through another ``ParallelConfig`` (the
-    block functions hold the config; the weights are untouched)."""
+# kernels:scan-train: the scans under autograd at LM training's forms,
+# one microbatch of 4 x 1024: rwkv6-3b's GLA bonus (40 heads x 64, bf16
+# r/k/v, fp32 w and u, chunk 16) and zamba2-1.2b's SSD (64 heads, N = P
+# = 64, fp32, chunk 32).  Gates: o and the state under grad bitwise the
+# no-grad launch; the backward's fp32 gradients (``*_bwd_chunks``)
+# within SCAN_BWD_TOL·max of autograd through the plain chunked scan in
+# fp32 on the card (the same sums in another order); the Function's
+# bf16 gradients one bf16 step (2^-7 of the element) more.  The
+# forward (o and the final state) is held against the plain chunked
+# scan and the fp64 naive oracle at SCAN_TOL, as in ``kernels:scans``.
+SCAN_BWD_TOL = 1e-4
+SCAN_TRAIN_FORMS = (      # (name, scan, B, H, T, D, chunk, dtype)
+    ("rwkv6-3b gla[bonus]", "gla", 4, 40, 1024, 64, 16, torch.bfloat16),
+    ("zamba2-1.2b ssd", "ssd", 4, 64, 1024, 64, 32, torch.float32))
 
-    def __init__(self, model, parallel):
+
+def _scan_train_inputs(scan, B, H, T, D, dtype, g):
+    """The layouts the models pass: (B, T, H, D) activations viewed as
+    (B, H, T, D); w / a in (exp(-MAX_LOG_DECAY), 1]; u random (the
+    untrained init's u = 0 would hide the bonus term)."""
+    from repro_torch.kernels.ssm_scan import ref as sref
+
+    dev = "cuda"
+    lo = float(torch.exp(torch.tensor(-sref.MAX_LOG_DECAY)))
+
+    def bthd(d=D, decay=False):
+        x = (torch.rand((B, T, H, d), generator=g, device=dev) * (1 - lo)
+             + lo if decay else
+             torch.randn((B, T, H, d), generator=g, device=dev))
+        return x.transpose(1, 2)
+    if scan == "gla":
+        q, k, v = (bthd().to(dtype) for _ in range(3))
+        return [q, k, v, bthd(decay=True),
+                torch.randn((H, D), generator=g, device=dev)]
+    q, k = (torch.randn((B, T, D), generator=g, device=dev)
+            for _ in range(2))
+    a = bthd(d=1, decay=True)[..., 0]
+    return [q, k, bthd(), a]
+
+
+def phase_scan_train(seed: int, timer) -> dict:
+    """The scans under autograd (``ssm_scan.ops``'s Functions: the
+    kernel's forward, the plain fp32 backward) at SCAN_TRAIN_FORMS.
+    Gates: the kernel's o and final state within SCAN_TOL of the plain
+    chunked scan (``_scan_check``, with the fp64 naive oracle); o and
+    the final state under grad bitwise the no-grad launch, one launch
+    under grad; the gradients against autograd through the plain
+    chunked scan in fp32 (SCAN_BWD_TOL; bf16 one step more).  Times
+    (CUDA events): the kernel's forward, the plain backward
+    (``*_bwd_chunks`` from the saved inputs and do), and plain autograd
+    forward + backward as a yardstick (no single PyTorch call computes
+    either scan).  The backward's bound counts twice the forward's
+    products (each product's two operand gradients), over the causal
+    triangle as the forward's does."""
+    from repro_torch.kernels.ssm_scan import kernel as sk
+    from repro_torch.kernels.ssm_scan import ops as sops
+    from repro_torch.kernels.ssm_scan import ref as sref
+
+    g = torch.Generator(device="cuda").manual_seed(seed + 29)
+    records = {}
+    for name, scan, B, H, T, D, C, dtype in SCAN_TRAIN_FORMS:
+        xs = _scan_train_inputs(scan, B, H, T, D, dtype, g)
+        if scan == "gla":
+            fn = lambda *a: sops.gla(*a, chunk=C)  # noqa: E731
+            kern = lambda: sk.gla_cuda(*xs, chunk=C)  # noqa: E731
+            plain = lambda *a: sref.gla_chunked_ref(*a, chunk=C)  # noqa: E731
+            bwd = lambda do: sops.gla_bwd_chunks(  # noqa: E731
+                *xs, do, None, C)
+            naive64 = sref.gla_naive
+        else:
+            fn = lambda *a: sops.ssd(*a, chunk=C)  # noqa: E731
+            kern = lambda: sk.ssd_cuda(*xs, chunk=C)  # noqa: E731
+            plain = lambda *a: sref.ssd_chunked_ref(*a, chunk=C)  # noqa: E731
+            bwd = lambda do: sops.ssd_bwd_chunks(  # noqa: E731
+                *xs, do, None, C)
+            naive64 = sref.ssd_naive
+        path = _scan_check(
+            lambda *a: kern(), plain,
+            lambda *a: naive64(*(x.double() for x in a)), xs,
+            SCAN_TOL[dtype], f"{name} train form")
+        o0, s0 = kern()
+        do = torch.randn(o0.shape, generator=g, device="cuda").to(o0.dtype)
+        leaves = [x.detach().requires_grad_() for x in xs]
+        n0 = sk.LAUNCHES[scan]
+        o, s = fn(*leaves)
+        launched = sk.LAUNCHES[scan] - n0
+        o.backward(do)
+        torch.cuda.synchronize()
+        bitwise = bool(torch.equal(o.detach(), o0) and
+                       torch.equal(s.detach(), s0))
+        has_fn = "Scan" in type(o.grad_fn).__name__
+        del o, s
+        refs = [x.detach().float().requires_grad_() for x in xs]
+        plain(*refs)[0].backward(do.float())
+        direct = bwd(do)
+        torch.cuda.synchronize()
+        errs, fn_errs = {}, {}
+        ok = bitwise and has_fn and launched == 1
+        for gname, leaf, d, r in zip("qkvwu" if scan == "gla" else "qkva",
+                                     leaves, direct, refs):
+            want = r.grad.double()
+            top = float(want.abs().max())
+            errs["d" + gname] = float((d.double() - want).abs().max()) / top
+            slack = (2.0 ** -7 * want.abs() if leaf.dtype == torch.bfloat16
+                     else 0.0)
+            excess = float(((leaf.grad.double() - want).abs() - slack)
+                           .max()) / top
+            fn_errs["d" + gname] = excess
+            ok = ok and errs["d" + gname] <= SCAN_BWD_TOL \
+                and excess <= SCAN_BWD_TOL and leaf.grad.dtype == leaf.dtype
+        del direct, refs, leaves
+        log(f"scan train form [{name}] o {tuple(o0.shape)} "
+            f"{str(o0.dtype)[6:]}: under grad one launch {launched == 1}, "
+            f"o and state bitwise the no-grad launch {bitwise}, grad_fn "
+            f"{has_fn}; fp32 grads vs plain fp32 autograd "
+            + " ".join(f"{k} {e:.3e}" for k, e in errs.items())
+            + f" (tol {SCAN_BWD_TOL:g}); the Function's grads"
+            + (" beyond one bf16 step " if dtype == torch.bfloat16 else " ")
+            + " ".join(f"{k} {e:.3e}" for k, e in fn_errs.items())
+            + f" {'OK' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"scan train form disagrees [{name}]")
+
+        fwd_ms = timer.ms(kern, 5)
+        bwd_ms = timer.ms(lambda: bwd(do), 3)
+        plain_fwd_ms = timer.ms(lambda: plain(*xs), 3)
+
+        def plain_fb():
+            rl = [x.detach().float().requires_grad_() for x in xs]
+            torch.autograd.grad(plain(*rl)[0], rl, do.float())
+
+        plain_fb_ms = timer.ms(plain_fb, 3)
+        n_el = B * H * T * D
+        el = xs[2].element_size()
+        if scan == "gla":
+            io = 3 * el * n_el + 4 * n_el + 4 * H * D      # q,k,v; w; u
+            fwd_bytes = io + el * n_el + 4 * B * H * D * D  # o; state
+            fwd_ops = B * H * (T // C) * (2 * (C * (C + 1) // 2) * D * 2
+                                          + 2 * C * D * D * 2)
+        else:
+            io = 2 * 4 * B * T * D + 4 * n_el + 4 * B * H * T  # q,k; v; a
+            fwd_bytes = io + 4 * n_el + 4 * B * H * D * D
+            tri = C * (C + 1) // 2
+            fwd_ops = (B * (T // C) * 2 * tri * D
+                       + B * H * (T // C) * (2 * tri * D + 2 * 2 * C * D * D))
+        bwd_bytes = 2 * io + el * n_el          # inputs and do; the grads
+        bwd_ops = 2 * fwd_ops
+
+        def bound(nbytes, ops):
+            tb = nbytes / HBM_BYTES_PER_S * 1e3
+            to = ops / FP32_FLOP_PER_S * 1e3
+            return max(tb, to), "bytes" if tb >= to else "operations"
+
+        fb, fby = bound(fwd_bytes, fwd_ops)
+        bb, bby = bound(bwd_bytes, bwd_ops)
+        log(f"scan train form [{name}] [{card_line()}] kernel fwd "
+            f"ms={fwd_ms:.4f} (bound {fb:.4f}, {fby}) plain fwd "
+            f"ms={plain_fwd_ms:.4f}; plain bwd ms={bwd_ms:.4f} (bound "
+            f"{bb:.4f}, {bby}: {bwd_bytes / 1e9:.4f} GB at 3.35 TB/s, "
+            f"{bwd_ops / 1e9:.2f} GFLOP at 67 TFLOP/s fp32); plain "
+            f"autograd fwd+bwd ms={plain_fb_ms:.4f}")
+        key = "gla[bonus]@train" if scan == "gla" else "ssd@train"
+        records[key] = {
+            "name": key, "route": "cuda", "source": SCAN_SRC,
+            "replaces": GLA_TPU if scan == "gla" else SSD_TPU,
+            "launches": None, "max_abs_err": path["max_abs_err"],
+            "err_kernel_vs_fp64": path["err_kernel_vs_fp64"],
+            "err_plain_vs_fp64": path["err_plain_vs_fp64"], "ms": fwd_ms,
+            "plain_ms": plain_fwd_ms, "bound_ms": fb, "bound_by": fby,
+            "library_ms": None, "what": name, "shape": list(o0.shape),
+            "dtype": str(xs[0].dtype)[6:], "chunk": C, "grad_err": errs,
+            "fn_grad_excess": fn_errs,
+            "backward": {"route": "plain", "ms": bwd_ms, "bound_ms": bb,
+                         "bound_by": bby, "library_ms": None,
+                         "plain_autograd_fwd_bwd_ms": plain_fb_ms}}
+        del xs, o0, s0, do
+        torch.cuda.empty_cache()
+    return records
+
+
+class _attention_impl:
+    """Run a model through another ``ParallelConfig`` and, if given,
+    another compute dtype (the block functions hold the config; the
+    weights are untouched)."""
+
+    def __init__(self, model, parallel, compute_dtype=None):
         self.model, self.parallel = model, parallel
+        self.compute_dtype = compute_dtype
 
     def __enter__(self):
         from repro_torch.models.transformer import DecoderStack
         m = self.model
-        self.saved = (m.parallel, m.decoder_stack)
+        self.saved = (m.parallel, m.decoder_stack, m.cfg)
         m.parallel = self.parallel
+        if self.compute_dtype is not None:
+            m.cfg = dataclasses.replace(m.cfg,
+                                        compute_dtype=self.compute_dtype)
         if m.decoder_stack is not None:
             m.decoder_stack = DecoderStack(m.cfg, self.parallel)
 
     def __exit__(self, *exc):
-        self.model.parallel, self.model.decoder_stack = self.saved
+        m = self.model
+        m.parallel, m.decoder_stack, m.cfg = self.saved
 
 
 def _train_batch(cfg, seed: int, step: int, B: int, S: int) -> dict:
@@ -5678,36 +5935,95 @@ def _train_batch(cfg, seed: int, step: int, B: int, S: int) -> dict:
     return b
 
 
+class _count_scan_functions:
+    """Count the applications of the scans' autograd Functions (each
+    one launch under grad on the card), by scan: the launch gate's
+    proof that no scan launched under grad outside them."""
+
+    class _Counting:
+        def __init__(self, fn, counts, key):
+            self.fn, self.counts, self.key = fn, counts, key
+
+        def apply(self, *a):
+            self.counts[self.key] += 1
+            return self.fn.apply(*a)
+
+    def __enter__(self):
+        from repro_torch.kernels.ssm_scan import ops as sops
+        self.sops, self.counts = sops, collections.Counter()
+        self.saved = (sops._GLAScan, sops._SSDScan)
+        sops._GLAScan = self._Counting(sops._GLAScan, self.counts, "gla")
+        sops._SSDScan = self._Counting(sops._SSDScan, self.counts, "ssd")
+        return self.counts
+
+    def __exit__(self, *exc):
+        self.sops._GLAScan, self.sops._SSDScan = self.saved
+
+
+def _train_launches(cfg, micro: int) -> dict:
+    """Kernel launches of one train step (remat "nothing"): flash with
+    its LSE twice a dense or encoder layer a microbatch (the forward and
+    remat's recompute), GLA twice an rwkv6 layer, SSD twice a mamba
+    layer, and zamba2's shared attention block, applied outside remat,
+    once a use."""
+    if cfg.family == "ssm":
+        return {"gla": 2 * cfg.num_layers * micro}
+    if cfg.family == "hybrid":
+        uses = -(-cfg.num_layers // cfg.shared_attn_every)
+        return {"ssd": 2 * cfg.num_layers * micro,
+                "flash_attention[lse]": uses * micro}
+    return {"flash_attention[lse]": 2 * (cfg.num_layers + cfg.encoder_layers)
+            * micro}
+
+
+@contextlib.contextmanager
+def _fp32_plain(model, parallel):
+    """Run ``model`` in fp32 compute with every kernel plain."""
+    with _PlainKernels(), _attention_impl(model, parallel, torch.float32):
+        yield
+
+
+def _leaf_rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max|a - b| / max|b| of one gradient leaf (0 where both are all
+    zero), in the leaves' fp32: ``rel``'s fp64 copies of the largest
+    stacked leaf (rwkv6-3b's 734 M elements) would take ~24 GB beside
+    the three gradient trees on the card."""
+    top = float(b.abs().max())
+    diff = float((a - b).abs().max())
+    return diff / top if top > 0 else (0.0 if diff == 0 else float("inf"))
+
+
 def phase_lm_train(seed: int, arch: str) -> dict:
     """``launch/train.py``'s step on the card at ``arch``'s full width and
-    depth (granite-3-2b: batch 8 x 1024, 2 microbatches; whisper-tiny: 8
-    x 128 tokens over 1500 frames), remat "nothing", the batches from a
-    ``ShardedFeed`` on the card: one warm step and LM_TRAIN_STEPS (3 for
-    whisper) timed.  Gates: every loss and grad norm finite, the flash
-    kernel launched with its LSE twice a layer a microbatch (the forward
-    and remat's recompute) and never without; for granite, the last loss
-    below the first (whisper's untrained loss starts at ln V, which a
-    few steps of a bigram stream do not move: printed), and the loss
-    and pre-clip grad norm of the first
-    batch through the flash route and through ``attention_impl=
-    "chunked"`` from the same init within LM_TRAIN_LOSS_TOL /
-    LM_TRAIN_GNORM_TOL.  For granite, rwkv6-3b (1 of 32 layers) must
-    refuse a step (its GLA kernel has no backward: A.13g)."""
+    depth (LM_TRAIN_FORMS: granite-3-2b, rwkv6-3b and zamba2-1.2b batch 8
+    x 1024 in 2 microbatches; whisper-tiny 8 x 128 tokens over 1500
+    frames), remat "nothing", fp32 masters and moments, the batches from
+    a ``ShardedFeed`` on the card: one warm step and the form's timed
+    steps.  Gates: every loss and grad norm finite; the kernels launched
+    as ``_train_launches`` says, flash only with its LSE, and every scan
+    launch through its autograd Function; the last loss below the first
+    outside LM_TRAIN_FLAT (whisper's untrained loss does not move in
+    these few steps: printed); the loss and pre-clip grad norm of the
+    first batch through the kernel route within LM_TRAIN_LOSS_TOL /
+    LM_TRAIN_GNORM_TOL of another route from the same init (granite's
+    flash against ``attention_impl="chunked"``, the scan archs' scan
+    kernels against autograd through the plain chunked scans), and
+    every gradient leaf of both against that plain route in fp32
+    compute: the kernel route's error within LM_TRAIN_LEAF_RATIO x the
+    plain route's + LM_TRAIN_LEAF_FLOOR."""
     from repro_torch.config import ParallelConfig, TrainConfig
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import ShardedFeed
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.ssm_scan import kernel as sk
     from repro_torch.launch.train import (init_state, loss_and_grads,
                                           make_train_step)
     from repro_torch.models.model import Model
     from repro_torch.optim.adamw import global_norm
 
     cfg = get_config(arch)
-    granite = arch == "granite-3-2b"
-    B, S = ((LM_TRAIN_BATCH, LM_TRAIN_SEQ) if granite else
-            (WHISPER_TRAIN_BATCH, WHISPER_TRAIN_SEQ))
-    steps = LM_TRAIN_STEPS if granite else WHISPER_TRAIN_STEPS
-    micro = LM_TRAIN_MICRO if granite else 1
+    B, S, micro, steps = LM_TRAIN_FORMS[arch]
+    scans = cfg.family in ("ssm", "hybrid")
     pc = ParallelConfig(use_flash_attention=True, remat_policy="nothing",
                         microbatch=micro)
     torch.cuda.synchronize()
@@ -5724,36 +6040,70 @@ def phase_lm_train(seed: int, arch: str) -> dict:
         f"{micro}, remat nothing")
     out = {"arch": arch, "params": n_params, "batch": B, "seq": S,
            "microbatch": micro, "steps": steps}
-    layers = cfg.num_layers + cfg.encoder_layers
 
-    if granite:                # flash vs chunked from the same init
+    if arch == "granite-3-2b" or scans:     # routes from one init
         batch = {k: v.cuda() for k, v in
                  _train_batch(cfg, seed, 0, B, S).items()}
-        probe = {}
-        for impl, par in (("flash", pc), ("chunked", dataclasses.replace(
-                pc, use_flash_attention=False, attention_impl="chunked"))):
+        if scans:
+            routes = (("fp32 plain", _fp32_plain(model, pc)),
+                      ("kernel", contextlib.nullcontext()),
+                      ("plain scans", _PlainKernels(flash=False)))
+        else:
+            chunked = dataclasses.replace(pc, use_flash_attention=False,
+                                          attention_impl="chunked")
+            routes = (("fp32 chunked",
+                       _attention_impl(model, chunked, torch.float32)),
+                      ("flash", _attention_impl(model, pc)),
+                      ("chunked", _attention_impl(model, chunked)))
+        probe, truth, leaf_err = {}, None, {}
+        for impl, route in routes:
             t0 = time.perf_counter()
-            with _attention_impl(model, par):
+            with route:
                 met, grads = loss_and_grads(model, dict(model.state_dict()),
                                             batch)
             gn = float(global_norm(grads))
+            if truth is None:       # the fp32 route, kept on the card
+                truth = grads
+            else:
+                leaf_err[impl] = {k: _leaf_rel(g, truth[k])
+                                  for k, g in grads.items()}
+                if len(leaf_err) == 1:
+                    top = sorted(((float(g.norm()), k) for k, g in
+                                  grads.items()), reverse=True)[:3]
             del grads
             torch.cuda.synchronize()
             probe[impl] = (float(met["loss"]), gn,
                            time.perf_counter() - t0)
             torch.cuda.empty_cache()
-        (lf, gf, tf), (lc, gc, tc) = probe["flash"], probe["chunked"]
-        d_loss, d_gn = abs(lf - lc) / abs(lc), abs(gf - gc) / abs(gc)
-        ok = d_loss <= LM_TRAIN_LOSS_TOL and d_gn <= LM_TRAIN_GNORM_TOL
-        log(f"lm_train {arch}: first batch flash loss {lf:.5f} gnorm "
-            f"{gf:.4f} ({tf:.2f} s) vs chunked loss {lc:.5f} gnorm {gc:.4f} "
-            f"({tc:.2f} s): rel {d_loss:.2e} (tol {LM_TRAIN_LOSS_TOL:g}), "
-            f"{d_gn:.2e} (tol {LM_TRAIN_GNORM_TOL:g}) "
-            f"{'OK' if ok else 'FAIL'}")
+        del truth
+        t32 = probe.pop(routes[0][0])
+        (na, (la, ga, ta)), (nb, (lb, gb, tb)) = probe.items()
+        d_loss, d_gn = abs(la - lb) / abs(lb), abs(ga - gb) / abs(gb)
+        ek, ep = leaf_err[na], leaf_err[nb]
+        excess = {k: ek[k] / (LM_TRAIN_LEAF_RATIO * ep[k]
+                              + LM_TRAIN_LEAF_FLOOR) for k in ek}
+        worst = max(excess, key=excess.get)
+        ok = (d_loss <= LM_TRAIN_LOSS_TOL and d_gn <= LM_TRAIN_GNORM_TOL
+              and excess[worst] <= 1)
+        log(f"lm_train {arch}: first batch {na} loss {la:.5f} gnorm "
+            f"{ga:.4f} ({ta:.2f} s) vs {nb} loss {lb:.5f} gnorm {gb:.4f} "
+            f"({tb:.2f} s): rel {d_loss:.2e} (tol {LM_TRAIN_LOSS_TOL:g}), "
+            f"{d_gn:.2e} (tol {LM_TRAIN_GNORM_TOL:g}); against "
+            f"{routes[0][0]} (loss {t32[0]:.5f}, gnorm {t32[1]:.4f}, "
+            f"{t32[2]:.2f} s) leaf by leaf ·max: {na} worst "
+            f"{max(ek.values()):.2e}, {nb} worst {max(ep.values()):.2e}; "
+            f"the leaf nearest its bound {worst}: {ek[worst]:.2e} vs "
+            f"{ep[worst]:.2e} (bound {LM_TRAIN_LEAF_RATIO:g} x {nb}'s + "
+            f"{LM_TRAIN_LEAF_FLOOR:g}) over {len(ek)} leaves; {na}'s "
+            f"largest leaf norms "
+            + ", ".join(f"{k} {n:.4g}" for n, k in top)
+            + f" {'OK' if ok else 'FAIL'}")
         if not ok:
-            raise AssertionError("flash and chunked attention part")
-        out["flash_vs_chunked"] = {"loss": [lf, lc], "grad_norm": [gf, gc],
-                                   "seconds": [tf, tc]}
+            raise AssertionError(f"{na} and {nb} routes part")
+        out[f"{na.replace(' ', '_')}_vs_{nb.replace(' ', '_')}"] = {
+            "loss": [la, lb], "grad_norm": [ga, gb], "seconds": [ta, tb],
+            "fp32": list(t32), "leaf_err": {na: ek, nb: ep},
+            "largest_leaf_norms": {k: n for n, k in top}}
         del batch
 
     tcfg = TrainConfig(learning_rate=LM_TRAIN_LR, warmup_steps=1,
@@ -5764,72 +6114,64 @@ def phase_lm_train(seed: int, arch: str) -> dict:
                        device="cuda")
     losses, gnorms, times = [], [], []
     try:
-        for i in range(steps + 1):
-            batch = next(feed)
-            if i == 1:
-                fa_kernel.LAUNCHES.clear()
-                fa_kernel.LAUNCHES_BY_FORM.clear()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            state.params, state.opt, met = step_fn(state.params, state.opt,
-                                                   batch)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-            losses.append(float(met["loss"]))
-            gnorms.append(float(met["grad_norm"]))
+        with _count_scan_functions() as fn_counts:
+            for i in range(steps + 1):
+                batch = next(feed)
+                if i == 1:
+                    for c in (fa_kernel.LAUNCHES, fa_kernel.LAUNCHES_BY_FORM,
+                              sk.LAUNCHES, fn_counts):
+                        c.clear()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state.params, state.opt, met = step_fn(state.params,
+                                                       state.opt, batch)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                losses.append(float(met["loss"]))
+                gnorms.append(float(met["grad_norm"]))
     finally:
         feed.close()
-    launches = dict(fa_kernel.LAUNCHES)
+    launches = {**{k: n for k, n in fa_kernel.LAUNCHES.items()},
+                **{k: n for k, n in sk.LAUNCHES.items()}}
+    per_step = {k: n / steps for k, n in sorted(launches.items())}
     forms = dict(fa_kernel.LAUNCHES_BY_FORM)
+    fn_counts = dict(fn_counts)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     ms = 1e3 * float(np.mean(times[1:]))
     tok_s = B * S / (ms / 1e3)
-    want = 2 * layers * micro * steps
-    per_step = launches.get("flash_attention[lse]", 0) / steps
+    want = {k: n * steps for k, n in _train_launches(cfg, micro).items()}
     log(f"lm_train {arch} [{card_line()}]: {ms:.1f} ms a step "
         f"(warm step {1e3 * times[0]:.1f} ms), {tok_s:.0f} tokens/s, peak "
         f"{peak:.2f} GiB; losses {' '.join(f'{x:.4f}' for x in losses)}; "
-        f"grad norms {' '.join(f'{x:.3f}' for x in gnorms)}; flash "
-        f"launches {per_step:g} a step, all with the LSE (by form "
-        f"{forms})")
+        f"grad norms {' '.join(f'{x:.3f}' for x in gnorms)}; launches a "
+        f"step {per_step} (flash by form {forms}; scan Functions applied "
+        f"{fn_counts})")
     fails = []
     if not all(np.isfinite(losses)) or not all(np.isfinite(gnorms)):
         fails.append("a loss or grad norm is not finite")
-    if granite and not losses[-1] < losses[0]:
+    if arch not in LM_TRAIN_FLAT and not losses[-1] < losses[0]:
         fails.append(f"the last loss {losses[-1]} is not below the first "
                      f"{losses[0]}")
-    if launches.get("flash_attention[lse]", 0) != want or \
-            launches.get("flash_attention", 0) != want:
-        fails.append(f"flash launches {launches}, expected {want} with the "
-                     f"LSE")
+    got = {k: launches.get(k, 0) for k in
+           ("flash_attention[lse]", "gla", "ssd")}
+    if got != {k: want.get(k, 0) for k in got}:
+        fails.append(f"launches {got}, expected {want}")
+    if launches.get("flash_attention", 0) != got["flash_attention[lse]"]:
+        fails.append(f"flash launched without its LSE: {launches}")
+    if fn_counts.get("gla", 0) != got["gla"] or \
+            fn_counts.get("ssd", 0) != got["ssd"]:
+        fails.append(f"scan launches {got} outside their Functions "
+                     f"{fn_counts}")
     if fails:
         raise AssertionError(f"lm_train {arch}: {fails}")
     out.update({"ms_per_step": ms, "warm_step_ms": 1e3 * times[0],
                 "tokens_per_s": tok_s, "peak_gib": peak, "losses": losses,
-                "grad_norms": gnorms, "flash_lse_launches": launches.get(
-                    "flash_attention[lse]", 0),
-                "flash_launches_per_step": per_step,
-                "flash_launches_by_form": forms})
+                "grad_norms": gnorms, "launches": got,
+                "launches_per_step": per_step,
+                "flash_launches_by_form": forms,
+                "scan_functions": fn_counts})
     del state, step_fn, model
     torch.cuda.empty_cache()
-
-    if granite:                # rwkv6's scans refuse autograd on the card
-        rcfg = dataclasses.replace(get_config("rwkv6-3b"), num_layers=1)
-        rwkv = Model(rcfg, seed=seed)
-        rst = init_state(rwkv)
-        rb = {k: v.cuda() for k, v in
-              _train_batch(rcfg, seed, 0, 2, 128).items()}
-        try:
-            make_train_step(rwkv, tcfg)(rst.params, rst.opt, rb)
-        except NotImplementedError as e:
-            if "A.13g" not in str(e):
-                raise
-            log(f"lm_train rwkv6-3b (1 of 32 layers): refused on the card "
-                f"as it must: {e}")
-        else:
-            raise AssertionError("rwkv6's train step ran on the card")
-        del rwkv, rst, rb
-        torch.cuda.empty_cache()
     return out
 
 
@@ -6330,14 +6672,21 @@ def main(argv=None) -> int:
     records.update(run("kernels:flash-train", phase_flash_train, args.seed,
                        timer) or {})
     torch.cuda.empty_cache()
+    records.update(run("kernels:scan-train", phase_scan_train, args.seed,
+                       timer) or {})
+    torch.cuda.empty_cache()
     lm_train = {}       # arch -> the training phase's metrics
     for arch in LM_TRAIN_ARCHS:
         out = run(f"lm_train:{arch}", phase_lm_train, args.seed, arch)
         torch.cuda.empty_cache()
         if out is not None:
             lm_train[arch] = out
-            by_path.setdefault("flash_attention[lse]", {})[
-                f"lm_train:{arch}"] = out["flash_lse_launches"]
+            for key, kern in (("flash_attention[lse]", "flash_attention[lse]"),
+                              ("gla[bonus]@train", "gla"),
+                              ("ssd@train", "ssd")):
+                if out["launches"][kern]:
+                    by_path.setdefault(key, {})[f"lm_train:{arch}"] = \
+                        out["launches"][kern]
 
     for key, rec in records.items():
         rec["launches"] = launches.get(key, 0)

@@ -79,12 +79,14 @@ def gla_naive(q, k, v, w, u=None, initial_state=None):
     return torch.stack(outs, dim=2).to(v.dtype), state
 
 
-def gla_chunked_ref(q: Tensor, k: Tensor, v: Tensor, w: Tensor,
-                    u: Optional[Tensor] = None, chunk: int = 64,
-                    initial_state: Optional[Tensor] = None
-                    ) -> Tuple[Tensor, Tensor]:
-    """Chunked-parallel scan: intra-chunk work is dense products, the
-    (Dk, Dv) state carries across chunks.  Returns (o, final_state)."""
+def gla_chunks(q: Tensor, k: Tensor, v: Tensor, w: Tensor,
+               u: Optional[Tensor] = None, chunk: int = 64
+               ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """The chunk-parallel part of ``gla_chunked_ref``, in the working
+    type: (q_tilde (B,H,n,C,Dk), w_total (B,H,n,Dk), ks_v (B,H,n,Dk,Dv),
+    o_intra (B,H,n,C,Dv)).  Chunk c reads out q_tilde_c · S_c of the
+    state S_c entering it, and leaves S_{c+1} = w_total_c ⊙ S_c + ks_v_c.
+    """
     B, H, T, Dk = q.shape
     Dv = v.shape[-1]
     assert T % chunk == 0, (T, chunk)
@@ -121,6 +123,20 @@ def gla_chunked_ref(q: Tensor, k: Tensor, v: Tensor, w: Tensor,
         o_intra = o_intra + diag[..., None] * vc
 
     ks_v = torch.einsum("bhnsk,bhnsv->bhnkv", k_flow, vc)  # chunk summary
+    return q_tilde, w_total, ks_v, o_intra
+
+
+def gla_chunked_ref(q: Tensor, k: Tensor, v: Tensor, w: Tensor,
+                    u: Optional[Tensor] = None, chunk: int = 64,
+                    initial_state: Optional[Tensor] = None
+                    ) -> Tuple[Tensor, Tensor]:
+    """Chunked-parallel scan: intra-chunk work is dense products, the
+    (Dk, Dv) state carries across chunks.  Returns (o, final_state)."""
+    B, H, T, Dk = q.shape
+    Dv = v.shape[-1]
+    n = T // chunk
+    wt = _wt(v)
+    q_tilde, w_total, ks_v, o_intra = gla_chunks(q, k, v, w, u, chunk)
 
     state = (torch.zeros((B, H, Dk, Dv), dtype=wt, device=q.device)
              if initial_state is None else initial_state.to(wt))
@@ -157,9 +173,12 @@ def ssd_naive(q, k, v, a, initial_state=None):
     return torch.stack(outs, dim=2).to(v.dtype), state
 
 
-def ssd_chunked_ref(q, k, v, a, chunk: int = 64, initial_state=None):
-    """Chunked SSD scan. q,k: (B,T,N); v: (B,H,T,P); a: (B,H,T) in (0,1].
-    Returns (o (B,H,T,P), final_state (B,H,N,P))."""
+def ssd_chunks(q, k, v, a, chunk: int = 64):
+    """The chunk-parallel part of ``ssd_chunked_ref``, in the working
+    type: (qc (B,n,C,N), q_in (B,H,n,C), a_total (B,H,n), kv_sum
+    (B,H,n,N,P), o_intra (B,H,n,C,P)).  Chunk c reads out (qc_c ·
+    S_c) scaled by q_in_c per head, and leaves S_{c+1} = a_total_c · S_c
+    + kv_sum_c."""
     B, T, N = q.shape
     H, P = v.shape[1], v.shape[-1]
     assert T % chunk == 0, (T, chunk)
@@ -188,10 +207,21 @@ def ssd_chunked_ref(q, k, v, a, chunk: int = 64, initial_state=None):
     # chunk kv summary with end-of-chunk decay (exponent <= 0)
     flow = torch.exp(cum[..., -1:] - cum)                 # (B,H,n,C)
     kv_sum = torch.einsum("bnsk,bhns,bhnsp->bhnkp", kc, flow, vc)
+    q_in = torch.exp(cum)                                 # (B,H,n,C)
+    return qc, q_in, a_total, kv_sum, o_intra
+
+
+def ssd_chunked_ref(q, k, v, a, chunk: int = 64, initial_state=None):
+    """Chunked SSD scan. q,k: (B,T,N); v: (B,H,T,P); a: (B,H,T) in (0,1].
+    Returns (o (B,H,T,P), final_state (B,H,N,P))."""
+    B, T, N = q.shape
+    H, P = v.shape[1], v.shape[-1]
+    n = T // chunk
+    wt = _wt(v)
+    qc, q_in, a_total, kv_sum, o_intra = ssd_chunks(q, k, v, a, chunk)
 
     state = (torch.zeros((B, H, N, P), dtype=wt, device=q.device)
              if initial_state is None else initial_state.to(wt))
-    q_in = torch.exp(cum)                                 # (B,H,n,C)
     o_inter = []
     for c in range(n):
         o_inter.append(torch.einsum("btk,bht,bhkp->bhtp", qc[:, c],

@@ -112,6 +112,14 @@ logits and cache leaves against the plain versions and the CPU
 (2e-2·max, the features rule; the first layer's fp32 scan state 1e-4);
 dense attention refused on the card for train and prefill, decode
 attention on the card against the CPU (1e-5).
+
+LM training on the card: flash with its LSE and its plain backward;
+the scans under autograd (``ops.gla`` / ``ops.ssd`` through their
+Functions: one kernel launch, o and the state bitwise the no-grad
+launch's, gradients within 1e-4·max of autograd through the plain fp32
+scan, bf16 gradients one bf16 step more; two launches under
+``torch.utils.checkpoint``, the same gradients); one train step of the
+smoke models, rwkv6 and zamba2 included, against the CPU.
 """
 import numpy as np
 import pytest
@@ -2064,43 +2072,141 @@ def test_flash_lse_and_backward(card, case, dtype):
         assert err <= tol, (name, err)
 
 
+# The scans under autograd: (scan, B, H, T, D, chunk, dtype, strided) —
+# rwkv6's GLA bonus and post forms in bf16 (the tiled form), fp32 and
+# the generic form (D = 32), zamba2's SSD (N = P = 64, tiled) and the
+# generic SSD (N = 16, P = 32) at a T that halves the chunk
+_SCAN_GRAD_CASES = [
+    ("gla-bonus", 2, 4, 256, 64, 16, "bfloat16", True),
+    ("gla-post", 2, 4, 256, 64, 16, "bfloat16", True),
+    ("gla-bonus", 2, 4, 128, 64, 16, "float32", False),
+    ("gla-bonus", 1, 3, 96, 32, 16, "float32", True),
+    ("ssd", 2, 4, 256, 64, 32, "float32", True),
+    ("ssd", 1, 3, 80, 16, 32, "float32", False),
+]
+
+
+def _scan_inputs(card, case):
+    """(function of the leaves -> (o, s), plain fp32 version, inputs)."""
+    from repro_torch.kernels.ssm_scan import ops as sops
+    from repro_torch.kernels.ssm_scan import ref as sref
+
+    scan, B, H, T, D, chunk, dtype, strided = case
+    if scan == "ssd":
+        N, P = (D, D) if D == 64 else (D, 2 * D)
+        xs = list(_ssd_case(card, B, H, T, N, P, strided=strided, seed=4))
+        return (lambda *a: sops.ssd(*a, chunk=chunk),
+                lambda *a: sref.ssd_chunked_ref(*a, chunk=sops._fit_chunk(
+                    chunk, T)), xs)
+    q, k, v, w, u = _gla_case(card, B, H, T, D, D, dtype, strided, seed=4)
+    xs = [q, k, v, w] + ([u] if scan == "gla-bonus" else [])
+    return (lambda *a: sops.gla(*a, chunk=chunk),
+            lambda *a: sref.gla_chunked_ref(*a, chunk=sops._fit_chunk(
+                chunk, T)), xs)
+
+
 @pytest.mark.cuda
-def test_scans_refuse_grad_on_card(card):
-    """The scan kernels have no backward: under grad with inputs that
-    require it they raise naming ROADMAP A.13g; without grad they run."""
+@pytest.mark.parametrize("with_ds", [True, False], ids=["ds", "no-ds"])
+@pytest.mark.parametrize("case", _SCAN_GRAD_CASES)
+def test_scans_under_grad_on_card(card, case, with_ds):
+    """Under grad, ``ops.gla`` / ``ops.ssd`` launch the kernel once (a
+    tensor with the Function's grad_fn), o and the state bitwise the
+    no-grad launch's; the gradients within 1e-4·max of autograd through
+    the plain chunked scan in fp32 on the card (the same sums in another
+    order) — for bf16 inputs the backward's fp32 values
+    (``*_bwd_chunks``) at 1e-4·max, and the Function's bf16 gradients at
+    one bf16 step (2^-7 of the element) plus 1e-4·max."""
+    from repro_torch.kernels.ssm_scan import kernel as sk
     from repro_torch.kernels.ssm_scan import ops as sops
 
-    q, k, v, w, _ = _gla_case(card, 1, 2, 32, 64, 64, "float32", False)
-    rng = np.random.default_rng(1)
-    f = lambda *s: torch.from_numpy(  # noqa: E731
-        rng.standard_normal(s).astype(np.float32)).to(card)
-    sq, sk, sv = f(1, 32, 64), f(1, 32, 64), f(1, 2, 32, 64)
-    sa = torch.from_numpy(rng.uniform(1e-3, 1, (1, 2, 32)).astype(
-        np.float32)).to(card)
-    with pytest.raises(NotImplementedError, match="A.13g"):
-        sops.gla(q.requires_grad_(), k, v, w, chunk=16)
-    with pytest.raises(NotImplementedError, match="A.13g"):
-        sops.ssd(sq, sk, sv.requires_grad_(), sa, chunk=32)
+    fn, plain, xs = _scan_inputs(card, case)
+    scan = case[0].split("-")[0]
     with torch.no_grad():
-        assert torch.isfinite(sops.gla(q, k, v, w, chunk=16)[0]).all()
-        assert torch.isfinite(sops.ssd(sq, sk, sv, sa, chunk=32)[0]).all()
+        o0, s0 = fn(*xs)
+    g = torch.Generator(device=card).manual_seed(5)
+    do = torch.randn(o0.shape, generator=g, device=card).to(o0.dtype)
+    ds = (torch.randn(s0.shape, generator=g, device=card) if with_ds
+          else None)
+    leaves = [x.detach().requires_grad_() for x in xs]
+    n0 = sk.LAUNCHES[scan]
+    o, s = fn(*leaves)
+    assert sk.LAUNCHES[scan] == n0 + 1
+    assert "Scan" in type(o.grad_fn).__name__
+    assert torch.equal(o.detach(), o0) and torch.equal(s.detach(), s0)
+    torch.autograd.backward([o] + ([s] if with_ds else []),
+                            [do] + ([ds] if with_ds else []))
+    assert sk.LAUNCHES[scan] == n0 + 1
+    refs = [x.detach().float().requires_grad_() for x in xs]
+    po, ps = plain(*refs)
+    torch.autograd.backward([po] + ([ps] if with_ds else []),
+                            [do.float()] + ([ds] if with_ds else []))
+    chunk = sops._fit_chunk(case[5], case[3])
+    if scan == "gla":
+        u = xs[4] if len(xs) == 5 else None
+        direct = sops.gla_bwd_chunks(*xs[:4], u, do, ds, chunk)
+    else:
+        direct = sops.ssd_bwd_chunks(*xs, do, ds, chunk)
+    for name, leaf, d, r in zip("qkvwu", leaves, direct, refs):
+        want = r.grad.double()
+        top = float(want.abs().max())
+        assert leaf.grad.dtype == leaf.dtype, name
+        assert float((d.double() - want).abs().max()) <= 1e-4 * top, name
+        lim = 1e-4 * top + (2.0 ** -7 * want.abs()
+                            if leaf.dtype == torch.bfloat16 else 0.0)
+        assert bool(((leaf.grad.double() - want).abs() <= lim).all()), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [_SCAN_GRAD_CASES[0], _SCAN_GRAD_CASES[4]],
+                         ids=["gla", "ssd"])
+def test_scans_launch_twice_under_checkpoint(card, case):
+    """Under ``torch.utils.checkpoint`` (the remat policies) the backward
+    applies the Function again: two launches, and the same gradients
+    as without the checkpoint."""
+    from torch.utils import checkpoint as ckpt
+
+    from repro_torch.kernels.ssm_scan import kernel as sk
+
+    fn, _, xs = _scan_inputs(card, case)
+    scan = case[0].split("-")[0]
+
+    def loss(*a):
+        return fn(*a)[0].float().square().sum()
+
+    grads = []
+    for remat in (False, True):
+        leaves = [x.detach().requires_grad_() for x in xs]
+        n0 = sk.LAUNCHES[scan]
+        out = (ckpt.checkpoint(loss, *leaves, use_reentrant=False) if remat
+               else loss(*leaves))
+        out.backward()
+        torch.cuda.synchronize()
+        assert sk.LAUNCHES[scan] == n0 + (2 if remat else 1)
+        grads.append([x.grad for x in leaves])
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch,impl", [
     ("granite-3-2b-smoke", "flash"), ("granite-3-2b-smoke", "chunked"),
-    ("whisper-tiny-smoke", "flash"), ("deepseek-v3-671b-smoke", "flash")])
+    ("whisper-tiny-smoke", "flash"), ("deepseek-v3-671b-smoke", "flash"),
+    ("rwkv6-3b-smoke", "flash"), ("zamba2-1.2b-smoke", "flash")])
 def test_train_step_on_card_matches_cpu(card, arch, impl):
     """One ``make_train_step`` step (fp32, remat "nothing") on the card
     against the same step on the CPU from the same weights and batch:
     loss rel 1e-5, params rtol 1e-5 / atol 5e-2·lr (the AdamW ratio where
-    the moments nearly cancel; tests/test_torch_train.py); on the flash
-    route the kernel runs with its LSE twice a layer (the forward and
-    remat's recompute).  rwkv6's step raises on the card (A.13g)."""
+    the moments nearly cancel; tests/test_torch_train.py).  On the card
+    each remat'd block's kernel runs twice (the forward and remat's
+    recompute): flash with its LSE on the flash route, rwkv6's GLA and
+    zamba2's SSD under their Functions; zamba2's shared attention block,
+    applied outside remat, once a use.  The scan archs take 4 x 64
+    tokens (4 GLA chunks, 2 SSD chunks)."""
     from repro_torch.config import ParallelConfig, TrainConfig
     from repro_torch.configs import get_config
     from repro_torch.data.lm_data import lm_batch, step_generator
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.ssm_scan import kernel as sk
     from repro_torch.launch.train import init_state, make_train_step
     from repro_torch.models.model import Model
 
@@ -2109,7 +2215,9 @@ def test_train_step_on_card_matches_cpu(card, arch, impl):
           if impl == "flash" else
           ParallelConfig(attention_impl="chunked", attention_chunk=8))
     tcfg = TrainConfig(learning_rate=1e-3, warmup_steps=1, total_steps=10)
-    batch = lm_batch(step_generator(0, 0), 4, 16, cfg.vocab_size)
+    scans = cfg.family in ("ssm", "hybrid")
+    batch = lm_batch(step_generator(0, 0), 4, 64 if scans else 16,
+                     cfg.vocab_size)
     if cfg.is_encdec:
         batch["frames"] = 0.1 * torch.randn(
             (4, cfg.max_source_positions, cfg.d_model),
@@ -2117,29 +2225,35 @@ def test_train_step_on_card_matches_cpu(card, arch, impl):
     cpu = Model(cfg, pc, device="cpu", seed=2)
     gpu = Model(cfg, pc, device=card, seed=2)
     gpu.load_state_dict(cpu.state_dict())
+
+    def counts():
+        return {"flash_attention[lse]": fa_kernel.LAUNCHES[
+            "flash_attention[lse]"], "gla": sk.LAUNCHES["gla"],
+            "ssd": sk.LAUNCHES["ssd"]}
+
     out = []
     for model in (cpu, gpu):
         st = init_state(model)
         dev = model.device
-        n0 = fa_kernel.LAUNCHES["flash_attention[lse]"]
+        n0 = counts()
         p, _, met = make_train_step(model, tcfg)(
             st.params, st.opt, {k: x.to(dev) for k, x in batch.items()})
-        out.append((p, met, fa_kernel.LAUNCHES["flash_attention[lse]"] - n0))
+        out.append((p, met, {k: c - n0[k] for k, c in counts().items()}))
     (pc_, mc, nc), (pg, mg, ng) = out
-    assert nc == 0
+    assert not any(nc.values())
     layers = cfg.num_layers + cfg.encoder_layers
-    assert ng == (2 * layers if impl == "flash" else 0)
+    want = {"flash_attention[lse]": 0, "gla": 0, "ssd": 0}
+    if cfg.family == "ssm":
+        want["gla"] = 2 * layers
+    elif cfg.family == "hybrid":
+        want["ssd"] = 2 * layers
+        want["flash_attention[lse]"] = -(-layers // cfg.shared_attn_every)
+    elif impl == "flash":
+        want["flash_attention[lse]"] = 2 * layers
+    assert ng == want
     assert abs(float(mg["loss"]) - float(mc["loss"])) <= 1e-5 * float(
         mc["loss"])
     for path, x in pc_.items():
         np.testing.assert_allclose(pg[path].cpu().numpy(), x.numpy(),
                                    rtol=1e-5, atol=5e-2 * tcfg.learning_rate,
                                    err_msg=path)
-    if arch == "granite-3-2b-smoke" and impl == "flash":
-        rcfg = get_config("rwkv6-3b-smoke")
-        rwkv = Model(rcfg, device=card, seed=0)
-        st = init_state(rwkv)
-        rb = lm_batch(step_generator(0, 0), 2, 16, rcfg.vocab_size)
-        with pytest.raises(NotImplementedError, match="A.13g"):
-            make_train_step(rwkv, tcfg)(st.params, st.opt, {
-                k: x.to(card) for k, x in rb.items()})

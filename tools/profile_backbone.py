@@ -23,6 +23,18 @@ profiles serving instead: ``Model.prefill`` over ``--batch`` x ``--seq``
 tokens, then ``--steps`` ``decode_step`` calls against that cache (after
 one warm-up of each), with copies (the per-call weight casts among
 them) as a class of their own.
+
+    python3 tools/profile_backbone.py --train [--arch ...] [--batch 8]
+                                      [--seq 1024]
+
+profiles one ``launch/train.make_train_step`` step (remat "nothing",
+fp32 masters and moments, TRAIN_MICRO microbatches as chip_smoke's
+``lm_train`` phases take, after one warm step) instead, and also the
+time of the plain backwards inside it — the scans' ``gla_bwd_chunks`` /
+``ssd_bwd_chunks`` and flash's ``flash_attention_bwd_blocks``, which
+the classes above spread over "gemm" and "other" — as the time between
+CUDA events recorded around each call, summed: the device's time for
+the call with the gaps the host leaves in it.
 """
 from __future__ import annotations
 
@@ -34,6 +46,8 @@ import time
 from pathlib import Path
 
 import torch
+
+TRAIN_MICRO = 2         # microbatches of a train step (chip_smoke's lm_train)
 
 
 def _klass(name: str) -> str:
@@ -83,13 +97,21 @@ def main(argv=None) -> int:
     """Profile one batch; 0 on success."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="granite-3-2b")
-    ap.add_argument("--batch", type=int, default=256)
-    ap.add_argument("--seq", type=int, default=256)
+    ap.add_argument("--batch", type=int, default=None,
+                    help="rows (256; 8 with --train)")
+    ap.add_argument("--seq", type=int, default=None,
+                    help="tokens a row (256; 1024 with --train)")
     ap.add_argument("--seed", type=int, default=123)
     ap.add_argument("--serve", action="store_true",
                     help="profile a prefill and decode steps instead")
     ap.add_argument("--steps", type=int, default=4)
+    ap.add_argument("--train", action="store_true",
+                    help="profile one train step instead")
     args = ap.parse_args(argv)
+    if args.batch is None:
+        args.batch = 8 if args.train else 256
+    if args.seq is None:
+        args.seq = 1024 if args.train else 256
     if not torch.cuda.is_available():
         print("profile_backbone: no CUDA device", file=sys.stderr)
         return 2
@@ -104,6 +126,8 @@ def main(argv=None) -> int:
                           text=True, check=True).stdout.strip()
     print(card, flush=True)
     cfg = get_config(args.arch)
+    if args.train:
+        return _train(args, cfg, card)
     model = Model(cfg, ParallelConfig(use_flash_attention=True),
                   seed=args.seed)
     tokens = make_event_data(args.batch, args.seq, cfg.vocab_size,
@@ -139,6 +163,88 @@ def main(argv=None) -> int:
     wall, by = _profile(steps)
     out["decode"] = _report(f"decode, a step of {n} ({args.batch} tokens)",
                             wall / n, {k: v / n for k, v in by.items()})
+    print(json.dumps(out))
+    return 0
+
+
+class _EventTimes:
+    """Wrap ``mod.name`` so that each call records CUDA events around
+    itself on the current stream; ``ms()`` sums them after a sync."""
+
+    def __init__(self, mod, name: str):
+        self.mod, self.name, self.fn = mod, name, getattr(mod, name)
+        self.pairs = []
+
+        def timed(*a, **kw):
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            out = self.fn(*a, **kw)
+            e.record()
+            self.pairs.append((s, e))
+            return out
+        setattr(mod, name, timed)
+
+    def ms(self) -> float:
+        torch.cuda.synchronize()
+        return sum(s.elapsed_time(e) for s, e in self.pairs)
+
+    def restore(self) -> None:
+        setattr(self.mod, self.name, self.fn)
+
+
+def _train(args, cfg, card: str) -> int:
+    """Profile one train step of ``cfg``; see the module docstring."""
+    from repro_torch.config import ParallelConfig, TrainConfig
+    from repro_torch.data.lm_data import lm_batch, step_generator
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.ssm_scan import ops as sops
+    from repro_torch.launch.train import init_state, make_train_step
+    from repro_torch.models.model import Model
+
+    B, S = args.batch, args.seq
+    model = Model(cfg, ParallelConfig(use_flash_attention=True,
+                                      remat_policy="nothing",
+                                      microbatch=TRAIN_MICRO),
+                  seed=args.seed)
+    state = init_state(model)
+    step = make_train_step(model, TrainConfig(learning_rate=1e-3,
+                                              warmup_steps=1, total_steps=3))
+
+    def batch(i):
+        b = lm_batch(step_generator(args.seed, i), B, S, cfg.vocab_size)
+        if cfg.is_encdec:
+            b["frames"] = 0.1 * torch.randn(
+                (B, cfg.max_source_positions, cfg.d_model),
+                generator=step_generator(args.seed, i))
+        return {k: v.cuda() for k, v in b.items()}
+
+    def run(b):
+        state.params, state.opt, _ = step(state.params, state.opt, b)
+
+    run(batch(0))                               # warm-up
+    torch.cuda.synchronize()
+    b1 = batch(1)
+    timers = {n: _EventTimes(m, n) for m, n in (
+        (sops, "gla_bwd_chunks"), (sops, "ssd_bwd_chunks"),
+        (fa_ops, "flash_attention_bwd_blocks"))}
+    try:
+        wall, by = _profile(lambda: run(b1))
+        plain = {n: t.ms() for n, t in timers.items()}
+        calls = {n: len(t.pairs) for n, t in timers.items()}
+    finally:
+        for t in timers.values():
+            t.restore()
+    out = {"card": card, "arch": cfg.name, "batch": B, "seq": S,
+           "microbatch": TRAIN_MICRO,
+           "step": _report(f"a train step ({B} x {S} tokens, "
+                           f"{TRAIN_MICRO} microbatches)", wall, by),
+           "plain_backward_ms": plain, "plain_backward_calls": calls,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    for n, ms in plain.items():
+        if calls[n]:
+            print(f"{n:28s} {ms:10.3f} ms device over {calls[n]} calls "
+                  f"({100 * ms / wall:.1f} % of the step's host clock)")
     print(json.dumps(out))
     return 0
 
