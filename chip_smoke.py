@@ -398,6 +398,26 @@ Phases (each failure makes the script exit non-zero):
      limit: ms a
      step, tokens/s, peak GiB, launches a step by kernel.
 
+ 32. the production tooling (slice 19): each of granite-3-2b's,
+     rwkv6-3b's and zamba2-1.2b's ``lm_train`` phases ends with one more
+     step under ``launch/op_cost.count`` (``_counted_step``): its
+     counted flops and bytes, launches by kernel (the wrappers'
+     ``charge``), the one-card ``Roofline`` (t_compute, t_memory,
+     step_time), ``model_flops_for`` at (8, 1024), useful_frac and the
+     mfu of the median measured step (at 989 TFLOP/s bf16).  Gates: the
+     counted launches equal LAUNCHES' for the step and
+     LM_COUNTED_LAUNCHES (flash 160; GLA 128; SSD 152 + flash 14),
+     step_time at most the median measured step, useful_frac inside
+     LM_USEFUL_BAND (fixed from the config before any measurement).
+     ``dryrun:production`` runs ``python -m repro_torch.launch.dryrun``
+     on the host's CPU in two background processes started after the
+     builds (a fake default group of 512 ranks cannot share this
+     process with the mesh phases'): granite-3-2b/train_4k on the
+     (16, 16) mesh and deepseek-v3-671b/decode_32k on (2, 16, 16) at
+     published widths.  Gates: exit 0 and status ok; rank 0's parameter
+     bytes equal those the cell's specs give; the peak at most 80 GiB;
+     the collectives by op printed.
+
 Every seg_gram record also names the kernel that ran (``design``:
 small, thin or big) and times its second pass alone (``reduce_ms``)
 and, for a segment walk, its plan alone (``plan_ms``; ``ms`` has the
@@ -2508,13 +2528,7 @@ def phase_scans(seed: int, timer) -> dict:
         generic_ms = timer.ms(
             lambda: sk.gla_cuda(*args, chunk=C, form="generic"), 10)
         plain_ms = timer.ms(lambda: sref.gla_chunked_ref(*args, chunk=C), 3)
-        n = B * H * T
-        nbytes = (3 * 2 * n * D + 4 * n * D + 2 * n * D      # r,k,v,w; o
-                  + 4 * B * H * D * D                        # state
-                  + (4 * H * D if uu is not None else 0))    # u
-        tri = C * (C + 1) // 2                               # causal pairs
-        flops = (B * H * (T // C)
-                 * (2 * tri * D * 2 + 2 * C * D * D * 2))    # QK,PV; qS,kv
+        flops, nbytes = sk.gla_cost(*args, C)
         out[f"gla[{mode}]"] = _scan_record(f"gla[{mode}]", GLA_TPU, path, ms,
                                            plain_ms, generic_ms, nbytes, flops)
         out[f"gla[{mode}]"]["other_checks"] = checks
@@ -2557,12 +2571,7 @@ def phase_scans(seed: int, timer) -> dict:
     generic_ms = timer.ms(lambda: sk.ssd_cuda(*args, chunk=C, form="generic"),
                           10)
     plain_ms = timer.ms(lambda: sref.ssd_chunked_ref(*args, chunk=C), 3)
-    n = B * H * T
-    nbytes = (2 * 4 * B * T * N + 4 * n * N + 4 * n          # q,k; v; a
-              + 4 * n * N + 4 * B * H * N * N)               # o; state
-    tri = C * (C + 1) // 2
-    flops = (B * (T // C) * 2 * tri * N                      # shared q k^T
-             + B * H * (T // C) * (2 * tri * N + 2 * 2 * C * N * N))
+    flops, nbytes = sk.ssd_cost(*args, C)
     out["ssd"] = _scan_record("ssd", SSD_TPU, path, ms, plain_ms, generic_ms,
                               nbytes, flops)
     del args
@@ -5574,13 +5583,184 @@ LM_TRAIN_ARCHS = tuple(LM_TRAIN_FORMS)
 # Untrained losses these few steps at LM_TRAIN_LR do not move (printed,
 # not gated): whisper-tiny's sits at ~ln V
 LM_TRAIN_FLAT = ("whisper-tiny",)
+# One more step of each trained backbone under ``launch/op_cost.count``:
+# its kernel launches (the wrappers' ``charge``) must equal LAUNCHES' own
+# count for the step and these; useful_frac = 6·N·tokens / counted flops
+# must fall in the band fixed from the config before any measurement
+# (PERF.md §6): the shared block of zamba2 is applied 7 times
+# but counted once in N, rwkv6's embeddings count in N with no product,
+# and remat "nothing" recomputes each layer's forward
+LM_COUNTED_LAUNCHES = {"granite-3-2b": {"flash_attention": 160},
+                       "rwkv6-3b": {"gla": 128},
+                       "zamba2-1.2b": {"ssd": 152, "flash_attention": 14}}
+LM_USEFUL_BAND = {"granite-3-2b": (0.55, 0.85), "rwkv6-3b": (0.55, 0.90),
+                  "zamba2-1.2b": (0.35, 0.80)}
+# the production cells the dry run traces on the card's host: a train
+# cell on the single pod, the expert-parallel decode on the multi-pod
+DRYRUN_CELLS = (("granite-3-2b", "train_4k", "single"),
+                ("deepseek-v3-671b", "decode_32k", "multi"))
+DRYRUN_HBM_GIB = 80.0            # an H100's memory
 
 
-def _bwd_flops(B, H, Sq, Sk, D, Dv, causal) -> float:
-    """The blocked backward's products over the pairs it needs: the
-    scores again (D), dv and dp (Dv each), dk and dq (D each)."""
-    pairs = B * H * (Sq * (Sq + 1) / 2 if causal else Sq * Sk)
-    return 2.0 * pairs * (3 * D + 2 * Dv)
+def _counted_step(arch, cfg, step_fn, state, batch, median_s: float):
+    """One train step under ``op_cost.count``: its roofline on one card
+    against the median measured step.  Gates: the counted kernel
+    launches equal LAUNCHES' for the step and LM_COUNTED_LAUNCHES; the
+    bound at most the measured step; useful_frac inside LM_USEFUL_BAND."""
+    from repro_torch.config import ShapeConfig
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.ssm_scan import kernel as sk
+    from repro_torch.launch import op_cost
+    from repro_torch.launch.roofline import (PEAK_FLOPS, Roofline,
+                                             model_flops_for)
+
+    def launched():
+        return {"flash_attention": fa_kernel.LAUNCHES["flash_attention"],
+                "gla": sk.LAUNCHES["gla"], "ssd": sk.LAUNCHES["ssd"]}
+
+    before = launched()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with op_cost.count() as tot:
+        state.params, state.opt, met = step_fn(state.params, state.opt,
+                                               batch)
+    torch.cuda.synchronize()
+    count_s = time.perf_counter() - t0
+    delta = {k: n - before[k] for k, n in launched().items()
+             if n - before[k]}
+    counted = dict(sorted(tot.launches.items()))
+    B, S = batch["tokens"].shape
+    rl = Roofline(flops=tot.flops, hbm_bytes=tot.bytes,
+                  wire_bytes=tot.wire_bytes, chips=1,
+                  model_flops=model_flops_for(
+                      cfg, ShapeConfig("lm_train", "train", S, B)))
+    mfu = rl.model_flops / (median_s * PEAK_FLOPS)
+    lo, hi = LM_USEFUL_BAND[arch]
+    ok = (counted == delta == LM_COUNTED_LAUNCHES[arch]
+          and rl.step_time <= median_s
+          and lo <= rl.useful_flops_frac <= hi
+          and bool(np.isfinite(float(met["loss"]))))
+    log(f"lm_train {arch} counted step [{card_line()}] ({count_s:.1f} s "
+        f"under the counter): {tot.flops / 1e12:.3f} TFLOP, "
+        f"{tot.bytes / 1e9:.2f} GB, kernel launches {counted} (LAUNCHES "
+        f"{delta}, expected {LM_COUNTED_LAUNCHES[arch]}; kernel TFLOP "
+        + str({k: round(v / 1e12, 4) for k, v in tot.kernel_flops.items()})
+        + f"); roofline t_compute {rl.t_compute * 1e3:.1f} ms t_memory "
+        f"{rl.t_memory * 1e3:.1f} ms step_time {rl.step_time * 1e3:.1f} ms "
+        f"({rl.bottleneck}) vs the median measured step "
+        f"{median_s * 1e3:.1f} ms; model_flops {rl.model_flops / 1e12:.3f} "
+        f"TFLOP, useful_frac {rl.useful_flops_frac:.3f} (band {lo}-{hi}), "
+        f"mfu {mfu:.4f} {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"lm_train {arch}: counted step")
+    return {"flops": tot.flops, "bytes": tot.bytes,
+            "launches": counted, "launches_step": delta,
+            "kernel_flops": tot.kernel_flops,
+            "kernel_bytes": tot.kernel_bytes, **rl.row(),
+            "model_flops": rl.model_flops, "median_step_ms": median_s * 1e3,
+            "mfu": mfu, "useful_band": [lo, hi], "counted_s": count_s,
+            "top_ops": tot.top(8)}
+
+
+def start_dryrun(root: Path, out_dir: Path) -> list:
+    """Launch ``python -m repro_torch.launch.dryrun`` once per
+    DRYRUN_CELLS entry, in the background on the host's CPU (a fake
+    default group of 256 / 512 ranks cannot share this process with
+    the mesh phases' real one); ``phase_dryrun`` collects them."""
+    import atexit
+    import os
+    out_dir.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(root / "src"), OMP_NUM_THREADS="1")
+    procs = []
+    for arch, shape, mesh in DRYRUN_CELLS:
+        path = out_dir / f"{arch}_{shape}_{mesh}.jsonl"
+        path.unlink(missing_ok=True)
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               arch, "--shape", shape, "--mesh", mesh, "--json", str(path)]
+        procs.append(((arch, shape, mesh), path, time.perf_counter(),
+                      subprocess.Popen(cmd, cwd=root, env=env,
+                                       stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True)))
+    # none outlives the script, whatever ends it
+    atexit.register(lambda: [p.kill() for *_, p in procs
+                             if p.poll() is None])
+    return procs
+
+
+def _spec_param_bytes(arch: str, shape: str, multi_pod: bool) -> int:
+    """Bytes of rank 0's parameter shards from the cell's specs alone:
+    each dim split over its spec's mesh axes as ``torch.chunk`` splits
+    it (the first chunk, ceil(n / g))."""
+    from repro_torch.launch.cells import make_cell
+    from repro_torch.models.params import map_schema
+    sizes = {"pod": 2, "data": 16, "model": 16}
+    cell = make_cell(arch, shape, multi_pod=multi_pod)
+    model = cell.model()
+    specs = model.param_specs(cell.rules)
+    total = []
+
+    def leaf(path, d):
+        spec = specs
+        for k in path.split("."):
+            spec = spec[k]
+        n = 1
+        for dim, entry in zip(d.shape, tuple(spec) + (None,) * len(d.shape)):
+            for ax in (entry if isinstance(entry, tuple) else
+                       (() if entry is None else (entry,))):
+                dim = -(-dim // sizes[ax])
+            n *= dim
+        dt = d.dtype or cell.cfg.param_dtype
+        total.append(n * torch.empty((), dtype=dt).element_size())
+
+    map_schema(leaf, model.schema())
+    return sum(total)
+
+
+def phase_dryrun(procs) -> dict:
+    """The production dry runs started by ``start_dryrun``: each exits 0
+    with status ok, rank 0's parameter bytes equal those its specs give
+    (``_spec_param_bytes``), its peak within an H100's 80 GiB; prints
+    each cell's collectives by op."""
+    out, fails = {}, []
+    for (arch, shape, mesh), path, t0, proc in procs:
+        try:
+            text, _ = proc.communicate(timeout=900)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            text, _ = proc.communicate()
+            fails.append(f"{arch}/{shape}: timed out")
+        recs = ([json.loads(x) for x in path.read_text().splitlines()]
+                if path.exists() else [])
+        rec = recs[-1] if recs else {}
+        want = _spec_param_bytes(arch, shape, mesh == "multi")
+        mem = rec.get("memory", {})
+        peak = mem.get("peak_bytes", float("inf")) / 2 ** 30
+        ok = (proc.returncode == 0 and rec.get("status") == "ok"
+              and mem.get("param_bytes") == want and peak <= DRYRUN_HBM_GIB)
+        log(f"dryrun {arch}/{shape} on {rec.get('mesh', mesh)}: exit "
+            f"{proc.returncode}, status {rec.get('status')}, traced in "
+            f"{rec.get('lower_s')} s ({time.perf_counter() - t0:.1f} s since "
+            f"its start); params {mem.get('param_bytes')} B a rank (specs "
+            f"give {want}); peak {peak:.2f} GiB (limit {DRYRUN_HBM_GIB:g}); "
+            f"{rec.get('flops_per_chip', 0) / 1e12:.2f} TFLOP, "
+            f"{rec.get('hbm_bytes_per_chip', 0) / 1e9:.1f} GB, wire bytes by "
+            f"op {rec.get('collective_by_op')}; bound "
+            f"{rec.get('step_time', 0) * 1e3:.1f} ms "
+            f"({rec.get('bottleneck')}) {'OK' if ok else 'FAIL'}")
+        if not ok:
+            fails.append(f"{arch}/{shape}: {rec.get('error')}")
+            log(text[-3000:])
+        out[f"{arch}/{shape}/{mesh}"] = {
+            k: rec.get(k) for k in
+            ("status", "flops_per_chip", "hbm_bytes_per_chip",
+             "wire_bytes_per_chip", "collective_by_op", "collective_count",
+             "step_time", "bottleneck", "useful_frac", "mfu_bound", "memory",
+             "lower_s")}
+    if fails:
+        raise AssertionError(f"dryrun: {fails}")
+    return out
+
+
 
 
 def phase_flash_train(seed: int, timer) -> dict:
@@ -5669,14 +5849,8 @@ def phase_flash_train(seed: int, timer) -> dict:
             log(f"SDPA refuses [{name}]: {e}")
             lib_fwd_ms = lib_fb_ms = None
         del qh, kh, vh, doh
-        el = q.element_size()
-        pairs = B * H * (S * (S + 1) / 2 if causal else S * S)
-        fwd_bytes = el * (q.numel() + k.numel() + v.numel() + o.numel()) \
-            + 4 * lse.numel()
-        fwd_ops = 2.0 * pairs * (D + Dv)
-        bwd_bytes = el * (2 * (q.numel() + k.numel() + v.numel())
-                          + 2 * o.numel()) + 4 * lse.numel()
-        bwd_ops = _bwd_flops(B, H, S, S, D, Dv, causal)
+        fwd_ops, fwd_bytes = fa_kernel.cost(q, k, v, causal=causal, lse=True)
+        bwd_ops, bwd_bytes = fa_kernel.bwd_cost(q, k, v, causal=causal)
 
         def bound(nbytes, ops):
             tb = nbytes / HBM_BYTES_PER_S * 1e3
@@ -5850,21 +6024,10 @@ def phase_scan_train(seed: int, timer) -> dict:
             torch.autograd.grad(plain(*rl)[0], rl, do.float())
 
         plain_fb_ms = timer.ms(plain_fb, 3)
-        n_el = B * H * T * D
-        el = xs[2].element_size()
-        if scan == "gla":
-            io = 3 * el * n_el + 4 * n_el + 4 * H * D      # q,k,v; w; u
-            fwd_bytes = io + el * n_el + 4 * B * H * D * D  # o; state
-            fwd_ops = B * H * (T // C) * (2 * (C * (C + 1) // 2) * D * 2
-                                          + 2 * C * D * D * 2)
-        else:
-            io = 2 * 4 * B * T * D + 4 * n_el + 4 * B * H * T  # q,k; v; a
-            fwd_bytes = io + 4 * n_el + 4 * B * H * D * D
-            tri = C * (C + 1) // 2
-            fwd_ops = (B * (T // C) * 2 * tri * D
-                       + B * H * (T // C) * (2 * tri * D + 2 * 2 * C * D * D))
-        bwd_bytes = 2 * io + el * n_el          # inputs and do; the grads
-        bwd_ops = 2 * fwd_ops
+        fwd_ops, fwd_bytes = (sk.gla_cost if scan == "gla"
+                              else sk.ssd_cost)(*xs, C)
+        bwd_ops, bwd_bytes = (sk.gla_bwd_cost if scan == "gla"
+                              else sk.ssd_bwd_cost)(*xs, C)
 
         def bound(nbytes, ops):
             tb = nbytes / HBM_BYTES_PER_S * 1e3
@@ -6146,6 +6309,12 @@ def phase_lm_train(seed: int, arch: str) -> dict:
         f"grad norms {' '.join(f'{x:.3f}' for x in gnorms)}; launches a "
         f"step {per_step} (flash by form {forms}; scan Functions applied "
         f"{fn_counts})")
+    if arch in LM_COUNTED_LAUNCHES:
+        batch = {k: v.cuda() for k, v in
+                 _train_batch(cfg, seed, steps + 1, B, S).items()}
+        out["counted"] = _counted_step(arch, cfg, step_fn, state, batch,
+                                       float(np.median(times[1:])))
+        del batch
     fails = []
     if not all(np.isfinite(losses)) or not all(np.isfinite(gnorms)):
         fails.append("a loss or grad norm is not finite")
@@ -6234,6 +6403,9 @@ def main(argv=None) -> int:
         f"parallel) in {time.perf_counter() - t0:.1f} s")
     for m in mods:
         log(m.build_log().strip())
+    root = Path(__file__).resolve().parent
+    dryruns = (start_dryrun(root, root / "build" / "dryrun")
+               if selected("dryrun:production") else [])
 
     k, p, row_block = 5, 500, 65536
     data = paper_demo_data(n=args.n, p=p, seed=args.seed)
@@ -6688,6 +6860,8 @@ def main(argv=None) -> int:
                     by_path.setdefault(key, {})[f"lm_train:{arch}"] = \
                         out["launches"][kern]
 
+    dryrun = run("dryrun:production", phase_dryrun, dryruns) or {}
+
     for key, rec in records.items():
         rec["launches"] = launches.get(key, 0)
         if key in by_path:
@@ -6723,7 +6897,7 @@ def main(argv=None) -> int:
             "halving_lrs": list(HALVING_LRS), "slice11_seconds": slice11_s,
             "lm_serve": lm_serve, "lm_families": list(LM_FAMILY_ARCHS
                                                       + LM_ENCODER_ARCHS),
-            "lm_train": lm_train,
+            "lm_train": lm_train, "dryrun": dryrun,
             "phases": ran, "selection": selection or None,
             "seconds": time.perf_counter() - t_start}
     if args.out:

@@ -15,8 +15,7 @@ nested dict ("a/b/c") + ``meta.json`` (step, metric, user metadata).
 shape, so a changed state layout fails loudly instead of misloading;
 the template's tensors may be on the ``meta`` device (shape and dtype
 only).  Restoring onto another mesh (the reference's elastic
-re-sharding) waits for the distributed slice (ROADMAP A.14), and the
-training loop's resume for the training slice (ROADMAP A.13f).
+re-sharding) waits for the elastic re-mesh slice (ROADMAP A.14b).
 """
 from __future__ import annotations
 
@@ -179,7 +178,7 @@ class CheckpointManager:
         if shardings is not None:
             raise NotImplementedError(
                 "restoring onto a mesh's shardings lands with the "
-                "distributed slice (ROADMAP A.14)")
+                "elastic re-mesh slice (ROADMAP A.14b)")
         arrays, meta = self.load(step=step)
         return restore_tree(template, arrays, device=device), meta
 

@@ -6,8 +6,8 @@ Field for field the same as the JAX package's classes (same names,
 order and defaults), so a configuration written for one package runs
 unchanged in the other.  Where the reference holds a ``jnp`` dtype, the
 port holds the ``torch`` dtype of the same name.  ``ShapeConfig`` and
-its shape cells serve the launch tooling's dry runs and come with it
-(ROADMAP A.14).
+its four shape cells (``SHAPES``, ``SHAPE_BY_NAME``) are the reference's
+too: the production cells of ``launch/cells.py`` and the dry run.
 """
 from __future__ import annotations
 
@@ -180,6 +180,26 @@ class ModelConfig:
     def _enc_layer_params(self) -> int:
         return (self._attn_params() + self._mlp_params(self.d_ff)
                 + 4 * self.d_model)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One input-shape cell (assigned per arch)."""
+
+    name: str  # train_4k | prefill_32k | decode_32k | long_500k
+    kind: str  # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
+SHAPES: Tuple[ShapeConfig, ...] = (
+    ShapeConfig("train_4k", "train", 4_096, 256),
+    ShapeConfig("prefill_32k", "prefill", 32_768, 32),
+    ShapeConfig("decode_32k", "decode", 32_768, 128),
+    ShapeConfig("long_500k", "decode", 524_288, 1),
+)
+
+SHAPE_BY_NAME = {s.name: s for s in SHAPES}
 
 
 @dataclasses.dataclass(frozen=True)

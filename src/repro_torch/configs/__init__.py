@@ -23,6 +23,10 @@ _MODULES: Dict[str, str] = {
     "pixtral-12b": "pixtral_12b",
     "whisper-tiny": "whisper_tiny",
 }
+# the reference's registry order (``repro.configs.ARCH_IDS``)
+ARCH_IDS = ("yi-34b", "granite-3-2b", "phi4-mini-3.8b", "chatglm3-6b",
+            "pixtral-12b", "zamba2-1.2b", "arctic-480b", "deepseek-v3-671b",
+            "whisper-tiny", "rwkv6-3b")
 
 
 def get_config(arch: str) -> ModelConfig:

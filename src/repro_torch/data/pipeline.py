@@ -7,7 +7,7 @@ puts each tensor in pinned host memory and copies it to ``device`` with
 is a pure function of s, so a run restarted at step s (``start_step``)
 replays what a fresh run saw there.  The reference places each batch
 under a mesh's batch ``NamedSharding`` (``batch_sharding``); that waits
-for the launch tooling (ROADMAP A.14).
+for the elastic re-mesh slice (ROADMAP A.14b).
 """
 from __future__ import annotations
 
@@ -86,5 +86,5 @@ def batch_sharding(mesh, multi_pod: bool = False):
     """The reference's batch-dim sharding over a mesh's data axes."""
     raise NotImplementedError(
         "placing batches under a mesh's sharding lands with the launch "
-        "tooling (ROADMAP A.14); ShardedFeed(device=...) places them on "
+        "tooling (ROADMAP A.14b); ShardedFeed(device=...) places them on "
         "one device")

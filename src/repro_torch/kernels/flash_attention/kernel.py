@@ -26,11 +26,12 @@ from __future__ import annotations
 import collections
 import ctypes
 from pathlib import Path
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.launch import op_cost
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 # (q.k^T head dim, v head dim) pairs the kernel is instantiated for
@@ -67,6 +68,39 @@ def build_log() -> str:
     """What nvcc printed for the kernel (``-Xptxas -v``), or that the
     library came from the cache."""
     return build.load_library(SOURCE)[1]
+
+
+def _pairs(B: int, H: int, Sq: int, Sk: int, causal: bool) -> float:
+    """(query, key) pairs a causal or bidirectional pass needs."""
+    return B * H * (Sq * (Sq + 1) / 2 if causal else Sq * Sk)
+
+
+def cost(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+         causal: bool = True, lse: bool = False) -> Tuple[float, float]:
+    """(flops, bytes) of one forward launch: the QK and PV products over
+    the pairs it needs, and q, k, v read and o (and the fp32 LSE rows)
+    written once."""
+    B, Sq, H, D = q.shape
+    Sk, Dv = k.shape[1], v.shape[-1]
+    flops = 2.0 * _pairs(B, H, Sq, Sk, causal) * (D + Dv)
+    nbytes = q.element_size() * (q.numel() + k.numel() + v.numel()
+                                 + B * Sq * H * Dv) \
+        + (4 * B * H * Sq if lse else 0)
+    return flops, nbytes
+
+
+def bwd_cost(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+             causal: bool = True) -> Tuple[float, float]:
+    """(flops, bytes) of the blocked backward (``ops.
+    flash_attention_bwd_blocks``) over the pairs it needs: the scores
+    again (D), dv and dp (Dv each), dk and dq (D each); q, k, v and
+    their gradients, o and do, and the LSE rows moved once."""
+    B, Sq, H, D = q.shape
+    Sk, Dv = k.shape[1], v.shape[-1]
+    flops = 2.0 * _pairs(B, H, Sq, Sk, causal) * (3 * D + 2 * Dv)
+    nbytes = q.element_size() * (2 * (q.numel() + k.numel() + v.numel())
+                                 + 2 * B * Sq * H * Dv) + 4 * B * H * Sq
+    return flops, nbytes
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -125,6 +159,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         msg = lib.flash_attention_error_string(err).decode()
         raise RuntimeError(f"flash_attention launch failed: {msg} ({err})")
     LAUNCHES["flash_attention"] += 1
+    op_cost.charge("flash_attention",
+                   *cost(q, k, v, causal=causal, lse=return_lse))
     LAUNCHES_BY_DIMS[(D, Dv)] += 1
     LAUNCHES_BY_FORM["causal" if causal else "bidirectional"] += 1
     if return_lse:

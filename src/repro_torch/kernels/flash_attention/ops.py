@@ -26,6 +26,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.distributed.sharding import constrain, like
 from repro_torch.kernels.flash_attention import kernel as _kernel
 from repro_torch.kernels.flash_attention import ref as _ref
 
@@ -78,11 +79,18 @@ class _FlashAttention(torch.autograd.Function):
                 None, None)
 
 
+def grouped_score_axes(G: int):
+    """Logical axes of grouped scores (B, KV, G, Sq, keys): with one query
+    head a group (G = 1) the KV axis is the heads axis."""
+    return ("batch", "heads" if G == 1 else "kv_heads", None, "attn_seq",
+            None)
+
+
 def flash_attention_bwd_blocks(q: Tensor, k: Tensor, v: Tensor, o: Tensor,
                                lse: Tensor, do: Tensor, *,
                                causal: bool = True, softcap: float = 0.0,
                                scale: Optional[float] = None,
-                               chunk: int = 1024
+                               chunk: int = 1024, rules=None
                                ) -> Tuple[Tensor, Tensor, Tensor]:
     """(dq, dk, dv) in fp32 of o = softmax(s) v given the forward's o and
     its logsumexp rows: the reference's ``_flash_xla_bwd``.  q (B, Sq, H,
@@ -97,7 +105,8 @@ def flash_attention_bwd_blocks(q: Tensor, k: Tensor, v: Tensor, o: Tensor,
     dq += ds·k.  The G = H / KV query heads of a group are one axis, so
     dk and dv sum over the group without repeating k or v.  A causal
     block takes only the query rows at or past its first key, and one
-    wholly past the last query row contributes nothing."""
+    wholly past the last query row contributes nothing.  ``rules``
+    constrains each block's scores inside a mesh (``constrain``)."""
     B, Sq, H, Dq = q.shape
     Sk, KV, Dv = k.shape[1], k.shape[2], v.shape[-1]
     G = H // KV
@@ -113,9 +122,11 @@ def flash_attention_bwd_blocks(q: Tensor, k: Tensor, v: Tensor, o: Tensor,
     lse_g = lse.to(_F32).reshape(B, KV, G, Sq, 1)
     kt = k.to(_F32).permute(0, 2, 1, 3)          # (B, KV, Sk, Dq)
     vt = v.to(_F32).permute(0, 2, 1, 3)          # (B, KV, Sk, Dv)
-    dq = torch.zeros_like(qg)
-    dk = torch.zeros((B, KV, Sk, Dq), dtype=_F32, device=q.device)
-    dv = torch.zeros((B, KV, Sk, Dv), dtype=_F32, device=q.device)
+    # the accumulators laid out as what they accumulate (a DTensor's
+    # placements included)
+    dq = torch.zeros_like(qg, memory_format=torch.contiguous_format)
+    dk = torch.zeros_like(kt, memory_format=torch.contiguous_format)
+    dv = torch.zeros_like(vt, memory_format=torch.contiguous_format)
     for start in range(0, Sk, chunk):
         end = min(start + chunk, Sk)
         r0 = start if causal else 0             # rows above see no key here
@@ -131,9 +142,11 @@ def flash_attention_bwd_blocks(q: Tensor, k: Tensor, v: Tensor, o: Tensor,
             mask = (torch.arange(r0, Sq, device=q.device)[:, None]
                     >= torch.arange(start, end, device=q.device)[None, :])
             s = torch.where(mask, s, torch.full_like(s, -1e30))
+        s = constrain(s, grouped_score_axes(G), rules)
         p = torch.exp(s - lse_g[:, :, :, r0:])
         del s
-        dv[:, :, start:end] = torch.einsum("bkgqs,bkgqd->bksd", p, dob)
+        dv[:, :, start:end] = like(torch.einsum("bkgqs,bkgqd->bksd", p, dob),
+                                   dv)
         dp = torch.einsum("bkgqd,bksd->bkgqs", dob, vb)
         ds = p * (dp - delta[:, :, :, r0:])
         del p, dp
@@ -141,8 +154,9 @@ def flash_attention_bwd_blocks(q: Tensor, k: Tensor, v: Tensor, o: Tensor,
             ds = ds * (1.0 - t * t)
             del t
         ds = ds * sc
-        dk[:, :, start:end] = torch.einsum("bkgqs,bkgqd->bksd", ds, qb)
-        dq[:, :, :, r0:] += torch.einsum("bkgqs,bksd->bkgqd", ds, kb)
+        dk[:, :, start:end] = like(torch.einsum("bkgqs,bkgqd->bksd", ds, qb),
+                                   dk)
+        dq[:, :, :, r0:] += like(torch.einsum("bkgqs,bksd->bkgqd", ds, kb), dq)
         del ds
     dq = dq.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, Dq)
     return dq, dk.permute(0, 2, 1, 3), dv.permute(0, 2, 1, 3)

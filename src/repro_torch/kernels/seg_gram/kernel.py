@@ -44,6 +44,7 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.launch import op_cost
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "seg_gram.cu"
 BUILDERS = {"design": 0, "gram_and_vec": 1, "residual": 2,
@@ -153,12 +154,23 @@ def _ptr(x: Optional[torch.Tensor]):
     return None if x is None else _P(x.data_ptr())
 
 
+def cost(B: int, n: int, S: int, qL: int, qR: int,
+         input_bytes: float) -> Tuple[float, float]:
+    """(flops, bytes) of one launch: a multiply-add per row per distinct
+    Gram entry (a square Gram is symmetric: q(q+1)/2 entries), for each
+    of B weight rows; the inputs read and the (B, S, qL, qR) fp32 Grams
+    written once."""
+    entries = qL * (qL + 1) / 2 if qL == qR else qL * qR
+    return 2.0 * B * n * entries, input_bytes + 4.0 * B * S * qL * qR
+
+
 def _observe(key, B, n, S, qL, qR, inputs) -> None:
-    if LAUNCH_OBSERVERS:
+    if LAUNCH_OBSERVERS or op_cost.counting():
         nbytes = sum(x.numel() * x.element_size() for x in inputs
                      if x is not None)
         for f in LAUNCH_OBSERVERS:
             f(key, B, n, S, qL, qR, nbytes)
+        op_cost.charge("seg_gram", *cost(B, n, S, qL, qR, nbytes))
 
 
 def _raise_on(lib, err: int, builder: str) -> None:

@@ -49,6 +49,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.launch import op_cost
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "ssm_scan.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -255,6 +256,61 @@ def _stream(dev: torch.device) -> _P:
     return _P(torch.cuda.current_stream(dev).cuda_stream)
 
 
+def _nbytes(*xs) -> int:
+    return sum(x.numel() * x.element_size() for x in xs if x is not None)
+
+
+def gla_cost(q: Tensor, k: Tensor, v: Tensor, w: Tensor,
+             u: Optional[Tensor], chunk: int) -> Tuple[float, int]:
+    """(flops, bytes) of one GLA launch: per chunk the causal pairs' QK
+    and PV products and the state's qS and kᵀv; r, k, v, w (and u) read,
+    o (v's dtype) and the fp32 state written once."""
+    B, H, T, Dk = q.shape
+    Dv = v.shape[-1]
+    tri = chunk * (chunk + 1) // 2
+    flops = B * H * (T // chunk) * (2 * tri * (Dk + Dv)
+                                    + 2 * chunk * Dk * Dv * 2)
+    nbytes = _nbytes(q, k, v, w, u) + v.element_size() * B * H * T * Dv \
+        + 4 * B * H * Dk * Dv
+    return flops, nbytes
+
+
+def gla_bwd_cost(q: Tensor, k: Tensor, v: Tensor, w: Tensor,
+                 u: Optional[Tensor], chunk: int) -> Tuple[float, int]:
+    """(flops, bytes) of the plain chunked backward (``ops.
+    gla_bwd_chunks``): twice the forward's products; the inputs and their
+    gradients, and do."""
+    B, H, T, _ = q.shape
+    flops, _ = gla_cost(q, k, v, w, u, chunk)
+    return 2 * flops, 2 * _nbytes(q, k, v, w, u) + \
+        v.element_size() * B * H * T * v.shape[-1]
+
+
+def ssd_cost(q: Tensor, k: Tensor, v: Tensor, a: Tensor,
+             chunk: int) -> Tuple[float, int]:
+    """(flops, bytes) of one SSD launch: per chunk the shared qkᵀ over
+    the causal pairs, each head's PV and the state's qS and kᵀv; q, k,
+    v, a read, o (v's dtype) and the fp32 state written once."""
+    B, T, N = q.shape
+    H, P = v.shape[1], v.shape[-1]
+    tri = chunk * (chunk + 1) // 2
+    flops = (B * (T // chunk) * 2 * tri * N
+             + B * H * (T // chunk) * (2 * tri * P + 2 * 2 * chunk * N * P))
+    nbytes = _nbytes(q, k, v, a) + v.element_size() * B * H * T * P \
+        + 4 * B * H * N * P
+    return flops, nbytes
+
+
+def ssd_bwd_cost(q: Tensor, k: Tensor, v: Tensor, a: Tensor,
+                 chunk: int) -> Tuple[float, int]:
+    """(flops, bytes) of the plain chunked backward (``ops.
+    ssd_bwd_chunks``): twice the forward's products; the inputs and their
+    gradients, and do."""
+    B, H, T, P = v.shape
+    flops, _ = ssd_cost(q, k, v, a, chunk)
+    return 2 * flops, 2 * _nbytes(q, k, v, a) + v.element_size() * B * H * T * P
+
+
 def gla_cuda(q: Tensor, k: Tensor, v: Tensor, w: Tensor,
              u: Optional[Tensor] = None, *, chunk: int = 64,
              form: Optional[str] = None) -> Tuple[Tensor, Tensor]:
@@ -292,6 +348,7 @@ def gla_cuda(q: Tensor, k: Tensor, v: Tensor, w: Tensor,
              _P(s.data_ptr()), _strides(*st), B, H, T, Dk, Dv, chunk,
              _stream(dev))
     LAUNCHES["gla"] += 1
+    op_cost.charge("gla", *gla_cost(q, k, v, w, u, chunk))
     LAUNCHES[plan.key] += 1
     return o, s
 
@@ -329,5 +386,6 @@ def ssd_cuda(q: Tensor, k: Tensor, v: Tensor, a: Tensor, *,
              _P(s.data_ptr()), _strides(*st), B, H, T, N, P, chunk,
              _stream(dev))
     LAUNCHES["ssd"] += 1
+    op_cost.charge("ssd", *ssd_cost(q, k, v, a, chunk))
     LAUNCHES[plan.key] += 1
     return o, s

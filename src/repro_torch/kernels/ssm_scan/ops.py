@@ -31,6 +31,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.distributed.sharding import whole_dim
 from repro_torch.kernels.ssm_scan import kernel as _kernel
 from repro_torch.kernels.ssm_scan import ref as _ref
 
@@ -140,7 +141,8 @@ def _carry(decay, x, last=None, reverse=False):
     None) and D_{c-1} = decay_c ⊙ D_c + x_c.  ``decay`` broadcasts
     against one chunk's state."""
     n = x.shape[0]
-    out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    decay, x = whole_dim(decay, 0), whole_dim(x, 0)
+    out = torch.empty_like(x, memory_format=torch.contiguous_format)
     first = n - 1 if reverse else 0
     if last is None:
         out[first].zero_()

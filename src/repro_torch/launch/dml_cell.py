@@ -17,7 +17,8 @@ moments pass of the step row-shards over the mesh's ranks — under
 
 The reference lowers these steps against a production mesh for its cost
 and dry-run tooling (``row_sharding``, ``lower_dml_cell``,
-``lower_iv_cell``); those come with that tooling (ROADMAP A.14).
+``lower_iv_cell``); those come with the next launch slice (ROADMAP
+A.14b).
 """
 from __future__ import annotations
 

@@ -9,7 +9,8 @@ device, with its meta (``meta["step"]``).  The checkpoint format holds
 no placement, so a state saved on one device resumes on another; the
 data resumes from the saved step, since a batch is a pure function of
 (seed, step).  Re-placing the state under a new mesh's shardings
-(``state_shardings``) waits for the launch tooling (ROADMAP A.14).
+(``state_shardings``) waits for the elastic re-mesh slice (ROADMAP
+A.14b).
 
 Sweeps: run one with per-column checkpoints, and on
 a re-run — after a lost shard, a killed process, or on another number
@@ -58,7 +59,7 @@ def state_shardings(model: Model, rules, mesh):
     """The reference's per-leaf shardings of the train state on a mesh."""
     raise NotImplementedError(
         "re-placing a train state under a mesh's shardings lands with the "
-        "launch tooling (ROADMAP A.14)")
+        "elastic re-mesh slice (ROADMAP A.14b)")
 
 
 def elastic_restore(manager: CheckpointManager, model: Model, *,

@@ -17,7 +17,7 @@ Inside ``use_data_mesh`` with ``cfg.row_block > 0`` the blocked moments
 row-shard over the mesh's ranks (the segmented mode's MM loop stays
 whole-array).  The reference's ``row_sharding`` / ``lower_sweep_cell``
 lower the step against a production mesh for its cost tooling; they
-come with that tooling (ROADMAP A.14).
+come with the next launch slice (ROADMAP A.14b).
 """
 from __future__ import annotations
 

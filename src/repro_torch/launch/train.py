@@ -39,7 +39,7 @@ import torch
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.config import ParallelConfig, TrainConfig
 from repro_torch.models.model import Model
-from repro_torch.models.params import unflatten
+from repro_torch.models.params import flatten, unflatten
 from repro_torch.optim.adamw import adamw_init, adamw_update_
 from repro_torch.optim.compression import compress_decompress
 from repro_torch.optim.schedule import cosine_schedule
@@ -59,6 +59,7 @@ def loss_and_grads(model: Model, params: Dict[str, Tensor],
     averaged over the parts."""
     pcfg, ct = model.parallel, model.cfg.compute_dtype
     m, acc_dt = pcfg.microbatch, pcfg.grad_accum_dtype
+    place = _grad_placer(model)
     leaves = {k: p.detach().requires_grad_(True) for k, p in params.items()}
     sums: Dict[str, Tensor] = {}
     gsum: Optional[Dict[str, Tensor]] = None
@@ -74,17 +75,31 @@ def loss_and_grads(model: Model, params: Dict[str, Tensor],
         for k, v in {"loss": loss, **parts}.items():
             sums[k] = sums[k] + v.detach() if k in sums else v.detach()
         if m > 1 and acc_dt != _F32:
-            g = {k: x.grad.to(acc_dt) for k, x in leaves.items()}
+            g = place({k: x.grad.to(acc_dt) for k, x in leaves.items()})
             gsum = g if gsum is None else {k: gsum[k] + g[k] for k in g}
             for x in leaves.values():
                 x.grad = None
     if gsum is None:
-        gsum = {k: x.grad for k, x in leaves.items()}
+        gsum = place({k: x.grad for k, x in leaves.items()})
     del leaves
     if m == 1:
         return sums, gsum
     return ({k: v / m for k, v in sums.items()},
             {k: g / m for k, g in gsum.items()})
+
+
+def _grad_placer(model: Model):
+    """Gradients laid out as their parameters' specs under
+    ``model.rules`` (the reference constrains its grad accumulator so:
+    a partial sum becomes a reduce-scatter onto the FSDP shards, not an
+    all-reduce to full size); without rules, or outside a mesh, the
+    gradients themselves."""
+    if model.rules is None:
+        return lambda grads: grads
+    from repro_torch.distributed.sharding import constrain_to
+    specs = flatten(model.param_specs(model.rules))
+    return lambda grads: {k: constrain_to(g, specs[k])
+                          for k, g in grads.items()}
 
 
 def make_train_step(model: Model, tcfg: TrainConfig):

@@ -56,6 +56,8 @@ import torch
 from repro_torch.config import ModelConfig
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models.layers import apply_rope, rmsnorm, rope_frequencies
+from repro_torch.distributed.sharding import (active_mesh, constrain,
+                                              write_slot)
 from repro_torch.models.params import ParamDef
 
 Tensor = torch.Tensor
@@ -65,10 +67,14 @@ _F32 = torch.float32
 def gqa_schema(cfg: ModelConfig):
     """wq (d, H, hd), wk/wv (d, KV, hd), wo (H, hd, d)."""
     d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    return {"wq": ParamDef((d, h, hd), init="scaled"),
-            "wk": ParamDef((d, kv, hd), init="scaled"),
-            "wv": ParamDef((d, kv, hd), init="scaled"),
-            "wo": ParamDef((h, hd, d), init="scaled")}
+    return {"wq": ParamDef((d, h, hd), ("embed", "heads", "head_dim"),
+                           init="scaled"),
+            "wk": ParamDef((d, kv, hd), ("embed", "kv_heads", "head_dim"),
+                           init="scaled"),
+            "wv": ParamDef((d, kv, hd), ("embed", "kv_heads", "head_dim"),
+                           init="scaled"),
+            "wo": ParamDef((h, hd, d), ("heads", "head_dim", "embed"),
+                           init="scaled")}
 
 
 def mla_schema(cfg: ModelConfig):
@@ -79,17 +85,23 @@ def mla_schema(cfg: ModelConfig):
     d, h = cfg.d_model, cfg.num_heads
     qr, kvr = cfg.q_lora_rank, cfg.kv_lora_rank
     dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
-    sch = {"wkv_a": ParamDef((d, kvr + dr), init="scaled"),
-           "kv_norm": ParamDef((kvr,), init="ones"),
-           "wk_b": ParamDef((kvr, h, dn), init="scaled"),
-           "wv_b": ParamDef((kvr, h, dv), init="scaled"),
-           "wo": ParamDef((h, dv, d), init="scaled")}
+    sch = {"wkv_a": ParamDef((d, kvr + dr), ("embed", "qk_lora"),
+                             init="scaled"),
+           "kv_norm": ParamDef((kvr,), (None,), init="ones"),
+           "wk_b": ParamDef((kvr, h, dn), ("qk_lora", "heads", "head_dim"),
+                            init="scaled"),
+           "wv_b": ParamDef((kvr, h, dv), ("qk_lora", "heads", "head_dim"),
+                            init="scaled"),
+           "wo": ParamDef((h, dv, d), ("heads", "head_dim", "embed"),
+                          init="scaled")}
     if qr:
-        sch["wq_a"] = ParamDef((d, qr), init="scaled")
-        sch["q_norm"] = ParamDef((qr,), init="ones")
-        sch["wq_b"] = ParamDef((qr, h, dn + dr), init="scaled")
+        sch["wq_a"] = ParamDef((d, qr), ("embed", "qk_lora"), init="scaled")
+        sch["q_norm"] = ParamDef((qr,), (None,), init="ones")
+        sch["wq_b"] = ParamDef((qr, h, dn + dr),
+                               ("qk_lora", "heads", "head_dim"), init="scaled")
     else:
-        sch["wq"] = ParamDef((d, h, dn + dr), init="scaled")
+        sch["wq"] = ParamDef((d, h, dn + dr), ("embed", "heads", "head_dim"),
+                             init="scaled")
     return sch
 
 
@@ -106,7 +118,7 @@ def _repeat_kv(x: Tensor, heads: int) -> Tensor:
 
 def _sdpa(q: Tensor, k: Tensor, v: Tensor, *, causal: bool,
           q_offset: int = 0, kv_mask: Optional[Tensor] = None,
-          softcap: float = 0.0) -> Tensor:
+          softcap: float = 0.0, rules=None) -> Tensor:
     """Dense attention.  q: (B,Sq,H,Dq) k/v: (B,Sk,KV,D*) -> (B,Sq,H,Dv).
     ``q_offset`` shifts the queries' causal positions; ``kv_mask``
     (B, Sk) marks the valid keys.  One query row that is not causal
@@ -114,7 +126,8 @@ def _sdpa(q: Tensor, k: Tensor, v: Tensor, *, causal: bool,
     routes it (whisper-smoke's cross-attention decode)."""
     B, Sq, H, Dq = q.shape
     if Sq == 1 and not causal and H != k.shape[2]:
-        return _sdpa_decode(q, k, v, kv_mask=kv_mask, softcap=softcap)
+        return _sdpa_decode(q, k, v, kv_mask=kv_mask, softcap=softcap,
+                            rules=rules)
     k = _repeat_kv(k, H)
     v = _repeat_kv(v, H)
     Sk = k.shape[1]
@@ -132,6 +145,8 @@ def _sdpa(q: Tensor, k: Tensor, v: Tensor, *, causal: bool,
     if kv_mask is not None:
         scores = torch.where(kv_mask[:, None, None, :], scores,
                              torch.full_like(scores, -1e30))
+    scores = constrain(scores, ("batch", "heads", "attn_seq", "kv_seq"),
+                       rules)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype).to(_F32),
                        v.to(_F32))
@@ -144,7 +159,8 @@ def _scale(d: int) -> float:
 
 
 def _sdpa_decode(q: Tensor, k: Tensor, v: Tensor, *,
-                 kv_mask: Optional[Tensor], softcap: float) -> Tensor:
+                 kv_mask: Optional[Tensor], softcap: float,
+                 rules=None) -> Tensor:
     """Single-query attention over a KV cache with GROUPED heads: q
     (B, 1, H, D) is reshaped to (B, 1, KV, G, D), so the cache (B, S,
     KV, D) is never repeated to H heads.  Same arithmetic as ``_sdpa``:
@@ -168,6 +184,8 @@ def _sdpa_decode(q: Tensor, k: Tensor, v: Tensor, *,
     if kv_mask is not None:
         scores = torch.where(kv_mask[:, None, None, None, :], scores,
                              torch.full_like(scores, -1e30))
+    scores = constrain(scores, ("batch", "kv_heads", None, None, "kv_seq"),
+                       rules)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgqs,bskd->bqkgd", probs.to(v.dtype).to(_F32),
                        v.to(_F32))
@@ -175,16 +193,17 @@ def _sdpa_decode(q: Tensor, k: Tensor, v: Tensor, *,
 
 
 def _dense_on_cpu(q: Tensor, k: Tensor, v: Tensor, *, causal: bool,
-                  softcap: float) -> Tensor:
+                  softcap: float, rules=None) -> Tensor:
     if q.device.type != "cpu":
         raise NotImplementedError(
             f"dense attention runs on the CPU only; on {q.device} use "
             f"ParallelConfig(use_flash_attention=True) (the flash kernel)")
-    return _sdpa(q, k, v, causal=causal, softcap=softcap)
+    return _sdpa(q, k, v, causal=causal, softcap=softcap, rules=rules)
 
 
 def _chunked_attn(q: Tensor, k: Tensor, v: Tensor, *, causal: bool,
-                  softcap: float = 0.0, chunk: int = 1024) -> Tensor:
+                  softcap: float = 0.0, chunk: int = 1024,
+                  rules=None) -> Tensor:
     """The reference's ``_chunked_attn``: online-softmax attention over
     key blocks of ``chunk`` in fp32, result in q's dtype, with a
     flash-style backward that recomputes each block's probabilities
@@ -193,9 +212,15 @@ def _chunked_attn(q: Tensor, k: Tensor, v: Tensor, *, causal: bool,
     as in the reference (on the CPU only)."""
     Sq, Sk = q.shape[1], k.shape[1]
     if Sk % chunk != 0 or Sq == 1 or softcap:
-        return _dense_on_cpu(q, k, v, causal=causal, softcap=softcap)
+        return _dense_on_cpu(q, k, v, causal=causal, softcap=softcap,
+                             rules=rules)
+    if rules is not None and active_mesh() is not None:
+        # on a mesh the kv heads are repeated to H, as the reference's
+        # _flash_xla repeats them: the grouped (KV, G) layout cannot keep
+        # q's heads sharded when KV does not divide the "model" axis
+        k, v = _repeat_kv(k, q.shape[2]), _repeat_kv(v, q.shape[2])
     return _FlashXLA.apply(q.to(_F32), k.to(_F32), v.to(_F32), causal,
-                           chunk).to(q.dtype)
+                           chunk, rules).to(q.dtype)
 
 
 class _FlashXLA(torch.autograd.Function):
@@ -208,7 +233,7 @@ class _FlashXLA(torch.autograd.Function):
     are not repeated to H: a group's G query heads are one axis."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, chunk):
+    def forward(ctx, q, k, v, causal, chunk, rules=None):
         B, Sq, H, Dq = q.shape
         Sk, KV, Dv = k.shape[1], k.shape[2], v.shape[-1]
         G = H // KV
@@ -216,9 +241,13 @@ class _FlashXLA(torch.autograd.Function):
         qg = q.reshape(B, Sq, KV, G, Dq).permute(0, 2, 3, 1, 4)
         kt, vt = k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
         qi = torch.arange(Sq, device=q.device)
-        m = torch.full((B, KV, G, Sq, 1), -1e30, dtype=_F32, device=q.device)
+        # the running rows laid out as q (a DTensor's placements included)
+        m = torch.full_like(qg[..., :1], -1e30,
+                            memory_format=torch.contiguous_format)
         l = torch.zeros_like(m)
-        acc = torch.zeros((B, KV, G, Sq, Dv), dtype=_F32, device=q.device)
+        acc = (torch.zeros_like(qg, memory_format=torch.contiguous_format)
+               if Dv == Dq else torch.zeros_like(m).expand(
+                   B, KV, G, Sq, Dv).contiguous())
         for start in range(0, Sk, chunk):
             s = torch.einsum("bkgqd,bksd->bkgqs", qg,
                              kt[:, :, start:start + chunk]) * sc
@@ -226,6 +255,7 @@ class _FlashXLA(torch.autograd.Function):
                 ki = torch.arange(start, start + chunk, device=q.device)
                 s = torch.where(qi[:, None] >= ki[None, :], s,
                                 torch.full_like(s, -1e30))
+            s = constrain(s, fa_ops.grouped_score_axes(G), rules)
             m_new = torch.maximum(m, s.amax(-1, keepdim=True))
             p = torch.exp(s - m_new)
             alpha = torch.exp(m - m_new)
@@ -237,21 +267,21 @@ class _FlashXLA(torch.autograd.Function):
         lse = (m + torch.log(den)).reshape(B, H, Sq)
         out = (acc / den).permute(0, 3, 1, 2, 4).reshape(B, Sq, H, Dv)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.args = (causal, chunk)
+        ctx.args = (causal, chunk, rules)
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        causal, chunk = ctx.args
+        causal, chunk, rules = ctx.args
         dq, dk, dv = fa_ops.flash_attention_bwd_blocks(
             q, k, v, out, lse, dout, causal=causal, scale=_scale(q.shape[-1]),
-            chunk=chunk)
-        return dq, dk, dv, None, None
+            chunk=chunk, rules=rules)
+        return dq, dk, dv, None, None, None
 
 
 def _maybe_flash(cfg: ModelConfig, parallel, q: Tensor, k: Tensor,
-                 v: Tensor, *, causal: bool) -> Tensor:
+                 v: Tensor, *, causal: bool, rules=None) -> Tensor:
     if parallel is not None and getattr(parallel, "use_flash_attention",
                                         False):
         return fa_ops.flash_attention(
@@ -261,11 +291,14 @@ def _maybe_flash(cfg: ModelConfig, parallel, q: Tensor, k: Tensor,
             getattr(parallel, "attention_impl", "dense") == "chunked":
         return _chunked_attn(q, k, v, causal=causal,
                              softcap=cfg.logits_softcap,
-                             chunk=getattr(parallel, "attention_chunk", 1024))
-    return _dense_on_cpu(q, k, v, causal=causal, softcap=cfg.logits_softcap)
+                             chunk=getattr(parallel, "attention_chunk", 1024),
+                             rules=rules)
+    return _dense_on_cpu(q, k, v, causal=causal, softcap=cfg.logits_softcap,
+                         rules=rules)
 
 
-def gqa_project_qkv(params, cfg: ModelConfig, x: Tensor, positions: Tensor):
+def gqa_project_qkv(params, cfg: ModelConfig, x: Tensor, positions: Tensor,
+                    rules=None):
     """q (B,S,H,hd), k/v (B,S,KV,hd) in the compute dtype, RoPE applied
     to ``rope_fraction`` of the head dim: interleaved pairs for chatglm's
     partial RoPE, the NeoX halves otherwise.  The selection by name is
@@ -280,37 +313,42 @@ def gqa_project_qkv(params, cfg: ModelConfig, x: Tensor, positions: Tensor):
         sin, cos = rope_frequencies(cfg, positions)
         q = apply_rope(q, sin, cos, interleaved)
         k = apply_rope(k, sin, cos, interleaved)
+    q = constrain(q, ("batch", "attn_seq", "heads", "head_dim"), rules)
+    k = constrain(k, ("batch", None, "kv_heads", "head_dim"), rules)
+    v = constrain(v, ("batch", None, "kv_heads", "head_dim"), rules)
     return q, k, v
 
 
 def gqa_train(params, cfg: ModelConfig, x: Tensor, parallel=None,
-              causal: bool = True) -> Tensor:
+              causal: bool = True, rules=None) -> Tensor:
     """Self-attention over the whole sequence: (B, S, d) -> (B, S, d)."""
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device).expand(B, S)
-    q, k, v = gqa_project_qkv(params, cfg, x, positions)
+    q, k, v = gqa_project_qkv(params, cfg, x, positions, rules)
     out = _maybe_flash(cfg, parallel, q.contiguous(), k.contiguous(),
-                       v.contiguous(), causal=causal)
-    return torch.einsum("bshk,hkd->bsd", out,
-                        params["wo"].to(cfg.compute_dtype))
+                       v.contiguous(), causal=causal, rules=rules)
+    out = torch.einsum("bshk,hkd->bsd", out,
+                       params["wo"].to(cfg.compute_dtype))
+    return constrain(out, ("batch", "seq", "embed_act"), rules)
 
 
-def gqa_prefill(params, cfg: ModelConfig, x: Tensor, parallel=None
-                ) -> Tuple[Tensor, Dict[str, Tensor]]:
+def gqa_prefill(params, cfg: ModelConfig, x: Tensor, parallel=None,
+                rules=None) -> Tuple[Tensor, Dict[str, Tensor]]:
     """The causal train forward over the prompt, plus the layer's cache
     {"k", "v"} (B, S, KV, hd) in the compute dtype."""
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device).expand(B, S)
-    q, k, v = gqa_project_qkv(params, cfg, x, positions)
+    q, k, v = gqa_project_qkv(params, cfg, x, positions, rules)
     out = _maybe_flash(cfg, parallel, q.contiguous(), k.contiguous(),
-                       v.contiguous(), causal=True)
+                       v.contiguous(), causal=True, rules=rules)
     out = torch.einsum("bshk,hkd->bsd", out,
                        params["wo"].to(cfg.compute_dtype))
-    return out, {"k": k, "v": v}
+    return (constrain(out, ("batch", "seq", "embed_act"), rules),
+            {"k": k, "v": v})
 
 
 def gqa_decode(params, cfg: ModelConfig, x: Tensor,
-               cache: Dict[str, Tensor], pos: int
+               cache: Dict[str, Tensor], pos: int, rules=None
                ) -> Tuple[Tensor, Dict[str, Tensor]]:
     """One-token decode.  x: (B, 1, d); cache k / v: (B, S, KV, hd);
     ``pos`` the index the new token is written at (the cache holds the
@@ -323,17 +361,21 @@ def gqa_decode(params, cfg: ModelConfig, x: Tensor,
     B = x.shape[0]
     positions = torch.full((B, 1), int(pos), device=x.device,
                            dtype=torch.long)
-    q, k_new, v_new = gqa_project_qkv(params, cfg, x, positions)
+    q, k_new, v_new = gqa_project_qkv(params, cfg, x, positions, rules)
     k, v = cache["k"], cache["v"]
     S = k.shape[1]
     at = min(max(int(pos), 0), S - 1)
-    k[:, at] = k_new[:, 0]
-    v[:, at] = v_new[:, 0]
+    write_slot(k, at, k_new[:, 0])
+    write_slot(v, at, v_new[:, 0])
+    k = constrain(k, ("batch", "kv_seq", "kv_heads", "head_dim"), rules)
+    v = constrain(v, ("batch", "kv_seq", "kv_heads", "head_dim"), rules)
     kv_mask = (torch.arange(S, device=x.device) <= int(pos)).expand(B, S)
-    out = _sdpa_decode(q, k, v, kv_mask=kv_mask, softcap=cfg.logits_softcap)
+    out = _sdpa_decode(q, k, v, kv_mask=kv_mask, softcap=cfg.logits_softcap,
+                       rules=rules)
     out = torch.einsum("bshk,hkd->bsd", out,
                        params["wo"].to(cfg.compute_dtype))
-    return out, {"k": k, "v": v}
+    return (constrain(out, ("batch", "seq", "embed_act"), rules),
+            {"k": k, "v": v})
 
 
 # ---------------------------------------------------------------------------
@@ -375,7 +417,7 @@ def _mla_latent(params, cfg: ModelConfig, x: Tensor, positions: Tensor):
 
 
 def mla_train(params, cfg: ModelConfig, x: Tensor, parallel=None,
-              return_cache: bool = False):
+              return_cache: bool = False, rules=None):
     """The expanded MLA forward over the whole sequence, causal:
     (B, S, d) -> (B, S, d), plus the layer's {"c_kv", "k_rope"} with
     ``return_cache`` (the prefill).  q and k are (dn + dr) wide, v dv
@@ -391,15 +433,19 @@ def mla_train(params, cfg: ModelConfig, x: Tensor, parallel=None,
                                             cfg.qk_rope_head_dim)
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope_h], dim=-1)
-    out = _maybe_flash(cfg, parallel, q, k, v.contiguous(), causal=True)
+    q = constrain(q, ("batch", "attn_seq", "heads", "head_dim"), rules)
+    k = constrain(k, ("batch", None, "heads", "head_dim"), rules)
+    out = _maybe_flash(cfg, parallel, q, k, v.contiguous(), causal=True,
+                       rules=rules)
     out = torch.einsum("bshk,hkd->bsd", out, params["wo"].to(ct))
+    out = constrain(out, ("batch", "seq", "embed_act"), rules)
     if return_cache:
         return out, {"c_kv": c_kv, "k_rope": k_rope}
     return out
 
 
 def mla_decode(params, cfg: ModelConfig, x: Tensor,
-               cache: Dict[str, Tensor], pos: int
+               cache: Dict[str, Tensor], pos: int, rules=None
                ) -> Tuple[Tensor, Dict[str, Tensor]]:
     """One-token weight-absorbed decode: x (B, 1, d); cache c_kv (B, S,
     kvr), k_rope (B, S, dr).  wk_b is absorbed into the query and wv_b
@@ -423,13 +469,16 @@ def mla_decode(params, cfg: ModelConfig, x: Tensor,
     c_kv, k_rope = cache["c_kv"], cache["k_rope"]
     S = c_kv.shape[1]
     at = min(max(int(pos), 0), S - 1)
-    c_kv[:, at] = c_new[:, 0]
-    k_rope[:, at] = kr_new[:, 0]
+    write_slot(c_kv, at, c_new[:, 0])
+    write_slot(k_rope, at, kr_new[:, 0])
+    c_kv = constrain(c_kv, ("batch", "kv_seq", None), rules)
+    k_rope = constrain(k_rope, ("batch", "kv_seq", None), rules)
     q_lat = torch.einsum("bqhk,rhk->bqhr", q_nope, params["wk_b"].to(ct))
     s_lat = torch.einsum("bqhr,bsr->bhqs", q_lat.to(_F32), c_kv.to(_F32))
     s_rope = torch.einsum("bqhk,bsk->bhqs", q_rope.to(_F32),
                           k_rope.to(_F32))
     scores = (s_lat + s_rope) * _scale(dn + dr)
+    scores = constrain(scores, ("batch", "heads", None, "kv_seq"), rules)
     mask = torch.arange(S, device=x.device) <= int(pos)
     scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
     probs = torch.softmax(scores, dim=-1)
@@ -437,7 +486,8 @@ def mla_decode(params, cfg: ModelConfig, x: Tensor,
                        c_kv.to(_F32))
     out = torch.einsum("bqhr,rhk->bqhk", ctx.to(ct), params["wv_b"].to(ct))
     out = torch.einsum("bqhk,hkd->bqd", out, params["wo"].to(ct))
-    return out, {"c_kv": c_kv, "k_rope": k_rope}
+    return (constrain(out, ("batch", "seq", "embed_act"), rules),
+            {"c_kv": c_kv, "k_rope": k_rope})
 
 
 # ---------------------------------------------------------------------------
@@ -453,7 +503,7 @@ def cross_kv(params, cfg: ModelConfig, enc_out: Tensor) -> Dict[str, Tensor]:
 
 
 def cross_attn(params, cfg: ModelConfig, x: Tensor,
-               kv: Dict[str, Tensor]) -> Tensor:
+               kv: Dict[str, Tensor], rules=None) -> Tensor:
     """The decoder's queries x (B, S, d) over the precomputed encoder
     keys and values ``kv`` (``cross_kv``): dense ``_sdpa``, every key
     valid, no softcap.  This is the one attention over a whole sequence
@@ -463,7 +513,8 @@ def cross_attn(params, cfg: ModelConfig, x: Tensor,
     ct = cfg.compute_dtype
     q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(ct))
     out = _sdpa(q, kv["k"], kv["v"], causal=False)
-    return torch.einsum("bshk,hkd->bsd", out, params["wo"].to(ct))
+    out = torch.einsum("bshk,hkd->bsd", out, params["wo"].to(ct))
+    return constrain(out, ("batch", "seq", "embed_act"), rules)
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int, n_layers: int,

@@ -27,6 +27,7 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.config import ModelConfig
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (layernorm, layernorm_schema,
                                       mlp_apply, mlp_schema)
@@ -48,7 +49,8 @@ def encoder_schema(cfg: ModelConfig):
     d = cfg.d_model
     layer = {"ln1": layernorm_schema(d), "attn": attn.gqa_schema(cfg),
              "ln2": layernorm_schema(d), "mlp": mlp_schema(cfg)}
-    return {"pos": ParamDef((cfg.max_source_positions, d), init="embed"),
+    return {"pos": ParamDef((cfg.max_source_positions, d), (None, "embed"),
+                            init="embed"),
             "layers": stack_schema(layer, cfg.encoder_layers),
             "ln_f": layernorm_schema(d)}
 
@@ -69,21 +71,24 @@ def _ln(p, x: Tensor, cfg: ModelConfig) -> Tensor:
 # Encoder
 # ---------------------------------------------------------------------------
 
-def encoder_layer(lp, cfg: ModelConfig, h: Tensor, parallel=None) -> Tensor:
+def encoder_layer(lp, cfg: ModelConfig, h: Tensor, parallel=None,
+                  rules=None) -> Tensor:
     """Pre-norm bidirectional self-attention, then the MLP."""
     h = h + attn.gqa_train(lp["attn"], cfg, _ln(lp["ln1"], h, cfg),
-                           parallel, causal=False)
-    return h + mlp_apply(lp["mlp"], cfg, _ln(lp["ln2"], h, cfg))
+                           parallel, causal=False, rules=rules)
+    return h + mlp_apply(lp["mlp"], cfg, _ln(lp["ln2"], h, cfg), rules)
 
 
 def encode(params, cfg: ModelConfig, frames: Tensor,
-           parallel=None) -> Tensor:
+           parallel=None, rules=None) -> Tensor:
     """frames (B, T_src, d_model), the post-conv stub embeddings ->
     the encoder output (B, T_src, d_model) in the compute dtype."""
     ct = cfg.compute_dtype
     x = frames.to(ct) + params["pos"][:frames.shape[1]].to(ct)
+    x = constrain(x, ("batch", "seq", "embed_act"), rules)
     for lp in layer_list(params["layers"]):
-        x = remat(_policy(parallel), encoder_layer, lp, cfg, x, parallel)
+        x = remat(_policy(parallel), encoder_layer, lp, cfg, x, parallel,
+                  rules)
     return _ln(params["ln_f"], x, cfg)
 
 
@@ -104,47 +109,50 @@ def encoder_cross_kv(params, cfg: ModelConfig, enc_out: Tensor) -> KV:
 # Decoder
 # ---------------------------------------------------------------------------
 
-def _cross_mlp(lp, cfg: ModelConfig, h: Tensor, kv: KV) -> Tensor:
+def _cross_mlp(lp, cfg: ModelConfig, h: Tensor, kv: KV,
+               rules=None) -> Tensor:
     """The layer's cross-attention and MLP halves over h."""
-    h = h + attn.cross_attn(lp["cross"], cfg, _ln(lp["ln2"], h, cfg), kv)
-    return h + mlp_apply(lp["mlp"], cfg, _ln(lp["ln3"], h, cfg))
+    h = h + attn.cross_attn(lp["cross"], cfg, _ln(lp["ln2"], h, cfg), kv,
+                            rules)
+    return h + mlp_apply(lp["mlp"], cfg, _ln(lp["ln3"], h, cfg), rules)
 
 
 def decoder_layer_train(lp, cfg: ModelConfig, h: Tensor, enc_out: Tensor,
-                        parallel=None) -> Tensor:
+                        parallel=None, rules=None) -> Tensor:
     """Causal self-attention, cross-attention over the encoder output
     (its keys and values projected here, as the reference's train body
     does), then the MLP."""
     h = h + attn.gqa_train(lp["self"], cfg, _ln(lp["ln1"], h, cfg),
-                           parallel, causal=True)
-    return _cross_mlp(lp, cfg, h, attn.cross_kv(lp["cross"], cfg, enc_out))
+                           parallel, causal=True, rules=rules)
+    return _cross_mlp(lp, cfg, h, attn.cross_kv(lp["cross"], cfg, enc_out),
+                      rules)
 
 
 def decoder_layer_prefill(lp, cfg: ModelConfig, h: Tensor, kv: KV,
-                          parallel=None) -> Tuple[Tensor, KV]:
+                          parallel=None, rules=None) -> Tuple[Tensor, KV]:
     """``decoder_layer_train`` over the precomputed cross ``kv``, plus
     the layer's self-attention cache."""
     a, cache = attn.gqa_prefill(lp["self"], cfg, _ln(lp["ln1"], h, cfg),
-                                parallel)
-    return _cross_mlp(lp, cfg, h + a, kv), cache
+                                parallel, rules)
+    return _cross_mlp(lp, cfg, h + a, kv, rules), cache
 
 
 def decoder_layer_decode(lp, cfg: ModelConfig, h: Tensor, cache: KV,
-                         kv: KV, pos: int) -> Tuple[Tensor, KV]:
+                         kv: KV, pos: int, rules=None) -> Tuple[Tensor, KV]:
     """One token against the layer's self cache (written in place) and
     its cross ``kv``."""
     a, cache = attn.gqa_decode(lp["self"], cfg, _ln(lp["ln1"], h, cfg),
-                               cache, pos)
-    return _cross_mlp(lp, cfg, h + a, kv), cache
+                               cache, pos, rules)
+    return _cross_mlp(lp, cfg, h + a, kv, rules), cache
 
 
 def decoder_train(params, cfg: ModelConfig, x: Tensor, enc_out: Tensor,
-                  parallel=None) -> Tensor:
+                  parallel=None, rules=None) -> Tensor:
     """x: (B, S, d) token embeddings (with positions); enc_out: (B,
     T_src, d).  Returns the hidden states (B, S, d)."""
     for lp in layer_list(params):
         x = remat(_policy(parallel), decoder_layer_train, lp, cfg, x, enc_out,
-                  parallel)
+                  parallel, rules)
     return x
 
 
@@ -153,23 +161,23 @@ def _layer_kv(stacked: KV, i: int) -> KV:
 
 
 def decoder_prefill(params, cfg: ModelConfig, x: Tensor, cross: KV,
-                    parallel=None) -> Tuple[Tensor, KV]:
+                    parallel=None, rules=None) -> Tuple[Tensor, KV]:
     """Returns (hidden, the self caches stacked over layers)."""
     caches = []
     for i in range(cfg.num_layers):
         x, c = decoder_layer_prefill(layer_slice(params, i), cfg, x,
-                                     _layer_kv(cross, i), parallel)
+                                     _layer_kv(cross, i), parallel, rules)
         caches.append(c)
     return x, {n: torch.stack([c[n] for c in caches]) for n in ("k", "v")}
 
 
 def decoder_decode(params, cfg: ModelConfig, x: Tensor, self_caches: KV,
-                   cross: KV, pos: int) -> Tuple[Tensor, KV]:
+                   cross: KV, pos: int, rules=None) -> Tuple[Tensor, KV]:
     """One-token decode, x (B, 1, d).  Each layer writes its slice of
     ``self_caches`` in place (``gqa_decode`` writes through the view);
     returns (hidden, ``self_caches``)."""
     for i in range(cfg.num_layers):
         x, _ = decoder_layer_decode(layer_slice(params, i), cfg, x,
                                     _layer_kv(self_caches, i),
-                                    _layer_kv(cross, i), pos)
+                                    _layer_kv(cross, i), pos, rules)
     return x, self_caches

@@ -15,6 +15,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
+from repro_torch.distributed.sharding import (constrain, logsumexp_last,
+                                              take_last, take_rows)
 from repro_torch.models.params import ParamDef
 
 Tensor = torch.Tensor
@@ -27,7 +29,7 @@ _F32 = torch.float32
 
 def rmsnorm_schema(d: int):
     """RMSNorm scale."""
-    return {"scale": ParamDef((d,), init="ones")}
+    return {"scale": ParamDef((d,), (None,), init="ones")}
 
 
 def rmsnorm(params, x: Tensor, eps: float = 1e-5) -> Tensor:
@@ -41,8 +43,8 @@ def rmsnorm(params, x: Tensor, eps: float = 1e-5) -> Tensor:
 
 def layernorm_schema(d: int):
     """LayerNorm scale and bias."""
-    return {"scale": ParamDef((d,), init="ones"),
-            "bias": ParamDef((d,), init="zeros")}
+    return {"scale": ParamDef((d,), (None,), init="ones"),
+            "bias": ParamDef((d,), (None,), init="zeros")}
 
 
 def layernorm(params, x: Tensor, eps: float = 1e-5) -> Tensor:
@@ -71,30 +73,30 @@ def make_norm(cfg: ModelConfig):
 def embedding_schema(cfg: ModelConfig):
     """Token table (padded vocab), untied unembed, learned positions."""
     sch = {"embedding": ParamDef((cfg.padded_vocab, cfg.d_model),
-                                 init="embed")}
+                                 ("vocab", "embed"), init="embed")}
     if not cfg.tie_embeddings:
         sch["unembed"] = ParamDef((cfg.d_model, cfg.padded_vocab),
-                                  init="scaled")
+                                  ("embed", "vocab"), init="scaled")
     if cfg.learned_pos_emb:
         sch["pos"] = ParamDef((cfg.max_position_embeddings, cfg.d_model),
-                              init="embed")
+                              (None, "embed"), init="embed")
     return sch
 
 
 def embed_tokens(params, cfg: ModelConfig, tokens: Tensor,
-                 pos_offset: int = 0) -> Tensor:
+                 pos_offset: int = 0, rules=None) -> Tensor:
     """(B, S) token ids -> (B, S, d) in the compute dtype; with learned
     positions, plus ``pos[pos_offset : pos_offset + S]`` cast to the
     compute dtype."""
     ct = cfg.compute_dtype
-    x = params["embedding"][tokens.long()].to(ct)
+    x = take_rows(params["embedding"], tokens.long()).to(ct)
     if cfg.learned_pos_emb:
         S = tokens.shape[-1]
         x = x + params["pos"][pos_offset:pos_offset + S].to(ct)
-    return x
+    return constrain(x, ("batch", "seq", "embed_act"), rules)
 
 
-def unembed(params, cfg: ModelConfig, x: Tensor) -> Tensor:
+def unembed(params, cfg: ModelConfig, x: Tensor, rules=None) -> Tensor:
     """(..., d) -> (..., padded_vocab) logits in the compute dtype: the
     tied table's transpose or the untied ``unembed``, cast per call; the
     logits softcap; padded-vocab slots set to -1e30 (exact softmax over
@@ -108,7 +110,9 @@ def unembed(params, cfg: ModelConfig, x: Tensor) -> Tensor:
     if cfg.padded_vocab != cfg.vocab_size:
         pad = torch.arange(cfg.padded_vocab, device=x.device) >= cfg.vocab_size
         logits = logits.masked_fill(pad, -1e30)
-    return logits
+    # vocab claims "model"; the seq dim of logits stays unsharded so the
+    # (B,S,V) fp32 CE buffer shards over batch x vocab
+    return constrain(logits, ("batch", "logits_seq", "vocab"), rules)
 
 
 # ---------------------------------------------------------------------------
@@ -162,14 +166,14 @@ def mlp_schema(cfg: ModelConfig, d_ff: Optional[int] = None):
     ``dense_ff``)."""
     d, ff = cfg.d_model, d_ff or cfg.d_ff
     if cfg.mlp == "swiglu":
-        return {"wi_gate": ParamDef((d, ff), init="scaled"),
-                "wi_up": ParamDef((d, ff), init="scaled"),
-                "wo": ParamDef((ff, d), init="scaled")}
-    return {"wi": ParamDef((d, ff), init="scaled"),
-            "wo": ParamDef((ff, d), init="scaled")}
+        return {"wi_gate": ParamDef((d, ff), ("embed", "ff"), init="scaled"),
+                "wi_up": ParamDef((d, ff), ("embed", "ff"), init="scaled"),
+                "wo": ParamDef((ff, d), ("ff", "embed"), init="scaled")}
+    return {"wi": ParamDef((d, ff), ("embed", "ff"), init="scaled"),
+            "wo": ParamDef((ff, d), ("ff", "embed"), init="scaled")}
 
 
-def mlp_apply(params, cfg: ModelConfig, x: Tensor) -> Tensor:
+def mlp_apply(params, cfg: ModelConfig, x: Tensor, rules=None) -> Tensor:
     """The MLP in the compute dtype."""
     ct = cfg.compute_dtype
     if cfg.mlp == "swiglu":
@@ -178,7 +182,9 @@ def mlp_apply(params, cfg: ModelConfig, x: Tensor) -> Tensor:
         h = F.silu(g) * u
     else:
         h = F.gelu(torch.matmul(x, params["wi"].to(ct)), approximate="tanh")
-    return torch.matmul(h, params["wo"].to(ct))
+    h = constrain(h, ("batch", "seq", "ff"), rules)
+    out = torch.matmul(h, params["wo"].to(ct))
+    return constrain(out, ("batch", "seq", "embed_act"), rules)
 
 
 # ---------------------------------------------------------------------------
@@ -191,9 +197,11 @@ def softmax_cross_entropy(logits: Tensor, labels: Tensor,
     labels (B, S) integer ids.  With ``mask`` (B, S), the masked mean:
     Σ mask·nll / max(Σ mask, 1)."""
     logits = logits.to(_F32)
-    logz = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
-    nll = logz - ll
+    logz = logsumexp_last(logits)
+    # the difference is taken before the label axis is dropped: a
+    # vocab-sharded gather is a masked partial sum that keeps its shape
+    ll = take_last(logits, labels.long()[..., None])
+    nll = (logz - ll)[..., 0]
     if mask is not None:
         mask = mask.to(_F32)
         return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)

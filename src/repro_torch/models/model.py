@@ -20,10 +20,15 @@ reference's schema names (``embed.embedding``, ``stack.layers.attn.wq``,
 ``convert.model_params`` loads the reference's weights unchanged;
 ``convert.cache`` carries a reference cache across the same way.
 
-``Model(cfg, parallel, device=None, seed=0)`` initialises on a
-``torch.Generator`` seeded ``seed`` on ``device`` (the card unless
+``Model(cfg, parallel, rules=None, device=None, seed=0)`` initialises
+on a ``torch.Generator`` seeded ``seed`` on ``device`` (the card unless
 ``device="cpu"``), with the reference's init rule
-(``models/params.py``).  Off the CPU a family with self-attention
+(``models/params.py``).  ``rules`` (``distributed.sharding.
+ShardingRules``) reach the reference's ``constrain`` sites in every
+family's code; they act only on DTensors inside a ``mesh_context`` (the
+dry run), and the shape methods ``param_specs`` / ``param_shardings`` /
+``abstract_params`` / ``input_specs`` / ``supports_shape`` serve
+``launch/cells.py``.  Off the CPU a family with self-attention
 (every one but ssm) needs ``ParallelConfig(use_flash_attention=True)``
 (the flash kernel) or ``attention_impl="chunked"`` (the reference's XLA
 attention, plain torch); rwkv6 has none and needs no flag.
@@ -45,8 +50,10 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 from torch import nn
 
-from repro_torch.config import ModelConfig, ParallelConfig
+from repro_torch.config import ModelConfig, ParallelConfig, ShapeConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed import sharding
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models import attention as attn
 from repro_torch.models import encdec
 from repro_torch.models.layers import (embed_tokens, embedding_schema,
@@ -66,15 +73,16 @@ class Model(nn.Module):
     """A frozen LM backbone of any of the registry's families."""
 
     def __init__(self, cfg: ModelConfig,
-                 parallel: Optional[ParallelConfig] = None, *,
+                 parallel: Optional[ParallelConfig] = None, rules=None, *,
                  device: DeviceLike = None, seed: int = 0):
         super().__init__()
         self.cfg = cfg
         self.parallel = parallel or ParallelConfig()
+        self.rules = rules
         # the block functions; the weights are the modules added below
         # (``self.decoder`` is an encoder-decoder's decoder weights)
         self.decoder_stack = (None if cfg.is_encdec
-                              else DecoderStack(cfg, self.parallel))
+                              else DecoderStack(cfg, self.parallel, rules))
         _, self.norm = make_norm(cfg)
         dev = resolve_device(device)
         if (dev.type != "cpu" and cfg.family != "ssm"
@@ -85,7 +93,7 @@ class Model(nn.Module):
                 f"chunked attention only: pass ParallelConfig("
                 f"use_flash_attention=True) or attention_impl='chunked'")
         gen = torch.Generator(device=dev).manual_seed(seed)
-        for name, tree in init_params(gen, self.schema_of(cfg, self.parallel),
+        for name, tree in init_params(gen, self.schema(),
                                       cfg.param_dtype).items():
             self.add_module(name, ParamTree(tree))
 
@@ -107,12 +115,67 @@ class Model(nn.Module):
             if cfg.mtp_depth:
                 d = cfg.d_model
                 sch["mtp"] = {
-                    "proj": ParamDef((2 * d, d), init="scaled"),
+                    "proj": ParamDef((2 * d, d), ("embed", None),
+                                     init="scaled"),
                     "ln_h": norm_schema(d), "ln_e": norm_schema(d),
                     "block": Blocks(cfg, parallel).dense_schema(
                         d_ff=cfg.dense_ff or cfg.d_ff)}
         sch["ln_f"] = norm_schema(cfg.d_model)
         return sch
+
+    def schema(self) -> Dict[str, Any]:
+        """This model's parameter schema (``schema_of``)."""
+        return self.schema_of(self.cfg, self.parallel)
+
+    def abstract_params(self) -> Dict[str, Any]:
+        """The schema's tensors on the meta device (no allocation)."""
+        return sharding.abstract_params(self.schema(), self.cfg.param_dtype)
+
+    def param_specs(self, rules, mesh=None):
+        """PartitionSpecs of every parameter under ``rules``."""
+        return sharding.param_specs(self.schema(), rules, mesh)
+
+    def param_shardings(self, rules, mesh):
+        """NamedShardings of every parameter on ``mesh``."""
+        return sharding.param_shardings(self.schema(), rules, mesh)
+
+    def input_specs(self, shape: ShapeConfig) -> Dict[str, Any]:
+        """The entry point's inputs at ``shape`` as {name: (shape,
+        dtype)}: train {"tokens", "labels"} and prefill {"tokens"} (B, S)
+        int32, plus a vlm's ``patch_embeds`` and an encoder-decoder's
+        ``frames``; decode {"tokens" (B, 1), "cache": ``init_cache(B,
+        S)`` on the meta device, "pos" ()}."""
+        cfg = self.cfg
+        B, S = shape.global_batch, shape.seq_len
+        i32 = torch.int32
+        tok = lambda *sh: (tuple(sh), i32)                  # noqa: E731
+        act = lambda *sh: (tuple(sh), cfg.compute_dtype)    # noqa: E731
+
+        def extras() -> Dict[str, Any]:
+            ex: Dict[str, Any] = {}
+            if cfg.family == "vlm":
+                ex["patch_embeds"] = act(B, _num_patches(S), cfg.d_model)
+            if cfg.is_encdec:
+                ex["frames"] = act(B, cfg.max_source_positions, cfg.d_model)
+            return ex
+
+        if shape.kind == "train":
+            return {"tokens": tok(B, S), "labels": tok(B, S), **extras()}
+        if shape.kind == "prefill":
+            return {"tokens": tok(B, S), **extras()}
+        if shape.kind == "decode":
+            return {"tokens": tok(B, 1),
+                    "cache": self.init_cache(B, S, device="meta"),
+                    "pos": tok()}
+        raise ValueError(shape.kind)
+
+    def supports_shape(self, shape: ShapeConfig) -> Tuple[bool, str]:
+        """Shape-cell applicability (the reference's rule)."""
+        cfg = self.cfg
+        if shape.name == "long_500k" and not cfg.is_subquadratic:
+            return False, ("full quadratic attention: long_500k requires "
+                           "sub-quadratic sequence mixing (skip per spec)")
+        return True, ""
 
     @property
     def device(self) -> torch.device:
@@ -128,7 +191,7 @@ class Model(nn.Module):
         """An encoder-decoder's encoder output (B, T_src, d)."""
         return encdec.encode(self._tree(params, "encoder"), self.cfg,
                              torch.as_tensor(frames, device=self.device),
-                             self.parallel)
+                             self.parallel, self.rules)
 
     def _embed_in(self, tokens: Tensor, frames: Optional[Tensor] = None,
                   patch_embeds: Optional[Tensor] = None,
@@ -147,11 +210,13 @@ class Model(nn.Module):
             raise ValueError(f"{cfg.name}: patch_embeds are a vlm's input, "
                              f"not this {cfg.family} model's")
         x = embed_tokens(self._tree(params, "embed"), cfg,
-                         torch.as_tensor(tokens, device=self.device))
+                         torch.as_tensor(tokens, device=self.device),
+                         rules=self.rules)
         if patch_embeds is not None:
             pe = torch.as_tensor(patch_embeds, device=self.device).to(
                 cfg.compute_dtype)
             x = torch.cat([pe, x[:, pe.shape[1]:]], dim=1)
+            x = constrain(x, ("batch", "seq", "embed_act"), self.rules)
         return x
 
     def _hidden(self, tokens: Tensor, frames: Optional[Tensor] = None,
@@ -168,7 +233,7 @@ class Model(nn.Module):
         if self.cfg.is_encdec:
             h = encdec.decoder_train(self._tree(params, "decoder"), self.cfg,
                                      x, self._encode(frames, params),
-                                     self.parallel)
+                                     self.parallel, self.rules)
             return h, torch.zeros((), dtype=torch.float32, device=h.device)
         return self.decoder_stack.train_hidden(self._tree(params, "stack"),
                                                x, with_aux=True)
@@ -197,7 +262,8 @@ class Model(nn.Module):
         cfg, p = self.cfg, self._tree(params, "mtp")
         tokens = torch.as_tensor(tokens, device=self.device)
         labels = torch.as_tensor(labels, device=self.device)
-        e_next = embed_tokens(self._tree(params, "embed"), cfg, tokens[:, 1:])
+        e_next = embed_tokens(self._tree(params, "embed"), cfg, tokens[:, 1:],
+                              rules=self.rules)
         z = torch.cat([self.norm(p["ln_h"], h[:, :-1]),
                        self.norm(p["ln_e"], e_next)], dim=-1)
         z = torch.matmul(z, p["proj"].to(cfg.compute_dtype))
@@ -235,7 +301,7 @@ class Model(nn.Module):
         """Final norm and unembedding: (..., d) -> (..., padded_vocab)
         logits in the compute dtype."""
         return unembed(self._tree(params, "embed"), self.cfg,
-                       self.norm(self._tree(params, "ln_f"), h))
+                       self.norm(self._tree(params, "ln_f"), h), self.rules)
 
     @torch.no_grad()
     def prefill(self, tokens: Tensor, *, frames: Optional[Tensor] = None,
@@ -249,7 +315,7 @@ class Model(nn.Module):
             cross = encdec.encoder_cross_kv(self.decoder, self.cfg,
                                             self._encode(frames))
             h, self_caches = encdec.decoder_prefill(
-                self.decoder, self.cfg, x, cross, self.parallel)
+                self.decoder, self.cfg, x, cross, self.parallel, self.rules)
             cache = {"self": self_caches, "cross": cross}
         else:
             h, cache = self.decoder_stack.prefill_hidden(self.stack, x)
@@ -269,9 +335,10 @@ class Model(nn.Module):
         tokens = torch.as_tensor(tokens, device=self.device)
         at = min(max(pos, 0), cfg.max_position_embeddings - 1)
         x = embed_tokens(self.embed, cfg, tokens, pos_offset=at)
+        x = constrain(x, ("batch", "seq", "embed_act"), self.rules)
         if cfg.is_encdec:
             h, _ = encdec.decoder_decode(self.decoder, cfg, x, cache["self"],
-                                         cache["cross"], pos)
+                                         cache["cross"], pos, self.rules)
         else:
             h, cache = self.decoder_stack.decode_hidden(self.stack, x, cache,
                                                         pos)
@@ -279,15 +346,27 @@ class Model(nn.Module):
 
     serve_step = decode_step
 
-    def init_cache(self, batch: int, seq_len: int) -> Any:
+    def init_cache(self, batch: int, seq_len: int, device=None) -> Any:
         """A zero cache for ``batch`` rows of ``seq_len`` positions, on
-        the model's device; an encoder-decoder's cross half holds
-        ``max_source_positions``."""
+        ``device`` (the model's by default); an encoder-decoder's cross
+        half holds ``max_source_positions``."""
         cfg = self.cfg
+        dev = self.device if device is None else device
         if not cfg.is_encdec:
-            return self.decoder_stack.init_cache(batch, seq_len,
-                                                 device=self.device)
+            return self.decoder_stack.init_cache(batch, seq_len, device=dev)
         return {"self": attn.init_cache(cfg, batch, seq_len, cfg.num_layers,
-                                        device=self.device),
+                                        device=dev),
                 "cross": attn.init_cache(cfg, batch, cfg.max_source_positions,
-                                         cfg.num_layers, device=self.device)}
+                                         cfg.num_layers, device=dev)}
+
+
+def _num_patches(seq_len: int) -> int:
+    """vlm stub: patch positions spliced at the front of the sequence."""
+    return max(1, min(256, seq_len // 4))
+
+
+def build_model(cfg: ModelConfig, parallel: Optional[ParallelConfig] = None,
+                rules=None, *, device: DeviceLike = None,
+                seed: int = 0) -> Model:
+    """``Model(cfg, parallel, rules, device=, seed=)``."""
+    return Model(cfg, parallel, rules, device=device, seed=seed)

@@ -39,6 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
+from repro_torch.distributed.sharding import constrain, rowwise
 from repro_torch.models.params import ParamDef
 
 Tensor = torch.Tensor
@@ -50,19 +51,27 @@ def moe_schema(cfg: ModelConfig):
     (E, ff, d); ``shared`` (num_shared_experts x ff wide) and ``dense``
     (arctic's parallel residual MLP) where the config has them."""
     d, ff, E = cfg.d_model, cfg.d_ff, cfg.num_experts
-    sch = {"router": ParamDef((d, E), init="scaled"),
-           "wi_gate": ParamDef((E, d, ff), init="scaled"),
-           "wi_up": ParamDef((E, d, ff), init="scaled"),
-           "wo": ParamDef((E, ff, d), init="scaled")}
+    ex_in = ("experts", "expert_embed", "expert_ff")
+    sch = {"router": ParamDef((d, E), ("embed", "experts"), init="scaled"),
+           "wi_gate": ParamDef((E, d, ff), ex_in, init="scaled"),
+           "wi_up": ParamDef((E, d, ff), ex_in, init="scaled"),
+           "wo": ParamDef((E, ff, d), ("experts", "expert_ff", "expert_embed"),
+                          init="scaled")}
     if cfg.num_shared_experts:
         sf = ff * cfg.num_shared_experts
-        sch["shared"] = {"wi_gate": ParamDef((d, sf), init="scaled"),
-                         "wi_up": ParamDef((d, sf), init="scaled"),
-                         "wo": ParamDef((sf, d), init="scaled")}
+        sch["shared"] = {"wi_gate": ParamDef((d, sf), ("embed", "ff"),
+                                             init="scaled"),
+                         "wi_up": ParamDef((d, sf), ("embed", "ff"),
+                                           init="scaled"),
+                         "wo": ParamDef((sf, d), ("ff", "embed"),
+                                        init="scaled")}
     if cfg.dense_residual:
-        sch["dense"] = {"wi_gate": ParamDef((d, ff), init="scaled"),
-                        "wi_up": ParamDef((d, ff), init="scaled"),
-                        "wo": ParamDef((ff, d), init="scaled")}
+        sch["dense"] = {"wi_gate": ParamDef((d, ff), ("embed", "ff"),
+                                            init="scaled"),
+                        "wi_up": ParamDef((d, ff), ("embed", "ff"),
+                                          init="scaled"),
+                        "wo": ParamDef((ff, d), ("ff", "embed"),
+                                       init="scaled")}
     return sch
 
 
@@ -132,7 +141,8 @@ def _experts(x: Tensor, params, ct) -> Tensor:
 
 
 def moe_apply(params, cfg: ModelConfig, x: Tensor,
-              stats: Optional[dict] = None) -> Tuple[Tensor, Tensor]:
+              stats: Optional[dict] = None, rules=None
+              ) -> Tuple[Tensor, Tensor]:
     """x (B, S, d) in the compute dtype -> (out (B, S, d), aux loss
     fp32).  With ``stats``, ``stats["idx"]`` gets the picks (B, S, k) and
     ``stats["kept"]`` whether each was kept (slot < C)."""
@@ -140,22 +150,29 @@ def moe_apply(params, cfg: ModelConfig, x: Tensor,
     B, S, d = x.shape
     k, E = cfg.experts_per_token, cfg.num_experts
     C = _capacity(cfg, S)
+    # the seq dim whole before the row-local dispatch (the reference's
+    # one all-gather of (S, d) per layer under sequence parallelism)
+    x = constrain(x, ("batch", None, "embed_act"), rules)
     gates, idx, probs = router_scores(params, cfg, x.reshape(B * S, d))
     gates, idx = gates.reshape(B, S, k), idx.reshape(B, S, k)
+    from torch.distributed.tensor import DTensor
+    if isinstance(x, DTensor):
+        return _moe_rowwise(params, cfg, x, gates, idx, probs, rules)
     slot = dispatch_slots(idx, E).clamp_max(C)      # C: the spare slot
     if stats is not None:
         stats["idx"], stats["kept"] = idx, slot < C
 
-    rows = torch.arange(B, device=x.device)[:, None, None].expand(B, S, k)
-    buf = x.new_zeros((B, E, C + 1, d), dtype=ct)
-    buf[rows, idx, slot] = x.to(ct)[:, :, None, :].expand(B, S, k, d)
-    out_e = _experts(buf[:, :, :C], params, ct)
-    del buf
+    expert_in = constrain(_dispatch(x, idx, slot, E, C, ct),
+                          ("batch", "experts", None, "embed_act"), rules)
+    out_e = constrain(_experts(expert_in, params, ct),
+                      ("batch", "experts", None, "embed_act"), rules)
+    del expert_in
     back = torch.cat([out_e, out_e.new_zeros((B, E, 1, d))], 2)
     del out_e
 
     # per token, its picks in ascending expert order (the order the
     # sorted scatter-add reaches them), each output times its gate in ct
+    rows = torch.arange(B, device=x.device)[:, None, None].expand(B, S, k)
     e_tok, perm = torch.sort(idx, dim=-1)
     s_tok = slot.gather(2, perm)
     g_tok = gates.to(ct).gather(2, perm)
@@ -174,4 +191,67 @@ def moe_apply(params, cfg: ModelConfig, x: Tensor,
         0, idx.reshape(-1), torch.full((B * S * k,), 1.0 / (B * S * k),
                                        dtype=_F32, device=x.device))
     aux = E * torch.sum(frac * probs.mean(0)) * cfg.router_aux_loss
-    return out, aux
+    return constrain(out, ("batch", "seq", "embed_act"), rules), aux
+
+
+def _dispatch(x: Tensor, idx: Tensor, slot: Tensor, E: int, C: int,
+              ct) -> Tensor:
+    """Rows' tokens into their experts' slots: (B, E, C, d)."""
+    B, S, k = idx.shape
+    d = x.shape[-1]
+    rows = torch.arange(B, device=x.device)[:, None, None].expand(B, S, k)
+    buf = x.new_zeros((B, E, C + 1, d), dtype=ct)
+    buf[rows, idx, slot] = x.to(ct)[:, :, None, :].expand(B, S, k, d)
+    return buf[:, :, :C]
+
+
+def _combine(out_e: Tensor, idx: Tensor, slot: Tensor, gates: Tensor,
+             ct) -> Tensor:
+    """The experts' slots back to their rows' tokens, gate-weighted."""
+    B, E, _, d = out_e.shape
+    S, k = idx.shape[1:]
+    back = torch.cat([out_e, out_e.new_zeros((B, E, 1, d))], 2)
+    rows = torch.arange(B, device=out_e.device)[:, None, None].expand(B, S,
+                                                                      k)
+    e_tok, perm = torch.sort(idx, dim=-1)
+    contrib = back[rows, e_tok, slot.gather(2, perm)] * \
+        gates.to(ct).gather(2, perm)[..., None]
+    out = torch.zeros((B, S, d), dtype=ct, device=out_e.device)
+    for j in range(k):
+        out = out + contrib[:, :, j]
+    return out
+
+
+def _picks(idx: Tensor, E: int) -> Tensor:
+    """Per row, each expert's share of all the batch's picks (B, E)."""
+    B, S, k = idx.shape
+    return torch.zeros((B, E), dtype=_F32, device=idx.device).scatter_add_(
+        1, idx.reshape(B, S * k), torch.ones((B, S * k), dtype=_F32,
+                                             device=idx.device))
+
+
+def _moe_rowwise(params, cfg: ModelConfig, x: Tensor, gates: Tensor,
+                 idx: Tensor, probs: Tensor, rules) -> Tuple[Tensor, Tensor]:
+    """``moe_apply`` on DTensors (a mesh's dry run): the dispatch, the
+    combine and the aux loss's pick counts run on each rank's rows
+    (``rowwise``), as the reference's row-local dispatch shards; the
+    experts' products are DTensor ops."""
+    ct = cfg.compute_dtype
+    B, S, d = x.shape
+    k, E = cfg.experts_per_token, cfg.num_experts
+    C = _capacity(cfg, S)
+    slot = rowwise(lambda i: dispatch_slots(i, E).clamp_max(C), idx)
+    expert_in = constrain(
+        rowwise(lambda a, i, sl: _dispatch(a, i, sl, E, C, ct), x, idx, slot),
+        ("batch", "experts", None, "embed_act"), rules)
+    out_e = constrain(_experts(expert_in, params, ct),
+                      ("batch", "experts", None, "embed_act"), rules)
+    out = rowwise(lambda o, i, sl, g: _combine(o, i, sl, g, ct), out_e, idx,
+                  slot, gates)
+    if cfg.num_shared_experts:
+        out = out + _dense_swiglu(x, params["shared"], ct)
+    if cfg.dense_residual:
+        out = out + _dense_swiglu(x, params["dense"], ct)
+    frac = rowwise(lambda i: _picks(i, E), idx).sum(0) / (B * S * k)
+    aux = E * torch.sum(frac * probs.mean(0)) * cfg.router_aux_loss
+    return constrain(out, ("batch", "seq", "embed_act"), rules), aux

@@ -2,7 +2,8 @@
 
 The port's counterpart of the reference's ``ParamDef`` / ``init_params``
 (``distributed/sharding.py``) and ``stack_schema``
-(``models/transformer.py``).  A schema is a nested dict of ``ParamDef``;
+(``models/transformer.py``); ``repro_torch.distributed.sharding`` maps
+the leaves' logical axes onto a mesh.  A schema is a nested dict of ``ParamDef``;
 ``init_params`` draws every leaf on one explicit ``torch.Generator`` in
 schema order, on the generator's device.
 
@@ -29,9 +30,12 @@ from torch import nn
 
 @dataclasses.dataclass(frozen=True)
 class ParamDef:
-    """Declarative parameter: shape + initializer."""
+    """Declarative parameter: shape + logical axes + initializer.  The
+    axes ("embed", "heads", "ff", ...) are what ``distributed.sharding``
+    maps onto a mesh; every schema leaf names one per dimension."""
 
     shape: Tuple[int, ...]
+    axes: Optional[Tuple[Optional[str], ...]] = None
     init: str = "normal"  # normal | zeros | ones | scaled | embed
     scale: Optional[float] = None
     dtype: Any = None  # filled from ModelConfig.param_dtype if None
@@ -48,9 +52,12 @@ def map_schema(fn, schema, path: str = ""):
 
 
 def stack_schema(schema, n: int):
-    """Add a leading layer axis of ``n`` to every ParamDef."""
+    """Add a leading layer axis of ``n`` (logical axis "layers") to every
+    ParamDef."""
     return map_schema(lambda _, d: dataclasses.replace(
-        d, shape=(n,) + tuple(d.shape)), schema)
+        d, shape=(n,) + tuple(d.shape),
+        axes=None if d.axes is None else ("layers",) + tuple(d.axes)),
+        schema)
 
 
 def init_std(d: ParamDef) -> float:

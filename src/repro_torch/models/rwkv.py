@@ -27,6 +27,7 @@ import torch.nn.functional as F
 from repro_torch.config import ModelConfig
 from repro_torch.kernels.ssm_scan import ops as scan_ops
 from repro_torch.kernels.ssm_scan.ref import MAX_LOG_DECAY
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models.params import ParamDef
 
 Tensor = torch.Tensor
@@ -47,22 +48,22 @@ def time_mix_schema(cfg: ModelConfig):
     d = cfg.d_model
     lora = min(DECAY_LORA, d)
     return {
-        "mu_r": ParamDef((d,), init="zeros"),
-        "mu_k": ParamDef((d,), init="zeros"),
-        "mu_v": ParamDef((d,), init="zeros"),
-        "mu_g": ParamDef((d,), init="zeros"),
-        "mu_w": ParamDef((d,), init="zeros"),
-        "wr": ParamDef((d, d), init="scaled"),
-        "wk": ParamDef((d, d), init="scaled"),
-        "wv": ParamDef((d, d), init="scaled"),
-        "wg": ParamDef((d, d), init="scaled"),
-        "wo": ParamDef((d, d), init="scaled"),
-        "w0": ParamDef((d,), init="ones", scale=1.0),
-        "w_a": ParamDef((d, lora), init="scaled"),
-        "w_b": ParamDef((lora, d), init="scaled", scale=0.1),
-        "u": ParamDef((d,), init="zeros"),
-        "ln_scale": ParamDef((d,), init="ones"),
-        "ln_bias": ParamDef((d,), init="zeros"),
+        "mu_r": ParamDef((d,), (None,), init="zeros"),
+        "mu_k": ParamDef((d,), (None,), init="zeros"),
+        "mu_v": ParamDef((d,), (None,), init="zeros"),
+        "mu_g": ParamDef((d,), (None,), init="zeros"),
+        "mu_w": ParamDef((d,), (None,), init="zeros"),
+        "wr": ParamDef((d, d), ("embed", "inner"), init="scaled"),
+        "wk": ParamDef((d, d), ("embed", "inner"), init="scaled"),
+        "wv": ParamDef((d, d), ("embed", "inner"), init="scaled"),
+        "wg": ParamDef((d, d), ("embed", "inner"), init="scaled"),
+        "wo": ParamDef((d, d), ("inner", "embed"), init="scaled"),
+        "w0": ParamDef((d,), (None,), init="ones", scale=1.0),
+        "w_a": ParamDef((d, lora), ("embed", None), init="scaled"),
+        "w_b": ParamDef((lora, d), (None, "inner"), init="scaled", scale=0.1),
+        "u": ParamDef((d,), (None,), init="zeros"),
+        "ln_scale": ParamDef((d,), (None,), init="ones"),
+        "ln_bias": ParamDef((d,), (None,), init="zeros"),
     }
 
 
@@ -70,11 +71,11 @@ def channel_mix_schema(cfg: ModelConfig):
     """Token-shift mixes and the squared-ReLU key/value/receptance."""
     d, ff = cfg.d_model, cfg.d_ff
     return {
-        "mu_k": ParamDef((d,), init="zeros"),
-        "mu_r": ParamDef((d,), init="zeros"),
-        "wk": ParamDef((d, ff), init="scaled"),
-        "wv": ParamDef((ff, d), init="scaled"),
-        "wr": ParamDef((d, d), init="scaled"),
+        "mu_k": ParamDef((d,), (None,), init="zeros"),
+        "mu_r": ParamDef((d,), (None,), init="zeros"),
+        "wk": ParamDef((d, ff), ("embed", "ff"), init="scaled"),
+        "wv": ParamDef((ff, d), ("ff", "embed"), init="scaled"),
+        "wr": ParamDef((d, d), ("embed", "inner"), init="scaled"),
     }
 
 
@@ -131,33 +132,35 @@ def _tm_qkvwg(params, cfg: ModelConfig, x: Tensor, xs: Tensor):
     return r, k, v, w, u, g
 
 
-def _tm_out(params, cfg: ModelConfig, o: Tensor, g: Tensor) -> Tensor:
+def _tm_out(params, cfg: ModelConfig, o: Tensor, g: Tensor,
+            rules=None) -> Tensor:
     """Group norm of o (B, T, h, hd), the silu(g) gate, the projection."""
     ct = cfg.compute_dtype
     o = (_group_norm(cfg, params, o) * F.silu(g.to(_F32))).to(ct)
-    return o @ params["wo"].to(ct)
+    return constrain(o @ params["wo"].to(ct), ("batch", "seq", "embed_act"),
+                     rules)
 
 
 def time_mix_train(params, cfg: ModelConfig, x: Tensor,
-                   chunk: int = 64) -> Tensor:
+                   chunk: int = 64, rules=None) -> Tensor:
     """(B, T, d) -> (B, T, d) in the compute dtype."""
     r, k, v, w, u, g = _tm_qkvwg(params, cfg, x, _shift(x))
     o, _ = scan_ops.gla(r, k, v, w, u, chunk=chunk)
-    return _tm_out(params, cfg, o.transpose(1, 2), g)
+    return _tm_out(params, cfg, o.transpose(1, 2), g, rules)
 
 
-def time_mix_prefill(params, cfg: ModelConfig, x: Tensor, chunk: int = 64
-                     ) -> Tuple[Tensor, Dict[str, Tensor]]:
+def time_mix_prefill(params, cfg: ModelConfig, x: Tensor, chunk: int = 64,
+                     rules=None) -> Tuple[Tensor, Dict[str, Tensor]]:
     """``time_mix_train`` plus the state after the last token: the
     scan's final state ``s`` (fp32) and ``x_prev`` = x[:, -1:]."""
     r, k, v, w, u, g = _tm_qkvwg(params, cfg, x, _shift(x))
     o, s_final = scan_ops.gla(r, k, v, w, u, chunk=chunk)
-    return (_tm_out(params, cfg, o.transpose(1, 2), g),
+    return (_tm_out(params, cfg, o.transpose(1, 2), g, rules),
             {"s": s_final, "x_prev": x[:, -1:]})
 
 
 def time_mix_decode(params, cfg: ModelConfig, x: Tensor,
-                    state: Dict[str, Tensor]
+                    state: Dict[str, Tensor], rules=None
                     ) -> Tuple[Tensor, Dict[str, Tensor]]:
     """x: (B, 1, d); state {"s": (B, h, hd, hd), "x_prev": (B, 1, d)}.
     The readout o comes out of the step in fp32 (the reference's
@@ -165,11 +168,12 @@ def time_mix_decode(params, cfg: ModelConfig, x: Tensor,
     r, k, v, w, u, g = _tm_qkvwg(params, cfg, x, state["x_prev"])
     new_s, o = scan_ops.gla_decode_step(state["s"], r[:, :, 0], k[:, :, 0],
                                         v[:, :, 0], w[:, :, 0], u)
-    return _tm_out(params, cfg, o[:, None], g), {"s": new_s, "x_prev": x}
+    return (_tm_out(params, cfg, o[:, None], g, rules),
+            {"s": new_s, "x_prev": x})
 
 
 def channel_mix_train(params, cfg: ModelConfig, x: Tensor,
-                      x_prev: Optional[Tensor] = None) -> Tensor:
+                      x_prev: Optional[Tensor] = None, rules=None) -> Tensor:
     """(B, T, d) -> (B, T, d) in the compute dtype; ``x_prev`` (B, 1, d)
     is the shift's carried input (zeros without one)."""
     ct = cfg.compute_dtype
@@ -177,20 +181,22 @@ def channel_mix_train(params, cfg: ModelConfig, x: Tensor,
     k = _lerp(x, xs, params["mu_k"]) @ params["wk"].to(ct)
     kv = torch.relu(k).square() @ params["wv"].to(ct)
     r = torch.sigmoid(_lerp(x, xs, params["mu_r"]) @ params["wr"].to(ct))
-    return r * kv
+    return constrain(r * kv, ("batch", "seq", "embed_act"), rules)
 
 
-def channel_mix_prefill(params, cfg: ModelConfig, x: Tensor
+def channel_mix_prefill(params, cfg: ModelConfig, x: Tensor, rules=None
                         ) -> Tuple[Tensor, Dict[str, Tensor]]:
     """``channel_mix_train`` plus {"x_prev": x[:, -1:]}."""
-    return channel_mix_train(params, cfg, x), {"x_prev": x[:, -1:]}
+    return (channel_mix_train(params, cfg, x, rules=rules),
+            {"x_prev": x[:, -1:]})
 
 
 def channel_mix_decode(params, cfg: ModelConfig, x: Tensor,
-                       state: Dict[str, Tensor]
+                       state: Dict[str, Tensor], rules=None
                        ) -> Tuple[Tensor, Dict[str, Tensor]]:
     """x: (B, 1, d) against {"x_prev": (B, 1, d)}."""
-    return (channel_mix_train(params, cfg, x, x_prev=state["x_prev"]),
+    return (channel_mix_train(params, cfg, x, x_prev=state["x_prev"],
+                              rules=rules),
             {"x_prev": x})
 
 

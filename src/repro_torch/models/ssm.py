@@ -24,6 +24,7 @@ import torch.nn.functional as F
 from repro_torch.config import ModelConfig
 from repro_torch.kernels.ssm_scan import ops as scan_ops
 from repro_torch.kernels.ssm_scan.ref import MAX_LOG_DECAY
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models.params import ParamDef
 
 Tensor = torch.Tensor
@@ -45,14 +46,16 @@ def mamba_schema(cfg: ModelConfig):
     d, s = cfg.d_model, cfg.ssm_state
     di, heads, _ = _dims(cfg)
     return {
-        "in_proj": ParamDef((d, 2 * di + 2 * s + heads), init="scaled"),
-        "conv_w": ParamDef((cfg.ssm_conv, di), init="scaled", scale=1.0),
-        "conv_b": ParamDef((di,), init="zeros"),
-        "A_log": ParamDef((heads,), init="zeros"),
-        "dt_bias": ParamDef((heads,), init="zeros"),
-        "D": ParamDef((heads,), init="ones"),
-        "norm": ParamDef((di,), init="ones"),
-        "out_proj": ParamDef((di, d), init="scaled"),
+        "in_proj": ParamDef((d, 2 * di + 2 * s + heads), ("embed", "inner"),
+                            init="scaled"),
+        "conv_w": ParamDef((cfg.ssm_conv, di), (None, "inner"),
+                           init="scaled", scale=1.0),
+        "conv_b": ParamDef((di,), (None,), init="zeros"),
+        "A_log": ParamDef((heads,), (None,), init="zeros"),
+        "dt_bias": ParamDef((heads,), (None,), init="zeros"),
+        "D": ParamDef((heads,), (None,), init="ones"),
+        "norm": ParamDef((di,), (None,), init="ones"),
+        "out_proj": ParamDef((di, d), ("inner", "embed"), init="scaled"),
     }
 
 
@@ -98,7 +101,8 @@ def _ssd_inputs(cfg: ModelConfig, params, xb: Tensor, B: Tensor, C: Tensor,
     return C.to(_F32), B.to(_F32), v.transpose(1, 2), a.transpose(1, 2)
 
 
-def _gated_out(cfg: ModelConfig, params, y: Tensor, z: Tensor) -> Tensor:
+def _gated_out(cfg: ModelConfig, params, y: Tensor, z: Tensor,
+               rules=None) -> Tensor:
     """Gate with silu(z), RMS-normalise in fp32, project out."""
     di, _, _ = _dims(cfg)
     Bsz, T = z.shape[:2]
@@ -106,16 +110,17 @@ def _gated_out(cfg: ModelConfig, params, y: Tensor, z: Tensor) -> Tensor:
     var = y.square().mean(-1, keepdim=True)
     y = y * torch.rsqrt(var + cfg.norm_eps) * params["norm"].to(_F32)
     ct = cfg.compute_dtype
-    return y.to(ct) @ params["out_proj"].to(ct)
+    return constrain(y.to(ct) @ params["out_proj"].to(ct),
+                     ("batch", "seq", "embed_act"), rules)
 
 
 def _skip_out(cfg: ModelConfig, params, o: Tensor, xb: Tensor,
-              z: Tensor) -> Tensor:
+              z: Tensor, rules=None) -> Tensor:
     """o (B, T, H, hd) plus the D skip over xb, gated and projected."""
     _, heads, hd = _dims(cfg)
     o = o + params["D"].to(_F32)[:, None] * \
         xb.reshape(*xb.shape[:2], heads, hd).to(_F32)
-    return _gated_out(cfg, params, o, z)
+    return _gated_out(cfg, params, o, z, rules)
 
 
 def _conv_in(cfg: ModelConfig, params, x: Tensor,
@@ -129,22 +134,30 @@ def _conv_in(cfg: ModelConfig, params, x: Tensor,
     return z, F.silu(xb), B, C, dt, conv_state
 
 
-def mamba_train(params, cfg: ModelConfig, x: Tensor) -> Tensor:
+def _whole_seq(x: Tensor, rules) -> Tensor:
+    """x with its sequence whole on each rank: the chunked scan walks the
+    chunks in order, and a sequence sharded over "model" (sequence
+    parallelism) would be gathered again at every chunk (the reference's
+    XLA gathers a scanned dim once)."""
+    return constrain(x, ("batch", None, "embed_act"), rules)
+
+
+def mamba_train(params, cfg: ModelConfig, x: Tensor, rules=None) -> Tensor:
     """(B, T, d) -> (B, T, d) in the compute dtype."""
-    z, xb, B, C, dt, _ = _conv_in(cfg, params, x)
+    z, xb, B, C, dt, _ = _conv_in(cfg, params, _whole_seq(x, rules))
     q, k, v, a = _ssd_inputs(cfg, params, xb, B, C, dt)
     o, _ = scan_ops.ssd(q, k, v, a, chunk=max(cfg.ssm_chunk, 32))
-    return _skip_out(cfg, params, o.transpose(1, 2), xb, z)
+    return _skip_out(cfg, params, o.transpose(1, 2), xb, z, rules)
 
 
-def mamba_prefill(params, cfg: ModelConfig, x: Tensor
+def mamba_prefill(params, cfg: ModelConfig, x: Tensor, rules=None
                   ) -> Tuple[Tensor, Dict[str, Tensor]]:
     """``mamba_train`` plus the state after the last token: the scan's
     final state ``ssm`` (fp32) and the conv's last inputs ``conv``."""
-    z, xb, B, C, dt, conv_state = _conv_in(cfg, params, x)
+    z, xb, B, C, dt, conv_state = _conv_in(cfg, params, _whole_seq(x, rules))
     q, k, v, a = _ssd_inputs(cfg, params, xb, B, C, dt)
     o, ssm_state = scan_ops.ssd(q, k, v, a, chunk=max(cfg.ssm_chunk, 32))
-    return (_skip_out(cfg, params, o.transpose(1, 2), xb, z),
+    return (_skip_out(cfg, params, o.transpose(1, 2), xb, z, rules),
             {"ssm": ssm_state, "conv": conv_state})
 
 
@@ -160,12 +173,12 @@ def mamba_init_state(cfg: ModelConfig, batch: int, dtype=_F32,
 
 
 def mamba_decode(params, cfg: ModelConfig, x: Tensor,
-                 state: Dict[str, Tensor]
+                 state: Dict[str, Tensor], rules=None
                  ) -> Tuple[Tensor, Dict[str, Tensor]]:
     """x: (B, 1, d): one O(1) state update."""
     z, xb, B, C, dt, conv_state = _conv_in(cfg, params, x, state["conv"])
     q, k, v, a = _ssd_inputs(cfg, params, xb, B, C, dt)
     new_ssm, o = scan_ops.ssd_decode_step(state["ssm"], q[:, 0], k[:, 0],
                                           v[:, :, 0], a[:, :, 0])
-    return (_skip_out(cfg, params, o[:, None], xb, z),
+    return (_skip_out(cfg, params, o[:, None], xb, z, rules),
             {"ssm": new_ssm, "conv": conv_state})

@@ -31,6 +31,7 @@ import torch
 from torch.utils import checkpoint as _ckpt
 
 from repro_torch.config import ModelConfig, ParallelConfig
+from repro_torch.distributed.sharding import constrain
 from repro_torch.inference.executor import tree_map
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
@@ -88,8 +89,9 @@ class Blocks:
     ``*_decode`` takes (p, x, cache, pos); the recurrent blocks ignore
     ``pos``."""
 
-    def __init__(self, cfg: ModelConfig, parallel: ParallelConfig):
-        self.cfg, self.parallel = cfg, parallel
+    def __init__(self, cfg: ModelConfig, parallel: ParallelConfig,
+                 rules=None):
+        self.cfg, self.parallel, self.rules = cfg, parallel, rules
         self.norm_schema, self.norm = make_norm(cfg)
 
     def dense_schema(self, d_ff: Optional[int] = None,
@@ -109,30 +111,33 @@ class Blocks:
     def attn_train(self, p, x: Tensor) -> Tensor:
         """The attention weights ``p`` over normed x: GQA or MLA."""
         if self.cfg.attention == "mla":
-            return attn.mla_train(p, self.cfg, x, self.parallel)
-        return attn.gqa_train(p, self.cfg, x, self.parallel)
+            return attn.mla_train(p, self.cfg, x, self.parallel,
+                                  rules=self.rules)
+        return attn.gqa_train(p, self.cfg, x, self.parallel,
+                              rules=self.rules)
 
     def attn_prefill(self, p, x: Tensor):
         """``attn_train`` plus the layer's cache ({"k", "v"} or MLA's
         {"c_kv", "k_rope"})."""
         if self.cfg.attention == "mla":
             return attn.mla_train(p, self.cfg, x, self.parallel,
-                                  return_cache=True)
-        return attn.gqa_prefill(p, self.cfg, x, self.parallel)
+                                  return_cache=True, rules=self.rules)
+        return attn.gqa_prefill(p, self.cfg, x, self.parallel,
+                                rules=self.rules)
 
     def attn_decode(self, p, x: Tensor, cache, pos: int):
         """One token against the layer's cache (written in place)."""
         if self.cfg.attention == "mla":
-            return attn.mla_decode(p, self.cfg, x, cache, pos)
-        return attn.gqa_decode(p, self.cfg, x, cache, pos)
+            return attn.mla_decode(p, self.cfg, x, cache, pos, self.rules)
+        return attn.gqa_decode(p, self.cfg, x, cache, pos, self.rules)
 
     def ffn(self, p, x: Tensor) -> Tuple[Tensor, Optional[Tensor]]:
         """The block's second half over the residual x, un-added: (the
         MLP's or the MoE's output, the MoE's aux loss or None)."""
         h = self.norm(p["ln2"], x)
         if "moe" in p:
-            return moe_mod.moe_apply(p["moe"], self.cfg, h)
-        return mlp_apply(p["mlp"], self.cfg, h), None
+            return moe_mod.moe_apply(p["moe"], self.cfg, h, rules=self.rules)
+        return mlp_apply(p["mlp"], self.cfg, h, self.rules), None
 
     def _ffn(self, p, x: Tensor, aux: Optional[list] = None) -> Tensor:
         y, a = self.ffn(p, x)
@@ -144,6 +149,7 @@ class Blocks:
                     ) -> Tensor:
         """Pre-norm residual block: (B, S, d) -> (B, S, d); a MoE
         block's aux loss is appended to ``aux`` where one is given."""
+        x = constrain(x, ("batch", "seq", "embed_act"), self.rules)
         x = x + self.attn_train(p["attn"], self.norm(p["ln1"], x))
         return self._ffn(p, x, aux)
 
@@ -165,19 +171,21 @@ class Blocks:
 
     def mamba_train(self, p, x: Tensor) -> Tensor:
         """Pre-norm residual mamba block."""
+        x = constrain(x, ("batch", "seq", "embed_act"), self.rules)
         return x + ssm_mod.mamba_train(p["mamba"], self.cfg,
-                                       self.norm(p["ln"], x))
+                                       self.norm(p["ln"], x), self.rules)
 
     def mamba_prefill(self, p, x: Tensor):
         """``mamba_train`` plus the layer's {"ssm", "conv"} state."""
         y, state = ssm_mod.mamba_prefill(p["mamba"], self.cfg,
-                                         self.norm(p["ln"], x))
+                                         self.norm(p["ln"], x), self.rules)
         return x + y, state
 
     def mamba_decode(self, p, x: Tensor, state, pos: int = 0):
         """One token against the layer's state."""
         y, state = ssm_mod.mamba_decode(p["mamba"], self.cfg,
-                                        self.norm(p["ln"], x), state)
+                                        self.norm(p["ln"], x), state,
+                                        self.rules)
         return x + y, state
 
     def rwkv_schema(self):
@@ -191,44 +199,49 @@ class Blocks:
     def rwkv_train(self, p, x: Tensor) -> Tensor:
         """Pre-norm residual time-mix, then channel-mix."""
         cfg = self.cfg
+        x = constrain(x, ("batch", "seq", "embed_act"), self.rules)
         x = x + rwkv_mod.time_mix_train(p["tm"], cfg, self.norm(p["ln1"], x),
-                                        chunk=cfg.ssm_chunk)
+                                        chunk=cfg.ssm_chunk, rules=self.rules)
         return x + rwkv_mod.channel_mix_train(p["cm"], cfg,
-                                              self.norm(p["ln2"], x))
+                                              self.norm(p["ln2"], x),
+                                              rules=self.rules)
 
     def rwkv_prefill(self, p, x: Tensor):
         """``rwkv_train`` plus the layer's {"tm", "cm"} state."""
         cfg = self.cfg
         y, tm = rwkv_mod.time_mix_prefill(p["tm"], cfg,
                                           self.norm(p["ln1"], x),
-                                          chunk=cfg.ssm_chunk)
+                                          chunk=cfg.ssm_chunk,
+                                          rules=self.rules)
         x = x + y
         y, cm = rwkv_mod.channel_mix_prefill(p["cm"], cfg,
-                                             self.norm(p["ln2"], x))
+                                             self.norm(p["ln2"], x),
+                                             rules=self.rules)
         return x + y, {"tm": tm, "cm": cm}
 
     def rwkv_decode(self, p, x: Tensor, state, pos: int = 0):
         """One token against the layer's state."""
         cfg = self.cfg
         y, tm = rwkv_mod.time_mix_decode(p["tm"], cfg, self.norm(p["ln1"], x),
-                                         state["tm"])
+                                         state["tm"], rules=self.rules)
         x = x + y
         y, cm = rwkv_mod.channel_mix_decode(p["cm"], cfg,
                                             self.norm(p["ln2"], x),
-                                            state["cm"])
+                                            state["cm"], rules=self.rules)
         return x + y, {"tm": tm, "cm": cm}
 
 
 class DecoderStack:
     """Hidden-state pipeline: embeddings in, hidden states out."""
 
-    def __init__(self, cfg: ModelConfig, parallel: ParallelConfig):
+    def __init__(self, cfg: ModelConfig, parallel: ParallelConfig,
+                 rules=None):
         if cfg.family not in _FAMILIES:
             raise ValueError(f"family {cfg.family!r} has no decoder-only "
                              f"stack (one of {_FAMILIES}); an encoder-"
                              f"decoder runs through models/encdec.py")
-        self.cfg, self.parallel = cfg, parallel
-        self.blocks = Blocks(cfg, parallel)
+        self.cfg, self.parallel, self.rules = cfg, parallel, rules
+        self.blocks = Blocks(cfg, parallel, rules)
 
     def schema(self):
         """The stacked (num_layers, ...) layer weights; hybrid adds the

@@ -24,6 +24,7 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.config import TrainConfig
+from repro_torch.distributed.sharding import like
 
 Tensor = torch.Tensor
 Params = Dict[str, Tensor]
@@ -141,8 +142,8 @@ def adamw_update_(grads: Params, state: Dict[str, object], params: Params,
         m, v = state["m"][key], state["v"][key]
         p32, m32, v32 = _adam_leaf(g32, m, v, p, c1, c2, lr_t, cfg, 0)
         del g32
-        p.copy_(p32)
-        m.copy_(m32)
-        v.copy_(v32)
+        p.copy_(like(p32, p))
+        m.copy_(like(m32, m))
+        v.copy_(like(v32, v))
     state["step"] = step
     return params, state, {"grad_norm": gnorm, "lr": lr_t}

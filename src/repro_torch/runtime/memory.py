@@ -196,10 +196,11 @@ class LaunchCount:
     hbm_bytes: float = 0.0
 
     def add(self, key, B, n, S, qL, qR, input_bytes) -> None:
-        entries = qL * (qL + 1) / 2 if qL == qR else qL * qR
+        from repro_torch.kernels.seg_gram import kernel as kern
+        flops, nbytes = kern.cost(B, n, S, qL, qR, input_bytes)
         self.launches += 1
-        self.flops += 2.0 * B * n * entries
-        self.hbm_bytes += input_bytes + 4.0 * B * S * qL * qR
+        self.flops += flops
+        self.hbm_bytes += nbytes
 
 
 @contextlib.contextmanager
