@@ -418,6 +418,36 @@ Phases (each failure makes the script exit non-zero):
      bytes equal those the cell's specs give; the peak at most 80 GiB;
      the collectives by op printed.
 
+ 33. the elastic re-mesh and the paper's cell on a device mesh (slice
+     20), on a default group of this process alone (NCCL, one rank):
+     ``elastic:remesh`` — granite-3-2b at full width, ELASTIC_LAYERS of
+     its 40 layers, ``ParallelConfig(fsdp=False)`` with the flash
+     kernel, ELASTIC_BATCH x ELASTIC_SEQ tokens: ELASTIC_STEPS steps
+     with no mesh, a save, ``elastic_restore(..., rules,
+     make_host_mesh())`` and ELASTIC_STEPS more under the mesh (batches
+     placed by ``batch_sharding``), against 2 x ELASTIC_STEPS steps
+     with no mesh from the same init.  Gates: every restored leaf a
+     DTensor placed as ``state_shardings`` says (printed by placement)
+     and bitwise the leaf saved, the first ELASTIC_STEPS losses
+     bitwise, every later loss within
+     ELASTIC_LOSS_TOL of the uninterrupted run's, the flash kernel
+     launched in every step, as many times under the mesh as without.
+     ``cell:dml-mesh`` — ``make_dml_step`` ("parallel", row_block
+     65536, "pallas") at 2^20 x 500 on inputs placed by
+     ``dml_cell.row_sharding`` on the host mesh (each moments pass a
+     seg_gram launch on the rank's rows, then an all-reduce) against the
+     same step with no mesh.  Gates: theta and cov within DML_MESH_TOL ·
+     max (bitwise printed), the same seg_gram launches by form,
+     fallbacks 0.  ``dryrun:paper-cell`` runs ``python -m
+     repro_torch.launch.dryrun --paper-cell --mesh both`` and
+     ``dryrun:smoke-2.11`` the rwkv6-3b / zamba2-1.2b ``-smoke`` train
+     and prefill cells and arctic-480b-smoke's train cell, in the
+     background (started after the mesh ranks, whose gloo work is the
+     host's), on the host's torch.
+     Gates: exit 0; 4 paper-cell records ok, each rank's argument bytes
+     its row shard's (X 2^20 / 256 x 500 x 4 B on the single pod), an
+     all-reduce and no other collective; the 5 smoke records ok.
+
 Every seg_gram record also names the kernel that ran (``design``:
 small, thin or big) and times its second pass alone (``reduce_ms``)
 and, for a segment walk, its plan alone (``plan_ms``; ``ms`` has the
@@ -5600,6 +5630,29 @@ LM_USEFUL_BAND = {"granite-3-2b": (0.55, 0.85), "rwkv6-3b": (0.55, 0.90),
 DRYRUN_CELLS = (("granite-3-2b", "train_4k", "single"),
                 ("deepseek-v3-671b", "decode_32k", "multi"))
 DRYRUN_HBM_GIB = 80.0            # an H100's memory
+# the paper's cell on both production meshes, and the -smoke cells whose
+# DTensor ops differ on the card host's torch (2.11) from this repo's
+# tests' (2.13): the token shift's and the causal conv's padding, the
+# scans' cumsum under autograd, the MoE train cell
+DRYRUN_SMOKE_CELLS = (("rwkv6-3b-smoke", "train_4k"),
+                      ("rwkv6-3b-smoke", "prefill_32k"),
+                      ("zamba2-1.2b-smoke", "train_4k"),
+                      ("zamba2-1.2b-smoke", "prefill_32k"),
+                      ("arctic-480b-smoke", "train_4k"))
+# elastic:remesh — granite-3-2b at full width and ELASTIC_LAYERS layers,
+# ELASTIC_STEPS steps before the save and after the restore; every
+# restored leaf bitwise the state saved (one rank, a lossless format);
+# the restored run's losses against the uninterrupted run's, relative
+# (one card, one rank: the mesh's local products are the same products,
+# so only a reordered sum can move a loss; bf16 compute).  The bound is
+# a few times the 7.35e-5 measured while the vocab-parallel CE and
+# embedding took their sharded forms on one rank
+ELASTIC_ARCH, ELASTIC_LAYERS = "granite-3-2b", 2
+ELASTIC_BATCH, ELASTIC_SEQ, ELASTIC_STEPS = 8, 256, 3
+ELASTIC_LOSS_TOL = 5e-4
+# cell:dml-mesh — theta and cov of the step on the one-rank host mesh
+# against the step with no mesh: |a - b| <= DML_MESH_TOL · max|b|
+DML_MESH_TOL = 1e-5
 
 
 def _counted_step(arch, cfg, step_fn, state, batch, median_s: float):
@@ -5662,25 +5715,35 @@ def _counted_step(arch, cfg, step_fn, state, batch, median_s: float):
             "top_ops": tot.top(8)}
 
 
-def start_dryrun(root: Path, out_dir: Path) -> list:
-    """Launch ``python -m repro_torch.launch.dryrun`` once per
-    DRYRUN_CELLS entry, in the background on the host's CPU (a fake
-    default group of 256 / 512 ranks cannot share this process with
-    the mesh phases' real one); ``phase_dryrun`` collects them."""
+def start_dryrun(root: Path, out_dir: Path, cells=DRYRUN_CELLS,
+                 paper: bool = False) -> list:
+    """Launch ``python -m repro_torch.launch.dryrun`` once per entry of
+    ``cells`` ((arch, shape, mesh)), and with ``paper`` once with
+    ``--paper-cell --mesh both``, in the background on the host's CPU (a
+    fake default group of 256 / 512 ranks cannot share this process with
+    the mesh phases' real one); ``phase_dryrun`` / ``phase_dryrun_paper``
+    / ``phase_dryrun_smoke`` collect them."""
     import atexit
     import os
     out_dir.mkdir(parents=True, exist_ok=True)
     env = dict(os.environ, PYTHONPATH=str(root / "src"), OMP_NUM_THREADS="1")
     procs = []
-    for arch, shape, mesh in DRYRUN_CELLS:
-        path = out_dir / f"{arch}_{shape}_{mesh}.jsonl"
+
+    def start(key, path, args):
         path.unlink(missing_ok=True)
-        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-               arch, "--shape", shape, "--mesh", mesh, "--json", str(path)]
-        procs.append(((arch, shape, mesh), path, time.perf_counter(),
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", *args,
+               "--json", str(path)]
+        procs.append((key, path, time.perf_counter(),
                       subprocess.Popen(cmd, cwd=root, env=env,
                                        stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT, text=True)))
+
+    for arch, shape, mesh in cells:
+        start((arch, shape, mesh), out_dir / f"{arch}_{shape}_{mesh}.jsonl",
+              ["--arch", arch, "--shape", shape, "--mesh", mesh])
+    if paper:
+        start(("paper-cell", "", "both"), out_dir / "paper_cell.jsonl",
+              ["--paper-cell", "--mesh", "both"])
     # none outlives the script, whatever ends it
     atexit.register(lambda: [p.kill() for *_, p in procs
                              if p.poll() is None])
@@ -5716,6 +5779,18 @@ def _spec_param_bytes(arch: str, shape: str, multi_pod: bool) -> int:
     return sum(total)
 
 
+def _collect(proc, path, timeout: float = 900):
+    """(exit code, output, records) of a ``start_dryrun`` process."""
+    try:
+        text, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        text, _ = proc.communicate()
+    recs = ([json.loads(x) for x in path.read_text().splitlines()]
+            if path.exists() else [])
+    return proc.returncode, text, recs
+
+
 def phase_dryrun(procs) -> dict:
     """The production dry runs started by ``start_dryrun``: each exits 0
     with status ok, rank 0's parameter bytes equal those its specs give
@@ -5723,14 +5798,7 @@ def phase_dryrun(procs) -> dict:
     each cell's collectives by op."""
     out, fails = {}, []
     for (arch, shape, mesh), path, t0, proc in procs:
-        try:
-            text, _ = proc.communicate(timeout=900)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            text, _ = proc.communicate()
-            fails.append(f"{arch}/{shape}: timed out")
-        recs = ([json.loads(x) for x in path.read_text().splitlines()]
-                if path.exists() else [])
+        _, text, recs = _collect(proc, path)
         rec = recs[-1] if recs else {}
         want = _spec_param_bytes(arch, shape, mesh == "multi")
         mem = rec.get("memory", {})
@@ -5761,6 +5829,269 @@ def phase_dryrun(procs) -> dict:
     return out
 
 
+
+
+def phase_dryrun_paper(procs) -> dict:
+    """``dryrun:paper-cell``: the paper's 2^20 x 500 DML fit traced on
+    both production meshes and both engines.  Gates: exit 0; 4 records
+    ok; each rank's argument bytes its row shard's (X, y, t fp32 and the
+    fold ids int64 of 2^20 / chips rows); an all-reduce and no other
+    collective (no rank reads another's rows)."""
+    from repro_torch.launch.dml_cell import N_COVARIATES, N_ROWS
+    (_, path, t0, proc), = procs
+    rc, text, recs = _collect(proc, path)
+    out, fails = {}, []
+    for rec in recs:
+        rows = N_ROWS // rec.get("chips", 1)
+        want = rows * (N_COVARIATES * 4 + 4 + 4 + 8)
+        mem = rec.get("memory", {})
+        coll = rec.get("collective_by_op") or {}
+        ok = (rec.get("status") == "ok" and mem.get("argument_bytes") == want
+              and set(coll) == {"all-reduce"})
+        log(f"dryrun {rec.get('arch')}/{rec.get('shape')} on "
+            f"{rec.get('mesh')}: status {rec.get('status')}, args "
+            f"{mem.get('argument_bytes')} B a rank (the row shard: {want}), "
+            f"peak {mem.get('peak_bytes', 0) / 2 ** 20:.1f} MiB, "
+            f"{rec.get('flops_per_chip', 0) / 1e9:.2f} GFLOP, "
+            f"{rec.get('hbm_bytes_per_chip', 0) / 1e9:.3f} GB, wire by op "
+            f"{coll} ({rec.get('collective_count')} collectives); bound "
+            f"{rec.get('step_time', 0) * 1e3:.3f} ms "
+            f"({rec.get('bottleneck')}), useful_frac "
+            f"{rec.get('useful_frac', 0):.3f}, traced in {rec.get('lower_s')}"
+            f" s {'OK' if ok else 'FAIL'}")
+        if not ok:
+            fails.append(f"{rec.get('arch')}/{rec.get('mesh')}: "
+                         f"{rec.get('error')}")
+        out[f"{rec.get('arch')}/{rec.get('mesh')}"] = {
+            k: rec.get(k) for k in
+            ("status", "flops_per_chip", "hbm_bytes_per_chip",
+             "wire_bytes_per_chip", "collective_by_op", "collective_count",
+             "model_flops", "step_time", "bottleneck", "useful_frac",
+             "mfu_bound", "memory", "lower_s")}
+    log(f"dryrun --paper-cell: exit {rc}, {len(recs)} records "
+        f"({time.perf_counter() - t0:.1f} s since its start)")
+    if rc != 0 or len(recs) != 4 or fails:
+        log(text[-3000:])
+        raise AssertionError(f"dryrun:paper-cell: exit {rc}, {len(recs)} "
+                             f"records, {fails}")
+    return out
+
+
+def phase_dryrun_smoke(procs) -> dict:
+    """``dryrun:smoke-2.11``: DRYRUN_SMOKE_CELLS on the host's torch.
+    Gates: each exits 0 with status ok."""
+    out, fails = {}, []
+    for (arch, shape, mesh), path, t0, proc in procs:
+        rc, text, recs = _collect(proc, path)
+        rec = recs[-1] if recs else {}
+        ok = rc == 0 and rec.get("status") == "ok"
+        log(f"dryrun {arch}/{shape} on {rec.get('mesh', mesh)} [torch "
+            f"{torch.__version__}]: exit {rc}, status {rec.get('status')}, "
+            f"peak {rec.get('memory', {}).get('peak_bytes', 0) / 2 ** 20:.1f}"
+            f" MiB, wire by op {rec.get('collective_by_op')}, traced in "
+            f"{rec.get('lower_s')} s {'OK' if ok else 'FAIL'}")
+        if not ok:
+            fails.append(f"{arch}/{shape}: {rec.get('error')}")
+            log(text[-3000:])
+        out[f"{arch}/{shape}"] = rec.get("status")
+    if fails:
+        raise AssertionError(f"dryrun:smoke-2.11: {fails}")
+    return out
+
+
+@contextlib.contextmanager
+def _host_mesh_group():
+    """A default process group of this process alone (NCCL on the card)
+    and its host mesh (1, 1); the group is destroyed on leaving."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        yield make_host_mesh()
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_elastic_remesh(seed: int, mesh) -> dict:
+    """``elastic:remesh`` (docstring item 33): a train state saved with
+    no mesh, restored onto the host mesh by ``elastic_restore`` and
+    trained on there, against the uninterrupted run."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.config import ParallelConfig, TrainConfig
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import ShardedFeed, batch_sharding
+    from repro_torch.distributed.sharding import (default_rules,
+                                                  dtensor_ops, mesh_context)
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.launch.elastic import elastic_restore, state_shardings
+    from repro_torch.launch.train import (TrainState, init_state,
+                                          make_train_step)
+    from repro_torch.models.model import Model
+    from repro_torch.models.params import flatten
+
+    cfg = dataclasses.replace(get_config(ELASTIC_ARCH),
+                              num_layers=ELASTIC_LAYERS)
+    pc = ParallelConfig(fsdp=False, use_flash_attention=True)
+    rules = default_rules(fsdp=False)
+    n = ELASTIC_STEPS
+    tcfg = TrainConfig(learning_rate=LM_TRAIN_LR, warmup_steps=1,
+                       total_steps=2 * n)
+
+    def batch(s):
+        return _train_batch(cfg, seed, s, ELASTIC_BATCH, ELASTIC_SEQ)
+
+    def steps(model, state, feed, k, losses, flash):
+        step = make_train_step(model, tcfg)
+        for _ in range(k):
+            f0 = fa_kernel.LAUNCHES["flash_attention"]
+            state.params, state.opt, met = step(state.params, state.opt,
+                                                next(feed))
+            losses.append(float(met["loss"]))
+            flash.append(fa_kernel.LAUNCHES["flash_attention"] - f0)
+
+    t0 = time.perf_counter()
+    model = Model(cfg, pc, rules, seed=seed)
+    ref, ref_flash = [], []
+    feed = ShardedFeed(batch)
+    steps(model, init_state(model), feed, 2 * n, ref, ref_flash)
+    feed.close()
+    del model
+    torch.cuda.empty_cache()
+    t_ref = time.perf_counter() - t0
+
+    ckpt = tempfile.mkdtemp(prefix="elastic_", dir=Path(__file__).resolve()
+                            .parent / "build")
+    try:
+        t0 = time.perf_counter()
+        model = Model(cfg, pc, rules, seed=seed)
+        state = init_state(model)
+        got, flash = [], []
+        feed = ShardedFeed(batch)
+        steps(model, state, feed, n, got, flash)
+        feed.close()
+        mgr = CheckpointManager(ckpt)
+        saved = flatten({"params": state.params, "opt": state.opt})
+        mgr.save(n, {"params": state.params, "opt": state.opt})
+        del state
+        t_save = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        restored, meta = elastic_restore(mgr, model, rules, mesh)
+        torch.cuda.synchronize()
+        t_restore = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    want = flatten(state_shardings(model, rules, mesh))
+    leaves = flatten(restored)
+    placed = collections.Counter(
+        str(tuple(x.placements)) if isinstance(x, DTensor) else "plain"
+        for x in leaves.values())
+    wrong = [k for k, x in leaves.items() if not isinstance(x, DTensor)
+             or tuple(x.placements) != tuple(want[k].placements)]
+    # the state as saved, leaf by leaf (before the steps update it)
+    changed = sorted(set(saved) ^ set(leaves)) + [
+        k for k in saved if k in leaves and not torch.equal(
+            leaves[k].full_tensor() if isinstance(leaves[k], DTensor)
+            else leaves[k], saved[k])]
+    del saved
+    t0 = time.perf_counter()
+    with mesh_context(mesh), dtensor_ops():
+        state = TrainState(restored["params"], restored["opt"], n)
+        feed = ShardedFeed(batch, sharding=batch_sharding(mesh),
+                           start_step=n)
+        steps(model, state, feed, n, got, flash)
+        feed.close()
+    torch.cuda.synchronize()
+    t_mesh = time.perf_counter() - t0
+    rel = [abs(a - b) / abs(b) for a, b in zip(got[n:], ref[n:])]
+    log(f"elastic:remesh {ELASTIC_ARCH} ({ELASTIC_LAYERS} layers, d "
+        f"{cfg.d_model}, vocab {cfg.vocab_size}) [{card_line()}]: "
+        f"{2 * n} steps with no mesh {t_ref:.1f} s; {n} steps + save "
+        f"{t_save:.1f} s, elastic_restore onto the {tuple(mesh.shape)} host "
+        f"mesh [nccl] {t_restore:.1f} s (step {meta['step']}), {n} steps on "
+        f"the mesh {t_mesh:.1f} s; restored leaves by placement "
+        f"{dict(placed)}, {len(wrong)} not as state_shardings, "
+        f"{len(leaves) - len(changed)} of {len(leaves)} bitwise the state "
+        f"saved; losses "
+        f"{got} vs uninterrupted {ref} (rel after the restore "
+        f"{[f'{r:.2e}' for r in rel]}, tol {ELASTIC_LOSS_TOL:g}); flash "
+        f"launches a step {flash} (uninterrupted {ref_flash})")
+    fails = []
+    if wrong:
+        fails.append(f"leaves not placed as state_shardings: {wrong[:4]}")
+    if changed:
+        fails.append(f"restored leaves not the state saved: {changed[:4]}")
+    if got[:n] != ref[:n]:
+        fails.append("the steps before the save are not bitwise the "
+                     "uninterrupted run's")
+    if not all(r <= ELASTIC_LOSS_TOL for r in rel):
+        fails.append(f"losses after the restore off by {rel}")
+    if not (all(f > 0 for f in flash) and flash == ref_flash):
+        fails.append(f"flash launches {flash} vs {ref_flash}")
+    if fails:
+        raise AssertionError("; ".join(fails))
+    return {"losses": got, "uninterrupted": ref, "rel": rel,
+            "flash_per_step": flash, "placements": dict(placed),
+            "seconds": {"uninterrupted": t_ref, "save": t_save,
+                        "restore": t_restore, "mesh_steps": t_mesh}}
+
+
+def phase_cell_dml_mesh(seed: int, cfg, mesh) -> dict:
+    """``cell:dml-mesh`` (docstring item 33): the DML step on inputs
+    placed by ``row_sharding`` on the host mesh against the step with no
+    mesh, at 2^20 x 500."""
+    from repro_torch.core.crossfit import fold_ids
+    from repro_torch.data.causal_dgp import paper_demo_data
+    from repro_torch.distributed.sharding import (distribute, dtensor_ops,
+                                                  mesh_context)
+    from repro_torch.launch.dml_cell import (N_COVARIATES, N_ROWS,
+                                             make_dml_step, row_sharding)
+
+    data = paper_demo_data(n=N_ROWS, p=N_COVARIATES, seed=seed)
+    folds = fold_ids(torch.Generator(device="cuda").manual_seed(seed),
+                     N_ROWS, cfg.n_folds, device="cuda")
+    inputs = {"X": data.X, "y": data.y, "t": data.t, "folds": folds}
+    names = ("X", "y", "t", "folds")
+    step = make_dml_step(cfg)
+    _reset_counters()
+    t0 = time.perf_counter()
+    theta0, cov0 = step(*[inputs[k] for k in names])
+    torch.cuda.synchronize()
+    none_s = time.perf_counter() - t0
+    none_counts, _ = _read_counters()
+    sh = row_sharding(mesh)
+    placed = [distribute(inputs[k], sh[k]) for k in names]
+    _reset_counters()
+    t0 = time.perf_counter()
+    with mesh_context(mesh), dtensor_ops():
+        theta1, cov1 = step(*placed)
+    torch.cuda.synchronize()
+    mesh_s = time.perf_counter() - t0
+    counts, fallbacks = _read_counters()
+    d_theta = float((theta1 - theta0).abs().max() / theta0.abs().max())
+    d_cov = float((cov1 - cov0).abs().max() / cov0.abs().max())
+    bitwise = torch.equal(theta1, theta0) and torch.equal(cov1, cov0)
+    se = torch.sqrt(torch.diagonal(cov1))
+    log(f"cell:dml-mesh at {N_ROWS} x {N_COVARIATES} ({cfg.engine}, "
+        f"row_block {cfg.row_block}, {cfg.row_block_strategy}): on the "
+        f"{tuple(mesh.shape)} host mesh [nccl] {mesh_s:.3f} s, launches "
+        f"{counts}; no mesh {none_s:.3f} s, launches {none_counts}; theta "
+        f"{theta1.tolist()} (se {se.tolist()}); vs no mesh theta "
+        f"{d_theta:.3e}, cov {d_cov:.3e} of max (tol {DML_MESH_TOL:g}), "
+        f"bitwise {bitwise}; fallbacks {fallbacks}")
+    fails = []
+    if not (d_theta <= DML_MESH_TOL and d_cov <= DML_MESH_TOL):
+        fails.append(f"theta {d_theta:.3e}, cov {d_cov:.3e} from no mesh")
+    if not counts or counts != none_counts:
+        fails.append(f"seg_gram launches {counts} vs {none_counts}")
+    if fallbacks:
+        fails.append(f"fallbacks {fallbacks}")
+    if fails:
+        raise AssertionError("; ".join(fails))
+    return {"seconds": mesh_s, "none_seconds": none_s, "launches": counts,
+            "theta_rel": d_theta, "cov_rel": d_cov, "bitwise": bitwise}
 
 
 def phase_flash_train(seed: int, timer) -> dict:
@@ -6404,7 +6735,8 @@ def main(argv=None) -> int:
     for m in mods:
         log(m.build_log().strip())
     root = Path(__file__).resolve().parent
-    dryruns = (start_dryrun(root, root / "build" / "dryrun")
+    dry_dir = root / "build" / "dryrun"
+    dryruns = (start_dryrun(root, dry_dir)
                if selected("dryrun:production") else [])
 
     k, p, row_block = 5, 500, 65536
@@ -6569,6 +6901,12 @@ def main(argv=None) -> int:
         for key, c in (run(name, fn, mesh_ranks, *a) or {}).items():
             count(key, name, c)
     del mesh_ranks
+    # the slice-20 dry runs start here, after the CPU-bound mesh ranks
+    dry_paper = (start_dryrun(root, dry_dir, cells=(), paper=True)
+                 if selected("dryrun:paper-cell") else [])
+    dry_smoke = (start_dryrun(root, dry_dir, cells=tuple(
+        (a, s, "single") for a, s in DRYRUN_SMOKE_CELLS))
+        if selected("dryrun:smoke-2.11") else [])
     out = run("cell:sweep", phase_cell_sweep, args.seed)
     torch.cuda.empty_cache()
     cell_pairs = {}
@@ -6860,7 +7198,27 @@ def main(argv=None) -> int:
                     by_path.setdefault(key, {})[f"lm_train:{arch}"] = \
                         out["launches"][kern]
 
+    mesh_phases = {}
+    if selected("elastic:remesh") or selected("cell:dml-mesh"):
+        with _host_mesh_group() as host_mesh:
+            mesh_phases["elastic:remesh"] = run(
+                "elastic:remesh", phase_elastic_remesh, args.seed, host_mesh)
+            torch.cuda.empty_cache()
+            out = run("cell:dml-mesh", phase_cell_dml_mesh, args.seed,
+                      dataclasses.replace(base, inference="none"), host_mesh)
+            torch.cuda.empty_cache()
+            if out is not None:
+                mesh_phases["cell:dml-mesh"] = out
+                for key, c in out["launches"].items():
+                    count(key, "cell:dml-mesh", c)
+
     dryrun = run("dryrun:production", phase_dryrun, dryruns) or {}
+    if dry_paper:
+        dryrun["paper-cell"] = run("dryrun:paper-cell", phase_dryrun_paper,
+                                   dry_paper)
+    if dry_smoke:
+        dryrun["smoke-2.11"] = run("dryrun:smoke-2.11", phase_dryrun_smoke,
+                                   dry_smoke)
 
     for key, rec in records.items():
         rec["launches"] = launches.get(key, 0)
@@ -6898,6 +7256,7 @@ def main(argv=None) -> int:
             "lm_serve": lm_serve, "lm_families": list(LM_FAMILY_ARCHS
                                                       + LM_ENCODER_ARCHS),
             "lm_train": lm_train, "dryrun": dryrun,
+            "mesh_phases": mesh_phases,
             "phases": ran, "selection": selection or None,
             "seconds": time.perf_counter() - t_start}
     if args.out:

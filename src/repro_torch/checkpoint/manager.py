@@ -14,8 +14,15 @@ nested dict ("a/b/c") + ``meta.json`` (step, metric, user metadata).
 ``restore`` matches leaves to a caller-provided template by path and
 shape, so a changed state layout fails loudly instead of misloading;
 the template's tensors may be on the ``meta`` device (shape and dtype
-only).  Restoring onto another mesh (the reference's elastic
-re-sharding) waits for the elastic re-mesh slice (ROADMAP A.14b).
+only).
+
+Meshes: the format holds no placement.  ``save`` of a state whose leaves
+are ``DTensor``s gathers each leaf whole (``full_tensor``) on every
+rank; rank 0 of the default group writes and the others wait until the
+write has landed (an error on rank 0 raises on every rank).
+``restore(shardings=)`` places each leaf under its ``NamedSharding`` —
+the reference's ``device_put`` — so a state saved on N ranks resumes on
+M (``launch/elastic.elastic_restore``).
 """
 from __future__ import annotations
 
@@ -41,20 +48,62 @@ def flatten_with_paths(tree, prefix: str = "") -> Dict[str, torch.Tensor]:
 
 
 def _host_copy(tree):
-    """The same nested dict with every tensor copied to host memory."""
+    """The same nested dict with every tensor copied to host memory, a
+    ``DTensor`` gathered whole first (a collective its mesh's ranks
+    join)."""
+    from torch.distributed.tensor import DTensor
     if isinstance(tree, dict):
         return {k: _host_copy(v) for k, v in tree.items()}
+    if isinstance(tree, DTensor):
+        tree = tree.full_tensor()
     return tree.detach().to("cpu", copy=True)
 
 
+def _mesh_group(state):
+    """The default group when ``state`` has ``DTensor`` leaves (its ranks
+    share the save), else None."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    leaves = flatten_with_paths(state).values()
+    return (dist.group.WORLD
+            if any(isinstance(v, DTensor) for v in leaves) else None)
+
+
+def _meet_rank0(group, error: Optional[BaseException]) -> None:
+    """Every rank of ``group`` meets rank 0 after its write; rank 0's
+    ``error`` (None if the write landed) raises on every rank."""
+    import torch.distributed as dist
+    msg = [None if error is None else f"{type(error).__name__}: {error}"]
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if dist.get_backend(group) == "nccl" else None)
+    dist.broadcast_object_list(msg, src=dist.get_global_rank(group, 0),
+                               group=group, device=dev)
+    if error is not None:
+        raise error
+    if msg[0] is not None:
+        raise RuntimeError(f"rank 0's checkpoint write failed: {msg[0]}")
+
+
+def _sharding_device(sharding) -> torch.device:
+    """Where a leaf under ``sharding`` lives: this rank's card on a CUDA
+    mesh, else the host."""
+    if sharding.mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(sharding.mesh.device_type)
+
+
 def restore_tree(template, arrays: Dict[str, np.ndarray], *,
-                 device=None, prefix: str = ""):
+                 device=None, prefix: str = "", shardings=None):
     """Rebuild ``template``'s nested dicts from path-keyed arrays: each
     leaf takes its template tensor's dtype, and its device (``device``
-    for a template on ``meta``, or when given)."""
+    for a template on ``meta``, or when given).  With ``shardings`` (the
+    template's nesting, a ``NamedSharding`` a leaf) each leaf becomes a
+    ``DTensor`` under its sharding on the mesh's device."""
     if isinstance(template, dict):
         return {k: restore_tree(v, arrays, device=device,
-                                prefix=f"{prefix}/{k}" if prefix else str(k))
+                                prefix=f"{prefix}/{k}" if prefix else str(k),
+                                shardings=None if shardings is None
+                                else shardings[k])
                 for k, v in template.items()}
     if prefix not in arrays:
         raise KeyError(f"checkpoint missing leaf {prefix!r}")
@@ -62,6 +111,11 @@ def restore_tree(template, arrays: Dict[str, np.ndarray], *,
     if tuple(arr.shape) != tuple(template.shape):
         raise ValueError(f"shape mismatch at {prefix}: "
                          f"ckpt {arr.shape} vs template {tuple(template.shape)}")
+    if shardings is not None:
+        from repro_torch.distributed.sharding import distribute
+        t = torch.as_tensor(np.array(arr)).to(
+            device=_sharding_device(shardings), dtype=template.dtype)
+        return distribute(t, shardings)
     dev = device
     if dev is None:
         dev = "cpu" if template.device.type == "meta" else template.device
@@ -79,13 +133,30 @@ class CheckpointManager:
         os.makedirs(directory, exist_ok=True)
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
+        self._group = None          # a DTensor save's group, met in wait()
 
     # ------------------------------------------------------------------
     # Save
     # ------------------------------------------------------------------
     def save(self, step: int, state, *, metric: Optional[float] = None,
              extra: Optional[Dict[str, Any]] = None):
-        """Blocking save (used by save_async's worker)."""
+        """Blocking save (used by save_async's worker).  ``DTensor``
+        leaves: gathered on every rank, written by rank 0 alone, every
+        rank back once the write has landed."""
+        group = _mesh_group(state)
+        if group is None:
+            return self._write(step, state, metric, extra)
+        import torch.distributed as dist
+        host, error = _host_copy(state), None
+        if dist.get_rank(group) == 0:
+            try:
+                self._write(step, host, metric, extra)
+            except BaseException as e:  # noqa: BLE001 — raised on every rank
+                error = e
+        _meet_rank0(group, error)
+
+    def _write(self, step: int, state, metric: Optional[float],
+               extra: Optional[Dict[str, Any]]):
         host = {k: v.detach().cpu().numpy()
                 for k, v in flatten_with_paths(state).items()}
         tmp = os.path.join(self.dir, f"tmp.{step}.{os.getpid()}")
@@ -112,9 +183,17 @@ class CheckpointManager:
 
     def save_async(self, step: int, state, *, metric: Optional[float] = None,
                    extra: Optional[Dict[str, Any]] = None):
-        """Copy to host now; serialize in the background."""
+        """Copy to host now; serialize in the background.  A state of
+        ``DTensor``s is gathered here on every rank and written by rank
+        0; the next ``wait`` (every rank calls it) meets rank 0 there."""
         self.wait()  # one in-flight save at a time
+        group = _mesh_group(state)
         host_state = _host_copy(state)
+        self._group = group
+        if group is not None:
+            import torch.distributed as dist
+            if dist.get_rank(group) != 0:
+                return
 
         def work():
             try:
@@ -130,8 +209,11 @@ class CheckpointManager:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
-        if self._error is not None:
-            err, self._error = self._error, None
+        err, self._error = self._error, None
+        if self._group is not None:
+            group, self._group = self._group, None
+            _meet_rank0(group, err)
+        elif err is not None:
             raise err
 
     # ------------------------------------------------------------------
@@ -174,13 +256,11 @@ class CheckpointManager:
     def restore(self, template, *, step: Optional[int] = None, device=None,
                 shardings=None) -> Tuple[Any, Dict[str, Any]]:
         """(state shaped like ``template``, meta) of ``step`` (latest if
-        None)."""
-        if shardings is not None:
-            raise NotImplementedError(
-                "restoring onto a mesh's shardings lands with the "
-                "elastic re-mesh slice (ROADMAP A.14b)")
+        None); with ``shardings`` (nested as ``template``) every leaf a
+        ``DTensor`` placed under its ``NamedSharding``."""
         arrays, meta = self.load(step=step)
-        return restore_tree(template, arrays, device=device), meta
+        return restore_tree(template, arrays, device=device,
+                            shardings=shardings), meta
 
     # ------------------------------------------------------------------
     # Retention

@@ -1,8 +1,8 @@
 """The many-cohorts sweep case study: E per-segment effect estimates per
-run (``repro_torch.sweep``) on the synthetic DGP — the settings of
-``src/repro/configs/sweep_synthetic.py`` and, for the scale, of the
-reference's sweep cell (``src/repro/launch/sweep_cell.py``: 2^20 rows ×
-500 covariates, 64 segments).
+run (``repro_torch.sweep``) on the synthetic DGP — the reference's
+preset (``src/repro/configs/sweep_synthetic.py``) field for field.  The
+2^20 × 500 scale of the production cell lives in
+``launch/{dml,sweep}_cell.py``.
 """
 from repro_torch.config import CausalConfig
 
@@ -23,6 +23,8 @@ SWEEP = CausalConfig(
     sweep_chunk=16,
 )
 
+# The bench grid: E = 64 segments at CPU-friendly rows; the last scale is
+# the paper's 2^20.
 N_SEGMENTS = 64
-N_ROWS = 1_048_576
-N_COVARIATES = 500
+SCALES = (16_384, 65_536, 1_048_576)
+N_COVARIATES = 50

@@ -34,6 +34,7 @@ import torch
 
 from repro_torch.core.nuisance import (Nuisance, logistic_fit_folds,
                                        ridge_fit_folds)
+from repro_torch.distributed.sharding import per_shard
 from repro_torch.inference.executor import tree_map
 from repro_torch.obs.trace import maybe_span
 from repro_torch.runtime import as_runtime
@@ -53,14 +54,15 @@ def fold_weights(folds: Tensor, k: int) -> Tensor:
     """(…, k, n) training weights for (…, n) folds: 1.0 iff the row is
     OUTSIDE fold j."""
     ids = torch.arange(k, device=folds.device, dtype=folds.dtype)
-    return (folds[..., None, :] != ids[:, None]).to(torch.float32)
+    return per_shard(lambda f: (f[..., None, :] != ids[:, None]).to(
+        torch.float32), folds)
 
 
 def _oof_select(preds_kn: Tensor, folds: Tensor) -> Tensor:
     """Row i keeps the prediction of model folds[i] — its held-out model.
     (…, k, n) predictions and (…, n) folds -> (…, n)."""
-    idx = folds.long().unsqueeze(-2)
-    return torch.gather(preds_kn, -2, idx).squeeze(-2)
+    return per_shard(lambda p, f: torch.gather(
+        p, -2, f.long().unsqueeze(-2)).squeeze(-2), preds_kn, folds)
 
 
 def _stack_states(states) -> Dict[str, Any]:

@@ -14,7 +14,8 @@ Replicate inference: the delete-fold jackknife, and the pairs
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+from typing import (Any, Callable, Dict, Optional, Protocol, Tuple,
+                    runtime_checkable)
 
 import torch
 
@@ -35,6 +36,34 @@ def resolve_scheme(method: str) -> str:
 def inf_cache_field() -> Any:
     """The per-result InferenceResult cache field (out of repr/eq)."""
     return dataclasses.field(default_factory=dict, repr=False, compare=False)
+
+
+@runtime_checkable
+class CausalEstimator(Protocol):
+    """Every estimator facade: constructed with a CausalConfig, ``fit``
+    returns an EffectResult.  The data arguments differ by family — DML
+    takes (y, t, X), the IV family (y, t, z, X) — hence the registry's
+    per-estimator ``fit_adapter``."""
+
+    cfg: CausalConfig
+
+    def fit(self, *args: Any, **kwargs: Any) -> "EffectResult":
+        ...
+
+
+def fit_adapter(estimator_cls: Callable[..., Any], *fields: str
+                ) -> Callable[..., Any]:
+    """The registry's uniform ``fit(data, cfg, gen) -> EffectResult``:
+    ``estimator_cls(cfg, device=data.X.device).fit(*columns, gen=gen)``
+    with the columns ``fields`` read off ``data`` (the reference passes
+    a key where the port passes a ``torch.Generator``)."""
+
+    def fit(data: Any, cfg: CausalConfig,
+            gen: Optional[torch.Generator]) -> Any:
+        cols = [getattr(data, f) for f in fields]
+        return estimator_cls(cfg, device=data.X.device).fit(*cols, gen=gen)
+
+    return fit
 
 
 class EffectResult:

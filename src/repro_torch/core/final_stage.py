@@ -21,6 +21,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core import moments
+from repro_torch.distributed.sharding import row_sum
 from repro_torch.kernels.residual_gram import ops as rg_ops
 
 Tensor = torch.Tensor
@@ -29,7 +30,7 @@ _F32 = torch.float32
 
 def cate_basis(X: Tensor, n_features: int) -> Tensor:
     """phi(x): [1] (constant effect) or [1, x_0..x_{m-1}]."""
-    ones = torch.ones((X.shape[0], 1), dtype=_F32, device=X.device)
+    ones = torch.ones_like(X[:, :1], dtype=_F32)
     if n_features <= 1:
         return ones
     return torch.cat([ones, X[:, :n_features - 1].to(_F32)], dim=1)
@@ -50,6 +51,16 @@ class FinalStageResult:
         return torch.sqrt(torch.diagonal(self.cov))
 
 
+def _hc0_meat(y: Tensor, t: Tensor, my: Tensor, mt: Tensor, phi: Tensor,
+              theta: Tensor) -> Tensor:
+    """``Zᵀ diag(e²) Z`` with ``z = rt·phi`` and ``e = ry - z·theta``."""
+    ry = (y - my).to(_F32)
+    rt = (t - mt).to(_F32)
+    z = rt[:, None] * phi.to(_F32)
+    e = ry - z @ theta
+    return (z * torch.square(e)[:, None]).T @ z
+
+
 def fit_final_stage(y: Tensor, t: Tensor, my: Tensor, mt: Tensor,
                     phi: Tensor, *, ridge: float = 1e-8, row_block: int = 0,
                     strategy: Optional[str] = None) -> FinalStageResult:
@@ -68,15 +79,11 @@ def fit_final_stage(y: Tensor, t: Tensor, my: Tensor, mt: Tensor,
         return FinalStageResult(theta=theta, cov=Ainv @ meat @ Ainv,
                                 gram=G / n, n=n)
 
-    G, b = rg_ops.residual_gram(y, t, my, mt, phi)
+    G, b = row_sum(rg_ops.residual_gram, y, t, my, mt, phi)
     A = G + ridge * n * eye
     theta = torch.linalg.solve(A, b)
     # HC0 sandwich: cov = A⁻¹ (Zᵀ diag(e²) Z) A⁻¹
-    ry = (y - my).to(_F32)
-    rt = (t - mt).to(_F32)
-    z = rt[:, None] * phi.to(_F32)
-    e = ry - z @ theta
-    meat = (z * torch.square(e)[:, None]).T @ z
+    meat = row_sum(_hc0_meat, y, t, my, mt, phi, theta)
     Ainv = torch.linalg.inv(A)
     return FinalStageResult(theta=theta, cov=Ainv @ meat @ Ainv, gram=G / n,
                             n=n)

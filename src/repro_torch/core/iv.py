@@ -110,7 +110,7 @@ def fit_iv_final_stage(ry: Tensor, rt: Tensor, rz: Tensor, phi: Tensor, *,
     ``strategy="pallas"``), and Gauss-Jordan solves: the point fit is
     the w = 1 weighted replicate (``weighted_iv_theta``), bitwise."""
     n, p = phi.shape
-    ws = torch.ones((n,), dtype=_F32, device=phi.device) if w is None \
+    ws = torch.ones_like(phi[:, 0], dtype=_F32) if w is None \
         else w.to(_F32)
     Gaug, n_eff = moments.iv_gram(ry, rt, rz, phi, ws, row_block=row_block,
                                   strategy=strategy)

@@ -33,13 +33,27 @@ forms take their residuals, weights and theta with a leading replicate
 axis too: one kernel launch for the batch under "pallas", a loop of the
 unbatched form otherwise (each replicate's arithmetic is then exactly
 that of the replicate alone).
+
+Row-sharded ``DTensor``s (the paper's cell on a device mesh,
+``launch/dml_cell.row_sharding``): every form runs on each rank's own
+rows — its local shards, one kernel launch there under "pallas" — and
+the partial sums are added across the mesh (``sharding.row_sum``), so
+the form returns the same whole moments on every rank and no rank holds
+another's rows.  The route (whole-array, blocked, fused kernel) is
+decided at the global row count, as on one device: a shard of no more
+than ``row_block`` rows still takes the blocked route of a global
+n > row_block, so under "pallas" each rank launches the kernel on its
+shard.  On plain tensors the forms are unchanged.
 """
 from __future__ import annotations
 
+import contextvars
+import functools
 from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.distributed.sharding import is_dtensor, row_sum
 from repro_torch.kernels.residual_gram import ops as rg_ops
 from repro_torch.kernels.seg_gram import ops as sg_ops
 
@@ -49,6 +63,50 @@ _F32 = torch.float32
 # per-form count of strategy="pallas" calls that fell back to "chunked"
 FALLBACKS: Dict[str, int] = {}
 
+# the global row count of the DTensors whose local shards ``_per_shard``
+# hands a form: the count its route is decided at (None: the rows given)
+_GLOBAL_ROWS: contextvars.ContextVar[Optional[int]] = \
+    contextvars.ContextVar("moments_global_rows", default=None)
+
+
+def _sharded_rows(args) -> Optional[int]:
+    """The global size of the first dim a mesh dim shards among the
+    ``DTensor``s in ``args`` (the rows), else None."""
+    from torch.distributed.tensor import Shard
+    for a in args:
+        if is_dtensor(a):
+            for p in a.placements:
+                if isinstance(p, Shard):
+                    return int(a.shape[p.dim])
+    return None
+
+
+def _per_shard(form):
+    """``form`` itself on plain tensors; with a ``DTensor`` argument,
+    ``form`` on each rank's local shards, its route decided at the
+    global row count, and the partial moments summed across the mesh
+    (``sharding.row_sum``)."""
+
+    @functools.wraps(form)
+    def wrapped(*args, **kwargs):
+        flat = (*args, *kwargs.values())
+        if not any(is_dtensor(a) for a in flat):
+            return form(*args, **kwargs)
+        names = list(kwargs)
+        rows = _sharded_rows(flat)
+
+        def local(*loc):
+            token = _GLOBAL_ROWS.set(rows)
+            try:
+                return form(*loc[:len(args)],
+                            **dict(zip(names, loc[len(args):])))
+            finally:
+                _GLOBAL_ROWS.reset(token)
+
+        return row_sum(local, *flat)
+
+    return wrapped
+
 
 def resolve_row_block(n: int, row_block: Optional[int]) -> int:
     """0 means one whole-array block; any R >= n collapses to that."""
@@ -56,9 +114,19 @@ def resolve_row_block(n: int, row_block: Optional[int]) -> int:
     return 0 if r <= 0 or r >= n else r
 
 
+def _route_block(n: int, row_block: Optional[int]) -> int:
+    """``resolve_row_block`` at the row count a form's route is decided
+    at: the global rows of a row-sharded call (``_per_shard``), else
+    ``n``.  Nonzero on a shard of no more than R rows where the global
+    n exceeds R: the shard then takes the blocked route, a single block
+    of its own rows."""
+    g = _GLOBAL_ROWS.get()
+    return resolve_row_block(n if g is None else g, row_block)
+
+
 def _use_pallas(n: int, row_block: int, strategy: Optional[str]) -> bool:
     """The fused kernel engages on the blocked path only."""
-    return strategy == "pallas" and resolve_row_block(n, row_block) > 0
+    return strategy == "pallas" and _route_block(n, row_block) > 0
 
 
 def _active_data_mesh():
@@ -185,6 +253,7 @@ def _wgram(D: Tensor, w: Tensor) -> Tensor:
 # Weighted moments (ridge / logistic normal equations).
 # ---------------------------------------------------------------------------
 
+@_per_shard
 def weighted_gram(X: Tensor, w: Tensor, *, intercept: bool = False,
                   append: Optional[Tensor] = None, row_block: int = 0,
                   strategy: Optional[str] = None) -> Tuple[Tensor, Tensor]:
@@ -209,6 +278,7 @@ def weighted_gram(X: Tensor, w: Tensor, *, intercept: bool = False,
                           strategy=strategy, form="weighted_gram")
 
 
+@_per_shard
 def weighted_gram_and_vec(X: Tensor, wg: Tensor, v: Tensor, *,
                           intercept: bool = False, row_block: int = 0,
                           strategy: Optional[str] = None
@@ -226,7 +296,7 @@ def weighted_gram_and_vec(X: Tensor, wg: Tensor, v: Tensor, *,
         n_eff = blocked_reduce(lambda wb: wb.sum(0), (_rows(wg),),
                                row_block=row_block)
         return G, u, n_eff
-    if resolve_row_block(X.shape[0], row_block) == 0:
+    if _route_block(X.shape[0], row_block) == 0:
         D = design(X, intercept=intercept)
         return (_wgram(D, _rows(wg)), v.to(_F32) @ D,
                 wg.to(_F32).sum(-1))
@@ -246,6 +316,7 @@ def weighted_gram_and_vec(X: Tensor, wg: Tensor, v: Tensor, *,
 # Fold-segmented moments (the leave-one-out identity of cross-fitting).
 # ---------------------------------------------------------------------------
 
+@_per_shard
 def fold_gram(X: Tensor, folds: Tensor, k: int, *, intercept: bool = False,
               append: Optional[Tensor] = None, row_block: int = 0,
               strategy: Optional[str] = None) -> Tuple[Tensor, Tensor]:
@@ -270,6 +341,7 @@ def fold_gram(X: Tensor, folds: Tensor, k: int, *, intercept: bool = False,
                           form="fold_gram")
 
 
+@_per_shard
 def fold_weighted_gram(X: Tensor, Wk: Tensor, *, intercept: bool = False,
                        append: Optional[Tensor] = None, row_block: int = 0,
                        strategy: Optional[str] = None
@@ -280,7 +352,7 @@ def fold_weighted_gram(X: Tensor, Wk: Tensor, *, intercept: bool = False,
     so it does not depend on the strategy."""
     Wk = Wk.to(_F32)
     n_eff = Wk.sum(-1)
-    r = resolve_row_block(X.shape[0], row_block)
+    r = _route_block(X.shape[0], row_block)
     if r == 0:
         D = design(X, intercept=intercept, append=append)
         return _wgram(D, Wk.T), n_eff
@@ -304,6 +376,7 @@ def fold_weighted_gram(X: Tensor, Wk: Tensor, *, intercept: bool = False,
 # G = ZᵀZ, b = Zᵀ(y - my), meat = Σ e²·z zᵀ.
 # ---------------------------------------------------------------------------
 
+@_per_shard
 def residual_moments(y: Tensor, t: Tensor, my: Tensor, mt: Tensor,
                      phi: Tensor, *, row_block: int = 0,
                      strategy: Optional[str] = None
@@ -312,7 +385,7 @@ def residual_moments(y: Tensor, t: Tensor, my: Tensor, mt: Tensor,
     takes the fused ``residual_gram`` (the kernel on the card); the
     blocked path streams the augmented ``M = [Z | ry]`` Gram."""
     n, p = phi.shape
-    r = resolve_row_block(n, row_block)
+    r = _route_block(n, row_block)
     if r == 0:
         return rg_ops.residual_gram(y, t, my, mt, phi)
     if strategy == "pallas":
@@ -330,6 +403,7 @@ def residual_moments(y: Tensor, t: Tensor, my: Tensor, mt: Tensor,
                           strategy=strategy, form="residual_moments")
 
 
+@_per_shard
 def residual_weighted_gram(ry: Tensor, rt: Tensor, phi: Tensor, w: Tensor,
                            *, row_block: int = 0,
                            strategy: Optional[str] = None
@@ -364,6 +438,7 @@ def _meat_gram(score: Tensor, e: Tensor, p: int) -> Tensor:
     return (score * torch.square(e)[:, None]).T @ score
 
 
+@_per_shard
 def residual_meat(y: Tensor, t: Tensor, my: Tensor, mt: Tensor,
                   phi: Tensor, theta: Tensor, *, w: Optional[Tensor] = None,
                   row_block: int = 0, strategy: Optional[str] = None
@@ -411,6 +486,7 @@ def _iv_rows(ryb: Tensor, rtb: Tensor, rzb: Tensor, phib: Tensor) -> Tensor:
                       ryb.to(_F32)[:, None]], dim=1)
 
 
+@_per_shard
 def iv_gram(ry: Tensor, rt: Tensor, rz: Tensor, phi: Tensor, w: Tensor, *,
             row_block: int = 0, strategy: Optional[str] = None
             ) -> Tuple[Tensor, Tensor]:
@@ -440,6 +516,7 @@ def iv_slices(Gaug: Tensor, p: int) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
             Gaug[..., :p, :p], Gaug[..., p:2 * p, p:2 * p])
 
 
+@_per_shard
 def iv_meat(ry: Tensor, rt: Tensor, rz: Tensor, phi: Tensor, theta: Tensor,
             *, w: Optional[Tensor] = None, row_block: int = 0,
             strategy: Optional[str] = None) -> Tensor:
@@ -473,6 +550,7 @@ def iv_meat(ry: Tensor, rt: Tensor, rz: Tensor, phi: Tensor, theta: Tensor,
                           strategy=strategy, form="iv_meat")
 
 
+@_per_shard
 def fold_iv_gram(ry: Tensor, rt: Tensor, rz: Tensor, phi: Tensor,
                  folds: Tensor, k: int, *, row_block: int = 0,
                  strategy: Optional[str] = None) -> Tuple[Tensor, Tensor]:

@@ -27,6 +27,7 @@ import torch.nn.functional as F
 
 from repro_torch.config import CausalConfig, TrainConfig
 from repro_torch.core import moments
+from repro_torch.distributed.sharding import matmul, per_shard, row_sum
 from repro_torch.inference.executor import tree_map
 from repro_torch.optim.adamw import adamw_init, adamw_update
 
@@ -54,16 +55,15 @@ class Nuisance:
 
 
 def _aug(X: Tensor) -> Tensor:
-    """Append the intercept column."""
-    return torch.cat([X, torch.ones((X.shape[0], 1), dtype=X.dtype,
-                                    device=X.device)], dim=1)
+    """Append the intercept column (laid out as X's rows)."""
+    return torch.cat([X, torch.ones_like(X[:, :1])], dim=1)
 
 
 def _linear(state: Dict[str, Tensor], X: Tensor) -> Tensor:
     """``[X | 1] @ beta``: (n,) for beta (q,), (k, n) for beta (k, q)."""
     beta = state["beta"]
     Xa = _aug(X.to(_F32))
-    return Xa @ beta if beta.dim() == 1 else (Xa @ beta.T).T
+    return Xa @ beta if beta.dim() == 1 else matmul(Xa, beta.T).T
 
 
 def _eye(q: int, like: Tensor) -> Tensor:
@@ -117,7 +117,7 @@ def make_logistic(lam: float = 1e-3, iters: int = 16, row_block: int = 0,
         ws = w.to(_F32)
         yt = y.to(_F32)
         q = X.shape[1] + 1
-        n_eff = torch.clamp(ws.sum(-1), min=1.0)
+        n_eff = torch.clamp(row_sum(lambda v: v.sum(-1), ws), min=1.0)
         lam_ = state["lam"]
         lam_eye = lam_[..., None, None] * _eye(q, Xf)
         beta = state["beta"]
@@ -340,18 +340,20 @@ def logistic_fit_folds(lam: float, iters: int, X: Tensor, t: Tensor,
     n, p = Xa.shape
     Gh, G = _fold_grams(Xa, folds, k, row_block=row_block, strategy=strategy)
     ids = torch.arange(k, device=folds.device, dtype=folds.dtype)
-    onehot = (folds[:, None] == ids[None, :]).to(_F32)          # (n, k)
+    onehot = per_shard(lambda f: (f[:, None] == ids[None, :]).to(_F32),
+                       folds, out_dim=0)                        # (n, k)
     w = 1.0 - onehot                                            # train weights
-    n_eff = torch.clamp(n - onehot.sum(0), min=1.0)
+    n_eff = torch.clamp(n - row_sum(lambda o: o.sum(0), onehot), min=1.0)
     H0 = (G[None] - Gh) / (4.0 * n_eff[:, None, None]) \
         + lam * _eye(p, G)[None]
     LU, piv = torch.linalg.lu_factor(H0)
     tt = t.to(_F32)
     beta = torch.zeros((k, p), dtype=_F32, device=X.device)
     for _ in range(iters):
-        mu = torch.sigmoid(Xa @ beta.T)                         # (n, k)
+        mu = torch.sigmoid(matmul(Xa, beta.T))                 # (n, k)
         r = w * (mu - tt[:, None])
-        g = (r.T @ Xa) / n_eff[:, None] + lam * beta            # (k, p)
+        g = row_sum(lambda r, Xa: r.T @ Xa, r, Xa) / n_eff[:, None] \
+            + lam * beta                                        # (k, p)
         beta = beta - torch.linalg.lu_solve(LU, piv, g[..., None])[..., 0]
     return {"beta": beta, "lam": torch.full((k,), lam, dtype=_F32,
                                             device=X.device)}

@@ -23,6 +23,7 @@ import torch
 from repro_torch.config import CausalConfig
 from repro_torch.core.dml import DML
 from repro_torch.core.drlearner import DRLearner
+from repro_torch.core.estimator import fit_adapter
 from repro_torch.core.iv import DRIV, OrthoIV
 from repro_torch.core.metalearners import (make_meta_core, s_learner,
                                            t_learner, x_learner)
@@ -111,8 +112,7 @@ def nuisance_signature(cfg: CausalConfig) -> tuple:
 
 # -- DML --------------------------------------------------------------------
 
-def _fit_dml(data, cfg, gen):
-    return DML(cfg, device=data.X.device).fit(data.y, data.t, data.X, gen=gen)
+_fit_dml = fit_adapter(DML, "y", "t", "X")
 
 
 def _dml_nuisances(cfg):
@@ -164,9 +164,7 @@ def _dml_final_fit(cfg):
 
 # -- orthogonal IV ------------------------------------------------------------
 
-def _fit_orthoiv(data, cfg, gen):
-    return OrthoIV(cfg, device=data.X.device).fit(data.y, data.t, data.z,
-                                                 data.X, gen=gen)
+_fit_orthoiv = fit_adapter(OrthoIV, "y", "t", "z", "X")
 
 
 def _iv_nuisances(cfg):
@@ -218,9 +216,7 @@ def _orthoiv_final_fit(cfg):
 
 # -- DRLearner ----------------------------------------------------------------
 
-def _fit_dr(data, cfg, gen):
-    return DRLearner(cfg, device=data.X.device).fit(data.y, data.t, data.X,
-                                                    gen=gen)
+_fit_dr = fit_adapter(DRLearner, "y", "t", "X")
 
 
 def _dr_weighted_fit(cfg):
@@ -242,9 +238,7 @@ def _dr_weighted_fit(cfg):
 
 # -- DRIV -------------------------------------------------------------------
 
-def _fit_driv(data, cfg, gen):
-    return DRIV(cfg, device=data.X.device).fit(data.y, data.t, data.z,
-                                               data.X, gen=gen)
+_fit_driv = fit_adapter(DRIV, "y", "t", "z", "X")
 
 
 def _driv_weighted_fit(cfg):

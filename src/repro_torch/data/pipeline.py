@@ -5,31 +5,38 @@ thread builds the next ``depth`` batches while the device computes,
 puts each tensor in pinned host memory and copies it to ``device`` with
 ``non_blocking=True``, so the copy overlaps the step that runs.  Batch s
 is a pure function of s, so a run restarted at step s (``start_step``)
-replays what a fresh run saw there.  The reference places each batch
-under a mesh's batch ``NamedSharding`` (``batch_sharding``); that waits
-for the elastic re-mesh slice (ROADMAP A.14b).
+replays what a fresh run saw there.  With ``sharding=`` (a
+``batch_sharding``) each tensor of a batch becomes a ``DTensor`` on the
+mesh, its batch dim split over the data axes (every rank builds the
+whole batch, so placing it moves nothing between ranks).
 """
 from __future__ import annotations
 
 import queue
 import threading
-from typing import Callable, Dict, Iterator
+from typing import Callable, Dict, Iterator, Optional
 
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed.sharding import NamedSharding, P, distribute
 
 Tensor = torch.Tensor
 
 
 class ShardedFeed:
     """An iterator of batches (dicts of tensors) on ``device`` (the card
-    unless ``device="cpu"``), built ahead on a thread."""
+    unless ``device="cpu"``; with ``sharding``, the mesh's device), built
+    ahead on a thread and, with ``sharding``, placed under it."""
 
     def __init__(self, make_batch: Callable[[int], Dict[str, Tensor]], *,
                  device: DeviceLike = None, start_step: int = 0,
-                 depth: int = 2):
+                 depth: int = 2, sharding: Optional[NamedSharding] = None):
         self._make_batch = make_batch
+        self._sharding = sharding
+        if sharding is not None:
+            device = ("cpu" if sharding.mesh.device_type == "cpu" else
+                      torch.device("cuda", torch.cuda.current_device()))
         self._device = resolve_device(device)
         self._step = start_step
         self._q: "queue.Queue" = queue.Queue(maxsize=depth)
@@ -39,9 +46,13 @@ class ShardedFeed:
 
     def _place(self, batch: Dict[str, Tensor]) -> Dict[str, Tensor]:
         if self._device.type != "cuda":
-            return {k: v.to(self._device) for k, v in batch.items()}
-        return {k: v.pin_memory().to(self._device, non_blocking=True)
-                for k, v in batch.items()}
+            out = {k: v.to(self._device) for k, v in batch.items()}
+        else:
+            out = {k: v.pin_memory().to(self._device, non_blocking=True)
+                   for k, v in batch.items()}
+        if self._sharding is None:
+            return out
+        return {k: distribute(v, self._sharding) for k, v in out.items()}
 
     def _worker(self) -> None:
         step = self._step
@@ -82,9 +93,9 @@ class ShardedFeed:
         self._thread.join(timeout=5)
 
 
-def batch_sharding(mesh, multi_pod: bool = False):
-    """The reference's batch-dim sharding over a mesh's data axes."""
-    raise NotImplementedError(
-        "placing batches under a mesh's sharding lands with the launch "
-        "tooling (ROADMAP A.14b); ShardedFeed(device=...) places them on "
-        "one device")
+def batch_sharding(mesh, multi_pod: bool = False) -> NamedSharding:
+    """The batch dim over the mesh's data axes: ("pod", "data") with
+    ``multi_pod`` on a mesh that has a "pod" axis, else "data"."""
+    names = tuple(mesh.mesh_dim_names)
+    dp = ("pod", "data") if multi_pod and "pod" in names else "data"
+    return NamedSharding(mesh, P(dp))

@@ -26,8 +26,16 @@ lookup), ``take_last`` (the CE's label gather, its backward on the
 shard), ``logsumexp_last`` (a sharded vocab's logsumexp), ``write_slot``
 (a decode step's cache write on the shard that holds the slot), ``like``
 (an in-place write's source in its destination's layout), ``whole_dim``
-(a scanned dim gathered once before a chunk loop) and, for the dry run,
-``sharded_products`` (einsum / matmul as one local einsum).
+(a scanned dim gathered once before a chunk loop), ``pad`` (the token
+shift's and the causal conv's zero padding of the time dim), ``row_sum``
+(a moments pass over row-sharded data: each rank's rows, then an
+all-reduce of the partial sums), ``per_shard`` (row-local work on
+each rank's shards), ``cumsum`` (the scans' cumulative logs),
+``rows_like``, and the products ``einsum`` / ``matmul`` / ``bmm`` (on
+DTensors one local product on each rank's shards, ``sharded_einsum``),
+which every product of the model code calls.  Nothing of torch is
+swapped: a step on DTensors opens ``dtensor_ops`` (implicit
+replication) and nothing else.
 """
 from __future__ import annotations
 
@@ -294,6 +302,29 @@ def whole_dim(x: torch.Tensor, dim: int) -> torch.Tensor:
         x.redistribute(x.device_mesh, pl)
 
 
+def pad(x: torch.Tensor, pads: Sequence[int]) -> torch.Tensor:
+    """``F.pad(x, pads)`` with zeros; on a ``DTensor`` each rank pads its
+    local shard, every padded dim gathered whole first (``whole_dim``),
+    and the result keeps ``x``'s placements.  The token shift and the
+    causal conv pad the time dim this way: DTensor's own ``F.pad`` rule
+    differs across torch versions (2.11 fails it)."""
+    import torch.nn.functional as F
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
+        return F.pad(x, tuple(pads))
+    grow = [0] * x.dim()
+    for i in range(0, len(pads), 2):
+        grow[x.dim() - 1 - i // 2] = pads[i] + pads[i + 1]
+    for d, g in enumerate(grow):
+        if g:
+            x = whole_dim(x, d)
+    loc = F.pad(x.to_local(), tuple(pads))
+    shape = torch.Size(n + g for n, g in zip(x.shape, grow))
+    return DTensor.from_local(loc, x.device_mesh, x.placements,
+                              run_check=False, shape=shape,
+                              stride=_contiguous_stride(shape))
+
+
 def like(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
     """``src`` laid out as ``dst`` for an in-place write into ``dst``
     (or a view of it): redistributed when both are ``DTensor``s with
@@ -360,7 +391,10 @@ class _TakeRows(torch.autograd.Function):
     shard up), looks up the ids that fall in its rows, zeros the rest,
     and returns a partial sum over the vocab's mesh dims; the backward
     adds the gradient rows into zeros of the local vocab shard, a
-    partial sum over the ids' row dims.  DTensor's own index rules have
+    partial sum over the ids' row dims, by the op the backward of a
+    plain ``table[ids]`` takes (``index_put_`` with accumulate: sorted,
+    deterministic on the card, where ``index_add_``'s atomics add a
+    bf16 gradient in no fixed order).  DTensor's own index rules have
     no strategy for ids sharded over two mesh dims ("hybrid" sharding)."""
 
     @staticmethod
@@ -395,9 +429,9 @@ class _TakeRows(torch.autograd.Function):
         g_loc = g.redistribute(mesh, ipl).to_local()
         d = g_loc.shape[-1]
         grad = torch.zeros((rows, d), dtype=g_loc.dtype, device=g_loc.device)
-        grad.index_add_(0, i_loc.reshape(-1),
-                        (g_loc * inside[..., None].to(g_loc.dtype))
-                        .reshape(-1, d))
+        grad.index_put_((i_loc.reshape(-1),),
+                         (g_loc * inside[..., None].to(g_loc.dtype))
+                         .reshape(-1, d), accumulate=True)
         gpl = [tpl[m] if isinstance(tpl[m], Shard) else
                (Partial() if isinstance(ipl[m], Shard) else Replicate())
                for m in range(mesh.ndim)]
@@ -432,41 +466,191 @@ def take_last(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.gather(x, -1, idx)
 
 
-def rowwise(fn: Callable[..., Any], *args):
+def rowwise(fn: Callable[..., Any], *args, dims: Sequence[int] = (0,)):
     """``fn(*args)`` where ``fn`` works on rows independently (dim 0 of
     every tensor argument and output): on ``DTensor``s each rank runs it
     on its own rows — dim 0 sharded as the first DTensor argument shards
     it, every other dim whole — and the outputs come back as DTensors
     laid out so.  The reference's row-local MoE dispatch (``vmap`` over
     the batch) is how it shards there; DTensor has no rule for its
-    sort / scatter / gather ops."""
+    sort / scatter / gather ops.  ``dims`` names more independent dims
+    kept sharded the same way (attention: batch and heads, ``(0, 2)``);
+    an output's dim d in ``dims`` has the first DTensor argument's size
+    there."""
     from torch.distributed.tensor import DTensor, Replicate, Shard
     ref = next((a for a in args if isinstance(a, DTensor)), None)
     if ref is None:
         return fn(*args)
     mesh = ref.device_mesh
-    pl = [p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+    pl = [p if isinstance(p, Shard) and p.dim in dims else Replicate()
           for p in ref.placements]
-    rows = ref.shape[0]
     out = fn(*[a.redistribute(mesh, pl).to_local()
                if isinstance(a, DTensor) else a for a in args])
 
     def wrap(o):
-        shape = (rows,) + tuple(o.shape[1:])
+        shape = tuple(ref.shape[d] if d in dims else n
+                      for d, n in enumerate(o.shape))
         return DTensor.from_local(o, mesh, pl, run_check=False, shape=shape,
                                   stride=_contiguous_stride(shape))
 
     return tuple(wrap(o) for o in out) if isinstance(out, tuple) else wrap(out)
 
 
+def is_dtensor(x: Any) -> bool:
+    """Whether ``x`` is a ``DTensor``."""
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def whole_sums(x):
+    """A ``DTensor`` with its partial sums reduced (``Partial`` mesh dims
+    made ``Replicate``); anything else itself."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if not isinstance(x, DTensor) or not any(p.is_partial()
+                                             for p in x.placements):
+        return x
+    return x.redistribute(x.device_mesh, [
+        Replicate() if p.is_partial() else p for p in x.placements])
+
+
+def _local(x):
+    """This rank's shard of a ``DTensor`` (its partial sums reduced
+    first); anything else itself."""
+    from torch.distributed.tensor import DTensor
+    return whole_sums(x).to_local() if isinstance(x, DTensor) else x
+
+
+def row_sum(fn: Callable[..., Any], *args):
+    """``fn(*args)`` where ``fn`` is a moments pass: every output a sum
+    of per-row terms over the rows its row-indexed arguments share.  On
+    ``DTensor``s whose rows are sharded each rank runs ``fn`` on its own
+    local shards — its rows only, through the kernels on a card — and
+    the partial sums are added over the mesh dims that shard the rows
+    (an all-reduce an output).  The outputs are plain tensors, whole and
+    equal on every rank, as a one-device pass returns them.  Arguments
+    that are not row-indexed (a coefficient vector) are plain or
+    replicated."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    dts = [a for a in args if isinstance(a, DTensor)]
+    if not dts:
+        return fn(*args)
+    mesh = dts[0].device_mesh
+    out = fn(*[_local(a) for a in args])
+    pl = [Partial() if any(isinstance(a.placements[m], Shard) for a in dts)
+          else Replicate() for m in range(mesh.ndim)]
+
+    def total(o):
+        return DTensor.from_local(o, mesh, pl, run_check=False).full_tensor()
+
+    return tuple(total(o) for o in out) if isinstance(out, tuple) \
+        else total(out)
+
+
+def per_shard(fn: Callable[..., Any], *args, out_dim: Optional[int] = None):
+    """``fn(*args)`` where ``fn`` is row-local work over broadcasting
+    operands (comparisons, gathers along a non-row dim, products with a
+    small replicated operand): on ``DTensor``s each rank applies ``fn``
+    to its local shards, and the output keeps the first DTensor
+    argument's shards: its Shard(d) becomes the output's Shard(out_dim),
+    or, with ``out_dim`` None, Shard(d + out.ndim - arg.ndim) (dims
+    aligned from the right, as broadcasting aligns them).  DTensor's own
+    rules for such ops differ across torch versions (2.11 has none for
+    ``ne``); the work on each rank is the plain op's on its rows."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    ref = next((a for a in args if isinstance(a, DTensor)), None)
+    if ref is None:
+        return fn(*args)
+    mesh = ref.device_mesh
+    out = fn(*[_local(a) for a in args])
+
+    def wrap(o):
+        def at(d):
+            return d + o.dim() - ref.dim() if out_dim is None else out_dim
+
+        pl = [Shard(at(p.dim)) if isinstance(p, Shard) else Replicate()
+              for p in ref.placements]
+        shape = list(o.shape)
+        for p in ref.placements:
+            if isinstance(p, Shard):
+                shape[at(p.dim)] = ref.shape[p.dim]
+        return DTensor.from_local(o, mesh, pl, run_check=False,
+                                  shape=torch.Size(shape),
+                                  stride=_contiguous_stride(shape))
+
+    return tuple(wrap(o) for o in out) if isinstance(out, tuple) else wrap(out)
+
+
+class _LocalCumsum(torch.autograd.Function):
+    """``torch.cumsum`` of a DTensor along a dim no mesh dim splits, on
+    each rank's shard, forward and backward (the backward is the reverse
+    cumsum: flip, cumsum, flip)."""
+
+    @staticmethod
+    def forward(ctx, x, dim):
+        from torch.distributed.tensor import DTensor
+        ctx.meta = (x.device_mesh, tuple(x.placements), dim)
+        return DTensor.from_local(torch.cumsum(x.to_local(), dim),
+                                  x.device_mesh, x.placements,
+                                  run_check=False, shape=x.shape,
+                                  stride=x.stride())
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import DTensor
+        mesh, pl, dim = ctx.meta
+        g_loc = g.redistribute(mesh, pl).to_local()
+        out = torch.flip(torch.cumsum(torch.flip(g_loc, (dim,)), dim),
+                         (dim,))
+        return DTensor.from_local(out, mesh, pl, run_check=False,
+                                  shape=g.shape, stride=g.stride()), None
+
+
+def cumsum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``torch.cumsum(x, dim)``; on a ``DTensor`` on each rank's shard
+    (``dim`` gathered whole first when a mesh dim splits it), its
+    backward too (``_LocalCumsum``)."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
+        return torch.cumsum(x, dim)
+    dim = dim % x.dim()
+    return _LocalCumsum.apply(whole_sums(whole_dim(x, dim)), dim)
+
+
+def rows_like(x: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """``x``, a tensor every rank holds whole whose dim 0 indexes the
+    same rows as ``ref``'s, laid out as ``ref``: on a ``DTensor`` ``ref``
+    distributed under its placements (each rank keeps its own rows; no
+    collective), else ``x`` itself."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    if not isinstance(ref, DTensor) or isinstance(x, DTensor):
+        return x
+    return distribute_tensor(x, ref.device_mesh, ref.placements,
+                             src_data_rank=None)
+
+
 def logsumexp_last(x: torch.Tensor) -> torch.Tensor:
-    """``torch.logsumexp(x, -1, keepdim=True)``; on a ``DTensor`` as
+    """``torch.logsumexp(x, -1, keepdim=True)``; on a ``DTensor`` whose
+    last dim no mesh dim of more than one rank splits, the same op on
+    each rank's shard (a split over one rank is the whole dim); else
     max + log Σ exp(x - max) over the local shard of the last dim with
     the max and the sum reduced across its shards (torch's logsumexp
     rule gathers a sharded last dim whole)."""
-    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor import DTensor, Replicate, Shard
     if not isinstance(x, DTensor):
         return torch.logsumexp(x, dim=-1, keepdim=True)
+    mesh, last = x.device_mesh, x.dim() - 1
+
+    def splits_last(m, p):
+        return isinstance(p, Shard) and p.dim == last and mesh.size(m) > 1
+
+    if not any(splits_last(m, p) for m, p in enumerate(x.placements)):
+        x = whole_sums(x)
+        pl = [Replicate() if isinstance(p, Shard) and p.dim == last else p
+              for p in x.placements]
+        shape = torch.Size(tuple(x.shape[:-1]) + (1,))
+        return DTensor.from_local(
+            torch.logsumexp(_local(x), dim=-1, keepdim=True), mesh, pl,
+            run_check=False, shape=shape, stride=_contiguous_stride(shape))
     m = x.detach().amax(dim=-1, keepdim=True)
     return m + torch.log(torch.exp(x - m).sum(dim=-1, keepdim=True))
 
@@ -512,9 +696,36 @@ def _matmul_equation(a_dim: int, b_dim: int) -> str:
     return f"{a_b}mk,{b_b}kn->{batch}mn"
 
 
-def sharded_einsum(eq: str, *operands):
+def einsum(eq: str, *operands):
+    """``torch.einsum(eq, *operands)``; of DTensors ``sharded_einsum``."""
+    if any(is_dtensor(o) for o in operands):
+        return sharded_einsum(eq, *operands)
+    return torch.einsum(eq, *operands)
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.matmul(a, b)``; of DTensors of two dims or more
+    ``sharded_einsum`` of its equation, each rank's product a
+    ``torch.matmul`` of its shards."""
+    if (is_dtensor(a) or is_dtensor(b)) and a.dim() >= 2 and b.dim() >= 2:
+        return sharded_einsum(_matmul_equation(a.dim(), b.dim()), a, b,
+                              local=torch.matmul)
+    return torch.matmul(a, b)
+
+
+def bmm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.bmm(a, b)``; of DTensors ``sharded_einsum``, each rank's
+    product a ``torch.bmm`` of its shards."""
+    if is_dtensor(a) or is_dtensor(b):
+        return sharded_einsum("bnk,bkm->bnm", a, b, local=torch.bmm)
+    return torch.bmm(a, b)
+
+
+def sharded_einsum(eq: str, *operands,
+                   local: Optional[Callable[..., torch.Tensor]] = None):
     """``torch.einsum(eq, *operands)`` of DTensors as each rank computes
-    it: one local einsum on local shards.  Per mesh dim one letter is
+    it: one local product on local shards (``local(*shards)``, by
+    default ``torch.einsum(eq, *shards)``).  Per mesh dim one letter is
     sharded: among the letters the operands shard on that dim, the one
     whose choice gathers the fewest operand bytes; an operand that shards
     another letter there is gathered (an FSDP weight's all-gather), one
@@ -542,9 +753,10 @@ def sharded_einsum(eq: str, *operands):
             size[ch] = n
     chosen: List[Optional[str]] = []
     for m in range(mesh.ndim):
+        # a letter may be chosen again on a later mesh dim: rows sharded
+        # over ("data", "model") jointly stay split over both
         cands = {sub[p.dim] for sub, o in zip(subs, ops)
                  for p in [o.placements[m]] if isinstance(p, Shard)}
-        cands = [c for c in cands if c not in chosen]
         best, best_cost = None, None
         for c in sorted(cands):
             cost = sum(o.numel() * o.element_size()
@@ -562,12 +774,19 @@ def sharded_einsum(eq: str, *operands):
                       else Replicate())
         targets.append(o if tuple(pl) == tuple(o.placements)
                        else o.redistribute(mesh, pl))
-    local = torch.einsum(eq, *[t.to_local() for t in targets])
+    # an operand whole on a mesh dim where another is split meets a
+    # different shard on each rank there: its gradient is a partial sum
+    # over that dim (to_local's default would take it as replicated)
+    shards = [t.to_local(grad_placements=[
+        Partial() if c is not None and isinstance(p, Replicate) else p
+        for c, p in zip(chosen, t.placements)]) for t in targets]
+    out_local = (local(*shards) if local is not None
+                 else torch.einsum(eq, *shards))
     out_pl = [Replicate() if c is None else
               (Shard(out.index(c)) if c in out else Partial())
               for c in chosen]
     shape = torch.Size([size[ch] for ch in out])
-    return DTensor.from_local(local, mesh, out_pl, run_check=False,
+    return DTensor.from_local(out_local, mesh, out_pl, run_check=False,
                               shape=shape, stride=_contiguous_stride(shape))
 
 
@@ -593,41 +812,18 @@ def _contiguous_stride(shape) -> Tuple[int, ...]:
 
 
 @contextlib.contextmanager
-def sharded_products():
-    """Within the block, ``torch.einsum``, ``torch.matmul`` and ``@`` of
-    DTensors run through ``sharded_einsum``: DTensor flattens an einsum's
-    batch letters into one dim before its sharding rules run, and a
-    flattened dim sharded over two mesh dims (batch on "data", heads on
-    "model") has no rule, where the local einsum keeps both shardings.
-    The functions are swapped in the torch namespace (not a torch
-    function mode) so that activation checkpointing's recompute in the
-    backward takes the same route as the forward.  Plain tensors take
-    the original functions."""
-    from torch.distributed.tensor import DTensor
-    orig = (torch.einsum, torch.matmul, torch.Tensor.matmul,
-            torch.Tensor.__matmul__)
-
-    def einsum(eq, *operands):
-        ops = (tuple(operands[0]) if len(operands) == 1
-               and isinstance(operands[0], (list, tuple)) else operands)
-        if any(isinstance(o, DTensor) for o in ops):
-            return sharded_einsum(eq, *ops)
-        return orig[0](eq, *operands)
-
-    def matmul_of(fn):
-        def matmul(a, b, **kwargs):
-            if isinstance(a, DTensor) or isinstance(b, DTensor):
-                return sharded_einsum(_matmul_equation(a.dim(), b.dim()),
-                                      a, b)
-            return fn(a, b, **kwargs)
-        return matmul
-
-    torch.einsum = einsum
-    torch.matmul = matmul_of(orig[1])
-    torch.Tensor.matmul = matmul_of(orig[2])
-    torch.Tensor.__matmul__ = matmul_of(orig[3])
-    try:
+def dtensor_ops():
+    """What a step on ``DTensor``s needs around it (the train step under
+    a mesh, the paper's steps on a mesh, the dry run): plain tensors
+    made inside the step (RoPE tables, masks, constants) taken as
+    replicated.  Its products go through ``einsum`` / ``matmul`` /
+    ``bmm`` at their call sites, whose operand moves are
+    ``redistribute``s that autograd sees (a weight gathered for a
+    product gets its gradient reduce-scattered back in the backward;
+    inside DTensor's own bmm rule the gather is hidden and the gradient
+    stays a whole partial sum), and which keep a batch dim split over
+    two mesh dims (batch on "data", heads on "model") where DTensor's
+    einsum rule, flattening the batch letters first, has none."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    with implicit_replication():
         yield
-    finally:
-        (torch.einsum, torch.matmul, torch.Tensor.matmul,
-         torch.Tensor.__matmul__) = orig

@@ -26,7 +26,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.distributed.sharding import constrain, like
+from repro_torch.distributed.sharding import constrain, einsum, like
 from repro_torch.kernels.flash_attention import kernel as _kernel
 from repro_torch.kernels.flash_attention import ref as _ref
 
@@ -134,7 +134,7 @@ def flash_attention_bwd_blocks(q: Tensor, k: Tensor, v: Tensor, o: Tensor,
             break
         qb, dob = qg[:, :, :, r0:], dog[:, :, :, r0:]
         kb, vb = kt[:, :, start:end], vt[:, :, start:end]
-        s = torch.einsum("bkgqd,bksd->bkgqs", qb, kb) * sc
+        s = einsum("bkgqd,bksd->bkgqs", qb, kb) * sc
         if softcap:
             t = torch.tanh(s / softcap)
             s = t * softcap
@@ -145,18 +145,18 @@ def flash_attention_bwd_blocks(q: Tensor, k: Tensor, v: Tensor, o: Tensor,
         s = constrain(s, grouped_score_axes(G), rules)
         p = torch.exp(s - lse_g[:, :, :, r0:])
         del s
-        dv[:, :, start:end] = like(torch.einsum("bkgqs,bkgqd->bksd", p, dob),
+        dv[:, :, start:end] = like(einsum("bkgqs,bkgqd->bksd", p, dob),
                                    dv)
-        dp = torch.einsum("bkgqd,bksd->bkgqs", dob, vb)
+        dp = einsum("bkgqd,bksd->bkgqs", dob, vb)
         ds = p * (dp - delta[:, :, :, r0:])
         del p, dp
         if softcap:
             ds = ds * (1.0 - t * t)
             del t
         ds = ds * sc
-        dk[:, :, start:end] = like(torch.einsum("bkgqs,bkgqd->bksd", ds, qb),
+        dk[:, :, start:end] = like(einsum("bkgqs,bkgqd->bksd", ds, qb),
                                    dk)
-        dq[:, :, :, r0:] += like(torch.einsum("bkgqs,bksd->bkgqd", ds, kb), dq)
+        dq[:, :, :, r0:] += like(einsum("bkgqs,bksd->bkgqd", ds, kb), dq)
         del ds
     dq = dq.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, Dq)
     return dq, dk.permute(0, 2, 1, 3), dv.permute(0, 2, 1, 3)

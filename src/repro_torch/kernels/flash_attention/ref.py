@@ -12,6 +12,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.distributed.sharding import einsum
+
 Tensor = torch.Tensor
 _F32 = torch.float32
 
@@ -27,7 +29,7 @@ def attention_ref(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
     wt = torch.float64 if q.dtype == torch.float64 else _F32
     sc = scale if scale is not None else 1.0 / (D ** 0.5)
     qg = q.reshape(B, KV, G, Sq, D).to(wt)
-    s = torch.einsum("bkgqd,bksd->bkgqs", qg, k.to(wt)) * sc
+    s = einsum("bkgqd,bksd->bkgqs", qg, k.to(wt)) * sc
     if softcap:
         s = torch.tanh(s / softcap) * softcap
     if causal:
@@ -35,7 +37,7 @@ def attention_ref(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
                 >= torch.arange(Sk, device=q.device)[None, :])
         s = torch.where(mask, s, torch.full_like(s, -1e30))
     p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgqs,bksd->bkgqd", p, v.to(wt))
+    o = einsum("bkgqs,bksd->bkgqd", p, v.to(wt))
     return o.reshape(B, H, Sq, Dv).to(q.dtype)
 
 
@@ -49,7 +51,7 @@ def attention_lse(q: Tensor, k: Tensor, *, causal: bool = True,
     KV, Sk = k.shape[1], k.shape[2]
     wt = torch.float64 if q.dtype == torch.float64 else _F32
     sc = scale if scale is not None else 1.0 / (D ** 0.5)
-    s = torch.einsum("bkgqd,bksd->bkgqs",
+    s = einsum("bkgqd,bksd->bkgqs",
                      q.reshape(B, KV, H // KV, Sq, D).to(wt), k.to(wt)) * sc
     if softcap:
         s = torch.tanh(s / softcap) * softcap

@@ -31,7 +31,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.distributed.sharding import whole_dim
+from repro_torch.distributed.sharding import einsum, whole_dim
 from repro_torch.kernels.ssm_scan import kernel as _kernel
 from repro_torch.kernels.ssm_scan import ref as _ref
 
@@ -186,12 +186,12 @@ def gla_bwd_chunks(q: Tensor, k: Tensor, v: Tensor, w: Tensor,
         S = _carry(dec, ks_v.detach().permute(2, 0, 1, 3, 4))
         do_c = (torch.zeros_like(o_intra) if do is None else
                 do.to(wt).reshape(B, H, n, chunk, Dv))
-        dq_tilde = torch.einsum("bhntv,nbhkv->bhntk", do_c, S)
-        G = torch.einsum("bhntk,bhntv->nbhkv", q_tilde.detach(), do_c)
+        dq_tilde = einsum("bhntv,nbhkv->bhntk", do_c, S)
+        G = einsum("bhntk,bhntv->nbhkv", q_tilde.detach(), do_c)
         D = _carry(dec, G, None if ds_final is None else ds_final.to(wt),
                    reverse=True)
         del G
-        dw_total = torch.einsum("nbhkv,nbhkv->bhnk", D, S)
+        dw_total = einsum("nbhkv,nbhkv->bhnk", D, S)
         del S
     outs = [o_intra, q_tilde, w_total, ks_v]
     cots = [do_c, dq_tilde, dw_total, D.permute(1, 2, 0, 3, 4)]
@@ -224,16 +224,16 @@ def ssd_bwd_chunks(q: Tensor, k: Tensor, v: Tensor, a: Tensor,
         S = _carry(dec, kv_sum.detach().permute(2, 0, 1, 3, 4))
         do_c = (torch.zeros_like(o_intra) if do is None else
                 do.to(wt).reshape(B, H, n, chunk, P))
-        m = torch.einsum("bhntp,nbhkp->bhntk", do_c, S)
+        m = einsum("bhntp,nbhkp->bhntk", do_c, S)
         qd, qi = qc.detach(), q_in.detach()
-        dqc = torch.einsum("bhntk,bhnt->bntk", m, qi)
-        dq_in = torch.einsum("bhntk,bntk->bhnt", m, qd)
+        dqc = einsum("bhntk,bhnt->bntk", m, qi)
+        dq_in = einsum("bhntk,bntk->bhnt", m, qd)
         del m
-        G = torch.einsum("bntk,bhntp->nbhkp", qd, do_c * qi[..., None])
+        G = einsum("bntk,bhntp->nbhkp", qd, do_c * qi[..., None])
         D = _carry(dec, G, None if ds_final is None else ds_final.to(wt),
                    reverse=True)
         del G
-        da_total = torch.einsum("nbhkp,nbhkp->bhn", D, S)
+        da_total = einsum("nbhkp,nbhkp->bhn", D, S)
         del S
     outs = [o_intra, qc, q_in, a_total, kv_sum]
     cots = [do_c, dqc, dq_in, da_total, D.permute(1, 2, 0, 3, 4)]

@@ -30,6 +30,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.distributed import sharding
+
 Tensor = torch.Tensor
 
 # Per-step decay-rate bound: w >= exp(-MAX_LOG_DECAY).  The model layers
@@ -46,7 +48,7 @@ def _readout(q: Tensor, s: Tensor) -> Tensor:
     """q (..., Dk) . s (..., Dk, Dv), both promoted to their common type
     first, as ``jnp.einsum`` promotes a bf16 q against an fp32 state."""
     dt = torch.promote_types(q.dtype, s.dtype)
-    return torch.einsum("...k,...kv->...v", q.to(dt), s.to(dt))
+    return sharding.einsum("...k,...kv->...v", q.to(dt), s.to(dt))
 
 
 def gla_step(state: Tensor, q, k, v, w, u=None):
@@ -99,7 +101,7 @@ def gla_chunks(q: Tensor, k: Tensor, v: Tensor, w: Tensor,
     wc = w.reshape(B, H, n, chunk, Dk).to(wt)
 
     logw = torch.log(torch.clamp(wc, min=1e-22))
-    cum_incl = torch.cumsum(logw, dim=-2)             # prod_{i<=t} w_i
+    cum_incl = sharding.cumsum(logw, dim=-2)             # prod_{i<=t} w_i
     cum_excl = cum_incl - logw                        # prod_{i<t}  w_i
     w_total = torch.exp(cum_incl[..., -1, :])         # (B,H,n,Dk)
 
@@ -115,14 +117,14 @@ def gla_chunks(q: Tensor, k: Tensor, v: Tensor, w: Tensor,
         q_tilde = qc * torch.exp(cum_excl)
         mask = torch.tril(ones, diagonal=-1)
 
-    scores = torch.einsum("bhntk,bhnsk->bhnts", q_tilde, k_tilde)
+    scores = sharding.einsum("bhntk,bhnsk->bhnts", q_tilde, k_tilde)
     scores = torch.where(mask, scores, torch.zeros_like(scores))
-    o_intra = torch.einsum("bhnts,bhnsv->bhntv", scores, vc)
+    o_intra = sharding.einsum("bhnts,bhnsv->bhntv", scores, vc)
     if u is not None:
-        diag = torch.einsum("bhntk,hk,bhntk->bhnt", qc, u.to(wt), kc)
+        diag = sharding.einsum("bhntk,hk,bhntk->bhnt", qc, u.to(wt), kc)
         o_intra = o_intra + diag[..., None] * vc
 
-    ks_v = torch.einsum("bhnsk,bhnsv->bhnkv", k_flow, vc)  # chunk summary
+    ks_v = sharding.einsum("bhnsk,bhnsv->bhnkv", k_flow, vc)  # chunk summary
     return q_tilde, w_total, ks_v, o_intra
 
 
@@ -142,7 +144,7 @@ def gla_chunked_ref(q: Tensor, k: Tensor, v: Tensor, w: Tensor,
              if initial_state is None else initial_state.to(wt))
     o_inter = []
     for c in range(n):
-        o_inter.append(torch.einsum("bhtk,bhkv->bhtv", q_tilde[:, :, c],
+        o_inter.append(sharding.einsum("bhtk,bhkv->bhtv", q_tilde[:, :, c],
                                     state))
         state = w_total[:, :, c, :, None] * state + ks_v[:, :, c]
     o = o_intra + torch.stack(o_inter, dim=2)
@@ -152,9 +154,9 @@ def gla_chunked_ref(q: Tensor, k: Tensor, v: Tensor, w: Tensor,
 def ssd_step(state: Tensor, q, k, v, a):
     """Single-token SSD update. state: (B,H,N,P); q,k: (B,N); v: (B,H,P);
     a: (B,H) scalar decay."""
-    kv = torch.einsum("bn,bhp->bhnp", k, v)
+    kv = sharding.einsum("bn,bhp->bhnp", k, v)
     state = state * a[..., None, None] + kv
-    o = torch.einsum("bn,bhnp->bhp", q, state)
+    o = sharding.einsum("bn,bhnp->bhp", q, state)
     return state, o
 
 
@@ -191,22 +193,22 @@ def ssd_chunks(q, k, v, a, chunk: int = 64):
     ac = a.reshape(B, H, n, chunk).to(wt)
 
     loga = torch.log(torch.clamp(ac, min=1e-37))
-    cum = torch.cumsum(loga, dim=-1)                      # (B,H,n,C)
+    cum = sharding.cumsum(loga, dim=-1)                      # (B,H,n,C)
     a_total = torch.exp(cum[..., -1])                     # (B,H,n)
 
     # shared scores, computed once for all heads
-    scores = torch.einsum("bntk,bnsk->bnts", qc, kc)      # (B,n,C,C)
+    scores = sharding.einsum("bntk,bnsk->bnts", qc, kc)      # (B,n,C,C)
     # per-head decay L-matrix: exp of NON-POSITIVE differences (stable)
     diff = cum[..., :, None] - cum[..., None, :]          # (B,H,n,C,C)
     mask = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
                                  device=q.device))
     L = torch.where(mask, torch.exp(torch.clamp(diff, max=0.0)),
                     torch.zeros_like(diff))
-    o_intra = torch.einsum("bnts,bhnts,bhnsp->bhntp", scores, L, vc)
+    o_intra = sharding.einsum("bnts,bhnts,bhnsp->bhntp", scores, L, vc)
 
     # chunk kv summary with end-of-chunk decay (exponent <= 0)
     flow = torch.exp(cum[..., -1:] - cum)                 # (B,H,n,C)
-    kv_sum = torch.einsum("bnsk,bhns,bhnsp->bhnkp", kc, flow, vc)
+    kv_sum = sharding.einsum("bnsk,bhns,bhnsp->bhnkp", kc, flow, vc)
     q_in = torch.exp(cum)                                 # (B,H,n,C)
     return qc, q_in, a_total, kv_sum, o_intra
 
@@ -224,7 +226,7 @@ def ssd_chunked_ref(q, k, v, a, chunk: int = 64, initial_state=None):
              if initial_state is None else initial_state.to(wt))
     o_inter = []
     for c in range(n):
-        o_inter.append(torch.einsum("btk,bht,bhkp->bhtp", qc[:, c],
+        o_inter.append(sharding.einsum("btk,bht,bhkp->bhtp", qc[:, c],
                                     q_in[:, :, c], state))
         state = a_total[:, :, c, None, None] * state + kv_sum[:, :, c]
     o = o_intra + torch.stack(o_inter, dim=2)

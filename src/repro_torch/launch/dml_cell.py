@@ -15,14 +15,27 @@ moments pass of the step row-shards over the mesh's ranks — under
     step = make_dml_step(cfg)                 # engine "parallel"
     theta, cov = step(X, y, t, folds)
 
-The reference lowers these steps against a production mesh for its cost
-and dry-run tooling (``row_sharding``, ``lower_dml_cell``,
-``lower_iv_cell``); those come with the next launch slice (ROADMAP
-A.14b).
+On a device mesh the inputs are ``DTensor``s placed by ``row_sharding``:
+rows over every mesh axis jointly, the fold ids as data beside them.
+Each rank then reads only its own rows: every moments pass is its rows'
+share (one kernel launch on its shard under "pallas") summed across the
+mesh (``distributed/sharding.row_sum``), and the row-wise work
+(predictions, residuals) stays on its shard.  Outside a mesh every path
+is the plain one.
+
+    with mesh_context(mesh), dtensor_ops():
+        theta, cov = step(*placed_inputs)
+
+``lower_dml_cell`` / ``lower_iv_cell`` are the reference's lowerings
+against the production mesh, in torch: one step traced as rank 0 of the
+mesh under ``FakeTensorMode`` (shapes, no memory, the CPU's plain
+routes) with ``launch/op_cost.count`` — per-rank flops, bytes, the
+collectives and the peak — as ``launch/dryrun.trace_cell`` traces the
+LM cells; ``dryrun --paper-cell`` reports them.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Any, Callable, Dict, Sequence, Tuple
 
 import torch
 
@@ -111,3 +124,61 @@ def input_specs(n: int = N_ROWS, p: int = N_COVARIATES,
     if with_instrument:
         specs["z"] = ((n,), f32)
     return specs
+
+
+def row_sharding(mesh, with_instrument: bool = False) -> Dict[str, Any]:
+    """{name: NamedSharding} of a step's inputs: rows over EVERY mesh
+    axis jointly (the paper's one giant data axis), the fold ids too;
+    the folds batch inside the step."""
+    from repro_torch.distributed.sharding import NamedSharding, P
+    axes = tuple(mesh.mesh_dim_names)
+    sh = {"X": NamedSharding(mesh, P(axes, None)),
+          "y": NamedSharding(mesh, P(axes)),
+          "t": NamedSharding(mesh, P(axes)),
+          "folds": NamedSharding(mesh, P(axes))}
+    if with_instrument:
+        sh["z"] = NamedSharding(mesh, P(axes))
+    return sh
+
+
+def lower_step(mesh, step: Callable[..., Any], names: Sequence[str],
+               specs: Dict[str, Any], shardings: Dict[str, Any]):
+    """(CostTotals, argument bytes of this rank) of one ``step(*inputs)``
+    traced as this rank of ``mesh``: under ``FakeTensorMode`` each input
+    is zeros of its spec placed under its sharding, and
+    ``launch/op_cost.count`` counts the step's local ops and
+    collectives."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.distributed.sharding import (distribute, dtensor_ops,
+                                                  mesh_context)
+    from repro_torch.launch import op_cost
+    with FakeTensorMode(), dtensor_ops(), mesh_context(mesh):
+        inputs = [distribute(torch.zeros(specs[k][0], dtype=specs[k][1]),
+                             shardings[k])
+                  for k in names]
+        args = sum(x.to_local().numel() * x.element_size() for x in inputs)
+        with op_cost.count() as totals:
+            step(*inputs)
+    return totals, args
+
+
+def lower_dml_cell(mesh, cfg: CausalConfig = None, n: int = N_ROWS,
+                   p: int = N_COVARIATES, engine: str = "parallel"):
+    """One DML step at n × p on ``mesh`` (``lower_step``), its inputs
+    placed by ``row_sharding``."""
+    cfg = cfg or CausalConfig(n_folds=5, cate_features=1)
+    return lower_step(mesh, make_dml_step(cfg, engine, device="cpu"),
+                      ("X", "y", "t", "folds"), input_specs(n, p),
+                      row_sharding(mesh))
+
+
+def lower_iv_cell(mesh, cfg: CausalConfig = None, n: int = N_ROWS,
+                  p: int = N_COVARIATES, engine: str = "parallel"):
+    """The OrthoIV step at n × p on ``mesh``: the same row sharding plus
+    the instrument column."""
+    cfg = cfg or CausalConfig(n_folds=5, cate_features=1)
+    return lower_step(mesh, make_iv_step(cfg, engine, device="cpu"),
+                      ("X", "y", "t", "z", "folds"),
+                      input_specs(n, p, with_instrument=True),
+                      row_sharding(mesh, with_instrument=True))

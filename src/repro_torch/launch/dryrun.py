@@ -24,6 +24,13 @@ Usage:
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch yi-34b \\
         --shape train_4k --mesh single
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all --json out.jsonl
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --paper-cell \\
+        --mesh both --json out.jsonl
+
+``--paper-cell`` runs the paper's 2^20 x 500 DML fit instead
+(``run_dml_cell``, engines "parallel" and "parallel_loo"): its inputs
+row-sharded over every rank (``launch/dml_cell.row_sharding``), each
+rank's moments passes on its rows summed by all-reduces.
 
 Each cell prints one line and, with ``--json``, appends one record.
 """
@@ -42,7 +49,7 @@ import torch
 from repro_torch.config import SHAPES, TrainConfig
 from repro_torch.configs import ARCH_IDS
 from repro_torch.distributed.sharding import (NamedSharding, P,
-                                              distribute, sharded_products,
+                                              distribute, dtensor_ops,
                                               mesh_context)
 from repro_torch.launch import op_cost
 from repro_torch.launch.cells import Cell, cell_input_shardings, make_cell
@@ -204,9 +211,8 @@ def trace_cell(cell: Cell, mesh, tcfg: TrainConfig = TrainConfig()):
     """(CostTotals, argument bytes, parameter bytes) of one run of the
     cell's entry point as rank 0 of ``mesh``."""
     from torch._subclasses.fake_tensor import FakeTensorMode
-    from torch.distributed.tensor.experimental import implicit_replication
-    with FakeTensorMode(), implicit_replication(), mesh_context(mesh), \
-            relaxed_views(), sharded_products(), mesh_alltoall():
+    with FakeTensorMode(), dtensor_ops(), mesh_context(mesh), \
+            relaxed_views(), mesh_alltoall():
         model = cell.model(device="cpu")
         param_sh = _place_params(model, cell, mesh)
         param_bytes = _local_bytes(dict(model.state_dict()))
@@ -235,12 +241,21 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
     _open_group()
     mesh = make_production_mesh(multi_pod=multi_pod)
     tot, args, param_bytes = trace_cell(cell, mesh)
+    _record(rec, tot, args, model_flops_for(cell.cfg, cell.shape), t0,
+            verbose, param_bytes=int(param_bytes))
+    return rec
+
+
+def _record(rec: Dict[str, Any], tot, args: int, model_flops: float,
+            t0: float, verbose: bool, **memory) -> None:
+    """Fill ``rec`` with the reference's cost keys from a traced step's
+    ``CostTotals`` ``tot`` and its argument bytes, and print its line."""
     rl = Roofline(flops=tot.flops, hbm_bytes=tot.bytes,
-                  wire_bytes=tot.wire_bytes,
-                  model_flops=model_flops_for(cell.cfg, cell.shape),
-                  chips=chips)
-    mem = {"argument_bytes": int(args), "param_bytes": int(param_bytes),
-           "peak_bytes": int(args) + int(tot.peak_bytes)}
+                  wire_bytes=tot.wire_bytes, model_flops=model_flops,
+                  chips=rec["chips"])
+    mem = {"argument_bytes": int(args), **memory,
+           "peak_bytes": int(args) + int(tot.peak_bytes),
+           "peak_top": tot.peak_top}
     rec.update(
         status="ok",
         flops_per_chip=rl.flops,
@@ -256,11 +271,32 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
         memory=mem, lower_s=round(time.time() - t0, 1),
     )
     if verbose:
-        print(f"[{rec['mesh']}] {arch}/{shape_name}: "
+        print(f"[{rec['mesh']}] {rec['arch']}/{rec['shape']}: "
               f"bottleneck={rl.bottleneck} step>={rl.step_time * 1e3:.1f}ms "
               f"mfu_bound={rl.mfu_bound:.2%} "
               f"peak_mem={mem['peak_bytes'] / 2**30:.2f}GiB "
               f"(traced in {rec['lower_s']}s)", flush=True)
+
+
+def run_dml_cell(*, multi_pod: bool, verbose: bool = True, n: int = 0,
+                 p: int = 0, engine: str = "parallel") -> Dict[str, Any]:
+    """The paper's own 2^20 x 500 fold-parallel DML fit on the mesh
+    (``launch/dml_cell.lower_dml_cell``): rows over every rank, each
+    rank's moments passes on its rows and their all-reduces."""
+    from repro_torch.launch import dml_cell
+    t0 = time.time()
+    nn, pp = n or dml_cell.N_ROWS, p or dml_cell.N_COVARIATES
+    chips = 512 if multi_pod else 256
+    rec: Dict[str, Any] = {"arch": f"dml-crossfit-{engine}",
+                           "shape": f"{nn}rows",
+                           "mesh": _mesh_name(multi_pod), "chips": chips}
+    _open_group()
+    mesh = make_production_mesh(multi_pod=multi_pod)
+    tot, args = dml_cell.lower_dml_cell(mesh, n=nn, p=pp, engine=engine)
+    # useful model flops: the reference's count of the two nuisances'
+    # Gram / Newton passes and the final stage (its "rough" formula)
+    _record(rec, tot, args, 2.0 * 5 * nn * pp * pp * (1 + 16) / 4, t0,
+            verbose)
     return rec
 
 
@@ -272,40 +308,47 @@ def main(argv=None) -> int:
                     default="single")
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--paper-cell", action="store_true",
-                    help="the paper's 1M x 500 DML fit (not yet ported)")
+                    help="the paper's 2^20 x 500 DML fit on the mesh, both "
+                         "engines, instead of the LM cells")
+    ap.add_argument("--n", type=int, default=0,
+                    help="--paper-cell rows (default 2^20)")
+    ap.add_argument("--p", type=int, default=0,
+                    help="--paper-cell covariates (default 500)")
     ap.add_argument("--json", default="")
     args = ap.parse_args(argv)
 
-    if args.paper_cell:
-        raise NotImplementedError(
-            "the paper's DML cell on the production mesh (row_sharding, "
-            "lower_dml_cell) lands with the next launch slice (ROADMAP "
-            "A.14b)")
-
-    archs = list(ARCH_IDS) if (args.all or not args.arch) else [args.arch]
-    shapes = ([s.name for s in SHAPES] if (args.all or not args.shape)
-              else [args.shape])
     meshes = {"single": [False], "multi": [True],
               "both": [False, True]}[args.mesh]
+    if args.paper_cell:
+        from repro_torch.launch.dml_cell import N_ROWS
+        runs = [(f"dml-crossfit-{e}", f"{args.n or N_ROWS}rows", mp,
+                 lambda mp=mp, e=e: run_dml_cell(multi_pod=mp, n=args.n,
+                                                 p=args.p, engine=e))
+                for mp in meshes for e in ("parallel", "parallel_loo")]
+    else:
+        archs = (list(ARCH_IDS) if (args.all or not args.arch)
+                 else [args.arch])
+        shapes = ([s.name for s in SHAPES] if (args.all or not args.shape)
+                  else [args.shape])
+        runs = [(arch, shape, mp, lambda mp=mp, a=arch, s=shape:
+                 run_cell(a, s, multi_pod=mp))
+                for mp in meshes for arch in archs for shape in shapes]
 
     out = open(args.json, "a") if args.json else None
     failed = 0
-    for mp in meshes:
-        for arch in archs:
-            for shape in shapes:
-                try:
-                    rec = run_cell(arch, shape, multi_pod=mp)
-                except Exception as e:  # a sharding bug — report, go on
-                    failed += 1
-                    rec = {"arch": arch, "shape": shape,
-                           "mesh": _mesh_name(mp), "status": "error",
-                           "error": repr(e),
-                           "trace": traceback.format_exc()[-2000:]}
-                    print(f"[FAIL] {arch}/{shape}: {e!r}"[:2000],
-                          file=sys.stderr, flush=True)
-                if out:
-                    out.write(json.dumps(rec) + "\n")
-                    out.flush()
+    for arch, shape, mp, run in runs:
+        try:
+            rec = run()
+        except Exception as e:  # a sharding bug — report, go on
+            failed += 1
+            rec = {"arch": arch, "shape": shape, "mesh": _mesh_name(mp),
+                   "status": "error", "error": repr(e),
+                   "trace": traceback.format_exc()[-2000:]}
+            print(f"[FAIL] {arch}/{shape}: {e!r}"[:2000], file=sys.stderr,
+                  flush=True)
+        if out:
+            out.write(json.dumps(rec) + "\n")
+            out.flush()
     if out:
         out.close()
     return 1 if failed else 0

@@ -6,11 +6,12 @@ LM training (the reference's ``state_template`` / ``elastic_restore``):
 state's template from the model's schema (shapes and dtypes on the meta
 device, no memory) and loads the latest (or a given) checkpoint onto a
 device, with its meta (``meta["step"]``).  The checkpoint format holds
-no placement, so a state saved on one device resumes on another; the
-data resumes from the saved step, since a batch is a pure function of
-(seed, step).  Re-placing the state under a new mesh's shardings
-(``state_shardings``) waits for the elastic re-mesh slice (ROADMAP
-A.14b).
+no placement, so a state saved on one device resumes on another, and a
+state saved on one mesh resumes on another: ``elastic_restore(manager,
+model, rules, mesh)`` places every leaf under the new mesh's
+``state_shardings`` (the mesh may have another number of ranks than the
+one that saved it); the data resumes from the saved step, since a batch
+is a pure function of (seed, step).
 
 Sweeps: run one with per-column checkpoints, and on
 a re-run — after a lost shard, a killed process, or on another number
@@ -55,22 +56,34 @@ def state_template(model: Model) -> Dict[str, Any]:
                     "m": like(moments), "v": like(moments)}}
 
 
-def state_shardings(model: Model, rules, mesh):
-    """The reference's per-leaf shardings of the train state on a mesh."""
-    raise NotImplementedError(
-        "re-placing a train state under a mesh's shardings lands with the "
-        "elastic re-mesh slice (ROADMAP A.14b)")
+def state_shardings(model: Model, rules, mesh) -> Dict[str, Any]:
+    """The train state's ``NamedSharding``s on ``mesh``, nested as
+    ``state_template``: the parameters' under ``rules``, the AdamW
+    moments' the same, the step replicated."""
+    from repro_torch.distributed.sharding import NamedSharding, P
+    psh = flatten(model.param_shardings(rules, mesh))
+    return {"params": psh,
+            "opt": {"step": NamedSharding(mesh, P()), "m": psh, "v": psh}}
 
 
-def elastic_restore(manager: CheckpointManager, model: Model, *,
-                    step: Optional[int] = None, device=None
+def elastic_restore(manager: CheckpointManager, model: Model, rules=None,
+                    mesh=None, *, step: Optional[int] = None, device=None
                     ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
-    """(state, meta) of the latest checkpoint (or ``step``) on ``device``
-    (the model's by default), leaf for leaf against ``state_template``:
-    a changed layout fails loudly instead of misloading."""
+    """(state, meta) of the latest checkpoint (or ``step``), leaf for
+    leaf against ``state_template`` (a changed layout fails loudly
+    instead of misloading): on ``mesh`` every leaf a ``DTensor`` under
+    ``state_shardings(model, rules, mesh)`` (``rules`` defaults to the
+    model's), else on ``device`` (the model's by default)."""
+    if mesh is None:
+        return manager.restore(state_template(model), step=step,
+                               device=device if device is not None
+                               else model.device)
+    rules = rules if rules is not None else model.rules
+    if rules is None:
+        raise ValueError("elastic_restore onto a mesh needs sharding rules "
+                         "(the model has none)")
     return manager.restore(state_template(model), step=step,
-                           device=device if device is not None
-                           else model.device)
+                           shardings=state_shardings(model, rules, mesh))
 
 
 def sweep_checkpoint_manager(directory: str, spec, *,

@@ -26,7 +26,12 @@ code and leaves its totals in ``c`` (``CostTotals``), always PER DEVICE:
     output counts as bytes too.
   * peak_bytes: the largest sum of live storages the counted ops
     allocated (each storage released when its last tensor dies), not
-    counting what existed before the block.
+    counting what existed before the block: a storage at its full
+    bytes, but a collective's at its output's own (a fake group's
+    shard-dim all-to-all returns a view of ``group size`` copies of its
+    input, where the card's collective writes the view alone);
+    ``peak_top`` the largest storages live at that peak, each with the
+    op that made it and its shape and dtype.
   * the port's kernels launch through ``ctypes``, out of dispatch's
     sight: each wrapper calls ``charge(kernel, flops, bytes)`` with its
     kernel's own cost formula, which adds to the totals and counts the
@@ -36,6 +41,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import heapq
 import weakref
 from typing import Any, Dict, List, Optional
 
@@ -56,6 +62,7 @@ class CostTotals:
     coll_by_op: Dict[str, float] = dataclasses.field(default_factory=dict)
     coll_count: int = 0
     peak_bytes: int = 0
+    peak_top: List[Dict[str, Any]] = dataclasses.field(default_factory=list)
     launches: Dict[str, int] = dataclasses.field(default_factory=dict)
     kernel_flops: Dict[str, float] = dataclasses.field(default_factory=dict)
     kernel_bytes: Dict[str, float] = dataclasses.field(default_factory=dict)
@@ -119,6 +126,8 @@ def _group_size(name: str) -> int:
     return _resolve_process_group(name).size()
 
 
+PEAK_TOP = 5                      # storages listed at the peak
+
 _ACTIVE: List["_CostMode"] = []
 _PROPAGATING = [0]
 
@@ -144,7 +153,8 @@ class _CostMode(TorchDispatchMode):
     def __init__(self, totals: CostTotals):
         super().__init__()
         self.totals = totals
-        self._live: Dict[int, List[int]] = {}   # storage -> [bytes, refs]
+        # storage -> [bytes, refs, (op, shape, dtype) of its first tensor]
+        self._live: Dict[int, List[Any]] = {}
         self._live_bytes = 0
 
     # -- peak bytes ---------------------------------------------------------
@@ -157,21 +167,31 @@ class _CostMode(TorchDispatchMode):
             self._live_bytes -= ent[0]
             del self._live[key]
 
-    def _track(self, out) -> None:
+    def _track(self, func, out) -> None:
+        peaked = False
+        own = func.namespace in ("_c10d_functional", "_dtensor")
         for t in _tensors(out):
             try:
                 st = t.untyped_storage()
-                key, nb = st._cdata, st.nbytes()
+                key, nb = st._cdata, _nbytes(t) if own else st.nbytes()
             except (RuntimeError, NotImplementedError):
                 continue
             ent = self._live.get(key)
             if ent is None:
-                self._live[key] = ent = [nb, 0]
+                self._live[key] = ent = [nb, 0, (
+                    func.overloadpacket.__name__, tuple(t.shape),
+                    str(t.dtype).replace("torch.", ""))]
                 self._live_bytes += nb
-                self.totals.peak_bytes = max(self.totals.peak_bytes,
-                                             self._live_bytes)
+                if self._live_bytes > self.totals.peak_bytes:
+                    self.totals.peak_bytes = self._live_bytes
+                    peaked = True
             ent[1] += 1
             weakref.finalize(t, self._release, key)
+        if peaked:
+            self.totals.peak_top = [
+                {"op": op, "shape": list(shape), "dtype": dt, "bytes": nb}
+                for nb, _, (op, shape, dt) in heapq.nlargest(
+                    PEAK_TOP, self._live.values(), key=lambda e: e[0])]
 
     # -- dispatch -----------------------------------------------------------
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -184,7 +204,7 @@ class _CostMode(TorchDispatchMode):
             return out
         self._count(func, args, kwargs, out)
         if not func.is_view:
-            self._track(out)
+            self._track(func, out)
         return out
 
     def _count(self, func, args, kwargs, out) -> None:

@@ -15,13 +15,15 @@ not one).  Two executions of the same estimation:
 
 Inside ``use_data_mesh`` with ``cfg.row_block > 0`` the blocked moments
 row-shard over the mesh's ranks (the segmented mode's MM loop stays
-whole-array).  The reference's ``row_sharding`` / ``lower_sweep_cell``
-lower the step against a production mesh for its cost tooling; they
-come with the next launch slice (ROADMAP A.14b).
+whole-array).  On a device mesh the inputs are ``DTensor``s placed by
+``row_sharding`` (rows over every mesh axis, the segment ids as data),
+and the segmented mode reads each rank's own rows
+(``sweep/segmented.py``); ``lower_sweep_cell`` traces that step as rank
+0 of the production mesh (``launch/dml_cell.lower_step``).
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Any, Dict, Tuple
 
 import torch
 
@@ -29,7 +31,8 @@ from repro_torch.config import CausalConfig
 from repro_torch.core.registry import get_spec
 from repro_torch.device import DeviceLike, as_f32
 from repro_torch.inference.executor import make_executor
-from repro_torch.launch.dml_cell import N_COVARIATES, N_ROWS, _fit_device
+from repro_torch.launch.dml_cell import (N_COVARIATES, N_ROWS, _fit_device,
+                                         lower_step)
 from repro_torch.sweep import engine
 from repro_torch.sweep.segmented import segmented_dml_sweep
 
@@ -72,3 +75,26 @@ def input_specs(n: int = N_ROWS, p: int = N_COVARIATES
     f32 = torch.float32
     return {"X": ((n, p), f32), "y": ((n,), f32), "t": ((n,), f32),
             "sids": ((n,), torch.int64)}
+
+
+def row_sharding(mesh) -> Dict[str, Any]:
+    """{name: NamedSharding}: rows over EVERY mesh axis jointly, the
+    segment ids too; the segments batch inside the step."""
+    from repro_torch.distributed.sharding import NamedSharding, P
+    axes = tuple(mesh.mesh_dim_names)
+    return {"X": NamedSharding(mesh, P(axes, None)),
+            "y": NamedSharding(mesh, P(axes)),
+            "t": NamedSharding(mesh, P(axes)),
+            "sids": NamedSharding(mesh, P(axes))}
+
+
+def lower_sweep_cell(mesh, cfg: CausalConfig = None, n: int = N_ROWS,
+                     p: int = N_COVARIATES, n_segments: int = N_SEGMENTS,
+                     mode: str = "segmented"):
+    """One E-segment sweep step at n × p on ``mesh``
+    (``dml_cell.lower_step``), its inputs placed by ``row_sharding``."""
+    cfg = cfg or CausalConfig(n_folds=5, cate_features=1)
+    return lower_step(mesh, make_sweep_step(cfg, n_segments, mode,
+                                            device="cpu"),
+                      ("X", "y", "t", "sids"), input_specs(n, p),
+                      row_sharding(mesh))

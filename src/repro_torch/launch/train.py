@@ -25,7 +25,18 @@ of ``data/lm_data`` batches), logs, and saves {"params", "opt"} with
     python -m repro_torch.launch.train --arch granite-3-2b --steps 20
 
 runs on the card (attention through the flash kernel) unless
-``--device cpu`` is given.
+``--device cpu`` is given, as the reference's CLI does: under a host
+mesh (``launch/mesh.make_host_mesh``: every rank on the data axis)
+with ``default_rules(fsdp=False)``, the state placed by
+``launch/elastic.state_shardings`` and each batch split over the ranks
+(``data/pipeline.batch_sharding``).  The default process group comes
+from ``torchrun``'s environment, else it is this process alone: NCCL on
+the card (one rank a card), gloo on the CPU —
+
+    torchrun --nproc-per-node 2 -m repro_torch.launch.train --device cpu
+
+On DTensors the flash kernel runs on each rank's shard of the batch and
+the heads (``models/attention._maybe_flash``).
 """
 from __future__ import annotations
 
@@ -38,6 +49,7 @@ import torch
 
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.config import ParallelConfig, TrainConfig
+from repro_torch.distributed.sharding import whole_sums
 from repro_torch.models.model import Model
 from repro_torch.models.params import flatten, unflatten
 from repro_torch.optim.adamw import adamw_init, adamw_update_
@@ -56,7 +68,9 @@ def loss_and_grads(model: Model, params: Dict[str, Tensor],
     batch split into ``parallel.microbatch`` parts whose gradients are
     summed in ``parallel.grad_accum_dtype`` and divided by their count
     (fp32 sums accumulate in the leaves' own ``.grad``), the metrics
-    averaged over the parts."""
+    averaged over the parts (on DTensors, their partial sums reduced
+    first: a mean over a batch split across ranks is whole on every
+    rank)."""
     pcfg, ct = model.parallel, model.cfg.compute_dtype
     m, acc_dt = pcfg.microbatch, pcfg.grad_accum_dtype
     place = _grad_placer(model)
@@ -73,7 +87,8 @@ def loss_and_grads(model: Model, params: Dict[str, Tensor],
         del cast
         loss.backward()
         for k, v in {"loss": loss, **parts}.items():
-            sums[k] = sums[k] + v.detach() if k in sums else v.detach()
+            v = whole_sums(v.detach())
+            sums[k] = sums[k] + v if k in sums else v
         if m > 1 and acc_dt != _F32:
             g = place({k: x.grad.to(acc_dt) for k, x in leaves.items()})
             gsum = g if gsum is None else {k: gsum[k] + g[k] for k in g}
@@ -139,6 +154,22 @@ def init_state(model: Model) -> TrainState:
         params, model.parallel.adam_moment_dtype))
 
 
+def place_state(state: TrainState, shardings: Dict[str, Any]
+                ) -> TrainState:
+    """``state`` with every leaf a ``DTensor`` under ``shardings``
+    (``launch/elastic.state_shardings``); each rank holds the whole
+    state before, so nothing crosses between ranks."""
+    from repro_torch.distributed.sharding import distribute
+    sh, opt = shardings, state.opt
+    return TrainState(
+        params={k: distribute(v.detach(), sh["params"][k])
+                for k, v in state.params.items()},
+        opt={"step": distribute(opt["step"], sh["opt"]["step"]),
+             **{m: {k: distribute(v, sh["opt"][m][k])
+                    for k, v in opt[m].items()} for m in ("m", "v")}},
+        step=state.step)
+
+
 def train_loop(model: Model, tcfg: TrainConfig, feed, *,
                manager: Optional[CheckpointManager] = None,
                ckpt_every: int = 0, log_every: int = 10,
@@ -174,12 +205,40 @@ def train_loop(model: Model, tcfg: TrainConfig, feed, *,
     return state
 
 
+def _open_default_group(device: torch.device) -> bool:
+    """Open the default process group unless one is open: from
+    ``torchrun``'s environment (RANK, WORLD_SIZE, MASTER_ADDR,
+    MASTER_PORT) when it is set, else a group of this process alone.
+    NCCL on the card (rank i on card LOCAL_RANK), gloo on the CPU.
+    Returns whether it opened one."""
+    import os
+
+    import torch.distributed as dist
+    if dist.is_initialized():
+        return False
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    if device.type == "cuda":
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        dist.init_process_group(backend)
+    else:
+        dist.init_process_group(backend, store=dist.HashStore(), rank=0,
+                                world_size=1)
+    return True
+
+
 def main(argv=None) -> int:
+    import torch.distributed as dist
+
     from repro_torch.configs import get_config
     from repro_torch.data.lm_data import (bigram_ce_floor, lm_batch,
                                           step_generator)
-    from repro_torch.data.pipeline import ShardedFeed
+    from repro_torch.data.pipeline import ShardedFeed, batch_sharding
     from repro_torch.device import resolve_device
+    from repro_torch.distributed.sharding import (default_rules,
+                                                  dtensor_ops, mesh_context)
+    from repro_torch.launch.elastic import state_shardings
+    from repro_torch.launch.mesh import make_host_mesh
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="granite-3-2b-smoke")
@@ -196,23 +255,39 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
-    cfg = get_config(args.arch)
-    pcfg = ParallelConfig(microbatch=args.microbatch,
-                          use_flash_attention=dev.type == "cuda")
-    model = Model(cfg, pcfg, device=dev, seed=args.seed)
-    tcfg = TrainConfig(learning_rate=args.lr,
-                       warmup_steps=args.steps // 10, total_steps=args.steps)
-    feed = ShardedFeed(
-        lambda s: lm_batch(step_generator(args.seed, s), args.batch,
-                           args.seq, cfg.vocab_size), device=dev)
-    manager = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None
-    print(f"training {args.arch} on {dev}: vocab {cfg.vocab_size}, "
-          f"CE floor ≈ {bigram_ce_floor(cfg.vocab_size):.3f} nats")
+    opened = _open_default_group(dev)
+    feed = None
     try:
-        train_loop(model, tcfg, feed, manager=manager,
-                   ckpt_every=args.ckpt_every)
+        if dev.type == "cuda":
+            dev = torch.device("cuda", torch.cuda.current_device())
+        cfg = get_config(args.arch)
+        mesh = make_host_mesh()
+        rules = default_rules(fsdp=False)
+        pcfg = ParallelConfig(fsdp=False, microbatch=args.microbatch,
+                              use_flash_attention=dev.type == "cuda")
+        model = Model(cfg, pcfg, rules, device=dev, seed=args.seed)
+        tcfg = TrainConfig(learning_rate=args.lr,
+                           warmup_steps=args.steps // 10,
+                           total_steps=args.steps)
+        state = place_state(init_state(model),
+                            state_shardings(model, rules, mesh))
+        feed = ShardedFeed(
+            lambda s: lm_batch(step_generator(args.seed, s), args.batch,
+                               args.seq, cfg.vocab_size),
+            sharding=batch_sharding(mesh))
+        manager = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None
+        log = print if dist.get_rank() == 0 else (lambda *a, **k: None)
+        log(f"training {args.arch} on {dev} under a {tuple(mesh.shape)} "
+            f"host mesh: vocab {cfg.vocab_size}, CE floor ≈ "
+            f"{bigram_ce_floor(cfg.vocab_size):.3f} nats")
+        with mesh_context(mesh), dtensor_ops():
+            train_loop(model, tcfg, feed, manager=manager,
+                       ckpt_every=args.ckpt_every, state=state, log=log)
     finally:
-        feed.close()
+        if feed is not None:
+            feed.close()
+        if opened:
+            dist.destroy_process_group()
     return 0
 
 

@@ -57,6 +57,7 @@ from repro_torch.config import ModelConfig
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models.layers import apply_rope, rmsnorm, rope_frequencies
 from repro_torch.distributed.sharding import (active_mesh, constrain,
+                                              einsum, matmul, rowwise,
                                               write_slot)
 from repro_torch.models.params import ParamDef
 
@@ -132,7 +133,7 @@ def _sdpa(q: Tensor, k: Tensor, v: Tensor, *, causal: bool,
     v = _repeat_kv(v, H)
     Sk = k.shape[1]
     # operands widened to fp32: exact products, fp32 accumulation
-    scores = torch.einsum("bqhd,bkhd->bhqk", q.to(_F32),
+    scores = einsum("bqhd,bkhd->bhqk", q.to(_F32),
                           k.to(_F32)) * _scale(Dq)
     if softcap:
         scores = torch.tanh(scores / softcap) * softcap
@@ -148,7 +149,7 @@ def _sdpa(q: Tensor, k: Tensor, v: Tensor, *, causal: bool,
     scores = constrain(scores, ("batch", "heads", "attn_seq", "kv_seq"),
                        rules)
     probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype).to(_F32),
+    out = einsum("bhqk,bkhd->bqhd", probs.to(v.dtype).to(_F32),
                        v.to(_F32))
     return out.to(q.dtype)
 
@@ -177,7 +178,7 @@ def _sdpa_decode(q: Tensor, k: Tensor, v: Tensor, *,
     B, Sq, H, Dq = q.shape
     KV, Dv = k.shape[2], v.shape[-1]
     qg = q.reshape(B, Sq, KV, H // KV, Dq)
-    scores = torch.einsum("bqkgd,bskd->bkgqs", qg.to(_F32),
+    scores = einsum("bqkgd,bskd->bkgqs", qg.to(_F32),
                           k.to(_F32)) * _scale(Dq)
     if softcap:
         scores = torch.tanh(scores / softcap) * softcap
@@ -187,7 +188,7 @@ def _sdpa_decode(q: Tensor, k: Tensor, v: Tensor, *,
     scores = constrain(scores, ("batch", "kv_heads", None, None, "kv_seq"),
                        rules)
     probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bkgqs,bskd->bqkgd", probs.to(v.dtype).to(_F32),
+    out = einsum("bkgqs,bskd->bqkgd", probs.to(v.dtype).to(_F32),
                        v.to(_F32))
     return out.reshape(B, Sq, H, Dv).to(q.dtype)
 
@@ -249,7 +250,7 @@ class _FlashXLA(torch.autograd.Function):
                if Dv == Dq else torch.zeros_like(m).expand(
                    B, KV, G, Sq, Dv).contiguous())
         for start in range(0, Sk, chunk):
-            s = torch.einsum("bkgqd,bksd->bkgqs", qg,
+            s = einsum("bkgqd,bksd->bkgqs", qg,
                              kt[:, :, start:start + chunk]) * sc
             if causal:
                 ki = torch.arange(start, start + chunk, device=q.device)
@@ -260,7 +261,7 @@ class _FlashXLA(torch.autograd.Function):
             p = torch.exp(s - m_new)
             alpha = torch.exp(m - m_new)
             l = l * alpha + p.sum(-1, keepdim=True)
-            acc = acc * alpha + torch.einsum("bkgqs,bksd->bkgqd", p,
+            acc = acc * alpha + einsum("bkgqs,bksd->bkgqd", p,
                                              vt[:, :, start:start + chunk])
             m = m_new
         den = torch.clamp(l, min=1e-30)
@@ -284,9 +285,11 @@ def _maybe_flash(cfg: ModelConfig, parallel, q: Tensor, k: Tensor,
                  v: Tensor, *, causal: bool, rules=None) -> Tensor:
     if parallel is not None and getattr(parallel, "use_flash_attention",
                                         False):
-        return fa_ops.flash_attention(
+        # on DTensors the kernel runs on each rank's (batch, heads) shard
+        return rowwise(lambda q, k, v: fa_ops.flash_attention(
             q, k, v, causal=causal, softcap=cfg.logits_softcap,
-            chunk=getattr(parallel, "attention_chunk", 1024))
+            chunk=getattr(parallel, "attention_chunk", 1024)), q, k, v,
+            dims=(0, 2))
     if parallel is not None and \
             getattr(parallel, "attention_impl", "dense") == "chunked":
         return _chunked_attn(q, k, v, causal=causal,
@@ -304,9 +307,9 @@ def gqa_project_qkv(params, cfg: ModelConfig, x: Tensor, positions: Tensor,
     partial RoPE, the NeoX halves otherwise.  The selection by name is
     the reference's (``attention.py`` ``gqa_project_qkv``)."""
     ct = cfg.compute_dtype
-    q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(ct))
-    k = torch.einsum("bsd,dhk->bshk", x, params["wk"].to(ct))
-    v = torch.einsum("bsd,dhk->bshk", x, params["wv"].to(ct))
+    q = einsum("bsd,dhk->bshk", x, params["wq"].to(ct))
+    k = einsum("bsd,dhk->bshk", x, params["wk"].to(ct))
+    v = einsum("bsd,dhk->bshk", x, params["wv"].to(ct))
     if cfg.use_rope:
         interleaved = (cfg.rope_fraction < 1.0
                        and cfg.name.startswith("chatglm"))
@@ -327,7 +330,7 @@ def gqa_train(params, cfg: ModelConfig, x: Tensor, parallel=None,
     q, k, v = gqa_project_qkv(params, cfg, x, positions, rules)
     out = _maybe_flash(cfg, parallel, q.contiguous(), k.contiguous(),
                        v.contiguous(), causal=causal, rules=rules)
-    out = torch.einsum("bshk,hkd->bsd", out,
+    out = einsum("bshk,hkd->bsd", out,
                        params["wo"].to(cfg.compute_dtype))
     return constrain(out, ("batch", "seq", "embed_act"), rules)
 
@@ -341,7 +344,7 @@ def gqa_prefill(params, cfg: ModelConfig, x: Tensor, parallel=None,
     q, k, v = gqa_project_qkv(params, cfg, x, positions, rules)
     out = _maybe_flash(cfg, parallel, q.contiguous(), k.contiguous(),
                        v.contiguous(), causal=True, rules=rules)
-    out = torch.einsum("bshk,hkd->bsd", out,
+    out = einsum("bshk,hkd->bsd", out,
                        params["wo"].to(cfg.compute_dtype))
     return (constrain(out, ("batch", "seq", "embed_act"), rules),
             {"k": k, "v": v})
@@ -372,7 +375,7 @@ def gqa_decode(params, cfg: ModelConfig, x: Tensor,
     kv_mask = (torch.arange(S, device=x.device) <= int(pos)).expand(B, S)
     out = _sdpa_decode(q, k, v, kv_mask=kv_mask, softcap=cfg.logits_softcap,
                        rules=rules)
-    out = torch.einsum("bshk,hkd->bsd", out,
+    out = einsum("bshk,hkd->bsd", out,
                        params["wo"].to(cfg.compute_dtype))
     return (constrain(out, ("batch", "seq", "embed_act"), rules),
             {"k": k, "v": v})
@@ -394,11 +397,11 @@ def _mla_q(params, cfg: ModelConfig, x: Tensor, positions: Tensor):
     ct = cfg.compute_dtype
     dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
     if cfg.q_lora_rank:
-        ql = torch.matmul(x, params["wq_a"].to(ct))
+        ql = matmul(x, params["wq_a"].to(ct))
         ql = _rms(ql, params["q_norm"], cfg.norm_eps)
-        q = torch.einsum("bsr,rhk->bshk", ql, params["wq_b"].to(ct))
+        q = einsum("bsr,rhk->bshk", ql, params["wq_b"].to(ct))
     else:
-        q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(ct))
+        q = einsum("bsd,dhk->bshk", x, params["wq"].to(ct))
     q_nope, q_rope = q[..., :dn], q[..., dn:]
     sin, cos = rope_frequencies(cfg, positions, head_dim=dr)
     return q_nope, apply_rope(q_rope, sin, cos)
@@ -409,7 +412,7 @@ def _mla_latent(params, cfg: ModelConfig, x: Tensor, positions: Tensor):
     shared RoPE key k_rope (B,S,dr), rotated."""
     ct = cfg.compute_dtype
     kvr, dr = cfg.kv_lora_rank, cfg.qk_rope_head_dim
-    kv = torch.matmul(x, params["wkv_a"].to(ct))
+    kv = matmul(x, params["wkv_a"].to(ct))
     c_kv = _rms(kv[..., :kvr], params["kv_norm"], cfg.norm_eps)
     sin, cos = rope_frequencies(cfg, positions, head_dim=dr)
     k_rope = apply_rope(kv[..., None, kvr:], sin, cos)[..., 0, :]
@@ -427,8 +430,8 @@ def mla_train(params, cfg: ModelConfig, x: Tensor, parallel=None,
     positions = torch.arange(S, device=x.device).expand(B, S)
     q_nope, q_rope = _mla_q(params, cfg, x, positions)
     c_kv, k_rope = _mla_latent(params, cfg, x, positions)
-    k_nope = torch.einsum("bsr,rhk->bshk", c_kv, params["wk_b"].to(ct))
-    v = torch.einsum("bsr,rhk->bshk", c_kv, params["wv_b"].to(ct))
+    k_nope = einsum("bsr,rhk->bshk", c_kv, params["wk_b"].to(ct))
+    v = einsum("bsr,rhk->bshk", c_kv, params["wv_b"].to(ct))
     k_rope_h = k_rope[:, :, None, :].expand(B, S, cfg.num_heads,
                                             cfg.qk_rope_head_dim)
     q = torch.cat([q_nope, q_rope], dim=-1)
@@ -437,7 +440,7 @@ def mla_train(params, cfg: ModelConfig, x: Tensor, parallel=None,
     k = constrain(k, ("batch", None, "heads", "head_dim"), rules)
     out = _maybe_flash(cfg, parallel, q, k, v.contiguous(), causal=True,
                        rules=rules)
-    out = torch.einsum("bshk,hkd->bsd", out, params["wo"].to(ct))
+    out = einsum("bshk,hkd->bsd", out, params["wo"].to(ct))
     out = constrain(out, ("batch", "seq", "embed_act"), rules)
     if return_cache:
         return out, {"c_kv": c_kv, "k_rope": k_rope}
@@ -473,19 +476,19 @@ def mla_decode(params, cfg: ModelConfig, x: Tensor,
     write_slot(k_rope, at, kr_new[:, 0])
     c_kv = constrain(c_kv, ("batch", "kv_seq", None), rules)
     k_rope = constrain(k_rope, ("batch", "kv_seq", None), rules)
-    q_lat = torch.einsum("bqhk,rhk->bqhr", q_nope, params["wk_b"].to(ct))
-    s_lat = torch.einsum("bqhr,bsr->bhqs", q_lat.to(_F32), c_kv.to(_F32))
-    s_rope = torch.einsum("bqhk,bsk->bhqs", q_rope.to(_F32),
+    q_lat = einsum("bqhk,rhk->bqhr", q_nope, params["wk_b"].to(ct))
+    s_lat = einsum("bqhr,bsr->bhqs", q_lat.to(_F32), c_kv.to(_F32))
+    s_rope = einsum("bqhk,bsk->bhqs", q_rope.to(_F32),
                           k_rope.to(_F32))
     scores = (s_lat + s_rope) * _scale(dn + dr)
     scores = constrain(scores, ("batch", "heads", None, "kv_seq"), rules)
     mask = torch.arange(S, device=x.device) <= int(pos)
     scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
     probs = torch.softmax(scores, dim=-1)
-    ctx = torch.einsum("bhqs,bsr->bqhr", probs.to(c_kv.dtype).to(_F32),
+    ctx = einsum("bhqs,bsr->bqhr", probs.to(c_kv.dtype).to(_F32),
                        c_kv.to(_F32))
-    out = torch.einsum("bqhr,rhk->bqhk", ctx.to(ct), params["wv_b"].to(ct))
-    out = torch.einsum("bqhk,hkd->bqd", out, params["wo"].to(ct))
+    out = einsum("bqhr,rhk->bqhk", ctx.to(ct), params["wv_b"].to(ct))
+    out = einsum("bqhk,hkd->bqd", out, params["wo"].to(ct))
     return (constrain(out, ("batch", "seq", "embed_act"), rules),
             {"c_kv": c_kv, "k_rope": k_rope})
 
@@ -498,8 +501,8 @@ def cross_kv(params, cfg: ModelConfig, enc_out: Tensor) -> Dict[str, Tensor]:
     """The cross-attention keys and values of the encoder output (B,
     T_src, d): {"k", "v"} (B, T_src, KV, hd) in the compute dtype."""
     ct = cfg.compute_dtype
-    return {"k": torch.einsum("bsd,dhk->bshk", enc_out, params["wk"].to(ct)),
-            "v": torch.einsum("bsd,dhk->bshk", enc_out, params["wv"].to(ct))}
+    return {"k": einsum("bsd,dhk->bshk", enc_out, params["wk"].to(ct)),
+            "v": einsum("bsd,dhk->bshk", enc_out, params["wv"].to(ct))}
 
 
 def cross_attn(params, cfg: ModelConfig, x: Tensor,
@@ -511,9 +514,9 @@ def cross_attn(params, cfg: ModelConfig, x: Tensor,
     Pallas kernel (``attention.py`` ``cross_attn``), so it has no kernel
     to port; its scores are (B, H, S, T_src) fp32."""
     ct = cfg.compute_dtype
-    q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(ct))
+    q = einsum("bsd,dhk->bshk", x, params["wq"].to(ct))
     out = _sdpa(q, kv["k"], kv["v"], causal=False)
-    out = torch.einsum("bshk,hkd->bsd", out, params["wo"].to(ct))
+    out = einsum("bshk,hkd->bsd", out, params["wo"].to(ct))
     return constrain(out, ("batch", "seq", "embed_act"), rules)
 
 

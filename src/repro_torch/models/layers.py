@@ -4,7 +4,9 @@ Each layer is a pair of (schema fn, apply fn), as in the reference's
 ``models/layers.py``; apply fns take the parameters as a dict (or a
 ``ParamTree``) and compute in the dtypes the reference computes in:
 norms in fp32, products in ``cfg.compute_dtype`` with the weights cast
-per call.  Large products are ``torch.matmul``/``einsum``, as they sit
+per call.  Large products are ``torch.matmul``/``einsum`` (through
+``distributed/sharding``'s ``matmul`` / ``einsum``: the same call on
+plain tensors, one local product on a DTensor's shards), as they sit
 outside any Pallas kernel in the reference.
 """
 from __future__ import annotations
@@ -16,7 +18,7 @@ import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
 from repro_torch.distributed.sharding import (constrain, logsumexp_last,
-                                              take_last, take_rows)
+                                              matmul, take_last, take_rows)
 from repro_torch.models.params import ParamDef
 
 Tensor = torch.Tensor
@@ -103,7 +105,7 @@ def unembed(params, cfg: ModelConfig, x: Tensor, rules=None) -> Tensor:
     the real vocabulary)."""
     ct = cfg.compute_dtype
     w = params["embedding"].T if cfg.tie_embeddings else params["unembed"]
-    logits = torch.matmul(x, w.to(ct))
+    logits = matmul(x, w.to(ct))
     if cfg.logits_softcap:
         c = cfg.logits_softcap
         logits = torch.tanh(logits / c) * c
@@ -177,13 +179,13 @@ def mlp_apply(params, cfg: ModelConfig, x: Tensor, rules=None) -> Tensor:
     """The MLP in the compute dtype."""
     ct = cfg.compute_dtype
     if cfg.mlp == "swiglu":
-        g = torch.matmul(x, params["wi_gate"].to(ct))
-        u = torch.matmul(x, params["wi_up"].to(ct))
+        g = matmul(x, params["wi_gate"].to(ct))
+        u = matmul(x, params["wi_up"].to(ct))
         h = F.silu(g) * u
     else:
-        h = F.gelu(torch.matmul(x, params["wi"].to(ct)), approximate="tanh")
+        h = F.gelu(matmul(x, params["wi"].to(ct)), approximate="tanh")
     h = constrain(h, ("batch", "seq", "ff"), rules)
-    out = torch.matmul(h, params["wo"].to(ct))
+    out = matmul(h, params["wo"].to(ct))
     return constrain(out, ("batch", "seq", "embed_act"), rules)
 
 

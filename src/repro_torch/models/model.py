@@ -266,7 +266,7 @@ class Model(nn.Module):
                               rules=self.rules)
         z = torch.cat([self.norm(p["ln_h"], h[:, :-1]),
                        self.norm(p["ln_e"], e_next)], dim=-1)
-        z = torch.matmul(z, p["proj"].to(cfg.compute_dtype))
+        z = sharding.matmul(z, p["proj"].to(cfg.compute_dtype))
         z = self.decoder_stack.blocks.dense_train(p["block"], z)
         logits = self._logits(z, params)                 # (B, S-1, V)
         return MTP_WEIGHT * softmax_cross_entropy(logits[:, :-1],

@@ -5,7 +5,8 @@ The counterpart of the reference's ``models/moe.py``, in plain PyTorch:
 the reference computes the router, the dispatch, the experts' SwiGLU
 (``einsum`` over the stacked (E, d, ff) weights) and the combine outside
 any Pallas kernel, so there is no kernel here either; the expert
-products are ``torch.bmm`` over the expert axis.
+products are ``torch.bmm`` over the expert axis (``sharding.bmm``: the
+same call on plain tensors).
 
 The reference's semantics, kept exactly:
 
@@ -39,7 +40,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
-from repro_torch.distributed.sharding import constrain, rowwise
+from repro_torch.distributed.sharding import (bmm, constrain, matmul,
+                                              rowwise)
 from repro_torch.models.params import ParamDef
 
 Tensor = torch.Tensor
@@ -87,16 +89,16 @@ def _capacity(cfg: ModelConfig, tokens: int) -> int:
 
 def _dense_swiglu(x: Tensor, p, ct) -> Tensor:
     """A SwiGLU MLP over (..., d) in the compute dtype."""
-    g = torch.matmul(x, p["wi_gate"].to(ct))
-    u = torch.matmul(x, p["wi_up"].to(ct))
-    return torch.matmul(F.silu(g) * u, p["wo"].to(ct))
+    g = matmul(x, p["wi_gate"].to(ct))
+    u = matmul(x, p["wi_up"].to(ct))
+    return matmul(F.silu(g) * u, p["wo"].to(ct))
 
 
 def router_scores(params, cfg: ModelConfig, x_flat: Tensor
                   ) -> Tuple[Tensor, Tensor, Tensor]:
     """x_flat (T, d) -> (gates (T, k) fp32, idx (T, k), probs (T, E)
     fp32 for the aux loss)."""
-    logits = torch.matmul(x_flat.to(_F32), params["router"].to(_F32))
+    logits = matmul(x_flat.to(_F32), params["router"].to(_F32))
     k = cfg.experts_per_token
     if cfg.router_score == "sigmoid":              # deepseek-v3
         scores = torch.sigmoid(logits)
@@ -132,11 +134,11 @@ def _experts(x: Tensor, params, ct) -> Tensor:
     weight cast to the compute dtype per call, as the reference's."""
     B, E, C, d = x.shape
     xe = x.permute(1, 0, 2, 3).reshape(E, B * C, d)
-    g = torch.bmm(xe, params["wi_gate"].to(ct))
-    u = torch.bmm(xe, params["wi_up"].to(ct))
+    g = bmm(xe, params["wi_gate"].to(ct))
+    u = bmm(xe, params["wi_up"].to(ct))
     h = F.silu(g) * u
     del g, u
-    out = torch.bmm(h, params["wo"].to(ct))
+    out = bmm(h, params["wo"].to(ct))
     return out.reshape(E, B, C, d).permute(1, 0, 2, 3)
 
 

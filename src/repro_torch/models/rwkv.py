@@ -27,7 +27,7 @@ import torch.nn.functional as F
 from repro_torch.config import ModelConfig
 from repro_torch.kernels.ssm_scan import ops as scan_ops
 from repro_torch.kernels.ssm_scan.ref import MAX_LOG_DECAY
-from repro_torch.distributed.sharding import constrain
+from repro_torch.distributed.sharding import constrain, matmul, pad
 from repro_torch.models.params import ParamDef
 
 Tensor = torch.Tensor
@@ -83,7 +83,7 @@ def _shift(x: Tensor, last: Optional[Tensor] = None) -> Tensor:
     """Token shift: x_{t-1}; at t=0 zeros, or ``last`` (B, 1, d), the
     input carried from the previous step."""
     if last is None:
-        return F.pad(x, (0, 0, 1, 0))[:, :-1]
+        return pad(x, (0, 0, 1, 0))[:, :-1]
     return torch.cat([last, x[:, :-1]], dim=1)
 
 
@@ -95,7 +95,8 @@ def _decay(params, xw: Tensor) -> Tensor:
     """Data-dependent per-channel decay in (0,1), fp32.  The rate
     exp(-(w0 + lora)) is clamped to MAX_LOG_DECAY per step, which bounds
     the chunked scan's exp(-cumsum) factor (ssm_scan.ref contract)."""
-    lo = torch.tanh(xw.to(_F32) @ params["w_a"].to(_F32)) @ params["w_b"].to(_F32)
+    lo = matmul(torch.tanh(matmul(xw.to(_F32), params["w_a"].to(_F32))),
+                params["w_b"].to(_F32))
     rate = torch.clamp(torch.exp(-(params["w0"].to(_F32) + lo)),
                        max=MAX_LOG_DECAY)
     return torch.exp(-rate)
@@ -119,7 +120,7 @@ def _tm_qkvwg(params, cfg: ModelConfig, x: Tensor, xs: Tensor):
     B, T, _ = x.shape
 
     def proj(name, mu):
-        return _lerp(x, xs, params[mu]) @ params[name].to(ct)
+        return matmul(_lerp(x, xs, params[mu]), params[name].to(ct))
 
     def heads(t):
         return t.reshape(B, T, h, hd).transpose(1, 2)
@@ -137,13 +138,21 @@ def _tm_out(params, cfg: ModelConfig, o: Tensor, g: Tensor,
     """Group norm of o (B, T, h, hd), the silu(g) gate, the projection."""
     ct = cfg.compute_dtype
     o = (_group_norm(cfg, params, o) * F.silu(g.to(_F32))).to(ct)
-    return constrain(o @ params["wo"].to(ct), ("batch", "seq", "embed_act"),
+    return constrain(matmul(o, params["wo"].to(ct)), ("batch", "seq", "embed_act"),
                      rules)
+
+
+def _whole_seq(x: Tensor, rules) -> Tensor:
+    """x with its sequence whole on each rank before the scan walks its
+    chunks (``ssm._whole_seq``: a sequence sharded over "model" would be
+    gathered again at every chunk; XLA gathers a scanned dim once)."""
+    return constrain(x, ("batch", None, "embed_act"), rules)
 
 
 def time_mix_train(params, cfg: ModelConfig, x: Tensor,
                    chunk: int = 64, rules=None) -> Tensor:
     """(B, T, d) -> (B, T, d) in the compute dtype."""
+    x = _whole_seq(x, rules)
     r, k, v, w, u, g = _tm_qkvwg(params, cfg, x, _shift(x))
     o, _ = scan_ops.gla(r, k, v, w, u, chunk=chunk)
     return _tm_out(params, cfg, o.transpose(1, 2), g, rules)
@@ -153,6 +162,7 @@ def time_mix_prefill(params, cfg: ModelConfig, x: Tensor, chunk: int = 64,
                      rules=None) -> Tuple[Tensor, Dict[str, Tensor]]:
     """``time_mix_train`` plus the state after the last token: the
     scan's final state ``s`` (fp32) and ``x_prev`` = x[:, -1:]."""
+    x = _whole_seq(x, rules)
     r, k, v, w, u, g = _tm_qkvwg(params, cfg, x, _shift(x))
     o, s_final = scan_ops.gla(r, k, v, w, u, chunk=chunk)
     return (_tm_out(params, cfg, o.transpose(1, 2), g, rules),
@@ -178,9 +188,10 @@ def channel_mix_train(params, cfg: ModelConfig, x: Tensor,
     is the shift's carried input (zeros without one)."""
     ct = cfg.compute_dtype
     xs = _shift(x, x_prev)
-    k = _lerp(x, xs, params["mu_k"]) @ params["wk"].to(ct)
-    kv = torch.relu(k).square() @ params["wv"].to(ct)
-    r = torch.sigmoid(_lerp(x, xs, params["mu_r"]) @ params["wr"].to(ct))
+    k = matmul(_lerp(x, xs, params["mu_k"]), params["wk"].to(ct))
+    kv = matmul(torch.relu(k).square(), params["wv"].to(ct))
+    r = torch.sigmoid(matmul(_lerp(x, xs, params["mu_r"]),
+                              params["wr"].to(ct)))
     return constrain(r * kv, ("batch", "seq", "embed_act"), rules)
 
 

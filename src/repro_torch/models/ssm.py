@@ -24,7 +24,7 @@ import torch.nn.functional as F
 from repro_torch.config import ModelConfig
 from repro_torch.kernels.ssm_scan import ops as scan_ops
 from repro_torch.kernels.ssm_scan.ref import MAX_LOG_DECAY
-from repro_torch.distributed.sharding import constrain
+from repro_torch.distributed.sharding import constrain, matmul, pad
 from repro_torch.models.params import ParamDef
 
 Tensor = torch.Tensor
@@ -75,7 +75,7 @@ def _causal_conv(xb: Tensor, w: Tensor, b: Tensor,
     The taps are summed in the reference's order."""
     K, T = w.shape[0], xb.shape[1]
     if state is None:
-        xp = F.pad(xb, (0, 0, K - 1, 0))
+        xp = pad(xb, (0, 0, K - 1, 0))
     else:
         xp = torch.cat([state.to(xb.dtype), xb], dim=1)
     out = xp[:, 0:T] * w[0]
@@ -110,7 +110,7 @@ def _gated_out(cfg: ModelConfig, params, y: Tensor, z: Tensor,
     var = y.square().mean(-1, keepdim=True)
     y = y * torch.rsqrt(var + cfg.norm_eps) * params["norm"].to(_F32)
     ct = cfg.compute_dtype
-    return constrain(y.to(ct) @ params["out_proj"].to(ct),
+    return constrain(matmul(y.to(ct), params["out_proj"].to(ct)),
                      ("batch", "seq", "embed_act"), rules)
 
 
@@ -128,7 +128,8 @@ def _conv_in(cfg: ModelConfig, params, x: Tensor,
     """in_proj, split, the causal conv and its silu: (z, xb, B, C, dt,
     the conv's new state)."""
     ct = cfg.compute_dtype
-    z, xb, B, C, dt = _split_proj(cfg, x @ params["in_proj"].to(ct))
+    z, xb, B, C, dt = _split_proj(cfg,
+                                   matmul(x, params["in_proj"].to(ct)))
     xb, conv_state = _causal_conv(xb, params["conv_w"].to(ct),
                                   params["conv_b"].to(ct), conv_state)
     return z, F.silu(xb), B, C, dt, conv_state

@@ -33,6 +33,12 @@ block is one launch on the rank that owns it.  The MM loop's gradient
 terms stay whole-array on every rank, as the reference's do.  The
 sweep engine runs its segmented columns without a mesh.
 
+On row-sharded ``DTensor``s (``launch/sweep_cell.row_sharding``) each
+rank reads only its own rows: every segment Gram and gradient term is
+its rows' share summed across the mesh (``sharding.row_sum``), the
+coefficient gathers run on its rows (``sharding.rowwise``), and the
+fold ids drawn here are laid out as the segment ids.
+
 Contract: a *different execution* of the same estimator, not the same
 bits — it shares one fold assignment across cells and swaps Newton for
 MM, so tests assert tolerance-equality against the reference's sweep on
@@ -48,6 +54,7 @@ from repro_torch.config import CausalConfig
 from repro_torch.core import moments
 from repro_torch.core.crossfit import fold_ids
 from repro_torch.core.final_stage import cate_basis
+from repro_torch.distributed.sharding import row_sum, rows_like, rowwise
 from repro_torch.inference.numerics import det_inv, det_solve
 from repro_torch.kernels.seg_gram import ops as sg_ops
 
@@ -71,8 +78,7 @@ def segmented_supported(rspec, cfg: CausalConfig) -> bool:
 
 
 def _aug(X: Tensor) -> Tensor:
-    return torch.cat([X, torch.ones((X.shape[0], 1), dtype=X.dtype,
-                                    device=X.device)], dim=1)
+    return torch.cat([X, torch.ones_like(X[:, :1])], dim=1)
 
 
 def _one_hot(ids: Tensor, n: int) -> Tensor:
@@ -82,12 +88,17 @@ def _one_hot(ids: Tensor, n: int) -> Tensor:
 def _gathered_dot(Xa: Tensor, coef: Tensor, idx: Tensor) -> Tensor:
     """``<Xa_n, coef[idx_n, ..., :]>`` for every row: (n, ...).  The
     reference gathers ``coef[idx]`` for all rows at once; here it is
-    gathered over row blocks of GATHER_ROWS."""
-    out = []
-    for lo in range(0, Xa.shape[0], GATHER_ROWS):
-        c = coef[idx[lo:lo + GATHER_ROWS]]
-        out.append(torch.einsum("np,n...p->n...", Xa[lo:lo + GATHER_ROWS], c))
-    return torch.cat(out)
+    gathered over row blocks of GATHER_ROWS (on row-sharded DTensors,
+    each rank over its own rows)."""
+    def rows(Xa, idx):
+        out = []
+        for lo in range(0, Xa.shape[0], GATHER_ROWS):
+            c = coef[idx[lo:lo + GATHER_ROWS]]
+            out.append(torch.einsum("np,n...p->n...",
+                                    Xa[lo:lo + GATHER_ROWS], c))
+        return torch.cat(out)
+
+    return rowwise(rows, Xa, idx)
 
 
 def _segment_fold_ridge(X, target, comb, n_segments, k, lam, row_block,
@@ -128,18 +139,24 @@ def _segment_fold_logistic(Xa, tt, sids, folds, comb, n_segments, k, lam,
         # segment walk: no one-hot mask, no multiplied zeros.  These run
         # whole-array (no row_block), as the reference's in-loop calls
         # do; the final stage's pass the config's row_block
-        def grad_terms(r, rr):
+        def terms(r, rr, Xa, sids, comb):
             t1 = sg_ops.segment_outer(r, Xa, sids, n_segments)
             t2 = sg_ops.segment_outer(rr, Xa, comb, n_segments * k)
             return t1, t2.reshape(n_segments, k, q)
+
+        def grad_terms(r, rr):
+            return row_sum(terms, r, rr, Xa, sids, comb)
     else:
         oh_seg = _one_hot(sids, n_segments)               # (n, E)
         oh_comb = _one_hot(comb, n_segments * k)          # (n, E·k)
 
-        def grad_terms(r, rr):
+        def terms(r, rr, Xa, oh_seg, oh_comb):
             t1 = torch.einsum("ns,nk,np->skp", oh_seg, r, Xa)
             t2 = torch.einsum("nc,n,np->cp", oh_comb, rr, Xa)
             return t1, t2.reshape(n_segments, k, q)
+
+        def grad_terms(r, rr):
+            return row_sum(terms, r, rr, Xa, oh_seg, oh_comb)
 
     beta = torch.zeros((n_segments, k, q), dtype=_F32, device=Xa.device)
     for _ in range(iters):
@@ -162,23 +179,26 @@ def _segment_final_stage(ry, rt, phi, sids, n_segments, ridge=1e-8,
     z = rt[:, None] * phi
     m = torch.cat([z, ry[:, None]], dim=1)
     if strategy == "pallas":
-        gaug = sg_ops.segment_outer(m, m, sids, n_segments,
-                                    row_block=row_block)
-        nseg = torch.clamp(sg_ops.segment_counts(sids, n_segments), min=1.0)
+        gaug = row_sum(lambda m, sids: sg_ops.segment_outer(
+            m, m, sids, n_segments, row_block=row_block), m, sids)
+        nseg = torch.clamp(row_sum(lambda sids: sg_ops.segment_counts(
+            sids, n_segments), sids), min=1.0)
     else:
         oh_seg = _one_hot(sids, n_segments)
-        gaug = torch.einsum("ns,ni,nj->sij", oh_seg, m, m)
-        nseg = torch.clamp(oh_seg.sum(0), min=1.0)
+        gaug = row_sum(lambda oh, m: torch.einsum("ns,ni,nj->sij", oh, m, m),
+                       oh_seg, m)
+        nseg = torch.clamp(row_sum(lambda oh: oh.sum(0), oh_seg), min=1.0)
     eye = torch.eye(pf, dtype=_F32, device=phi.device)
     a = gaug[:, :pf, :pf] + ridge * nseg[:, None, None] * eye
     theta = det_solve(a, gaug[:, :pf, pf])
-    e = ry - (z * theta[sids]).sum(dim=1)
+    e = ry - (z * rowwise(lambda s: theta[s], sids)).sum(dim=1)
     me = e[:, None] * z
     if strategy == "pallas":
-        meat = sg_ops.segment_outer(me, me, sids, n_segments,
-                                    row_block=row_block)
+        meat = row_sum(lambda me, sids: sg_ops.segment_outer(
+            me, me, sids, n_segments, row_block=row_block), me, sids)
     else:
-        meat = torch.einsum("ns,ni,nj->sij", oh_seg, me, me)
+        meat = row_sum(lambda oh, me: torch.einsum(
+            "ns,ni,nj->sij", oh, me, me), oh_seg, me)
     ainv = det_inv(a)
     cov = torch.einsum("sia,sab,sbj->sij", ainv, meat, ainv)
     se = torch.sqrt(torch.clamp(torch.diagonal(cov, dim1=1, dim2=2), min=0.0))
@@ -196,7 +216,7 @@ def segmented_dml_sweep(cfg: CausalConfig, X: Tensor, y: Tensor, t: Tensor,
     k, lam = cfg.n_folds, cfg.ridge_lambda
     rb, st = cfg.row_block, cfg.row_block_strategy
     sids = sids.long()
-    folds = fold_ids(gen, n, k, device=dev).long()
+    folds = rows_like(fold_ids(gen, n, k, device=dev).long(), sids)
     comb = sids * k + folds                           # (n,) in [0, E·k)
 
     beta_y, _ = _segment_fold_ridge(X, y, comb, n_segments, k, lam, rb, st)

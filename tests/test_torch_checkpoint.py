@@ -86,7 +86,9 @@ def test_restore_places_and_refuses_shardings(tmp_path):
     mgr.save(1, st)
     restored, _ = mgr.restore(st)            # a live template keeps its device
     assert restored["params"]["w"].device.type == "cpu"
-    with pytest.raises(NotImplementedError, match="A.14"):
+    # shardings must mirror the template (the placement itself:
+    # tests/test_torch_elastic.py, on gloo ranks)
+    with pytest.raises(KeyError, match="step"):
         mgr.restore(st, shardings={"params": None})
     with pytest.raises(FileNotFoundError):
         CheckpointManager(str(tmp_path / "empty")).load()

@@ -219,13 +219,19 @@ def test_convert_round_trip():
 
 def test_port_imports_no_jax():
     """Every module of the port, and chip_smoke.py, import without
-    loading jax or any module of the JAX package."""
+    loading jax or any module of the JAX package (the elastic re-mesh,
+    the paper cell's lowerings and the estimator protocol named)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import repro_torch\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
+        "from repro_torch.core.estimator import CausalEstimator, fit_adapter\n"
+        "from repro_torch.launch.dml_cell import lower_dml_cell, lower_iv_cell\n"
+        "from repro_torch.launch.sweep_cell import lower_sweep_cell\n"
+        "from repro_torch.launch.elastic import elastic_restore, state_shardings\n"
+        "from repro_torch.distributed.sharding import pad, row_sum, rows_like\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"

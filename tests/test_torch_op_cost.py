@@ -10,6 +10,10 @@ roofline (``launch.roofline``) and the kernels' cost formulas.
     collectives' wire bytes are the ring factors' exactly, and under
     DTensor on a fake (4, 4) mesh the counts are one rank's: the local
     product, not the global one DTensor's sharding propagation runs;
+  * the peak holds an ordinary op's output storage in full, a
+    collective's output at its own bytes (a fake group's shard-dim
+    all-to-all returns a view of 16 copies), and ``peak_top`` lists the
+    largest storages live at the peak by op, shape and dtype;
   * ``charge`` adds exactly and counts launches;
   * a smoke train step under the counter is bitwise the uncounted one;
   * ``model_flops_for`` equals the reference's for every arch x shape,
@@ -127,6 +131,55 @@ def test_peak_bytes_tracks_live_outputs():
         d = torch.ones(500)
     assert c.peak_bytes == 2000 * F
     del b, d
+
+
+def test_peak_counts_a_strided_output_storage_in_full():
+    # an ordinary op's output holds its whole storage: 7 elements for
+    # 4 at stride 2
+    with op_cost.count() as c:
+        x = torch.empty_strided((4,), (2,))
+    assert x.untyped_storage().nbytes() == 7 * F
+    assert c.peak_bytes == 7 * F
+    assert c.peak_top == [{"op": "empty_strided", "shape": [4],
+                           "dtype": "float32", "bytes": 7 * F}]
+
+
+def test_peak_top_lists_the_largest_live_storages():
+    with op_cost.count() as c:
+        small = torch.empty(10)
+        gone = torch.empty(1, 5000)
+        del gone
+        a = torch.empty(100, dtype=torch.float64)
+        b = torch.empty(2, 300)
+        d = torch.empty(50, dtype=torch.bfloat16)
+        e = torch.empty(3)
+        f = torch.empty(7, dtype=torch.int64)
+        g = torch.empty(1)
+    # the list is the peak's, with what was freed after it
+    assert c.peak_bytes == 5010 * F
+    assert c.peak_top == [
+        {"op": "empty", "shape": [1, 5000], "dtype": "float32",
+         "bytes": 5000 * F},
+        {"op": "empty", "shape": [10], "dtype": "float32", "bytes": 10 * F}]
+    del small, a, b, d, e, f, g
+    with op_cost.count() as c:
+        a = torch.empty(100, dtype=torch.float64)
+        b = torch.empty(2, 300)
+        d = torch.empty(50, dtype=torch.bfloat16)
+        e = torch.empty(3)
+        f = torch.empty(7, dtype=torch.int64)
+        h = torch.empty(1)
+        i = torch.zeros(4, 4)
+    assert c.peak_bytes == 800 + 2400 + 100 + 12 + 56 + 4 + 64
+    assert c.peak_top == [
+        {"op": "empty", "shape": [2, 300], "dtype": "float32",
+         "bytes": 2400},
+        {"op": "empty", "shape": [100], "dtype": "float64", "bytes": 800},
+        {"op": "empty", "shape": [50], "dtype": "bfloat16", "bytes": 100},
+        {"op": "zeros", "shape": [4, 4], "dtype": "float32", "bytes": 64},
+        {"op": "empty", "shape": [7], "dtype": "int64", "bytes": 56}]
+    assert len(c.peak_top) == op_cost.PEAK_TOP
+    del a, b, d, e, f, h, i
 
 
 def test_train_step_under_counter_is_bitwise():
@@ -285,6 +338,17 @@ _FAKE_SCRIPT = textwrap.dedent("""
     out["count"] = c.coll_count
     dist.destroy_process_group()
     dist.init_process_group("fake", rank=0, world_size=16, store=FakeStore())
+    with FakeTensorMode():
+        # DTensor's shard-dim all-to-all: on a fake group a view of 16
+        # copies of its input; the peak counts the view's own bytes
+        x = torch.empty(64, 32)
+        with op_cost.count() as c:
+            y = torch.ops._dtensor.shard_dim_alltoall(
+                x, 1, 0, dist.group.WORLD.group_name)
+        out["a2a"] = [list(y.shape), y.untyped_storage().nbytes(),
+                      c.peak_bytes, c.peak_top]
+    dist.destroy_process_group()
+    dist.init_process_group("fake", rank=0, world_size=16, store=FakeStore())
     from torch.distributed.device_mesh import init_device_mesh
     mesh = init_device_mesh("cpu", (4, 4), mesh_dim_names=("data", "model"))
     with FakeTensorMode():
@@ -315,6 +379,9 @@ def test_collectives_and_dtensor_on_fake_groups():
         "all-to-all": S * (G - 1) / G,
         "collective-permute": S}
     assert out["count"] == 5
+    assert out["a2a"] == [[4, 512], 16 * S, S, [
+        {"op": "shard_dim_alltoall", "shape": [4, 512], "dtype": "float32",
+         "bytes": S}]]
     assert out["dt_flops"] == 2 * 16 * 256 * 128   # rank 0's (16, 256)@(256, 128)
     assert out["dt_bytes"] == F * (16 * 256 + 256 * 128 + 16 * 128)
     assert out["dt_mm"] == 1 and out["dt_local"] == [16, 128]

@@ -222,6 +222,23 @@ def test_constrain_is_identity_outside_a_mesh():
     assert sharding.active_mesh() is None
 
 
+def test_products_are_torch_on_plain_tensors_and_swap_nothing():
+    g = torch.Generator().manual_seed(0)
+    a, b = torch.randn(3, 4, 5, generator=g), torch.randn(5, 6, generator=g)
+    c = torch.randn(3, 5, 2, generator=g)
+    assert torch.equal(sharding.matmul(a, b), a @ b)
+    assert torch.equal(sharding.matmul(a, b[:, 0]), a @ b[:, 0])
+    assert torch.equal(sharding.bmm(a, c), torch.bmm(a, c))
+    assert torch.equal(sharding.einsum("bsd,dh->bsh", a, b),
+                       torch.einsum("bsd,dh->bsh", a, b))
+    orig = (torch.einsum, torch.matmul, torch.bmm, torch.Tensor.__matmul__,
+            torch.Tensor.matmul, torch.Tensor.bmm)
+    with sharding.dtensor_ops():            # a run or a trace on a mesh
+        assert (torch.einsum, torch.matmul, torch.bmm,
+                torch.Tensor.__matmul__, torch.Tensor.matmul,
+                torch.Tensor.bmm) == orig
+
+
 _MESH_SCRIPT = textwrap.dedent("""
     import json, torch, torch.distributed as dist
     from torch.testing._internal.distributed.fake_pg import FakeStore

@@ -45,6 +45,7 @@ two steps the gradients' 1e-5 differences move it by up to 3.6e-2·lr
 import concurrent.futures
 import dataclasses
 import functools
+import types
 
 import numpy as np
 import pytest
@@ -68,6 +69,7 @@ from repro_torch.config import ParallelConfig, TrainConfig  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.data import lm_data  # noqa: E402
 from repro_torch.data.pipeline import ShardedFeed, batch_sharding  # noqa: E402
+from repro_torch.distributed.sharding import default_rules  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import ref as fa_ref  # noqa: E402
 from repro_torch.launch import elastic  # noqa: E402
@@ -78,6 +80,7 @@ from repro_torch.launch.train import (TrainState, init_state,  # noqa: E402
 from repro_torch.models import attention  # noqa: E402
 from repro_torch.models.layers import softmax_cross_entropy  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
+from repro_torch.models.params import flatten  # noqa: E402
 from repro_torch.optim import compression, schedule  # noqa: E402
 
 F32_TOL = (1e-5, 1e-4)      # (loss rel, gradient leaf / max|g|)
@@ -534,10 +537,21 @@ def test_state_template_and_refusals():
         t = tmpl["params"][path]
         assert t.device.type == "meta" and t.shape == x.shape
         assert t.dtype == x.dtype
-    with pytest.raises(NotImplementedError, match="A.14"):
-        elastic.state_shardings(model, None, None)
-    with pytest.raises(NotImplementedError, match="A.14"):
-        batch_sharding(None)
+    # the shardings are specs on the mesh's axis names (the placement
+    # on gloo ranks: tests/test_torch_elastic.py)
+    mesh = types.SimpleNamespace(mesh_dim_names=("data", "model"))
+    rules = default_rules(fsdp=True)
+    sh = elastic.state_shardings(model, rules, mesh)
+    specs = flatten(model.param_specs(rules, mesh))
+    assert set(sh["params"]) == set(tmpl["params"]) == set(specs)
+    for part in (sh["params"], sh["opt"]["m"], sh["opt"]["v"]):
+        assert {k: v.spec for k, v in part.items()} == specs
+        assert all(v.mesh is mesh for v in part.values())
+    assert sh["opt"]["step"].spec == ()
+    assert batch_sharding(mesh).spec == ("data",)
+    pods = types.SimpleNamespace(mesh_dim_names=("pod", "data", "model"))
+    assert batch_sharding(pods, multi_pod=True).spec == (("pod", "data"),)
+    assert batch_sharding(mesh, multi_pod=True).spec == ("data",)
 
 
 def test_short_run_learns():
