@@ -181,7 +181,21 @@ Phases (each failure makes the script exit non-zero):
      one downgrade to serial, bitwise; ``refute:iv`` —
      ``placebo_instrument`` and ``weak_instrument`` on OrthoIV's fit at
      ``make_iv_data(1_000_000, 500)``; ``quickstart`` —
-     ``examples/torch_quickstart.py``'s main; ``trace:runtime`` — the
+     ``examples/torch_quickstart.py``'s main; ``examples:iv``,
+     ``examples:store``, ``examples:sweep`` — the main of
+     ``examples/torch_{iv,store,sweep}_demo.py`` at the reference demos'
+     sizes (IV 8,000 x 10 with B = 200; 5 days x 4,096 rows x 10, 8
+     segments; 16,384 x 10, 16 segments, B = 32), each with the launch
+     counters set to 0 just before and read just after, the seg_gram
+     launches by form equal to ``EXAMPLE_LAUNCHES`` (the route of the
+     CPU run, counted before the first card run), fallbacks 0, every
+     launch made through ``seg_gram.ops.seg_reduce``, whose first call of
+     each (form, output shape, rows) is held against its plain version
+     in fp64 within ``EXAMPLE_KERNEL_TOL``: the
+     OrthoIV LATE within 5 se of the truth and both intervals finite
+     around it; the store bitwise a from-scratch refit on every day; the
+     cells panel bitwise the serial loop, every valid segment's ATE
+     finite; ``trace:runtime`` — the
      budgeted run traced ≡ untraced bitwise, its Chrome trace
      (``build/chip_smoke_runtime_trace.json``) strict JSON with
      ``runtime.chunk`` and ``dag.task`` spans and audit rows;
@@ -4019,16 +4033,22 @@ def phase_refute_iv(ivdata, cfg):
     return secs
 
 
+def _load_example(name: str):
+    """The module of ``examples/<name>.py``."""
+    import importlib.util
+
+    path = Path(__file__).resolve().parent / "examples" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def phase_quickstart():
     """examples/torch_quickstart.py's main on the card: the fit, its
     jackknife CI and the refutation suite; theta0 within 5 se of the
     ATE, every refuter passes."""
-    import importlib.util
-
-    path = Path(__file__).resolve().parent / "examples" / "torch_quickstart.py"
-    spec = importlib.util.spec_from_file_location("torch_quickstart", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
+    mod = _load_example("torch_quickstart")
     _reset_counters()
     res, reports, true_ate, secs = mod.main([])
     z = abs(res.ate - 1.0) / float(res.stderr[0])
@@ -4039,6 +4059,152 @@ def phase_quickstart():
         raise AssertionError("the quickstart's fit or a refuter failed")
     _no_fallbacks()
     return secs
+
+
+# seg_gram launches by form of each demo's main([]) on the card: the
+# route its CPU run takes (every Gram through seg_gram.ops.seg_reduce or
+# residual_gram.ops.residual_gram, each call counted by the key its CUDA
+# wrapper counts it by), written down before the first card run
+EXAMPLE_LAUNCHES = {
+    "iv": {"design": 5, "gram_and_vec": 80, "fold_weighted": 65, "iv": 3,
+           "iv_meat": 3, "iv_segmented": 1, "residual": 1,
+           "residual_meat": 1},
+    "store": {"pair": 20},
+    "sweep": {"fold_weighted": 1617, "residual_direct": 50,
+              "residual_meat": 50, "design_segmented": 2, "pair": 66},
+}
+
+
+# the demos' own kernel calls against their plain version:
+# max|kernel - fp64 plain| / max|fp64 plain| on the first call of each
+# (form, output shape, rows)
+EXAMPLE_KERNEL_TOL = 1e-5
+
+
+@contextlib.contextmanager
+def _held_to_plain(checked: dict, calls: collections.Counter,
+                   spent: list):
+    """``seg_gram.ops.seg_reduce`` wrapped for the card run of a demo:
+    every call counted in ``calls`` by its ``launch_key``, and the first
+    call of each (form, output shape, rows) held against
+    ``seg_reduce_plain`` in fp64 on the same inputs, moved to the CPU
+    (its error into ``checked``; over EXAMPLE_KERNEL_TOL, or not finite,
+    raises).  The checks' seconds, after a sync, go to ``spent``."""
+    from repro_torch.kernels.seg_gram import ops as sops
+
+    seg_reduce = sops.seg_reduce
+
+    def cpu64(x):
+        return None if x is None else x.detach().cpu().double()
+
+    def held(builder, arrays, *, seg=None, w=None, n_segments=1, init=None,
+             row_block=0):
+        out = seg_reduce(builder, arrays, seg=seg, w=w,
+                         n_segments=n_segments, init=init,
+                         row_block=row_block)
+        key = sops.launch_key(builder, arrays, w=w, n_segments=n_segments,
+                              init=init)
+        calls[key] += 1
+        sig = (key, tuple(out.shape), int(arrays[0].shape[-2]))
+        if sig in checked:
+            return out
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        G64 = sops.seg_reduce_plain(
+            builder, [cpu64(a) for a in arrays],
+            seg=None if seg is None else seg.cpu(), w=cpu64(w),
+            n_segments=n_segments, init=cpu64(init))
+        Gk = out.detach().cpu()
+        if tuple(G64.shape) != tuple(Gk.shape):
+            raise AssertionError(f"{key}: kernel shape {tuple(Gk.shape)}, "
+                                 f"plain {tuple(G64.shape)}")
+        err = rel(Gk, G64)
+        checked[sig] = err
+        spent.append(time.perf_counter() - t0)
+        if not (err <= EXAMPLE_KERNEL_TOL and bool(torch.isfinite(Gk).all())):
+            raise AssertionError(
+                f"seg_gram {key} {tuple(Gk.shape)} over {sig[2]} rows "
+                f"disagrees with its plain version: {err:.3e} > "
+                f"{EXAMPLE_KERNEL_TOL:g}")
+        return out
+
+    sops.seg_reduce = held
+    try:
+        yield
+    finally:
+        sops.seg_reduce = seg_reduce
+
+
+def phase_example(name: str):
+    """examples/torch_<name>_demo.py's main on the card at its default
+    (the reference demo's) size, launches counted around it: the demo's
+    gates, launches by form = EXAMPLE_LAUNCHES[name], fallbacks 0, and
+    the demo's own seg_gram calls held to their plain version
+    (``_held_to_plain``), which every launch went through.  Returns
+    (seconds, launches by form, kernel-vs-plain errors by call form);
+    the seconds leave out the checks'."""
+    mod = _load_example(f"torch_{name}_demo")
+    checked, calls, spent = {}, collections.Counter(), []
+    torch.cuda.synchronize()
+    _reset_counters()
+    t0 = time.perf_counter()
+    with _held_to_plain(checked, calls, spent):
+        out = mod.main([])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0 - sum(spent)
+    counts = {k: c for k, c in _read_counters()[0].items() if c}
+    if name == "iv":
+        late, se = out["late"], out["se"]
+        z = abs(late - out["true_late"]) / se
+        ivs = (out["bootstrap_ci"], out["jackknife_ci"])
+        log(f"examples:iv: LATE {late:.5f} se {se:.5f} true "
+            f"{out['true_late']:.5f} ({z:.3f} se); bootstrap "
+            f"{ivs[0]}, jackknife {ivs[1]}; naive DML {out['naive_ate']:.5f};"
+            f" DRIV {out['driv_late']:.5f} ± {out['driv_se']:.5f}")
+        if not (z <= 5.0 and all(bool(np.isfinite([lo, hi]).all())
+                                 and lo <= late <= hi for lo, hi in ivs)):
+            raise AssertionError("the IV demo's LATE or an interval failed")
+    elif name == "store":
+        log(f"examples:store: bitwise {out['bitwise']}; ingest + refresh "
+            f"{[round(x, 4) for x in out['ingest_refresh_s']]} s, refit "
+            f"{[round(x, 4) for x in out['full_refit_s']]} s; version "
+            f"{out['version']}, snapshot {out['latest']}")
+        if not (len(out["bitwise"]) == 5 and all(out["bitwise"])):
+            raise AssertionError("the store's days are not bitwise a refit")
+    else:
+        panel, seg = out["panel"], out["segmented"]
+        valid = []
+        for p in (panel, seg):
+            ok = p.ok()
+            valid.append(int(ok.sum()))
+            for c, col in enumerate(p.columns):
+                if not bool(torch.isfinite(col.ates[ok[:, c]]).all()):
+                    raise AssertionError("a valid segment's ATE is not "
+                                         "finite")
+        log(f"examples:sweep: panel == loop {out['bitwise']}; valid cells "
+            f"{valid[0]} (panel), {valid[1]} (segmented); panel "
+            f"{out['panel_s']:.3f} s, loop {out['loop_s']:.3f} s, "
+            f"segmented {out['segmented_s']:.3f} s")
+        if not out["bitwise"]:
+            raise AssertionError("the sweep panel is not bitwise the loop")
+    errs = {}
+    for (key, shape, n), err in checked.items():
+        errs.setdefault(key, []).append((shape, n, err))
+    log(f"examples:{name}: {secs:.3f} s (+ {sum(spent):.3f} s of checks); "
+        f"launches {counts}; {len(checked)} calls held to fp64 plain (tol "
+        f"{EXAMPLE_KERNEL_TOL:g}), worst by form "
+        f"{ {k: max(e for *_, e in v) for k, v in errs.items()} }")
+    for key, v in errs.items():
+        log(f"  {key}: " + ", ".join(f"{shape}@{n}:{e:.3e}"
+                                     for shape, n, e in v))
+    if counts != EXAMPLE_LAUNCHES[name]:
+        raise AssertionError(f"launches {counts}, expected "
+                             f"{EXAMPLE_LAUNCHES[name]}")
+    if dict(calls) != counts:
+        raise AssertionError(f"launches {counts}, but seg_reduce calls "
+                             f"{dict(calls)}: a launch missed the check")
+    _no_fallbacks()
+    return secs, counts, {k: max(e for *_, e in v) for k, v in errs.items()}
 
 
 def _cells_inputs(seed: int, n: int, e: int):
@@ -7052,6 +7218,13 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     quick_s = run("quickstart", phase_quickstart)
     torch.cuda.empty_cache()
+    examples = {}
+    for name in ("iv", "store", "sweep"):
+        out = run(f"examples:{name}", phase_example, name)
+        torch.cuda.empty_cache()
+        if out is not None:
+            examples[name] = {"seconds": out[0], "launches": out[1],
+                              "max_rel_err_fp64": out[2]}
 
     records.update(run("kernels:pair-forms", lambda: run_cases(
         pair_cases(args.seed, timer), timer)) or {})
@@ -7247,7 +7420,8 @@ def main(argv=None) -> int:
             "serve_wave_sizes": list(SERVE_WAVES), "serving": serving,
             "runtime_bootstrap_replicates": RT_BOOT_B,
             "refute_reps": REFUTE_REPS, "refute_seconds": refute_s,
-            "quickstart_seconds": quick_s, "cells_n": CELLS_N,
+            "quickstart_seconds": quick_s, "examples": examples,
+            "cells_n": CELLS_N,
             "cells_segments": CELLS_E,
             "cells_at": CELLS_AT, "cells_budget": cells_budget,
             "cells_seconds": cells_s, "meta_bootstrap_replicates":

@@ -38,3 +38,8 @@ def get_config(arch: str) -> ModelConfig:
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
     cfg: ModelConfig = mod.CONFIG
     return smoke_variant(cfg) if arch.endswith("-smoke") else cfg
+
+
+def all_configs() -> Dict[str, ModelConfig]:
+    """Every registry config, keyed in ``ARCH_IDS`` order."""
+    return {a: get_config(a) for a in ARCH_IDS}

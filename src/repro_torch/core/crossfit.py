@@ -35,9 +35,8 @@ import torch
 from repro_torch.core.nuisance import (Nuisance, logistic_fit_folds,
                                        ridge_fit_folds)
 from repro_torch.distributed.sharding import per_shard
-from repro_torch.inference.executor import tree_map
 from repro_torch.obs.trace import maybe_span
-from repro_torch.runtime import as_runtime
+from repro_torch.pytree import tree_map
 
 Tensor = torch.Tensor
 
@@ -94,6 +93,7 @@ def _crossfit_engine(nuis: Nuisance, gen: torch.Generator, X: Tensor,
     through the task runtime, in a ``crossfit:<nuisance>`` span when the
     runtime traces.  Returns (out-of-fold predictions (n,), states with
     a leading k)."""
+    from repro_torch.runtime import as_runtime
     rt = as_runtime(executor, tracer=tracer)
     p = X.shape[1]
     state = _stack_states([nuis.init(gen, p, X.device) for _ in range(k)])

@@ -27,8 +27,7 @@ from repro_torch.core.final_stage import (FinalStageResult, cate_basis,
                                           fit_final_stage)
 from repro_torch.core.nuisance import Nuisance, make_nuisance
 from repro_torch.device import DeviceLike, as_f32, resolve_device
-from repro_torch.inference.bootstrap import derive_seed, dml_bootstrap
-from repro_torch.inference.jackknife import delete_fold_jackknife
+from repro_torch.draws import derive_seed
 
 Tensor = torch.Tensor
 
@@ -68,6 +67,8 @@ class DMLResult(SandwichEffectResult):
         """The delete-fold jackknife off the existing fold states, or B
         weighted refits (pairs / multiplier bootstrap) through an
         executor."""
+        from repro_torch.inference.bootstrap import dml_bootstrap
+        from repro_torch.inference.jackknife import delete_fold_jackknife
         ctx, cfg = self.fit_ctx, self.cfg
         if method == "jackknife":
             cf = self.crossfit

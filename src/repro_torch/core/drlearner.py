@@ -40,9 +40,7 @@ from repro_torch.core.estimator import (PseudoOutcomeEffectResult,
 from repro_torch.core.final_stage import cate_basis
 from repro_torch.core.nuisance import Nuisance, make_logistic, make_ridge
 from repro_torch.device import DeviceLike, as_f32, resolve_device
-from repro_torch.inference.bootstrap import (derive_seed, dr_bootstrap,
-                                             fit_predict_folds)
-from repro_torch.inference.numerics import det_solve
+from repro_torch.draws import derive_seed
 
 Tensor = torch.Tensor
 _F32 = torch.float32
@@ -86,6 +84,7 @@ class DRResult(PseudoOutcomeEffectResult):
     def _replicate_inference(self, method, n_boot, exe, alpha):
         """B weighted refits of the whole AIPW pipeline through an
         executor; the ATE functional's own draws ride along."""
+        from repro_torch.inference.bootstrap import dr_bootstrap
         cfg, ctx = self._config(), self.fit_ctx
         return dr_bootstrap(
             ctx.outcome, ctx.propensity, n_folds=cfg.n_folds, X=ctx.X,
@@ -121,6 +120,7 @@ class DRLearner:
         """Cross-fit E[Y|X, T=arm]: the training weights select the
         fold's complement AND the arm; an mlp draws its fold inits on
         ``gen`` (``fit_predict_folds``)."""
+        from repro_torch.inference.bootstrap import fit_predict_folds
         arm_mask = (t == arm).to(_F32)[None, :]
         W = fold_weights(folds, self.cfg.n_folds)
         return _oof_select(fit_predict_folds(self.outcome, X, y,
@@ -134,6 +134,8 @@ class DRLearner:
         then an mlp nuisance's fold inits (default: a CPU generator
         seeded 0); its initial seed is the one the bootstrap replicates
         derive from."""
+        from repro_torch.inference.bootstrap import fit_predict_folds
+        from repro_torch.inference.numerics import det_solve
         dev, cfg = self.device, self.cfg
         gen = gen if gen is not None else torch.Generator().manual_seed(0)
         y, t, X = as_f32(y, dev), as_f32(t, dev), as_f32(X, dev)

@@ -22,7 +22,6 @@ import torch
 from repro_torch.config import CausalConfig
 from repro_torch.core.final_stage import cate_basis
 from repro_torch.device import as_f32
-from repro_torch.inference.intervals import z_crit
 
 Tensor = torch.Tensor
 
@@ -184,6 +183,7 @@ class SandwichEffectResult(EffectResult):
 
     def conf_int(self, alpha: float = 0.05) -> Tuple[Tensor, Tensor]:
         """Analytic per-coefficient CI from the sandwich."""
+        from repro_torch.inference.intervals import z_crit
         z = z_crit(alpha)
         return self.theta - z * self.stderr, self.theta + z * self.stderr
 
@@ -193,6 +193,7 @@ class SandwichEffectResult(EffectResult):
 
     def _analytic_cate_interval(self, phi: Tensor, alpha: float
                                 ) -> Tuple[Tensor, Tensor]:
+        from repro_torch.inference.intervals import z_crit
         z = z_crit(alpha)
         se = torch.sqrt(torch.clamp(((phi @ self.cov) * phi).sum(1), min=0.0))
         c = phi @ self.theta
@@ -229,6 +230,7 @@ class PseudoOutcomeEffectResult(EffectResult):
 
     def conf_int(self, alpha: float = 0.05) -> Tuple[float, float]:
         """Analytic ATE interval: ate ± z · stderr."""
+        from repro_torch.inference.intervals import z_crit
         z = z_crit(alpha)
         return self.ate - z * self.stderr, self.ate + z * self.stderr
 

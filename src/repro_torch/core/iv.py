@@ -48,10 +48,7 @@ from repro_torch.core.estimator import (PseudoOutcomeEffectResult,
 from repro_torch.core.final_stage import cate_basis
 from repro_torch.core.nuisance import Nuisance, make_nuisance, make_ridge
 from repro_torch.device import DeviceLike, as_f32, resolve_device
-from repro_torch.inference.bootstrap import (derive_seed, driv_bootstrap,
-                                             iv_bootstrap)
-from repro_torch.inference.jackknife import delete_fold_jackknife_iv
-from repro_torch.inference.numerics import det_solve, sandwich
+from repro_torch.draws import derive_seed
 
 Tensor = torch.Tensor
 _F32 = torch.float32
@@ -109,6 +106,7 @@ def fit_iv_final_stage(ry: Tensor, rt: Tensor, rz: Tensor, phi: Tensor, *,
     in row blocks when ``row_block > 0`` (through the kernel under
     ``strategy="pallas"``), and Gauss-Jordan solves: the point fit is
     the w = 1 weighted replicate (``weighted_iv_theta``), bitwise."""
+    from repro_torch.inference.numerics import det_solve, sandwich
     n, p = phi.shape
     ws = torch.ones_like(phi[:, 0], dtype=_F32) if w is None \
         else w.to(_F32)
@@ -160,6 +158,8 @@ class OrthoIVResult(SandwichEffectResult):
     def _replicate_inference(self, method, n_boot, exe, alpha):
         """The delete-fold jackknife off one fold-segmented instrumented
         Gram, or B weighted 2SLS refits through an executor."""
+        from repro_torch.inference.bootstrap import iv_bootstrap
+        from repro_torch.inference.jackknife import delete_fold_jackknife_iv
         ctx, cfg = self.fit_ctx, self.cfg
         if method == "jackknife":
             cf = self.crossfit
@@ -280,6 +280,7 @@ class DRIVResult(PseudoOutcomeEffectResult):
         """B weighted refits of the whole DRIV pipeline (nuisances,
         compliance, preliminary estimate, pseudo-outcome regression)
         through an executor; the LATE functional's draws ride along."""
+        from repro_torch.inference.bootstrap import driv_bootstrap
         cfg, ctx = self._config(), self.fit_ctx
         return driv_bootstrap(
             ctx.nuis_y, ctx.nuis_t, ctx.nuis_z, ctx.compliance,
@@ -325,6 +326,7 @@ class DRIV:
         controls.  ``gen`` draws the folds (default: a CPU generator
         seeded 0); the compliance fit's generator and the bootstrap's
         replicates derive from its initial seed."""
+        from repro_torch.inference.numerics import det_solve
         cfg, dev = self.cfg, self.device
         gen = gen if gen is not None else torch.Generator().manual_seed(0)
         seed = gen.initial_seed()

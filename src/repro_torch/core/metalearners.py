@@ -37,7 +37,7 @@ so only the ATE functional has replicate intervals.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Optional
+from typing import TYPE_CHECKING, Any, Callable, Dict, Optional
 
 import torch
 
@@ -46,14 +46,10 @@ from repro_torch.core.estimator import (EffectResult, inf_cache_field,
                                         resolve_scheme)
 from repro_torch.core.nuisance import Nuisance, make_logistic, make_ridge
 from repro_torch.device import DeviceLike, as_f32, resolve_device
-from repro_torch.inference.bootstrap import (_result, _run,
-                                             _weighted_mean_rows, derive_seed,
-                                             init_states, replicate_weights)
-from repro_torch.inference.intervals import InferenceResult
-from repro_torch.inference.numerics import (logistic_fit_folds_w,
-                                            predict_folds_linear,
-                                            predict_folds_logistic,
-                                            ridge_fit_folds_w)
+from repro_torch.draws import derive_seed, replicate_weights
+
+if TYPE_CHECKING:
+    from repro_torch.inference.intervals import InferenceResult
 
 Tensor = torch.Tensor
 _F32 = torch.float32
@@ -70,6 +66,11 @@ def _wfit_predict(nuis: Nuisance, gen, X: Tensor, target: Tensor,
     singleton fold axis; other nuisances fit through ``nuis.fit`` from
     the init ``gen`` draws (w (n,): a generator or None) or, for w
     (R, n), row r's on ``gen[r]`` (``init_states``; None: seed 0)."""
+    from repro_torch.inference.bootstrap import init_states
+    from repro_torch.inference.numerics import (logistic_fit_folds_w,
+                                                predict_folds_linear,
+                                                predict_folds_logistic,
+                                                ridge_fit_folds_w)
     rb = int(_hyper(nuis, "row_block", 0))
     st = _hyper(nuis, "strategy", None)
     Wk = w[..., None, :]
@@ -94,6 +95,7 @@ def _wmean(x: Tensor, w: Tensor) -> Tensor:
     """``Σ w·x / max(Σ w, 1)``: a scalar, or (R,) with each row reduced
     alone."""
     if w.dim() == 2:
+        from repro_torch.inference.bootstrap import _weighted_mean_rows
         return _weighted_mean_rows(w, x)
     wf = w.to(_F32)
     return (wf * x).sum() / torch.clamp(wf.sum(), min=1.0)
@@ -179,6 +181,7 @@ def meta_bootstrap(core: Callable, *, y: Tensor, t: Tensor, X: Tensor,
     b draws its weights, then its nuisances' inits, on its own generator
     (``replicate_weights``).  Only the ATE functional's draws are kept:
     the metalearners' CATEs are not linear in a phi basis."""
+    from repro_torch.inference.bootstrap import _result, _run
 
     def replicate(ids, y_, t_, X_):
         w, gens = replicate_weights(seed, ids, X_.shape[0], scheme,

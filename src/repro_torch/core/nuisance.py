@@ -28,8 +28,8 @@ import torch.nn.functional as F
 from repro_torch.config import CausalConfig, TrainConfig
 from repro_torch.core import moments
 from repro_torch.distributed.sharding import matmul, per_shard, row_sum
-from repro_torch.inference.executor import tree_map
 from repro_torch.optim.adamw import adamw_init, adamw_update
+from repro_torch.pytree import tree_map
 
 Tensor = torch.Tensor
 _F32 = torch.float32

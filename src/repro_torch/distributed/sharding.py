@@ -41,12 +41,61 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Any, Callable, List, Mapping, Optional, Sequence, Tuple
+from typing import (Any, Callable, Dict, List, Mapping, Optional, Sequence,
+                    Tuple)
 
 import torch
 
-from repro_torch.models.params import (ParamDef, init_params,  # noqa: F401
-                                       map_schema)
+
+@dataclasses.dataclass(frozen=True)
+class ParamDef:
+    """Declarative parameter: shape + logical axes + initializer.  The
+    axes ("embed", "heads", "ff", ...) are what ``logical_to_spec``
+    maps onto a mesh; every schema leaf names one per dimension."""
+
+    shape: Tuple[int, ...]
+    axes: Optional[Tuple[Optional[str], ...]] = None
+    init: str = "normal"  # normal | zeros | ones | scaled | embed
+    scale: Optional[float] = None
+    dtype: Any = None  # filled from ModelConfig.param_dtype if None
+
+
+def map_schema(fn, schema, path: str = ""):
+    """``fn(path, ParamDef)`` over every leaf, paths dotted."""
+    if isinstance(schema, ParamDef):
+        return fn(path, schema)
+    if isinstance(schema, Mapping):
+        return {k: map_schema(fn, v, f"{path}.{k}" if path else k)
+                for k, v in schema.items()}
+    raise TypeError(f"bad schema node at {path!r}: {type(schema)}")
+
+
+def init_std(d: ParamDef) -> float:
+    """The reference's std for a "normal" / "scaled" / "embed" leaf."""
+    fan_in = d.shape[0] if len(d.shape) else 1
+    if d.init == "scaled":
+        return (d.scale if d.scale is not None else 1.0) / max(1.0, fan_in) ** 0.5
+    return d.scale if d.scale is not None else 0.02
+
+
+def init_params(gen: torch.Generator, schema,
+                param_dtype=torch.float32) -> Dict[str, Any]:
+    """Materialise a schema into a nested dict of tensors, drawn in
+    schema order on ``gen`` (and on its device)."""
+    dev = gen.device
+
+    def make(_, d: ParamDef):
+        dtype = d.dtype or param_dtype
+        if d.init == "zeros":
+            return torch.zeros(d.shape, dtype=dtype, device=dev)
+        if d.init == "ones":
+            return torch.ones(d.shape, dtype=dtype, device=dev)
+        x = torch.randn(d.shape, generator=gen, dtype=torch.float32,
+                        device=dev)
+        return x.mul_(init_std(d)).to(dtype)
+
+    return map_schema(make, schema)
+
 
 class PartitionSpec(tuple):
     """Per tensor dim: a mesh axis name, a tuple of them, or None.  A

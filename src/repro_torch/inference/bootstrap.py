@@ -25,13 +25,16 @@ theta[0] outside the constant basis — into the result's
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 
 from repro_torch.core.crossfit import (_oof_select, _stack_states, fold_ids,
                                        fold_weights)
 from repro_torch.core.nuisance import Nuisance
+from repro_torch.draws import (bootstrap_weights, derive_seed,  # noqa: F401
+                               replicate_generator, replicate_generators,
+                               replicate_weights)
 from repro_torch.inference.executor import tree_map
 from repro_torch.inference.intervals import InferenceResult
 from repro_torch.inference.numerics import (logistic_fit_folds_w,
@@ -40,63 +43,11 @@ from repro_torch.inference.numerics import (logistic_fit_folds_w,
                                             ridge_fit_folds_w,
                                             weighted_iv_theta,
                                             weighted_theta)
-from repro_torch.runtime import as_runtime
 
 Tensor = torch.Tensor
 _F32 = torch.float32
-_MASK64 = (1 << 64) - 1
 
-
-def derive_seed(seed: int, i: int) -> int:
-    """A 63-bit seed derived from ``(seed, i)`` alone (splitmix64)."""
-    z = (int(seed) * 0x9E3779B97F4A7C15 + (int(i) + 1) * 0xBF58476D1CE4E5B9
-         ) & _MASK64
-    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
-    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
-    return (z ^ (z >> 31)) >> 1
-
-
-def replicate_generator(seed: int, b: int) -> torch.Generator:
-    """Replicate b's CPU generator, seeded from ``(seed, b)`` alone."""
-    return torch.Generator().manual_seed(derive_seed(seed, b))
-
-
-def replicate_generators(seed: int, n_replicates: int
-                         ) -> List[torch.Generator]:
-    """The generators of replicates 0 .. B-1: replicate b's does not
-    depend on B, so a B=100 run is a prefix of a B=200 run."""
-    return [replicate_generator(seed, b) for b in range(n_replicates)]
-
-
-def bootstrap_weights(gen: torch.Generator, n: int, scheme: str) -> Tensor:
-    """(n,) fp32 per-row resampling weights with mean ≈ 1, on ``gen``'s
-    device.
-
-    pairs       multinomial counts (resampling with replacement);
-    multiplier  i.i.d. Exp(1) multipliers (the Bayesian bootstrap up to
-    bayesian    normalization).
-    """
-    if scheme == "pairs":
-        idx = torch.randint(0, n, (n,), generator=gen, device=gen.device)
-        # integer counts: exact in fp32 below 2^24, and on a CUDA
-        # generator's device bincount's atomics add integers, so the
-        # counts do not depend on the order the atomics land in
-        return torch.bincount(idx, minlength=n).to(_F32)
-    if scheme in ("multiplier", "bayesian"):
-        return torch.empty(n, dtype=_F32, device=gen.device).exponential_(
-            1.0, generator=gen)
-    raise ValueError(f"unknown bootstrap scheme {scheme!r}")
-
-
-def replicate_weights(seed: int, ids: Tensor, n: int, scheme: str,
-                      device=None):
-    """(w (R, n), gens) of the replicates ``ids``: each draws its weights
-    first on its own generator (``replicate_generator(seed, b)``);
-    ``gens`` are those generators, past that draw, for what each
-    replicate draws next."""
-    gens = [replicate_generator(seed, b) for b in ids.tolist()]
-    w = torch.stack([bootstrap_weights(g, n, scheme) for g in gens])
-    return w.to(device), gens
+SCHEMES = ("pairs", "multiplier", "bayesian")
 
 
 def replicate_draws(seed: int, ids: Tensor, n: int, n_folds: int,
@@ -237,6 +188,7 @@ def _run(replicate, n_replicates: int, label: str, args, *, executor,
     """The B replicates as one map of the task runtime over the ids
     0 .. B-1: chunked (``chunk``, or the memory model against
     ``memory_budget``), each chunk retried down the backend ladder."""
+    from repro_torch.runtime import as_runtime
     rt = as_runtime(executor, memory_budget=memory_budget, chunk=chunk,
                     max_retries=max_retries, tracer=tracer)
     ids = torch.arange(n_replicates)

@@ -29,59 +29,15 @@ downgrade ladder, futures.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, List, Optional, Protocol
+from typing import Any, Callable, Optional, Protocol
 
 import torch
 
+from repro_torch.pytree import (concat_trees, leading_dim,  # noqa: F401
+                                slice_tree, tree_leaves, tree_map)
+
 Tensor = torch.Tensor
 ReplicateFn = Callable[..., Any]
-
-
-# -- trees of tensors ---------------------------------------------------------
-
-def tree_leaves(tree: Any) -> List[Any]:
-    """The leaves of a dict / list / tuple tree, in a fixed order."""
-    if isinstance(tree, dict):
-        return [x for v in tree.values() for x in tree_leaves(v)]
-    if isinstance(tree, (list, tuple)):
-        return [x for v in tree for x in tree_leaves(v)]
-    return [tree]
-
-
-def tree_map(fn: Callable[..., Any], tree: Any, *rest: Any) -> Any:
-    """``fn`` over the leaves of ``tree`` (and the same leaves of
-    ``rest``), keeping the structure."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v, *[r[k] for r in rest])
-                for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, v, *[r[i] for r in rest])
-                          for i, v in enumerate(tree))
-    return fn(tree, *rest)
-
-
-def leading_dim(xs: Any) -> int:
-    """The replicate axis' length (every tensor leaf shares it)."""
-    leaves = [x for x in tree_leaves(xs) if isinstance(x, Tensor)]
-    if not leaves:
-        raise ValueError("a map needs at least one tensor input")
-    b = leaves[0].shape[0]
-    if any(x.shape[0] != b for x in leaves):
-        raise ValueError("every leaf of a mapped input must share its "
-                         f"leading axis, got {[tuple(x.shape) for x in leaves]}")
-    return b
-
-
-def slice_tree(xs: Any, lo: int, hi: int) -> Any:
-    """Replicates [lo, hi) of every leaf."""
-    return tree_map(lambda x: x[lo:hi], xs)
-
-
-def concat_trees(outs: List[Any]) -> Any:
-    """Leafwise concatenation along the replicate axis, in order."""
-    if len(outs) == 1:
-        return outs[0]
-    return tree_map(lambda *ys: torch.cat(ys), outs[0], *outs[1:])
 
 
 class Executor(Protocol):
@@ -154,6 +110,10 @@ class ShardMapExecutor:
             out = BatchedExecutor().map(fn, slice_tree(xs, lo, lo + c),
                                         *args)
         return tree_map(lambda y: all_gather_rows(dm, y)[:b], out)
+
+
+# the reference's name for the batched executor (it vmaps there): one class
+VmapExecutor = BatchedExecutor
 
 
 def make_executor(name, *, microbatch: Optional[int] = None,

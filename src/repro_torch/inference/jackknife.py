@@ -19,7 +19,6 @@ import torch
 from repro_torch.core import moments
 from repro_torch.inference.intervals import InferenceResult
 from repro_torch.inference.numerics import det_solve
-from repro_torch.runtime import as_runtime
 
 Tensor = torch.Tensor
 _F32 = torch.float32
@@ -36,6 +35,7 @@ def delete_fold_jackknife(y: Tensor, t: Tensor, oof_y: Tensor,
     """Jackknife over the existing fold partition.  y, t, oof_y, oof_t,
     folds: (n,); phi: (n, p_phi).  The k delete-fold solves map through
     the task runtime (``executor`` a name, Executor or TaskRuntime)."""
+    from repro_torch.runtime import as_runtime
     sched = as_runtime(executor, memory_budget=memory_budget, chunk=chunk,
                        max_retries=max_retries, tracer=tracer)
     n, p = phi.shape
@@ -96,6 +96,7 @@ def delete_fold_jackknife_iv(y: Tensor, t: Tensor, z: Tensor, oof_y: Tensor,
     kernel's iv builder with k segments on the card under "pallas"),
     then each delete-fold 2SLS estimate is ``G_(-j) = G_total - G_j``
     plus one solve, the k solves mapped through the task runtime."""
+    from repro_torch.runtime import as_runtime
     sched = as_runtime(executor, memory_budget=memory_budget, chunk=chunk,
                        max_retries=max_retries, tracer=tracer)
     n, p = phi.shape

@@ -5,3 +5,4 @@ It keeps the reference's entry point (``fit_final_stage`` and
 On the card it is the seg_gram kernel with the residual builder, the
 same launch as ``seg_gram.ops.residual_gram``; once that name parity is
 no longer needed it folds into ``seg_gram.ops``."""
+from repro_torch.kernels.residual_gram.ops import residual_gram  # noqa: F401

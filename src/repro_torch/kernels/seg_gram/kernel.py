@@ -228,6 +228,17 @@ def _batch_args(builder, n, dX, scalars, theta, w, dev):
     return B, a_b, th_b, w_b
 
 
+def launch_key(builder: str, *, walk: bool,
+               count_as: Optional[str] = None) -> str:
+    """The ``LAUNCHES`` key of one launch of ``builder``: ``count_as``
+    when the caller names one, else the form — the builder's name for
+    one segment and for the pair walk, ``<builder>_segmented`` for any
+    other segment walk."""
+    if count_as:
+        return count_as
+    return builder if not walk or builder == "pair" else f"{builder}_segmented"
+
+
 def seg_gram_cuda(builder: str, X: torch.Tensor, *,
                   scalars: Sequence[torch.Tensor] = (),
                   theta: Optional[torch.Tensor] = None,
@@ -276,7 +287,7 @@ def seg_gram_cuda(builder: str, X: torch.Tensor, *,
             _ptr(theta), th_b, _ptr(w), w_b,
             B, qL, qR, _ptr(partial), P, _ptr(out), _P(stream), _parts)
     _raise_on(lib, err, builder)
-    key = count_as or builder
+    key = launch_key(builder, walk=False, count_as=count_as)
     LAUNCHES[key] += 1
     SHAPES[(key, 1, qL, qR)] += 1
     _observe(key, B, n, 1, qL, qR, (X, *scalars, theta, w))
@@ -486,7 +497,7 @@ def seg_walk_cuda(builder: str, X: torch.Tensor, *,
             W, S, B, qL, qR, int(same), _ptr(init), _ptr(partial),
             _ptr(out), _P(stream), _parts)
     _raise_on(lib, err, builder)
-    key = count_as or (builder if builder == "pair" else builder + "_segmented")
+    key = launch_key(builder, walk=True, count_as=count_as)
     LAUNCHES[key] += 1
     SHAPES[(key, S, qL, qR)] += 1
     _observe(key, B, n, S, qL, qR, (X, Y, *scalars, theta, w, seg, init))

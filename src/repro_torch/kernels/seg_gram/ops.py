@@ -166,6 +166,55 @@ def _kernel_args(builder, arrays, w=None):
     raise NotImplementedError(f"{name} has no CUDA kernel")
 
 
+def _walks(builder, n_segments: int, init: Optional[Tensor]) -> bool:
+    """Whether a call runs the segment walk (module docstring)."""
+    return (int(n_segments) > 1 or builder is _ref.build_pair
+            or init is not None)
+
+
+def launch_key(builder, arrays: Sequence[Tensor], *,
+               w: Optional[Tensor] = None, n_segments: int = 1,
+               init: Optional[Tensor] = None) -> str:
+    """The ``kernel.LAUNCHES`` key under which ``seg_reduce`` of these
+    arguments counts its launch on the card (on any device: it reads
+    only the builder and the shapes' roles)."""
+    name, *_, count = _kernel_args(builder, arrays, w)
+    walk = _walks(builder, n_segments, init)
+    return _kernel.launch_key(name, walk=walk,
+                              count_as=None if walk else count)
+
+
+def seg_reduce_plain(builder, arrays: Sequence[Tensor], *,
+                     seg: Optional[Tensor] = None,
+                     w: Optional[Tensor] = None, n_segments: int = 1,
+                     init: Optional[Tensor] = None) -> Tensor:
+    """``seg_reduce``'s plain version, in the inputs' own dtype, on their
+    device: what a CPU call computes (there in fp32)."""
+    walk = _walks(builder, n_segments, init)
+    if builder is _ref.build_fold_weighted:
+        Wt, D = arrays
+        return torch.cat([_ref.seg_gram_plain(builder, [Wt[:, j:j + 1], D])
+                          for j in range(Wt.shape[1])])
+    batched = any(a.dim() == 3 for a in arrays) or (
+        w is not None and w.dim() == 2)
+
+    def one(b):
+        arrs = [a[b] if a.dim() == 3 else a for a in arrays]
+        wb = None
+        if w is not None:
+            wb = (w[b] if w.dim() == 2 else w)[:, None]
+        return _ref.seg_gram_plain(builder, arrs, seg=seg if walk else None,
+                                   w=wb, n_segments=int(n_segments))
+
+    if not batched:
+        G = one(None)
+    else:
+        B = max([a.shape[0] for a in arrays if a.dim() == 3]
+                + ([w.shape[0]] if w is not None and w.dim() == 2 else []))
+        G = torch.stack([one(b) for b in range(B)])
+    return G if init is None else init.to(G.dtype) + G
+
+
 def seg_reduce(builder, arrays: Sequence[Tensor], *,
                seg: Optional[Tensor] = None, w: Optional[Tensor] = None,
                n_segments: int = 1, init: Optional[Tensor] = None,
@@ -190,7 +239,7 @@ def seg_reduce(builder, arrays: Sequence[Tensor], *,
     batched = any(a.dim() == 3 for a in arrays) or (
         w is not None and w.dim() == 2)
     S = int(n_segments)
-    walk = S > 1 or builder is _ref.build_pair or init is not None
+    walk = _walks(builder, S, init)
     if walk and seg is None:
         raise ValueError("seg_gram: a segmented call needs seg")
     if dev.type == "cuda":
@@ -215,26 +264,8 @@ def seg_reduce(builder, arrays: Sequence[Tensor], *,
         return G if batched else G[0]
     if dev.type != "cpu":
         raise ValueError(f"seg_gram runs on cuda or cpu, not {dev}")
-    if builder is _ref.build_fold_weighted:
-        Wt, D = arrays
-        return torch.cat([_ref.seg_gram_plain(builder, [Wt[:, j:j + 1], D])
-                          for j in range(Wt.shape[1])])
-
-    def one(b):
-        arrs = [a[b] if a.dim() == 3 else a for a in arrays]
-        wb = None
-        if w is not None:
-            wb = (w[b] if w.dim() == 2 else w)[:, None]
-        return _ref.seg_gram_plain(builder, arrs, seg=seg if walk else None,
-                                   w=wb, n_segments=S)
-
-    if not batched:
-        G = one(None)
-    else:
-        B = max([a.shape[0] for a in arrays if a.dim() == 3]
-                + ([w.shape[0]] if w is not None and w.dim() == 2 else []))
-        G = torch.stack([one(b) for b in range(B)])
-    return G if init is None else init.to(_F32) + G
+    return seg_reduce_plain(builder, arrays, seg=seg, w=w, n_segments=S,
+                            init=init)
 
 
 def segment_counts(seg: Tensor, n_segments: int) -> Tensor:

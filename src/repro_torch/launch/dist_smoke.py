@@ -1,6 +1,7 @@
 """Multi-process smoke test of the data mesh, and the launcher of ranks.
 
     python -m repro_torch.launch.dist_smoke [--nprocs 2] [--device cpu]
+    run_smoke(nprocs=2, device="cpu")            # "OK" or "FAIL: <why>"
 
 ``spawn_ranks(fn, nprocs, *args)`` starts ``nprocs`` processes with
 ``torch.multiprocessing`` (spawn, never fork), joins them into one
@@ -18,10 +19,14 @@ The smoke test: ``--nprocs`` ranks (default 2) of a gloo group on
 ``--device`` (default the card) run ``dist_reduce`` of a weighted Gram
 in the "ordered" and "psum" modes against a float64 numpy reference, and
 ``moments.weighted_gram`` ("chunked") under ``use_data_mesh`` against
-the same call without a mesh, bitwise.  It prints one JSON line per
-rank and a verdict, and exits 0 only if every rank passed: a failure to
-form the group, a rank that raised or timed out, or a disagreement all
-exit non-zero.
+the same call without a mesh, bitwise.  Rank 0 prints ``OK_MARKER`` if
+every rank passed, else ``FAIL_MARKER``; ``run_smoke`` returns "OK" or
+"FAIL: <why>", and ``main`` prints one JSON line per rank and
+``dist_smoke: <verdict>``, and exits 0 only on "OK": a failure to form
+the group, a rank that raised or timed out, or a disagreement all exit
+non-zero.  Unlike the reference's, there is no "SKIP": that verdict
+stands for jax builds without multi-process CPU collectives, and a gloo
+group always forms here.
 """
 from __future__ import annotations
 
@@ -38,6 +43,8 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
+OK_MARKER = "DIST_SMOKE_OK"
+FAIL_MARKER = "DIST_SMOKE_FAIL"
 SMOKE_TOL = 1e-5          # |got - float64| / max|float64|
 # rows (no multiple of the block), columns, rows a block
 SMOKE_N, SMOKE_P, SMOKE_RB = 100_003, 64, 8192
@@ -124,7 +131,40 @@ def _smoke_rank(rank: int, n: int, p: int, row_block: int,
     out["bitwise"] = all(torch.equal(a, b) for a, b in zip(plain, meshed))
     out["bytes"] = int(TRAFFIC["bytes"])
     out["ok"] = out["bitwise"] and max(out["errors"].values()) < SMOKE_TOL
+    every = torch.tensor([int(out["ok"])])
+    dist.all_reduce(every, op=dist.ReduceOp.MIN)
+    if rank == 0:
+        print(OK_MARKER if int(every) else FAIL_MARKER, flush=True)
     return out
+
+
+def _smoke(nprocs: int, device: str, timeout: float):
+    """(verdict, every rank's record) of one smoke run."""
+    if device not in ("cuda", "cpu"):
+        return f"FAIL: device must be cuda or cpu, not {device!r}", []
+    if device == "cuda" and not torch.cuda.is_available():
+        return "FAIL: no CUDA device (pass device=\"cpu\")", []
+    try:
+        results = spawn_ranks(_smoke_rank, nprocs, SMOKE_N, SMOKE_P,
+                              SMOKE_RB, device, backend="gloo",
+                              device=device, timeout=timeout)
+    except Exception as e:      # noqa: BLE001 — the verdict names it
+        return f"FAIL: {type(e).__name__}: {e}", []
+    bad = [r["rank"] for r in results if not r["ok"]]
+    if bad:
+        return f"FAIL: ranks {bad} disagree ({nprocs} ranks, gloo, " \
+               f"{device})", results
+    return "OK", results
+
+
+def run_smoke(nprocs: int = 2, *, device=None, timeout: float = 120.0
+              ) -> str:
+    """``nprocs`` gloo ranks on ``device`` (None: the card) run the smoke
+    test; "OK", or "FAIL: <why>" if the group did not form, a rank
+    raised, ran past ``timeout`` seconds, or disagreed.  Rank 0 prints
+    ``OK_MARKER`` or ``FAIL_MARKER``."""
+    return _smoke(nprocs, "cuda" if device is None else str(device),
+                  timeout)[0]
 
 
 def main(argv=None) -> int:
@@ -132,23 +172,13 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--nprocs", type=int, default=2)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--timeout", type=float, default=300.0)
     args = ap.parse_args(argv)
-    if args.device == "cuda" and not torch.cuda.is_available():
-        print("dist_smoke: FAIL (no CUDA device; pass --device cpu)")
-        return 2
-    try:
-        results = spawn_ranks(_smoke_rank, args.nprocs, SMOKE_N, SMOKE_P,
-                              SMOKE_RB, args.device, backend="gloo",
-                              device=args.device, timeout=300)
-    except Exception as e:      # noqa: BLE001 — the verdict names it
-        print(f"dist_smoke: FAIL ({type(e).__name__}: {e})")
-        return 1
+    verdict, results = _smoke(args.nprocs, args.device, args.timeout)
     for r in results:
         print(json.dumps(r))
-    ok = all(r["ok"] for r in results)
-    print(f"dist_smoke: {'OK' if ok else 'FAIL'} ({args.nprocs} ranks, "
-          f"gloo, {args.device})")
-    return 0 if ok else 1
+    print(f"dist_smoke: {verdict}")
+    return 0 if verdict == "OK" else 1
 
 
 if __name__ == "__main__":

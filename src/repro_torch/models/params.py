@@ -1,11 +1,12 @@
-"""Parameter schemas and their initialisation, without sharding.
+"""Parameter schemas and their initialisation, as the model code reads them.
 
-The port's counterpart of the reference's ``ParamDef`` / ``init_params``
-(``distributed/sharding.py``) and ``stack_schema``
-(``models/transformer.py``); ``repro_torch.distributed.sharding`` maps
-the leaves' logical axes onto a mesh.  A schema is a nested dict of ``ParamDef``;
-``init_params`` draws every leaf on one explicit ``torch.Generator`` in
-schema order, on the generator's device.
+``ParamDef``, ``map_schema``, ``init_std`` and ``init_params`` are
+defined where the reference defines them, in
+``repro_torch.distributed.sharding``, which maps the leaves' logical axes
+onto a mesh, and are re-exported here; ``stack_schema`` is the
+reference's (``models/transformer.py``).  A schema is a nested dict of
+``ParamDef``; ``init_params`` draws every leaf on one explicit
+``torch.Generator`` in schema order, on the generator's device.
 
 The init rule is the reference's, quirk included: ``fan_in`` is the
 first dimension of the leaf's shape, taken AFTER ``stack_schema`` has
@@ -22,33 +23,14 @@ tree or from a plain dict alike.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Mapping, Optional, Tuple
+from typing import Any, Dict, List, Mapping
 
 import torch
 from torch import nn
 
-
-@dataclasses.dataclass(frozen=True)
-class ParamDef:
-    """Declarative parameter: shape + logical axes + initializer.  The
-    axes ("embed", "heads", "ff", ...) are what ``distributed.sharding``
-    maps onto a mesh; every schema leaf names one per dimension."""
-
-    shape: Tuple[int, ...]
-    axes: Optional[Tuple[Optional[str], ...]] = None
-    init: str = "normal"  # normal | zeros | ones | scaled | embed
-    scale: Optional[float] = None
-    dtype: Any = None  # filled from ModelConfig.param_dtype if None
-
-
-def map_schema(fn, schema, path: str = ""):
-    """``fn(path, ParamDef)`` over every leaf, paths dotted."""
-    if isinstance(schema, ParamDef):
-        return fn(path, schema)
-    if isinstance(schema, Mapping):
-        return {k: map_schema(fn, v, f"{path}.{k}" if path else k)
-                for k, v in schema.items()}
-    raise TypeError(f"bad schema node at {path!r}: {type(schema)}")
+from repro_torch.distributed.sharding import (ParamDef,  # noqa: F401
+                                              init_params, init_std,
+                                              map_schema)
 
 
 def stack_schema(schema, n: int):
@@ -58,33 +40,6 @@ def stack_schema(schema, n: int):
         d, shape=(n,) + tuple(d.shape),
         axes=None if d.axes is None else ("layers",) + tuple(d.axes)),
         schema)
-
-
-def init_std(d: ParamDef) -> float:
-    """The reference's std for a "normal" / "scaled" / "embed" leaf."""
-    fan_in = d.shape[0] if len(d.shape) else 1
-    if d.init == "scaled":
-        return (d.scale if d.scale is not None else 1.0) / max(1.0, fan_in) ** 0.5
-    return d.scale if d.scale is not None else 0.02
-
-
-def init_params(gen: torch.Generator, schema,
-                param_dtype=torch.float32) -> Dict[str, Any]:
-    """Materialise a schema into a nested dict of tensors, drawn in
-    schema order on ``gen`` (and on its device)."""
-    dev = gen.device
-
-    def make(_, d: ParamDef):
-        dtype = d.dtype or param_dtype
-        if d.init == "zeros":
-            return torch.zeros(d.shape, dtype=dtype, device=dev)
-        if d.init == "ones":
-            return torch.ones(d.shape, dtype=dtype, device=dev)
-        x = torch.randn(d.shape, generator=gen, dtype=torch.float32,
-                        device=dev)
-        return x.mul_(init_std(d)).to(dtype)
-
-    return map_schema(make, schema)
 
 
 class ParamTree(nn.Module):

@@ -32,13 +32,13 @@ from torch.utils import checkpoint as _ckpt
 
 from repro_torch.config import ModelConfig, ParallelConfig
 from repro_torch.distributed.sharding import constrain
-from repro_torch.inference.executor import tree_map
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import make_norm, mlp_apply, mlp_schema
 from repro_torch.models.params import layer_list, stack_schema
+from repro_torch.pytree import tree_map
 
 Tensor = torch.Tensor
 

@@ -20,7 +20,7 @@ from typing import Any, Optional, Tuple
 import torch
 import torch.distributed as dist
 
-from repro_torch.inference.executor import tree_map
+from repro_torch.pytree import tree_map
 
 Tensor = torch.Tensor
 _F32 = torch.float32

@@ -48,7 +48,7 @@ from typing import Any, Callable, Iterator, Optional, Tuple
 
 import torch
 
-from repro_torch.inference.executor import tree_leaves
+from repro_torch.pytree import tree_leaves
 
 PROBE_CHUNK = 8
 

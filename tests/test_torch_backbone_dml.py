@@ -21,6 +21,8 @@ standardized features and theta, cov and jackknife se rtol 1e-4 with
 atol 1e-4·max|x| — the slice-1 DML tolerance (16 fp32 Newton steps and
 two frameworks' reassociation), now over 64 standardized features.
 """
+import importlib
+
 import numpy as np
 import pytest
 
@@ -37,7 +39,8 @@ from repro.models.model import build_model  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.config import CausalConfig, ParallelConfig  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.core import crossfit as tcf  # noqa: E402
+# the submodule, not the ``crossfit`` function ``repro_torch.core`` re-exports
+tcf = importlib.import_module("repro_torch.core.crossfit")
 from repro_torch.core.dml import DML  # noqa: E402
 from repro_torch.core.nuisance import backbone_features, make_nuisance  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402

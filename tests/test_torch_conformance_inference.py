@@ -14,6 +14,7 @@ reference's conformance data and folds (part 1's module docstring).
     and "pallas"): serial ≡ batched executors bitwise, chunked ≡ whole.
 """
 import dataclasses
+import importlib
 
 import numpy as np
 import pytest
@@ -23,7 +24,8 @@ import jax  # noqa: E402
 
 from repro.core import registry as jregistry  # noqa: E402
 from repro.core.crossfit import fold_ids as jfold_ids  # noqa: E402
-from repro_torch.core import crossfit as tcf  # noqa: E402
+# the submodule, not the ``crossfit`` function ``repro_torch.core`` re-exports
+tcf = importlib.import_module("repro_torch.core.crossfit")
 from repro_torch.core import drlearner as tdr  # noqa: E402
 from repro_torch.core import iv as tiv  # noqa: E402
 from repro_torch.config import CausalConfig  # noqa: E402

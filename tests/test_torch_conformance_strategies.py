@@ -15,6 +15,7 @@ ragged last block at ROW_BLOCK = 256) and the reference's folds.
 Parts 2 and 3: tests/test_torch_conformance_{inference,reference}.py.
 """
 import dataclasses
+import importlib
 
 import numpy as np
 import pytest
@@ -24,7 +25,8 @@ import jax  # noqa: E402
 
 from repro.core import registry as jregistry  # noqa: E402
 from repro.core.crossfit import fold_ids as jfold_ids  # noqa: E402
-from repro_torch.core import crossfit as tcf  # noqa: E402
+# the submodule, not the ``crossfit`` function ``repro_torch.core`` re-exports
+tcf = importlib.import_module("repro_torch.core.crossfit")
 from repro_torch.core import drlearner as tdr  # noqa: E402
 from repro_torch.core import iv as tiv  # noqa: E402
 from repro_torch.core.registry import (ROW_BLOCK, SPEC_IDS, SPECS,  # noqa: E402

@@ -23,7 +23,8 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.core import nuisance as jnu  # noqa: E402
 from repro.kernels.seg_gram import ops as jsg_ops  # noqa: E402
-from repro_torch.core import crossfit as tcf  # noqa: E402
+# the submodule, not the ``crossfit`` function ``repro_torch.core`` re-exports
+tcf = importlib.import_module("repro_torch.core.crossfit")
 from repro_torch.core import nuisance as tnu  # noqa: E402
 
 # the submodule, not the ``crossfit`` function ``repro.core`` re-exports

@@ -21,6 +21,7 @@ and two frameworks' reassociation, ~1e-6 measured), with an atol of
 of O(1) residuals that are ~1e-3).
 """
 import dataclasses
+import importlib
 import subprocess
 import sys
 from pathlib import Path
@@ -35,7 +36,8 @@ from repro.config import CausalConfig as JCausalConfig  # noqa: E402
 from repro.core.dml import DML as JDML  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.config import CausalConfig  # noqa: E402
-from repro_torch.core import crossfit as tcf  # noqa: E402
+# the submodule, not the ``crossfit`` function ``repro_torch.core`` re-exports
+tcf = importlib.import_module("repro_torch.core.crossfit")
 from repro_torch.core.dml import DML  # noqa: E402
 from repro_torch.core.estimands import compute_diagnostics  # noqa: E402
 from repro_torch.core.final_stage import cate_basis, fit_final_stage  # noqa: E402

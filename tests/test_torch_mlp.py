@@ -27,6 +27,7 @@ draws (``_mlp_init``) cross over as numpy through ``convert.mlp_state``.
     propensities, theta far from the truth) in both packages alike.
 """
 import dataclasses
+import importlib
 
 import numpy as np
 import pytest
@@ -43,7 +44,8 @@ from repro.core.nuisance import make_mlp as jmake_mlp  # noqa: E402
 from repro.inference import bootstrap as jboot  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.config import CausalConfig  # noqa: E402
-from repro_torch.core import crossfit as tcf  # noqa: E402
+# the submodule, not the ``crossfit`` function ``repro_torch.core`` re-exports
+tcf = importlib.import_module("repro_torch.core.crossfit")
 from repro_torch.core.crossfit import fold_weights  # noqa: E402
 from repro_torch.core.dml import DML  # noqa: E402
 from repro_torch.core.nuisance import make_mlp, make_nuisance  # noqa: E402
